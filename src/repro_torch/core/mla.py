@@ -1,0 +1,146 @@
+"""Multi-head Latent Attention (DeepSeek), paged serving path — the port of
+``repro/core/mla.py``'s absorbed-form decode and chunked prefill.
+
+The per-head up-projections W_uk / W_uv are folded into the query and the
+output, so attention runs over the shared 576-wide latent cache
+c = [rmsnorm(c_kv) ; rope(k_r)], one pool serving K and V (V = its first
+kv_lora_rank columns).  The attention itself is the ETAP kernels'.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.core.etap import (decode_attention_paged,
+                                   prefill_attention_paged)
+from repro_torch.models import layers
+from repro_torch.runtime import paged_cache
+
+
+def init_mla(gen, cfg, dtype, device):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    dense = lambda i, o: layers.init_dense(gen, i, o, dtype, device)  # noqa: E731
+    return {
+        "w_dq": dense(D, m.q_lora_rank),
+        "q_norm": torch.zeros(m.q_lora_rank, dtype=dtype, device=device),
+        "w_uq": dense(m.q_lora_rank, H * m.qk_head_dim),
+        # fused down-projection: [kv_lora | rope] columns
+        "w_dkv": dense(D, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_norm": torch.zeros(m.kv_lora_rank, dtype=dtype, device=device),
+        "w_uk": dense(m.kv_lora_rank, H * m.qk_nope_head_dim),
+        "w_uv": dense(m.kv_lora_rank, H * m.v_head_dim),
+        "w_o": dense(H * m.v_head_dim, D),
+    }
+
+
+def _queries(params, cfg, x, positions):
+    """x: [..., D] -> (q_nope [..., H, nope], q_rope [..., H, rope])."""
+    m, H = cfg.mla, cfg.num_heads
+    cq = layers.rms_norm(layers.dense(x, params["w_dq"]), params["q_norm"],
+                         cfg.norm_eps)
+    q = layers.dense(cq, params["w_uq"]).reshape(*x.shape[:-1], H,
+                                                 m.qk_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _latent(params, cfg, x, positions):
+    """x: [..., D] -> latent cache rows [..., kv_lora+rope]."""
+    m = cfg.mla
+    dkv = layers.dense(x, params["w_dkv"])
+    c_kv = layers.rms_norm(dkv[..., :m.kv_lora_rank], params["kv_norm"],
+                           cfg.norm_eps)
+    k_rope = layers.apply_rope(dkv[..., m.kv_lora_rank:], positions,
+                               cfg.rope_theta)
+    return torch.cat([c_kv, k_rope], dim=-1)
+
+
+def _absorbed_query(params, cfg, x, positions):
+    """q_c[b,h] = q_nope[b,h] · W_uk[:,h] (kv_lora wide), q = [q_c ; q_rope].
+    x: [B,D]; positions: [B,1].  Returns q: [B,H,latent]."""
+    m, H = cfg.mla, cfg.num_heads
+    q_nope, q_rope = _queries(params, cfg, x[:, None, :], positions)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]               # [B,H,*]
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_c = torch.einsum("bhd,chd->bhc", q_nope.float(),
+                       w_uk.float()).to(x.dtype)
+    return torch.cat([q_c, q_rope], dim=-1)
+
+
+def _absorbed_out(params, cfg, o_lat, dtype):
+    """o[b,h] = o_latent[b,h] · W_uvᵀ → W_o. o_lat: [B,H,kv].  Returns [B,D]."""
+    m, H = cfg.mla, cfg.num_heads
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bhc,chd->bhd", o_lat.float(), w_uv.float()).to(dtype)
+    return layers.dense(o.reshape(o.shape[0], -1), params["w_o"])
+
+
+def mla_decode_paged(params, cfg, x, cache, table, lengths, *,
+                     spec: AttnSpec | None = None):
+    """Absorbed-form decode against a paged latent cache.
+
+    x: [B,D]; cache: {"c": pool [num_blocks, page, latent]}; table:
+    [B,max_blocks]; lengths: [B] — sequence b's new token is written at
+    position lengths[b].  Returns (out [B,D], {"c": pool}) — the pool is
+    updated in place."""
+    spec = spec or AttnSpec()
+    m = cfg.mla
+    positions = lengths[:, None].to(torch.int32)              # [B,1]
+    q = _absorbed_query(params, cfg, x, positions)
+    c_t = _latent(params, cfg, x[:, None, :], positions)[:, 0]  # [B,latent]
+    pool = paged_cache.append_rows(cache["c"], table, lengths, c_t)
+    o_lat = decode_attention_paged(
+        q, pool, None, table, lengths + 1,
+        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank)
+    return _absorbed_out(params, cfg, o_lat, x.dtype), {"c": pool}
+
+
+def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec):
+    """Append the chunk's latent rows through the table, then run absorbed
+    attention over pool positions <= each query row's own position."""
+    m, H = cfg.mla, cfg.num_heads
+    B, C, _ = x.shape
+    q_nope, q_rope = _queries(params, cfg, x, positions)      # [B,C,H,*]
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_c = torch.einsum("bchd,khd->bchk", q_nope.float(),
+                       w_uk.float()).to(x.dtype)
+    q = torch.cat([q_c, q_rope], dim=-1)                      # [B,C,H,latent]
+    c_rows = _latent(params, cfg, x, positions)               # [B,C,latent]
+    pool = paged_cache.append_chunk(cache["c"], table, lengths, c_rows)
+    o_lat = prefill_attention_paged(
+        q, pool, None, table, lengths,
+        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank)
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bchk,khd->bchd", o_lat.float(),
+                     w_uv.float()).to(x.dtype)
+    out = layers.dense(o.reshape(B, C, H * m.v_head_dim), params["w_o"])
+    return out, {"c": pool}
+
+
+def mla_prefill_chunk(params, cfg, x, cache, table, lengths, *,
+                      spec: AttnSpec | None = None):
+    """Absorbed-form chunked prefill against the paged latent cache.
+
+    x: [B,C,D] — C prompt tokens at positions lengths[b] + c; lengths: [B]
+    tokens already written (the chunk start).  The chunk's rows are appended
+    first, then attention runs causally over chunk + earlier context.
+    Returns (out [B,C,D], {"c": pool})."""
+    spec = spec or AttnSpec()
+    C = x.shape[1]
+    positions = lengths[:, None].to(torch.int32) + torch.arange(
+        C, dtype=torch.int32, device=x.device)[None, :]
+    return _mla_chunk(params, cfg, x, cache, table, lengths, positions,
+                      spec=spec)
+
+
+def init_mla_cache_paged(cfg, layout, dtype, kv_dtype: str = "fp", *,
+                         device="cuda"):
+    """Paged latent pool (block 0 = the reserved null block)."""
+    if kv_dtype != "fp":
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r}: quantized pools are not ported yet "
+            "(ROADMAP A1)")
+    shape = (layout.num_blocks, layout.block_size, cfg.mla.latent_dim)
+    return {"c": torch.zeros(shape, dtype=dtype, device=device)}

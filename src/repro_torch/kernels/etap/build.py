@@ -1,0 +1,120 @@
+"""Build and load the ETAP CUDA kernels (``csrc/*.cu``) on first use.
+
+Each source compiles to an object with its own ``nvcc`` process, all started
+together; the objects link into one shared library with a plain C interface,
+loaded with ``ctypes``.  The library is cached under ``_build/`` beside this
+file, keyed by a hash of the sources and flags, so a checkout builds once.
+Nothing here runs at import time: :func:`library` is called by the kernel
+wrappers the first time they see a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# no -use_fast_math: exp2f, expf and the division must stay IEEE-accurate
+NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "etap_dk": [],
+    "etap_dv": [],
+    "etap_page": [],
+    "etap_decode_mla_paged": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "etap_paged_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                           _I, _P],
+    "etap_prefill_mla_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                               _I, _P],
+    "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_LIB: list = []
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the ETAP CUDA kernels are built from "
+                       "source on first use and need the CUDA toolkit")
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, str]:
+    """Compile the sources (in parallel) and link the shared library if it
+    is not cached yet.  Returns (library path, compiler log); the log holds
+    ptxas' register and shared-memory lines, and is kept beside the
+    library."""
+    key = _key()
+    lib = BUILD_DIR / f"libetap_{key}.so"
+    log = BUILD_DIR / f"libetap_{key}.log"
+    if lib.exists() and log.exists():
+        return lib, log.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        text = []
+        failed = []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            text.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(text))
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, ARCH, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, lib)
+    log.write_text("\n".join(text))
+    return lib, log.read_text()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    if not _LIB:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -1,0 +1,66 @@
+"""Public wrappers for the paged ETAP kernels — the port of the paged part of
+``repro/kernels/etap/ops.py``: table padding, split-KV scheduling, and the
+two-phase split path.  Every entry takes one
+:class:`repro_torch.core.attn_spec.AttnSpec`.  The kernels are called
+through the ``etap`` and ``combine`` modules' attributes, never bound here."""
+from __future__ import annotations
+
+import torch.nn.functional as F
+
+from repro_torch.kernels.etap import combine as combine_mod
+from repro_torch.kernels.etap import etap as K
+from repro_torch.kernels.etap.schedule import (num_cores,
+                                               paged_split_geometry,
+                                               plan_splits_paged)
+
+
+def _pad_table(table, multiple: int):
+    """Pad the block table to a column multiple with null blocks (id 0);
+    padded entries are masked via ``lengths``."""
+    pad = (-table.shape[1]) % multiple
+    if pad:
+        table = F.pad(table, (0, pad))
+    return table
+
+
+def _paged_partial(q, kv_pool, dv, table, lengths, *, scale, n_splits,
+                   rescale):
+    n_splits, _, padded_nb = paged_split_geometry(table.shape[1], n_splits)
+    table = _pad_table(table, padded_nb)
+    return K.etap_paged_partial(q, kv_pool, dv, table, lengths, scale=scale,
+                                n_splits=n_splits, rescale=rescale)
+
+
+def etap_decode_mla_paged_splitkv(q, kv_pool, dv: int, table, lengths, *,
+                                  spec):
+    """Two-phase split-KV decode over a paged MLA latent pool (V = the first
+    ``dv`` pool columns).  spec.kv_splits None/0 → auto (the paged scheduler,
+    sized to the device); 1 → the single-pass kernel K3.  Requests for more
+    splits than table columns degrade to the effective count."""
+    B, H, _ = q.shape
+    page = kv_pool.shape[1]
+    n_splits = int(spec.kv_splits or 0)
+    if not n_splits:
+        n_splits = plan_splits_paged(B, table.shape[1], page, H, dv,
+                                     num_cores=num_cores(q.device)).n_splits
+    n_splits = paged_split_geometry(table.shape[1], n_splits)[0]
+    if n_splits <= 1:
+        return K.etap_decode_mla_paged(q, kv_pool, dv, table, lengths,
+                                       scale=spec.scale, rescale=spec.rescale)
+    m, l, accT = _paged_partial(q, kv_pool, dv, table, lengths,
+                                scale=spec.scale, n_splits=n_splits,
+                                rescale=spec.rescale)
+    return combine_mod.combine_splits(m, l, accT, out_dtype=kv_pool.dtype,
+                                      rescale=spec.rescale)
+
+
+def etap_prefill_mla_paged(q, kv_pool, dv: int, table, start, *, spec):
+    """Chunked paged MLA-fused prefill (K4). q [B,Cq,H,Dk]; start [B]."""
+    return K.etap_prefill_mla_paged(q, kv_pool, dv, table, start,
+                                    scale=spec.scale, rescale=spec.rescale)
+
+
+def etap_verify_mla_paged(q, kv_pool, dv: int, table, start, qpos, *, spec):
+    """Paged MLA-fused draft verify (K4 with explicit qpos [B,Cq])."""
+    return K.etap_verify_mla_paged(q, kv_pool, dv, table, start, qpos,
+                                   scale=spec.scale, rescale=spec.rescale)

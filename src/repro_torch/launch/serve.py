@@ -1,0 +1,427 @@
+"""Serving loop: continuous batching over the paged latent cache — the
+port of ``repro/launch/serve.py:run_paged``.
+
+Ragged requests are admitted into free batch slots when the allocator can
+reserve their whole token budget; their prompts run as chunked paged
+prefill interleaved with the decode batch under a per-step token budget;
+decode steps run the whole ragged batch through the paged ETAP kernels; and
+finished sequences release their blocks so queued requests join mid-stream.
+The scheduler (priorities, preemption by swap or recompute, SLOs, prefix
+cache) is the reference's, copied.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 \\
+        --requests 16 --prompt 512 --gen 32 --layers 3
+
+Flags of the reference that this port does not serve yet are refused with
+a "not yet ported" error, never ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.kernels import softmax_state
+from repro_torch.models import model
+from repro_torch.runtime import scheduler, telemetry
+from repro_torch.runtime.paged_cache import BlockPool, layout_for
+from repro_torch.runtime.prefix_cache import PrefixCache
+
+
+def _make_requests(args, vocab: int):
+    """Ragged request stream: prompt/gen lengths drawn from a few buckets
+    around --prompt/--gen, with the reference's numpy streams, so a seed
+    yields the reference's requests token for token.  ``--shared-prefix N``
+    starts every prompt with the same N tokens; ``--priority-classes`` and
+    ``--arrival-rate`` draw from separate streams.  Prompts are int32
+    numpy arrays (host data)."""
+    rng = np.random.default_rng(args.seed + 1)
+    p_buckets = sorted({max(1, args.prompt // 2), max(1, 3 * args.prompt // 4),
+                        args.prompt})
+    g_buckets = sorted({max(1, args.gen // 2), args.gen})
+    shared = None
+    if args.shared_prefix:
+        shared = rng.integers(0, vocab, size=(args.shared_prefix,))
+    n = args.requests
+    prios = [0] * n
+    if args.priority_classes > 1:
+        prng = np.random.default_rng(args.seed + 2)
+        prios = prng.integers(0, args.priority_classes, size=n).tolist()
+    arrivals = [0] * n
+    if args.arrival_rate > 0:
+        arng = np.random.default_rng(args.seed + 3)
+        if args.trace == "burst":
+            bsz = max(1, args.burst_size)
+            gap = max(1, round(bsz / args.arrival_rate))
+            arrivals = [(i // bsz) * gap for i in range(n)]
+        else:
+            gaps = arng.exponential(1.0 / args.arrival_rate, size=n)
+            arrivals = np.floor(np.cumsum(gaps)).astype(int).tolist()
+    reqs = []
+    for i in range(n):
+        plen = int(rng.choice(p_buckets))
+        glen = int(rng.choice(g_buckets))
+        if shared is None:
+            toks = rng.integers(0, vocab, size=(plen,))
+        else:
+            plen = max(plen, args.shared_prefix + 1)
+            tail = rng.integers(0, vocab, size=(plen - args.shared_prefix,))
+            toks = np.concatenate([shared, tail])
+        reqs.append({"id": i, "prompt": np.asarray(toks, np.int32),
+                     "gen": glen, "priority": int(prios[i]),
+                     "arrival": int(arrivals[i])})
+    return reqs
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
+    """Continuous-batching serve loop (the reference's ``run_paged`` minus
+    speculative decoding, fault drills and telemetry export).
+
+    Per tick: (0) arrivals join the scheduler queue (``--paranoia N`` runs
+    the pool audit); (1) the scheduler admits, restores and preempts; (2)
+    prefill chunks of ``--prefill-chunk`` tokens run from cold slots while
+    they fit the step's token budget, the first chunk after a cache hit or
+    restore trimmed onto the global chunk grid so every later chunk has the
+    uncached run's shape; (3) one paged decode step runs over the decoding
+    slots (the other slots' table rows masked to the null block), then
+    finished sequences retire.
+
+    ``params`` hands in weights (e.g. converted from the reference's with
+    :func:`repro_torch.models.convert.params_from_jax`); None draws them
+    from the port's own seeded init.  Returns the outputs per request id
+    and the run's counters and timings."""
+    reg = telemetry.MetricsRegistry()
+    if params is None:
+        params = model.init(cfg, seed=args.seed, device=device)
+    B = args.batch
+    max_total = args.prompt + args.gen
+    layout = layout_for(B, max_total, block_size=args.page_size,
+                        spare_blocks=args.spare_blocks)
+    host_blocks = args.host_blocks
+    if args.preemption == "swap" and host_blocks == 0:
+        host_blocks = layout.num_blocks - 1   # host tier mirrors the pool
+    bp = BlockPool(layout, B, host_blocks=host_blocks, metrics=reg)
+    prefix = PrefixCache(layout.block_size) if args.prefix_cache else None
+    holder = {"cache": model.init_paged_cache(cfg, layout,
+                                              kv_dtype=args.kv_dtype,
+                                              device=device)}
+    pending = deque(sorted(_make_requests(args, cfg.vocab_size),
+                           key=lambda r: (r["arrival"], r["id"])))
+    n_requests = len(pending)
+    chunk = max(1, args.prefill_chunk)
+    budget = args.token_budget if args.token_budget > 0 else B + chunk
+
+    def _kv_read(ids):
+        return model.read_paged_blocks(holder["cache"], ids)
+
+    def _kv_write(ids, rows, start):
+        sel = {k: r[:, start:start + len(ids)] for k, r in rows.items()}
+        holder["cache"] = model.write_paged_blocks(holder["cache"], ids, sel)
+
+    def _kv_copy(src, dst):
+        holder["cache"] = model.copy_paged_block(holder["cache"], src, dst)
+
+    sched = scheduler.Scheduler(
+        bp, prefix,
+        scheduler.KVOps(_kv_read, _kv_write, _kv_copy),
+        scheduler.SchedulerConfig(
+            preemption=args.preemption, slo_ttft_ms=args.slo_ttft,
+            slo_itl_ms=args.slo_itl,
+            backoff_cap=max(1, args.retry_backoff)),
+        metrics=reg)
+    spec = AttnSpec(mode=args.mode, kv_splits=args.kv_splits,
+                    kv_dtype=args.kv_dtype)
+
+    def step_fn(cache, toks, table, lengths):
+        return model.decode_step(params, cfg, cache, toks, spec=spec,
+                                 cache_layout="paged", block_table=table,
+                                 lengths=lengths)
+
+    def prefill_fn(cache, toks, table, lengths):
+        return model.prefill_chunk(params, cfg, cache, toks, table, lengths,
+                                   spec=spec)
+
+    # warm-up outside the timed region (on the card this builds the kernels):
+    # all slots inactive, so the dummy rows land in the null block
+    table0, lengths0 = bp.device_views(device)
+    logits0, holder["cache"] = step_fn(
+        holder["cache"], torch.zeros(B, dtype=torch.int32, device=device),
+        table0, lengths0)
+    _sync(device)
+    del logits0
+
+    c_tokens = reg.counter("serve/decode_tokens")
+    c_steps = reg.counter("serve/decode_steps")
+    c_chunks = reg.counter("serve/prefill_chunks")
+    c_inter = reg.counter("serve/interleaved_steps")
+    c_pf = reg.counter("serve/prefill_tokens")
+    c_replay = reg.counter("serve/replayed_tokens")
+    c_ticks = reg.counter("serve/ticks")
+    g_queued = reg.gauge("sched/queued")
+    g_running = reg.gauge("sched/running")
+    t_prefill = 0.0
+    tick = 0
+
+    t0 = time.perf_counter()
+    while pending or sched.queue or sched.by_slot:
+        now = time.perf_counter()
+        # ---- (0) arrivals + paranoia sweep
+        while pending and pending[0]["arrival"] <= tick:
+            req = pending.popleft()
+            sched.add(scheduler.Request(
+                id=req["id"], prompt=req["prompt"], gen=req["gen"],
+                priority=req["priority"], arrival=req["arrival"]), now)
+        if args.paranoia and tick % args.paranoia == 0:
+            bp.audit()
+
+        # ---- (1) admission / restore / preemption (scheduler policy)
+        sched.admit(tick, now)
+        running = sched.running()
+        dec = [r for r in running if r.decoding]
+        spent = len(dec)
+        budget_eff = spent + sched.prefill_quota(max(0, budget - spent))
+
+        # ---- (2) prefill chunks from cold slots under the budget
+        pf_tokens = 0
+        cold = sorted((r for r in running if not r.decoding),
+                      key=lambda r: r.admit_seq)
+        for r in cold:
+            b = r.slot
+            plen = r.plen
+            c = min(chunk - r.pf_pos % chunk, plen - r.pf_pos)
+            if spent + c > budget_eff and spent > 0:
+                break                         # budget spent — defer chunk
+            tp = time.perf_counter()
+            toks_c = torch.as_tensor(r.prompt[None, r.pf_pos:r.pf_pos + c],
+                                     device=device)
+            trow = torch.tensor(bp.table[b:b + 1], device=device)
+            lrow = torch.tensor(bp.lengths[b:b + 1], device=device)
+            logits, holder["cache"] = prefill_fn(holder["cache"], toks_c,
+                                                 trow, lrow)
+            seed_tok = int(torch.argmax(logits[0, -1]))   # syncs the device
+            t_prefill += time.perf_counter() - tp
+            bp.extend(b, c)
+            r.pf_pos += c
+            spent += c
+            pf_tokens += c
+            c_pf.inc(c)
+            c_chunks.inc()
+            if r.pf_pos == plen:              # prompt done -> start decoding
+                if r.replay:
+                    assert seed_tok == r.replay[0], \
+                        f"request {r.id}: restore diverged at prefill " \
+                        f"(got {seed_tok}, delivered {r.replay[0]})"
+                else:
+                    r.cur = seed_tok
+                r.decoding = True
+                if prefix is not None:
+                    prefix.insert(np.asarray(r.prompt), bp.block_ids(b), bp)
+
+        # ---- (3) one ragged decode step over the decoding slots
+        if dec:
+            slots = {r.slot for r in dec}
+            table_m = bp.table.copy()
+            lens_m = bp.lengths.copy()
+            cur_arr = np.zeros((B,), np.int32)
+            for b in range(B):
+                if b not in slots:
+                    table_m[b] = 0
+                    lens_m[b] = 0
+            for r in dec:
+                cur_arr[r.slot] = r.replay[0] if r.replay else r.cur
+            logits, holder["cache"] = step_fn(
+                holder["cache"], torch.tensor(cur_arr, device=device),
+                torch.tensor(table_m, device=device),
+                torch.tensor(lens_m, device=device))
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            c_steps.inc()
+            if pf_tokens:
+                c_inter.inc()
+            now = time.perf_counter()
+            for r in dec:
+                b = r.slot
+                if r.replay:
+                    # teacher-forced replay of a restored recompute victim:
+                    # the decode path must re-derive the next token exactly
+                    fed = r.replay.popleft()
+                    bp.append(b)
+                    expect = r.replay[0] if r.replay else r.cur
+                    assert int(nxt[b]) == int(expect), \
+                        f"request {r.id}: replay diverged after token " \
+                        f"{fed} (got {int(nxt[b])}, expected {int(expect)})"
+                    c_replay.inc()
+                else:
+                    sched.deliver(r, r.cur, now)
+                    c_tokens.inc()
+                    bp.append(b)
+                    r.cur = int(nxt[b])
+                    if r.remaining == 0:
+                        sched.finish(r)
+        c_ticks.inc()
+        bp.observe(reg)
+        g_queued.set(len(sched.queue))
+        g_running.set(len(sched.by_slot))
+        tick += 1
+    _sync(device)
+    t_total = time.perf_counter() - t0
+    t_decode = t_total - t_prefill
+
+    outputs = {rid: r.out for rid, r in sorted(sched.done.items())}
+    pstats = prefix.stats() if prefix is not None else None
+    tokens_served = c_tokens.value
+    dev_name = (torch.cuda.get_device_name(torch.device(device))
+                if torch.device(device).type == "cuda" else "cpu")
+    print(f"[serve] {args.arch} layers={cfg.num_layers} device={dev_name} "
+          f"slots={B} requests={n_requests} page={layout.block_size} "
+          f"chunk={chunk} rescale={softmax_state.default_mode()} "
+          f"tokens={tokens_served} steps={c_steps.value} "
+          f"prefill_chunks={c_chunks.value} t_prefill={t_prefill:.3f}s "
+          f"t_decode={t_decode:.3f}s "
+          f"tok/s={tokens_served / max(t_total, 1e-9):.1f}")
+    return {"outputs": outputs, "tokens_served": tokens_served,
+            "batch_slots": B, "pool_blocks": layout.num_blocks - 1,
+            "host_blocks": host_blocks, "steps": c_steps.value,
+            "refusals": len(sched.refused_ids),
+            "prefill_chunks": c_chunks.value,
+            "interleaved_steps": c_inter.value,
+            "prefill_tokens": c_pf.value, "decode_tokens": tokens_served,
+            "prefill_tokens_saved": sched.prefill_tokens_saved,
+            "replayed_tokens": c_replay.value, "prefix": pstats,
+            "sched": sched.stats(), "classes": sched.class_stats(),
+            "metrics": reg.snapshot(), "t_prefill": t_prefill,
+            "t_decode": t_decode, "t_total": t_total}
+
+
+def config_for(args):
+    """The model config the flags select: ``--reduced`` shrinks it,
+    ``--layers N`` cuts its depth and nothing else."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
+
+
+def run(args) -> dict:
+    softmax_state.set_default_mode(args.rescale)
+    return run_paged(args, config_for(args), device=args.device)
+
+
+# flag -> (value that is served, why another value is refused)
+_NOT_PORTED = {
+    "cache_layout": ("paged", "the dense cache layout (ROADMAP A4)"),
+    "mode": ("etap", "the untransposed 'standard' baseline (ROADMAP A4)"),
+    "kv_dtype": ("fp", "quantized KV pools (ROADMAP A1)"),
+    "spec_tokens": (0, "speculative decoding (ROADMAP A2)"),
+    "fault_rate": (0.0, "fault drills (ROADMAP A6)"),
+    "trace_out": (None, "trace export (ROADMAP A6)"),
+    "metrics_out": (None, "metrics export (ROADMAP A6)"),
+    "profile_kernels": (0, "the kernel profiler (ROADMAP A6)"),
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="deepseek_r1_671b", choices=ARCH_IDS)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (the CPU runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers (0 = all); "
+                         "DeepSeek-R1's first 3 are its dense layers")
+    ap.add_argument("--batch", type=int, default=4, help="batch slots")
+    ap.add_argument("--prompt", type=int, default=64,
+                    help="max prompt length (requests draw ragged lengths)")
+    ap.add_argument("--gen", type=int, default=32,
+                    help="max tokens to generate per request")
+    ap.add_argument("--mode", default="etap", choices=["etap", "standard"])
+    ap.add_argument("--cache-layout", default="paged",
+                    choices=["dense", "paged"])
+    ap.add_argument("--requests", type=int, default=8,
+                    help="ragged request count")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per KV block (FlashMLA uses 64)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens per paged prefill chunk")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="per-step token budget shared by the decode batch "
+                         "and prefill chunks (0 = batch + prefill-chunk)")
+    ap.add_argument("--spare-blocks", type=int, default=0,
+                    help="extra pool blocks beyond batch*max_blocks")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="radix-tree prefix cache (--no-prefix-cache "
+                         "disables)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens of a common prompt prefix shared by every "
+                         "request (0 = independent prompts)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="priority classes drawn per request (0 = most "
+                         "important)")
+    ap.add_argument("--slo-ttft", type=float, default=0.0,
+                    help="time-to-first-token budget in ms (0 = off)")
+    ap.add_argument("--slo-itl", type=float, default=0.0,
+                    help="inter-token latency budget in ms (0 = off)")
+    ap.add_argument("--preemption", default="recompute",
+                    choices=["swap", "recompute"],
+                    help="victim evacuation mode")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    help="host swap tier size in blocks (0 with --preemption "
+                         "swap mirrors the device pool)")
+    ap.add_argument("--retry-backoff", type=int, default=1,
+                    help="max backoff in ticks between admission retries")
+    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--paranoia", type=int, default=0,
+                    help="run the BlockPool audit every N ticks (0 = off)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="request arrivals per scheduler tick (0 = all at "
+                         "tick 0)")
+    ap.add_argument("--trace", default="uniform",
+                    choices=["uniform", "burst"],
+                    help="arrival trace shape under --arrival-rate")
+    ap.add_argument("--burst-size", type=int, default=4,
+                    help="requests per burst for --trace burst")
+    ap.add_argument("--spec-tokens", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH")
+    ap.add_argument("--profile-kernels", type=int, default=0, metavar="N")
+    ap.add_argument("--kv-splits", type=int, default=None,
+                    help="split-KV count for decode attention "
+                         "(default: auto-scheduled)")
+    ap.add_argument("--kv-dtype", default=os.environ.get("REPRO_KV_DTYPE",
+                                                         "fp"),
+                    choices=["fp", "int8", "fp8"])
+    ap.add_argument("--rescale", default=os.environ.get("REPRO_RESCALE",
+                                                        "amla"),
+                    choices=list(softmax_state.MODES),
+                    help="online-softmax rescaling mode")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action="store_true")
+    args = ap.parse_args(argv)
+    for flag, (served, what) in _NOT_PORTED.items():
+        if getattr(args, flag) != served:
+            ap.error(f"--{flag.replace('_', '-')}: {what} is not yet ported "
+                     "to repro_torch")
+    if args.layers < 0:
+        ap.error("--layers must be >= 0")
+    if args.shared_prefix >= args.prompt:
+        ap.error("--shared-prefix must leave room for a per-request tail "
+                 "(< --prompt)")
+    return args
+
+
+if __name__ == "__main__":
+    run(parse_args())

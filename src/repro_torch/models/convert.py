@@ -1,0 +1,57 @@
+"""Carry the reference's weights into the port.
+
+:func:`params_from_jax` takes the JAX package's parameter tree as nested
+dicts/lists of numpy arrays (``jax.tree.map(np.asarray, params)``) and
+returns the port's parameters.  The reference stacks each layer group on a
+leading axis (``repro/models/model.py:layer_groups``): ``groups[g]["b<j>"]``
+holds block j of every repeat of group g.  The port keeps one dict per
+layer, so the stacked axis is unstacked here in the reference's layer order
+(repeat i of a group runs its blocks b0, b1, ... in turn).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers
+
+
+def _tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":             # numpy has no bf16: go by bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))          # owned, writable copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def params_from_jax(tree, device="cuda", dtype=None) -> dict:
+    """The reference's params → the port's, on ``device``.  ``dtype`` None
+    keeps each array's dtype."""
+    out_layers = []
+    for gp in tree["groups"]:
+        n = np.asarray(_first_leaf(gp)).shape[0]
+        for i in range(n):
+            for j in range(len(gp)):
+                out_layers.append(_map(gp[f"b{j}"],
+                                       lambda a, i=i: _tensor(a[i], device,
+                                                              dtype)))
+    params = {
+        "embed": _tensor(tree["embed"], device, dtype),
+        "final_norm": _tensor(tree["final_norm"], device, dtype),
+        "layers": out_layers,
+    }
+    params["embed_f32"] = layers.unembed_table(params["embed"])
+    return params

@@ -1,0 +1,85 @@
+"""Shared neural layers — the port of ``repro/models/layers.py``: norms,
+rope, the GLU MLP, embedding.  Plain functions over parameter dicts; the
+``init_*`` functions draw from an explicit ``torch.Generator``."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def init_dense(gen, d_in: int, d_out: int, dtype, device):
+    std = d_in ** -0.5
+    w = torch.randn(d_in, d_out, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * std).to(dtype)
+
+
+def dense(x, w):
+    return x @ w
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, positions, theta: float):
+    """positions: [...]; returns (sin, cos) of shape positions.shape + (head_dim/2,)."""
+    half = head_dim // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=positions.device) / half)
+    angles = positions[..., None].float() * freq
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [..., seq, heads, head_dim] or [..., seq, head_dim]; positions
+    broadcastable to x's seq axis.  Rotates (x[:half], x[half:]) pairs —
+    neox style."""
+    half = x.shape[-1] // 2
+    sin, cos = rope_frequencies(x.shape[-1], positions, theta)
+    if x.dim() == sin.dim() + 1:      # [..., seq, heads, dim] vs [..., seq, half]
+        sin, cos = sin[..., None, :], cos[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLP (GLU)
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device):
+    return {
+        "w_gate": init_dense(gen, d_model, d_ff, dtype, device),
+        "w_up": init_dense(gen, d_model, d_ff, dtype, device),
+        "w_down": init_dense(gen, d_ff, d_model, dtype, device),
+    }
+
+
+def mlp(params, x):
+    h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
+    return dense(h, params["w_down"])
+
+
+# ---------------------------------------------------------------- Embedding
+def init_embed(gen, vocab: int, d_model: int, dtype, device):
+    w = torch.randn(vocab, d_model, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+def embed(table, tokens):
+    return table[tokens.long()]
+
+
+def unembed_table(table):
+    """The fp32 unembedding table: the embedding upcast exactly, once per
+    model (the full-vocab upcast is 129280 x 7168 at DeepSeek's width)."""
+    return table.float()
+
+
+def unembed(table_f32, x):
+    """Tied unembedding with fp32 logits; ``table_f32`` from
+    :func:`unembed_table`."""
+    return x.float() @ table_f32.T

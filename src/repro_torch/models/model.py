@@ -1,0 +1,211 @@
+"""Config-driven LM, paged serving path — the port of ``repro/models/model.py``
+for MLA stacks of dense (GLU MLP) blocks: embedding → layers → head.
+
+The reference stacks each layer group on a leading axis and scans it with
+``lax.scan``; the port keeps one parameter dict per layer and loops in
+Python.  :func:`layer_groups` is kept as the reference's static plan, which
+tells the two apart when weights are converted.  MoE blocks, the GQA and
+recurrent families, the dense cache layout, training and ``verify_step`` are
+not ported yet (ROADMAP) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import mla as mla_mod
+from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.models import layers
+
+
+# ------------------------------------------------------------- layer groups
+def signatures(cfg) -> list:
+    """(kind, is_moe) per layer."""
+    return [(k, bool(cfg.moe_layer(i)) and k == "attn")
+            for i, k in enumerate(cfg.layer_kinds())]
+
+
+def _rle(seq):
+    runs = []
+    for s in seq:
+        if runs and runs[-1][0] == s:
+            runs[-1][1] += 1
+        else:
+            runs.append([s, 1])
+    return [(s, n) for s, n in runs]
+
+
+def layer_groups(cfg) -> list:
+    """The reference's static plan: list of {"sigs": [sig,...], "n": repeats}."""
+    sigs = signatures(cfg)
+    runs = _rle(sigs)
+    if len(runs) <= 4:
+        return [{"sigs": [s], "n": n} for s, n in runs]
+    for p in range(1, 7):                              # periodic superblock
+        if all(sigs[i] == sigs[i % p] for i in range(len(sigs))):
+            n = len(sigs) // p
+            groups = [{"sigs": sigs[:p], "n": n}]
+            groups += [{"sigs": [s], "n": 1} for s in sigs[n * p:]]
+            return groups
+    return [{"sigs": [s], "n": 1} for s in sigs]       # fallback: unrolled
+
+
+def check_ported(cfg) -> None:
+    """Raise unless every layer is an MLA block with a dense MLP — the
+    slice of the model the port serves."""
+    if cfg.attention_kind != "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: attention_kind {cfg.attention_kind!r} is not ported "
+            "yet (GQA: ROADMAP A5; recurrent families: ROADMAP A8)")
+    for i, (kind, is_moe) in enumerate(signatures(cfg)):
+        if kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: layer {i} kind {kind!r} is not ported yet "
+                "(ROADMAP A8)")
+        if is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: layer {i} is a MoE layer; models/moe.py is not "
+                "ported yet (ROADMAP A3) — cut the depth to the dense layers "
+                "or set moe=None")
+
+
+# ------------------------------------------------------------------- init
+def _init_block(gen, cfg, dtype, device):
+    D = cfg.d_model
+    return {
+        "norm1": torch.zeros(D, dtype=dtype, device=device),
+        "mix": mla_mod.init_mla(gen, cfg, dtype, device),
+        "norm2": torch.zeros(D, dtype=dtype, device=device),
+        "ffn": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def init(cfg, *, seed: int = 0, device="cuda") -> dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (the port's own stream: it does not reproduce the reference's
+    ``jax.random`` draws — use :mod:`repro_torch.models.convert` for the
+    reference's weights).  ``embed_f32`` is the unembedding table, upcast
+    once here."""
+    check_ported(cfg)
+    dtype = cfg.torch_dtype
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {
+        "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                   device),
+        "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+        "layers": [_init_block(gen, cfg, dtype, device)
+                   for _ in range(cfg.num_layers)],
+    }
+    params["embed_f32"] = layers.unembed_table(params["embed"])
+    return params
+
+
+# ----------------------------------------------------------------- serving
+def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
+    """Paged serving cache: one latent pool per layer, all layers sharing
+    the one block table the scheduler owns (runtime/paged_cache.BlockPool).
+    Returns a list of per-layer {"c": pool} dicts."""
+    check_ported(cfg)
+    return [mla_mod.init_mla_cache_paged(cfg, layout, cfg.torch_dtype,
+                                         kv_dtype, device=device)
+            for _ in range(cfg.num_layers)]
+
+
+def copy_paged_block(cache, src: int, dst: int):
+    """Copy-on-write copy of physical block ``src`` into ``dst`` in every
+    layer's pool (in place).  Returns ``cache``."""
+    for layer in cache:
+        for pool in layer.values():
+            pool[dst] = pool[src]
+    return cache
+
+
+def read_paged_blocks(cache, ids):
+    """Host copies of physical blocks ``ids`` of every layer's pool — the
+    device→host leg of preemption by swap.  Returns {key: CPU tensor
+    [n_layers, len(ids), bs, *F]} in the pool's dtype (bitwise copies)."""
+    idx = torch.as_tensor(list(ids), dtype=torch.long)
+    return {key: torch.stack([layer[key][idx.to(layer[key].device)].cpu()
+                              for layer in cache])
+            for key in cache[0]}
+
+
+def write_paged_blocks(cache, ids, rows):
+    """Write host block rows (from :func:`read_paged_blocks`) back into
+    physical blocks ``ids`` of every layer's pool (in place).  Returns
+    ``cache``."""
+    for i, layer in enumerate(cache):
+        for key, pool in layer.items():
+            idx = torch.as_tensor(list(ids), dtype=torch.long,
+                                  device=pool.device)
+            pool[idx] = rows[key][i].to(device=pool.device, dtype=pool.dtype)
+    return cache
+
+
+def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec):
+    h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    mixed, cache = mla_mod.mla_prefill_chunk(lp["mix"], cfg, h, cache, table,
+                                             lengths, spec=spec)
+    x = x + mixed
+    h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(lp["ffn"], h2), cache
+
+
+def _block_decode(lp, cfg, x, cache, table, lengths, spec):
+    h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    mixed, cache = mla_mod.mla_decode_paged(lp["mix"], cfg, h, cache, table,
+                                            lengths, spec=spec)
+    x = x + mixed
+    h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(lp["ffn"], h2), cache
+
+
+def prefill_chunk(params, cfg, cache, tokens, block_table, lengths, *,
+                  spec: AttnSpec | None = None):
+    """Chunked paged prefill: C prompt tokens per sequence against the
+    block-pool cache.  tokens: [B,C] (token c at position lengths[b] + c);
+    block_table: [B,max_blocks]; lengths: [B] tokens already written.  Each
+    layer appends its chunk rows into its pool and attends causally over
+    chunk + earlier context.  Returns (logits [B,C,V] fp32, cache)."""
+    spec = spec or AttnSpec()
+    x = layers.embed(params["embed"], tokens)
+    new_cache = []
+    for lp, lc in zip(params["layers"], cache, strict=True):
+        x, nc = _block_prefill_chunk(lp, cfg, x, lc, block_table, lengths,
+                                     spec)
+        new_cache.append(nc)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return layers.unembed(params["embed_f32"], x), new_cache
+
+
+def decode_step(params, cfg, cache, tokens, pos=None, *,
+                spec: AttnSpec | None = None, cache_layout: str = "paged",
+                block_table=None, lengths=None):
+    """One serving step over the paged cache. tokens: [B]; block_table
+    [B,max_blocks] and per-sequence lengths [B] place each new token (``pos``
+    is the dense layout's shared position, which the port does not serve).
+    Returns (logits [B,V] fp32, cache)."""
+    spec = spec or AttnSpec()
+    if cache_layout != "paged":
+        raise NotImplementedError(
+            "the dense cache layout is not ported yet (ROADMAP A4)")
+    if block_table is None or lengths is None:
+        raise ValueError("paged decode_step needs block_table and lengths")
+    x = layers.embed(params["embed"], tokens)
+    new_cache = []
+    for lp, lc in zip(params["layers"], cache, strict=True):
+        x, nc = _block_decode(lp, cfg, x, lc, block_table, lengths, spec)
+        new_cache.append(nc)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return layers.unembed(params["embed_f32"], x), new_cache
+
+
+def param_count(params) -> int:
+    """Parameters of the model (the derived fp32 unembedding not counted)."""
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for k, v in tree.items() if k != "embed_f32")
+        if isinstance(tree, list):
+            return sum(count(v) for v in tree)
+        return tree.numel()
+    return count(params)

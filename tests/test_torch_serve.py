@@ -1,0 +1,122 @@
+"""The port's continuous-batching serve loop against the JAX serve loop.
+
+Both loops get the same weights (the reference's ``model.init``, converted)
+and the same flags on the reduced DeepSeek config without MoE (fp32, CPU):
+the greedy outputs must be EQUAL, token for token.  Inside the port, the
+prefix cache on and off give bitwise-equal outputs.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro.launch import serve as jserve
+from repro.models import model as jmodel
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import serve
+from repro_torch.models.convert import params_from_jax
+
+FLAGS = ["--reduced", "--batch", "2", "--prompt", "24", "--gen", "4",
+         "--requests", "4", "--page-size", "8", "--prefill-chunk", "8",
+         "--shared-prefix", "16"]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = dataclasses.replace(jreduced(jget_config("deepseek_r1_671b")),
+                               moe=None)
+    cfg = dataclasses.replace(reduced(get_config("deepseek_r1_671b")),
+                              moe=None)
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0), jcfg))
+    return jcfg, cfg, params_from_jax(tree, device="cpu")
+
+
+def _port(cfg, params, flags):
+    return serve.run_paged(serve.parse_args(flags + ["--device", "cpu"]), cfg,
+                           params=params, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [[], ["--kv-splits", "2"]],
+                         ids=["auto-splits", "kv-splits-2"])
+def test_outputs_equal_jax_serve(setup, extra):
+    """Same weights, same flags: the port's greedy outputs equal the JAX
+    loop's (default XLA path).  ``--kv-splits 2`` runs the split path."""
+    jcfg, cfg, params = setup
+    want = jserve.run_paged(jserve.parse_args(FLAGS + extra), jcfg)
+    got = _port(cfg, params, FLAGS + extra)
+    assert got["outputs"] == want["outputs"]
+    assert len(got["outputs"]) == 4
+    for key in ("tokens_served", "prefill_tokens", "prefill_tokens_saved",
+                "prefill_chunks", "steps"):
+        assert got[key] == want[key], key
+
+
+def test_prefix_cache_on_off_bitwise(setup):
+    """Inside the port: the prefix cache changes how prompts are served
+    (blocks shared, prefill skipped), never what is generated."""
+    _, cfg, params = setup
+    flags = FLAGS[:FLAGS.index("--batch")] + ["--batch", "1"] + \
+        FLAGS[FLAGS.index("--batch") + 2:]
+    on = _port(cfg, params, flags)
+    off = _port(cfg, params, flags + ["--no-prefix-cache"])
+    assert on["outputs"] == off["outputs"]
+    assert on["prefix"]["hits"] > 0 and on["prefill_tokens_saved"] > 0
+    assert on["prefill_tokens"] + on["prefill_tokens_saved"] == \
+        off["prefill_tokens"]
+
+
+def test_requests_equal_reference_stream():
+    """_make_requests draws the reference's tokens from the same seed,
+    including priorities and arrivals."""
+    flags = FLAGS + ["--priority-classes", "3", "--arrival-rate", "0.5"]
+    got = serve._make_requests(serve.parse_args(flags + ["--device", "cpu"]),
+                               256)
+    want = jserve._make_requests(jserve.parse_args(flags), 256)
+    assert len(got) == len(want)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g["prompt"], np.asarray(w["prompt"]))
+        assert {k: g[k] for k in ("id", "gen", "priority", "arrival")} == \
+            {k: w[k] for k in ("id", "gen", "priority", "arrival")}
+
+
+CONTENDED = ["--reduced", "--batch", "2", "--prompt", "24", "--gen", "8",
+             "--requests", "6", "--page-size", "8", "--prefill-chunk", "8",
+             "--priority-classes", "3", "--arrival-rate", "0.25", "--trace",
+             "burst", "--burst-size", "3", "--retry-backoff", "4",
+             "--paranoia", "1"]
+
+
+def test_preemption_swap_and_recompute_match_uncontended(setup):
+    """The reference's contended burst trace (6 requests through 2 slots,
+    three priority classes): both evacuation modes preempt, finish every
+    request, and deliver the uncontended run's outputs bitwise."""
+    _, cfg, params = setup
+    calm = _port(cfg, params, CONTENDED[:2] + ["8"] + CONTENDED[3:])
+    assert calm["sched"]["preemptions"] == 0
+    for mode in ("swap", "recompute"):
+        busy = _port(cfg, params, CONTENDED + ["--preemption", mode])
+        assert busy["sched"]["preemptions"] > 0, mode
+        assert len(busy["outputs"]) == 6
+        assert busy["outputs"] == calm["outputs"], mode
+
+
+@pytest.mark.parametrize("flag", [
+    ["--cache-layout", "dense"], ["--mode", "standard"],
+    ["--kv-dtype", "int8"], ["--kv-dtype", "fp8"], ["--spec-tokens", "2"],
+    ["--fault-rate", "0.1"], ["--trace-out", "t.json"],
+    ["--metrics-out", "m.json"], ["--profile-kernels", "2"]])
+def test_unported_flags_refused(flag, capsys):
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--device", "cpu"] + flag)
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_layers_flag_cuts_depth_only():
+    args = serve.parse_args(["--layers", "3"])
+    cfg = serve.config_for(args)
+    full = get_config("deepseek_r1_671b")
+    assert cfg == dataclasses.replace(full, num_layers=3)
+    assert args.device == "cuda"
