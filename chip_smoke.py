@@ -3,27 +3,39 @@
 
 Phases, each of which fails the run when it fails:
 
-  1. build   the ETAP kernels from ``src/repro_torch/kernels/etap/csrc``
+  1. build   the port's kernels from ``src/repro_torch/kernels/etap/csrc``
              (one nvcc per source, started together) and print ptxas'
              register / shared-memory lines;
   2. kernels each kernel against its plain PyTorch version on the card, at
-             DeepSeek-R1's bf16 widths (Dk 576, Dv 512, page 64, ~4K ragged
-             context, H = 128 and 16, both rescale modes, prefill Cq = 32
-             with and without a tree-shaped qpos); partial(n=1) + combine
-             must equal single-pass bitwise; then each kernel's time (CUDA
-             events), its plain version's time and its bound;
+             DeepSeek-R1's bf16 widths (Dk 576, Dv 512, ~4K ragged context,
+             H = 128 and 16, both rescale modes): the paged ETAP kernels
+             K1-K4 (page 64, prefill Cq = 32 with and without a
+             tree-shaped qpos), the dense ETAP kernels K5/K6, the
+             untransposed baseline K7/K8 and both orientations of the
+             combine K2; the bitwise contracts (split(n=1) + combine ==
+             single pass for both orientations, dense == paged over the
+             same rows, fused V == separate V at the same stride); then each
+             kernel's time (CUDA events), its plain version's time, its
+             bound and one PyTorch library call's time, and ETAP beside the
+             baseline at the same shapes;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
-             layers (bf16, random weights from a seed), short context: the
-             scheduler picks one split, so K3 and K4 run;
-  4. serve   the same model at long context: the table is wide enough that
-             the split scheduler picks n >= 2, so K1 and K2 run;
-  5. decode  one full-width decode step through the kernels and through the
-             plain versions, on the same weights and cache: logits agree;
-             then the step's wall time and device time by kernel.
+             layers (bf16, random weights from a seed), short and long
+             context, in both attention modes: short runs one split (K3 /
+             K7), long picks n >= 2 (K1 + K2, K8 + K2 [n,H,Dv]); K4 runs
+             every prefill;
+  4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
+             (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
+             [n,H,Dv]);
+  5. decode  one full-width decode step over the paged and one over the
+             dense cache, each through the kernels and through the plain
+             versions on the same weights and cache: logits agree, greedy
+             tokens agree; then the paged step's wall time and device time
+             by kernel.
 
-The launch counters are zeroed just before phase 3 and read after phase 4;
-each of K1-K4 must have launched on those serve paths.  The line before the
-last is the ``kernels`` JSON; the last line is the device JSON.
+The launch counters are zeroed just before each serve phase and read just
+after it; each of K1-K8 and both K2 orientations must have launched on a
+serve path.  The line before the last is the ``kernels`` JSON; the last
+line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # phases 1-2 at one iteration each
@@ -60,17 +72,28 @@ F32_TOL = 1e-4
 # carry into the logits; allow 2% of the largest logit.
 LOGIT_RTOL = 2e-2
 
-REPLACES = {
-    "etap_paged_partial": "src/repro/kernels/etap/etap.py:713",
-    "combine_splits": "src/repro/kernels/etap/combine.py:60",
-    "etap_decode_mla_paged": "src/repro/kernels/etap/etap.py:237",
-    "etap_prefill_mla_paged": "src/repro/kernels/etap/etap.py:430",
-}
-SOURCES = {
-    "etap_paged_partial": "src/repro_torch/kernels/etap/csrc/etap.cu",
-    "combine_splits": "src/repro_torch/kernels/etap/csrc/combine.cu",
-    "etap_decode_mla_paged": "src/repro_torch/kernels/etap/csrc/etap.cu",
-    "etap_prefill_mla_paged": "src/repro_torch/kernels/etap/csrc/etap.cu",
+# kernel wrapper -> (the TPU kernel it replaces, its CUDA source)
+_CSRC = "src/repro_torch/kernels/etap/csrc/"
+KERNELS = {
+    "etap_paged_partial": ("src/repro/kernels/etap/etap.py:713",
+                           _CSRC + "etap.cu"),
+    "combine_splits": ("src/repro/kernels/etap/combine.py:60",
+                       _CSRC + "combine.cu"),
+    "etap_decode_mla_paged": ("src/repro/kernels/etap/etap.py:237",
+                              _CSRC + "etap.cu"),
+    "etap_prefill_mla_paged": ("src/repro/kernels/etap/etap.py:430",
+                               _CSRC + "etap.cu"),
+    "etap_decode_dense": ("src/repro/kernels/etap/etap.py:154",
+                          _CSRC + "etap.cu"),
+    "etap_partial_dense": ("src/repro/kernels/etap/etap.py:603",
+                           _CSRC + "etap.cu"),
+    "flash_decode": ("src/repro/kernels/flash_decode/flash_decode.py:83",
+                     _CSRC + "flash_decode.cu"),
+    "flash_decode_partial": (
+        "src/repro/kernels/flash_decode/flash_decode.py:168",
+        _CSRC + "flash_decode.cu"),
+    "combine_splits_std": ("src/repro/kernels/etap/combine.py:60",
+                           _CSRC + "combine.cu"),
 }
 
 
@@ -120,13 +143,16 @@ def bf16_close(out, ref, what: str) -> float:
     return err
 
 
-def finalized_close(state, ref, what: str) -> float:
-    """K1 stats: compare acc / l per split (NaN where l = 0 on both)."""
+def finalized_close(state, ref, what: str, transposed: bool = True) -> float:
+    """Split stats: compare acc / l per split (NaN where l = 0 on both);
+    acc is [B,n,Dv,H] (transposed) or [B,n,H,Dv]."""
     import torch
-    m, l, acc = state
-    rm, rl, racc = ref
-    o = acc / l[:, :, None, :]
-    r = racc / rl[:, :, None, :]
+    _, l, acc = state
+    _, rl, racc = ref
+    ex = (lambda x: x[:, :, None, :]) if transposed else \
+        (lambda x: x[..., None])
+    o = acc / ex(l)
+    r = racc / ex(rl)
     nan_o, nan_r = torch.isnan(o), torch.isnan(r)
     if not torch.equal(nan_o, nan_r):
         raise AssertionError(f"{what}: empty splits differ")
@@ -136,6 +162,16 @@ def finalized_close(state, ref, what: str) -> float:
         raise AssertionError(f"{what}: partial stats disagree "
                              f"(max abs err {err:.3e})")
     return err
+
+
+def bitwise(a, b, what: str) -> None:
+    """Raise unless a and b hold the same bits."""
+    import torch
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    if a.dtype != b.dtype or not torch.equal(bits(a), bits(b)):
+        raise AssertionError(f"{what}: not bitwise equal")
 
 
 # ------------------------------------------------------------- phase 2
@@ -165,7 +201,7 @@ def phase_kernels(quick: bool, report: dict) -> None:
     gen.manual_seed(0)
     ctx = 4096
     nb = ctx // PAGE
-    errs = {k: 0.0 for k in REPLACES}
+    errs = {k: 0.0 for k in KERNELS}
 
     for H in (128, 16):
         B = 8
@@ -327,7 +363,211 @@ def phase_kernels(quick: bool, report: dict) -> None:
                         "bound_ms": tb, "bound_by": by, "library_ms": tl}
 
 
+def dense_as_paged(k, gen):
+    """The rows of a dense latent cache [B, S, DK] (S a multiple of the
+    page) as a pool [1 + B*nb, PAGE, DK] with a shuffled block table."""
+    import torch
+    B, S, _ = k.shape
+    nb = S // PAGE
+    perm = torch.randperm(B * nb, generator=gen, device=k.device)
+    pool = torch.zeros(1 + B * nb, PAGE, DK, dtype=k.dtype, device=k.device)
+    pool[1 + perm] = k.reshape(B * nb, PAGE, DK)
+    return pool, (1 + perm).reshape(B, nb).to(torch.int32)
+
+
+def sdpa_dense(q, k, lengths):
+    """Yardstick for a decode over a dense latent cache: one SDPA call with
+    V = the first DV columns and a length mask."""
+    import torch
+    S = k.shape[1]
+    mask = (torch.arange(S, device=k.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qd, kk = q[:, :, None, :], k[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kk, kk[..., :DV], attn_mask=mask, scale=SCALE, enable_gqa=True)
+
+
+def phase_dense_kernels(quick: bool, report: dict) -> None:
+    """K5 / K6 (dense ETAP), K7 / K8 (untransposed baseline) and K2 in its
+    [n,H,Dv] orientation against their plain versions, the bitwise
+    contracts, the timings, and ETAP beside the baseline."""
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    ctx, B, n, block = 4096, 8, 4, 512
+    names = ("etap_decode_dense", "etap_partial_dense", "flash_decode",
+             "flash_decode_partial", "combine_splits_std")
+    errs = {k: 0.0 for k in names}
+    bf16 = dict(out_dtype=torch.bfloat16)
+    for H in (128, 16):
+        lengths = torch.tensor([ctx, 1, 4033, 64, 65, 2500, 3999, 1234],
+                               dtype=torch.int32, device=dev)
+        k = torch.randn(B, ctx, DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = k[..., :DV]                      # the latent's V: a strided view
+        q = torch.randn(B, H, DK, generator=gen, device=dev).to(torch.bfloat16)
+        pool, table = dense_as_paged(k, gen)
+        for mode in ("amla", "mul"):
+            tag = f"H={H} {mode}"
+            kw = dict(scale=SCALE, block=block, rescale=mode)
+            o5 = K.etap_decode_dense(q, k, v, lengths, **kw)
+            r5 = K.etap_decode_dense_plain(q, k, v, lengths, **kw)
+            errs["etap_decode_dense"] = max(errs["etap_decode_dense"],
+                                            bf16_close(o5, r5, f"K5 {tag}"))
+            st6 = K.etap_partial_dense(q, k, v, lengths, n_splits=n, **kw)
+            rs6 = K.etap_partial_dense_plain(q, k, v, lengths, n_splits=n,
+                                             **kw)
+            errs["etap_partial_dense"] = max(
+                errs["etap_partial_dense"],
+                finalized_close(st6, rs6, f"K6 {tag}"))
+            bf16_close(C.combine_splits(*st6, rescale=mode, **bf16), r5,
+                       f"K6+K2 vs plain K5 {tag}")
+            o7 = FD.flash_decode(q, k, v, lengths, **kw)
+            r7 = FD.flash_decode_plain(q, k, v, lengths, **kw)
+            errs["flash_decode"] = max(errs["flash_decode"],
+                                       bf16_close(o7, r7, f"K7 {tag}"))
+            st8 = FD.flash_decode_partial(q, k, v, lengths, n_splits=n, **kw)
+            rs8 = FD.flash_decode_partial_plain(q, k, v, lengths, n_splits=n,
+                                                **kw)
+            errs["flash_decode_partial"] = max(
+                errs["flash_decode_partial"],
+                finalized_close(st8, rs8, f"K8 {tag}", transposed=False))
+            o2 = C.combine_splits_std(*st8, rescale=mode, **bf16)
+            r2 = C.combine_splits_std_plain(*st8, rescale=mode, **bf16)
+            errs["combine_splits_std"] = max(
+                errs["combine_splits_std"],
+                bf16_close(o2, r2, f"K2 [n,H,Dv] {tag}"))
+            bf16_close(o2, r7, f"K8+K2 vs plain K7 {tag}")
+            # the four bitwise contracts
+            bitwise(C.combine_splits(*K.etap_partial_dense(
+                q, k, v, lengths, n_splits=1, **kw), rescale=mode, **bf16),
+                o5, f"K6(n=1)+K2 vs K5 {tag}")
+            bitwise(C.combine_splits_std(*FD.flash_decode_partial(
+                q, k, v, lengths, n_splits=1, **kw), rescale=mode, **bf16),
+                o7, f"K8(n=1)+K2 vs K7 {tag}")
+            bitwise(K.etap_decode_mla_paged(q, pool, DV, table, lengths,
+                                            scale=SCALE, rescale=mode),
+                    o5, f"paged K3 vs dense K5 {tag}")
+            v_sep = k.clone()[..., :DV]      # own pointer, ldv = ldk
+            bitwise(K.etap_decode_dense(q, k, v_sep, lengths, **kw), o5,
+                    f"separate-V K5 vs fused K5 {tag}")
+            log(f"[kernels] dense {tag}: K5 ok, K6 ok, K7 ok, K8 ok, "
+                f"K2[n,H,Dv] ok; bitwise: K6(n=1)+K2 == K5, "
+                f"K8(n=1)+K2 == K7, paged K3 == dense K5, "
+                f"separate V == fused V")
+
+    # ---- timing, and ETAP beside the baseline at the same shapes
+    iters, piters = (1, 1) if quick else (20, 3)
+    lengths = torch.tensor([4096, 3900, 4033, 3500, 4000, 2500, 3999, 3210],
+                           dtype=torch.int32, device=dev)
+    keys = int(lengths.sum())
+    for H in (128, 16):
+        k = torch.randn(B, ctx, DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = k[..., :DV]
+        q = torch.randn(B, H, DK, generator=gen, device=dev).to(torch.bfloat16)
+        pool, table = dense_as_paged(k, gen)
+        kw = dict(scale=SCALE, block=block)
+        io = B * H * DK * 2 + keys * DK * 2               # q + live rows
+        out_b = B * H * DV * 2
+        stats_b = B * n * H * (DV + 2) * 4
+        flops = 2 * keys * H * (DK + DV)
+        t = {
+            "K3": cuda_time_ms(lambda: K.etap_decode_mla_paged(
+                q, pool, DV, table, lengths, scale=SCALE), iters),
+            "K5": cuda_time_ms(lambda: K.etap_decode_dense(
+                q, k, v, lengths, **kw), iters),
+            "K7": cuda_time_ms(lambda: FD.flash_decode(
+                q, k, v, lengths, **kw), iters),
+            "K1": cuda_time_ms(lambda: K.etap_paged_partial(
+                q, pool, DV, table, lengths, scale=SCALE, n_splits=n), iters),
+            "K6": cuda_time_ms(lambda: K.etap_partial_dense(
+                q, k, v, lengths, n_splits=n, **kw), iters),
+            "K8": cuda_time_ms(lambda: FD.flash_decode_partial(
+                q, k, v, lengths, n_splits=n, **kw), iters),
+        }
+        lib = cuda_time_ms(sdpa_dense(q, k, lengths), iters)
+        log(f"[compare] B={B} H={H} ctx<=4096 ragged: single pass "
+            f"K3 (ETAP, paged) {t['K3']:.4f} ms, K5 (ETAP, dense) "
+            f"{t['K5']:.4f} ms, K7 (standard) {t['K7']:.4f} ms; "
+            f"split phase 1 at n={n}: K1 (ETAP, paged) {t['K1']:.4f} ms, "
+            f"K6 (ETAP, dense) {t['K6']:.4f} ms, K8 (standard) "
+            f"{t['K8']:.4f} ms; SDPA {lib:.4f} ms")
+        if H != 128:
+            continue
+        st8 = FD.flash_decode_partial(q, k, v, lengths, n_splits=n, **kw)
+        tp = {
+            "etap_decode_dense": cuda_time_ms(
+                lambda: K.etap_decode_dense_plain(q, k, v, lengths, **kw),
+                piters, warmup=1),
+            "etap_partial_dense": cuda_time_ms(
+                lambda: K.etap_partial_dense_plain(q, k, v, lengths,
+                                                   n_splits=n, **kw),
+                piters, warmup=1),
+            "flash_decode": cuda_time_ms(
+                lambda: FD.flash_decode_plain(q, k, v, lengths, **kw),
+                piters, warmup=1),
+            "flash_decode_partial": cuda_time_ms(
+                lambda: FD.flash_decode_partial_plain(q, k, v, lengths,
+                                                      n_splits=n, **kw),
+                piters, warmup=1),
+            "combine_splits_std": cuda_time_ms(
+                lambda: C.combine_splits_std_plain(*st8, **bf16), piters,
+                warmup=1),
+        }
+        t2 = cuda_time_ms(lambda: C.combine_splits_std(*st8, **bf16), iters)
+        rows = {
+            "etap_decode_dense": (t["K5"], bound_ms(io + out_b, flops), lib),
+            "etap_partial_dense": (t["K6"], bound_ms(io + stats_b, flops),
+                                   None),
+            "flash_decode": (t["K7"], bound_ms(io + out_b, flops), lib),
+            "flash_decode_partial": (t["K8"], bound_ms(io + stats_b, flops),
+                                     None),
+            "combine_splits_std": (t2, bound_ms(stats_b + out_b,
+                                                B * n * H * DV * 2), None),
+        }
+        for name, (ms, (tb, by), tl) in rows.items():
+            libs = "null" if tl is None else f"{tl:.4f}"
+            log(f"[timing] {name} (B={B} H={H} ctx<=4096 ragged, "
+                f"n_splits={n} where split): {ms:.4f} ms, plain "
+                f"{tp[name]:.4f} ms, bound {tb:.4f} ms ({by}), library "
+                f"{libs} ms")
+            report[name] = {"max_abs_err": errs[name], "ms": ms,
+                            "plain_ms": tp[name], "bound_ms": tb,
+                            "bound_by": by, "library_ms": tl}
+
+
 # ------------------------------------------------------- phases 3 - 5
+SHORT = ["--batch", "8", "--requests", "16", "--prompt", "512", "--gen", "32"]
+LONG = ["--batch", "4", "--requests", "4", "--prompt", "4096", "--gen", "32",
+        "--prefill-chunk", "256"]
+DENSE = ["--cache-layout", "dense", "--gen", "32"]
+# (phase, serve flags, kernels that must launch in it)
+SERVE_PHASES = [
+    ("serve-short", SHORT, ("etap_decode_mla_paged",
+                            "etap_prefill_mla_paged")),
+    ("serve-long", LONG, ("etap_paged_partial", "combine_splits",
+                          "etap_prefill_mla_paged")),
+    ("serve-short-std", SHORT + ["--mode", "standard"],
+     ("flash_decode", "etap_prefill_mla_paged")),
+    ("serve-long-std", LONG + ["--mode", "standard"],
+     ("flash_decode_partial", "combine_splits_std",
+      "etap_prefill_mla_paged")),
+    ("dense-short", DENSE + ["--batch", "8", "--prompt", "512"],
+     ("etap_decode_dense",)),
+    ("dense-long", DENSE + ["--batch", "4", "--prompt", "4096"],
+     ("etap_partial_dense", "combine_splits")),
+    ("dense-long-std", DENSE + ["--batch", "4", "--prompt", "4096",
+                                "--mode", "standard"],
+     ("flash_decode_partial", "combine_splits_std")),
+]
+
+
 def full_config(layers: int = 3):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("deepseek_r1_671b"),
@@ -335,51 +575,92 @@ def full_config(layers: int = 3):
 
 
 def counters():
+    """Kernel wrapper name -> wrapper (each carries its launch count)."""
     from repro_torch.kernels.etap import combine as C
     from repro_torch.kernels.etap import etap as K
-    return {"etap_paged_partial": K.etap_paged_partial,
-            "combine_splits": C.combine_splits,
-            "etap_decode_mla_paged": K.etap_decode_mla_paged,
-            "etap_prefill_mla_paged": K.etap_prefill_mla_paged}
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    mods = (K, C, FD)
+    return {name: next(getattr(m, name) for m in mods if hasattr(m, name))
+            for name in KERNELS}
 
 
-def phase_serve(name: str, flags: list, params) -> dict:
+def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
+    """One serve run through the entry points a user calls (``run_paged``
+    or ``run_dense`` as ``--cache-layout`` says), with every launch count
+    zeroed just before it and read just after; each kernel in ``expect``
+    must have launched.  Returns the run's launch counts."""
     import torch
     from repro_torch.launch import serve
     args = serve.parse_args(flags + ["--layers", "3"])
     cfg = serve.config_for(args)
-    before = {k: fn.launches for k, fn in counters().items()}
-    res = serve.run_paged(args, cfg, params=params, device="cuda")
-    launched = {k: fn.launches - before[k] for k, fn in counters().items()}
-    n_req = args.requests
-    if len(res["outputs"]) != n_req:
-        raise AssertionError(f"{name}: {len(res['outputs'])} of {n_req} "
+    for fn in counters().values():
+        fn.launches = 0
+    if args.cache_layout == "dense":
+        res = serve.run_dense(args, cfg, params=params, device="cuda")
+        outputs = {b: row.tolist() for b, row in enumerate(res["tokens"])}
+        n_req, t_total = args.batch, res["t_prefill"] + res["t_decode"]
+    else:
+        res = serve.run_paged(args, cfg, params=params, device="cuda")
+        outputs, n_req, t_total = res["outputs"], args.requests, \
+            res["t_total"]
+    launched = {k: fn.launches for k, fn in counters().items()}
+    if len(outputs) != n_req:
+        raise AssertionError(f"{name}: {len(outputs)} of {n_req} "
                              "requests finished")
-    for rid, toks in res["outputs"].items():
+    for rid, toks in outputs.items():
         if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"{name}: request {rid} tokens {toks}")
-    tps = res["tokens_served"] / res["t_total"]
+    tps = res["tokens_served"] / t_total
     log(f"[{name}] {' '.join(flags)}: {res['tokens_served']} tokens, "
         f"{tps:.1f} tok/s, t_prefill {res['t_prefill']:.3f} s, "
-        f"t_decode {res['t_decode']:.3f} s, launches {launched}, "
+        f"t_decode {res['t_decode']:.3f} s, launches "
+        f"{ {k: v for k, v in launched.items() if v} }, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    for k in expect:
+        if launched[k] == 0:
+            raise AssertionError(f"{name}: {k} did not launch")
     return launched
 
 
 @contextlib.contextmanager
 def plain_attention():
     """Route the model's attention through the plain versions (on CUDA
-    tensors) for the kernel-vs-plain comparison of phase 5."""
+    tensors) for the kernel-vs-plain comparisons of phase 5."""
     from repro_torch.kernels.etap import combine as C
     from repro_torch.kernels.etap import etap as K
-    saved = (K.etap_decode_mla_paged, K.etap_paged_partial, C.combine_splits)
-    K.etap_decode_mla_paged = K.etap_decode_mla_paged_plain
-    K.etap_paged_partial = K.etap_paged_partial_plain
-    C.combine_splits = C.combine_splits_plain
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    mods = (K, C, FD)
+    saved = []
+    for name in KERNELS:
+        mod = next(m for m in mods if hasattr(m, name))
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, getattr(mod, name + "_plain"))
     try:
         yield
     finally:
-        K.etap_decode_mla_paged, K.etap_paged_partial, C.combine_splits = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_step(lk, lp, what: str) -> None:
+    """Kernel-path logits lk against plain-path logits lp: within
+    LOGIT_RTOL of the largest logit, and the same greedy token wherever the
+    plain path's top-two margin exceeds the largest logit difference (a
+    closer call is a tie at this tolerance)."""
+    import torch
+    d = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    top2 = lp.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > d
+    agree = lk.argmax(-1) == lp.argmax(-1)
+    log(f"[decode-step] {what}: max |dlogit| {d:.4e} (max |logit| "
+        f"{scale:.3f}), greedy agreement {int(agree.sum())}/{len(agree)} "
+        f"({int(decided.sum())} rows decided beyond the difference)")
+    if not torch.isfinite(lk).all() or d > LOGIT_RTOL * scale:
+        raise AssertionError(f"decode step ({what}): kernel path disagrees "
+                             "with the plain path")
+    if not bool(agree[decided].all()):
+        raise AssertionError(f"decode step ({what}): greedy tokens differ")
 
 
 def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
@@ -394,8 +675,8 @@ def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
     from repro_torch.models import model
 
     def step():
-        model.decode_step(params, cfg, cache, toks, block_table=table,
-                          lengths=lengths)
+        model.decode_step(params, cfg, cache, toks, cache_layout="paged",
+                          block_table=table, lengths=lengths)
         torch.cuda.synchronize()
 
     step()
@@ -421,10 +702,12 @@ def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
         f"{need / HBM_BYTES_PER_S * 1e3:.3f} ms, "
         f"{sum(e.count for e in kernels)} kernel launches "
         f"({len(kernels)} kernel names)")
-    groups = {"etap": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    attn = ("etap_kernel", "flash_decode_kernel", "combine_kernel",
+            "combine_rows_kernel")
     for e in kernels:
         name = e.key.lower()
-        key = ("etap" if "etap_paged" in name or "combine_kernel" in name
+        key = ("attention" if any(x in name for x in attn)
                else "gemm" if any(x in name for x in ("gemm", "xmma",
                                                        "cutlass", "nvjet"))
                else "other")
@@ -445,7 +728,11 @@ def _leaves(tree):
 
 
 def phase_decode_step(params) -> None:
+    """One full-width decode step over the paged cache and one over the
+    dense cache, each through the kernels and through the plain versions
+    on the same weights and cache."""
     import torch
+    from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.models import model
     from repro_torch.runtime.paged_cache import BlockPool, layout_for
     cfg = full_config()
@@ -468,21 +755,33 @@ def phase_decode_step(params) -> None:
 
     def step():
         c = [{k: v.clone() for k, v in layer.items()} for layer in cache]
-        return model.decode_step(params, cfg, c, toks, block_table=table,
-                                 lengths=lengths)[0]
+        return model.decode_step(params, cfg, c, toks, cache_layout="paged",
+                                 block_table=table, lengths=lengths)[0]
 
     lk = step()
     with plain_attention():
         lp = step()
     profile_decode_step(params, cfg, cache, toks, table, lengths)
-    d = float((lk - lp).abs().max())
-    scale = float(lp.abs().max())
-    agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
-    log(f"[decode-step] full width, B={B} ctx<={ctx}: max |dlogit| {d:.4e} "
-        f"(max |logit| {scale:.3f}), greedy agreement {agree}/{B}")
-    if not torch.isfinite(lk).all() or d > LOGIT_RTOL * scale:
-        raise AssertionError("decode step: kernel path disagrees with the "
-                             "plain path")
+    check_step(lk, lp, f"paged, full width, B={B} ctx<={ctx}")
+    del cache
+
+    pos = 2000                           # every row: 2001 live positions
+    dense = model.init_cache(cfg, B, ctx, device=dev)
+    for layer in dense:
+        layer["c"].copy_(torch.randn(layer["c"].shape, generator=gen,
+                                     device=dev).to(torch.bfloat16))
+    for mode in ("etap", "standard"):
+        spec = AttnSpec(mode=mode)
+
+        def dstep(spec=spec):
+            c = [{k: v.clone() for k, v in layer.items()} for layer in dense]
+            return model.decode_step(params, cfg, c, toks, pos, spec=spec,
+                                     cache_layout="dense")[0]
+
+        lk = dstep()
+        with plain_attention():
+            lp = dstep()
+        check_step(lk, lp, f"dense {mode}, full width, B={B} pos={pos}")
 
 
 def main(argv=None) -> int:
@@ -513,6 +812,7 @@ def main(argv=None) -> int:
 
     report: dict = {}
     phase_kernels(args.quick, report)
+    phase_dense_kernels(args.quick, report)
     if args.quick:
         log(json.dumps({"kernels": [dict(name=k, **v)
                                     for k, v in report.items()]}))
@@ -527,30 +827,20 @@ def main(argv=None) -> int:
         f"{model.param_count(params) / 1e9:.3f} B params bf16 in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    for fn in counters().values():
-        fn.launches = 0
-    short = phase_serve("serve-short", [
-        "--batch", "8", "--requests", "16", "--prompt", "512", "--gen", "32"],
-        params)
-    long = phase_serve("serve-long", [
-        "--batch", "4", "--requests", "4", "--prompt", "4096",
-        "--gen", "32", "--prefill-chunk", "256"], params)
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = {k: 0 for k in KERNELS}
+    for name, flags, expect in SERVE_PHASES:
+        got = phase_serve(name, flags, params, expect)
+        launches = {k: launches[k] + got[k] for k in KERNELS}
     log(f"[launches] serve paths: {launches}")
-    if short["etap_decode_mla_paged"] == 0 or \
-            short["etap_prefill_mla_paged"] == 0:
-        raise AssertionError("short serve did not run K3 and K4")
-    if long["etap_paged_partial"] == 0 or long["combine_splits"] == 0:
-        raise AssertionError("long serve did not run the split path K1+K2")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"{k} never launched on the serve paths")
 
     phase_decode_step(params)
 
-    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
-                    replaces=REPLACES[k], launches=launches[k], **report[k])
-               for k in REPLACES]
+    kernels = [dict(name=k, route="cuda", source=src, replaces=tpu,
+                    launches=launches[k], **report[k])
+               for k, (tpu, src) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

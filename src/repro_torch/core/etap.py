@@ -1,20 +1,28 @@
-"""Paged attention entry points — the port of the paged dispatchers of
-``repro/core/etap.py`` for the MLA-fused fp case.
+"""Decode and prefill attention entry points — the port of the dispatchers
+of ``repro/core/etap.py``: the dense entry :func:`decode_attention` and the
+paged entries for the MLA-fused fp pool.
+
+Decode attention computes, per (batch, kv-group):
+    standard:  S = Q Kᵀ,  P = softmax_rows(S),  O = P V   (thin M = heads)
+    ETAP:      Sᵀ = K Qᵀ,  Pᵀ = softmax_cols(Sᵀ),  Oᵀ = Vᵀ Pᵀ,  O = (Oᵀ)ᵀ
 
 The reference routes to its Pallas kernels only when ``use_kernels`` is set
 and otherwise runs XLA twins; the port has one route per entry: the kernel
-wrappers in :mod:`repro_torch.kernels.etap.ops`, whose operands' device
-picks the CUDA kernel or its plain version.  The separate-V pools, the
-quantized layouts and the untransposed ``standard`` baseline are not ported
-yet and raise ``NotImplementedError`` naming the ROADMAP item.
+wrappers in :mod:`repro_torch.kernels.etap.ops` (ETAP) and
+:mod:`repro_torch.kernels.flash_decode.ops` (the untransposed ``standard``
+baseline), whose operands' device picks the CUDA kernel or its plain
+version.  The separate-V pools and the quantized layouts are not ported yet
+and raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.kernels.etap import ops as etap_ops
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.runtime.paged_cache import gather_blocks
 
 
-def _check(spec: AttnSpec, v_pool, k_sz, v_sz, *, decode: bool) -> None:
+def _check(spec: AttnSpec, v_pool, k_sz, v_sz) -> None:
     if v_pool is not None:
         raise NotImplementedError(
             "separate-V paged pools are not ported yet: ROADMAP A1 (kernel "
@@ -22,10 +30,24 @@ def _check(spec: AttnSpec, v_pool, k_sz, v_sz, *, decode: bool) -> None:
     if k_sz is not None or v_sz is not None or spec.kv_dtype != "fp":
         raise NotImplementedError(
             "quantized KV pools are not ported yet: ROADMAP A1")
-    if decode and spec.mode != "etap":
-        raise NotImplementedError(
-            "the untransposed 'standard' baseline is not ported yet: "
-            "ROADMAP A4")
+
+
+def decode_attention(q, k, v, length=None, *, spec: AttnSpec):
+    """Dense decode attention. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv];
+    length [BG] valid-prefix lengths (None = all S).  spec.mode "etap" (the
+    paper) or "standard" (the untransposed baseline); spec.kv_splits None =
+    auto split-KV on both.  Returns [BG,H,Dv]."""
+    if spec.mode == "etap":
+        return etap_ops.etap_decode_splitkv(q, k, v, length, spec=spec)
+    return fd_ops.flash_decode_splitkv(q, k, v, length, spec=spec)
+
+
+def _gather_kv(k_pool, table, dv: int):
+    """The dense (k, v) view of an MLA-fused paged pool: the pages gathered
+    through the table (one cache-sized copy), V their first ``dv``
+    columns (a view)."""
+    k = gather_blocks(k_pool, table)
+    return k, k[..., :dv]
 
 
 def decode_attention_paged(q, k_pool, v_pool, table, lengths, *,
@@ -33,10 +55,17 @@ def decode_attention_paged(q, k_pool, v_pool, table, lengths, *,
                            v_sz=None):
     """Paged decode attention. q [B,H,Dk]; k_pool [N,page,Dk] the latent
     pool (v_pool None: V = its first ``dv`` columns); table [B,max_blocks];
-    lengths [B].  spec.kv_splits None = auto split-KV.  Returns [B,H,dv]."""
-    _check(spec, v_pool, k_sz, v_sz, decode=True)
-    return etap_ops.etap_decode_mla_paged_splitkv(q, k_pool, dv, table,
-                                                  lengths, spec=spec)
+    lengths [B].  spec.kv_splits None = auto split-KV.  The "standard"
+    baseline runs on the gathered dense layout with block = page, as the
+    reference's does (it exists for comparison, not serving).  Returns
+    [B,H,dv]."""
+    _check(spec, v_pool, k_sz, v_sz)
+    if spec.mode == "etap":
+        return etap_ops.etap_decode_mla_paged_splitkv(q, k_pool, dv, table,
+                                                      lengths, spec=spec)
+    k, v = _gather_kv(k_pool, table, dv)
+    return fd_ops.flash_decode_splitkv(
+        q, k, v, lengths, spec=spec.replace(block=k_pool.shape[1]))
 
 
 def prefill_attention_paged(q, k_pool, v_pool, table, start, *,
@@ -46,7 +75,7 @@ def prefill_attention_paged(q, k_pool, v_pool, table, start, *,
     the pool before the chunk, whose rows must already be appended.
     ``spec.mode`` is ignored, as in the reference: prefill always runs the
     transposed loop.  Returns [B,Cq,H,dv]."""
-    _check(spec, v_pool, k_sz, v_sz, decode=False)
+    _check(spec, v_pool, k_sz, v_sz)
     return etap_ops.etap_prefill_mla_paged(q, k_pool, dv, table, start,
                                            spec=spec)
 
@@ -57,6 +86,6 @@ def verify_attention_paged(q, k_pool, v_pool, table, start, qpos, *,
     """Draft-verify attention: :func:`prefill_attention_paged` with the
     explicit per-row horizon qpos [B,Cq].  A linear qpos is bitwise the
     prefill entry."""
-    _check(spec, v_pool, k_sz, v_sz, decode=False)
+    _check(spec, v_pool, k_sz, v_sz)
     return etap_ops.etap_verify_mla_paged(q, k_pool, dv, table, start, qpos,
                                           spec=spec)

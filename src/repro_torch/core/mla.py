@@ -1,19 +1,23 @@
-"""Multi-head Latent Attention (DeepSeek), paged serving path — the port of
-``repro/core/mla.py``'s absorbed-form decode and chunked prefill.
+"""Multi-head Latent Attention (DeepSeek) — the port of
+``repro/core/mla.py``: the naive (decompressed) form for a whole prompt,
+and the absorbed-form decode over the dense or paged latent cache and
+chunked paged prefill.
 
-The per-head up-projections W_uk / W_uv are folded into the query and the
-output, so attention runs over the shared 576-wide latent cache
-c = [rmsnorm(c_kv) ; rope(k_r)], one pool serving K and V (V = its first
-kv_lora_rank columns).  The attention itself is the ETAP kernels'.
+In the absorbed form the per-head up-projections W_uk / W_uv are folded
+into the query and the output, so attention runs over the shared 576-wide
+latent cache c = [rmsnorm(c_kv) ; rope(k_r)], one stream serving K and V
+(V = its first kv_lora_rank columns).  The attention itself is the decode
+kernels' (ETAP, or the untransposed baseline).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.attn_spec import AttnSpec
-from repro_torch.core.etap import (decode_attention_paged,
+from repro_torch.core.etap import (decode_attention, decode_attention_paged,
                                    prefill_attention_paged)
 from repro_torch.models import layers
+from repro_torch.models.attention import causal_attention
 from repro_torch.runtime import paged_cache
 
 
@@ -57,6 +61,28 @@ def _latent(params, cfg, x, positions):
     return torch.cat([c_kv, k_rope], dim=-1)
 
 
+def mla_train(params, cfg, x, positions, *, return_cache: bool = False):
+    """Naive (decompressed) MLA over a whole sequence, forward only.
+    x: [B,S,D]; positions: [B,S].  Returns out [B,S,D], and with
+    ``return_cache`` also the latent cache rows {"c": [B,S,latent]}."""
+    m, H = cfg.mla, cfg.num_heads
+    B, S, _ = x.shape
+    q_nope, q_rope = _queries(params, cfg, x, positions)
+    c = _latent(params, cfg, x, positions)                    # [B,S,latent]
+    c_kv, k_rope = c[..., :m.kv_lora_rank], c[..., m.kv_lora_rank:]
+    k_nope = layers.dense(c_kv, params["w_uk"]).reshape(
+        B, S, H, m.qk_nope_head_dim)
+    v = layers.dense(c_kv, params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    o = causal_attention(q, k, v, scale=m.qk_head_dim ** -0.5)
+    out = layers.dense(o.reshape(B, S, H * m.v_head_dim), params["w_o"])
+    if return_cache:
+        return out, {"c": c}
+    return out
+
+
 def _absorbed_query(params, cfg, x, positions):
     """q_c[b,h] = q_nope[b,h] · W_uk[:,h] (kv_lora wide), q = [q_c ; q_rope].
     x: [B,D]; positions: [B,1].  Returns q: [B,H,latent]."""
@@ -75,6 +101,30 @@ def _absorbed_out(params, cfg, o_lat, dtype):
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bhc,chd->bhd", o_lat.float(), w_uv.float()).to(dtype)
     return layers.dense(o.reshape(o.shape[0], -1), params["w_o"])
+
+
+def mla_decode(params, cfg, x, cache, pos: int, *,
+               spec: AttnSpec | None = None):
+    """Absorbed-form decode over the dense latent cache.
+
+    x: [B,D]; cache: {"c": [B,Smax,latent]}; pos: the new token's position,
+    shared by every row.  The new latent row is written at ``pos`` in place;
+    attention runs over positions <= pos with K = the whole latent and V =
+    its first kv_lora_rank columns (a view: the cache is read in place).
+    Returns (out [B,D], {"c": cache})."""
+    spec = spec or AttnSpec()
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = _absorbed_query(params, cfg, x, positions)
+    c_t = _latent(params, cfg, x[:, None, :], positions)[:, 0]  # [B,latent]
+    cache_c = cache["c"]
+    cache_c[:, pos] = c_t
+    length = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    o_lat = decode_attention(
+        q, cache_c, cache_c[..., :m.kv_lora_rank], length,
+        spec=spec.replace(scale=m.qk_head_dim ** -0.5))       # [B,H,kv]
+    return _absorbed_out(params, cfg, o_lat, x.dtype), {"c": cache_c}
 
 
 def mla_decode_paged(params, cfg, x, cache, table, lengths, *,
@@ -133,6 +183,17 @@ def mla_prefill_chunk(params, cfg, x, cache, table, lengths, *,
         C, dtype=torch.int32, device=x.device)[None, :]
     return _mla_chunk(params, cfg, x, cache, table, lengths, positions,
                       spec=spec)
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, *, device="cuda"):
+    """Dense latent cache {"c": zeros [batch, max_len, latent]}."""
+    return {"c": torch.zeros(batch, max_len, cfg.mla.latent_dim, dtype=dtype,
+                             device=device)}
+
+
+def mla_prefill_cache(params, cfg, x, positions):
+    """Latent cache rows for a whole prompt."""
+    return _latent(params, cfg, x, positions)
 
 
 def init_mla_cache_paged(cfg, layout, dtype, kv_dtype: str = "fp", *,

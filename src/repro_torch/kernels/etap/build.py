@@ -1,4 +1,5 @@
-"""Build and load the ETAP CUDA kernels (``csrc/*.cu``) on first use.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP kernels,
+the untransposed baseline and the split combine) on first use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -26,7 +27,10 @@ NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+# the dense kernels' operand block: q, k, kb, ldk, v, vb, ldv, S, lengths
+_DENSE = [_P, _P, _L, _I, _P, _L, _I, _I, _P]
 SIGNATURES = {
     "etap_dk": [],
     "etap_dv": [],
@@ -36,7 +40,13 @@ SIGNATURES = {
                            _I, _P],
     "etap_prefill_mla_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                _I, _P],
+    "etap_decode_dense": _DENSE + [_P, _I, _I, _F, _I, _P],
+    "etap_partial_dense": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "flash_decode": _DENSE + [_P, _I, _I, _F, _I, _P],
+    "flash_decode_partial": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                      _P],
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: list = []

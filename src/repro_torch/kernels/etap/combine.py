@@ -1,9 +1,12 @@
-"""Split-KV phase 2 (K2): merge per-split (m, ℓ, Accᵀ) into O.
+"""Split-KV phase 2 (K2): merge per-split (m, ℓ, Acc) into O.
 
-The port of ``repro/kernels/etap/combine.py`` for the transposed (ETAP)
-orientation.  The CUDA kernel (``csrc/combine.cu``) replaces the Pallas
-kernel at ``repro/kernels/etap/combine.py:60``; its header note says what
-bounds it on the H100.  The merge math is
+The port of ``repro/kernels/etap/combine.py`` in both of the reference's
+orientations: :func:`combine_splits` takes the ETAP partials' transposed
+Accᵀ [B,n,Dv,H] (K1, K6), :func:`combine_splits_std` the untransposed
+baseline's Acc [B,n,H,Dv] (K8) — the reference's ``transposed=True`` and
+``transposed=False``.  Their CUDA kernels (``csrc/combine.cu``) replace the
+Pallas kernel at ``repro/kernels/etap/combine.py:60``; its header note says
+what bounds them on the H100.  The merge math is
 :func:`repro_torch.kernels.softmax_state.merge_splits`; ``rescale`` must be
 the mode the partials were produced in.  With one split the merge is bitwise
 the single-pass epilogue.
@@ -14,42 +17,72 @@ import torch
 
 from repro_torch.kernels import softmax_state
 from repro_torch.kernels.etap import build
+from repro_torch.kernels.etap.launch import amla_flag, stream
 
 
 def combine_splits_plain(m, l, acc, *, out_dtype, rescale=None):
-    """Plain K2. m, l [B,n,H]; acc [B,n,Dv,H] fp32.  Returns O [B,H,Dv]."""
+    """Plain K2, transposed. m, l [B,n,H]; acc [B,n,Dv,H] fp32.  Returns
+    O [B,H,Dv]."""
     _, l_g, acc_g = softmax_state.merge_splits(
         m, l, acc, axis=1, mode=softmax_state.resolve(rescale),
         expand=lambda w: w[:, :, None, :])
     return (acc_g / l_g[:, None, :]).transpose(1, 2).to(out_dtype)
 
 
-def combine_splits(m, l, acc, *, out_dtype, rescale=None):
-    """K2: CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16 output)."""
+def combine_splits_std_plain(m, l, acc, *, out_dtype, rescale=None):
+    """Plain K2, [n,H,Dv] orientation. m, l [B,n,H]; acc [B,n,H,Dv] fp32.
+    Returns O [B,H,Dv]."""
+    _, l_g, acc_g = softmax_state.merge_splits(
+        m, l, acc, axis=1, mode=softmax_state.resolve(rescale),
+        expand=lambda w: w[..., None])
+    return (acc_g / l_g[..., None]).to(out_dtype)
+
+
+def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
+            what):
     dev = m.device
-    if dev.type == "cpu":
-        return combine_splits_plain(m, l, acc, out_dtype=out_dtype,
-                                    rescale=rescale)
     if dev.type != "cuda":
         raise NotImplementedError(f"no combine path for device {dev}")
     if out_dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"combine_splits: the CUDA kernel writes bf16, asked {out_dtype}")
+            f"{what}: the CUDA kernel writes bf16, asked {out_dtype}")
     B, n, H = m.shape
-    Dv = acc.shape[2]
-    if Dv % 32 or acc.shape != (B, n, Dv, H):
-        raise ValueError(f"combine_splits: acc {tuple(acc.shape)} does not "
-                         f"match m {tuple(m.shape)} (Dv a multiple of 32)")
-    lib = build.library()
+    if Dv % 32 or tuple(acc.shape) != acc_shape:
+        raise ValueError(f"{what}: acc {tuple(acc.shape)} does not match "
+                         f"m {tuple(m.shape)} (Dv a multiple of 32)")
     m, l, acc = (x.float().contiguous() for x in (m, l, acc))
     out = torch.empty(B, H, Dv, dtype=out_dtype, device=dev)
-    combine_splits.launches += 1
-    build.check(lib.etap_combine_splits(
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), B, n, H,
-        Dv, int(softmax_state.resolve(rescale) == "amla"),
-        torch.cuda.current_stream(dev).cuda_stream), "etap_combine_splits")
+    wrapper.launches += 1
+    build.check(fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                   B, n, H, Dv, amla_flag(rescale), stream(dev)), what)
     return out
 
 
+def combine_splits(m, l, acc, *, out_dtype, rescale=None):
+    """K2, transposed: CPU tensors take the plain version; CUDA tensors
+    launch the kernel (bf16 output)."""
+    if m.device.type == "cpu":
+        return combine_splits_plain(m, l, acc, out_dtype=out_dtype,
+                                    rescale=rescale)
+    B, n, H = m.shape
+    Dv = acc.shape[2]
+    return _launch(combine_splits, build.library().etap_combine_splits,
+                   m, l, acc, Dv, out_dtype=out_dtype, rescale=rescale,
+                   acc_shape=(B, n, Dv, H), what="etap_combine_splits")
+
+
+def combine_splits_std(m, l, acc, *, out_dtype, rescale=None):
+    """K2, [n,H,Dv] orientation (the untransposed baseline's partials)."""
+    if m.device.type == "cpu":
+        return combine_splits_std_plain(m, l, acc, out_dtype=out_dtype,
+                                        rescale=rescale)
+    B, n, H = m.shape
+    Dv = acc.shape[3]
+    return _launch(combine_splits_std,
+                   build.library().etap_combine_splits_rows, m, l, acc, Dv,
+                   out_dtype=out_dtype, rescale=rescale,
+                   acc_shape=(B, n, H, Dv), what="etap_combine_splits_rows")
+
+
 combine_splits.launches = 0
+combine_splits_std.launches = 0

@@ -1,5 +1,5 @@
-// Paged MLA-fused ETAP attention for Hopper (sm_90a): one templated body
-// serving three kernels of the JAX package.
+// MLA ETAP attention for Hopper (sm_90a): one templated body serving five
+// kernels of the JAX package.
 //
 //   K3  single-pass paged decode   replaces repro/kernels/etap/etap.py:237
 //       (_paged_call, reached from etap_decode_mla_paged_pallas :259)
@@ -9,22 +9,40 @@
 //       draft verify               (_prefill_call :373, reached from
 //                                   etap_prefill_mla_paged_pallas :456 and
 //                                   etap_verify_mla_paged_pallas :493)
+//   K5  single-pass dense decode   replaces repro/kernels/etap/etap.py:154
+//       (_call :122, reached from etap_decode_pallas :164 and
+//        etap_decode_mla_pallas :171)
+//   K6  dense split-KV phase 1     replaces repro/kernels/etap/etap.py:603
+//       (etap_partial_pallas :557)
 //
 // What they compute.  A CTA owns NT = 16 query columns of one batch row (16
 // heads of a decode query, or 16 of the Cq*H columns of a prefill chunk)
-// and walks that row's pool pages through the block table.  Per 64-row page:
+// and walks that row's KV rows in 64-row tiles (pages).  Per tile:
 //     S^T = K Q^T * scale          [64, 16]   mma.sync, page rows on M
 //     mask kpos > horizon(column) to -1e30
 //     online-softmax update per column (m, l in shared memory)
 //     O^T += V^T P^T               [512, 16]  mma.sync, Dv on M
 // V is the first 512 columns of the same 576-wide latent page: the page is
-// read once for both products.  Column c is live for key position kpos iff
-// kpos <= horizon(c), with horizon = lengths[b] - 1 (decode), start[b] +
+// read once for both products.
+//
+// Address modes.  Paged (K1, K3, K4): tile j of row b is pool block
+// table[b, j].  Dense (K5, K6): tile j of row b is rows [64 j, 64 j + 64) of
+// k + b * kb with row stride ldk; rows at or past S are zero-filled, so the
+// caller never pads the cache (the reference pads with zeros, and the
+// horizon masks those rows either way).  A dense V is either the first 512
+// columns of the K tile (v null: the MLA latent, V = cache[..., :512], read
+// in place with no copy) or its own rows at v + b * vb, stride ldv, loaded
+// over the K tile's first 512 columns once the score product is done.
+//
+// Column c is live for key position kpos iff kpos <= horizon(c), with
+// horizon = lengths[b] - 1 (decode), start[b] +
 // c / H (prefill), or qpos[b, c] (verify) — so decode, prefill and verify
 // share the mask code, and verify with a linear qpos is bitwise prefill.
-// K3/K4 end with O = (Acc^T / l)^T in the pool dtype; K1 writes the raw
-// fp32 (m, l, Acc^T) of its split for the combine kernel (combine.cu).  K1
-// and K3 are the same body, so partial(n_splits=1) + combine is bitwise K3.
+// K3/K4/K5 end with O = (Acc^T / l)^T in bf16; K1/K6 write the raw fp32
+// (m, l, Acc^T) of their split for the combine kernel (combine.cu).  The
+// split and single-pass kernels are the same body, so partial(n_splits=1)
+// + combine is bitwise the single pass, and over the same rows the dense
+// kernels are bitwise the paged ones.
 //
 // Numerics.  Scores, m, l and Acc are fp32.  The scores come from bf16
 // inputs with fp32 accumulation.  The probabilities enter the second product
@@ -55,17 +73,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "softmax_state.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using etap::LOG2E;
-using etap::NEG_INF;
+using namespace etap;
 
-constexpr int DK = 576;        // latent width: kv_lora 512 + rope 64
-constexpr int DV = 512;        // V = the first DV latent columns
-constexpr int PAGE = 64;       // pool rows per block (page)
 constexpr int NT = 16;         // query columns per CTA
 constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
@@ -87,14 +100,20 @@ struct Smem {
 
 struct Params {
   const bf16* q;      // [B, C, DK]
-  const bf16* pool;   // [N, PAGE, DK]
-  const int* table;   // [B, nbt]
+  const bf16* k;      // paged: pool [N, PAGE, DK]; dense: rows b*kb + s*ldk
+  const int* table;   // [B, nbt] (paged) or null (dense)
+  long long kb;       // dense batch stride (elements)
+  int ldk;            // row stride (elements): DK for the pool
+  int S;              // dense rows per batch row (rows >= S read as zero)
+  const bf16* v;      // dense separate V rows b*vb + s*ldv, or null
+  long long vb;
+  int ldv;
   const int* base;    // [B] horizon base: lengths (decode) or start (prefill)
   const int* qpos;    // [B, C] explicit horizons (verify), or null
   int hz_off;         // -1 for decode (pos < length), 0 for prefill
   int heads;          // column c belongs to query row c / heads
   int C;              // query columns per batch row
-  int nbt;            // table width (a multiple of npb)
+  int nbt;            // tiles per batch row (a multiple of npb)
   int npb;            // pages per split
   float scale;
   int amla;
@@ -104,38 +123,10 @@ struct Params {
   float* acc_out;     // [B, n_splits, DV, C]
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-template <bool STATS>
-__global__ void __launch_bounds__(NTHREAD, 2) etap_paged_kernel(Params P) {
+// DENSE selects the address mode at compile time, so the paged kernels
+// carry none of the dense mode's code.
+template <bool STATS, bool DENSE>
+__global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
@@ -185,12 +176,16 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_paged_kernel(Params P) {
 
   const int smi = warp & 3, sni = warp >> 2;   // this warp's S^T tile
   for (int j = j0; j < j_end; ++j) {
-    const int blk = P.table[(size_t)b * P.nbt + j];
-    const bf16* src = P.pool + (size_t)blk * PAGE * DK;
-    for (int i = tid; i < PAGE * (DK / 8); i += NTHREAD) {
-      const int r = i / (DK / 8), cc = i % (DK / 8);
-      cp_async16(&sm.k[r * KSTR + cc * 8], src + (size_t)r * DK + cc * 8);
+    const bf16* src;
+    int rows = PAGE;
+    if constexpr (DENSE) {
+      src = P.k + (size_t)b * P.kb + (size_t)j * PAGE * P.ldk;
+      rows = min(PAGE, P.S - j * PAGE);
+    } else {
+      src = P.k + (size_t)P.table[(size_t)b * P.nbt + j] * PAGE * DK;
     }
+    load_tile<NTHREAD>(sm.k, KSTR, src, DENSE ? (size_t)P.ldk : DK, rows, DK,
+                       DENSE);
     cp_async_wait_all();
     __syncthreads();
 
@@ -222,45 +217,23 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_paged_kernel(Params P) {
     }
     __syncthreads();
 
+    // ---- a separate V replaces the K tile's first DV columns (rows past
+    //      S stay zero from the K load)
+    if (DENSE && P.v)
+      load_tile<NTHREAD>(sm.k, KSTR,
+                         P.v + (size_t)b * P.vb + (size_t)j * PAGE * P.ldv,
+                         P.ldv, rows, DV, false);
+
     // ---- online-softmax update: 16 lanes per column, 4 rows per lane
     {
       const int col = tid >> 4, r = tid & 15;
       float sv[4];
-      float mx = NEG_INF * LOG2E;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = sm.s[(r + 16 * i) * SSTR + col];
-        if (amla) x = x * LOG2E;               // log2 domain
-        sv[i] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float block_m = amla ? ceilf(mx) : mx;
-      const float m_old = sm.m[col];
-      const float m_new = fmaxf(m_old, block_m);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = etap::prob_exp(sv[i] - m_new, amla);
-        sum += p;
-        const bf16 hi = __float2bfloat16_rn(p);
-        sm.p_hi[col * PSTR + r + 16 * i] = hi;
-        sm.p_lo[col * PSTR + r + 16 * i] =
-            __float2bfloat16_rn(p - __bfloat162float(hi));
-      }
-#pragma unroll
-      for (int off = 8; off; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (r == 0) {
-        const float corr = etap::stat_weight(m_old - m_new, amla);
-        sm.corr[col] = corr;
-        sm.l[col] = sm.l[col] * corr + sum;
-        sm.m[col] = m_new;
-      }
+      for (int i = 0; i < 4; ++i) sv[i] = sm.s[(r + 16 * i) * SSTR + col];
+      tile_update(sv, r, amla, &sm.p_hi[col * PSTR], &sm.p_lo[col * PSTR],
+                  &sm.m[col], &sm.l[col], &sm.corr[col]);
     }
+    cp_async_wait_all();
     __syncthreads();
 
     // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [64 warp, +64)
@@ -343,30 +316,55 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_paged_kernel(Params P) {
   }
 }
 
-template <bool STATS>
-int launch(const Params& p, int B, int n_splits, void* stream) {
+template <bool STATS, bool DENSE>
+int launch_mode(const Params& p, int B, int n_splits, void* stream) {
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
-      etap_paged_kernel<STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      etap_kernel<STATS, DENSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.C + NT - 1) / NT, n_splits, B);
-  etap_paged_kernel<STATS><<<grid, NTHREAD, smem,
-                             static_cast<cudaStream_t>(stream)>>>(p);
+  etap_kernel<STATS, DENSE><<<grid, NTHREAD, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STATS>
+int launch(const Params& p, int B, int n_splits, void* stream) {
+  return p.table ? launch_mode<STATS, false>(p, B, n_splits, stream)
+                 : launch_mode<STATS, true>(p, B, n_splits, stream);
 }
 
 Params make_params(const void* q, const void* pool, const int* table,
                    int C, int nbt, float scale, int amla) {
   Params p{};
   p.q = static_cast<const bf16*>(q);
-  p.pool = static_cast<const bf16*>(pool);
+  p.k = static_cast<const bf16*>(pool);
   p.table = table;
+  p.ldk = DK;
   p.C = C;
   p.nbt = nbt;
   p.npb = nbt;
   p.scale = scale;
   p.amla = amla;
+  return p;
+}
+
+// Dense decode (K5 / K6): one split per npb tiles of nbt.
+Params dense_params(const void* q, const void* k, long long kb, int ldk,
+                    const void* v, long long vb, int ldv, int S,
+                    const int* lengths, int H, int nbt, float scale,
+                    int amla) {
+  Params p = make_params(q, k, nullptr, H, nbt, scale, amla);
+  p.kb = kb;
+  p.ldk = ldk;
+  p.S = S;
+  p.v = static_cast<const bf16*>(v);
+  p.vb = vb;
+  p.ldv = ldv;
+  p.base = lengths;
+  p.hz_off = -1;
+  p.heads = H;
   return p;
 }
 
@@ -421,6 +419,36 @@ int etap_prefill_mla_paged(const void* q, const void* pool, const int* table,
   p.heads = H;
   p.out = static_cast<bf16*>(out);
   return launch<false>(p, B, 1, stream);
+}
+
+// K5: q [B,H,DK]; K rows k + b*kb + s*ldk for s < S (DK wide); V null (the
+// first DV columns of K) or rows v + b*vb + s*ldv (DV wide); lengths [B];
+// out [B,H,DV].  Strides in elements.
+int etap_decode_dense(const void* q, const void* k, long long kb, int ldk,
+                      const void* v, long long vb, int ldv, int S,
+                      const int* lengths, void* out, int B, int H,
+                      float scale, int amla, void* stream) {
+  const int nbt = (S + PAGE - 1) / PAGE;
+  Params p = dense_params(q, k, kb, ldk, v, vb, ldv, S, lengths, H, nbt,
+                          scale, amla);
+  p.out = static_cast<bf16*>(out);
+  return launch<false>(p, B, 1, stream);
+}
+
+// K6: as K5, cut into n_splits splits of tps 64-row tiles each (rows past S
+// read as zero); writes fp32 m, l [B,n,H] and acc [B,n,DV,H].
+int etap_partial_dense(const void* q, const void* k, long long kb, int ldk,
+                       const void* v, long long vb, int ldv, int S,
+                       const int* lengths, float* m_out, float* l_out,
+                       float* acc_out, int B, int H, int n_splits, int tps,
+                       float scale, int amla, void* stream) {
+  Params p = dense_params(q, k, kb, ldk, v, vb, ldv, S, lengths, H,
+                          n_splits * tps, scale, amla);
+  p.npb = tps;
+  p.m_out = m_out;
+  p.l_out = l_out;
+  p.acc_out = acc_out;
+  return launch<true>(p, B, n_splits, stream);
 }
 
 }  // extern "C"

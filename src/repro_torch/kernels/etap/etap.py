@@ -1,21 +1,27 @@
-"""Paged MLA-fused ETAP kernels: wrappers, launch counters and plain versions.
+"""ETAP kernels: wrappers, launch counters and plain versions.
 
-The port of ``repro/kernels/etap/etap.py`` for the paged MLA-fused fp path.
-Three kernels, all one CUDA body (``csrc/etap.cu``, whose header note says
-what bounds each on the H100 and how the design answers it):
+The port of ``repro/kernels/etap/etap.py`` for the MLA latent widths.  Five
+kernels, all one CUDA body (``csrc/etap.cu``, whose header note says what
+bounds each on the H100 and how the design answers it):
 
   K3 :func:`etap_decode_mla_paged`   single-pass paged decode
      (replaces ``repro/kernels/etap/etap.py:237``, ``_paged_call``)
-  K1 :func:`etap_paged_partial`      split-KV phase 1
+  K1 :func:`etap_paged_partial`      split-KV phase 1, paged
      (replaces ``repro/kernels/etap/etap.py:713``)
   K4 :func:`etap_prefill_mla_paged` / :func:`etap_verify_mla_paged`
      chunked paged prefill and draft verify
      (replaces ``repro/kernels/etap/etap.py:430``, ``_prefill_call``)
+  K5 :func:`etap_decode_dense` (and its fused form
+     :func:`etap_decode_mla_dense`)  single-pass dense decode
+     (replaces ``repro/kernels/etap/etap.py:154``, ``_call``)
+  K6 :func:`etap_partial_dense`      split-KV phase 1, dense
+     (replaces ``repro/kernels/etap/etap.py:603``)
 
 Each wrapper dispatches on the device of its operands: CPU tensors run the
 ``*_plain`` version, CUDA tensors launch the kernel (or raise on a shape or
 dtype the kernel does not take).  There is no fallback.  The plain versions
-walk the pool page by page through the block table with
+walk the KV tiles (pool pages through the block table, or ``block``-row
+blocks of the dense cache as the reference does) with
 :func:`repro_torch.kernels.softmax_state.update`, the recurrence the kernel
 runs.  Each wrapper's ``launches`` attribute counts its kernel launches.
 
@@ -26,34 +32,46 @@ live for key position kpos iff ``kpos <= horizon[b, c]`` — decode uses
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import softmax_state
 from repro_torch.kernels.etap import build
+from repro_torch.kernels.etap.launch import (amla_flag, check_widths,
+                                            dense_operands, dense_split_tiles,
+                                            device_of, i32, ptr, split_layout,
+                                            stream)
 
 NEG_INF = softmax_state.NEG_INF
 
 
 # ----------------------------------------------------------- plain versions
-def _walk_plain(q, pool, table, horizon, pages, *, scale, dv, mode):
-    """Online-softmax walk of ``pages`` (table columns) for query columns
-    q [B, C, Dk] with per-column horizons [B, C].  Returns the fp32 state
-    (m [B,C], l [B,C], accT [B,dv,C])."""
+def _walk_plain(q, fetch, tiles, block, horizon, *, scale, dv, mode):
+    """Online-softmax walk over KV ``tiles`` for query columns q [B, C, Dk]
+    with per-column horizons [B, C].  ``fetch(j)`` returns tile j's K
+    [B, block, Dk] and V [B, block, dv] rows; tile j holds key positions
+    [j·block, (j+1)·block).  Returns the fp32 state (m [B,C], l [B,C],
+    accT [B,dv,C])."""
     B, C, _ = q.shape
-    page = pool.shape[1]
     qf = q.float()
-    arange = torch.arange(page, device=q.device, dtype=torch.int32)
+    arange = torch.arange(block, device=q.device, dtype=torch.int32)
     state = softmax_state.init((B, C), (B, dv, C), device=q.device)
-    for j in pages:
-        blk = pool[table[:, j].long()].float()                 # [B,page,Dk]
-        sT = torch.einsum("bpd,bcd->bpc", blk, qf) * scale     # Sᵀ = K·Qᵀ
-        kpos = j * page + arange
+    for j in tiles:
+        k, v = (x.float().contiguous() for x in fetch(j))
+        sT = torch.einsum("bpd,bcd->bpc", k, qf) * scale       # Sᵀ = K·Qᵀ
+        kpos = j * block + arange
         live = kpos[None, :, None] <= horizon[:, None, :]
         sT = torch.where(live, sT, NEG_INF)
-        v = blk[..., :dv]
         state = softmax_state.update(
             state, sT, lambda p, v=v: torch.einsum("bpv,bpc->bvc", v, p),
             axis=1, mode=mode, expand=lambda c: c[:, None, :])
     return state
+
+
+def _pool_fetch(pool, table, dv):
+    def fetch(j):
+        blk = pool[table[:, j].long()]                         # [B,page,Dk]
+        return blk, blk[..., :dv]
+    return fetch
 
 
 def _finalize(state, dtype):
@@ -79,8 +97,10 @@ def etap_decode_mla_paged_plain(q, kv_pool, dv, table, lengths, *, scale,
     Returns [B,H,dv] in the pool dtype."""
     mode = softmax_state.resolve(rescale)
     H = q.shape[1]
-    state = _walk_plain(q, kv_pool, table, _decode_horizon(lengths, H),
-                        range(table.shape[1]), scale=scale, dv=dv, mode=mode)
+    state = _walk_plain(q, _pool_fetch(kv_pool, table, dv),
+                        range(table.shape[1]), kv_pool.shape[1],
+                        _decode_horizon(lengths, H), scale=scale, dv=dv,
+                        mode=mode)
     return _finalize(state, kv_pool.dtype)
 
 
@@ -95,8 +115,9 @@ def etap_paged_partial_plain(q, kv_pool, dv, table, lengths, *, scale,
         raise ValueError(f"table width {nb} not a multiple of {n_splits}")
     npb = nb // n_splits
     horizon = _decode_horizon(lengths, q.shape[1])
-    parts = [_walk_plain(q, kv_pool, table, horizon,
-                         range(s * npb, (s + 1) * npb), scale=scale, dv=dv,
+    fetch = _pool_fetch(kv_pool, table, dv)
+    parts = [_walk_plain(q, fetch, range(s * npb, (s + 1) * npb),
+                         kv_pool.shape[1], horizon, scale=scale, dv=dv,
                          mode=mode) for s in range(n_splits)]
     return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
 
@@ -109,53 +130,66 @@ def etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start, *, scale,
     mode = softmax_state.resolve(rescale)
     B, Cq, H, Dk = q.shape
     horizon = _chunk_horizon(start, qpos, Cq, H, q.device)
-    state = _walk_plain(q.reshape(B, Cq * H, Dk), kv_pool, table, horizon,
-                        range(table.shape[1]), scale=scale, dv=dv, mode=mode)
+    state = _walk_plain(q.reshape(B, Cq * H, Dk),
+                        _pool_fetch(kv_pool, table, dv),
+                        range(table.shape[1]), kv_pool.shape[1], horizon,
+                        scale=scale, dv=dv, mode=mode)
     return _finalize(state, kv_pool.dtype).reshape(B, Cq, H, dv)
 
 
+def _dense_fetch(k, v, block):
+    def fetch(j):
+        rows = slice(j * block, (j + 1) * block)
+        return k[:, rows], v[:, rows]
+    return fetch
+
+
+def _dense_splits_plain(q, k, v, length, *, scale, block, n_splits, mode):
+    """Per-split fp32 states of a dense walk over ``block``-row blocks, the
+    cache zero-padded to the split geometry as the reference pads it."""
+    S = k.shape[1]
+    block, npb, padded = split_layout(S, block, n_splits)
+    if padded > S:
+        k = F.pad(k, (0, 0, 0, padded - S))
+        v = F.pad(v, (0, 0, 0, padded - S))
+    fetch = _dense_fetch(k, v, block)
+    horizon = _decode_horizon(length, q.shape[1])
+    return [_walk_plain(q, fetch, range(s * npb, (s + 1) * npb), block,
+                        horizon, scale=scale, dv=v.shape[2], mode=mode)
+            for s in range(n_splits)]
+
+
+def etap_decode_dense_plain(q, k, v, length, *, scale, block=512,
+                            rescale=None):
+    """Plain K5. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv]; length [BG].  Walks
+    ``min(block, S)``-row blocks, S zero-padded to a block multiple.
+    Returns [BG,H,Dv] in v's dtype."""
+    (state,) = _dense_splits_plain(q, k, v, length, scale=scale, block=block,
+                                   n_splits=1,
+                                   mode=softmax_state.resolve(rescale))
+    return _finalize(state, v.dtype)
+
+
+def etap_partial_dense_plain(q, k, v, length, *, scale, block, n_splits,
+                             rescale=None):
+    """Plain K6: split s walks blocks [s·npb, (s+1)·npb) of the cache
+    padded to ``n_splits·npb·block`` rows.  Returns fp32 (m [BG,n,H],
+    l [BG,n,H], accT [BG,n,Dv,H])."""
+    parts = _dense_splits_plain(q, k, v, length, scale=scale, block=block,
+                                n_splits=n_splits,
+                                mode=softmax_state.resolve(rescale))
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
+
+
 # ----------------------------------------------------------- CUDA launches
-def _device_of(*tensors) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t is not None and t.device != dev:
-            raise ValueError(f"operands on {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"no ETAP path for device {dev}")
-    return dev
-
-
-def _ptr(t) -> int:
-    if t.data_ptr() % 16:
-        raise ValueError("CUDA ETAP operands must be 16-byte aligned")
-    return t.data_ptr()
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _check_cuda(q, kv_pool, dv, *, what):
     lib = build.library()
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.bfloat16:
+    check_widths(lib, q, kv_pool, dv, what=what)
+    if kv_pool.shape[1] != lib.etap_page():
         raise NotImplementedError(
-            f"{what}: the CUDA kernel takes bf16 q and pool, got {q.dtype} "
-            f"and {kv_pool.dtype}")
-    want = (lib.etap_dk(), lib.etap_dv(), lib.etap_page())
-    got = (q.shape[-1], dv, kv_pool.shape[1])
-    if got != want or kv_pool.shape[2] != want[0]:
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel takes (Dk, Dv, page) = {want}, got "
-            f"{got} (DeepSeek's latent width at the serve default page)")
+            f"{what}: the CUDA kernel takes page {lib.etap_page()}, got "
+            f"{kv_pool.shape[1]}")
     return lib
-
-
-def _i32(x):
-    return x.to(torch.int32).contiguous()
-
-
-def _amla(rescale) -> int:
-    return int(softmax_state.resolve(rescale) == "amla")
 
 
 def etap_decode_mla_paged(q, kv_pool, dv, table, lengths, *, scale,
@@ -163,19 +197,19 @@ def etap_decode_mla_paged(q, kv_pool, dv, table, lengths, *, scale,
     """K3: single-pass paged MLA-fused ETAP decode. q [B,H,Dk]; pool
     [N,page,Dk]; table [B,nb] (null block 0 in padded entries); lengths [B].
     Returns [B,H,dv] in the pool dtype."""
-    dev = _device_of(q, kv_pool, table, lengths)
+    dev = device_of(q, kv_pool, table, lengths)
     if dev.type == "cpu":
         return etap_decode_mla_paged_plain(q, kv_pool, dv, table, lengths,
                                            scale=scale, rescale=rescale)
     lib = _check_cuda(q, kv_pool, dv, what="etap_decode_mla_paged")
     B, H, _ = q.shape
     q, pool, table, lengths = (q.contiguous(), kv_pool.contiguous(),
-                               _i32(table), _i32(lengths))
+                               i32(table), i32(lengths))
     out = torch.empty(B, H, dv, dtype=kv_pool.dtype, device=dev)
     etap_decode_mla_paged.launches += 1
     build.check(lib.etap_decode_mla_paged(
-        _ptr(q), _ptr(pool), table.data_ptr(), lengths.data_ptr(), _ptr(out),
-        B, H, table.shape[1], float(scale), _amla(rescale), _stream(dev)),
+        ptr(q), ptr(pool), table.data_ptr(), lengths.data_ptr(), ptr(out),
+        B, H, table.shape[1], float(scale), amla_flag(rescale), stream(dev)),
         "etap_decode_mla_paged")
     return out
 
@@ -185,7 +219,7 @@ def etap_paged_partial(q, kv_pool, dv, table, lengths, *, scale, n_splits,
     """K1: split-KV phase 1 over the paged latent pool.  The table width
     must be a multiple of ``n_splits`` (``ops._pad_table`` pads it with
     null blocks).  Returns fp32 (m [B,n,H], l [B,n,H], accT [B,n,dv,H])."""
-    dev = _device_of(q, kv_pool, table, lengths)
+    dev = device_of(q, kv_pool, table, lengths)
     if dev.type == "cpu":
         return etap_paged_partial_plain(q, kv_pool, dv, table, lengths,
                                         scale=scale, n_splits=n_splits,
@@ -196,21 +230,21 @@ def etap_paged_partial(q, kv_pool, dv, table, lengths, *, scale, n_splits,
     if nb % n_splits:
         raise ValueError(f"table width {nb} not a multiple of {n_splits}")
     q, pool, table, lengths = (q.contiguous(), kv_pool.contiguous(),
-                               _i32(table), _i32(lengths))
+                               i32(table), i32(lengths))
     f32 = dict(dtype=torch.float32, device=dev)
     m = torch.empty(B, n_splits, H, **f32)
     l = torch.empty(B, n_splits, H, **f32)
     acc = torch.empty(B, n_splits, dv, H, **f32)
     etap_paged_partial.launches += 1
     build.check(lib.etap_paged_partial(
-        _ptr(q), _ptr(pool), table.data_ptr(), lengths.data_ptr(),
+        ptr(q), ptr(pool), table.data_ptr(), lengths.data_ptr(),
         m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, nb, n_splits,
-        float(scale), _amla(rescale), _stream(dev)), "etap_paged_partial")
+        float(scale), amla_flag(rescale), stream(dev)), "etap_paged_partial")
     return m, l, acc
 
 
 def _prefill(q, kv_pool, dv, table, start, qpos, *, scale, rescale, what):
-    dev = _device_of(q, kv_pool, table, start, qpos)
+    dev = device_of(q, kv_pool, table, start, qpos)
     if dev.type == "cpu":
         return etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start,
                                             scale=scale, rescale=rescale,
@@ -219,15 +253,15 @@ def _prefill(q, kv_pool, dv, table, start, qpos, *, scale, rescale, what):
     B, Cq, H, Dk = q.shape
     C = Cq * H
     q = q.reshape(B, C, Dk).contiguous()
-    pool, table, start = kv_pool.contiguous(), _i32(table), _i32(start)
+    pool, table, start = kv_pool.contiguous(), i32(table), i32(start)
     cols = _chunk_horizon(start, qpos, Cq, H, dev).contiguous() \
         if qpos is not None else None
     out = torch.empty(B, C, dv, dtype=kv_pool.dtype, device=dev)
     etap_prefill_mla_paged.launches += 1
     build.check(lib.etap_prefill_mla_paged(
-        _ptr(q), _ptr(pool), table.data_ptr(), start.data_ptr(),
-        cols.data_ptr() if cols is not None else None, _ptr(out),
-        B, C, H, table.shape[1], float(scale), _amla(rescale), _stream(dev)),
+        ptr(q), ptr(pool), table.data_ptr(), start.data_ptr(),
+        cols.data_ptr() if cols is not None else None, ptr(out),
+        B, C, H, table.shape[1], float(scale), amla_flag(rescale), stream(dev)),
         what)
     return out.reshape(B, Cq, H, dv)
 
@@ -251,6 +285,71 @@ def etap_verify_mla_paged(q, kv_pool, dv, table, start, qpos, *, scale,
                     rescale=rescale, what="etap_verify_mla_paged")
 
 
+def etap_decode_dense(q, k, v, length, *, scale, block=512, rescale=None):
+    """K5: single-pass dense ETAP decode. q [BG,H,Dk]; k [BG,S,Dk];
+    v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place);
+    length [BG].  ``block`` is the reference's padding unit, which the
+    plain version walks; the kernel walks 64-row tiles and reads rows past
+    S as zero, so no padded copy is made.  Returns [BG,H,Dv] in v's
+    dtype."""
+    dev = device_of(q, k, v, length)
+    if dev.type == "cpu":
+        return etap_decode_dense_plain(q, k, v, length, scale=scale,
+                                       block=block, rescale=rescale)
+    lib, args, keep = dense_operands(q, k, v, length,
+                                     what="etap_decode_dense")
+    B, H, _ = q.shape
+    out = torch.empty(B, H, v.shape[2], dtype=v.dtype, device=dev)
+    etap_decode_dense.launches += 1
+    build.check(lib.etap_decode_dense(
+        *args, ptr(out), B, H, float(scale), amla_flag(rescale), stream(dev)),
+        "etap_decode_dense")
+    del keep
+    return out
+
+
+def etap_decode_mla_dense(q, kv, dv, length, *, scale, block=512,
+                          rescale=None):
+    """K5, MLA-fused: one latent stream kv [BG,S,Dk], V = kv[..., :dv]
+    (the reference's ``etap_decode_mla_pallas``).  Counts as a K5
+    launch."""
+    return etap_decode_dense(q, kv, kv[..., :dv], length, scale=scale,
+                             block=block, rescale=rescale)
+
+
+def etap_partial_dense(q, k, v, length, *, scale, block, n_splits,
+                       rescale=None):
+    """K6: dense split-KV phase 1.  Split s covers rows
+    [s·npb·block, (s+1)·npb·block) of the cache padded to
+    ``n_splits·npb·block`` rows (``npb = ceil(ceil(S/block)/n_splits)``,
+    the padding of ``ops._partial``; rows past S read as zero, no copy).
+    Returns fp32 (m [BG,n,H], l [BG,n,H], accT [BG,n,Dv,H])."""
+    dev = device_of(q, k, v, length)
+    if dev.type == "cpu":
+        return etap_partial_dense_plain(q, k, v, length, scale=scale,
+                                        block=block, n_splits=n_splits,
+                                        rescale=rescale)
+    lib, args, keep = dense_operands(q, k, v, length,
+                                     what="etap_partial_dense")
+    tps = dense_split_tiles(k.shape[1], block, n_splits,
+                            what="etap_partial_dense")
+    B, H, _ = q.shape
+    Dv = v.shape[2]
+    f32 = dict(dtype=torch.float32, device=dev)
+    m = torch.empty(B, n_splits, H, **f32)
+    l = torch.empty(B, n_splits, H, **f32)
+    acc = torch.empty(B, n_splits, Dv, H, **f32)
+    etap_partial_dense.launches += 1
+    build.check(lib.etap_partial_dense(
+        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n_splits,
+        tps, float(scale), amla_flag(rescale), stream(dev)),
+        "etap_partial_dense")
+    del keep
+    return m, l, acc
+
+
 etap_decode_mla_paged.launches = 0
 etap_paged_partial.launches = 0
 etap_prefill_mla_paged.launches = 0
+etap_decode_dense.launches = 0
+etap_partial_dense.launches = 0

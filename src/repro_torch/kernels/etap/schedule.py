@@ -38,9 +38,28 @@ class SplitPlan:
     block: int
     nb_per_split: int          # KV blocks each split walks (after padding)
 
+    @property
+    def padded_s(self) -> int:
+        return self.n_splits * self.nb_per_split * self.block
+
 
 def _floor_pow2(n: int) -> int:
     return 1 << (max(n, 1).bit_length() - 1)
+
+
+def split_geometry(S: int, block: int, n_splits: int):
+    """Launch geometry for cutting an S-long dense context into at most
+    ``n_splits`` segments: (block, n_splits, nb_per_split, padded_s).
+    ``block`` is clamped to S; the split count is EFFECTIVE (no split may
+    own only padding), and callers pad S to ``padded_s`` and launch with
+    the returned count."""
+    S = max(int(S), 1)
+    block = max(1, min(block, S))
+    nb = -(-S // block)
+    n_splits = max(1, min(int(n_splits), nb))
+    npb = -(-nb // n_splits)
+    n_splits = -(-nb // npb)       # drop splits starting past the last block
+    return block, n_splits, npb, n_splits * npb * block
 
 
 def paged_split_geometry(nb: int, n_splits: int):

@@ -1,16 +1,27 @@
-"""Serving loop: continuous batching over the paged latent cache — the
-port of ``repro/launch/serve.py:run_paged``.
+"""Serving driver — the port of ``repro/launch/serve.py``.  Two cache
+layouts:
 
-Ragged requests are admitted into free batch slots when the allocator can
-reserve their whole token budget; their prompts run as chunked paged
-prefill interleaved with the decode batch under a per-step token budget;
-decode steps run the whole ragged batch through the paged ETAP kernels; and
-finished sequences release their blocks so queued requests join mid-stream.
-The scheduler (priorities, preemption by swap or recompute, SLOs, prefix
-cache) is the reference's, copied.
+  paged (default, :func:`run_paged`) — continuous batching over the paged
+      latent cache.  Ragged requests are admitted into free batch slots when
+      the allocator can reserve their whole token budget; their prompts run
+      as chunked paged prefill interleaved with the decode batch under a
+      per-step token budget; decode steps run the whole ragged batch
+      through the paged decode kernels; and finished sequences release
+      their blocks so queued requests join mid-stream.  The scheduler
+      (priorities, preemption by swap or recompute, SLOs, prefix cache) is
+      the reference's, copied.
+
+  dense (:func:`run_dense`) — the fixed-batch path: one full-sequence
+      prefill of B prompts, then ``--gen`` decode steps in which every
+      sequence runs every step, over a [B, prompt + gen, latent] cache.
+
+``--mode etap`` (default) runs the paper's transposed decode kernels;
+``--mode standard`` the untransposed baseline, on either layout.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 \\
         --requests 16 --prompt 512 --gen 32 --layers 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --cache-layout dense \\
+        --mode standard --batch 4 --prompt 4096 --gen 32 --layers 3
 
 Flags of the reference that this port does not serve yet are refused with
 a "not yet ported" error, never ignored.
@@ -83,6 +94,63 @@ def _make_requests(args, vocab: int):
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _device_name(device) -> str:
+    return (torch.cuda.get_device_name(torch.device(device))
+            if torch.device(device).type == "cuda" else "cpu")
+
+
+def run_dense(args, cfg, *, params=None, tokens=None, device="cuda") -> dict:
+    """Fixed-batch serving over the dense cache (the reference's
+    ``run_dense``): prefill B prompts of ``--prompt`` tokens, then
+    ``--gen`` greedy decode steps for every sequence.  The reference jits
+    the steps into one ``lax.scan``; the port loops in Python, one
+    :func:`model.decode_step` per token.
+
+    ``params`` hands in weights (None: the port's seeded init); ``tokens``
+    [B, prompt] the prompts (None: drawn from ``--seed`` with numpy; the
+    reference draws them with ``jax.random``, so a test hands its prompts
+    in).  Returns the generated tokens [B, gen] (each step's input token,
+    as the reference's scan emits them) and the timings."""
+    if params is None:
+        params = model.init(cfg, seed=args.seed, device=device)
+    B, S = args.batch, args.prompt
+    if tokens is None:
+        tokens = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, size=(B, S))
+    tokens = torch.as_tensor(np.array(tokens, np.int32), dtype=torch.int32,
+                             device=device)
+    max_len = S + args.gen
+    spec = AttnSpec(mode=args.mode, kv_splits=args.kv_splits)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache, pos = model.prefill(params, cfg, tokens, max_len)
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gen = []
+    for i in range(args.gen):
+        gen.append(cur)
+        logits, cache = model.decode_step(params, cfg, cache, cur, pos + i,
+                                          spec=spec, cache_layout="dense")
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    gen = torch.stack(gen, dim=1).cpu()                       # syncs
+    t_decode = time.perf_counter() - t0
+    tokens_served = int(gen.numel())
+    print(f"[serve] {args.arch} layers={cfg.num_layers} "
+          f"device={_device_name(device)} layout=dense mode={args.mode} "
+          f"rescale={softmax_state.default_mode()} B={B} prompt={S} "
+          f"gen={args.gen} t_prefill={t_prefill:.3f}s "
+          f"t_decode={t_decode:.3f}s "
+          f"decode tok/s={tokens_served / max(t_decode, 1e-9):.1f} "
+          f"sample={gen[0][:16].tolist()}")
+    return {"tokens": gen.numpy(), "t_prefill": t_prefill,
+            "t_decode": t_decode, "tokens_served": tokens_served,
+            "steps": args.gen}
 
 
 def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
@@ -281,9 +349,8 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     outputs = {rid: r.out for rid, r in sorted(sched.done.items())}
     pstats = prefix.stats() if prefix is not None else None
     tokens_served = c_tokens.value
-    dev_name = (torch.cuda.get_device_name(torch.device(device))
-                if torch.device(device).type == "cuda" else "cpu")
-    print(f"[serve] {args.arch} layers={cfg.num_layers} device={dev_name} "
+    print(f"[serve] {args.arch} layers={cfg.num_layers} "
+          f"device={_device_name(device)} mode={args.mode} "
           f"slots={B} requests={n_requests} page={layout.block_size} "
           f"chunk={chunk} rescale={softmax_state.default_mode()} "
           f"tokens={tokens_served} steps={c_steps.value} "
@@ -317,13 +384,14 @@ def config_for(args):
 
 def run(args) -> dict:
     softmax_state.set_default_mode(args.rescale)
-    return run_paged(args, config_for(args), device=args.device)
+    cfg = config_for(args)
+    if args.cache_layout == "dense":
+        return run_dense(args, cfg, device=args.device)
+    return run_paged(args, cfg, device=args.device)
 
 
 # flag -> (value that is served, why another value is refused)
 _NOT_PORTED = {
-    "cache_layout": ("paged", "the dense cache layout (ROADMAP A4)"),
-    "mode": ("etap", "the untransposed 'standard' baseline (ROADMAP A4)"),
     "kv_dtype": ("fp", "quantized KV pools (ROADMAP A1)"),
     "spec_tokens": (0, "speculative decoding (ROADMAP A2)"),
     "fault_rate": (0.0, "fault drills (ROADMAP A6)"),
@@ -411,6 +479,16 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true")
     args = ap.parse_args(argv)
+    # the reference's refusals of paged-only flags come first: with the
+    # dense layout these flags are wrong, not merely unported
+    if args.spec_tokens > 0 and args.cache_layout == "dense":
+        ap.error("--spec-tokens requires --cache-layout paged: the dense "
+                 "loop has no block pool to rewind rejected drafts in")
+    if args.cache_layout == "dense" and (args.trace_out
+                                         or args.profile_kernels):
+        ap.error("--trace-out/--profile-kernels require --cache-layout "
+                 "paged: the dense loop has no per-request lifecycle or "
+                 "per-launch entries to record")
     for flag, (served, what) in _NOT_PORTED.items():
         if getattr(args, flag) != served:
             ap.error(f"--{flag.replace('_', '-')}: {what} is not yet ported "

@@ -1,12 +1,14 @@
-"""Config-driven LM, paged serving path — the port of ``repro/models/model.py``
-for MLA stacks of dense (GLU MLP) blocks: embedding → layers → head.
+"""Config-driven LM — the port of ``repro/models/model.py`` for MLA stacks of
+dense (GLU MLP) blocks: embedding → layers → head, served over the dense or
+the paged cache.
 
 The reference stacks each layer group on a leading axis and scans it with
-``lax.scan``; the port keeps one parameter dict per layer and loops in
-Python.  :func:`layer_groups` is kept as the reference's static plan, which
-tells the two apart when weights are converted.  MoE blocks, the GQA and
-recurrent families, the dense cache layout, training and ``verify_step`` are
-not ported yet (ROADMAP) and raise ``NotImplementedError``.
+``lax.scan``; the port keeps one parameter dict per layer (and one cache
+dict per layer) and loops in Python.  :func:`layer_groups` is kept as the
+reference's static plan, which tells the two apart when weights are
+converted.  MoE blocks, the GQA and recurrent families, training
+(``loss_fn``) and ``verify_step`` are not ported yet (ROADMAP) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -100,7 +102,69 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
     return params
 
 
+# ---------------------------------------------------------- full sequence
+def _block_seq(lp, cfg, x, positions, collect_cache: bool):
+    """One block over a full sequence.  Returns (x, cache rows or {}).  The
+    reference's MoE aux losses are zero here: MoE is not ported."""
+    h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if collect_cache:
+        mixed, cache = mla_mod.mla_train(lp["mix"], cfg, h, positions,
+                                         return_cache=True)
+    else:
+        mixed, cache = mla_mod.mla_train(lp["mix"], cfg, h, positions), {}
+    x = x + mixed
+    h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(lp["ffn"], h2), cache
+
+
+def _hidden(params, cfg, tokens, collect_cache: bool):
+    """The final-normed hidden states [B,S,D] of a full sequence and the
+    per-layer cache rows."""
+    check_ported(cfg)
+    x = layers.embed(params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S)
+    caches = []
+    for lp in params["layers"]:
+        x, c = _block_seq(lp, cfg, x, positions, collect_cache)
+        caches.append(c)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, caches
+
+
+def forward(params, cfg, tokens):
+    """Full-sequence forward.  tokens: [B,S].  Returns logits [B,S,V] fp32
+    (the reference's ``forward`` without its aux losses and cache)."""
+    x, _ = _hidden(params, cfg, tokens, collect_cache=False)
+    return layers.unembed(params["embed_f32"], x)
+
+
 # ----------------------------------------------------------------- serving
+def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
+    """Dense serving cache: one {"c": [batch, max_len, latent]} per layer."""
+    check_ported(cfg)
+    return [mla_mod.init_mla_cache(cfg, batch, max_len, cfg.torch_dtype,
+                                   device=device)
+            for _ in range(cfg.num_layers)]
+
+
+def _pad_cache_rows(cache_rows, max_len):
+    """Pad one layer's prefill cache rows out to the serving length."""
+    c = cache_rows["c"]
+    return {"c": torch.nn.functional.pad(c, (0, 0, 0, max_len - c.shape[1]))}
+
+
+def prefill(params, cfg, tokens, max_len: int):
+    """Run the prompt and build the dense serving cache.  tokens: [B,S].
+    Returns (last_logits [B,V] fp32, cache, pos = S).  Only the last row is
+    unembedded: the full [B,S,V] logits are never made."""
+    x, caches = _hidden(params, cfg, tokens, collect_cache=True)
+    logits = layers.unembed(params["embed_f32"], x[:, -1])
+    return (logits, [_pad_cache_rows(c, max_len) for c in caches],
+            tokens.shape[1])
+
+
 def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     """Paged serving cache: one latent pool per layer, all layers sharing
     the one block table the scheduler owns (runtime/paged_cache.BlockPool).
@@ -151,10 +215,15 @@ def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec):
     return x + layers.mlp(lp["ffn"], h2), cache
 
 
-def _block_decode(lp, cfg, x, cache, table, lengths, spec):
+def _block_decode(lp, cfg, x, cache, pos, spec, cache_layout, table,
+                  lengths):
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    mixed, cache = mla_mod.mla_decode_paged(lp["mix"], cfg, h, cache, table,
-                                            lengths, spec=spec)
+    if cache_layout == "paged":
+        mixed, cache = mla_mod.mla_decode_paged(lp["mix"], cfg, h, cache,
+                                                table, lengths, spec=spec)
+    else:
+        mixed, cache = mla_mod.mla_decode(lp["mix"], cfg, h, cache, pos,
+                                          spec=spec)
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + layers.mlp(lp["ffn"], h2), cache
@@ -179,22 +248,26 @@ def prefill_chunk(params, cfg, cache, tokens, block_table, lengths, *,
 
 
 def decode_step(params, cfg, cache, tokens, pos=None, *,
-                spec: AttnSpec | None = None, cache_layout: str = "paged",
+                spec: AttnSpec | None = None, cache_layout: str = "dense",
                 block_table=None, lengths=None):
-    """One serving step over the paged cache. tokens: [B]; block_table
-    [B,max_blocks] and per-sequence lengths [B] place each new token (``pos``
-    is the dense layout's shared position, which the port does not serve).
-    Returns (logits [B,V] fp32, cache)."""
+    """One serving step. tokens: [B].  cache_layout "dense": ``cache`` is
+    :func:`init_cache`'s (or :func:`prefill`'s) and ``pos`` the new token's
+    position, shared by every row.  "paged": ``cache`` is
+    :func:`init_paged_cache`'s, and block_table [B,max_blocks] plus
+    per-sequence lengths [B] place each new token.  Each layer's cache is
+    updated in place.  Returns (logits [B,V] fp32, cache)."""
     spec = spec or AttnSpec()
-    if cache_layout != "paged":
-        raise NotImplementedError(
-            "the dense cache layout is not ported yet (ROADMAP A4)")
-    if block_table is None or lengths is None:
+    if cache_layout not in ("dense", "paged"):
+        raise ValueError(f"cache_layout {cache_layout!r}")
+    if cache_layout == "paged" and (block_table is None or lengths is None):
         raise ValueError("paged decode_step needs block_table and lengths")
+    if cache_layout == "dense" and pos is None:
+        raise ValueError("dense decode_step needs pos")
     x = layers.embed(params["embed"], tokens)
     new_cache = []
     for lp, lc in zip(params["layers"], cache, strict=True):
-        x, nc = _block_decode(lp, cfg, x, lc, block_table, lengths, spec)
+        x, nc = _block_decode(lp, cfg, x, lc, pos, spec, cache_layout,
+                              block_table, lengths)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["embed_f32"], x), new_cache

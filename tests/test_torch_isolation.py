@@ -23,7 +23,8 @@ def _imports(path: Path):
 
 def test_port_has_files():
     assert len(FILES) > 20
-    assert (ROOT / "src/repro_torch/kernels/etap/csrc/etap.cu").exists()
+    for src in ("etap.cu", "flash_decode.cu", "combine.cu"):
+        assert (ROOT / "src/repro_torch/kernels/etap/csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

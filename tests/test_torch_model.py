@@ -294,6 +294,3 @@ def test_unported_paths_raise(weights):
     lay = pc.layout_for(1, 8, block_size=8)
     with pytest.raises(NotImplementedError, match="A1"):
         model.init_paged_cache(cfg, lay, kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        model.decode_step(params, cfg, [], torch.zeros(1, dtype=torch.int32),
-                          0, cache_layout="dense")

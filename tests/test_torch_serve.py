@@ -1,4 +1,5 @@
-"""The port's continuous-batching serve loop against the JAX serve loop.
+"""The port's continuous-batching serve loop against the JAX serve loop, in
+both attention modes, and the serve flags.
 
 Both loops get the same weights (the reference's ``model.init``, converted)
 and the same flags on the reduced DeepSeek config without MoE (fp32, CPU):
@@ -39,11 +40,14 @@ def _port(cfg, params, flags):
                            params=params, device="cpu")
 
 
-@pytest.mark.parametrize("extra", [[], ["--kv-splits", "2"]],
-                         ids=["auto-splits", "kv-splits-2"])
+@pytest.mark.parametrize("extra", [
+    [], ["--kv-splits", "2"], ["--mode", "standard"],
+    ["--mode", "standard", "--kv-splits", "2"]],
+    ids=["auto-splits", "kv-splits-2", "standard", "standard-kv-splits-2"])
 def test_outputs_equal_jax_serve(setup, extra):
     """Same weights, same flags: the port's greedy outputs equal the JAX
-    loop's (default XLA path).  ``--kv-splits 2`` runs the split path."""
+    loop's (default XLA path).  ``--kv-splits 2`` runs the split path;
+    ``--mode standard`` the untransposed baseline on the gathered pool."""
     jcfg, cfg, params = setup
     want = jserve.run_paged(jserve.parse_args(FLAGS + extra), jcfg)
     got = _port(cfg, params, FLAGS + extra)
@@ -104,7 +108,6 @@ def test_preemption_swap_and_recompute_match_uncontended(setup):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--cache-layout", "dense"], ["--mode", "standard"],
     ["--kv-dtype", "int8"], ["--kv-dtype", "fp8"], ["--spec-tokens", "2"],
     ["--fault-rate", "0.1"], ["--trace-out", "t.json"],
     ["--metrics-out", "m.json"], ["--profile-kernels", "2"]])
@@ -112,6 +115,22 @@ def test_unported_flags_refused(flag, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cpu"] + flag)
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--spec-tokens", "2"], ["--trace-out", "t.json"],
+    ["--profile-kernels", "2"]])
+def test_dense_layout_refuses_paged_only_flags(flag, capsys):
+    """The reference's refusals: these flags need the paged layout."""
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--device", "cpu", "--cache-layout", "dense"]
+                         + flag)
+    assert "--cache-layout paged" in capsys.readouterr().err
+
+
+def test_dense_and_standard_flags_served():
+    args = serve.parse_args(["--cache-layout", "dense", "--mode", "standard"])
+    assert (args.cache_layout, args.mode) == ("dense", "standard")
 
 
 def test_layers_flag_cuts_depth_only():
