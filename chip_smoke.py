@@ -3,7 +3,7 @@
 
 Phases, each of which fails the run when it fails:
 
-  1. build   the port's kernels from ``src/repro_torch/kernels/etap/csrc``
+  1. build   the port's kernels from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, started together) and print ptxas'
              register / shared-memory lines;
   2. kernels each kernel against its plain PyTorch version on the card, at
@@ -12,7 +12,9 @@ Phases, each of which fails the run when it fails:
              K1-K4 (page 64, prefill Cq = 32 with and without a
              tree-shaped qpos), the dense ETAP kernels K5/K6, the
              untransposed baseline K7/K8 and both orientations of the
-             combine K2; the bitwise contracts (split(n=1) + combine ==
+             combine K2, also at the serve phases' own dense shapes and
+             split plans (S 544; S 4128 in 3 splits; 65 gathered pages in
+             blocks of 64); the bitwise contracts (split(n=1) + combine ==
              single pass for both orientations, dense == paged over the
              same rows, fused V == separate V at the same stride); then each
              kernel's time (CUDA events), its plain version's time, its
@@ -26,11 +28,12 @@ Phases, each of which fails the run when it fails:
   4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
              (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
              [n,H,Dv]);
-  5. decode  one full-width decode step over the paged and one over the
-             dense cache, each through the kernels and through the plain
-             versions on the same weights and cache: logits agree, greedy
-             tokens agree; then the paged step's wall time and device time
-             by kernel.
+  5. decode  one full-width decode step over the paged cache, and over the
+             dense cache one in each mode with one split and with two,
+             each through the kernels and through the plain versions on
+             the same weights and cache: logits agree, greedy tokens
+             agree; then the paged step's wall time and device time by
+             kernel.
 
 The launch counters are zeroed just before each serve phase and read just
 after it; each of K1-K8 and both K2 orientations must have launched on a
@@ -73,7 +76,7 @@ F32_TOL = 1e-4
 LOGIT_RTOL = 2e-2
 
 # kernel wrapper -> (the TPU kernel it replaces, its CUDA source)
-_CSRC = "src/repro_torch/kernels/etap/csrc/"
+_CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "etap_paged_partial": ("src/repro/kernels/etap/etap.py:713",
                            _CSRC + "etap.cu"),
@@ -387,22 +390,106 @@ def sdpa_dense(q, k, lengths):
         qd, kk, kk[..., :DV], attn_mask=mask, scale=SCALE, enable_gqa=True)
 
 
-def phase_dense_kernels(quick: bool, report: dict) -> None:
-    """K5 / K6 (dense ETAP), K7 / K8 (untransposed baseline) and K2 in its
-    [n,H,Dv] orientation against their plain versions, the bitwise
-    contracts, the timings, and ETAP beside the baseline."""
+def check_dense(q, k, v, lengths, *, block, plan, mode, tag, errs):
+    """K5 and K7 (single pass, ``block``) and, when ``plan`` has more than
+    one split, K6 / K8 under it and K2 in both orientations, each against
+    its plain version on the same inputs; then split(n=1) + K2 == single
+    pass, bitwise, for both orientations.  Returns the K5 output."""
     import torch
     from repro_torch.kernels.etap import combine as C
     from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    kw = dict(scale=SCALE, rescale=mode)
+    bf16 = dict(out_dtype=torch.bfloat16, rescale=mode)
+    o5 = K.etap_decode_dense(q, k, v, lengths, block=block, **kw)
+    r5 = K.etap_decode_dense_plain(q, k, v, lengths, block=block, **kw)
+    note("etap_decode_dense", bf16_close(o5, r5, f"K5 {tag}"))
+    o7 = FD.flash_decode(q, k, v, lengths, block=block, **kw)
+    r7 = FD.flash_decode_plain(q, k, v, lengths, block=block, **kw)
+    note("flash_decode", bf16_close(o7, r7, f"K7 {tag}"))
+    if plan.n_splits > 1:
+        st6 = K.etap_partial_dense(q, k, v, lengths, plan=plan, **kw)
+        rs6 = K.etap_partial_dense_plain(q, k, v, lengths, plan=plan, **kw)
+        note("etap_partial_dense", finalized_close(st6, rs6, f"K6 {tag}"))
+        o2 = C.combine_splits(*st6, **bf16)
+        note("combine_splits", bf16_close(
+            o2, C.combine_splits_plain(*st6, **bf16), f"K2 {tag}"))
+        bf16_close(o2, r5, f"K6+K2 vs plain K5 {tag}")
+        st8 = FD.flash_decode_partial(q, k, v, lengths, plan=plan, **kw)
+        rs8 = FD.flash_decode_partial_plain(q, k, v, lengths, plan=plan,
+                                            **kw)
+        note("flash_decode_partial", finalized_close(
+            st8, rs8, f"K8 {tag}", transposed=False))
+        o2 = C.combine_splits_std(*st8, **bf16)
+        note("combine_splits_std", bf16_close(
+            o2, C.combine_splits_std_plain(*st8, **bf16),
+            f"K2 [n,H,Dv] {tag}"))
+        bf16_close(o2, r7, f"K8+K2 vs plain K7 {tag}")
+    one = dense_split_plan(k.shape[1], block, 1)
+    bitwise(C.combine_splits(*K.etap_partial_dense(
+        q, k, v, lengths, plan=one, **kw), **bf16), o5,
+        f"K6(n=1)+K2 vs K5 {tag}")
+    bitwise(C.combine_splits_std(*FD.flash_decode_partial(
+        q, k, v, lengths, plan=one, **kw), **bf16), o7,
+        f"K8(n=1)+K2 vs K7 {tag}")
+    return o5
+
+
+def main_path_cases(gen, dev):
+    """The dense decode shapes the serve phases run, at H = 128, with
+    ragged lengths that reach the last row: (tag, q, k, v, lengths, block).
+    dense-short's S 544 ends in a 32-row tile; dense-long's S 4128 is cut
+    into 3 effective splits of 1536 rows, padded to 4608; serve-long-std
+    gathers 65 pages (S 4160) and walks them in blocks of one page."""
+    import torch
+    from repro_torch.runtime.paged_cache import gather_blocks
+    H = 128
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    k = rand(8, 544, DK)
+    yield ("dense-short S=544", rand(8, H, DK), k, k[..., :DV],
+           i32([544, 543, 513, 520, 1, 64, 300, 541]), 512)
+    k = rand(4, 4128, DK)
+    yield ("dense-long S=4128", rand(4, H, DK), k, k[..., :DV],
+           i32([4128, 4097, 3073, 1000]), 512)
+    lengths = [4128, 4097, 1089, 65]
+    pool, table = make_pool(4, 65, lengths, gen, dev)
+    k = gather_blocks(pool, table)
+    yield ("serve-long-std 65 pages", rand(4, H, DK), k, k[..., :DV],
+           i32(lengths), PAGE)
+
+
+def phase_dense_kernels(quick: bool, report: dict) -> None:
+    """K5 / K6 (dense ETAP), K7 / K8 (untransposed baseline) and K2 in both
+    orientations against their plain versions — at H = 128 and 16 over
+    ~4K ragged contexts, and at the main path's own shapes — the bitwise
+    contracts, the timings, and ETAP beside the baseline."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels import splitkv
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.schedule import dense_split_plan
     from repro_torch.kernels.flash_decode import flash_decode as FD
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    ctx, B, n, block = 4096, 8, 4, 512
-    names = ("etap_decode_dense", "etap_partial_dense", "flash_decode",
-             "flash_decode_partial", "combine_splits_std")
-    errs = {k: 0.0 for k in names}
+    ctx, B, block = 4096, 8, 512
+    plan = dense_split_plan(ctx, block, 4)
+    n = plan.n_splits
+    errs: dict = {}
     bf16 = dict(out_dtype=torch.bfloat16)
     for H in (128, 16):
         lengths = torch.tensor([ctx, 1, 4033, 64, 65, 2500, 3999, 1234],
@@ -414,52 +501,31 @@ def phase_dense_kernels(quick: bool, report: dict) -> None:
         pool, table = dense_as_paged(k, gen)
         for mode in ("amla", "mul"):
             tag = f"H={H} {mode}"
-            kw = dict(scale=SCALE, block=block, rescale=mode)
-            o5 = K.etap_decode_dense(q, k, v, lengths, **kw)
-            r5 = K.etap_decode_dense_plain(q, k, v, lengths, **kw)
-            errs["etap_decode_dense"] = max(errs["etap_decode_dense"],
-                                            bf16_close(o5, r5, f"K5 {tag}"))
-            st6 = K.etap_partial_dense(q, k, v, lengths, n_splits=n, **kw)
-            rs6 = K.etap_partial_dense_plain(q, k, v, lengths, n_splits=n,
-                                             **kw)
-            errs["etap_partial_dense"] = max(
-                errs["etap_partial_dense"],
-                finalized_close(st6, rs6, f"K6 {tag}"))
-            bf16_close(C.combine_splits(*st6, rescale=mode, **bf16), r5,
-                       f"K6+K2 vs plain K5 {tag}")
-            o7 = FD.flash_decode(q, k, v, lengths, **kw)
-            r7 = FD.flash_decode_plain(q, k, v, lengths, **kw)
-            errs["flash_decode"] = max(errs["flash_decode"],
-                                       bf16_close(o7, r7, f"K7 {tag}"))
-            st8 = FD.flash_decode_partial(q, k, v, lengths, n_splits=n, **kw)
-            rs8 = FD.flash_decode_partial_plain(q, k, v, lengths, n_splits=n,
-                                                **kw)
-            errs["flash_decode_partial"] = max(
-                errs["flash_decode_partial"],
-                finalized_close(st8, rs8, f"K8 {tag}", transposed=False))
-            o2 = C.combine_splits_std(*st8, rescale=mode, **bf16)
-            r2 = C.combine_splits_std_plain(*st8, rescale=mode, **bf16)
-            errs["combine_splits_std"] = max(
-                errs["combine_splits_std"],
-                bf16_close(o2, r2, f"K2 [n,H,Dv] {tag}"))
-            bf16_close(o2, r7, f"K8+K2 vs plain K7 {tag}")
-            # the four bitwise contracts
-            bitwise(C.combine_splits(*K.etap_partial_dense(
-                q, k, v, lengths, n_splits=1, **kw), rescale=mode, **bf16),
-                o5, f"K6(n=1)+K2 vs K5 {tag}")
-            bitwise(C.combine_splits_std(*FD.flash_decode_partial(
-                q, k, v, lengths, n_splits=1, **kw), rescale=mode, **bf16),
-                o7, f"K8(n=1)+K2 vs K7 {tag}")
+            o5 = check_dense(q, k, v, lengths, block=block, plan=plan,
+                             mode=mode, tag=tag, errs=errs)
             bitwise(K.etap_decode_mla_paged(q, pool, DV, table, lengths,
                                             scale=SCALE, rescale=mode),
                     o5, f"paged K3 vs dense K5 {tag}")
             v_sep = k.clone()[..., :DV]      # own pointer, ldv = ldk
-            bitwise(K.etap_decode_dense(q, k, v_sep, lengths, **kw), o5,
+            bitwise(K.etap_decode_dense(q, k, v_sep, lengths, scale=SCALE,
+                                        block=block, rescale=mode), o5,
                     f"separate-V K5 vs fused K5 {tag}")
             log(f"[kernels] dense {tag}: K5 ok, K6 ok, K7 ok, K8 ok, "
-                f"K2[n,H,Dv] ok; bitwise: K6(n=1)+K2 == K5, "
+                f"K2 both ok; bitwise: K6(n=1)+K2 == K5, "
                 f"K8(n=1)+K2 == K7, paged K3 == dense K5, "
                 f"separate V == fused V")
+    for tag, q, k, v, lengths, blk in main_path_cases(gen, dev):
+        mplan = splitkv.split_plan(q, k, v, spec=AttnSpec(block=blk))
+        for mode in ("amla", "mul"):
+            check_dense(q, k, v, lengths, block=blk, plan=mplan, mode=mode,
+                        tag=f"{tag} {mode}", errs=errs)
+        log(f"[kernels] main path {tag}: B={q.shape[0]} block={blk}, plan "
+            f"n_splits={mplan.n_splits} x {mplan.nb_per_split} blocks "
+            f"(padded to {mplan.padded_s} rows): K5, K7"
+            + (", K6, K8, K2 both" if mplan.n_splits > 1 else "")
+            + " ok in both modes; split(n=1)+K2 == single pass bitwise")
+    report["combine_splits"]["max_abs_err"] = max(
+        report["combine_splits"]["max_abs_err"], errs.pop("combine_splits"))
 
     # ---- timing, and ETAP beside the baseline at the same shapes
     iters, piters = (1, 1) if quick else (20, 3)
@@ -487,9 +553,9 @@ def phase_dense_kernels(quick: bool, report: dict) -> None:
             "K1": cuda_time_ms(lambda: K.etap_paged_partial(
                 q, pool, DV, table, lengths, scale=SCALE, n_splits=n), iters),
             "K6": cuda_time_ms(lambda: K.etap_partial_dense(
-                q, k, v, lengths, n_splits=n, **kw), iters),
+                q, k, v, lengths, scale=SCALE, plan=plan), iters),
             "K8": cuda_time_ms(lambda: FD.flash_decode_partial(
-                q, k, v, lengths, n_splits=n, **kw), iters),
+                q, k, v, lengths, scale=SCALE, plan=plan), iters),
         }
         lib = cuda_time_ms(sdpa_dense(q, k, lengths), iters)
         log(f"[compare] B={B} H={H} ctx<=4096 ragged: single pass "
@@ -500,21 +566,22 @@ def phase_dense_kernels(quick: bool, report: dict) -> None:
             f"{t['K8']:.4f} ms; SDPA {lib:.4f} ms")
         if H != 128:
             continue
-        st8 = FD.flash_decode_partial(q, k, v, lengths, n_splits=n, **kw)
+        st8 = FD.flash_decode_partial(q, k, v, lengths, scale=SCALE,
+                                      plan=plan)
         tp = {
             "etap_decode_dense": cuda_time_ms(
                 lambda: K.etap_decode_dense_plain(q, k, v, lengths, **kw),
                 piters, warmup=1),
             "etap_partial_dense": cuda_time_ms(
                 lambda: K.etap_partial_dense_plain(q, k, v, lengths,
-                                                   n_splits=n, **kw),
+                                                   scale=SCALE, plan=plan),
                 piters, warmup=1),
             "flash_decode": cuda_time_ms(
                 lambda: FD.flash_decode_plain(q, k, v, lengths, **kw),
                 piters, warmup=1),
             "flash_decode_partial": cuda_time_ms(
                 lambda: FD.flash_decode_partial_plain(q, k, v, lengths,
-                                                      n_splits=n, **kw),
+                                                      scale=SCALE, plan=plan),
                 piters, warmup=1),
             "combine_splits_std": cuda_time_ms(
                 lambda: C.combine_splits_std_plain(*st8, **bf16), piters,
@@ -765,23 +832,28 @@ def phase_decode_step(params) -> None:
     check_step(lk, lp, f"paged, full width, B={B} ctx<={ctx}")
     del cache
 
-    pos = 2000                           # every row: 2001 live positions
-    dense = model.init_cache(cfg, B, ctx, device=dev)
+    # dense: S 2080 ends in a 32-row tile; two splits of 1536 rows pad it
+    # to 3072, the second split holding the tile and the padding
+    dctx, pos = 2080, 2070               # every row: 2071 live positions
+    dense = model.init_cache(cfg, B, dctx, device=dev)
     for layer in dense:
         layer["c"].copy_(torch.randn(layer["c"].shape, generator=gen,
                                      device=dev).to(torch.bfloat16))
     for mode in ("etap", "standard"):
-        spec = AttnSpec(mode=mode)
+        for kv_splits in (1, 2):
+            spec = AttnSpec(mode=mode, kv_splits=kv_splits)
 
-        def dstep(spec=spec):
-            c = [{k: v.clone() for k, v in layer.items()} for layer in dense]
-            return model.decode_step(params, cfg, c, toks, pos, spec=spec,
-                                     cache_layout="dense")[0]
+            def dstep(spec=spec):
+                c = [{k: v.clone() for k, v in layer.items()}
+                     for layer in dense]
+                return model.decode_step(params, cfg, c, toks, pos, spec=spec,
+                                         cache_layout="dense")[0]
 
-        lk = dstep()
-        with plain_attention():
-            lp = dstep()
-        check_step(lk, lp, f"dense {mode}, full width, B={B} pos={pos}")
+            lk = dstep()
+            with plain_attention():
+                lp = dstep()
+            check_step(lk, lp, f"dense {mode} kv_splits={kv_splits}, full "
+                       f"width, B={B} S={dctx} pos={pos}")
 
 
 def main(argv=None) -> int:
@@ -794,7 +866,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels.etap import build
+    from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(gpu_line())

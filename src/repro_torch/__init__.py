@@ -5,5 +5,5 @@ reference's module layout so each module's counterpart is easy to find, and
 it imports neither ``jax`` nor anything of ``repro``.  Entry points default
 to ``device="cuda"``; the CPU tests pass ``device="cpu"``.  A tensor's device
 picks the path: CUDA tensors run the hand-written Hopper kernels under
-``kernels/etap/csrc``, CPU tensors run each kernel's plain PyTorch version.
+``kernels/csrc``, CPU tensors run each kernel's plain PyTorch version.
 """

@@ -4,9 +4,9 @@ The port of ``repro/kernels/etap/combine.py`` in both of the reference's
 orientations: :func:`combine_splits` takes the ETAP partials' transposed
 Accᵀ [B,n,Dv,H] (K1, K6), :func:`combine_splits_std` the untransposed
 baseline's Acc [B,n,H,Dv] (K8) — the reference's ``transposed=True`` and
-``transposed=False``.  Their CUDA kernels (``csrc/combine.cu``) replace the
-Pallas kernel at ``repro/kernels/etap/combine.py:60``; its header note says
-what bounds them on the H100.  The merge math is
+``transposed=False``.  Their CUDA kernels (``kernels/csrc/combine.cu``)
+replace the Pallas kernel at ``repro/kernels/etap/combine.py:60``; its
+header note says what bounds them on the H100.  The merge math is
 :func:`repro_torch.kernels.softmax_state.merge_splits`; ``rescale`` must be
 the mode the partials were produced in.  With one split the merge is bitwise
 the single-pass epilogue.
@@ -16,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import softmax_state
-from repro_torch.kernels.etap import build
-from repro_torch.kernels.etap.launch import amla_flag, stream
+from repro_torch.kernels import build
+from repro_torch.kernels.launch import amla_flag, stream
 
 
 def combine_splits_plain(m, l, acc, *, out_dtype, rescale=None):

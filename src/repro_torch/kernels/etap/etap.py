@@ -1,8 +1,8 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
 The port of ``repro/kernels/etap/etap.py`` for the MLA latent widths.  Five
-kernels, all one CUDA body (``csrc/etap.cu``, whose header note says what
-bounds each on the H100 and how the design answers it):
+kernels, all one CUDA body (``kernels/csrc/etap.cu``, whose header note
+says what bounds each on the H100 and how the design answers it):
 
   K3 :func:`etap_decode_mla_paged`   single-pass paged decode
      (replaces ``repro/kernels/etap/etap.py:237``, ``_paged_call``)
@@ -32,14 +32,13 @@ live for key position kpos iff ``kpos <= horizon[b, c]`` — decode uses
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels import softmax_state
-from repro_torch.kernels.etap import build
-from repro_torch.kernels.etap.launch import (amla_flag, check_widths,
-                                            dense_operands, dense_split_tiles,
-                                            device_of, i32, ptr, split_layout,
-                                            stream)
+from repro_torch.kernels import build, softmax_state
+from repro_torch.kernels.etap.schedule import dense_split_plan
+from repro_torch.kernels.launch import (amla_flag, check_widths,
+                                        dense_operands, dense_split_tiles,
+                                        device_of, i32, ptr, stream)
+from repro_torch.kernels.splitkv import split_walks_plain
 
 NEG_INF = softmax_state.NEG_INF
 
@@ -137,26 +136,13 @@ def etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start, *, scale,
     return _finalize(state, kv_pool.dtype).reshape(B, Cq, H, dv)
 
 
-def _dense_fetch(k, v, block):
-    def fetch(j):
-        rows = slice(j * block, (j + 1) * block)
-        return k[:, rows], v[:, rows]
-    return fetch
-
-
-def _dense_splits_plain(q, k, v, length, *, scale, block, n_splits, mode):
-    """Per-split fp32 states of a dense walk over ``block``-row blocks, the
-    cache zero-padded to the split geometry as the reference pads it."""
-    S = k.shape[1]
-    block, npb, padded = split_layout(S, block, n_splits)
-    if padded > S:
-        k = F.pad(k, (0, 0, 0, padded - S))
-        v = F.pad(v, (0, 0, 0, padded - S))
-    fetch = _dense_fetch(k, v, block)
+def _dense_splits_plain(q, k, v, length, plan, *, scale, mode):
+    """Per-split fp32 states of a dense walk over ``plan.block``-row blocks,
+    the cache zero-padded to the plan as the reference pads it."""
     horizon = _decode_horizon(length, q.shape[1])
-    return [_walk_plain(q, fetch, range(s * npb, (s + 1) * npb), block,
-                        horizon, scale=scale, dv=v.shape[2], mode=mode)
-            for s in range(n_splits)]
+    return split_walks_plain(k, v, plan, lambda fetch, tiles: _walk_plain(
+        q, fetch, tiles, plan.block, horizon, scale=scale, dv=v.shape[2],
+        mode=mode))
 
 
 def etap_decode_dense_plain(q, k, v, length, *, scale, block=512,
@@ -164,19 +150,18 @@ def etap_decode_dense_plain(q, k, v, length, *, scale, block=512,
     """Plain K5. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv]; length [BG].  Walks
     ``min(block, S)``-row blocks, S zero-padded to a block multiple.
     Returns [BG,H,Dv] in v's dtype."""
-    (state,) = _dense_splits_plain(q, k, v, length, scale=scale, block=block,
-                                   n_splits=1,
+    (state,) = _dense_splits_plain(q, k, v, length,
+                                   dense_split_plan(k.shape[1], block, 1),
+                                   scale=scale,
                                    mode=softmax_state.resolve(rescale))
     return _finalize(state, v.dtype)
 
 
-def etap_partial_dense_plain(q, k, v, length, *, scale, block, n_splits,
-                             rescale=None):
+def etap_partial_dense_plain(q, k, v, length, *, scale, plan, rescale=None):
     """Plain K6: split s walks blocks [s·npb, (s+1)·npb) of the cache
-    padded to ``n_splits·npb·block`` rows.  Returns fp32 (m [BG,n,H],
+    padded to ``plan.padded_s`` rows.  Returns fp32 (m [BG,n,H],
     l [BG,n,H], accT [BG,n,Dv,H])."""
-    parts = _dense_splits_plain(q, k, v, length, scale=scale, block=block,
-                                n_splits=n_splits,
+    parts = _dense_splits_plain(q, k, v, length, plan, scale=scale,
                                 mode=softmax_state.resolve(rescale))
     return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
 
@@ -317,33 +302,30 @@ def etap_decode_mla_dense(q, kv, dv, length, *, scale, block=512,
                              block=block, rescale=rescale)
 
 
-def etap_partial_dense(q, k, v, length, *, scale, block, n_splits,
-                       rescale=None):
-    """K6: dense split-KV phase 1.  Split s covers rows
-    [s·npb·block, (s+1)·npb·block) of the cache padded to
-    ``n_splits·npb·block`` rows (``npb = ceil(ceil(S/block)/n_splits)``,
-    the padding of ``ops._partial``; rows past S read as zero, no copy).
-    Returns fp32 (m [BG,n,H], l [BG,n,H], accT [BG,n,Dv,H])."""
+def etap_partial_dense(q, k, v, length, *, scale, plan, rescale=None):
+    """K6: dense split-KV phase 1 under ``plan`` (a
+    :class:`repro_torch.kernels.etap.schedule.SplitPlan`, as
+    :func:`repro_torch.kernels.splitkv.split_plan` works it out).  Split s
+    covers rows [s·npb·block, (s+1)·npb·block) of the cache padded to
+    ``plan.padded_s`` rows; rows past S read as zero, no copy.  Returns
+    fp32 (m [BG,n,H], l [BG,n,H], accT [BG,n,Dv,H])."""
     dev = device_of(q, k, v, length)
     if dev.type == "cpu":
         return etap_partial_dense_plain(q, k, v, length, scale=scale,
-                                        block=block, n_splits=n_splits,
-                                        rescale=rescale)
+                                        plan=plan, rescale=rescale)
     lib, args, keep = dense_operands(q, k, v, length,
                                      what="etap_partial_dense")
-    tps = dense_split_tiles(k.shape[1], block, n_splits,
-                            what="etap_partial_dense")
+    tps = dense_split_tiles(k.shape[1], plan, what="etap_partial_dense")
     B, H, _ = q.shape
-    Dv = v.shape[2]
+    n = plan.n_splits
     f32 = dict(dtype=torch.float32, device=dev)
-    m = torch.empty(B, n_splits, H, **f32)
-    l = torch.empty(B, n_splits, H, **f32)
-    acc = torch.empty(B, n_splits, Dv, H, **f32)
+    m = torch.empty(B, n, H, **f32)
+    l = torch.empty(B, n, H, **f32)
+    acc = torch.empty(B, n, v.shape[2], H, **f32)
     etap_partial_dense.launches += 1
     build.check(lib.etap_partial_dense(
-        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n_splits,
-        tps, float(scale), amla_flag(rescale), stream(dev)),
-        "etap_partial_dense")
+        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n, tps,
+        float(scale), amla_flag(rescale), stream(dev)), "etap_partial_dense")
     del keep
     return m, l, acc
 

@@ -7,26 +7,19 @@ through the ``etap`` and ``combine`` modules' attributes, never bound here.
 
 The reference pads a dense cache to its block and split multiples here
 (``_pad_seq``); in the port the kernel wrappers take the unpadded cache and
-pad the same geometry themselves — the plain versions with zeros, the CUDA
-kernels by reading rows past S as zero — so serving never copies the
-cache."""
+the split plan (:mod:`repro_torch.kernels.splitkv`) and pad the same
+geometry themselves — the plain versions with zeros, the CUDA kernels by
+reading rows past S as zero — so serving never copies the cache."""
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import splitkv
 from repro_torch.kernels.etap import combine as combine_mod
 from repro_torch.kernels.etap import etap as K
-from repro_torch.kernels.etap.schedule import (num_cores,
+from repro_torch.kernels.etap.schedule import (dense_split_plan, num_cores,
                                                paged_split_geometry,
-                                               plan_splits,
-                                               plan_splits_paged,
-                                               split_geometry)
-
-
-def full_length(q, S: int):
-    """The default ``length``: every row holds all S positions."""
-    return torch.full((q.shape[0],), S, dtype=torch.int32, device=q.device)
+                                               plan_splits_paged)
 
 
 # ------------------------------------------------------------------- dense
@@ -34,47 +27,29 @@ def etap_decode(q, k, v, length=None, *, spec):
     """ETAP decode attention (K5). q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv];
     length [BG] valid-prefix lengths (None = all S).  Returns [BG,H,Dv]."""
     if length is None:
-        length = full_length(q, k.shape[1])
+        length = splitkv.full_length(q, k.shape[1])
     return K.etap_decode_dense(q, k, v, length, scale=spec.scale,
                                block=spec.block, rescale=spec.rescale)
 
 
-def _partial(q, k, v, length, *, spec, n_splits):
-    """Phase 1 (K6) with the effective split count of the shared
-    geometry."""
-    block, n_splits, _, _ = split_geometry(k.shape[1], spec.block, n_splits)
-    return K.etap_partial_dense(q, k, v, length, scale=spec.scale,
-                                block=block, n_splits=n_splits,
-                                rescale=spec.rescale)
-
-
 def etap_partial(q, k, v, length=None, *, spec):
     """Phase-1 split-KV stats (m, l, accT): [BG,n,H], [BG,n,H],
-    [BG,n,Dv,H] fp32.  spec.kv_splits None -> 2."""
+    [BG,n,Dv,H] fp32, n the effective count of spec.kv_splits (None -> 2)."""
     if length is None:
-        length = full_length(q, k.shape[1])
+        length = splitkv.full_length(q, k.shape[1])
     n_splits = 2 if spec.kv_splits is None else int(spec.kv_splits)
-    return _partial(q, k, v, length, spec=spec, n_splits=n_splits)
+    return K.etap_partial_dense(
+        q, k, v, length, scale=spec.scale, rescale=spec.rescale,
+        plan=dense_split_plan(k.shape[1], spec.block, n_splits))
 
 
 def etap_decode_splitkv(q, k, v, length=None, *, spec):
     """Two-phase split-KV ETAP decode over the dense cache.  spec.kv_splits
     None/0 → auto (the scheduler, sized to the device); 1 → the
     single-pass kernel K5; else K6 + the transposed combine K2."""
-    BG, H, _ = q.shape
-    S = k.shape[1]
-    n_splits = int(spec.kv_splits or 0)
-    if not n_splits:
-        n_splits = plan_splits(BG, S, H, v.shape[2], block=spec.block,
-                               num_cores=num_cores(q.device)).n_splits
-    n_splits = split_geometry(S, spec.block, n_splits)[1]  # effective count
-    if n_splits <= 1:
-        return etap_decode(q, k, v, length, spec=spec)
-    if length is None:
-        length = full_length(q, S)
-    m, l, accT = _partial(q, k, v, length, spec=spec, n_splits=n_splits)
-    return combine_mod.combine_splits(m, l, accT, out_dtype=v.dtype,
-                                      rescale=spec.rescale)
+    return splitkv.decode_splitkv(
+        q, k, v, length, spec=spec, single=K.etap_decode_dense,
+        partial=K.etap_partial_dense, combine=combine_mod.combine_splits)
 
 
 # ------------------------------------------------------------------- paged

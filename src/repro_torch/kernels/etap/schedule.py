@@ -62,6 +62,12 @@ def split_geometry(S: int, block: int, n_splits: int):
     return block, n_splits, npb, n_splits * npb * block
 
 
+def dense_split_plan(S: int, block: int, n_splits: int) -> SplitPlan:
+    """:func:`split_geometry` as the plan the dense kernels take."""
+    block, n_splits, npb, _ = split_geometry(S, block, n_splits)
+    return SplitPlan(n_splits=n_splits, block=block, nb_per_split=npb)
+
+
 def paged_split_geometry(nb: int, n_splits: int):
     """Split geometry over a paged cache: splits land on page boundaries.
     Returns (n_splits, nb_per_split, padded_nb) with n_splits EFFECTIVE (no

@@ -9,9 +9,9 @@ changed — the comparison target of the paper's Figure-1 claim:
     m, ℓ : per-ROW stats   [H]
     Acc += P·V  [H, Dv]
 
-Two kernels, one CUDA body (``csrc/flash_decode.cu`` under
-``kernels/etap``, beside the building blocks it shares with the ETAP
-kernels; its header note says what bounds it on the H100):
+Two kernels, one CUDA body (``kernels/csrc/flash_decode.cu``, beside the
+building blocks it shares with the ETAP kernels; its header note says what
+bounds it on the H100):
 
   K7 :func:`flash_decode`           single-pass decode
      (replaces ``repro/kernels/flash_decode/flash_decode.py:83``)
@@ -26,64 +26,63 @@ attribute counts its kernel launches.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels import softmax_state
-from repro_torch.kernels.etap import build
-from repro_torch.kernels.etap.launch import (amla_flag, dense_operands,
-                                            dense_split_tiles, device_of, ptr,
-                                            split_layout, stream)
+from repro_torch.kernels import build, softmax_state
+from repro_torch.kernels.etap.schedule import dense_split_plan
+from repro_torch.kernels.launch import (amla_flag, dense_operands,
+                                        dense_split_tiles, device_of, ptr,
+                                        stream)
+from repro_torch.kernels.splitkv import split_walks_plain
 
 NEG_INF = softmax_state.NEG_INF
 
 
 # ----------------------------------------------------------- plain versions
-def _splits_plain(q, k, v, length, *, scale, block, n_splits, mode):
-    """Per-split fp32 states (m [B,H], l [B,H], acc [B,H,Dv]) of the
-    untransposed walk over ``block``-row blocks of the cache, zero-padded to
-    ``n_splits·npb·block`` rows."""
+def _walk_plain(q, fetch, tiles, block, last, *, scale, dv, mode):
+    """The untransposed online-softmax walk over KV ``tiles`` (``fetch(j)``
+    returns block j's K and V rows) for q [B,H,Dk] with horizons last
+    [B,1,1].  Returns the fp32 state (m [B,H], l [B,H], acc [B,H,dv])."""
     B, H, _ = q.shape
-    S, Dv = k.shape[1], v.shape[2]
-    block, npb, padded = split_layout(S, block, n_splits)
-    if padded > S:
-        k = F.pad(k, (0, 0, 0, padded - S))
-        v = F.pad(v, (0, 0, 0, padded - S))
     qf = q.float()
-    last = (length.to(torch.int32) - 1)[:, None, None]          # [B,1,1]
     arange = torch.arange(block, device=q.device, dtype=torch.int32)
-    parts = []
-    for s in range(n_splits):
-        state = softmax_state.init((B, H), (B, H, Dv), device=q.device)
-        for j in range(s * npb, (s + 1) * npb):
-            rows = slice(j * block, (j + 1) * block)
-            kj = k[:, rows].float().contiguous()
-            vj = v[:, rows].float().contiguous()
-            sc = torch.einsum("bhd,bpd->bhp", qf, kj) * scale    # S = Q·Kᵀ
-            live = (j * block + arange)[None, None, :] <= last
-            sc = torch.where(live, sc, NEG_INF)
-            state = softmax_state.update(
-                state, sc, lambda p, vj=vj: torch.einsum("bhp,bpv->bhv", p,
-                                                         vj),
-                axis=2, mode=mode, expand=lambda c: c[:, :, None])
-        parts.append(state)
-    return parts
+    state = softmax_state.init((B, H), (B, H, dv), device=q.device)
+    for j in tiles:
+        kj, vj = (x.float().contiguous() for x in fetch(j))
+        sc = torch.einsum("bhd,bpd->bhp", qf, kj) * scale        # S = Q·Kᵀ
+        live = (j * block + arange)[None, None, :] <= last
+        sc = torch.where(live, sc, NEG_INF)
+        state = softmax_state.update(
+            state, sc, lambda p, vj=vj: torch.einsum("bhp,bpv->bhv", p, vj),
+            axis=2, mode=mode, expand=lambda c: c[:, :, None])
+    return state
+
+
+def _splits_plain(q, k, v, length, plan, *, scale, mode):
+    """Per-split fp32 states (m [B,H], l [B,H], acc [B,H,Dv]) of the
+    untransposed walk over ``plan.block``-row blocks of the cache,
+    zero-padded to ``plan.padded_s`` rows."""
+    last = (length.to(torch.int32) - 1)[:, None, None]          # [B,1,1]
+    return split_walks_plain(k, v, plan, lambda fetch, tiles: _walk_plain(
+        q, fetch, tiles, plan.block, last, scale=scale, dv=v.shape[2],
+        mode=mode))
 
 
 def flash_decode_plain(q, k, v, length, *, scale, block=512, rescale=None):
     """Plain K7. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv]; length [BG].
     Returns [BG,H,Dv] in v's dtype."""
-    (state,) = _splits_plain(q, k, v, length, scale=scale, block=block,
-                             n_splits=1, mode=softmax_state.resolve(rescale))
+    (state,) = _splits_plain(q, k, v, length,
+                             dense_split_plan(k.shape[1], block, 1),
+                             scale=scale, mode=softmax_state.resolve(rescale))
     return softmax_state.finalize(
         state, expand=lambda l: l[:, :, None]).to(v.dtype)
 
 
-def flash_decode_partial_plain(q, k, v, length, *, scale, block, n_splits,
+def flash_decode_partial_plain(q, k, v, length, *, scale, plan,
                                rescale=None):
-    """Plain K8: split s walks blocks [s·npb, (s+1)·npb).  Returns fp32
-    (m [BG,n,H], l [BG,n,H], acc [BG,n,H,Dv])."""
-    parts = _splits_plain(q, k, v, length, scale=scale, block=block,
-                          n_splits=n_splits,
+    """Plain K8: split s walks blocks [s·npb, (s+1)·npb) of the cache
+    padded to ``plan.padded_s`` rows.  Returns fp32 (m [BG,n,H], l [BG,n,H],
+    acc [BG,n,H,Dv])."""
+    parts = _splits_plain(q, k, v, length, plan, scale=scale,
                           mode=softmax_state.resolve(rescale))
     return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
 
@@ -109,31 +108,28 @@ def flash_decode(q, k, v, length, *, scale, block=512, rescale=None):
     return out
 
 
-def flash_decode_partial(q, k, v, length, *, scale, block, n_splits,
-                         rescale=None):
-    """K8: split-KV phase 1 of the baseline, with the split geometry of
-    :func:`repro_torch.kernels.etap.etap.etap_partial_dense`.  Returns fp32
-    (m [BG,n,H], l [BG,n,H], acc [BG,n,H,Dv]) for
+def flash_decode_partial(q, k, v, length, *, scale, plan, rescale=None):
+    """K8: split-KV phase 1 of the baseline under ``plan``, with the split
+    geometry of :func:`repro_torch.kernels.etap.etap.etap_partial_dense`.
+    Returns fp32 (m [BG,n,H], l [BG,n,H], acc [BG,n,H,Dv]) for
     :func:`repro_torch.kernels.etap.combine.combine_splits_std`."""
     dev = device_of(q, k, v, length)
     if dev.type == "cpu":
         return flash_decode_partial_plain(q, k, v, length, scale=scale,
-                                          block=block, n_splits=n_splits,
-                                          rescale=rescale)
+                                          plan=plan, rescale=rescale)
     lib, args, keep = dense_operands(q, k, v, length,
                                      what="flash_decode_partial")
-    tps = dense_split_tiles(k.shape[1], block, n_splits,
-                            what="flash_decode_partial")
+    tps = dense_split_tiles(k.shape[1], plan, what="flash_decode_partial")
     B, H, _ = q.shape
-    Dv = v.shape[2]
+    n = plan.n_splits
     f32 = dict(dtype=torch.float32, device=dev)
-    m = torch.empty(B, n_splits, H, **f32)
-    l = torch.empty(B, n_splits, H, **f32)
-    acc = torch.empty(B, n_splits, H, Dv, **f32)
+    m = torch.empty(B, n, H, **f32)
+    l = torch.empty(B, n, H, **f32)
+    acc = torch.empty(B, n, H, v.shape[2], **f32)
     flash_decode_partial.launches += 1
     build.check(lib.flash_decode_partial(
-        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n_splits,
-        tps, float(scale), amla_flag(rescale), stream(dev)),
+        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n, tps,
+        float(scale), amla_flag(rescale), stream(dev)),
         "flash_decode_partial")
     del keep
     return m, l, acc

@@ -1,14 +1,13 @@
 """Public wrappers for the untransposed baseline — the port of
 ``repro/kernels/flash_decode/ops.py``: single-pass and split-KV two-phase
-entry points, with the ETAP path's scheduler and split geometry.  Entries
-take one :class:`repro_torch.core.attn_spec.AttnSpec`; the kernels are
-called through the modules' attributes, never bound here."""
+entry points, with the ETAP path's scheduler and split geometry
+(:mod:`repro_torch.kernels.splitkv`).  Entries take one
+:class:`repro_torch.core.attn_spec.AttnSpec`; the kernels are called
+through the modules' attributes, never bound here."""
 from __future__ import annotations
 
+from repro_torch.kernels import splitkv
 from repro_torch.kernels.etap import combine as combine_mod
-from repro_torch.kernels.etap.ops import full_length
-from repro_torch.kernels.etap.schedule import (num_cores, plan_splits,
-                                               split_geometry)
 from repro_torch.kernels.flash_decode import flash_decode as FD
 
 
@@ -16,7 +15,7 @@ def flash_decode(q, k, v, length=None, *, spec):
     """Baseline decode attention (K7). q [BG,H,Dk]; k [BG,S,Dk];
     v [BG,S,Dv]; length [BG] (None = all S).  Returns [BG,H,Dv]."""
     if length is None:
-        length = full_length(q, k.shape[1])
+        length = splitkv.full_length(q, k.shape[1])
     return FD.flash_decode(q, k, v, length, scale=spec.scale,
                            block=spec.block, rescale=spec.rescale)
 
@@ -25,23 +24,7 @@ def flash_decode_splitkv(q, k, v, length=None, *, spec):
     """Two-phase split-KV baseline decode (the ETAP path's scheduler;
     spec.kv_splits None/0 → auto, 1 → single-pass K7, else K8 + the
     [n,H,Dv] combine K2)."""
-    BG, H, _ = q.shape
-    S = k.shape[1]
-    n_splits = int(spec.kv_splits or 0)
-    if not n_splits:
-        n_splits = plan_splits(BG, S, H, v.shape[2], block=spec.block,
-                               num_cores=num_cores(q.device)).n_splits
-    if n_splits <= 1:
-        return flash_decode(q, k, v, length, spec=spec)
-    if length is None:
-        length = full_length(q, S)
-    # effective split count from the shared geometry (clamped so every
-    # split owns >= 1 real KV block — short contexts degrade to fewer)
-    block, n_splits, _, _ = split_geometry(S, spec.block, n_splits)
-    if n_splits <= 1:
-        return flash_decode(q, k, v, length, spec=spec.replace(block=block))
-    m, l, acc = FD.flash_decode_partial(q, k, v, length, scale=spec.scale,
-                                        block=block, n_splits=n_splits,
-                                        rescale=spec.rescale)
-    return combine_mod.combine_splits_std(m, l, acc, out_dtype=v.dtype,
-                                          rescale=spec.rescale)
+    return splitkv.decode_splitkv(
+        q, k, v, length, spec=spec, single=FD.flash_decode,
+        partial=FD.flash_decode_partial,
+        combine=combine_mod.combine_splits_std)

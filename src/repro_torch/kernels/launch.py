@@ -6,9 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import softmax_state
-from repro_torch.kernels.etap import build
-from repro_torch.kernels.etap.schedule import split_geometry
+from repro_torch.kernels import build, softmax_state
 
 
 def device_of(*tensors) -> torch.device:
@@ -85,26 +83,16 @@ def dense_operands(q, k, v, length, *, what):
     return lib, args, (q, lengths)
 
 
-def split_layout(S: int, block: int, n_splits: int):
-    """(block, npb, padded S) of a dense split-KV walk with exactly
-    ``n_splits`` splits of ``npb`` blocks each: the geometry of
-    ``schedule.split_geometry``, whose effective count the caller must
-    pass (no split may hold only padding)."""
-    block, n_eff, npb, padded = split_geometry(S, block, n_splits)
-    if n_eff != n_splits:
-        raise ValueError(f"{n_splits} splits of {S} rows in blocks of "
-                         f"{block} leave a split empty; the effective count "
-                         f"is {n_eff}")
-    return block, npb, padded
-
-
-def dense_split_tiles(S: int, block: int, n_splits: int, *, what) -> int:
-    """64-row kernel tiles per split of a dense split-KV launch: each split
-    covers npb blocks of ``block`` rows (:func:`split_layout`), so more than
-    one split needs split boundaries on 64-row tiles."""
-    block, npb, _ = split_layout(S, block, n_splits)
-    seg = npb * block
-    if n_splits > 1 and seg % 64:
+def dense_split_tiles(S: int, plan, *, what) -> int:
+    """64-row kernel tiles per split of a dense split-KV launch under
+    ``plan`` (a :class:`repro_torch.kernels.etap.schedule.SplitPlan`): each
+    split covers ``nb_per_split`` blocks of ``block`` rows, so more than one
+    split needs split boundaries on 64-row tiles."""
+    if plan.padded_s < S:
+        raise ValueError(f"{what}: the split plan covers {plan.padded_s} of "
+                         f"{S} rows")
+    seg = plan.nb_per_split * plan.block
+    if plan.n_splits > 1 and seg % 64:
         raise NotImplementedError(
             f"{what}: split boundaries every {seg} rows do not fall on the "
             "kernel's 64-row tiles")

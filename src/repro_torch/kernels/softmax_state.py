@@ -3,7 +3,7 @@
 Every online-softmax loop of the port (the plain versions of the ETAP
 kernels and the split combine) carries its state as one fp32 triple
 ``(m, l, acc)`` and advances/merges it only through this module.  The CUDA
-kernels under ``kernels/etap/csrc`` run the same recurrence, written out in
+kernels under ``kernels/csrc`` run the same recurrence, written out in
 C++; their plain PyTorch versions call these functions, so the CPU tests hold
 the recurrence against the JAX definition directly.
 

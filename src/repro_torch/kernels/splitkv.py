@@ -1,0 +1,69 @@
+"""Split-KV decode over the dense cache, shared by both orientations: the
+ETAP entries (``kernels/etap/ops.py``: K5, K6 + K2 transposed) and the
+untransposed baseline's (``kernels/flash_decode/ops.py``: K7, K8 + K2
+[n,H,Dv]).  The split plan is worked out once, here, and handed to the
+kernel wrappers; the plain versions of both orientations share the
+zero-padded block walk of :func:`split_walks_plain`."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.etap.schedule import (SplitPlan, dense_split_plan,
+                                               num_cores, plan_splits)
+
+
+def full_length(q, S: int):
+    """The default ``length``: every row holds all S positions."""
+    return torch.full((q.shape[0],), S, dtype=torch.int32, device=q.device)
+
+
+def split_plan(q, k, v, *, spec) -> SplitPlan:
+    """The plan of a dense split-KV decode: ``spec.kv_splits`` None/0 → the
+    scheduler, sized to q's device; the split count is effective (no split
+    holds only padding)."""
+    BG, H, _ = q.shape
+    S = k.shape[1]
+    n_splits = int(spec.kv_splits or 0)
+    if not n_splits:
+        n_splits = plan_splits(BG, S, H, v.shape[2], block=spec.block,
+                               num_cores=num_cores(q.device)).n_splits
+    return dense_split_plan(S, spec.block, n_splits)
+
+
+def decode_splitkv(q, k, v, length, *, spec, single, partial, combine):
+    """Two-phase split-KV decode of one orientation: ``single`` (the
+    single-pass kernel) when the plan has one split, else ``partial`` (its
+    phase 1) and ``combine`` (K2 in the matching orientation).  q [BG,H,Dk];
+    k [BG,S,Dk]; v [BG,S,Dv]; length [BG] or None (all S).  Returns
+    [BG,H,Dv] in v's dtype."""
+    if length is None:
+        length = full_length(q, k.shape[1])
+    plan = split_plan(q, k, v, spec=spec)
+    kw = dict(scale=spec.scale, rescale=spec.rescale)
+    if plan.n_splits <= 1:
+        return single(q, k, v, length, block=spec.block, **kw)
+    m, l, acc = partial(q, k, v, length, plan=plan, **kw)
+    return combine(m, l, acc, out_dtype=v.dtype, rescale=spec.rescale)
+
+
+def split_walks_plain(k, v, plan: SplitPlan, walk):
+    """The plain versions' walk: k and v zero-padded to ``plan.padded_s``
+    rows (the reference's padding), then ``walk(fetch, tiles)`` once per
+    split, where ``fetch(j)`` returns block j's K [B,block,Dk] and V
+    [B,block,Dv] rows and split s walks blocks [s·npb, (s+1)·npb).  Returns
+    the list of the walks' results."""
+    pad = plan.padded_s - k.shape[1]
+    if pad < 0:
+        raise ValueError(f"the split plan covers {plan.padded_s} of "
+                         f"{k.shape[1]} rows")
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    block, npb = plan.block, plan.nb_per_split
+
+    def fetch(j):
+        rows = slice(j * block, (j + 1) * block)
+        return k[:, rows], v[:, rows]
+    return [walk(fetch, range(s * npb, (s + 1) * npb))
+            for s in range(plan.n_splits)]

@@ -20,9 +20,9 @@ from repro.kernels.flash_decode import flash_decode as jfd
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.kernels.etap import combine, etap, schedule
 from repro_torch.kernels.etap import ops as etap_ops
-from repro_torch.kernels.etap.launch import split_layout
 from repro_torch.kernels.flash_decode import flash_decode as fd
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.launch import dense_split_tiles
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 MODES = ["amla", "mul"]
@@ -118,8 +118,8 @@ def test_partial_plain_matches_pallas(kernel, n_splits, mode):
             *_j(q, _pad(k, P), _pad(v, P), length), scale=SCALE, block=BLOCK,
             n_splits=n_splits, rescale=mode)
         fn = fd.flash_decode_partial
-    out = fn(*_t(q, k, v, length), scale=SCALE, block=BLOCK,
-             n_splits=n_splits, rescale=mode)
+    out = fn(*_t(q, k, v, length), scale=SCALE, rescale=mode,
+             plan=schedule.dense_split_plan(S, BLOCK, n_splits))
     for o, r in zip(out, ref, strict=True):
         _close(o, r)
 
@@ -147,15 +147,16 @@ def test_combine_rows_plain_matches_pallas(mode):
 def test_one_split_plus_combine_is_single_pass_bitwise(kernel, mode):
     """K6(n=1) + K2 == K5 and K8(n=1) + K2[n,H,Dv] == K7, bitwise."""
     q, k, v, length = _t(*_case(4))
-    kw = dict(scale=SCALE, block=BLOCK, rescale=mode)
+    kw = dict(scale=SCALE, rescale=mode)
+    one = schedule.dense_split_plan(S, BLOCK, 1)
     if kernel == "etap":
-        single = etap.etap_decode_dense(q, k, v, length, **kw)
-        st = etap.etap_partial_dense(q, k, v, length, n_splits=1, **kw)
+        single = etap.etap_decode_dense(q, k, v, length, block=BLOCK, **kw)
+        st = etap.etap_partial_dense(q, k, v, length, plan=one, **kw)
         two = combine.combine_splits(*st, out_dtype=torch.float32,
                                      rescale=mode)
     else:
-        single = fd.flash_decode(q, k, v, length, **kw)
-        st = fd.flash_decode_partial(q, k, v, length, n_splits=1, **kw)
+        single = fd.flash_decode(q, k, v, length, block=BLOCK, **kw)
+        st = fd.flash_decode_partial(q, k, v, length, plan=one, **kw)
         two = combine.combine_splits_std(*st, out_dtype=torch.float32,
                                          rescale=mode)
     np.testing.assert_array_equal(_bits(two), _bits(single))
@@ -181,8 +182,9 @@ def test_dense_is_paged_bitwise_at_block_aligned_lengths(mode):
     d = etap.etap_decode_mla_dense(qt, dt, DV, lt, block=page, **kw)
     p = etap.etap_decode_mla_paged(qt, pt, DV, tt, lt, **kw)
     np.testing.assert_array_equal(_bits(d), _bits(p))
-    ds = etap.etap_partial_dense(qt, dt, dt[..., :DV], lt, block=page,
-                                 n_splits=2, **kw)
+    ds = etap.etap_partial_dense(
+        qt, dt, dt[..., :DV], lt,
+        plan=schedule.dense_split_plan(nb * page, page, 2), **kw)
     ps = etap.etap_paged_partial(qt, pt, DV, tt, lt, n_splits=2, **kw)
     for a, b_ in zip(ds, ps, strict=True):
         np.testing.assert_array_equal(_bits(a), _bits(b_))
@@ -257,10 +259,32 @@ def test_split_geometry_matches_reference(S_, block, n):
     assert schedule.split_geometry(S_, block, n) == \
         jsched.split_geometry(S_, block, n)
     g = schedule.split_geometry(S_, block, n)
-    assert split_layout(S_, block, g[1]) == (g[0], g[2], g[3])
-    if g[1] != n:
-        with pytest.raises(ValueError, match="effective"):
-            split_layout(S_, block, n)
+    p = schedule.dense_split_plan(S_, block, n)
+    assert (p.block, p.n_splits, p.nb_per_split, p.padded_s) == g
     plan = schedule.plan_splits(2, S_, 16, 512, block=block)
     want = jsched.plan_splits(2, S_, 16, 512, block=block)
     assert plan.padded_s == want.padded_s
+
+
+@pytest.mark.parametrize("S_,block,n,tiles", [(544, 512, 1, 16),
+                                              (4128, 512, 4, 24),
+                                              (4160, 64, 4, 17),
+                                              (2080, 512, 2, 24)])
+def test_dense_split_tiles_of_main_path_plans(S_, block, n, tiles):
+    """The 64-row tiles per split that the dense split kernels get for the
+    serve paths' plans (S 4128 in 4 splits is 3 effective splits)."""
+    plan = schedule.dense_split_plan(S_, block, n)
+    assert dense_split_tiles(S_, plan, what="t") == tiles
+
+
+def test_dense_split_tiles_refuses_bad_plans():
+    """Split boundaries off the 64-row tiles, and a plan short of S, raise;
+    so does the plain walk under a plan short of S."""
+    with pytest.raises(NotImplementedError, match="64-row"):
+        dense_split_tiles(S, schedule.dense_split_plan(S, BLOCK, 2), what="t")
+    short = schedule.SplitPlan(n_splits=1, block=BLOCK, nb_per_split=2)
+    with pytest.raises(ValueError, match="covers"):
+        dense_split_tiles(S, short, what="t")
+    q, k, v, length = _t(*_case(9))
+    with pytest.raises(ValueError, match="covers"):
+        fd.flash_decode_partial(q, k, v, length, scale=SCALE, plan=short)

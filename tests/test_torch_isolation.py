@@ -24,7 +24,7 @@ def _imports(path: Path):
 def test_port_has_files():
     assert len(FILES) > 20
     for src in ("etap.cu", "flash_decode.cu", "combine.cu"):
-        assert (ROOT / "src/repro_torch/kernels/etap/csrc" / src).exists()
+        assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
