@@ -16,29 +16,36 @@ Phases, each of which fails the run when it fails:
              split plans (S 544; S 4128 in 3 splits; 65 gathered pages in
              blocks of 64); the bitwise contracts (split(n=1) + combine ==
              single pass for both orientations, dense == paged over the
-             same rows, fused V == separate V at the same stride); then each
-             kernel's time (CUDA events), its plain version's time, its
-             bound and one PyTorch library call's time, and ETAP beside the
-             baseline at the same shapes;
+             same rows, fused V == separate V at the same stride); the
+             quantized bodies K3q, K1q (n = 4) and K4q over int8 and fp8
+             (e4m3) pools with bf16 q, their bitwise contracts (split(n=1)
+             + combine == K3q, linear verify == prefill), quantize_rows on
+             the card bitwise the CPU's, and the reference's RMSE gates
+             (int8 <= 6.12e-4, fp8 <= 2.22e-3 against an fp64 oracle) with
+             fp32 q; then each kernel's time (CUDA events), its plain
+             version's time, its bound and one PyTorch library call's time
+             where there is one, and ETAP beside the baseline at the same
+             shapes;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
-             context, in both attention modes: short runs one split (K3 /
-             K7), long picks n >= 2 (K1 + K2, K8 + K2 [n,H,Dv]); K4 runs
+             context, in both attention modes and over int8 and fp8 pools
+             (etap): short runs one split (K3 / K7 / K3q), long picks
+             n >= 2 (K1 + K2, K8 + K2 [n,H,Dv], K1q + K2); K4 or K4q runs
              every prefill;
   4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
              (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
              [n,H,Dv]);
-  5. decode  one full-width decode step over the paged cache, and over the
-             dense cache one in each mode with one split and with two,
-             each through the kernels and through the plain versions on
-             the same weights and cache: logits agree, greedy tokens
-             agree; then the paged step's wall time and device time by
-             kernel.
+  5. decode  one full-width decode step over the paged cache, the same
+             step over an int8 pool, and over the dense cache one in each
+             mode with one split and with two, each through the kernels
+             and through the plain versions on the same weights and cache:
+             logits agree, greedy tokens agree; then the paged step's wall
+             time and device time by kernel.
 
 The launch counters are zeroed just before each serve phase and read just
-after it; each of K1-K8 and both K2 orientations must have launched on a
-serve path.  The line before the last is the ``kernels`` JSON; the last
-line is the device JSON.
+after it; each of K1-K8, both K2 orientations and each quantized body on
+each code type must have launched on a serve path.  The line before the
+last is the ``kernels`` JSON; the last line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # phases 1-2 at one iteration each
@@ -98,6 +105,26 @@ KERNELS = {
     "combine_splits_std": ("src/repro/kernels/etap/combine.py:60",
                            _CSRC + "combine.cu"),
 }
+
+
+# quantized bodies, one entry per code type: entry -> (the TPU kernel it
+# replaces, its CUDA source, the wrapper, the pool's kv_dtype)
+QUANT_KERNELS = {
+    f"{wrapper}[{kvd}]": (tpu, _CSRC + "etap.cu", wrapper, kvd)
+    for kvd in ("int8", "fp8")
+    for wrapper, tpu in (
+        ("etap_decode_mla_paged_quant",
+         "src/repro/kernels/etap/etap.py:237"),
+        ("etap_paged_partial_quant", "src/repro/kernels/etap/etap.py:713"),
+        ("etap_prefill_mla_paged_quant",
+         "src/repro/kernels/etap/etap.py:430"))}
+# RMSE gates of the quantized decode against the fp64 oracle on the
+# unquantized rows (the reference's tests/test_softmax_state.py:258-280)
+QUANT_RMSE = {"int8": 6.12e-4, "fp8": 2.22e-3}
+# fp32-q outputs of the quantized bodies against their plain versions: the
+# CPU tests' fp32 tolerance (q as hi + lo bf16, p as hi + lo, sums in
+# another order)
+F32_Q_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -366,6 +393,247 @@ def phase_kernels(quick: bool, report: dict) -> None:
                         "bound_ms": tb, "bound_by": by, "library_ms": tl}
 
 
+# ------------------------------------------------- phase 2: quantized
+def make_quant_pool(B, nb, lengths, kv_dtype, gen, device):
+    """A random latent pool quantized to ``kv_dtype`` (codes [N, 64, 576]
+    and (scale, zp) [N, 64, 2]) with a shuffled block table, as
+    :func:`make_pool`; every row, the null block's too, holds the codes of
+    real fp32 rows (finite by construction)."""
+    import torch
+    from repro_torch.runtime import paged_cache
+    N = 1 + B * nb
+    rows = torch.randn(N, PAGE, DK, generator=gen, device=device)
+    codes, sz = paged_cache.quantize_pool(rows, kv_dtype)
+    _, table = make_pool(B, nb, lengths, gen, device)
+    return codes, sz, table
+
+
+def rmse_gate(kv_dtype, mode, dev):
+    """The reference's accuracy gate at its own geometry and seed (B 2,
+    H 16, S 1024, page 64, numpy default_rng(0), lengths 515 and 1024):
+    fp32 q through K3q, and through K1q (n = 4) + K2, over the quantized
+    pool, against the fp64 oracle on the unquantized rows, and against the
+    plain version within F32_Q_TOL.  Returns the larger RMSE and K3q's
+    max abs error from its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.ref import etap_decode_ref
+    from repro_torch.runtime import paged_cache
+    B, H, S, dv, page = 2, 16, 1024, DV, PAGE
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(B, H, DK)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(B, S, DK)).astype(np.float32))
+    lengths = [S // 2 + 3, S]
+    layout = paged_cache.layout_for(B, S, block_size=page)
+    bp = paged_cache.BlockPool(layout, B)
+    pool = torch.zeros(layout.num_blocks, page, DK)
+    for b, n in enumerate(lengths):          # as the reference's dense_to_paged
+        bp.admit(n, n)
+        ids = bp.block_ids(b)
+        rows = torch.zeros(len(ids) * page, DK)
+        rows[:n] = kv[b, :n]
+        pool[torch.as_tensor(ids)] = rows.reshape(len(ids), page, DK)
+    table, lens = bp.device_views(dev)
+    lens_cpu = torch.tensor(lengths, dtype=torch.int32)
+    ref = etap_decode_ref(q.double(), kv.double(), kv[..., :dv].double(),
+                          lens_cpu, scale=DK ** -0.5, dtype=torch.float64)
+    codes, sz = paged_cache.quantize_pool(pool.to(dev), kv_dtype)
+    qd = q.to(dev)
+    out1 = K.etap_decode_mla_paged_quant(qd, codes, sz, dv, table, lens,
+                                         scale=DK ** -0.5, rescale=mode)
+    n = 4
+    st = K.etap_paged_partial_quant(qd, codes, sz, dv, table, lens,
+                                    scale=DK ** -0.5, n_splits=n,
+                                    rescale=mode)
+    out4 = C.combine_splits(*st, out_dtype=torch.float32, rescale=mode)
+    plain = K.etap_decode_mla_paged_quant_plain(qd, codes, sz, dv, table,
+                                                lens, scale=DK ** -0.5,
+                                                rescale=mode)
+    for what, out in (("K3q", out1), ("K1q+K2", out4)):
+        err = float((out - plain).abs().max())
+        if not err <= F32_Q_TOL:
+            raise AssertionError(f"{what} {kv_dtype} {mode} fp32 q: "
+                                 f"{err:.3e} from its plain version")
+    worst = 0.0
+    for what, out in (("K3q", out1), ("K1q+K2", out4)):
+        if out.dtype != torch.float32:
+            raise AssertionError(f"{what} fp32 q gave {out.dtype}")
+        r = float(((out.cpu().double() - ref) ** 2).mean().sqrt())
+        if not r <= QUANT_RMSE[kv_dtype]:
+            raise AssertionError(f"{what} {kv_dtype} {mode}: RMSE {r:.4e} "
+                                 f"against the fp64 oracle exceeds "
+                                 f"{QUANT_RMSE[kv_dtype]:.3e}")
+        worst = max(worst, r)
+    return worst, float((out1 - plain).abs().max())
+
+
+def phase_quant_kernels(quick: bool, report: dict) -> None:
+    """K3q, K1q (n = 4), K2 over K1q's stats and K4q (Cq 32, with and
+    without a tree qpos) against their plain versions on int8 and fp8
+    pools, bf16 q, H = 128 and 16, ragged contexts up to 4096, both
+    rescale modes; the bitwise contracts; quantize_rows on the card against
+    the CPU; the RMSE gate with fp32 q; then the timings."""
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap import ops
+    from repro_torch.runtime import paged_cache
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ctx = 4096
+    nb = ctx // PAGE
+    errs = {k: 0.0 for k in QUANT_KERNELS}
+
+    # quantize_rows on the card: bitwise the CPU's codes and pairs
+    rows = torch.randn(4096, DK, generator=gen, device=dev) * torch.rand(
+        4096, 1, generator=gen, device=dev) * 50
+    rows[0] = 0.0                                  # degenerate rows
+    rows[1] = 3.5
+    for kvd in ("int8", "fp8"):
+        cg, sg = paged_cache.quantize_rows(rows, kvd)
+        cc, sc = paged_cache.quantize_rows(rows.cpu(), kvd)
+        if not (torch.equal(paged_cache.raw(cg).cpu(), paged_cache.raw(cc))
+                and torch.equal(sg.cpu().view(torch.int32),
+                                sc.view(torch.int32))):
+            raise AssertionError(f"quantize_rows {kvd}: the card's codes or "
+                                 "pairs differ from the CPU's")
+    log("[quant] quantize_rows on the card == on the CPU, bitwise, int8 "
+        "and fp8 (4096 rows of 576)")
+
+    for kvd in ("int8", "fp8"):
+        name = {w: f"{w}[{kvd}]" for w in (
+            "etap_decode_mla_paged_quant", "etap_paged_partial_quant",
+            "etap_prefill_mla_paged_quant")}
+        for H in (128, 16):
+            B = 8
+            lengths = torch.tensor([ctx, 1, 4033, 64, 65, 2500, 3999, 1234],
+                                   dtype=torch.int32, device=dev)
+            codes, sz, table = make_quant_pool(B, nb, lengths.tolist(), kvd,
+                                               gen, dev)
+            q = torch.randn(B, H, DK, generator=gen, device=dev).to(
+                torch.bfloat16)
+            for mode in ("amla", "mul"):
+                tag = f"{kvd} H={H} {mode}"
+                kw = dict(scale=SCALE, rescale=mode)
+                out = K.etap_decode_mla_paged_quant(q, codes, sz, DV, table,
+                                                    lengths, **kw)
+                ref = K.etap_decode_mla_paged_quant_plain(
+                    q, codes, sz, DV, table, lengths, **kw)
+                key = name["etap_decode_mla_paged_quant"]
+                errs[key] = max(errs[key], bf16_close(out, ref, f"K3q {tag}"))
+                st = K.etap_paged_partial_quant(q, codes, sz, DV, table,
+                                                lengths, n_splits=4, **kw)
+                st_ref = K.etap_paged_partial_quant_plain(
+                    q, codes, sz, DV, table, lengths, n_splits=4, **kw)
+                key = name["etap_paged_partial_quant"]
+                errs[key] = max(errs[key], finalized_close(
+                    st, st_ref, f"K1q {tag}"))
+                bf16 = dict(out_dtype=torch.bfloat16, rescale=mode)
+                o2 = C.combine_splits(*st, **bf16)
+                bf16_close(o2, C.combine_splits_plain(*st, **bf16),
+                           f"K2 over K1q {tag}")
+                bf16_close(o2, ref, f"K1q+K2 vs plain K3q {tag}")
+                st1 = K.etap_paged_partial_quant(q, codes, sz, DV, table,
+                                                 lengths, n_splits=1, **kw)
+                bitwise(C.combine_splits(*st1, **bf16), out,
+                        f"K1q(n=1)+K2 vs K3q {tag}")
+                log(f"[quant] decode {tag}: K3q ok, K1q ok, K2 ok, "
+                    f"n=1 bitwise ok")
+
+            Cq, Bp = 32, 2
+            start = torch.tensor([ctx - Cq, 1000], dtype=torch.int32,
+                                 device=dev)
+            codesp, szp, tablep = make_quant_pool(Bp, nb, (start + Cq).tolist(),
+                                                  kvd, gen, dev)
+            qp = torch.randn(Bp, Cq, H, DK, generator=gen, device=dev).to(
+                torch.bfloat16)
+            depth = torch.tensor([0] + [1 + (c - 1) // 3 for c in range(1, Cq)],
+                                 dtype=torch.int32, device=dev)
+            tree = start[:, None] + depth[None, :]
+            linear = start[:, None] + torch.arange(Cq, dtype=torch.int32,
+                                                   device=dev)[None, :]
+            for mode in ("amla", "mul"):
+                tag = f"{kvd} H={H} Cq={Cq} {mode}"
+                kw = dict(scale=SCALE, rescale=mode)
+                out = K.etap_prefill_mla_paged_quant(qp, codesp, szp, DV,
+                                                     tablep, start, **kw)
+                ref = K.etap_prefill_mla_paged_quant_plain(
+                    qp, codesp, szp, DV, tablep, start, **kw)
+                e = bf16_close(out, ref, f"K4q prefill {tag}")
+                outv = K.etap_verify_mla_paged_quant(qp, codesp, szp, DV,
+                                                     tablep, start, tree, **kw)
+                refv = K.etap_prefill_mla_paged_quant_plain(
+                    qp, codesp, szp, DV, tablep, start, qpos=tree, **kw)
+                e = max(e, bf16_close(outv, refv, f"K4q verify(tree) {tag}"))
+                key = name["etap_prefill_mla_paged_quant"]
+                errs[key] = max(errs[key], e)
+                bitwise(K.etap_verify_mla_paged_quant(
+                    qp, codesp, szp, DV, tablep, start, linear, **kw), out,
+                    f"K4q verify(linear) vs prefill {tag}")
+                log(f"[quant] prefill {tag}: K4q ok, tree verify ok, "
+                    f"linear verify bitwise ok")
+
+        for mode in ("amla", "mul"):
+            r, e = rmse_gate(kvd, mode, dev)
+            log(f"[quant] RMSE gate {kvd} {mode} (fp32 q, reference "
+                f"geometry): {r:.4e} <= {QUANT_RMSE[kvd]:.3e}; K3q within "
+                f"{e:.3e} of its plain version")
+
+    # ---- timing at the main path's widths: H = 128, ~4K ragged context
+    iters, piters = (1, 1) if quick else (20, 3)
+    H, B = 128, 8
+    lengths = torch.tensor([4096, 3900, 4033, 3500, 4000, 2500, 3999, 3210],
+                           dtype=torch.int32, device=dev)
+    keys = int(lengths.sum())
+    row_b = DK + 8                                 # codes + (scale, zp)
+    q_bytes, out_b = B * H * DK * 2, B * H * DV * 2
+    flops = 2 * keys * H * (DK + DV)
+    n = ops.paged_split_geometry(nb, 4)[0]
+    stats_b = B * n * H * (DV + 2) * 4
+    Cq = 32
+    startp = torch.tensor([4096 - Cq], dtype=torch.int32, device=dev)
+    keys_p = sum(int(startp[0]) + c + 1 for c in range(Cq)) * H
+    pf_bytes = Cq * H * DK * 2 + 4096 * row_b + Cq * H * DV * 2
+    for kvd in ("int8", "fp8"):
+        codes, sz, table = make_quant_pool(B, nb, lengths.tolist(), kvd, gen,
+                                           dev)
+        q = torch.randn(B, H, DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        codesp, szp, tablep = make_quant_pool(1, nb, [4096], kvd, gen, dev)
+        qp = torch.randn(1, Cq, H, DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        dec = (q, codes, sz, DV, table, lengths)
+        pre = (qp, codesp, szp, DV, tablep, startp)
+        cases = {
+            "etap_decode_mla_paged_quant": (
+                lambda f: f(*dec, scale=SCALE),
+                bound_ms(q_bytes + keys * row_b + out_b, flops),
+                f"B={B} H={H} ctx<=4096 ragged"),
+            "etap_paged_partial_quant": (
+                lambda f: f(*dec, scale=SCALE, n_splits=n),
+                bound_ms(q_bytes + keys * row_b + stats_b, flops),
+                f"B={B} H={H} n_splits={n}"),
+            "etap_prefill_mla_paged_quant": (
+                lambda f: f(*pre, scale=SCALE),
+                bound_ms(pf_bytes, 2 * keys_p * (DK + DV)),
+                f"B=1 Cq={Cq} H={H} start={int(startp[0])}"),
+        }
+        for wrapper, (call, (tb, by), shape) in cases.items():
+            fn, plain = getattr(K, wrapper), getattr(K, wrapper + "_plain")
+            t = cuda_time_ms(lambda: call(fn), iters)
+            tp = cuda_time_ms(lambda: call(plain), piters, warmup=1)
+            key = f"{wrapper}[{kvd}]"
+            log(f"[timing] {key} ({shape}): {t:.4f} ms, plain {tp:.4f} ms, "
+                f"bound {tb:.4f} ms ({by}), library null ms")
+            report[key] = {"max_abs_err": errs[key], "ms": t, "plain_ms": tp,
+                           "bound_ms": tb, "bound_by": by,
+                           "library_ms": None}
+
+
 def dense_as_paged(k, gen):
     """The rows of a dense latent cache [B, S, DK] (S a multiple of the
     page) as a pool [1 + B*nb, PAGE, DK] with a shuffled block table."""
@@ -625,6 +893,16 @@ SERVE_PHASES = [
     ("serve-long-std", LONG + ["--mode", "standard"],
      ("flash_decode_partial", "combine_splits_std",
       "etap_prefill_mla_paged")),
+    ("serve-short-int8", SHORT + ["--kv-dtype", "int8"],
+     ("etap_decode_mla_paged_quant", "etap_prefill_mla_paged_quant")),
+    ("serve-short-fp8", SHORT + ["--kv-dtype", "fp8"],
+     ("etap_decode_mla_paged_quant", "etap_prefill_mla_paged_quant")),
+    ("serve-long-int8", LONG + ["--kv-dtype", "int8"],
+     ("etap_paged_partial_quant", "combine_splits",
+      "etap_prefill_mla_paged_quant")),
+    ("serve-long-fp8", LONG + ["--kv-dtype", "fp8"],
+     ("etap_paged_partial_quant", "combine_splits",
+      "etap_prefill_mla_paged_quant")),
     ("dense-short", DENSE + ["--batch", "8", "--prompt", "512"],
      ("etap_decode_dense",)),
     ("dense-long", DENSE + ["--batch", "4", "--prompt", "4096"],
@@ -641,14 +919,23 @@ def full_config(layers: int = 3):
                                num_layers=layers)
 
 
-def counters():
-    """Kernel wrapper name -> wrapper (each carries its launch count)."""
+def wrapper_names() -> list:
+    """Every kernel wrapper the kernels line reports on."""
+    return list(KERNELS) + sorted({w for _, _, w, _ in
+                                   QUANT_KERNELS.values()})
+
+
+def wrapper_module(name: str):
     from repro_torch.kernels.etap import combine as C
     from repro_torch.kernels.etap import etap as K
     from repro_torch.kernels.flash_decode import flash_decode as FD
-    mods = (K, C, FD)
-    return {name: next(getattr(m, name) for m in mods if hasattr(m, name))
-            for name in KERNELS}
+    return next(m for m in (K, C, FD) if hasattr(m, name))
+
+
+def counters():
+    """Kernel wrapper name -> wrapper (each carries its launch count)."""
+    return {name: getattr(wrapper_module(name), name)
+            for name in wrapper_names()}
 
 
 def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
@@ -678,8 +965,10 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
         if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"{name}: request {rid} tokens {toks}")
     tps = res["tokens_served"] / t_total
+    slots = res.get("batch_slots", args.batch)
     log(f"[{name}] {' '.join(flags)}: {res['tokens_served']} tokens, "
-        f"{tps:.1f} tok/s, t_prefill {res['t_prefill']:.3f} s, "
+        f"batch_slots {slots}, {tps:.1f} tok/s, "
+        f"t_prefill {res['t_prefill']:.3f} s, "
         f"t_decode {res['t_decode']:.3f} s, launches "
         f"{ {k: v for k, v in launched.items() if v} }, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -693,13 +982,9 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
 def plain_attention():
     """Route the model's attention through the plain versions (on CUDA
     tensors) for the kernel-vs-plain comparisons of phase 5."""
-    from repro_torch.kernels.etap import combine as C
-    from repro_torch.kernels.etap import etap as K
-    from repro_torch.kernels.flash_decode import flash_decode as FD
-    mods = (K, C, FD)
     saved = []
-    for name in KERNELS:
-        mod = next(m for m in mods if hasattr(m, name))
+    for name in wrapper_names():
+        mod = wrapper_module(name)
         saved.append((mod, name, getattr(mod, name)))
         setattr(mod, name, getattr(mod, name + "_plain"))
     try:
@@ -801,6 +1086,7 @@ def phase_decode_step(params) -> None:
     import torch
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.models import model
+    from repro_torch.runtime import paged_cache
     from repro_torch.runtime.paged_cache import BlockPool, layout_for
     cfg = full_config()
     dev = torch.device("cuda")
@@ -831,6 +1117,29 @@ def phase_decode_step(params) -> None:
     profile_decode_step(params, cfg, cache, toks, table, lengths)
     check_step(lk, lp, f"paged, full width, B={B} ctx<={ctx}")
     del cache
+
+    # the same step over an int8 pool holding the codes of random rows
+    qcache = model.init_paged_cache(cfg, layout, kv_dtype="int8", device=dev)
+    for layer in qcache:
+        codes, sz = paged_cache.quantize_pool(
+            torch.randn(layer["c"].shape, generator=gen, device=dev), "int8")
+        layer["c"].copy_(codes)
+        layer["c_sz"].copy_(sz)
+
+    def qstep():
+        c = [{k: v.clone() for k, v in layer.items()} for layer in qcache]
+        return model.decode_step(params, cfg, c, toks, cache_layout="paged",
+                                 block_table=table, lengths=lengths)[0]
+
+    from repro_torch.kernels.etap import etap as K
+    before = K.etap_decode_mla_paged_quant.launches
+    lk = qstep()
+    if K.etap_decode_mla_paged_quant.launches == before:
+        raise AssertionError("the int8 decode step did not launch K3q")
+    with plain_attention():
+        lp = qstep()
+    check_step(lk, lp, f"paged int8, full width, B={B} ctx<={ctx}")
+    del qcache
 
     # dense: S 2080 ends in a 32-row tile; two splits of 1536 rows pad it
     # to 3072, the second split holding the tile and the padding
@@ -885,6 +1194,7 @@ def main(argv=None) -> int:
     report: dict = {}
     phase_kernels(args.quick, report)
     phase_dense_kernels(args.quick, report)
+    phase_quant_kernels(args.quick, report)
     if args.quick:
         log(json.dumps({"kernels": [dict(name=k, **v)
                                     for k, v in report.items()]}))
@@ -899,10 +1209,16 @@ def main(argv=None) -> int:
         f"{model.param_count(params) / 1e9:.3f} B params bf16 in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in list(KERNELS) + list(QUANT_KERNELS)}
     for name, flags, expect in SERVE_PHASES:
         got = phase_serve(name, flags, params, expect)
-        launches = {k: launches[k] + got[k] for k in KERNELS}
+        kvd = flags[flags.index("--kv-dtype") + 1] \
+            if "--kv-dtype" in flags else "fp"
+        for k in KERNELS:
+            launches[k] += got[k]
+        for k, (_, _, wrapper, code) in QUANT_KERNELS.items():
+            if code == kvd:
+                launches[k] += got[wrapper]
     log(f"[launches] serve paths: {launches}")
     for k, v in launches.items():
         if v == 0:
@@ -913,6 +1229,9 @@ def main(argv=None) -> int:
     kernels = [dict(name=k, route="cuda", source=src, replaces=tpu,
                     launches=launches[k], **report[k])
                for k, (tpu, src) in KERNELS.items()]
+    kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
+                     launches=launches[k], **report[k])
+                for k, (tpu, src, _, _) in QUANT_KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

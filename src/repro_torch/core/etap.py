@@ -11,8 +11,11 @@ and otherwise runs XLA twins; the port has one route per entry: the kernel
 wrappers in :mod:`repro_torch.kernels.etap.ops` (ETAP) and
 :mod:`repro_torch.kernels.flash_decode.ops` (the untransposed ``standard``
 baseline), whose operands' device picks the CUDA kernel or its plain
-version.  The separate-V pools and the quantized layouts are not ported yet
-and raise ``NotImplementedError`` naming the ROADMAP item.
+version.  The paged entries take the MLA-fused latent pool in fp or as int8
+/ fp8 codes with their per-row (scale, zp) pool ``k_sz`` (the quantized
+bodies dequantize in registers).  Separate-V pools (the GQA path) and the
+``standard`` baseline over a quantized pool are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,14 +25,11 @@ from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.runtime.paged_cache import gather_blocks
 
 
-def _check(spec: AttnSpec, v_pool, k_sz, v_sz) -> None:
-    if v_pool is not None:
+def _check(v_pool, v_sz) -> None:
+    if v_pool is not None or v_sz is not None:
         raise NotImplementedError(
-            "separate-V paged pools are not ported yet: ROADMAP A1 (kernel "
-            "bodies) and A5 (GQA path)")
-    if k_sz is not None or v_sz is not None or spec.kv_dtype != "fp":
-        raise NotImplementedError(
-            "quantized KV pools are not ported yet: ROADMAP A1")
+            "separate-V paged pools (fp or quantized) are not ported yet: "
+            "ROADMAP A5 (the GQA path)")
 
 
 def decode_attention(q, k, v, length=None, *, spec: AttnSpec):
@@ -58,11 +58,16 @@ def decode_attention_paged(q, k_pool, v_pool, table, lengths, *,
     lengths [B].  spec.kv_splits None = auto split-KV.  The "standard"
     baseline runs on the gathered dense layout with block = page, as the
     reference's does (it exists for comparison, not serving).  Returns
-    [B,H,dv]."""
-    _check(spec, v_pool, k_sz, v_sz)
+    [B,H,dv].  ``k_sz``: the (scale, zp) pool of an int8 / fp8 code pool
+    (ETAP only: the baseline's kernels take bf16 K/V)."""
+    _check(v_pool, v_sz)
     if spec.mode == "etap":
-        return etap_ops.etap_decode_mla_paged_splitkv(q, k_pool, dv, table,
-                                                      lengths, spec=spec)
+        return etap_ops.etap_decode_mla_paged_splitkv(
+            q, k_pool, dv, table, lengths, spec=spec, kv_sz=k_sz)
+    if k_sz is not None:
+        raise NotImplementedError(
+            "--mode standard over a quantized pool is not yet ported: "
+            "ROADMAP A12 (K7/K8 on fp32 K/V)")
     k, v = _gather_kv(k_pool, table, dv)
     return fd_ops.flash_decode_splitkv(
         q, k, v, lengths, spec=spec.replace(block=k_pool.shape[1]))
@@ -74,10 +79,11 @@ def prefill_attention_paged(q, k_pool, v_pool, table, start, *,
     """Chunked paged prefill attention. q [B,Cq,H,Dk]; start [B] tokens in
     the pool before the chunk, whose rows must already be appended.
     ``spec.mode`` is ignored, as in the reference: prefill always runs the
-    transposed loop.  Returns [B,Cq,H,dv]."""
-    _check(spec, v_pool, k_sz, v_sz)
+    transposed loop.  ``k_sz``: the (scale, zp) pool of an int8 / fp8
+    code pool.  Returns [B,Cq,H,dv]."""
+    _check(v_pool, v_sz)
     return etap_ops.etap_prefill_mla_paged(q, k_pool, dv, table, start,
-                                           spec=spec)
+                                           spec=spec, kv_sz=k_sz)
 
 
 def verify_attention_paged(q, k_pool, v_pool, table, start, qpos, *,
@@ -86,6 +92,6 @@ def verify_attention_paged(q, k_pool, v_pool, table, start, qpos, *,
     """Draft-verify attention: :func:`prefill_attention_paged` with the
     explicit per-row horizon qpos [B,Cq].  A linear qpos is bitwise the
     prefill entry."""
-    _check(spec, v_pool, k_sz, v_sz)
+    _check(v_pool, v_sz)
     return etap_ops.etap_verify_mla_paged(q, k_pool, dv, table, start, qpos,
-                                          spec=spec)
+                                          spec=spec, kv_sz=k_sz)

@@ -127,24 +127,38 @@ def mla_decode(params, cfg, x, cache, pos: int, *,
     return _absorbed_out(params, cfg, o_lat, x.dtype), {"c": cache_c}
 
 
+def _pools(pool, sz):
+    """A paged layer cache: the latent pool, and the (scale, zp) pool of a
+    quantized layout."""
+    return {"c": pool} if sz is None else {"c": pool, "c_sz": sz}
+
+
 def mla_decode_paged(params, cfg, x, cache, table, lengths, *,
                      spec: AttnSpec | None = None):
     """Absorbed-form decode against a paged latent cache.
 
     x: [B,D]; cache: {"c": pool [num_blocks, page, latent]}; table:
     [B,max_blocks]; lengths: [B] — sequence b's new token is written at
-    position lengths[b].  Returns (out [B,D], {"c": pool}) — the pool is
-    updated in place."""
+    position lengths[b].  A quantized cache also holds "c_sz", the per-row
+    (scale, zp) pool: the new row is quantized on write and attention runs
+    over the codes.  Returns (out [B,D], cache) — the pools are updated in
+    place."""
     spec = spec or AttnSpec()
     m = cfg.mla
     positions = lengths[:, None].to(torch.int32)              # [B,1]
     q = _absorbed_query(params, cfg, x, positions)
     c_t = _latent(params, cfg, x[:, None, :], positions)[:, 0]  # [B,latent]
-    pool = paged_cache.append_rows(cache["c"], table, lengths, c_t)
+    sz = cache.get("c_sz")     # quantized layout: the (scale, zp) pool
+    if sz is None:
+        pool = paged_cache.append_rows(cache["c"], table, lengths, c_t)
+    else:
+        pool, sz = paged_cache.append_rows_quant(cache["c"], sz, table,
+                                                 lengths, c_t)
     o_lat = decode_attention_paged(
         q, pool, None, table, lengths + 1,
-        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank)
-    return _absorbed_out(params, cfg, o_lat, x.dtype), {"c": pool}
+        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank,
+        k_sz=sz)
+    return _absorbed_out(params, cfg, o_lat, x.dtype), _pools(pool, sz)
 
 
 def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec):
@@ -158,15 +172,21 @@ def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec):
                        w_uk.float()).to(x.dtype)
     q = torch.cat([q_c, q_rope], dim=-1)                      # [B,C,H,latent]
     c_rows = _latent(params, cfg, x, positions)               # [B,C,latent]
-    pool = paged_cache.append_chunk(cache["c"], table, lengths, c_rows)
+    sz = cache.get("c_sz")     # quantized layout: the (scale, zp) pool
+    if sz is None:
+        pool = paged_cache.append_chunk(cache["c"], table, lengths, c_rows)
+    else:
+        pool, sz = paged_cache.append_chunk_quant(cache["c"], sz, table,
+                                                  lengths, c_rows)
     o_lat = prefill_attention_paged(
         q, pool, None, table, lengths,
-        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank)
+        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank,
+        k_sz=sz)
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bchk,khd->bchd", o_lat.float(),
                      w_uv.float()).to(x.dtype)
     out = layers.dense(o.reshape(B, C, H * m.v_head_dim), params["w_o"])
-    return out, {"c": pool}
+    return out, _pools(pool, sz)
 
 
 def mla_prefill_chunk(params, cfg, x, cache, table, lengths, *,
@@ -175,8 +195,8 @@ def mla_prefill_chunk(params, cfg, x, cache, table, lengths, *,
 
     x: [B,C,D] — C prompt tokens at positions lengths[b] + c; lengths: [B]
     tokens already written (the chunk start).  The chunk's rows are appended
-    first, then attention runs causally over chunk + earlier context.
-    Returns (out [B,C,D], {"c": pool})."""
+    first (quantized on write for an int8 / fp8 cache), then attention runs
+    causally over chunk + earlier context.  Returns (out [B,C,D], cache)."""
     spec = spec or AttnSpec()
     C = x.shape[1]
     positions = lengths[:, None].to(torch.int32) + torch.arange(
@@ -198,10 +218,15 @@ def mla_prefill_cache(params, cfg, x, positions):
 
 def init_mla_cache_paged(cfg, layout, dtype, kv_dtype: str = "fp", *,
                          device="cuda"):
-    """Paged latent pool (block 0 = the reserved null block)."""
-    if kv_dtype != "fp":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: quantized pools are not ported yet "
-            "(ROADMAP A1)")
+    """Paged latent pool (block 0 = the reserved null block).  kv_dtype
+    "int8" / "fp8": the pool holds codes (zero bits) and a parallel per-row
+    (scale, zp) pool rides under "c_sz", initialised to scale 1 and zp 0 so
+    the all-zero rows decode to exact zeros."""
     shape = (layout.num_blocks, layout.block_size, cfg.mla.latent_dim)
-    return {"c": torch.zeros(shape, dtype=dtype, device=device)}
+    qdt = paged_cache.quant_dtype(kv_dtype)
+    if qdt is None:
+        return {"c": torch.zeros(shape, dtype=dtype, device=device)}
+    codes = torch.zeros(shape, dtype=torch.uint8, device=device).view(qdt)
+    sz = torch.zeros(shape[:2] + (2,), dtype=torch.float32, device=device)
+    sz[..., 0] = 1.0                                     # scale 1, zp 0
+    return {"c": codes, "c_sz": sz}

@@ -40,13 +40,20 @@ SIGNATURES = {
                            _I, _P],
     "etap_prefill_mla_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                _I, _P],
+    "etap_decode_mla_paged_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                    _I, _I, _I, _P],
+    "etap_paged_partial_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _I, _I, _I, _P],
+    "etap_prefill_mla_paged_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _F, _I, _I, _I, _P],
     "etap_decode_dense": _DENSE + [_P, _I, _I, _F, _I, _P],
     "etap_partial_dense": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "flash_decode": _DENSE + [_P, _I, _I, _F, _I, _P],
     "flash_decode_partial": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I,
                                       _P],
-    "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P],
 }
 
 _LIB: list = []

@@ -75,9 +75,17 @@ __device__ __forceinline__ void load_tile(bf16* smem, int sstr,
 // the column's (m, l) in shared memory, leaving its rescale factor in corr.
 // The recurrence is softmax_state.update: amla keeps m an integer log2 bias
 // and rescales by an exact power of two.
+//
+// QUANT: the tile's V rows are codes with a per-row (scale, zp) in rsz, so
+// V^T P^T = sum_r codes_r (scale_r p_r) + (sum_r zp_r p_r) on every Dv row.
+// The hi + lo terms then carry scale_r * p_r, and the column's
+// sum_r zp_r p_r goes to *zsum; l still sums the plain p.
+template <bool QUANT = false>
 __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
                                             bf16* p_hi, bf16* p_lo, float* m,
-                                            float* l, float* corr) {
+                                            float* l, float* corr,
+                                            const float2* rsz = nullptr,
+                                            float* zsum = nullptr) {
   float mx = NEG_INF * LOG2E;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -90,24 +98,33 @@ __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
   const float block_m = amla ? ceilf(mx) : mx;
   const float m_old = *m;
   const float m_new = fmaxf(m_old, block_m);
-  float sum = 0.f;
+  float sum = 0.f, zs = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float p = prob_exp(sv[i] - m_new, amla);
     sum += p;
-    const bf16 hi = __float2bfloat16_rn(p);
+    float w = p;
+    if constexpr (QUANT) {
+      const float2 sz = rsz[r + 16 * i];
+      w = p * sz.x;
+      zs += p * sz.y;
+    }
+    const bf16 hi = __float2bfloat16_rn(w);
     p_hi[r + 16 * i] = hi;
-    p_lo[r + 16 * i] = __float2bfloat16_rn(p - __bfloat162float(hi));
+    p_lo[r + 16 * i] = __float2bfloat16_rn(w - __bfloat162float(hi));
   }
 #pragma unroll
-  for (int off = 8; off; off >>= 1)
+  for (int off = 8; off; off >>= 1) {
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if constexpr (QUANT) zs += __shfl_xor_sync(0xffffffffu, zs, off);
+  }
   __syncwarp();
   if (r == 0) {
     const float c = stat_weight(m_old - m_new, amla);
     *corr = c;
     *l = *l * c + sum;
     *m = m_new;
+    if constexpr (QUANT) *zsum = zs;
   }
 }
 

@@ -43,9 +43,9 @@ def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
     dev = m.device
     if dev.type != "cuda":
         raise NotImplementedError(f"no combine path for device {dev}")
-    if out_dtype != torch.bfloat16:
+    if out_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f"{what}: the CUDA kernel writes bf16, asked {out_dtype}")
+            f"{what}: the CUDA kernel writes bf16 or fp32, asked {out_dtype}")
     B, n, H = m.shape
     if Dv % 32 or tuple(acc.shape) != acc_shape:
         raise ValueError(f"{what}: acc {tuple(acc.shape)} does not match "
@@ -54,13 +54,14 @@ def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
     out = torch.empty(B, H, Dv, dtype=out_dtype, device=dev)
     wrapper.launches += 1
     build.check(fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                   B, n, H, Dv, amla_flag(rescale), stream(dev)), what)
+                   B, n, H, Dv, amla_flag(rescale),
+                   int(out_dtype == torch.float32), stream(dev)), what)
     return out
 
 
 def combine_splits(m, l, acc, *, out_dtype, rescale=None):
     """K2, transposed: CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16 output)."""
+    launch the kernel (bf16 or fp32 output)."""
     if m.device.type == "cpu":
         return combine_splits_plain(m, l, acc, out_dtype=out_dtype,
                                     rescale=rescale)

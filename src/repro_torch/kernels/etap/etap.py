@@ -1,6 +1,6 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
-The port of ``repro/kernels/etap/etap.py`` for the MLA latent widths.  Five
+The port of ``repro/kernels/etap/etap.py`` for the MLA latent widths.  Eight
 kernels, all one CUDA body (``kernels/csrc/etap.cu``, whose header note
 says what bounds each on the H100 and how the design answers it):
 
@@ -16,14 +16,24 @@ says what bounds each on the H100 and how the design answers it):
      (replaces ``repro/kernels/etap/etap.py:154``, ``_call``)
   K6 :func:`etap_partial_dense`      split-KV phase 1, dense
      (replaces ``repro/kernels/etap/etap.py:603``)
+  K3q, K1q, K4q :func:`etap_decode_mla_paged_quant`,
+     :func:`etap_paged_partial_quant`, :func:`etap_prefill_mla_paged_quant`
+     / :func:`etap_verify_mla_paged_quant`: K3, K1 and K4 over an int8 or
+     fp8 (e4m3) code pool with its per-row (scale, zp) pool ``kv_sz``
+     (replace the reference's quantized MLA-fused bodies under the same
+     three ``pallas_call`` sites, ``etap.py:116, :639, :340, :367``).  The
+     codes enter the tensor cores as exact bf16 values and the affine is
+     applied around the products in fp32, so no dequantized row is rounded
+     to bf16; q is bf16 or fp32 and the output takes q's dtype.
 
 Each wrapper dispatches on the device of its operands: CPU tensors run the
 ``*_plain`` version, CUDA tensors launch the kernel (or raise on a shape or
 dtype the kernel does not take).  There is no fallback.  The plain versions
-walk the KV tiles (pool pages through the block table, or ``block``-row
-blocks of the dense cache as the reference does) with
-:func:`repro_torch.kernels.softmax_state.update`, the recurrence the kernel
-runs.  Each wrapper's ``launches`` attribute counts its kernel launches.
+walk the KV tiles (pool pages through the block table, dequantized to fp32
+rows for a code pool, or ``block``-row blocks of the dense cache as the
+reference does) with :func:`repro_torch.kernels.softmax_state.update`, the
+recurrence the kernel runs.  Each wrapper's ``launches`` attribute counts
+its kernel launches.
 
 Column convention: a query tile is [B, C, Dk] with C columns; column c is
 live for key position kpos iff ``kpos <= horizon[b, c]`` — decode uses
@@ -39,6 +49,7 @@ from repro_torch.kernels.launch import (amla_flag, check_widths,
                                         dense_operands, dense_split_tiles,
                                         device_of, i32, ptr, stream)
 from repro_torch.kernels.splitkv import split_walks_plain
+from repro_torch.runtime.paged_cache import dequantize_rows, raw
 
 NEG_INF = softmax_state.NEG_INF
 
@@ -66,9 +77,15 @@ def _walk_plain(q, fetch, tiles, block, horizon, *, scale, dv, mode):
     return state
 
 
-def _pool_fetch(pool, table, dv):
+def _pool_fetch(pool, table, dv, sz=None):
+    """Tile j of every row: pool block table[:, j], dequantized to fp32 rows
+    (``codes*scale + zp``) when ``sz`` holds the quantized pool's pairs;
+    V is its first ``dv`` columns (sliced after the dequant)."""
     def fetch(j):
-        blk = pool[table[:, j].long()]                         # [B,page,Dk]
+        ids = table[:, j].long()
+        blk = raw(pool)[ids].view(pool.dtype)                  # [B,page,Dk]
+        if sz is not None:
+            blk = dequantize_rows(blk, sz[ids])
         return blk, blk[..., :dv]
     return fetch
 
@@ -90,17 +107,55 @@ def _chunk_horizon(start, qpos, Cq, H, device):
     return start.to(torch.int32)[:, None] + col[None, :]
 
 
+def _out_dtype(q, kv_pool, kv_sz):
+    """A quantized pool's outputs take q's dtype (as the reference's), an
+    fp pool's its own."""
+    return q.dtype if kv_sz is not None else kv_pool.dtype
+
+
+def _decode_plain(q, kv_pool, kv_sz, dv, table, lengths, *, scale, rescale):
+    mode = softmax_state.resolve(rescale)
+    state = _walk_plain(q, _pool_fetch(kv_pool, table, dv, kv_sz),
+                        range(table.shape[1]), kv_pool.shape[1],
+                        _decode_horizon(lengths, q.shape[1]), scale=scale,
+                        dv=dv, mode=mode)
+    return _finalize(state, _out_dtype(q, kv_pool, kv_sz))
+
+
+def _partial_plain(q, kv_pool, kv_sz, dv, table, lengths, *, scale,
+                   n_splits, rescale):
+    mode = softmax_state.resolve(rescale)
+    nb = table.shape[1]
+    if nb % n_splits:
+        raise ValueError(f"table width {nb} not a multiple of {n_splits}")
+    npb = nb // n_splits
+    horizon = _decode_horizon(lengths, q.shape[1])
+    fetch = _pool_fetch(kv_pool, table, dv, kv_sz)
+    parts = [_walk_plain(q, fetch, range(s * npb, (s + 1) * npb),
+                         kv_pool.shape[1], horizon, scale=scale, dv=dv,
+                         mode=mode) for s in range(n_splits)]
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
+
+
+def _prefill_plain(q, kv_pool, kv_sz, dv, table, start, qpos, *, scale,
+                   rescale):
+    mode = softmax_state.resolve(rescale)
+    B, Cq, H, Dk = q.shape
+    horizon = _chunk_horizon(start, qpos, Cq, H, q.device)
+    state = _walk_plain(q.reshape(B, Cq * H, Dk),
+                        _pool_fetch(kv_pool, table, dv, kv_sz),
+                        range(table.shape[1]), kv_pool.shape[1], horizon,
+                        scale=scale, dv=dv, mode=mode)
+    return _finalize(state, _out_dtype(q, kv_pool, kv_sz)).reshape(
+        B, Cq, H, dv)
+
+
 def etap_decode_mla_paged_plain(q, kv_pool, dv, table, lengths, *, scale,
                                 rescale=None):
     """Plain K3. q [B,H,Dk]; pool [N,page,Dk]; table [B,nb]; lengths [B].
     Returns [B,H,dv] in the pool dtype."""
-    mode = softmax_state.resolve(rescale)
-    H = q.shape[1]
-    state = _walk_plain(q, _pool_fetch(kv_pool, table, dv),
-                        range(table.shape[1]), kv_pool.shape[1],
-                        _decode_horizon(lengths, H), scale=scale, dv=dv,
-                        mode=mode)
-    return _finalize(state, kv_pool.dtype)
+    return _decode_plain(q, kv_pool, None, dv, table, lengths, scale=scale,
+                         rescale=rescale)
 
 
 def etap_paged_partial_plain(q, kv_pool, dv, table, lengths, *, scale,
@@ -108,17 +163,8 @@ def etap_paged_partial_plain(q, kv_pool, dv, table, lengths, *, scale,
     """Plain K1.  The table width must be a multiple of ``n_splits``; split
     s walks columns [s·npb, (s+1)·npb).  Returns fp32 (m [B,n,H],
     l [B,n,H], accT [B,n,dv,H])."""
-    mode = softmax_state.resolve(rescale)
-    nb = table.shape[1]
-    if nb % n_splits:
-        raise ValueError(f"table width {nb} not a multiple of {n_splits}")
-    npb = nb // n_splits
-    horizon = _decode_horizon(lengths, q.shape[1])
-    fetch = _pool_fetch(kv_pool, table, dv)
-    parts = [_walk_plain(q, fetch, range(s * npb, (s + 1) * npb),
-                         kv_pool.shape[1], horizon, scale=scale, dv=dv,
-                         mode=mode) for s in range(n_splits)]
-    return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
+    return _partial_plain(q, kv_pool, None, dv, table, lengths, scale=scale,
+                          n_splits=n_splits, rescale=rescale)
 
 
 def etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start, *, scale,
@@ -126,14 +172,33 @@ def etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start, *, scale,
     """Plain K4. q [B,Cq,H,Dk]; start [B] rows in the pool before the chunk
     (whose rows are already appended); qpos [B,Cq] explicit per-row
     horizons (verify) or None (prefill).  Returns [B,Cq,H,dv]."""
-    mode = softmax_state.resolve(rescale)
-    B, Cq, H, Dk = q.shape
-    horizon = _chunk_horizon(start, qpos, Cq, H, q.device)
-    state = _walk_plain(q.reshape(B, Cq * H, Dk),
-                        _pool_fetch(kv_pool, table, dv),
-                        range(table.shape[1]), kv_pool.shape[1], horizon,
-                        scale=scale, dv=dv, mode=mode)
-    return _finalize(state, kv_pool.dtype).reshape(B, Cq, H, dv)
+    return _prefill_plain(q, kv_pool, None, dv, table, start, qpos,
+                          scale=scale, rescale=rescale)
+
+
+def etap_decode_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, lengths,
+                                      *, scale, rescale=None):
+    """Plain K3q: K3 over an int8 / fp8 code pool [N,page,Dk] with its
+    (scale, zp) pool kv_sz [N,page,2].  Each row is dequantized to fp32 and
+    q taken in fp32, as the reference does.  Returns [B,H,dv] in q's
+    dtype."""
+    return _decode_plain(q, kv_pool, kv_sz, dv, table, lengths, scale=scale,
+                         rescale=rescale)
+
+
+def etap_paged_partial_quant_plain(q, kv_pool, kv_sz, dv, table, lengths, *,
+                                   scale, n_splits, rescale=None):
+    """Plain K1q: K1 over a quantized pool.  Returns fp32 (m, l, accT)."""
+    return _partial_plain(q, kv_pool, kv_sz, dv, table, lengths, scale=scale,
+                          n_splits=n_splits, rescale=rescale)
+
+
+def etap_prefill_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, start,
+                                       *, scale, rescale=None, qpos=None):
+    """Plain K4q: K4 (prefill, or verify with ``qpos``) over a quantized
+    pool.  Returns [B,Cq,H,dv] in q's dtype."""
+    return _prefill_plain(q, kv_pool, kv_sz, dv, table, start, qpos,
+                          scale=scale, rescale=rescale)
 
 
 def _dense_splits_plain(q, k, v, length, plan, *, scale, mode):
@@ -270,6 +335,134 @@ def etap_verify_mla_paged(q, kv_pool, dv, table, start, qpos, *, scale,
                     rescale=rescale, what="etap_verify_mla_paged")
 
 
+def _check_quant(q, kv_pool, kv_sz, dv, *, what):
+    """The quantized bodies take bf16 or fp32 q, an int8 or e4m3 code pool
+    at the fp kernels' widths and page, and its fp32 (scale, zp) pool.
+    Returns (library, code type 0 int8 / 1 e4m3, q is fp32)."""
+    lib = build.library()
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes bf16 or fp32 q, got {q.dtype}")
+    code = {torch.int8: 0, torch.float8_e4m3fn: 1}.get(kv_pool.dtype)
+    if code is None:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes an int8 or float8_e4m3fn code "
+            f"pool, got {kv_pool.dtype}")
+    want = (lib.etap_dk(), lib.etap_dv(), lib.etap_page())
+    got = (q.shape[-1], dv, kv_pool.shape[1])
+    if got != want or kv_pool.shape[-1] != want[0]:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes (Dk, Dv, page) = {want}, got "
+            f"({q.shape[-1]}/{kv_pool.shape[-1]}, {dv}, {kv_pool.shape[1]})")
+    if kv_sz.dtype != torch.float32 or \
+            tuple(kv_sz.shape) != (*kv_pool.shape[:2], 2):
+        raise NotImplementedError(
+            f"{what}: kv_sz must be fp32 [N, page, 2] beside the code pool, "
+            f"got {kv_sz.dtype} {tuple(kv_sz.shape)}")
+    return lib, code, int(q.dtype == torch.float32)
+
+
+def etap_decode_mla_paged_quant(q, kv_pool, kv_sz, dv, table, lengths, *,
+                                scale, rescale=None):
+    """K3q: single-pass paged decode over an int8 / fp8 code pool
+    [N,page,Dk] and its per-row (scale, zp) pool kv_sz [N,page,2].  q
+    [B,H,Dk] bf16 or fp32.  Returns [B,H,dv] in q's dtype."""
+    dev = device_of(q, kv_pool, kv_sz, table, lengths)
+    if dev.type == "cpu":
+        return etap_decode_mla_paged_quant_plain(
+            q, kv_pool, kv_sz, dv, table, lengths, scale=scale,
+            rescale=rescale)
+    lib, code, qf32 = _check_quant(q, kv_pool, kv_sz, dv,
+                                   what="etap_decode_mla_paged_quant")
+    B, H, _ = q.shape
+    q, pool, sz, table, lengths = (q.contiguous(), kv_pool.contiguous(),
+                                   kv_sz.contiguous(), i32(table),
+                                   i32(lengths))
+    out = torch.empty(B, H, dv, dtype=q.dtype, device=dev)
+    etap_decode_mla_paged_quant.launches += 1
+    build.check(lib.etap_decode_mla_paged_quant(
+        ptr(q), ptr(pool), ptr(sz), table.data_ptr(), lengths.data_ptr(),
+        ptr(out), B, H, table.shape[1], float(scale), amla_flag(rescale),
+        code, qf32, stream(dev)), "etap_decode_mla_paged_quant")
+    return out
+
+
+def etap_paged_partial_quant(q, kv_pool, kv_sz, dv, table, lengths, *,
+                             scale, n_splits, rescale=None):
+    """K1q: split-KV phase 1 over a quantized pool (table width a multiple
+    of ``n_splits``).  Returns fp32 (m [B,n,H], l [B,n,H],
+    accT [B,n,dv,H])."""
+    dev = device_of(q, kv_pool, kv_sz, table, lengths)
+    if dev.type == "cpu":
+        return etap_paged_partial_quant_plain(
+            q, kv_pool, kv_sz, dv, table, lengths, scale=scale,
+            n_splits=n_splits, rescale=rescale)
+    lib, code, qf32 = _check_quant(q, kv_pool, kv_sz, dv,
+                                   what="etap_paged_partial_quant")
+    B, H, _ = q.shape
+    nb = table.shape[1]
+    if nb % n_splits:
+        raise ValueError(f"table width {nb} not a multiple of {n_splits}")
+    q, pool, sz, table, lengths = (q.contiguous(), kv_pool.contiguous(),
+                                   kv_sz.contiguous(), i32(table),
+                                   i32(lengths))
+    f32 = dict(dtype=torch.float32, device=dev)
+    m = torch.empty(B, n_splits, H, **f32)
+    l = torch.empty(B, n_splits, H, **f32)
+    acc = torch.empty(B, n_splits, dv, H, **f32)
+    etap_paged_partial_quant.launches += 1
+    build.check(lib.etap_paged_partial_quant(
+        ptr(q), ptr(pool), ptr(sz), table.data_ptr(), lengths.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, nb, n_splits,
+        float(scale), amla_flag(rescale), code, qf32, stream(dev)),
+        "etap_paged_partial_quant")
+    return m, l, acc
+
+
+def _prefill_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *, scale,
+                   rescale, what):
+    dev = device_of(q, kv_pool, kv_sz, table, start, qpos)
+    if dev.type == "cpu":
+        return etap_prefill_mla_paged_quant_plain(
+            q, kv_pool, kv_sz, dv, table, start, scale=scale,
+            rescale=rescale, qpos=qpos)
+    lib, code, qf32 = _check_quant(q, kv_pool, kv_sz, dv, what=what)
+    B, Cq, H, Dk = q.shape
+    C = Cq * H
+    q = q.reshape(B, C, Dk).contiguous()
+    pool, sz, table, start = (kv_pool.contiguous(), kv_sz.contiguous(),
+                              i32(table), i32(start))
+    cols = _chunk_horizon(start, qpos, Cq, H, dev).contiguous() \
+        if qpos is not None else None
+    out = torch.empty(B, C, dv, dtype=q.dtype, device=dev)
+    etap_prefill_mla_paged_quant.launches += 1
+    build.check(lib.etap_prefill_mla_paged_quant(
+        ptr(q), ptr(pool), ptr(sz), table.data_ptr(), start.data_ptr(),
+        cols.data_ptr() if cols is not None else None, ptr(out),
+        B, C, H, table.shape[1], float(scale), amla_flag(rescale), code,
+        qf32, stream(dev)), what)
+    return out.reshape(B, Cq, H, dv)
+
+
+def etap_prefill_mla_paged_quant(q, kv_pool, kv_sz, dv, table, start, *,
+                                 scale, rescale=None):
+    """K4q: chunked paged prefill over a quantized pool.  q [B,Cq,H,Dk]
+    bf16 or fp32; start [B].  Returns [B,Cq,H,dv] in q's dtype."""
+    return _prefill_quant(q, kv_pool, kv_sz, dv, table, start, None,
+                          scale=scale, rescale=rescale,
+                          what="etap_prefill_mla_paged_quant")
+
+
+def etap_verify_mla_paged_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *,
+                                scale, rescale=None):
+    """K4q with an explicit per-row horizon qpos [B,Cq]; a linear qpos is
+    bitwise :func:`etap_prefill_mla_paged_quant`.  Counts as a K4q
+    launch."""
+    return _prefill_quant(q, kv_pool, kv_sz, dv, table, start, qpos,
+                          scale=scale, rescale=rescale,
+                          what="etap_verify_mla_paged_quant")
+
+
 def etap_decode_dense(q, k, v, length, *, scale, block=512, rescale=None):
     """K5: single-pass dense ETAP decode. q [BG,H,Dk]; k [BG,S,Dk];
     v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place);
@@ -335,3 +528,6 @@ etap_paged_partial.launches = 0
 etap_prefill_mla_paged.launches = 0
 etap_decode_dense.launches = 0
 etap_partial_dense.launches = 0
+etap_decode_mla_paged_quant.launches = 0
+etap_paged_partial_quant.launches = 0
+etap_prefill_mla_paged_quant.launches = 0

@@ -63,19 +63,26 @@ def _pad_table(table, multiple: int):
 
 
 def _paged_partial(q, kv_pool, dv, table, lengths, *, scale, n_splits,
-                   rescale):
+                   rescale, kv_sz=None):
     n_splits, _, padded_nb = paged_split_geometry(table.shape[1], n_splits)
     table = _pad_table(table, padded_nb)
+    if kv_sz is not None:
+        return K.etap_paged_partial_quant(q, kv_pool, kv_sz, dv, table,
+                                          lengths, scale=scale,
+                                          n_splits=n_splits, rescale=rescale)
     return K.etap_paged_partial(q, kv_pool, dv, table, lengths, scale=scale,
                                 n_splits=n_splits, rescale=rescale)
 
 
 def etap_decode_mla_paged_splitkv(q, kv_pool, dv: int, table, lengths, *,
-                                  spec):
+                                  spec, kv_sz=None):
     """Two-phase split-KV decode over a paged MLA latent pool (V = the first
     ``dv`` pool columns).  spec.kv_splits None/0 → auto (the paged scheduler,
     sized to the device); 1 → the single-pass kernel K3.  Requests for more
-    splits than table columns degrade to the effective count."""
+    splits than table columns degrade to the effective count.  ``kv_sz``:
+    the (scale, zp) pool of an int8 / fp8 code pool — the quantized bodies
+    K3q / K1q run, the split count is planned as for fp, and the output
+    takes q's dtype."""
     B, H, _ = q.shape
     page = kv_pool.shape[1]
     n_splits = int(spec.kv_splits or 0)
@@ -83,23 +90,35 @@ def etap_decode_mla_paged_splitkv(q, kv_pool, dv: int, table, lengths, *,
         n_splits = plan_splits_paged(B, table.shape[1], page, H, dv,
                                      num_cores=num_cores(q.device)).n_splits
     n_splits = paged_split_geometry(table.shape[1], n_splits)[0]
+    kw = dict(scale=spec.scale, rescale=spec.rescale)
     if n_splits <= 1:
-        return K.etap_decode_mla_paged(q, kv_pool, dv, table, lengths,
-                                       scale=spec.scale, rescale=spec.rescale)
+        if kv_sz is not None:
+            return K.etap_decode_mla_paged_quant(q, kv_pool, kv_sz, dv, table,
+                                                 lengths, **kw)
+        return K.etap_decode_mla_paged(q, kv_pool, dv, table, lengths, **kw)
     m, l, accT = _paged_partial(q, kv_pool, dv, table, lengths,
-                                scale=spec.scale, n_splits=n_splits,
-                                rescale=spec.rescale)
-    return combine_mod.combine_splits(m, l, accT, out_dtype=kv_pool.dtype,
+                                n_splits=n_splits, kv_sz=kv_sz, **kw)
+    out_dtype = q.dtype if kv_sz is not None else kv_pool.dtype
+    return combine_mod.combine_splits(m, l, accT, out_dtype=out_dtype,
                                       rescale=spec.rescale)
 
 
-def etap_prefill_mla_paged(q, kv_pool, dv: int, table, start, *, spec):
-    """Chunked paged MLA-fused prefill (K4). q [B,Cq,H,Dk]; start [B]."""
-    return K.etap_prefill_mla_paged(q, kv_pool, dv, table, start,
-                                    scale=spec.scale, rescale=spec.rescale)
+def etap_prefill_mla_paged(q, kv_pool, dv: int, table, start, *, spec,
+                           kv_sz=None):
+    """Chunked paged MLA-fused prefill (K4, or K4q over a quantized pool
+    with its ``kv_sz``). q [B,Cq,H,Dk]; start [B]."""
+    kw = dict(scale=spec.scale, rescale=spec.rescale)
+    if kv_sz is not None:
+        return K.etap_prefill_mla_paged_quant(q, kv_pool, kv_sz, dv, table,
+                                              start, **kw)
+    return K.etap_prefill_mla_paged(q, kv_pool, dv, table, start, **kw)
 
 
-def etap_verify_mla_paged(q, kv_pool, dv: int, table, start, qpos, *, spec):
-    """Paged MLA-fused draft verify (K4 with explicit qpos [B,Cq])."""
-    return K.etap_verify_mla_paged(q, kv_pool, dv, table, start, qpos,
-                                   scale=spec.scale, rescale=spec.rescale)
+def etap_verify_mla_paged(q, kv_pool, dv: int, table, start, qpos, *, spec,
+                          kv_sz=None):
+    """Paged MLA-fused draft verify (K4 / K4q with explicit qpos [B,Cq])."""
+    kw = dict(scale=spec.scale, rescale=spec.rescale)
+    if kv_sz is not None:
+        return K.etap_verify_mla_paged_quant(q, kv_pool, kv_sz, dv, table,
+                                             start, qpos, **kw)
+    return K.etap_verify_mla_paged(q, kv_pool, dv, table, start, qpos, **kw)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import softmax_state
+from repro_torch.runtime.paged_cache import dequantize_rows
 
 
 def etap_decode_ref(q, k, v, length=None, *, scale: float,
@@ -52,3 +53,22 @@ def etap_decode_state_ref(q, k, v, length=None, *, scale: float,
         axis=1, mode=mode, expand=lambda c: c[:, None, :])
     oT = softmax_state.finalize(state, expand=lambda l: l[:, None, :])
     return oT.transpose(1, 2).to(v.dtype)
+
+
+# ------------------------------------------------------ quantized twins
+def dequantize(codes, sz):
+    """Dequant of a quantized KV layout: codes [..., F] + per-row
+    (scale, zp) [..., 2] -> fp32 rows, the runtime's one definition
+    (:func:`repro_torch.runtime.paged_cache.dequantize_rows`)."""
+    return dequantize_rows(codes, sz)
+
+
+def etap_decode_quant_ref(q, k_codes, k_sz, v_codes, v_sz, length=None, *,
+                          scale: float, dv: int = 0, dtype=torch.float32):
+    """Oracle of the quantized decode kernels: dequantize densely, then the
+    direct transposed softmax.  v_codes None -> MLA-fused (V = the first
+    ``dv`` dequantized latent columns, the kernels' dequant-then-slice
+    order).  Shapes as :func:`etap_decode_ref` with codes for K/V."""
+    k = dequantize(k_codes, k_sz)
+    v = dequantize(v_codes, v_sz) if v_codes is not None else k[..., :dv]
+    return etap_decode_ref(q, k, v, length, scale=scale, dtype=dtype)

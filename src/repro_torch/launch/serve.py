@@ -42,7 +42,8 @@ from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.kernels import softmax_state
 from repro_torch.models import model
 from repro_torch.runtime import scheduler, telemetry
-from repro_torch.runtime.paged_cache import BlockPool, layout_for
+from repro_torch.runtime.paged_cache import (BlockPool, layout_for,
+                                             layout_for_bytes)
 from repro_torch.runtime.prefix_cache import PrefixCache
 
 
@@ -177,6 +178,16 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     max_total = args.prompt + args.gen
     layout = layout_for(B, max_total, block_size=args.page_size,
                         spare_blocks=args.spare_blocks)
+    if args.kv_dtype != "fp":
+        # hold the pool's byte budget at what the fp layout spends for
+        # --batch slots and let the cheaper quantized rows buy more blocks,
+        # and with them more batch slots (about 2x at int8 for bf16)
+        budget_bytes = ((layout.num_blocks - 1) * layout.block_size
+                        * model.paged_row_bytes(cfg, "fp"))
+        layout, B = layout_for_bytes(
+            budget_bytes, model.paged_row_bytes(cfg, args.kv_dtype),
+            max_total, block_size=args.page_size,
+            spare_blocks=args.spare_blocks)
     host_blocks = args.host_blocks
     if args.preemption == "swap" and host_blocks == 0:
         host_blocks = layout.num_blocks - 1   # host tier mirrors the pool
@@ -351,14 +362,16 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     tokens_served = c_tokens.value
     print(f"[serve] {args.arch} layers={cfg.num_layers} "
           f"device={_device_name(device)} mode={args.mode} "
-          f"slots={B} requests={n_requests} page={layout.block_size} "
+          f"kv_dtype={args.kv_dtype} slots={B} requests={n_requests} "
+          f"page={layout.block_size} "
           f"chunk={chunk} rescale={softmax_state.default_mode()} "
           f"tokens={tokens_served} steps={c_steps.value} "
           f"prefill_chunks={c_chunks.value} t_prefill={t_prefill:.3f}s "
           f"t_decode={t_decode:.3f}s "
           f"tok/s={tokens_served / max(t_total, 1e-9):.1f}")
     return {"outputs": outputs, "tokens_served": tokens_served,
-            "batch_slots": B, "pool_blocks": layout.num_blocks - 1,
+            "batch_slots": B, "kv_dtype": args.kv_dtype,
+            "pool_blocks": layout.num_blocks - 1,
             "host_blocks": host_blocks, "steps": c_steps.value,
             "refusals": len(sched.refused_ids),
             "prefill_chunks": c_chunks.value,
@@ -392,7 +405,6 @@ def run(args) -> dict:
 
 # flag -> (value that is served, why another value is refused)
 _NOT_PORTED = {
-    "kv_dtype": ("fp", "quantized KV pools (ROADMAP A1)"),
     "spec_tokens": (0, "speculative decoding (ROADMAP A2)"),
     "fault_rate": (0.0, "fault drills (ROADMAP A6)"),
     "trace_out": (None, "trace export (ROADMAP A6)"),
@@ -489,6 +501,11 @@ def parse_args(argv=None):
         ap.error("--trace-out/--profile-kernels require --cache-layout "
                  "paged: the dense loop has no per-request lifecycle or "
                  "per-launch entries to record")
+    if args.kv_dtype != "fp" and args.mode == "standard" \
+            and args.cache_layout == "paged":
+        ap.error("--mode standard with --kv-dtype int8/fp8: the baseline "
+                 "over a quantized pool (ROADMAP A12) is not yet ported to "
+                 "repro_torch")
     for flag, (served, what) in _NOT_PORTED.items():
         if getattr(args, flag) != served:
             ap.error(f"--{flag.replace('_', '-')}: {what} is not yet ported "

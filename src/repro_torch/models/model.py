@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.models import layers
+from repro_torch.runtime import paged_cache
 
 
 # ------------------------------------------------------------- layer groups
@@ -168,41 +169,64 @@ def prefill(params, cfg, tokens, max_len: int):
 def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     """Paged serving cache: one latent pool per layer, all layers sharing
     the one block table the scheduler owns (runtime/paged_cache.BlockPool).
-    Returns a list of per-layer {"c": pool} dicts."""
+    Returns a list of per-layer {"c": pool} dicts; kv_dtype "int8" / "fp8"
+    stores codes and adds the per-row (scale, zp) pool under "c_sz".  Every
+    later path (decode, chunked prefill, block copy, swap) keys off the
+    dict, so the layout is chosen here once."""
     check_ported(cfg)
     return [mla_mod.init_mla_cache_paged(cfg, layout, cfg.torch_dtype,
                                          kv_dtype, device=device)
             for _ in range(cfg.num_layers)]
 
 
+def paged_row_bytes(cfg, kv_dtype: str = "fp") -> int:
+    """KV-cache bytes one token costs across the layer stack of a paged
+    cache in the given layout (one latent row per layer) — what the serve
+    loop's byte-budget sizing divides by.  GQA pools (K and V heads, one
+    pair per head) come with the GQA path."""
+    if cfg.attention_kind != "mla":
+        raise NotImplementedError(
+            f"{cfg.attention_kind} paged caches are not ported yet: "
+            "ROADMAP A5")
+    return cfg.num_layers * paged_cache.row_bytes(
+        cfg.mla.latent_dim, kv_dtype, cfg.torch_dtype)
+
+
 def copy_paged_block(cache, src: int, dst: int):
     """Copy-on-write copy of physical block ``src`` into ``dst`` in every
-    layer's pool (in place).  Returns ``cache``."""
+    pool of every layer (codes and their (scale, zp) rows alike), in
+    place.  Returns ``cache``."""
     for layer in cache:
         for pool in layer.values():
-            pool[dst] = pool[src]
+            paged_cache.copy_block(pool, src, dst)
     return cache
 
 
 def read_paged_blocks(cache, ids):
-    """Host copies of physical blocks ``ids`` of every layer's pool — the
+    """Host copies of physical blocks ``ids`` of every layer's pools — the
     device→host leg of preemption by swap.  Returns {key: CPU tensor
-    [n_layers, len(ids), bs, *F]} in the pool's dtype (bitwise copies)."""
+    [n_layers, len(ids), bs, *F]} in each pool's dtype (bitwise copies;
+    fp8 codes move as their bytes)."""
     idx = torch.as_tensor(list(ids), dtype=torch.long)
-    return {key: torch.stack([layer[key][idx.to(layer[key].device)].cpu()
-                              for layer in cache])
-            for key in cache[0]}
+    return {key: torch.stack([
+        paged_cache.raw(layer[key])[idx.to(layer[key].device)].cpu()
+        for layer in cache]).view(cache[0][key].dtype)
+        for key in cache[0]}
 
 
 def write_paged_blocks(cache, ids, rows):
     """Write host block rows (from :func:`read_paged_blocks`) back into
-    physical blocks ``ids`` of every layer's pool (in place).  Returns
-    ``cache``."""
+    physical blocks ``ids`` of every layer's pools, bitwise, in place.
+    Returns ``cache``."""
     for i, layer in enumerate(cache):
         for key, pool in layer.items():
             idx = torch.as_tensor(list(ids), dtype=torch.long,
                                   device=pool.device)
-            pool[idx] = rows[key][i].to(device=pool.device, dtype=pool.dtype)
+            src = rows[key][i]
+            if src.dtype != pool.dtype:
+                raise ValueError(f"{key}: rows of {src.dtype} for a pool of "
+                                 f"{pool.dtype}")
+            paged_cache.raw(pool)[idx] = paged_cache.raw(src).to(pool.device)
     return cache
 
 

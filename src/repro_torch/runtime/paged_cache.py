@@ -16,7 +16,17 @@ unchanged apart from :meth:`BlockPool.device_views`.  The device ops differ
 from the reference in one way: they write into the pool IN PLACE (the
 reference's arrays are immutable and it donates them through jit instead)
 and return the same tensor, so a pool is never copied per step.
-The quantized layouts are not ported yet (ROADMAP A1).
+
+Quantized layouts: the pool may hold int8 or fp8 (e4m3) codes with one
+fp32 (scale, zero-point) pair per written row in a parallel ``sz`` pool
+[num_blocks, block_size, 2] that pages with the code pool.  The row is the
+quantization granule, so a write never re-quantizes earlier rows and the
+same rows always quantize to the same bits (the prefix cache relies on
+it).  :func:`quantize_rows` follows the reference's operations one for one
+(same op order, round half to even, the clamp before the e4m3 cast, scale
+1 on degenerate rows), so its codes and pairs are the reference's bit for
+bit.  fp8 pools are written and copied through their uint8 view
+(:func:`raw`), which is bitwise and needs no fp8 indexing kernels.
 """
 from __future__ import annotations
 
@@ -27,6 +37,13 @@ import numpy as np
 import torch
 
 NULL_BLOCK = 0
+
+# Quantized KV layouts.  "fp" keeps the config dtype; "int8" is an
+# asymmetric per-row affine; "fp8" is e4m3 (torch.float8_e4m3fn), symmetric:
+# the zero-point is pinned to 0 and only the scale is live.
+KV_LAYOUTS = ("fp", "int8", "fp8")
+F8_MAX = 448.0                    # e4m3fn finite max (no inf encoding)
+INT8_MAX = 127.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,7 +415,7 @@ def append_chunk(pool, table, lengths, rows):
 def copy_block(pool, src: int, dst: int):
     """Copy-on-write device copy of physical block `src` into `dst`, in
     place.  Returns ``pool``."""
-    pool[dst] = pool[src]
+    raw(pool)[dst] = raw(pool)[src]
     return pool
 
 
@@ -407,4 +424,126 @@ def gather_blocks(pool, table):
     path: the kernels index the pool through the table)."""
     B, nb = table.shape
     bs = pool.shape[1]
-    return pool[table.long()].reshape(B, nb * bs, *pool.shape[2:])
+    rows = raw(pool)[table.long()].reshape(B, nb * bs, *pool.shape[2:])
+    return rows.view(pool.dtype)
+
+
+# ------------------------------------------------------------ quantization
+def quant_dtype(kv_dtype: str):
+    """Pool storage dtype of a KV layout ("fp" -> None: the caller keeps
+    the config dtype)."""
+    if kv_dtype == "fp":
+        return None
+    if kv_dtype == "int8":
+        return torch.int8
+    if kv_dtype == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(f"kv_dtype must be one of {KV_LAYOUTS}, got {kv_dtype!r}")
+
+
+def kv_dtype_of(pool) -> str:
+    """Inverse of :func:`quant_dtype`: classify a pool by its dtype."""
+    if pool.dtype == torch.int8:
+        return "int8"
+    if pool.dtype == torch.float8_e4m3fn:
+        return "fp8"
+    return "fp"
+
+
+def raw(t):
+    """The bits of an fp8 tensor as uint8 (a view); other tensors as they
+    are.  Writes, copies and gathers of fp8 pools go through it."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def quantize_rows(rows, kv_dtype: str):
+    """Quantize fp rows [..., F] to (codes [..., F] in :func:`quant_dtype`,
+    sz [..., 2] fp32) with one affine pair per row, ``sz[..., 0]`` the
+    scale and ``sz[..., 1]`` the zero-point:
+
+        int8:  zp = (max+min)/2, scale = (max-min)/254,
+               codes = round((x - zp)/scale) in [-127, 127]
+        fp8:   zp = 0, scale = amax/448, codes = e4m3(x/scale)
+
+    Degenerate rows (max == min) take scale 1, so all-zero and constant
+    rows round-trip exactly.  A pure function of the row values."""
+    dt = quant_dtype(kv_dtype)
+    if dt is None:
+        raise ValueError("quantize_rows on a 'fp' layout: nothing to do")
+    x = rows.to(torch.float32)
+    hi = torch.amax(x, dim=-1, keepdim=True)
+    lo = torch.amin(x, dim=-1, keepdim=True)
+    one = torch.ones_like(hi)
+
+    def per_row(c):
+        # a tensor divisor: CUDA turns division by a Python number into a
+        # product with its reciprocal, which is not the reference's bits
+        return torch.full_like(hi, c)
+    if kv_dtype == "int8":
+        zp = (hi + lo) * 0.5
+        rng = hi - lo
+        scale = torch.where(rng > 0, rng / per_row(2.0 * INT8_MAX), one)
+        codes = torch.round((x - zp) / scale)             # half to even
+        codes = torch.clamp(codes, -INT8_MAX, INT8_MAX).to(dt)
+    else:
+        amax = torch.maximum(hi.abs(), lo.abs())
+        zp = torch.zeros_like(hi)
+        scale = torch.where(amax > 0, amax / per_row(F8_MAX), one)
+        # clamp BEFORE the cast: e4m3fn has no inf, overflow would be nan
+        codes = torch.clamp(x / scale, -F8_MAX, F8_MAX).to(dt)
+    return codes, torch.cat([scale, zp], dim=-1)
+
+
+def dequantize_rows(codes, sz):
+    """Inverse of :func:`quantize_rows`: ``codes*scale + zp`` in fp32."""
+    return codes.to(torch.float32) * sz[..., 0:1] + sz[..., 1:2]
+
+
+def quantize_pool(pool, kv_dtype: str):
+    """Quantize a whole fp pool [N, bs, F] into (codes, sz [N, bs, 2])."""
+    return quantize_rows(pool, kv_dtype)
+
+
+def row_bytes(feat: int, kv_dtype: str, fp_dtype=torch.bfloat16,
+              granules: int = 1) -> int:
+    """KV bytes per written token row: ``feat`` features in the layout's
+    code dtype plus, for a quantized layout, ``granules`` fp32 (scale, zp)
+    pairs."""
+    if kv_dtype == "fp":
+        return feat * torch.empty((), dtype=fp_dtype).element_size()
+    return feat + granules * 8            # 1-byte codes + fp32 (scale, zp)
+
+
+def layout_for_bytes(budget_bytes: int, bytes_per_row: int, max_len: int,
+                     block_size: int = 64, spare_blocks: int = 0):
+    """Size a (layout, batch_slots) pair to a pool byte budget: as many
+    blocks as the budget buys at ``bytes_per_row``, and as many full-length
+    batch slots as those blocks back (``spare_blocks`` held out).  At the
+    fp row size this is :func:`layout_for`; at int8 the same budget admits
+    about twice the sequences."""
+    max_blocks = max(1, -(-int(max_len) // block_size))
+    block_bytes = block_size * int(bytes_per_row)
+    num_blocks = max(2, 1 + int(budget_bytes) // block_bytes)
+    usable = max(1, num_blocks - 1 - max(0, int(spare_blocks)))
+    batch_slots = max(1, usable // max_blocks)
+    return (PagedLayout(block_size=block_size, num_blocks=num_blocks,
+                        max_blocks=max_blocks), batch_slots)
+
+
+def append_rows_quant(pool, sz_pool, table, lengths, rows):
+    """Quantized :func:`append_rows`: quantize the new fp rows in the
+    pool's layout and write codes and (scale, zp) at the same coordinates,
+    in place.  Returns (pool, sz_pool)."""
+    codes, sz = quantize_rows(rows, kv_dtype_of(pool))
+    append_rows(raw(pool), table, lengths, raw(codes))
+    append_rows(sz_pool, table, lengths, sz)
+    return pool, sz_pool
+
+
+def append_chunk_quant(pool, sz_pool, table, lengths, rows):
+    """Quantized :func:`append_chunk` (rows: [B, C, F]), in place.
+    Returns (pool, sz_pool)."""
+    codes, sz = quantize_rows(rows, kv_dtype_of(pool))
+    append_chunk(raw(pool), table, lengths, raw(codes))
+    append_chunk(sz_pool, table, lengths, sz)
+    return pool, sz_pool

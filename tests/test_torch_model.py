@@ -284,6 +284,7 @@ def test_model_prefill_then_decode_match_jax(weights, kv_splits):
 
 
 def test_unported_paths_raise(weights):
+    from repro_torch.core.attn_spec import AttnSpec
     jcfg, cfg, _, _, params = weights
     full = get_config("deepseek_r1_671b")
     with pytest.raises(NotImplementedError, match="MoE"):
@@ -291,6 +292,12 @@ def test_unported_paths_raise(weights):
     model.check_ported(dataclasses.replace(full, num_layers=3))
     with pytest.raises(NotImplementedError, match="A5"):
         model.check_ported(reduced(get_config("qwen3_8b")))
+    with pytest.raises(NotImplementedError, match="A5"):
+        model.paged_row_bytes(reduced(get_config("qwen3_8b")), "int8")
     lay = pc.layout_for(1, 8, block_size=8)
-    with pytest.raises(NotImplementedError, match="A1"):
-        model.init_paged_cache(cfg, lay, kv_dtype="int8", device="cpu")
+    cache = model.init_paged_cache(cfg, lay, kv_dtype="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        model.decode_step(params, cfg, cache, torch.zeros(1, dtype=torch.int32),
+                          spec=AttnSpec(mode="standard"), cache_layout="paged",
+                          block_table=torch.zeros(1, 1, dtype=torch.int32),
+                          lengths=torch.zeros(1, dtype=torch.int32))

@@ -42,19 +42,23 @@ def _port(cfg, params, flags):
 
 @pytest.mark.parametrize("extra", [
     [], ["--kv-splits", "2"], ["--mode", "standard"],
-    ["--mode", "standard", "--kv-splits", "2"]],
-    ids=["auto-splits", "kv-splits-2", "standard", "standard-kv-splits-2"])
+    ["--mode", "standard", "--kv-splits", "2"], ["--kv-dtype", "int8"],
+    ["--kv-dtype", "fp8"], ["--kv-dtype", "int8", "--kv-splits", "2"]],
+    ids=["auto-splits", "kv-splits-2", "standard", "standard-kv-splits-2",
+         "int8", "fp8", "int8-kv-splits-2"])
 def test_outputs_equal_jax_serve(setup, extra):
     """Same weights, same flags: the port's greedy outputs equal the JAX
     loop's (default XLA path).  ``--kv-splits 2`` runs the split path;
-    ``--mode standard`` the untransposed baseline on the gathered pool."""
+    ``--mode standard`` the untransposed baseline on the gathered pool;
+    ``--kv-dtype`` the quantized pools, sized to the fp pool's bytes (the
+    same batch slots as the reference's)."""
     jcfg, cfg, params = setup
     want = jserve.run_paged(jserve.parse_args(FLAGS + extra), jcfg)
     got = _port(cfg, params, FLAGS + extra)
     assert got["outputs"] == want["outputs"]
     assert len(got["outputs"]) == 4
     for key in ("tokens_served", "prefill_tokens", "prefill_tokens_saved",
-                "prefill_chunks", "steps"):
+                "prefill_chunks", "steps", "batch_slots", "kv_dtype"):
         assert got[key] == want[key], key
 
 
@@ -108,7 +112,8 @@ def test_preemption_swap_and_recompute_match_uncontended(setup):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--kv-dtype", "int8"], ["--kv-dtype", "fp8"], ["--spec-tokens", "2"],
+    ["--mode", "standard", "--kv-dtype", "int8"],
+    ["--mode", "standard", "--kv-dtype", "fp8"], ["--spec-tokens", "2"],
     ["--fault-rate", "0.1"], ["--trace-out", "t.json"],
     ["--metrics-out", "m.json"], ["--profile-kernels", "2"]])
 def test_unported_flags_refused(flag, capsys):
