@@ -4,8 +4,9 @@
 Phases, each of which fails the run when it fails:
 
   1. build   the port's kernels from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, started together) and print ptxas'
-             register / shared-memory lines;
+             (one nvcc per source, started together) and print each
+             source's compile time and ptxas' register / shared-memory
+             lines;
   2. kernels each kernel against its plain PyTorch version on the card, at
              DeepSeek-R1's bf16 widths (Dk 576, Dv 512, ~4K ragged context,
              H = 128 and 16, both rescale modes): the paged ETAP kernels
@@ -22,25 +23,34 @@ Phases, each of which fails the run when it fails:
              + combine == K3q, linear verify == prefill), quantize_rows on
              the card bitwise the CPU's, and the reference's RMSE gates
              (int8 <= 6.12e-4, fp8 <= 2.22e-3 against an fp64 oracle) with
-             fp32 q; then each kernel's time (CUDA events), its plain
+             fp32 q; K1 + K2, K3 and K4 and, per code type, K1q + K2, K3q
+             and K4q at the shapes serve-long gives them (4 or 7 slots, 3
+             of them idle; a 65-column table padded to 68, 4 splits of 17;
+             256-token prefill chunks at start 0 and 3840), with the auto
+             split plan and the bitwise contracts there; then each kernel's
+             time (CUDA events), its plain
              version's time, its bound and one PyTorch library call's time
              where there is one, and ETAP beside the baseline at the same
              shapes;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
-             (etap): short runs one split (K3 / K7 / K3q), long picks
+             (etap; the fp8 short and int8 long phases with a few requests
+             and tokens): short runs one split (K3 / K7 / K3q), long picks
              n >= 2 (K1 + K2, K8 + K2 [n,H,Dv], K1q + K2); K4 or K4q runs
              every prefill;
   4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
              (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
              [n,H,Dv]);
   5. decode  one full-width decode step over the paged cache, the same
-             step over an int8 pool, and over the dense cache one in each
-             mode with one split and with two, each through the kernels
-             and through the plain versions on the same weights and cache:
-             logits agree, greedy tokens agree; then the paged step's wall
-             time and device time by kernel.
+             step over an int8 pool, the split-KV step of serve-long-int8
+             (int8, 7 slots over 65 pages, 4 splits), and over the dense
+             cache one in each mode with one split and with two, each
+             through the kernels and through the plain versions on the
+             same weights and cache: logits agree, greedy tokens agree;
+             then the paged step's wall time and device time by kernel.
+
+Each phase's seconds are printed as ``[time]`` lines.
 
 The launch counters are zeroed just before each serve phase and read just
 after it; each of K1-K8, both K2 orientations and each quantized body on
@@ -110,7 +120,7 @@ KERNELS = {
 # quantized bodies, one entry per code type: entry -> (the TPU kernel it
 # replaces, its CUDA source, the wrapper, the pool's kv_dtype)
 QUANT_KERNELS = {
-    f"{wrapper}[{kvd}]": (tpu, _CSRC + "etap.cu", wrapper, kvd)
+    f"{wrapper}[{kvd}]": (tpu, _CSRC + "etap_quant.cu", wrapper, kvd)
     for kvd in ("int8", "fp8")
     for wrapper, tpu in (
         ("etap_decode_mla_paged_quant",
@@ -220,6 +230,107 @@ def make_pool(B, nb, lengths, gen, device):
     return pool, table
 
 
+def paged_main_path(kvd: str, gen, dev) -> dict:
+    """K1 + K2, K3 and K4 (``kvd`` "fp") or K1q + K2, K3q and K4q ("int8",
+    "fp8") at H = 128 in both modes, at the shapes serve-long gives them,
+    against their plain versions.  Decode: the pool's batch slots (4 in fp,
+    7 quantized: three idle slots with all-null table rows and one live
+    row, as an idle serve step leaves them) over a 65-column table (4128
+    rows), which ops pads to 68 columns: 4 splits of 17, the last with
+    three null columns; the auto plan's output is bitwise the n = 4 one,
+    and split(n=1) + K2 is bitwise the single pass.  Prefill: 256-token
+    chunks at start 0 and 3840, with linear verify == prefill bitwise.
+    Returns {wrapper: max abs err}."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap import ops
+    H, nb, Cq = 128, 65, 256
+    quant = kvd != "fp"
+    sfx, kq = ("_quant", "q") if quant else ("", "")
+    errs: dict = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def pool_of(B, lengths):              # (pool, extra args, kv_sz, table)
+        if quant:
+            codes, sz, table = make_quant_pool(B, nb, lengths, kvd, gen, dev)
+            return codes, (sz,), sz, table
+        pool, table = make_pool(B, nb, lengths, gen, dev)
+        return pool, (), None, table
+
+    lengths = [4128, 4097, 1089, 65] + ([1, 1, 1] if quant else [])
+    B = len(lengths)
+    pool, extra, sz, table = pool_of(B, lengths)
+    table[4:] = 0                         # idle slots read the null block
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, DK, generator=gen, device=dev).to(torch.bfloat16)
+    n, npb, padded = ops.paged_split_geometry(nb, 4)
+    tpad = ops._pad_table(table, padded)
+    for mode in ("amla", "mul"):
+        tag = f"{kvd} B={B} {mode}"
+        kw = dict(scale=SCALE, rescale=mode)
+        bf16 = dict(out_dtype=torch.bfloat16, rescale=mode)
+        spec = AttnSpec(scale=SCALE, rescale=mode)
+        st = ops._paged_partial(q, pool, DV, table, lens, n_splits=n,
+                                kv_sz=sz, **kw)
+        st_ref = getattr(K, f"etap_paged_partial{sfx}_plain")(
+            q, pool, *extra, DV, tpad, lens, n_splits=n, **kw)
+        note(f"etap_paged_partial{sfx}",
+             finalized_close(st, st_ref, f"K1{kq} {tag}"))
+        o2 = C.combine_splits(*st, **bf16)
+        note("combine_splits", bf16_close(
+            o2, C.combine_splits_plain(*st, **bf16), f"K2 {tag}"))
+        out = getattr(K, f"etap_decode_mla_paged{sfx}")(
+            q, pool, *extra, DV, table, lens, **kw)
+        ref = getattr(K, f"etap_decode_mla_paged{sfx}_plain")(
+            q, pool, *extra, DV, table, lens, **kw)
+        note(f"etap_decode_mla_paged{sfx}",
+             bf16_close(out, ref, f"K3{kq} {tag}"))
+        bf16_close(o2, ref, f"K1{kq}+K2 vs plain K3{kq} {tag}")
+        auto = ops.plan_splits_paged(B, nb, PAGE, H, DV,
+                                     num_cores=ops.num_cores(dev)).n_splits
+        if ops.paged_split_geometry(nb, auto)[0] != n:
+            raise AssertionError(f"{tag}: the auto plan picks {auto} "
+                                 f"splits, not the serve path's {n}")
+        bitwise(ops.etap_decode_mla_paged_splitkv(
+            q, pool, DV, table, lens, spec=spec, kv_sz=sz), o2,
+            f"auto plan vs n={n} {tag}")
+        st1 = ops._paged_partial(q, pool, DV, table, lens, n_splits=1,
+                                 kv_sz=sz, **kw)
+        bitwise(C.combine_splits(*st1, **bf16), out,
+                f"K1{kq}(n=1)+K2 vs K3{kq} {tag}")
+        log(f"[kernels] main path serve-long {tag}: table {nb} -> {padded} "
+            f"columns, {n} splits of {npb}: K1{kq} ok, K2 ok, K3{kq} ok; "
+            f"bitwise: auto plan == n={n}, K1{kq}(n=1)+K2 == K3{kq}")
+
+    pool, extra, sz, table = pool_of(1, [4128])
+    qp = torch.randn(1, Cq, H, DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    for s0 in (0, 3840):
+        start = torch.tensor([s0], dtype=torch.int32, device=dev)
+        linear = start[:, None] + torch.arange(Cq, dtype=torch.int32,
+                                               device=dev)[None, :]
+        for mode in ("amla", "mul"):
+            tag = f"{kvd} Cq={Cq} start={s0} {mode}"
+            spec = AttnSpec(scale=SCALE, rescale=mode)
+            out = ops.etap_prefill_mla_paged(qp, pool, DV, table, start,
+                                             spec=spec, kv_sz=sz)
+            ref = getattr(K, f"etap_prefill_mla_paged{sfx}_plain")(
+                qp, pool, *extra, DV, table, start, scale=SCALE,
+                rescale=mode)
+            note(f"etap_prefill_mla_paged{sfx}",
+                 bf16_close(out, ref, f"K4{kq} {tag}"))
+            bitwise(ops.etap_verify_mla_paged(qp, pool, DV, table, start,
+                                              linear, spec=spec, kv_sz=sz),
+                    out, f"K4{kq} verify(linear) vs prefill {tag}")
+            log(f"[kernels] main path serve-long prefill {tag}: K4{kq} ok, "
+                f"linear verify bitwise ok")
+    return errs
+
+
 def phase_kernels(quick: bool, report: dict) -> None:
     import torch
     from repro_torch.kernels.etap import combine as C
@@ -305,6 +416,9 @@ def phase_kernels(quick: bool, report: dict) -> None:
                 raise AssertionError(f"verify(linear) != prefill ({tag})")
             log(f"[kernels] prefill {tag}: K4 ok, tree verify ok, "
                 f"linear verify bitwise ok")
+
+    for name, e in paged_main_path("fp", gen, dev).items():
+        errs[name] = max(errs[name], e)
 
     # ---- timing at the main path's widths: H = 128, ~4K ragged context
     iters, piters = (1, 1) if quick else (20, 3)
@@ -487,6 +601,7 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
     ctx = 4096
     nb = ctx // PAGE
     errs = {k: 0.0 for k in QUANT_KERNELS}
+    k2_err = 0.0
 
     # quantize_rows on the card: bitwise the CPU's codes and pairs
     rows = torch.randn(4096, DK, generator=gen, device=dev) * torch.rand(
@@ -534,8 +649,9 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
                     st, st_ref, f"K1q {tag}"))
                 bf16 = dict(out_dtype=torch.bfloat16, rescale=mode)
                 o2 = C.combine_splits(*st, **bf16)
-                bf16_close(o2, C.combine_splits_plain(*st, **bf16),
-                           f"K2 over K1q {tag}")
+                k2_err = max(k2_err, bf16_close(
+                    o2, C.combine_splits_plain(*st, **bf16),
+                    f"K2 over K1q {tag}"))
                 bf16_close(o2, ref, f"K1q+K2 vs plain K3q {tag}")
                 st1 = K.etap_paged_partial_quant(q, codes, sz, DV, table,
                                                  lengths, n_splits=1, **kw)
@@ -582,6 +698,14 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
             log(f"[quant] RMSE gate {kvd} {mode} (fp32 q, reference "
                 f"geometry): {r:.4e} <= {QUANT_RMSE[kvd]:.3e}; K3q within "
                 f"{e:.3e} of its plain version")
+
+        for wrapper, e in paged_main_path(kvd, gen, dev).items():
+            if wrapper == "combine_splits":
+                k2_err = max(k2_err, e)
+            else:
+                errs[f"{wrapper}[{kvd}]"] = max(errs[f"{wrapper}[{kvd}]"], e)
+    report["combine_splits"]["max_abs_err"] = max(
+        report["combine_splits"]["max_abs_err"], k2_err)
 
     # ---- timing at the main path's widths: H = 128, ~4K ragged context
     iters, piters = (1, 1) if quick else (20, 3)
@@ -882,6 +1006,14 @@ SHORT = ["--batch", "8", "--requests", "16", "--prompt", "512", "--gen", "32"]
 LONG = ["--batch", "4", "--requests", "4", "--prompt", "4096", "--gen", "32",
         "--prefill-chunk", "256"]
 DENSE = ["--cache-layout", "dense", "--gen", "32"]
+# serve-short-int8 and serve-long-fp8 run at the fp phases' depth;
+# serve-short-fp8 and serve-long-int8 are cut to a few requests and tokens,
+# only so that each quantized body launches on a serve path for each code
+# type (each is its own entry of the kernels line)
+SHORT_CUT = ["--batch", "8", "--requests", "4", "--prompt", "512", "--gen",
+             "8"]
+LONG_CUT = ["--batch", "4", "--requests", "2", "--prompt", "4096", "--gen",
+            "8", "--prefill-chunk", "256"]
 # (phase, serve flags, kernels that must launch in it)
 SERVE_PHASES = [
     ("serve-short", SHORT, ("etap_decode_mla_paged",
@@ -895,12 +1027,12 @@ SERVE_PHASES = [
       "etap_prefill_mla_paged")),
     ("serve-short-int8", SHORT + ["--kv-dtype", "int8"],
      ("etap_decode_mla_paged_quant", "etap_prefill_mla_paged_quant")),
-    ("serve-short-fp8", SHORT + ["--kv-dtype", "fp8"],
-     ("etap_decode_mla_paged_quant", "etap_prefill_mla_paged_quant")),
-    ("serve-long-int8", LONG + ["--kv-dtype", "int8"],
+    ("serve-long-fp8", LONG + ["--kv-dtype", "fp8"],
      ("etap_paged_partial_quant", "combine_splits",
       "etap_prefill_mla_paged_quant")),
-    ("serve-long-fp8", LONG + ["--kv-dtype", "fp8"],
+    ("serve-short-fp8", SHORT_CUT + ["--kv-dtype", "fp8"],
+     ("etap_decode_mla_paged_quant", "etap_prefill_mla_paged_quant")),
+    ("serve-long-int8", LONG_CUT + ["--kv-dtype", "int8"],
      ("etap_paged_partial_quant", "combine_splits",
       "etap_prefill_mla_paged_quant")),
     ("dense-short", DENSE + ["--batch", "8", "--prompt", "512"],
@@ -945,6 +1077,7 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
     must have launched.  Returns the run's launch counts."""
     import torch
     from repro_torch.launch import serve
+    t_wall = time.perf_counter()
     args = serve.parse_args(flags + ["--layers", "3"])
     cfg = serve.config_for(args)
     for fn in counters().values():
@@ -958,6 +1091,7 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
         outputs, n_req, t_total = res["outputs"], args.requests, \
             res["t_total"]
     launched = {k: fn.launches for k, fn in counters().items()}
+    t_wall = time.perf_counter() - t_wall
     if len(outputs) != n_req:
         raise AssertionError(f"{name}: {len(outputs)} of {n_req} "
                              "requests finished")
@@ -969,7 +1103,8 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
     log(f"[{name}] {' '.join(flags)}: {res['tokens_served']} tokens, "
         f"batch_slots {slots}, {tps:.1f} tok/s, "
         f"t_prefill {res['t_prefill']:.3f} s, "
-        f"t_decode {res['t_decode']:.3f} s, launches "
+        f"t_decode {res['t_decode']:.3f} s, phase wall {t_wall:.1f} s, "
+        f"launches "
         f"{ {k: v for k, v in launched.items() if v} }, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     for k in expect:
@@ -1080,9 +1215,11 @@ def _leaves(tree):
 
 
 def phase_decode_step(params) -> None:
-    """One full-width decode step over the paged cache and one over the
-    dense cache, each through the kernels and through the plain versions
-    on the same weights and cache."""
+    """Full-width decode steps, each through the kernels and through the
+    plain versions on the same weights and cache: over the paged cache
+    (one split), over int8 pools (one split; and four, at serve-long-int8's
+    7 slots and 65-page rows), and over the dense cache in both modes with
+    one split and with two."""
     import torch
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.models import model
@@ -1141,6 +1278,49 @@ def phase_decode_step(params) -> None:
     check_step(lk, lp, f"paged int8, full width, B={B} ctx<={ctx}")
     del qcache
 
+    # the split-KV int8 step of serve-long-int8: 7 slots over 65-page
+    # rows (4 splits of 17 after padding to 68), three of them idle.  The
+    # idle slots' writes race for row 0 of the null block, which each of
+    # them then reads, so their logits depend on which write won (the
+    # serve loop drops them): only the live rows are compared, and every
+    # row must be finite
+    lctx, lens = 4128, [4127, 4096, 1088, 64]
+    llayout = layout_for(7, lctx, block_size=PAGE)
+    lbp = BlockPool(llayout, 7)
+    for n in lens:
+        lbp.extend(lbp.admit(0, lctx), n)
+    ltable, llengths = lbp.device_views(dev)
+    lcache = model.init_paged_cache(cfg, llayout, kv_dtype="int8", device=dev)
+    for layer in lcache:
+        codes, sz = paged_cache.quantize_pool(
+            torch.randn(layer["c"].shape, generator=gen, device=dev), "int8")
+        layer["c"].copy_(codes)
+        layer["c_sz"].copy_(sz)
+    ltoks = torch.randint(0, cfg.vocab_size, (7,), generator=gen, device=dev)
+    lspec = AttnSpec(kv_splits=4)
+
+    def lstep():
+        c = [{k: v.clone() for k, v in layer.items()} for layer in lcache]
+        return model.decode_step(params, cfg, c, ltoks, spec=lspec,
+                                 cache_layout="paged", block_table=ltable,
+                                 lengths=llengths)[0]
+
+    before = K.etap_paged_partial_quant.launches
+    lk = lstep()
+    if K.etap_paged_partial_quant.launches == before:
+        raise AssertionError("the int8 split decode step did not launch K1q")
+    with plain_attention():
+        lp = lstep()
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("the int8 split decode step gave non-finite "
+                             "logits")
+    log(f"[decode-step] int8 kv_splits=4: idle rows' max |dlogit| "
+        f"{float((lk[len(lens):] - lp[len(lens):]).abs().max()):.4e} "
+        f"(not compared)")
+    check_step(lk[:len(lens)], lp[:len(lens)], f"paged int8 kv_splits=4, "
+               f"full width, {len(lens)} live of B=7, ctx<={lctx}")
+    del lcache
+
     # dense: S 2080 ends in a 32-row tile; two splits of 1536 rows pad it
     # to 3072, the second split holding the tile and the padding
     dctx, pos = 2080, 2070               # every row: 2071 live positions
@@ -1182,7 +1362,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     lib_path, nvlog = build.build()
     build.library()
     for line in nvlog.splitlines():
@@ -1191,10 +1371,15 @@ def main(argv=None) -> int:
             log(f"[build] {line.strip()}")
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
+    def timed(phase, fn, *a):
+        t = time.perf_counter()
+        fn(*a)
+        log(f"[time] {phase}: {time.perf_counter() - t:.1f} s")
+
     report: dict = {}
-    phase_kernels(args.quick, report)
-    phase_dense_kernels(args.quick, report)
-    phase_quant_kernels(args.quick, report)
+    timed("kernels", phase_kernels, args.quick, report)
+    timed("dense kernels", phase_dense_kernels, args.quick, report)
+    timed("quantized kernels", phase_quant_kernels, args.quick, report)
     if args.quick:
         log(json.dumps({"kernels": [dict(name=k, **v)
                                     for k, v in report.items()]}))
@@ -1210,6 +1395,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     launches = {k: 0 for k in list(KERNELS) + list(QUANT_KERNELS)}
+    t_serve = time.perf_counter()
     for name, flags, expect in SERVE_PHASES:
         got = phase_serve(name, flags, params, expect)
         kvd = flags[flags.index("--kv-dtype") + 1] \
@@ -1219,12 +1405,14 @@ def main(argv=None) -> int:
         for k, (_, _, wrapper, code) in QUANT_KERNELS.items():
             if code == kvd:
                 launches[k] += got[wrapper]
+    log(f"[time] serve phases: {time.perf_counter() - t_serve:.1f} s")
     log(f"[launches] serve paths: {launches}")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"{k} never launched on the serve paths")
 
-    phase_decode_step(params)
+    timed("decode steps", phase_decode_step, params)
+    log(f"[time] build to here: {time.perf_counter() - t_run:.1f} s")
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=tpu,
                     launches=launches[k], **report[k])

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -52,8 +53,7 @@ SIGNATURES = {
     "flash_decode_partial": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I,
                                       _P],
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _P],
+    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: list = []
@@ -81,8 +81,8 @@ def _key() -> str:
 def build() -> tuple[Path, str]:
     """Compile the sources (in parallel) and link the shared library if it
     is not cached yet.  Returns (library path, compiler log); the log holds
-    ptxas' register and shared-memory lines, and is kept beside the
-    library."""
+    each source's compile time and ptxas' register and shared-memory lines,
+    and is kept beside the library."""
     key = _key()
     lib = BUILD_DIR / f"libetap_{key}.so"
     log = BUILD_DIR / f"libetap_{key}.log"
@@ -92,6 +92,7 @@ def build() -> tuple[Path, str]:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
+        t0 = time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
@@ -102,7 +103,8 @@ def build() -> tuple[Path, str]:
         failed = []
         for src, proc in procs:
             out, _ = proc.communicate()
-            text.append(f"== {src.name}\n{out}")
+            text.append(f"== {src.name} (done {time.perf_counter() - t0:.1f} s "
+                        f"after the start)\n{out}")
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:

@@ -1,5 +1,5 @@
-// MLA ETAP attention for Hopper (sm_90a): one templated body serving eight
-// kernels of the JAX package.
+// MLA ETAP attention for Hopper (sm_90a): the bf16 instantiations of
+// etap_body.cuh's body, which says what they compute and how.
 //
 //   K3  single-pass paged decode   replaces repro/kernels/etap/etap.py:237
 //       (_paged_call, reached from etap_decode_mla_paged_pallas :259)
@@ -14,526 +14,14 @@
 //        etap_decode_mla_pallas :171)
 //   K6  dense split-KV phase 1     replaces repro/kernels/etap/etap.py:603
 //       (etap_partial_pallas :557)
-//   K3q, K1q, K4q  K3, K1 and K4 over an int8 or e4m3 code pool with one
-//       fp32 (scale, zp) pair per row: the reference's quantized MLA-fused
-//       bodies _paged_body_quant_fused :116 (under :237),
-//       _paged_partial_body_quant_fused :639 (under :713),
-//       _prefill_body_quant_fused :340 and _verify_body_quant_fused :367
-//       (under :430), all built on _dequant :31.
-//
-// What they compute.  A CTA owns NT = 16 query columns of one batch row (16
-// heads of a decode query, or 16 of the Cq*H columns of a prefill chunk)
-// and walks that row's KV rows in 64-row tiles (pages).  Per tile:
-//     S^T = K Q^T * scale          [64, 16]   mma.sync, page rows on M
-//     mask kpos > horizon(column) to -1e30
-//     online-softmax update per column (m, l in shared memory)
-//     O^T += V^T P^T               [512, 16]  mma.sync, Dv on M
-// V is the first 512 columns of the same 576-wide latent page: the page is
-// read once for both products.
-//
-// Address modes (a template parameter).  Paged (K1, K3, K4): tile j of row
-// b is pool block table[b, j].  Dense (K5, K6): tile j of row b is rows
-// [64 j, 64 j + 64) of k + b * kb with row stride ldk; rows at or past S
-// are zero-filled, so the caller never pads the cache (the reference pads
-// with zeros, and the horizon masks those rows either way).  A dense V is
-// either the first 512 columns of the K tile (v null: the MLA latent, V =
-// cache[..., :512], read in place with no copy) or its own rows at v + b *
-// vb, stride ldv, loaded over the K tile's first 512 columns once the score
-// product is done.  Quantized (K1q, K3q, K4q): paged, the page holding
-// int8 or e4m3 codes [64, 576] (1 byte each) and the sz pool its rows'
-// (scale, zp) [64, 2] fp32.
-//
-// Column c is live for key position kpos iff kpos <= horizon(c), with
-// horizon = lengths[b] - 1 (decode), start[b] +
-// c / H (prefill), or qpos[b, c] (verify) — so decode, prefill and verify
-// share the mask code, and verify with a linear qpos is bitwise prefill.
-// K3/K4/K5 end with O = (Acc^T / l)^T in bf16 (the quantized ones in q's
-// type, bf16 or fp32); K1/K6 write the raw fp32 (m, l, Acc^T) of their
-// split for the combine kernel (combine.cu).  The split and single-pass
-// kernels are the same body, so partial(n_splits=1) + combine is bitwise
-// the single pass, and over the same rows the dense kernels are bitwise the
-// paged ones; the same holds within each quantized code type.
-//
-// Numerics.  Scores, m, l and Acc are fp32.  The scores come from bf16
-// inputs with fp32 accumulation.  The probabilities enter the second product
-// as two bf16 terms, p_hi = bf16(p) and p_lo = bf16(p - p_hi), which carry
-// about 16 significant bits of p; l sums the fp32 p.  amla mode builds its
-// rescale 2^(m_old - m_new) from the exponent (softmax_state.cuh).
-//
-// Numerics of the quantized bodies.  The reference dequantizes each row to
-// fp32 (codes * scale + zp), takes q in fp32 and forms both products in
-// fp32; rounding the dequantized rows to bf16 would add about 2^-9 per
-// element on top of the quantization error.  Every int8 code (-127..127)
-// and every e4m3 code is exact in bf16, so the codes go into mma.sync as
-// they are and the affine is applied around the products:
-//     S_r  = scale_r * (codes_r . q) + zp_r * sum(q)
-//     O^T += sum_r codes_r (scale_r p_r) + sum_r zp_r p_r
-// scale_r folds into p before its hi + lo split (mma_tile.cuh:
-// tile_update<true>), and the zp term is one fp32 number per column and
-// tile, added to every Dv row on the CUDA cores.  sum(q) is taken in fp32
-// from q as given.  q is bf16 on the serve path (exact in one term); an
-// fp32 q (the accuracy gate against the fp64 oracle) enters as hi + lo
-// bf16 tiles, two products into one fp32 accumulator.  The codes are read
-// with 16-byte loads and widened to bf16 into the page buffer (e4m3 ->
-// f16 -> bf16 is exact), so the products and the online softmax are the
-// fp kernels' own.  The other design, dequantizing to fp32 and splitting
-// each element into hi + lo, doubles the products on both sides; this one
-// keeps the fp kernels' mma count (one more for fp32 q).  Null blocks and
-// rows past the length hold finite codes with scale 1 / zp 0 or their
-// written pairs, so V never carries a NaN into the masked p = 0.
-//
-// The walk.  Pages past the last live position of the tile are not read:
-// for a column whose running max is already set, a fully masked page is an
-// exact no-op of the recurrence (p = 0, rescale = 1).  The walk is cut by
-// positions only, never by block ids: a padded table entry (the null block
-// 0) inside the walk is read and masked like any other page.  A split with
-// no live position at all walks all of its pages, as the reference does, so
-// its stats are the reference's.
-//
-// What bounds it on the H100.  Decode reads each latent page once per head
-// tile (128 heads = 8 tiles, the re-reads mostly hit L2); its floor is the
-// pool bytes over 3.35 TB/s (about half of them for a code pool: 584 B a
-// row against 1152).  Prefill at 128 heads is compute-bound
-// (Cq*H*kpos*(576 + 512) multiply-adds).  This first version is simple:
-// mma.sync fragments loaded from shared memory with 32/16-bit loads, one
-// page in flight (cp.async, no double buffer; the code pages by plain
-// 16-byte loads), 16 columns per CTA so the [512, 16] fp32 accumulator
-// fits in registers (32 per thread).  Removing the per-tile re-read of the
-// pool (wider tiles, wgmma, TMA, a pipelined ring of pages) is the work of
-// a later version.
-#include <climits>
-#include <cstdint>
-#include <type_traits>
-
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-
-#include "mma_tile.cuh"
+#include "etap_body.cuh"
 
 namespace {
-
-using namespace etap;
-
-constexpr int NT = 16;         // query columns per CTA
-constexpr int NWARP = 8;
-constexpr int NTHREAD = NWARP * 32;
-constexpr int KSTR = DK + 8;   // padded smem row (bf16): conflict-free loads
-constexpr int PSTR = PAGE + 8; // padded P^T row (bf16)
-constexpr int SSTR = NT + 1;   // padded score row (fp32)
-
-// Address mode of the KV tiles: bf16 pool pages, bf16 dense rows, or pool
-// pages of int8 / e4m3 codes with per-row (scale, zp).
-enum Mode { kPaged, kDense, kInt8, kE4m3 };
-
-// QLO: q is fp32 and rides as hi + lo bf16 tiles.
-template <bool QLO>
-struct Smem {
-  alignas(16) bf16 k[PAGE * KSTR];   // the current latent page (bf16)
-  alignas(16) bf16 q[NT * KSTR];     // the CTA's query columns (hi)
-  alignas(16) bf16 q_lo[QLO ? NT * KSTR : 8];
-  alignas(16) float s[PAGE * SSTR];  // scaled, masked scores S^T
-  alignas(16) bf16 p_hi[NT * PSTR];  // P (column-major: [column][row])
-  alignas(16) bf16 p_lo[NT * PSTR];
-  alignas(16) float2 sz[PAGE];       // the page's (scale, zp) (quantized)
-  float m[NT];
-  float l[NT];
-  float corr[NT];
-  float qsum[NT];                    // sum of each column's q (quantized)
-  float zc[NT];                      // sum_r zp_r p_r of the tile
-  int hz[NT];                        // per-column horizon
-};
-
-struct Params {
-  const void* q;      // [B, C, DK] bf16, or fp32 (quantized bodies)
-  const void* k;      // paged: pool [N, PAGE, DK]; dense: rows b*kb + s*ldk
-  const float* sz;    // quantized: (scale, zp) pool [N, PAGE, 2], else null
-  int code;           // quantized: 0 int8, 1 e4m3
-  int qf32;           // quantized: q is fp32
-  const int* table;   // [B, nbt] (paged) or null (dense)
-  long long kb;       // dense batch stride (elements)
-  int ldk;            // row stride (elements): DK for the pool
-  int S;              // dense rows per batch row (rows >= S read as zero)
-  const bf16* v;      // dense separate V rows b*vb + s*ldv, or null
-  long long vb;
-  int ldv;
-  const int* base;    // [B] horizon base: lengths (decode) or start (prefill)
-  const int* qpos;    // [B, C] explicit horizons (verify), or null
-  int hz_off;         // -1 for decode (pos < length), 0 for prefill
-  int heads;          // column c belongs to query row c / heads
-  int C;              // query columns per batch row
-  int nbt;            // tiles per batch row (a multiple of npb)
-  int npb;            // pages per split
-  float scale;
-  int amla;
-  void* out;          // [B, C, DV] bf16, or q's type (quantized)
-  float* m_out;       // [B, n_splits, C]           (split partial)
-  float* l_out;       // [B, n_splits, C]
-  float* acc_out;     // [B, n_splits, DV, C]
-};
-
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two codes (the low byte first) as exact bf16 values.
-template <int MODE>
-__device__ __forceinline__ uint32_t widen2(uint32_t two) {
-  if constexpr (MODE == kInt8) {
-    return bf16x2(static_cast<float>(static_cast<int8_t>(two & 0xffu)),
-                  static_cast<float>(static_cast<int8_t>((two >> 8) & 0xffu)));
-  } else {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
-    const float2 f = __half22float2(__half2(h));
-    return bf16x2(f.x, f.y);
-  }
-}
-
-// Load a page of codes [PAGE, DK] (16 codes per 16-byte load), widened to
-// bf16 into the page buffer, and its rows' (scale, zp).  All threads take
-// part; the caller synchronises.
-template <int MODE, int NTHREAD_>
-__device__ __forceinline__ void load_code_page(bf16* kbuf, float2* szbuf,
-                                               const uint8_t* codes,
-                                               const float* sz) {
-  constexpr int CHUNKS = DK / 16;
-  for (int i = threadIdx.x; i < PAGE * CHUNKS; i += NTHREAD_) {
-    const int r = i / CHUNKS, cc = i % CHUNKS;
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-        codes + (size_t)r * DK + cc * 16));
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[8];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      o[2 * h] = widen2<MODE>(w[h]);
-      o[2 * h + 1] = widen2<MODE>(w[h] >> 16);
-    }
-    uint4* dst = reinterpret_cast<uint4*>(&kbuf[r * KSTR + cc * 16]);
-    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-  if (threadIdx.x < PAGE / 2) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(sz) + threadIdx.x);
-    szbuf[2 * threadIdx.x] = make_float2(v.x, v.y);
-    szbuf[2 * threadIdx.x + 1] = make_float2(v.z, v.w);
-  }
-}
-
-// MODE selects the address mode at compile time, so each kernel carries
-// only its own mode's code; QF32 (quantized modes only) takes fp32 q and
-// writes fp32 O.
-template <bool STATS, int MODE, bool QF32>
-__global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
-  constexpr bool DENSE = MODE == kDense;
-  constexpr bool QUANT = MODE == kInt8 || MODE == kE4m3;
-  static_assert(QUANT || !QF32, "fp32 q is taken by the quantized bodies");
-  using QT = typename std::conditional<QF32, float, bf16>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<QF32>& sm = *reinterpret_cast<Smem<QF32>*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
-  const int c0 = blockIdx.x * NT;
-  const int split = blockIdx.y;
-  const int n_splits = gridDim.y;
-  const int b = blockIdx.z;
-  const bool amla = P.amla != 0;
-  const QT* qg = static_cast<const QT*>(P.q);
-
-  if (tid < NT) {
-    const int c = c0 + tid;
-    int h = INT_MIN;                           // padding column: all masked
-    if (c < P.C)
-      h = P.qpos ? P.qpos[(size_t)b * P.C + c]
-                 : P.base[b] + c / P.heads + P.hz_off;
-    sm.hz[tid] = h;
-    sm.m[tid] = NEG_INF;
-    sm.l[tid] = 0.f;
-  }
-  if constexpr (QF32) {                        // fp32 q -> bf16 hi + lo
-    for (int i = tid; i < NT * (DK / 4); i += NTHREAD) {
-      const int r = i / (DK / 4), cc = i % (DK / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c0 + r < P.C)
-        v = reinterpret_cast<const float4*>(
-            qg + ((size_t)b * P.C + c0 + r) * DK)[cc];
-      const float x[4] = {v.x, v.y, v.z, v.w};
-      bf16 hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        hi[e] = __float2bfloat16_rn(x[e]);
-        lo[e] = __float2bfloat16_rn(x[e] - __bfloat162float(hi[e]));
-      }
-      *reinterpret_cast<uint2*>(&sm.q[r * KSTR + cc * 4]) =
-          make_uint2(pack(hi[0], hi[1]), pack(hi[2], hi[3]));
-      *reinterpret_cast<uint2*>(&sm.q_lo[r * KSTR + cc * 4]) =
-          make_uint2(pack(lo[0], lo[1]), pack(lo[2], lo[3]));
-    }
-  } else {
-    for (int i = tid; i < NT * (DK / 8); i += NTHREAD) {
-      const int r = i / (DK / 8), cc = i % (DK / 8);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (c0 + r < P.C)
-        v = reinterpret_cast<const uint4*>(
-            qg + ((size_t)b * P.C + c0 + r) * DK)[cc];
-      *reinterpret_cast<uint4*>(&sm.q[r * KSTR + cc * 8]) = v;
-    }
-  }
-  if constexpr (QUANT) {                       // sum(q) per column, in fp32
-    for (int col = warp; col < NT; col += NWARP) {
-      float acc_q = 0.f;
-      if (c0 + col < P.C) {
-        const QT* qc = qg + ((size_t)b * P.C + c0 + col) * DK;
-        for (int d = lane; d < DK; d += 32) acc_q += static_cast<float>(qc[d]);
-      }
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        acc_q += __shfl_xor_sync(0xffffffffu, acc_q, off);
-      if (lane == 0) sm.qsum[col] = acc_q;
-    }
-  }
-  __syncthreads();
-
-  // the split's page range, cut after the last page holding a live position
-  const int j0 = split * P.npb;
-  const int j1 = min(j0 + P.npb, P.nbt);
-  int hmax = INT_MIN;
-  for (int i = 0; i < NT; ++i) hmax = max(hmax, sm.hz[i]);
-  int j_end = j1;
-  if (hmax >= j0 * PAGE) j_end = min(j1, hmax / PAGE + 1);
-
-  float acc[4][2][4];                          // [m-tile][n-tile][fragment]
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  const int smi = warp & 3, sni = warp >> 2;   // this warp's S^T tile
-  for (int j = j0; j < j_end; ++j) {
-    int rows = PAGE;
-    if constexpr (QUANT) {
-      const size_t blk = P.table[(size_t)b * P.nbt + j];
-      load_code_page<MODE, NTHREAD>(
-          sm.k, sm.sz, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
-          P.sz + blk * PAGE * 2);
-    } else {
-      const bf16* src;
-      if constexpr (DENSE) {
-        src = static_cast<const bf16*>(P.k) + (size_t)b * P.kb +
-              (size_t)j * PAGE * P.ldk;
-        rows = min(PAGE, P.S - j * PAGE);
-      } else {
-        src = static_cast<const bf16*>(P.k) +
-              (size_t)P.table[(size_t)b * P.nbt + j] * PAGE * DK;
-      }
-      load_tile<NTHREAD>(sm.k, KSTR, src, DENSE ? (size_t)P.ldk : DK, rows,
-                         DK, DENSE);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-
-    // ---- S^T = K Q^T: warp tile rows [16 smi, +16), columns [8 sni, +8)
-    {
-      float sacc[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* ka = &sm.k[(16 * smi) * KSTR];
-      const bf16* qb = &sm.q[(8 * sni) * KSTR];
-      const bf16* qlb = &sm.q_lo[QF32 ? (8 * sni) * KSTR : 0];
-#pragma unroll 4
-      for (int k0 = 0; k0 < DK; k0 += 16) {
-        const uint32_t a0 = ld32(&ka[g * KSTR + k0 + 2 * t]);
-        const uint32_t a1 = ld32(&ka[(g + 8) * KSTR + k0 + 2 * t]);
-        const uint32_t a2 = ld32(&ka[g * KSTR + k0 + 8 + 2 * t]);
-        const uint32_t a3 = ld32(&ka[(g + 8) * KSTR + k0 + 8 + 2 * t]);
-        mma16816(sacc, a0, a1, a2, a3, ld32(&qb[g * KSTR + k0 + 2 * t]),
-                 ld32(&qb[g * KSTR + k0 + 8 + 2 * t]));
-        if constexpr (QF32)
-          mma16816(sacc, a0, a1, a2, a3, ld32(&qlb[g * KSTR + k0 + 2 * t]),
-                   ld32(&qlb[g * KSTR + k0 + 8 + 2 * t]));
-      }
-      const int r0 = 16 * smi + g;
-      const int ca = 8 * sni + 2 * t;
-      if constexpr (QUANT) {                   // the affine of each row
-        const float2 z0 = sm.sz[r0], z1 = sm.sz[r0 + 8];
-        const float qs0 = sm.qsum[ca], qs1 = sm.qsum[ca + 1];
-        sacc[0] = z0.x * sacc[0] + z0.y * qs0;
-        sacc[1] = z0.x * sacc[1] + z0.y * qs1;
-        sacc[2] = z1.x * sacc[2] + z1.y * qs0;
-        sacc[3] = z1.x * sacc[3] + z1.y * qs1;
-      }
-      const int kp0 = j * PAGE + r0, kp1 = kp0 + 8;
-      sm.s[r0 * SSTR + ca] = kp0 <= sm.hz[ca] ? sacc[0] * P.scale : NEG_INF;
-      sm.s[r0 * SSTR + ca + 1] =
-          kp0 <= sm.hz[ca + 1] ? sacc[1] * P.scale : NEG_INF;
-      sm.s[(r0 + 8) * SSTR + ca] =
-          kp1 <= sm.hz[ca] ? sacc[2] * P.scale : NEG_INF;
-      sm.s[(r0 + 8) * SSTR + ca + 1] =
-          kp1 <= sm.hz[ca + 1] ? sacc[3] * P.scale : NEG_INF;
-    }
-    __syncthreads();
-
-    // ---- a separate V replaces the K tile's first DV columns (rows past
-    //      S stay zero from the K load)
-    if (DENSE && P.v)
-      load_tile<NTHREAD>(sm.k, KSTR,
-                         P.v + (size_t)b * P.vb + (size_t)j * PAGE * P.ldv,
-                         P.ldv, rows, DV, false);
-
-    // ---- online-softmax update: 16 lanes per column, 4 rows per lane
-    {
-      const int col = tid >> 4, r = tid & 15;
-      float sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = sm.s[(r + 16 * i) * SSTR + col];
-      tile_update<QUANT>(sv, r, amla, &sm.p_hi[col * PSTR],
-                         &sm.p_lo[col * PSTR], &sm.m[col], &sm.l[col],
-                         &sm.corr[col], sm.sz, &sm.zc[col]);
-    }
-    if constexpr (!QUANT) cp_async_wait_all();
-    __syncthreads();
-
-    // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [64 warp, +64);
-    //      a code page adds sum_r zp_r p_r to every row of its column
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      const float ca = sm.corr[8 * ni + 2 * t];
-      const float cb = sm.corr[8 * ni + 2 * t + 1];
-      float za = 0.f, zb = 0.f;
-      if constexpr (QUANT) {
-        za = sm.zc[8 * ni + 2 * t];
-        zb = sm.zc[8 * ni + 2 * t + 1];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        acc[mi][ni][0] *= ca;
-        acc[mi][ni][1] *= cb;
-        acc[mi][ni][2] *= ca;
-        acc[mi][ni][3] *= cb;
-        if constexpr (QUANT) {
-          acc[mi][ni][0] += za;
-          acc[mi][ni][1] += zb;
-          acc[mi][ni][2] += za;
-          acc[mi][ni][3] += zb;
-        }
-      }
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < PAGE; k0 += 16) {
-      const bf16* r0 = &sm.k[(k0 + 2 * t) * KSTR];    // rows of pos k0+2t..
-      const bf16* r1 = r0 + KSTR;
-      const bf16* r8 = r0 + 8 * KSTR;
-      const bf16* r9 = r8 + KSTR;
-      uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const int pc = (8 * ni + g) * PSTR + k0 + 2 * t;
-        bh[ni][0] = ld32(&sm.p_hi[pc]);
-        bh[ni][1] = ld32(&sm.p_hi[pc + 8]);
-        bl[ni][0] = ld32(&sm.p_lo[pc]);
-        bl[ni][1] = ld32(&sm.p_lo[pc + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int dv = 64 * warp + 16 * mi + g;
-        const uint32_t a0 = pack(r0[dv], r1[dv]);
-        const uint32_t a1 = pack(r0[dv + 8], r1[dv + 8]);
-        const uint32_t a2 = pack(r8[dv], r9[dv]);
-        const uint32_t a3 = pack(r8[dv + 8], r9[dv + 8]);
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          mma16816(acc[mi][ni], a0, a1, a2, a3, bh[ni][0], bh[ni][1]);
-          mma16816(acc[mi][ni], a0, a1, a2, a3, bl[ni][0], bl[ni][1]);
-        }
-      }
-    }
-    __syncthreads();                           // page buffer is reused
-  }
-
-// ---- epilogue
-#pragma unroll
-  for (int ni = 0; ni < 2; ++ni) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = 8 * ni + 2 * t + e;
-      const int c = c0 + col;
-      if (c >= P.C) continue;
-      if (STATS) {
-        const size_t row = ((size_t)b * n_splits + split);
-        if (warp == 0 && g == 0) {
-          P.m_out[row * P.C + c] = sm.m[col];
-          P.l_out[row * P.C + c] = sm.l[col];
-        }
-        float* a = P.acc_out + row * DV * P.C + c;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int dv = 64 * warp + 16 * mi + g;
-          a[(size_t)dv * P.C] = acc[mi][ni][e];
-          a[(size_t)(dv + 8) * P.C] = acc[mi][ni][e + 2];
-        }
-      } else {
-        const float l = sm.l[col];
-        using OT = QT;                         // bf16, or fp32 for fp32 q
-        OT* o = static_cast<OT*>(P.out) + ((size_t)b * P.C + c) * DV;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int dv = 64 * warp + 16 * mi + g;
-          if constexpr (QF32) {
-            o[dv] = acc[mi][ni][e] / l;
-            o[dv + 8] = acc[mi][ni][e + 2] / l;
-          } else {
-            o[dv] = __float2bfloat16_rn(acc[mi][ni][e] / l);
-            o[dv + 8] = __float2bfloat16_rn(acc[mi][ni][e + 2] / l);
-          }
-        }
-      }
-    }
-  }
-}
-
-template <bool STATS, int MODE, bool QF32>
-int launch_mode(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(Smem<QF32>));
-  cudaError_t err = cudaFuncSetAttribute(
-      etap_kernel<STATS, MODE, QF32>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.C + NT - 1) / NT, n_splits, B);
-  etap_kernel<STATS, MODE, QF32><<<grid, NTHREAD, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool STATS, int MODE>
-int launch_quant(const Params& p, int B, int n_splits, void* stream) {
-  return p.qf32 ? launch_mode<STATS, MODE, true>(p, B, n_splits, stream)
-                : launch_mode<STATS, MODE, false>(p, B, n_splits, stream);
-}
 
 template <bool STATS>
 int launch(const Params& p, int B, int n_splits, void* stream) {
   if (!p.table) return launch_mode<STATS, kDense, false>(p, B, n_splits, stream);
-  if (!p.sz) return launch_mode<STATS, kPaged, false>(p, B, n_splits, stream);
-  return p.code ? launch_quant<STATS, kE4m3>(p, B, n_splits, stream)
-                : launch_quant<STATS, kInt8>(p, B, n_splits, stream);
-}
-
-Params make_params(const void* q, const void* pool, const int* table,
-                   int C, int nbt, float scale, int amla) {
-  Params p{};
-  p.q = q;
-  p.k = pool;
-  p.table = table;
-  p.ldk = DK;
-  p.C = C;
-  p.nbt = nbt;
-  p.npb = nbt;
-  p.scale = scale;
-  p.amla = amla;
-  return p;
+  return launch_mode<STATS, kPaged, false>(p, B, n_splits, stream);
 }
 
 // Dense decode (K5 / K6): one split per npb tiles of nbt.
@@ -551,18 +39,6 @@ Params dense_params(const void* q, const void* k, long long kb, int ldk,
   p.base = lengths;
   p.hz_off = -1;
   p.heads = H;
-  return p;
-}
-
-// The quantized bodies' parameters: the (scale, zp) pool, the code type and
-// whether q is fp32.
-Params quant_params(const void* q, const void* pool, const float* sz,
-                    const int* table, int C, int nbt, float scale, int amla,
-                    int code, int qf32) {
-  Params p = make_params(q, pool, table, C, nbt, scale, amla);
-  p.sz = sz;
-  p.code = code;
-  p.qf32 = qf32;
   return p;
 }
 
@@ -647,55 +123,6 @@ int etap_partial_dense(const void* q, const void* k, long long kb, int ldk,
   p.l_out = l_out;
   p.acc_out = acc_out;
   return launch<true>(p, B, n_splits, stream);
-}
-
-// K3q / K1q / K4q: as K3 / K1 / K4 over an int8 (code 0) or e4m3 (code 1)
-// pool [N,PAGE,DK] with its (scale, zp) pool sz [N,PAGE,2] fp32; q bf16,
-// or fp32 with qf32 set, and out in q's type.
-int etap_decode_mla_paged_quant(const void* q, const void* pool,
-                                const float* sz, const int* table,
-                                const int* lengths, void* out, int B, int H,
-                                int nbt, float scale, int amla, int code,
-                                int qf32, void* stream) {
-  Params p = quant_params(q, pool, sz, table, H, nbt, scale, amla, code,
-                          qf32);
-  p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
-  p.out = out;
-  return launch<false>(p, B, 1, stream);
-}
-
-int etap_paged_partial_quant(const void* q, const void* pool, const float* sz,
-                             const int* table, const int* lengths,
-                             float* m_out, float* l_out, float* acc_out,
-                             int B, int H, int nbt, int n_splits, float scale,
-                             int amla, int code, int qf32, void* stream) {
-  Params p = quant_params(q, pool, sz, table, H, nbt, scale, amla, code,
-                          qf32);
-  p.npb = nbt / n_splits;
-  p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
-  p.m_out = m_out;
-  p.l_out = l_out;
-  p.acc_out = acc_out;
-  return launch<true>(p, B, n_splits, stream);
-}
-
-int etap_prefill_mla_paged_quant(const void* q, const void* pool,
-                                 const float* sz, const int* table,
-                                 const int* start, const int* qpos, void* out,
-                                 int B, int C, int H, int nbt, float scale,
-                                 int amla, int code, int qf32, void* stream) {
-  Params p = quant_params(q, pool, sz, table, C, nbt, scale, amla, code,
-                          qf32);
-  p.base = start;
-  p.qpos = qpos;
-  p.hz_off = 0;
-  p.heads = H;
-  p.out = out;
-  return launch<false>(p, B, 1, stream);
 }
 
 }  // extern "C"

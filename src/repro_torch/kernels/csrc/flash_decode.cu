@@ -13,8 +13,8 @@
 //     online-softmax update per head row (m, l in shared memory)
 //     O += P V                     [16, 512]  mma.sync, heads on M
 // This is the orientation the paper measures ETAP against: the thin head
-// axis rides the M side of both products.  Everything else is etap.cu's
-// K3/K5 — the same 64-row tiles, address modes (dense rows with a
+// axis rides the M side of both products.  Everything else is the ETAP
+// body's K3/K5 — the same 64-row tiles, address modes (dense rows with a
 // zero-filled tail; V the first 512 K columns or its own strided rows),
 // horizon mask, tile skipping past the horizon, online-softmax update
 // (mma_tile.cuh: tile_update), exact AMLA and P as bf16 hi + lo — so the

@@ -1,4 +1,4 @@
-// Building blocks shared by the hand-written decode kernels (etap.cu,
+// Building blocks shared by the hand-written decode kernels (etap_body.cuh,
 // flash_decode.cu): bf16 fragment loads, the m16n8k16 tensor-core product,
 // cp.async tile copies, and the online-softmax update of one 64-row KV
 // tile.  Both orientations run the SAME update code, so the ETAP and the

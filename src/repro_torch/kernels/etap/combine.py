@@ -39,13 +39,16 @@ def combine_splits_std_plain(m, l, acc, *, out_dtype, rescale=None):
 
 
 def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
-            what):
+            what, f32_out=False):
+    """Launch ``fn``; ``f32_out``: the kernel also writes fp32 (it then
+    takes the output type as an argument)."""
     dev = m.device
     if dev.type != "cuda":
         raise NotImplementedError(f"no combine path for device {dev}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
+    dtypes = (torch.bfloat16, torch.float32) if f32_out else (torch.bfloat16,)
+    if out_dtype not in dtypes:
         raise NotImplementedError(
-            f"{what}: the CUDA kernel writes bf16 or fp32, asked {out_dtype}")
+            f"{what}: the CUDA kernel writes {dtypes}, asked {out_dtype}")
     B, n, H = m.shape
     if Dv % 32 or tuple(acc.shape) != acc_shape:
         raise ValueError(f"{what}: acc {tuple(acc.shape)} does not match "
@@ -53,9 +56,9 @@ def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
     m, l, acc = (x.float().contiguous() for x in (m, l, acc))
     out = torch.empty(B, H, Dv, dtype=out_dtype, device=dev)
     wrapper.launches += 1
+    f32 = (int(out_dtype == torch.float32),) if f32_out else ()
     build.check(fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                   B, n, H, Dv, amla_flag(rescale),
-                   int(out_dtype == torch.float32), stream(dev)), what)
+                   B, n, H, Dv, amla_flag(rescale), *f32, stream(dev)), what)
     return out
 
 
@@ -69,11 +72,13 @@ def combine_splits(m, l, acc, *, out_dtype, rescale=None):
     Dv = acc.shape[2]
     return _launch(combine_splits, build.library().etap_combine_splits,
                    m, l, acc, Dv, out_dtype=out_dtype, rescale=rescale,
-                   acc_shape=(B, n, Dv, H), what="etap_combine_splits")
+                   acc_shape=(B, n, Dv, H), what="etap_combine_splits",
+                   f32_out=True)
 
 
 def combine_splits_std(m, l, acc, *, out_dtype, rescale=None):
-    """K2, [n,H,Dv] orientation (the untransposed baseline's partials)."""
+    """K2, [n,H,Dv] orientation (the untransposed baseline's partials; bf16
+    output)."""
     if m.device.type == "cpu":
         return combine_splits_std_plain(m, l, acc, out_dtype=out_dtype,
                                         rescale=rescale)

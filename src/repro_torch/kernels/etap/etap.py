@@ -1,8 +1,10 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
 The port of ``repro/kernels/etap/etap.py`` for the MLA latent widths.  Eight
-kernels, all one CUDA body (``kernels/csrc/etap.cu``, whose header note
-says what bounds each on the H100 and how the design answers it):
+kernels, all one CUDA body (``kernels/csrc/etap_body.cuh``, whose header
+note says what bounds each on the H100 and how the design answers it;
+``etap.cu`` builds the bf16 kernels from it, ``etap_quant.cu`` the
+quantized ones):
 
   K3 :func:`etap_decode_mla_paged`   single-pass paged decode
      (replaces ``repro/kernels/etap/etap.py:237``, ``_paged_call``)

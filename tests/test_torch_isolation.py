@@ -23,7 +23,7 @@ def _imports(path: Path):
 
 def test_port_has_files():
     assert len(FILES) > 20
-    for src in ("etap.cu", "flash_decode.cu", "combine.cu"):
+    for src in ("etap.cu", "etap_quant.cu", "flash_decode.cu", "combine.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
 
 
