@@ -31,7 +31,12 @@ Phases, each of which fails the run when it fails:
              time (CUDA events), its plain
              version's time, its bound and one PyTorch library call's time
              where there is one, and ETAP beside the baseline at the same
-             shapes;
+             shapes; then K10, the selective scan, against its plain
+             version (h_last and y bitwise) at the reference test's shapes
+             (N 4, 8, 16; ragged D 48, ragged L 100) and at falcon's widths
+             (D 8192, N 16: B 2 x L 256 and a ragged L 200, with ops'
+             chunk contract), and its time at mamba-short's and
+             mamba-long's prefill shapes (B 8 x L 512, B 1 x L 8192);
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -48,17 +53,28 @@ Phases, each of which fails the run when it fails:
              cache one in each mode with one split and with two, each
              through the kernels and through the plain versions on the
              same weights and cache: logits agree, greedy tokens agree;
-             then the paged step's wall time and device time by kernel.
+             then the paged step's wall time and device time by kernel;
+  6. serve   ``run_dense`` on Falcon-Mamba-7B at full width and all 64
+             layers (bf16, random weights from a seed; DeepSeek's
+             parameters freed first): mamba-short (B 8 x 512, 32 tokens)
+             and mamba-long (B 1 x 6144, left-padded to 8192: two scan
+             chunks; 16 tokens), each prefill launching K10 once a layer;
+  7. prefill falcon's prefill at full width and depth, B 2 x 128, through
+             K10 and through the plain scan on the same weights: the
+             last-position logits agree (LOGIT_RTOL, greedy on decided
+             rows), and so do 4 decode steps from each cache; then one
+             B 8 x 512 prefill under torch.profiler: device time in K10,
+             in the GEMMs and in the elementwise passes.
 
 Each phase's seconds are printed as ``[time]`` lines.
 
 The launch counters are zeroed just before each serve phase and read just
-after it; each of K1-K8, both K2 orientations and each quantized body on
-each code type must have launched on a serve path.  The line before the
-last is the ``kernels`` JSON; the last line is the device JSON.
+after it; each of K1-K8, both K2 orientations, each quantized body on each
+code type and K10 must have launched on a serve path.  The line before
+the last is the ``kernels`` JSON; the last line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
-    python3 chip_smoke.py --quick    # phases 1-2 at one iteration each
+    python3 chip_smoke.py --quick    # phases 1-2 (K10 too), one iteration
 """
 from __future__ import annotations
 
@@ -76,6 +92,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 DK, DV, PAGE = 576, 512, 64
 SCALE = 192 ** -0.5            # DeepSeek's qk_head_dim ** -0.5
 # Tolerance of a bf16 kernel output against its plain version (bf16 in, fp32
@@ -89,7 +106,9 @@ BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-3
 F32_TOL = 1e-4
 # Logits of one full-width decode step, kernel path against plain path:
 # attention outputs may differ by one bf16 ulp, which three bf16 layers
-# carry into the logits; allow 2% of the largest logit.
+# carry into the logits; allow 2% of the largest logit.  The falcon
+# prefill check uses it too, though there the two paths agree bitwise (K10
+# gives the plain scan's bits).
 LOGIT_RTOL = 2e-2
 
 # kernel wrapper -> (the TPU kernel it replaces, its CUDA source)
@@ -114,6 +133,8 @@ KERNELS = {
         _CSRC + "flash_decode.cu"),
     "combine_splits_std": ("src/repro/kernels/etap/combine.py:60",
                            _CSRC + "combine.cu"),
+    "selective_scan": ("src/repro/kernels/selective_scan/scan.py:64",
+                       _CSRC + "selective_scan.cu"),
 }
 
 
@@ -1001,6 +1022,92 @@ def phase_dense_kernels(quick: bool, report: dict) -> None:
                             "bound_by": by, "library_ms": tl}
 
 
+# ------------------------------------------------- phase 2: K10 (scan)
+# the reference test's shapes (tests/test_kernels.py:174): (B, L, D, N)
+SCAN_SMALL = [(2, 64, 32, 8), (1, 100, 48, 4), (2, 256, 128, 16)]
+# falcon's widths (d_inner 8192, N 16): B 2 x L 256, and a ragged L 200
+SCAN_FALCON = [(2, 256, 8192, 16), (2, 200, 8192, 16)]
+
+
+def scan_inputs(B, L, D, N, gen, dev):
+    """Decays in (0.5, 1), small increments, unit-normal C, as the
+    reference's test draws them."""
+    import torch
+    dA = torch.rand(B, L, D, N, generator=gen, device=dev) * 0.5 + 0.5
+    dBx = torch.randn(B, L, D, N, generator=gen, device=dev) * 0.1
+    c = torch.randn(B, L, N, generator=gen, device=dev)
+    return dA, dBx, c
+
+
+def scan_bytes_ops(B, L, D, N) -> tuple[float, float]:
+    """Bytes K10 must move (dA, dBx, C read once; y, h written once, all
+    fp32) and its fp32 operations (per (t, d, n): the update's mul and add,
+    the product with C and its share of the sum over N)."""
+    return (2 * B * L * D * N + B * L * N + B * L * D + B * D * N) * 4, \
+        4 * B * L * D * N
+
+
+def phase_scan(quick: bool, report: dict) -> None:
+    """K10 against its plain version on the card: at the reference test's
+    small shapes (N 4, 8, 16; ragged D 48 and L 100) and at falcon's widths
+    (B 2 x L 256, chunk 64; ragged L 200).  h_last and y bitwise (the
+    tolerance is zero: the plain version sums over N in the kernel's
+    order); through ops, h only where L is a chunk multiple.
+    Then its time at mamba-short's prefill shape (B 8 x L 512) and
+    mamba-long's (B 1 x L 8192), its plain version's at the smaller."""
+    import torch
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import scan as S
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    err = 0.0
+    for B, L, D, N in SCAN_SMALL + SCAN_FALCON:
+        dA, dBx, c = scan_inputs(B, L, D, N, gen, dev)
+        y, h = S.selective_scan(dA, dBx, c)
+        torch.cuda.synchronize()
+        py, ph = S.selective_scan_plain(dA, dBx, c)
+        what = f"selective_scan B={B} L={L} D={D} N={N}"
+        e = float((y - py).abs().max())
+        log(f"[scan] {what}: y max abs err {e:.3e} (max |y| "
+            f"{float(py.abs().max()):.3f})")
+        bitwise(h, ph, what + " h_last")
+        bitwise(y, py, what + " y")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{what}: y is not finite")
+        if D == 8192:
+            err = max(err, e)
+            chunk = 64
+            yo, ho = scan_ops.selective_scan(dA, dBx, c, chunk=chunk)
+            if (ho is None) != (L % chunk != 0) or not torch.equal(yo, y):
+                raise AssertionError(f"{what}: ops' contract (chunk {chunk})")
+        del dA, dBx, c
+    iters = 1 if quick else 10
+    t_short = None
+    for B, L in ((8, 512), (1, 8192)):
+        D, N = 8192, 16
+        dA, dBx, c = scan_inputs(B, L, D, N, gen, dev)
+        t = cuda_time_ms(lambda: S.selective_scan(dA, dBx, c), iters)
+        nbytes, ops = scan_bytes_ops(B, L, D, N)
+        tb, by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+        if ops / FP32_FLOP_PER_S * 1e3 > tb:
+            tb, by = ops / FP32_FLOP_PER_S * 1e3, "operations"
+        tp = None
+        if t_short is None:
+            tp = cuda_time_ms(lambda: S.selective_scan_plain(dA, dBx, c), 1,
+                              warmup=1)
+            t_short = (t, tp, tb, by)
+        plain = "not timed" if tp is None else f"{tp:.4f} ms"
+        log(f"[timing] selective_scan (B={B} L={L} D={D} N={N}): {t:.4f} ms, "
+            f"plain {plain}, bound {tb:.4f} ms ({by}, {nbytes / 1e9:.2f} GB), "
+            f"{nbytes / t / 1e6:.0f} GB/s, library null")
+        del dA, dBx, c
+    t, tp, tb, by = t_short
+    report["selective_scan"] = {"max_abs_err": err, "ms": t, "plain_ms": tp,
+                                "bound_ms": tb, "bound_by": by,
+                                "library_ms": None}
+
+
 # ------------------------------------------------------- phases 3 - 5
 SHORT = ["--batch", "8", "--requests", "16", "--prompt", "512", "--gen", "32"]
 LONG = ["--batch", "4", "--requests", "4", "--prompt", "4096", "--gen", "32",
@@ -1045,6 +1152,18 @@ SERVE_PHASES = [
 ]
 
 
+# Falcon-Mamba-7B at full width and full depth (64 layers), dense cache:
+# each prefill runs K10 once a layer
+MAMBA = ["--arch", "falcon_mamba_7b", "--cache-layout", "dense"]
+MAMBA_PHASES = [
+    ("mamba-short", MAMBA + ["--batch", "8", "--prompt", "512", "--gen",
+                             "32"]),
+    # 6144 tokens, left-padded to 8192: two scan chunks of 4096
+    ("mamba-long", MAMBA + ["--batch", "1", "--prompt", "6144", "--gen",
+                            "16"]),
+]
+
+
 def full_config(layers: int = 3):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("deepseek_r1_671b"),
@@ -1061,7 +1180,8 @@ def wrapper_module(name: str):
     from repro_torch.kernels.etap import combine as C
     from repro_torch.kernels.etap import etap as K
     from repro_torch.kernels.flash_decode import flash_decode as FD
-    return next(m for m in (K, C, FD) if hasattr(m, name))
+    from repro_torch.kernels.selective_scan import scan as S
+    return next(m for m in (K, C, FD, S) if hasattr(m, name))
 
 
 def counters():
@@ -1074,12 +1194,14 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
     """One serve run through the entry points a user calls (``run_paged``
     or ``run_dense`` as ``--cache-layout`` says), with every launch count
     zeroed just before it and read just after; each kernel in ``expect``
-    must have launched.  Returns the run's launch counts."""
+    must have launched.  Peak memory is this phase's own.  Returns the
+    run's launch counts."""
     import torch
     from repro_torch.launch import serve
     t_wall = time.perf_counter()
-    args = serve.parse_args(flags + ["--layers", "3"])
+    args = serve.parse_args(flags)
     cfg = serve.config_for(args)
+    torch.cuda.reset_peak_memory_stats()
     for fn in counters().values():
         fn.launches = 0
     if args.cache_layout == "dense":
@@ -1100,8 +1222,9 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
             raise AssertionError(f"{name}: request {rid} tokens {toks}")
     tps = res["tokens_served"] / t_total
     slots = res.get("batch_slots", args.batch)
-    log(f"[{name}] {' '.join(flags)}: {res['tokens_served']} tokens, "
-        f"batch_slots {slots}, {tps:.1f} tok/s, "
+    log(f"[{name}] {' '.join(flags)}: {cfg.num_layers} layers, "
+        f"{res['tokens_served']} tokens, batch_slots {slots}, "
+        f"{tps:.1f} tok/s, "
         f"t_prefill {res['t_prefill']:.3f} s, "
         f"t_decode {res['t_decode']:.3f} s, phase wall {t_wall:.1f} s, "
         f"launches "
@@ -1114,9 +1237,9 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Route the model's attention through the plain versions (on CUDA
-    tensors) for the kernel-vs-plain comparisons of phase 5."""
+def plain_kernels():
+    """Route the model's kernels through their plain versions (on CUDA
+    tensors) for the kernel-vs-plain comparisons of phases 5 and 7."""
     saved = []
     for name in wrapper_names():
         mod = wrapper_module(name)
@@ -1129,7 +1252,7 @@ def plain_attention():
             setattr(mod, name, fn)
 
 
-def check_step(lk, lp, what: str) -> None:
+def check_step(lk, lp, what: str, tag: str = "decode-step") -> None:
     """Kernel-path logits lk against plain-path logits lp: within
     LOGIT_RTOL of the largest logit, and the same greedy token wherever the
     plain path's top-two margin exceeds the largest logit difference (a
@@ -1140,14 +1263,14 @@ def check_step(lk, lp, what: str) -> None:
     top2 = lp.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > d
     agree = lk.argmax(-1) == lp.argmax(-1)
-    log(f"[decode-step] {what}: max |dlogit| {d:.4e} (max |logit| "
+    log(f"[{tag}] {what}: max |dlogit| {d:.4e} (max |logit| "
         f"{scale:.3f}), greedy agreement {int(agree.sum())}/{len(agree)} "
         f"({int(decided.sum())} rows decided beyond the difference)")
     if not torch.isfinite(lk).all() or d > LOGIT_RTOL * scale:
-        raise AssertionError(f"decode step ({what}): kernel path disagrees "
-                             "with the plain path")
+        raise AssertionError(f"{tag} ({what}): kernel path disagrees with "
+                             "the plain path")
     if not bool(agree[decided].all()):
-        raise AssertionError(f"decode step ({what}): greedy tokens differ")
+        raise AssertionError(f"{tag} ({what}): greedy tokens differ")
 
 
 def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
@@ -1206,6 +1329,88 @@ def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
             f"x{e.count:<4d} {e.key[:90]}")
 
 
+def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
+    """Where one full-width falcon prefill (B x S, mamba-short's) spends
+    its device time, from one torch.profiler run: K10, the eager
+    ``_ssm_inputs`` and conv (elementwise kernels over [B, S, 8192(, 16)]),
+    the projections (GEMMs), and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+
+    def run():
+        model.prefill(params, cfg, toks, S + 1)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {"selective_scan (K10)": 0.0, "gemm": 0.0,
+              "elementwise": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        key = ("selective_scan (K10)" if "scan_kernel" in name
+               else "gemm" if any(x in name for x in ("gemm", "xmma",
+                                                      "cutlass", "nvjet"))
+               else "elementwise" if any(x in name for x in (
+                   "elementwise", "vectorized", "unrolled", "reduce"))
+               else "other")
+        groups[key] += e.self_device_time_total / 1e3
+    log(f"[mamba-prefill] B={B} S={S}, {cfg.num_layers} layers: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}% of wall), "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    log("[mamba-prefill] device ms by group: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[mamba-prefill]   {e.self_device_time_total / 1e3:8.2f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_mamba_check(params, cfg) -> None:
+    """Falcon's prefill at full width and depth, B 2 x 128, through K10 and
+    through the plain scan on the same weights: the last position's logits
+    agree as decode steps must (check_step); then 4 decode steps from each
+    path's cache, fed the same tokens, compared the same way."""
+    import torch
+    from repro_torch.kernels.selective_scan import scan as S
+    from repro_torch.models import model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    B, P, steps = 2, 128, 4
+    toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    before = S.selective_scan.launches
+    lk, ck, pos = model.prefill(params, cfg, toks[:, :P], P + steps)
+    if S.selective_scan.launches - before != cfg.num_layers:
+        raise AssertionError("the falcon prefill did not launch K10 once a "
+                             "layer")
+    with plain_kernels():
+        lp, cp, _ = model.prefill(params, cfg, toks[:, :P], P + steps)
+    log(f"[mamba-prefill] last-position logits bitwise equal: "
+        f"{torch.equal(lk, lp)}")
+    check_step(lk, lp, f"falcon prefill, full width, {cfg.num_layers} "
+               f"layers, B={B} S={P}", tag="mamba-prefill")
+    for i in range(steps):
+        lk, ck = model.decode_step(params, cfg, ck, toks[:, P + i], pos + i)
+        lp, cp = model.decode_step(params, cfg, cp, toks[:, P + i], pos + i)
+        check_step(lk, lp, f"falcon decode step {i + 1} after the prefill",
+                   tag="mamba-prefill")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1249,7 +1454,7 @@ def phase_decode_step(params) -> None:
                                  block_table=table, lengths=lengths)[0]
 
     lk = step()
-    with plain_attention():
+    with plain_kernels():
         lp = step()
     profile_decode_step(params, cfg, cache, toks, table, lengths)
     check_step(lk, lp, f"paged, full width, B={B} ctx<={ctx}")
@@ -1273,7 +1478,7 @@ def phase_decode_step(params) -> None:
     lk = qstep()
     if K.etap_decode_mla_paged_quant.launches == before:
         raise AssertionError("the int8 decode step did not launch K3q")
-    with plain_attention():
+    with plain_kernels():
         lp = qstep()
     check_step(lk, lp, f"paged int8, full width, B={B} ctx<={ctx}")
     del qcache
@@ -1309,7 +1514,7 @@ def phase_decode_step(params) -> None:
     lk = lstep()
     if K.etap_paged_partial_quant.launches == before:
         raise AssertionError("the int8 split decode step did not launch K1q")
-    with plain_attention():
+    with plain_kernels():
         lp = lstep()
     if not bool(torch.isfinite(lk).all()):
         raise AssertionError("the int8 split decode step gave non-finite "
@@ -1339,7 +1544,7 @@ def phase_decode_step(params) -> None:
                                          cache_layout="dense")[0]
 
             lk = dstep()
-            with plain_attention():
+            with plain_kernels():
                 lp = dstep()
             check_step(lk, lp, f"dense {mode} kv_splits={kv_splits}, full "
                        f"width, B={B} S={dctx} pos={pos}")
@@ -1380,6 +1585,7 @@ def main(argv=None) -> int:
     timed("kernels", phase_kernels, args.quick, report)
     timed("dense kernels", phase_dense_kernels, args.quick, report)
     timed("quantized kernels", phase_quant_kernels, args.quick, report)
+    timed("selective scan", phase_scan, args.quick, report)
     if args.quick:
         log(json.dumps({"kernels": [dict(name=k, **v)
                                     for k, v in report.items()]}))
@@ -1397,7 +1603,7 @@ def main(argv=None) -> int:
     launches = {k: 0 for k in list(KERNELS) + list(QUANT_KERNELS)}
     t_serve = time.perf_counter()
     for name, flags, expect in SERVE_PHASES:
-        got = phase_serve(name, flags, params, expect)
+        got = phase_serve(name, flags + ["--layers", "3"], params, expect)
         kvd = flags[flags.index("--kv-dtype") + 1] \
             if "--kv-dtype" in flags else "fp"
         for k in KERNELS:
@@ -1406,13 +1612,37 @@ def main(argv=None) -> int:
             if code == kvd:
                 launches[k] += got[wrapper]
     log(f"[time] serve phases: {time.perf_counter() - t_serve:.1f} s")
+    timed("decode steps", phase_decode_step, params)
+    del params
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+    cfg = get_config("falcon_mamba_7b")
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] Falcon-Mamba-7B full width, all {cfg.num_layers} layers: "
+        f"{model.param_count(params) / 1e9:.3f} B params bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t_serve = time.perf_counter()
+    for name, flags in MAMBA_PHASES:
+        got = phase_serve(name, flags, params, ("selective_scan",))
+        if got["selective_scan"] != cfg.num_layers:
+            raise AssertionError(f"{name}: K10 launched "
+                                 f"{got['selective_scan']} times, not once a "
+                                 "layer of the prefill")
+        for k in KERNELS:
+            launches[k] += got[k]
+    log(f"[time] falcon serve phases: {time.perf_counter() - t_serve:.1f} s")
     log(f"[launches] serve paths: {launches}")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"{k} never launched on the serve paths")
-
-    timed("decode steps", phase_decode_step, params)
+    timed("falcon prefill check", phase_mamba_check, params, cfg)
+    timed("falcon prefill profile", profile_mamba_prefill, params, cfg, 8,
+          512)
     log(f"[time] build to here: {time.perf_counter() - t_run:.1f} s")
+    log(gpu_line())               # again beside the results, for the record
 
     kernels = [dict(name=k, route="cuda", source=src, replaces=tpu,
                     launches=launches[k], **report[k])

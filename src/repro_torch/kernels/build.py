@@ -1,5 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP kernels,
-the untransposed baseline and the split combine) on first use.
+the untransposed baseline, the split combine and the selective scan) on
+first use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -54,6 +55,8 @@ SIGNATURES = {
                                       _P],
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dA, dBx, c, y, h, B, L, D, N, stream
+    "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: list = []
@@ -66,7 +69,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the ETAP CUDA kernels are built from "
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built from "
                        "source on first use and need the CUDA toolkit")
 
 

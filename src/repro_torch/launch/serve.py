@@ -18,10 +18,17 @@ layouts:
 ``--mode etap`` (default) runs the paper's transposed decode kernels;
 ``--mode standard`` the untransposed baseline, on either layout.
 
+``--arch falcon_mamba_7b`` serves Falcon-Mamba-7B on the dense layout (its
+prefill runs the selective-scan kernel in every layer); its state is per
+sequence, so the paged layout raises the reference's ``ValueError``, and
+``--mode`` / ``--kv-dtype`` are accepted and not read, as in the reference.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 \\
         --requests 16 --prompt 512 --gen 32 --layers 3
     PYTHONPATH=src python -m repro_torch.launch.serve --cache-layout dense \\
         --mode standard --batch 4 --prompt 4096 --gen 32 --layers 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+        --cache-layout dense --batch 8 --prompt 512 --gen 32
 
 Flags of the reference that this port does not serve yet are refused with
 a "not yet ported" error, never ignored.

@@ -6,7 +6,9 @@ returns the port's parameters.  The reference stacks each layer group on a
 leading axis (``repro/models/model.py:layer_groups``): ``groups[g]["b<j>"]``
 holds block j of every repeat of group g.  The port keeps one dict per
 layer, so the stacked axis is unstacked here in the reference's layer order
-(repeat i of a group runs its blocks b0, b1, ... in turn).
+(repeat i of a group runs its blocks b0, b1, ... in turn).  Every leaf
+keeps the reference's dtype: a bf16 model's weights stay bf16 and its fp32
+leaves (Mamba's ``dt_bias``, ``log_neg_A`` and ``D``) stay fp32.
 """
 from __future__ import annotations
 
@@ -16,13 +18,13 @@ import torch
 from repro_torch.models import layers
 
 
-def _tensor(a, device, dtype):
+def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":             # numpy has no bf16: go by bits
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))          # owned, writable copy
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.to(device=device)
 
 
 def _map(tree, fn):
@@ -37,20 +39,19 @@ def _first_leaf(tree):
     return tree
 
 
-def params_from_jax(tree, device="cuda", dtype=None) -> dict:
-    """The reference's params → the port's, on ``device``.  ``dtype`` None
-    keeps each array's dtype."""
+def params_from_jax(tree, device="cuda") -> dict:
+    """The reference's params → the port's, on ``device``, each array in its
+    own dtype."""
     out_layers = []
     for gp in tree["groups"]:
         n = np.asarray(_first_leaf(gp)).shape[0]
         for i in range(n):
             for j in range(len(gp)):
                 out_layers.append(_map(gp[f"b{j}"],
-                                       lambda a, i=i: _tensor(a[i], device,
-                                                              dtype)))
+                                       lambda a, i=i: _tensor(a[i], device)))
     params = {
-        "embed": _tensor(tree["embed"], device, dtype),
-        "final_norm": _tensor(tree["final_norm"], device, dtype),
+        "embed": _tensor(tree["embed"], device),
+        "final_norm": _tensor(tree["final_norm"], device),
         "layers": out_layers,
     }
     params["embed_f32"] = layers.unembed_table(params["embed"])

@@ -1,14 +1,14 @@
 """Config-driven LM — the port of ``repro/models/model.py`` for MLA stacks of
-dense (GLU MLP) blocks: embedding → layers → head, served over the dense or
-the paged cache.
+dense (GLU MLP) blocks and for all-Mamba stacks (falcon-mamba): embedding →
+layers → head, served over the dense or (MLA) the paged cache.
 
 The reference stacks each layer group on a leading axis and scans it with
 ``lax.scan``; the port keeps one parameter dict per layer (and one cache
 dict per layer) and loops in Python.  :func:`layer_groups` is kept as the
 reference's static plan, which tells the two apart when weights are
-converted.  MoE blocks, the GQA and recurrent families, training
-(``loss_fn``) and ``verify_step`` are not ported yet (ROADMAP) and raise
-``NotImplementedError``.
+converted.  MoE blocks, the GQA family, RG-LRU / local attention, the
+frontends, training (``loss_fn``) and ``verify_step`` are not ported yet
+(ROADMAP) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba
 from repro_torch.runtime import paged_cache
 
 
@@ -53,17 +53,24 @@ def layer_groups(cfg) -> list:
 
 
 def check_ported(cfg) -> None:
-    """Raise unless every layer is an MLA block with a dense MLP — the
-    slice of the model the port serves."""
+    """Raise unless the stack is one the port serves: every layer an MLA
+    block with a dense MLP, or every layer a Mamba block."""
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
+            "(ROADMAP A8)")
+    kinds = cfg.layer_kinds()
+    if cfg.family == "ssm" and all(k == "ssm" for k in kinds):
+        return
+    if cfg.attention_kind == "local" or any(k != "attn" for k in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: RG-LRU and local attention are not ported yet "
+            "(ROADMAP A8)")
     if cfg.attention_kind != "mla":
         raise NotImplementedError(
             f"{cfg.name}: attention_kind {cfg.attention_kind!r} is not ported "
-            "yet (GQA: ROADMAP A5; recurrent families: ROADMAP A8)")
-    for i, (kind, is_moe) in enumerate(signatures(cfg)):
-        if kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} kind {kind!r} is not ported yet "
-                "(ROADMAP A8)")
+            "yet (GQA: ROADMAP A5)")
+    for i, (_, is_moe) in enumerate(signatures(cfg)):
         if is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: layer {i} is a MoE layer; models/moe.py is not "
@@ -72,8 +79,11 @@ def check_ported(cfg) -> None:
 
 
 # ------------------------------------------------------------------- init
-def _init_block(gen, cfg, dtype, device):
+def _init_block(gen, cfg, kind, dtype, device):
     D = cfg.d_model
+    if kind == "ssm":                  # a Mamba block has no FFN
+        return {"norm1": torch.zeros(D, dtype=dtype, device=device),
+                "mix": mamba.init_mamba(gen, cfg, dtype, device)}
     return {
         "norm1": torch.zeros(D, dtype=dtype, device=device),
         "mix": mla_mod.init_mla(gen, cfg, dtype, device),
@@ -96,18 +106,25 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
         "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
                                    device),
         "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-        "layers": [_init_block(gen, cfg, dtype, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [_init_block(gen, cfg, kind, dtype, device)
+                   for kind in cfg.layer_kinds()],
     }
     params["embed_f32"] = layers.unembed_table(params["embed"])
     return params
 
 
 # ---------------------------------------------------------- full sequence
-def _block_seq(lp, cfg, x, positions, collect_cache: bool):
+def _block_seq(lp, cfg, kind, x, positions, collect_cache: bool):
     """One block over a full sequence.  Returns (x, cache rows or {}).  The
     reference's MoE aux losses are zero here: MoE is not ported."""
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if kind == "ssm":
+        if collect_cache:
+            mixed, cache = mamba.mamba_seq(lp["mix"], cfg, h,
+                                           return_state=True)
+        else:
+            mixed, cache = mamba.mamba_seq(lp["mix"], cfg, h), {}
+        return x + mixed, cache
     if collect_cache:
         mixed, cache = mla_mod.mla_train(lp["mix"], cfg, h, positions,
                                          return_cache=True)
@@ -127,8 +144,8 @@ def _hidden(params, cfg, tokens, collect_cache: bool):
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
     caches = []
-    for lp in params["layers"]:
-        x, c = _block_seq(lp, cfg, x, positions, collect_cache)
+    for lp, kind in zip(params["layers"], cfg.layer_kinds(), strict=True):
+        x, c = _block_seq(lp, cfg, kind, x, positions, collect_cache)
         caches.append(c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, caches
@@ -143,15 +160,22 @@ def forward(params, cfg, tokens):
 
 # ----------------------------------------------------------------- serving
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
-    """Dense serving cache: one {"c": [batch, max_len, latent]} per layer."""
+    """Dense serving cache, one dict per layer: {"c": [batch, max_len,
+    latent]} for an MLA layer, the Mamba state {"h", "conv"} for an ssm
+    layer."""
     check_ported(cfg)
-    return [mla_mod.init_mla_cache(cfg, batch, max_len, cfg.torch_dtype,
-                                   device=device)
-            for _ in range(cfg.num_layers)]
+    dtype = cfg.torch_dtype
+    return [mamba.init_mamba_cache(cfg, batch, dtype, device=device)
+            if kind == "ssm" else
+            mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device=device)
+            for kind in cfg.layer_kinds()]
 
 
 def _pad_cache_rows(cache_rows, max_len):
-    """Pad one layer's prefill cache rows out to the serving length."""
+    """Pad one layer's prefill cache rows out to the serving length (a
+    Mamba layer's state passes as it is)."""
+    if "h" in cache_rows:
+        return cache_rows
     c = cache_rows["c"]
     return {"c": torch.nn.functional.pad(c, (0, 0, 0, max_len - c.shape[1]))}
 
@@ -172,7 +196,13 @@ def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     Returns a list of per-layer {"c": pool} dicts; kv_dtype "int8" / "fp8"
     stores codes and adds the per-row (scale, zp) pool under "c_sz".  Every
     later path (decode, chunked prefill, block copy, swap) keys off the
-    dict, so the layout is chosen here once."""
+    dict, so the layout is chosen here once.  Attention-only stacks: a
+    recurrent or SSM state is per sequence, not per token, so there is
+    nothing to page (the reference's ``ValueError``)."""
+    for kind in cfg.layer_kinds():
+        if kind != "attn":
+            raise ValueError(
+                f"paged cache requires an attention-only stack (got {kind})")
     check_ported(cfg)
     return [mla_mod.init_mla_cache_paged(cfg, layout, cfg.torch_dtype,
                                          kv_dtype, device=device)
@@ -239,9 +269,12 @@ def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec):
     return x + layers.mlp(lp["ffn"], h2), cache
 
 
-def _block_decode(lp, cfg, x, cache, pos, spec, cache_layout, table,
+def _block_decode(lp, cfg, kind, x, cache, pos, spec, cache_layout, table,
                   lengths):
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if kind == "ssm":
+        mixed, cache = mamba.mamba_decode(lp["mix"], cfg, h, cache)
+        return x + mixed, cache
     if cache_layout == "paged":
         mixed, cache = mla_mod.mla_decode_paged(lp["mix"], cfg, h, cache,
                                                 table, lengths, spec=spec)
@@ -278,8 +311,9 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
     :func:`init_cache`'s (or :func:`prefill`'s) and ``pos`` the new token's
     position, shared by every row.  "paged": ``cache`` is
     :func:`init_paged_cache`'s, and block_table [B,max_blocks] plus
-    per-sequence lengths [B] place each new token.  Each layer's cache is
-    updated in place.  Returns (logits [B,V] fp32, cache)."""
+    per-sequence lengths [B] place each new token.  An MLA layer's cache is
+    updated in place; a Mamba layer's state is replaced by the new one.
+    Returns (logits [B,V] fp32, cache)."""
     spec = spec or AttnSpec()
     if cache_layout not in ("dense", "paged"):
         raise ValueError(f"cache_layout {cache_layout!r}")
@@ -289,8 +323,9 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
         raise ValueError("dense decode_step needs pos")
     x = layers.embed(params["embed"], tokens)
     new_cache = []
-    for lp, lc in zip(params["layers"], cache, strict=True):
-        x, nc = _block_decode(lp, cfg, x, lc, pos, spec, cache_layout,
+    for lp, lc, kind in zip(params["layers"], cache, cfg.layer_kinds(),
+                            strict=True):
+        x, nc = _block_decode(lp, cfg, kind, x, lc, pos, spec, cache_layout,
                               block_table, lengths)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
