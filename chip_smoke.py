@@ -35,8 +35,9 @@ Phases, each of which fails the run when it fails:
              version (h_last and y bitwise) at the reference test's shapes
              (N 4, 8, 16; ragged D 48, ragged L 100) and at falcon's widths
              (D 8192, N 16: B 2 x L 256 and a ragged L 200, with ops'
-             chunk contract), and its time at mamba-short's and
-             mamba-long's prefill shapes (B 8 x L 512, B 1 x L 8192);
+             chunk contract) and at the shapes the main path gives it,
+             mamba-short's and mamba-long's prefill (B 8 x L 512, B 1 x
+             L 8192), with its time and its plain version's there;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -53,17 +54,21 @@ Phases, each of which fails the run when it fails:
              cache one in each mode with one split and with two, each
              through the kernels and through the plain versions on the
              same weights and cache: logits agree, greedy tokens agree;
-             then the paged step's wall time and device time by kernel;
+             then one paged step under torch.profiler: its wall time,
+             the device's busy and idle share of it, device time by kernel;
   6. serve   ``run_dense`` on Falcon-Mamba-7B at full width and all 64
              layers (bf16, random weights from a seed; DeepSeek's
              parameters freed first): mamba-short (B 8 x 512, 32 tokens)
              and mamba-long (B 1 x 6144, left-padded to 8192: two scan
              chunks; 16 tokens), each prefill launching K10 once a layer;
-  7. prefill falcon's prefill at full width and depth, B 2 x 128, through
-             K10 and through the plain scan on the same weights: the
+  7. prefill falcon's prefill at full width through K10 and through the
+             plain scan on the same weights, at B 2 x 128 and at
+             mamba-short's B 8 x 512 (all 64 layers) and mamba-long's
+             B 1 x 6144 (left-padded to 8192; its first 8 layers): the
              last-position logits agree (LOGIT_RTOL, greedy on decided
              rows), and so do 4 decode steps from each cache; then one
-             B 8 x 512 prefill under torch.profiler: device time in K10,
+             B 8 x 512 prefill under torch.profiler: its wall time, the
+             device's busy and idle share of it, and device time in K10,
              in the GEMMs and in the elementwise passes.
 
 Each phase's seconds are printed as ``[time]`` lines.
@@ -1050,11 +1055,12 @@ def scan_bytes_ops(B, L, D, N) -> tuple[float, float]:
 def phase_scan(quick: bool, report: dict) -> None:
     """K10 against its plain version on the card: at the reference test's
     small shapes (N 4, 8, 16; ragged D 48 and L 100) and at falcon's widths
-    (B 2 x L 256, chunk 64; ragged L 200).  h_last and y bitwise (the
-    tolerance is zero: the plain version sums over N in the kernel's
-    order); through ops, h only where L is a chunk multiple.
-    Then its time at mamba-short's prefill shape (B 8 x L 512) and
-    mamba-long's (B 1 x L 8192), its plain version's at the smaller."""
+    (B 2 x L 256, chunk 64; ragged L 200) and at the shapes the main path
+    gives it, mamba-short's prefill (B 8 x L 512) and mamba-long's (B 1 x
+    L 8192).  h_last and y bitwise (the tolerance is zero: the plain
+    version sums over N in the kernel's order); through ops, h only where
+    L is a chunk multiple.  Then its time and its plain version's at the
+    main path's two shapes."""
     import torch
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import scan as S
@@ -1086,20 +1092,32 @@ def phase_scan(quick: bool, report: dict) -> None:
     t_short = None
     for B, L in ((8, 512), (1, 8192)):
         D, N = 8192, 16
+        what = f"selective_scan B={B} L={L} D={D} N={N}"
         dA, dBx, c = scan_inputs(B, L, D, N, gen, dev)
+        # the shapes the main path gives K10 (mamba-short's prefill, and
+        # mamba-long's left-padded to two chunks): held bitwise as above
+        y, h = S.selective_scan(dA, dBx, c)
+        py, ph = S.selective_scan_plain(dA, dBx, c)
+        e = float((y - py).abs().max())
+        log(f"[scan] {what}: y max abs err {e:.3e} (max |y| "
+            f"{float(py.abs().max()):.3f})")
+        bitwise(h, ph, what + " h_last")
+        bitwise(y, py, what + " y")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{what}: y is not finite")
+        err = max(err, e)
+        del y, h, py, ph
         t = cuda_time_ms(lambda: S.selective_scan(dA, dBx, c), iters)
+        tp = cuda_time_ms(lambda: S.selective_scan_plain(dA, dBx, c), 1,
+                          warmup=0)
         nbytes, ops = scan_bytes_ops(B, L, D, N)
         tb, by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
         if ops / FP32_FLOP_PER_S * 1e3 > tb:
             tb, by = ops / FP32_FLOP_PER_S * 1e3, "operations"
-        tp = None
         if t_short is None:
-            tp = cuda_time_ms(lambda: S.selective_scan_plain(dA, dBx, c), 1,
-                              warmup=1)
             t_short = (t, tp, tb, by)
-        plain = "not timed" if tp is None else f"{tp:.4f} ms"
-        log(f"[timing] selective_scan (B={B} L={L} D={D} N={N}): {t:.4f} ms, "
-            f"plain {plain}, bound {tb:.4f} ms ({by}, {nbytes / 1e9:.2f} GB), "
+        log(f"[timing] {what}: {t:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{tb:.4f} ms ({by}, {nbytes / 1e9:.2f} GB), "
             f"{nbytes / t / 1e6:.0f} GB/s, library null")
         del dA, dBx, c
     t, tp, tb, by = t_short
@@ -1273,12 +1291,46 @@ def check_step(lk, lp, what: str, tag: str = "decode-step") -> None:
         raise AssertionError(f"{tag} ({what}): greedy tokens differ")
 
 
+def device_busy(prof) -> tuple[float, float, int]:
+    """From one torch.profiler run, the device's timeline: the ms in which
+    a kernel or copy ran (the union of their intervals, so an overlap is
+    counted once), the ms from the first one's start to the last one's end,
+    and their number."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device activity")
+    busy, (lo, hi) = 0.0, spans[0]
+    first, last = spans[0][0], max(end for _, end in spans)
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo = start
+        hi = max(hi, end)
+    busy += hi - lo
+    return busy / 1e3, (last - first) / 1e3, len(spans)
+
+
+def timeline_line(wall, busy, span, n, unprofiled) -> str:
+    """The device's busy and idle share of one profiled run's wall time."""
+    return (f"profiled run: wall {wall:.3f} ms (host clock, to the sync), "
+            f"device busy {busy:.3f} ms ({n} kernels and copies, union of "
+            f"their intervals), idle {100 * (1 - busy / wall):.1f}% of the "
+            f"wall, {100 * (1 - busy / span):.1f}% of the {span:.3f} ms from "
+            f"the first kernel's start to the last's end; unprofiled wall "
+            f"{unprofiled:.3f} ms")
+
+
 def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
-    """Where one full-width decode step spends its time: wall time (host
-    clock, synchronised), device time by kernel (torch.profiler), the
-    device's busy share of the wall time, and the step's byte bound (its
-    weights, the fp32 unembedding table and the live latent rows, read
-    once)."""
+    """Where one full-width decode step spends its time, from one step
+    under torch.profiler: its wall time (host clock, synchronised), the
+    device's busy and idle share of it and the device time by kernel;
+    beside them an unprofiled step's wall (median of 5) and the step's
+    byte bound (its weights, the fp32 unembedding table and the live
+    latent rows, read once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1295,21 +1347,23 @@ def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
         t0 = time.perf_counter()
         step()
         walls.append((time.perf_counter() - t0) * 1e3)
-    wall = sorted(walls)[len(walls) // 2]
+    unprofiled = sorted(walls)[len(walls) // 2]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         step()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, span, n = device_busy(prof)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
     layer_bytes = sum(t.numel() * t.element_size() for lp in params["layers"]
                       for t in _leaves(lp))
     rows = int((lengths + 1).sum()) * DK * 2 * cfg.num_layers
     need = layer_bytes + params["embed_f32"].numel() * 4 + rows
-    log(f"[decode-step] wall {wall:.3f} ms (median of 5), device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}% of wall), byte bound "
-        f"{need / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+    log("[decode-step] " + timeline_line(wall, busy, span, n, unprofiled)
+        + " (median of 5)")
+    log(f"[decode-step] byte bound {need / HBM_BYTES_PER_S * 1e3:.3f} ms, "
         f"{sum(e.count for e in kernels)} kernel launches "
         f"({len(kernels)} kernel names)")
     groups = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
@@ -1331,7 +1385,8 @@ def profile_decode_step(params, cfg, cache, toks, table, lengths) -> None:
 
 def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
     """Where one full-width falcon prefill (B x S, mamba-short's) spends
-    its device time, from one torch.profiler run: K10, the eager
+    its device time, from one torch.profiler run: the run's wall time and
+    the device's busy and idle share of it; K10, the eager
     ``_ssm_inputs`` and conv (elementwise kernels over [B, S, 8192(, 16)]),
     the projections (GEMMs), and the rest."""
     import torch
@@ -1350,14 +1405,16 @@ def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
     run()
     t0 = time.perf_counter()
     run()
-    wall = (time.perf_counter() - t0) * 1e3
+    unprofiled = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, span, n = device_busy(prof)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = {"selective_scan (K10)": 0.0, "gemm": 0.0,
               "elementwise": 0.0, "other": 0.0}
     for e in kernels:
@@ -1369,10 +1426,9 @@ def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
                    "elementwise", "vectorized", "unrolled", "reduce"))
                else "other")
         groups[key] += e.self_device_time_total / 1e3
-    log(f"[mamba-prefill] B={B} S={S}, {cfg.num_layers} layers: wall "
-        f"{wall:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / wall:.1f}% of wall), "
-        f"{sum(e.count for e in kernels)} kernel launches")
+    log(f"[mamba-prefill] B={B} S={S}, {cfg.num_layers} layers, "
+        + timeline_line(wall, busy, span, n, unprofiled)
+        + f"; {sum(e.count for e in kernels)} kernel launches")
     log("[mamba-prefill] device ms by group: " + ", ".join(
         f"{k} {v:.1f}" for k, v in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -1380,35 +1436,49 @@ def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
             f"x{e.count:<5d} {e.key[:90]}")
 
 
+# (B, prompt, layers) of the falcon prefill check: the B 2 x 128 case at
+# full depth; mamba-short's prefill at full depth; mamba-long's (6144 tokens
+# left-padded to 8192, two scan chunks) at full width, cut to its first 8
+# layers so that the plain scan's 8192 eager steps a layer stay a few seconds
+MAMBA_CHECKS = [(2, 128, None), (8, 512, None), (1, 6144, 8)]
+
+
 def phase_mamba_check(params, cfg) -> None:
-    """Falcon's prefill at full width and depth, B 2 x 128, through K10 and
-    through the plain scan on the same weights: the last position's logits
-    agree as decode steps must (check_step); then 4 decode steps from each
-    path's cache, fed the same tokens, compared the same way."""
+    """Falcon's prefill at full width through K10 and through the plain
+    scan on the same weights, at each of MAMBA_CHECKS: the last position's
+    logits agree as decode steps must (check_step); then 4 decode steps
+    from each path's cache, fed the same tokens, compared the same way."""
     import torch
     from repro_torch.kernels.selective_scan import scan as S
     from repro_torch.models import model
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    B, P, steps = 2, 128, 4
-    toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    before = S.selective_scan.launches
-    lk, ck, pos = model.prefill(params, cfg, toks[:, :P], P + steps)
-    if S.selective_scan.launches - before != cfg.num_layers:
-        raise AssertionError("the falcon prefill did not launch K10 once a "
-                             "layer")
-    with plain_kernels():
-        lp, cp, _ = model.prefill(params, cfg, toks[:, :P], P + steps)
-    log(f"[mamba-prefill] last-position logits bitwise equal: "
-        f"{torch.equal(lk, lp)}")
-    check_step(lk, lp, f"falcon prefill, full width, {cfg.num_layers} "
-               f"layers, B={B} S={P}", tag="mamba-prefill")
-    for i in range(steps):
-        lk, ck = model.decode_step(params, cfg, ck, toks[:, P + i], pos + i)
-        lp, cp = model.decode_step(params, cfg, cp, toks[:, P + i], pos + i)
-        check_step(lk, lp, f"falcon decode step {i + 1} after the prefill",
-                   tag="mamba-prefill")
+    steps = 4
+    for B, P, layers in MAMBA_CHECKS:
+        c, p = cfg, params
+        if layers is not None:
+            c = dataclasses.replace(cfg, num_layers=layers)
+            p = dict(params, layers=params["layers"][:layers])
+        what = (f"falcon prefill, full width, {c.num_layers} layers, B={B} "
+                f"S={P}")
+        toks = torch.randint(0, c.vocab_size, (B, P + steps), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        before = S.selective_scan.launches
+        lk, ck, pos = model.prefill(p, c, toks[:, :P], P + steps)
+        if S.selective_scan.launches - before != c.num_layers:
+            raise AssertionError(f"{what}: K10 did not launch once a layer")
+        with plain_kernels():
+            lp, cp, _ = model.prefill(p, c, toks[:, :P], P + steps)
+        log(f"[mamba-prefill] {what}: last-position logits bitwise equal: "
+            f"{torch.equal(lk, lp)}")
+        check_step(lk, lp, what, tag="mamba-prefill")
+        for i in range(steps):
+            lk, ck = model.decode_step(p, c, ck, toks[:, P + i], pos + i)
+            lp, cp = model.decode_step(p, c, cp, toks[:, P + i], pos + i)
+            check_step(lk, lp, f"decode step {i + 1} after the {what}",
+                       tag="mamba-prefill")
+        del lk, lp, ck, cp
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
