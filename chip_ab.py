@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Time the latent-width (Dk 576, Dv 512) decode kernels of several
+checkouts of this repository on one GPU, in turns, so that a change to the
+kernels can be held against its parent on one card in one call.
+
+Each checkout runs in its own process (it builds its own kernels from its
+own sources) and times K3, K1 (n = 4), K5, K6, K7 and K8 at chip_smoke.py's
+timing shapes (B 8, H 128, ragged context up to 4096) with CUDA events over
+200 launches each; the medians per checkout close the output.
+
+    git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
+    python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+
+KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8")
+
+
+def time_one(root: str) -> dict:
+    sys.path[:0] = [root + "/src", root]
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    build.library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    B, H, ctx, S = 8, 128, 4096, cs.SCALE
+    lengths = torch.tensor([4096, 3900, 4033, 3500, 4000, 2500, 3999, 3210],
+                           dtype=torch.int32, device=dev)
+    k = torch.randn(B, ctx, cs.DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = k[..., :cs.DV]
+    q = torch.randn(B, H, cs.DK, generator=gen, device=dev).to(torch.bfloat16)
+    pool, table = cs.dense_as_paged(k, gen)
+    plan = dense_split_plan(ctx, 512, 4)
+    fns = {
+        "K3": lambda: K.etap_decode_mla_paged(q, pool, cs.DV, table, lengths,
+                                              scale=S),
+        "K1": lambda: K.etap_paged_partial(q, pool, cs.DV, table, lengths,
+                                           scale=S, n_splits=4),
+        "K5": lambda: K.etap_decode_dense(q, k, v, lengths, scale=S,
+                                          block=512),
+        "K6": lambda: K.etap_partial_dense(q, k, v, lengths, scale=S,
+                                           plan=plan),
+        "K7": lambda: FD.flash_decode(q, k, v, lengths, scale=S, block=512),
+        "K8": lambda: FD.flash_decode_partial(q, k, v, lengths, scale=S,
+                                              plan=plan),
+    }
+    return {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
+
+
+def main(argv: list) -> int:
+    if argv[:1] == ["--one"]:
+        print(json.dumps(time_one(argv[1])), flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    runs: dict = {}
+    for root in argv:
+        out = subprocess.run([sys.executable, __file__, "--one", root],
+                             capture_output=True, text=True, check=True)
+        ms = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.setdefault(root, []).append(ms)
+        print(root, " ".join(f"{n} {ms[n]:.4f}" for n in KERNELS),
+              flush=True)
+    for root, rs in runs.items():
+        print(f"median of {len(rs)} {root}: " + " ".join(
+            f"{n} {statistics.median(r[n] for r in rs):.4f}"
+            for n in KERNELS))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

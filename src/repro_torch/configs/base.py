@@ -83,6 +83,10 @@ class ModelConfig:
     lru_width: int = 0
 
     @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 

@@ -1,6 +1,7 @@
 """Decode and prefill attention entry points — the port of the dispatchers
-of ``repro/core/etap.py``: the dense entry :func:`decode_attention` and the
-paged entries for the MLA-fused fp pool.
+of ``repro/core/etap.py``: the dense entry :func:`decode_attention`, the
+GQA regrouping (:func:`gqa_to_grouped` and its copy-free twin
+:func:`gqa_grouped_view`), and the paged entries for the MLA-fused pool.
 
 Decode attention computes, per (batch, kv-group):
     standard:  S = Q Kᵀ,  P = softmax_rows(S),  O = P V   (thin M = heads)
@@ -11,9 +12,14 @@ and otherwise runs XLA twins; the port has one route per entry: the kernel
 wrappers in :mod:`repro_torch.kernels.etap.ops` (ETAP) and
 :mod:`repro_torch.kernels.flash_decode.ops` (the untransposed ``standard``
 baseline), whose operands' device picks the CUDA kernel or its plain
-version.  The paged entries take the MLA-fused latent pool in fp or as int8
-/ fp8 codes with their per-row (scale, zp) pool ``k_sz`` (the quantized
-bodies dequantize in registers).  Separate-V pools (the GQA path) and the
+version.  A GQA cache [B, S, K, hd] decodes through the dense entry in its
+grouped form (BG = B·K rows of G = H/K query columns): the reference copies
+the cache into that form, the port hands the kernels the cache itself and
+they read it in place.  The paged entries take the MLA-fused latent pool in
+fp or as int8 / fp8 codes with their per-row (scale, zp) pool ``k_sz`` (the
+quantized bodies dequantize in registers).  Separate-V paged pools (their
+kernels are reached only from ``kernels/etap/ops.py`` in the reference; the
+GQA paged path gathers its pools to the dense layout instead) and the
 ``standard`` baseline over a quantized pool are not ported yet and raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
@@ -22,6 +28,7 @@ from __future__ import annotations
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.kernels.etap import ops as etap_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.splitkv import grouped
 from repro_torch.runtime.paged_cache import gather_blocks
 
 
@@ -29,14 +36,45 @@ def _check(v_pool, v_sz) -> None:
     if v_pool is not None or v_sz is not None:
         raise NotImplementedError(
             "separate-V paged pools (fp or quantized) are not ported yet: "
-            "ROADMAP A5 (the GQA path)")
+            "ROADMAP A5b")
+
+
+def _restorer(B: int, H: int):
+    def restore(o):                                     # [B·K, G, Dv]
+        return o.reshape(B, H, o.shape[-1])
+    return restore
+
+
+def gqa_to_grouped(q, k, v):
+    """[B,H,D], [B,S,K,D], [B,S,K,Dv] → the grouped (BG = B·K) form
+    q [BG,G,D], k [BG,S,D], v [BG,S,Dv] and a restorer [BG,G,Dv] →
+    [B,H,Dv] — the reference's ``gqa_to_grouped``: head h is query column
+    g = h % G of grouped row b·K + h // G.  k and v are copies; the serve
+    path uses :func:`gqa_grouped_view`."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    return (q.reshape(B * K, H // K, D), grouped(k), grouped(v),
+            _restorer(B, H))
+
+
+def gqa_grouped_view(q, k, v):
+    """:func:`gqa_to_grouped` without the copies: q [BG,G,D] (a view of a
+    contiguous q), and k, v left as the [B,S,K,D*] cache, which the dense
+    decode entries take as the grouped rows — the CUDA kernels read them in
+    place through the kv-head stride (bitwise the kernel on the copy), the
+    plain versions copy them."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    return q.reshape(B * K, H // K, D), k, v, _restorer(B, H)
 
 
 def decode_attention(q, k, v, length=None, *, spec: AttnSpec):
-    """Dense decode attention. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv];
-    length [BG] valid-prefix lengths (None = all S).  spec.mode "etap" (the
-    paper) or "standard" (the untransposed baseline); spec.kv_splits None =
-    auto split-KV on both.  Returns [BG,H,Dv]."""
+    """Dense decode attention. q [BG,H,Dk]; k [BG,S,Dk] and v [BG,S,Dv], or
+    a GQA cache [B,S,K,D*] standing for its grouped rows (BG = B·K,
+    :func:`gqa_grouped_view`); length [BG] valid-prefix lengths (None = all
+    S).  spec.mode "etap" (the paper) or "standard" (the untransposed
+    baseline); spec.kv_splits None = auto split-KV on both.  Returns
+    [BG,H,Dv]."""
     if spec.mode == "etap":
         return etap_ops.etap_decode_splitkv(q, k, v, length, spec=spec)
     return fd_ops.flash_decode_splitkv(q, k, v, length, spec=spec)

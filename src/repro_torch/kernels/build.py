@@ -31,12 +31,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# the dense kernels' operand block: q, k, kb, ldk, v, vb, ldv, S, lengths
-_DENSE = [_P, _P, _L, _I, _P, _L, _I, _I, _P]
+# the dense kernels' operand block: q, k, kb, ldk, v, vb, ldv, S, lengths,
+# kvh, kh, vh, dk, dv
+_DENSE = [_P, _P, _L, _I, _P, _L, _I, _I, _P, _I, _L, _L, _I, _I]
 SIGNATURES = {
     "etap_dk": [],
     "etap_dv": [],
     "etap_page": [],
+    "etap_dense_widths": [_P, _I],
+    "flash_decode_widths": [_P, _I],
     "etap_decode_mla_paged": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "etap_paged_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                            _I, _P],

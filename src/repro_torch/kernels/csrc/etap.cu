@@ -14,27 +14,43 @@
 //        etap_decode_mla_pallas :171)
 //   K6  dense split-KV phase 1     replaces repro/kernels/etap/etap.py:603
 //       (etap_partial_pallas :557)
+//
+// The paged kernels (K1, K3, K4) are built at the MLA latent's widths; the
+// dense ones (K5, K6) at each (Dk, Dv) of mma_tile.cuh's DENSE_WIDTHS: the
+// latent (576, 512) and the 128-wide GQA head (128, 128).
 #include "etap_body.cuh"
 
 namespace {
 
 template <bool STATS>
 int launch(const Params& p, int B, int n_splits, void* stream) {
-  if (!p.table) return launch_mode<STATS, kDense, false>(p, B, n_splits, stream);
   return launch_mode<STATS, kPaged, false>(p, B, n_splits, stream);
 }
 
-// Dense decode (K5 / K6): one split per npb tiles of nbt.
+template <bool STATS>
+int launch_dense(const Params& p, int dk, int dv, int B, int n_splits,
+                 void* stream) {
+  return with_dense_widths(dk, dv, [&](auto DK, auto DV) {
+    return launch_mode<STATS, kDense, false, decltype(DK)::value,
+                       decltype(DV)::value>(p, B, n_splits, stream);
+  });
+}
+
+// Dense decode (K5 / K6): one split per npb tiles of nbt; row b of the
+// grid reads K at k + (b / kvh)*kb + (b % kvh)*kh (V alike).
 Params dense_params(const void* q, const void* k, long long kb, int ldk,
                     const void* v, long long vb, int ldv, int S,
-                    const int* lengths, int H, int nbt, float scale,
-                    int amla) {
+                    const int* lengths, int kvh, long long kh, long long vh,
+                    int H, int nbt, float scale, int amla) {
   Params p = make_params(q, k, nullptr, H, nbt, scale, amla);
   p.kb = kb;
+  p.kh = kh;
+  p.kvh = kvh;
   p.ldk = ldk;
   p.S = S;
   p.v = static_cast<const bf16*>(v);
   p.vb = vb;
+  p.vh = vh;
   p.ldv = ldv;
   p.base = lengths;
   p.hz_off = -1;
@@ -46,10 +62,13 @@ Params dense_params(const void* q, const void* k, long long kb, int ldk,
 
 extern "C" {
 
-// Shape constants the Python wrappers check their operands against.
-int etap_dk() { return DK; }
-int etap_dv() { return DV; }
+// Shape constants the Python wrappers check their operands against: the
+// paged kernels' widths and page, and the dense kernels' (Dk, Dv) pairs
+// (written to out as dk, dv, dk, dv, ...; returns their number).
+int etap_dk() { return LATENT_DK; }
+int etap_dv() { return LATENT_DV; }
 int etap_page() { return PAGE; }
+int etap_dense_widths(int* out, int cap) { return write_dense_widths(out, cap); }
 
 // K3: q [B,H,DK]; pool [N,PAGE,DK]; table [B,nbt]; lengths [B];
 // out [B,H,DV] — all bf16 / int32, contiguous.
@@ -95,34 +114,39 @@ int etap_prefill_mla_paged(const void* q, const void* pool, const int* table,
   return launch<false>(p, B, 1, stream);
 }
 
-// K5: q [B,H,DK]; K rows k + b*kb + s*ldk for s < S (DK wide); V null (the
-// first DV columns of K) or rows v + b*vb + s*ldv (DV wide); lengths [B];
-// out [B,H,DV].  Strides in elements.
+// K5: q [B,H,dk]; K rows k + (b / kvh)*kb + (b % kvh)*kh + s*ldk for
+// s < S (dk wide); V null (the first dv columns of K) or rows at v with
+// strides vb, vh, ldv (dv wide); lengths [B]; out [B,H,dv].  Strides in
+// elements; (dk, dv) one of etap_dense_widths.  kvh = K reads a GQA cache
+// [B/K, S, K, hd] in place as its grouped [B, S, hd] form.
 int etap_decode_dense(const void* q, const void* k, long long kb, int ldk,
                       const void* v, long long vb, int ldv, int S,
-                      const int* lengths, void* out, int B, int H,
+                      const int* lengths, int kvh, long long kh,
+                      long long vh, int dk, int dv, void* out, int B, int H,
                       float scale, int amla, void* stream) {
   const int nbt = (S + PAGE - 1) / PAGE;
-  Params p = dense_params(q, k, kb, ldk, v, vb, ldv, S, lengths, H, nbt,
-                          scale, amla);
+  Params p = dense_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
+                          H, nbt, scale, amla);
   p.out = out;
-  return launch<false>(p, B, 1, stream);
+  return launch_dense<false>(p, dk, dv, B, 1, stream);
 }
 
 // K6: as K5, cut into n_splits splits of tps 64-row tiles each (rows past S
-// read as zero); writes fp32 m, l [B,n,H] and acc [B,n,DV,H].
+// read as zero); writes fp32 m, l [B,n,H] and acc [B,n,dv,H].
 int etap_partial_dense(const void* q, const void* k, long long kb, int ldk,
                        const void* v, long long vb, int ldv, int S,
-                       const int* lengths, float* m_out, float* l_out,
-                       float* acc_out, int B, int H, int n_splits, int tps,
-                       float scale, int amla, void* stream) {
-  Params p = dense_params(q, k, kb, ldk, v, vb, ldv, S, lengths, H,
-                          n_splits * tps, scale, amla);
+                       const int* lengths, int kvh, long long kh,
+                       long long vh, int dk, int dv, float* m_out,
+                       float* l_out, float* acc_out, int B, int H,
+                       int n_splits, int tps, float scale, int amla,
+                       void* stream) {
+  Params p = dense_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
+                          H, n_splits * tps, scale, amla);
   p.npb = tps;
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;
-  return launch<true>(p, B, n_splits, stream);
+  return launch_dense<true>(p, dk, dv, B, n_splits, stream);
 }
 
 }  // extern "C"

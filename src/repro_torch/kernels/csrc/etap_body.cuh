@@ -10,15 +10,21 @@
 //     S^T = K Q^T * scale          [64, 16]   mma.sync, page rows on M
 //     mask kpos > horizon(column) to -1e30
 //     online-softmax update per column (m, l in shared memory)
-//     O^T += V^T P^T               [512, 16]  mma.sync, Dv on M
-// V is the first 512 columns of the same 576-wide latent page: the page is
-// read once for both products.
+//     O^T += V^T P^T               [Dv, 16]   mma.sync, Dv on M
+// The widths (Dk, Dv) are template parameters: the MLA latent (576, 512),
+// where V is the first 512 columns of the same latent page (read once for
+// both products), and, for the dense kernels K5/K6 only, a 128-wide GQA
+// head (128, 128) with K and V in their own caches.
 //
 // Address modes (a template parameter).  Paged (K1, K3, K4): tile j of row
 // b is pool block table[b, j].  Dense (K5, K6): tile j of row b is rows
 // [64 j, 64 j + 64) of k + b * kb with row stride ldk; rows at or past S
 // are zero-filled, so the caller never pads the cache (the reference pads
-// with zeros, and the horizon masks those rows either way).  A dense V is
+// with zeros, and the horizon masks those rows either way).  Row b may also
+// address a GQA cache [B, S, K, hd] in place: with kvh = K heads, row
+// b = bo * K + kh (the reference's gqa_to_grouped order) starts at
+// k + bo * kb + kh * kh_stride, row stride K * hd, so no grouped copy is
+// made.  A dense V is
 // either the first 512 columns of the K tile (v null: the MLA latent, V =
 // cache[..., :512], read in place with no copy) or its own rows at v + b *
 // vb, stride ldv, loaded over the K tile's first 512 columns once the score
@@ -76,14 +82,16 @@
 // What bounds it on the H100.  Decode reads each latent page once per head
 // tile (128 heads = 8 tiles, the re-reads mostly hit L2); its floor is the
 // pool bytes over 3.35 TB/s (about half of them for a code pool: 584 B a
-// row against 1152).  Prefill at 128 heads is compute-bound
+// row against 1152).  A GQA group (G = 4 heads of Qwen3-8B) fills 4 of the
+// 16 columns: 12 are padding, masked, and the floor is again the K and V
+// bytes.  Prefill at 128 heads is compute-bound
 // (Cq*H*kpos*(576 + 512) multiply-adds).  This first version is simple:
 // mma.sync fragments loaded from shared memory with 32/16-bit loads, one
 // page in flight (cp.async, no double buffer; the code pages by plain
-// 16-byte loads), 16 columns per CTA so the [512, 16] fp32 accumulator
-// fits in registers (32 per thread).  Removing the per-tile re-read of the
-// pool (wider tiles, wgmma, TMA, a pipelined ring of pages) is the work of
-// a later version.
+// 16-byte loads), 16 columns per CTA so the [Dv, 16] fp32 accumulator
+// fits in registers (Dv / 16 per thread: 32 at the latent).  Removing the
+// per-tile re-read of the pool (wider tiles, wgmma, TMA, a pipelined ring
+// of pages) is the work of a later version.
 #pragma once
 
 #include <climits>
@@ -104,7 +112,6 @@ using namespace etap;
 constexpr int NT = 16;         // query columns per CTA
 constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
-constexpr int KSTR = DK + 8;   // padded smem row (bf16): conflict-free loads
 constexpr int PSTR = PAGE + 8; // padded P^T row (bf16)
 constexpr int SSTR = NT + 1;   // padded score row (fp32)
 
@@ -112,7 +119,9 @@ constexpr int SSTR = NT + 1;   // padded score row (fp32)
 // pages of int8 / e4m3 codes with per-row (scale, zp).
 enum Mode { kPaged, kDense, kInt8, kE4m3 };
 
+template <int DK>
 struct Smem {
+  static constexpr int KSTR = DK + 8;  // padded row (bf16): conflict-free
   alignas(16) bf16 k[PAGE * KSTR];   // the current latent page (bf16)
   alignas(16) bf16 q[NT * KSTR];     // the CTA's query columns (hi)
   alignas(16) float s[PAGE * SSTR];  // scaled, masked scores S^T
@@ -126,30 +135,35 @@ struct Smem {
 
 // The quantized bodies' shared memory: the fp bodies' plus the page's
 // (scale, zp) rows, and for fp32 q (QLO) the lo tile of q.
-template <bool QLO>
-struct SmemQuant : Smem {
+template <int DK, bool QLO>
+struct SmemQuant : Smem<DK> {
   alignas(16) float2 sz[PAGE];       // the page's (scale, zp)
   float qsum[NT];                    // sum of each column's q
   float zc[NT];                      // sum_r zp_r p_r of the tile
-  alignas(16) bf16 q_lo[QLO ? NT * KSTR : 8];
+  alignas(16) bf16 q_lo[QLO ? NT * Smem<DK>::KSTR : 8];
 };
 
-template <int MODE, bool QF32>
+template <int MODE, bool QF32, int DK>
 using SmemOf = typename std::conditional<MODE == kInt8 || MODE == kE4m3,
-                                         SmemQuant<QF32>, Smem>::type;
+                                         SmemQuant<DK, QF32>,
+                                         Smem<DK>>::type;
 
 struct Params {
   const void* q;      // [B, C, DK] bf16, or fp32 (quantized bodies)
-  const void* k;      // paged: pool [N, PAGE, DK]; dense: rows b*kb + s*ldk
+  const void* k;      // paged: pool [N, PAGE, DK]; dense: rows
+                      // (b / kvh)*kb + (b % kvh)*kh + s*ldk
   const float* sz;    // quantized: (scale, zp) pool [N, PAGE, 2], else null
   int code;           // quantized: 0 int8, 1 e4m3
   int qf32;           // quantized: q is fp32
   const int* table;   // [B, nbt] (paged) or null (dense)
   long long kb;       // dense batch stride (elements)
-  int ldk;            // row stride (elements): DK for the pool
+  long long kh;       // dense kv-head stride (elements; GQA cache in place)
+  int kvh;            // dense: kv heads per batch row (1: plain [B, S, D])
+  int ldk;            // dense row stride (elements)
   int S;              // dense rows per batch row (rows >= S read as zero)
-  const bf16* v;      // dense separate V rows b*vb + s*ldv, or null
+  const bf16* v;      // dense separate V rows as K's, or null
   long long vb;
+  long long vh;
   int ldv;
   const int* base;    // [B] horizon base: lengths (decode) or start (prefill)
   const int* qpos;    // [B, C] explicit horizons (verify), or null
@@ -186,9 +200,9 @@ __device__ __forceinline__ uint32_t widen2(uint32_t two) {
 }
 
 // Load a page of codes [PAGE, DK] (16 codes per 16-byte load), widened to
-// bf16 into the page buffer, and its rows' (scale, zp).  All threads take
-// part; the caller synchronises.
-template <int MODE, int NTHREAD_>
+// bf16 into the page buffer (row stride KSTR), and its rows' (scale, zp).
+// All threads take part; the caller synchronises.
+template <int MODE, int NTHREAD_, int DK, int KSTR>
 __device__ __forceinline__ void load_code_page(bf16* kbuf, float2* szbuf,
                                                const uint8_t* codes,
                                                const float* sz) {
@@ -217,16 +231,24 @@ __device__ __forceinline__ void load_code_page(bf16* kbuf, float2* szbuf,
 
 // MODE selects the address mode at compile time, so each kernel carries
 // only its own mode's code; QF32 (quantized modes only) takes fp32 q and
-// writes fp32 O.
-template <bool STATS, int MODE, bool QF32>
+// writes fp32 O; DK and DV are the widths (the paged and quantized modes
+// are built at the latent's only).
+template <bool STATS, int MODE, bool QF32, int DK, int DV>
 __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   constexpr bool DENSE = MODE == kDense;
   constexpr bool QUANT = MODE == kInt8 || MODE == kE4m3;
   static_assert(QUANT || !QF32, "fp32 q is taken by the quantized bodies");
+  static_assert(DENSE || (DK == LATENT_DK && DV == LATENT_DV),
+                "the paged and quantized bodies take the latent widths");
+  static_assert(DK % 16 == 0 && DV % (16 * NWARP) == 0 && DV <= DK,
+                "DK a multiple of 16; DV of 128, within the K tile");
+  constexpr int KSTR = Smem<DK>::KSTR;
+  constexpr int MT = DV / (16 * NWARP);        // O^T m-tiles per warp
+  constexpr int WROWS = DV / NWARP;            // O^T rows per warp
   using QT = typename std::conditional<QF32, float, bf16>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemOf<MODE, QF32>& sm =
-      *reinterpret_cast<SmemOf<MODE, QF32>*>(smem_raw);
+  SmemOf<MODE, QF32, DK>& sm =
+      *reinterpret_cast<SmemOf<MODE, QF32, DK>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
@@ -299,26 +321,34 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   int j_end = j1;
   if (hmax >= j0 * PAGE) j_end = min(j1, hmax / PAGE + 1);
 
-  float acc[4][2][4];                          // [m-tile][n-tile][fragment]
+  float acc[MT][2][4];                         // [m-tile][n-tile][fragment]
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // a dense row's K and V: (bo, kh) of a GQA cache, or row b (kvh = 1)
+  size_t kbase = 0, vbase = 0;
+  if constexpr (DENSE) {
+    const int bo = b / P.kvh, kh = b - bo * P.kvh;
+    kbase = (size_t)bo * P.kb + (size_t)kh * P.kh;
+    vbase = (size_t)bo * P.vb + (size_t)kh * P.vh;
+  }
 
   const int smi = warp & 3, sni = warp >> 2;   // this warp's S^T tile
   for (int j = j0; j < j_end; ++j) {
     int rows = PAGE;
     if constexpr (QUANT) {
       const size_t blk = P.table[(size_t)b * P.nbt + j];
-      load_code_page<MODE, NTHREAD>(
+      load_code_page<MODE, NTHREAD, DK, KSTR>(
           sm.k, sm.sz, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
           P.sz + blk * PAGE * 2);
     } else {
       const bf16* src;
       if constexpr (DENSE) {
-        src = static_cast<const bf16*>(P.k) + (size_t)b * P.kb +
+        src = static_cast<const bf16*>(P.k) + kbase +
               (size_t)j * PAGE * P.ldk;
         rows = min(PAGE, P.S - j * PAGE);
       } else {
@@ -375,7 +405,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     //      S stay zero from the K load)
     if (DENSE && P.v)
       load_tile<NTHREAD>(sm.k, KSTR,
-                         P.v + (size_t)b * P.vb + (size_t)j * PAGE * P.ldv,
+                         P.v + vbase + (size_t)j * PAGE * P.ldv,
                          P.ldv, rows, DV, false);
 
     // ---- online-softmax update: 16 lanes per column, 4 rows per lane
@@ -395,8 +425,9 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     if constexpr (!QUANT) cp_async_wait_all();
     __syncthreads();
 
-    // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [64 warp, +64);
-    //      a code page adds sum_r zp_r p_r to every row of its column
+    // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [WROWS warp,
+    //      +WROWS); a code page adds sum_r zp_r p_r to every row of its
+    //      column
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni) {
       const float ca = sm.corr[8 * ni + 2 * t];
@@ -407,7 +438,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         zb = sm.zc[8 * ni + 2 * t + 1];
       }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
+      for (int mi = 0; mi < MT; ++mi) {
         acc[mi][ni][0] *= ca;
         acc[mi][ni][1] *= cb;
         acc[mi][ni][2] *= ca;
@@ -436,8 +467,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         bl[ni][1] = ld32(&sm.p_lo[pc + 8]);
       }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int dv = 64 * warp + 16 * mi + g;
+      for (int mi = 0; mi < MT; ++mi) {
+        const int dv = WROWS * warp + 16 * mi + g;
         const uint32_t a0 = pack(r0[dv], r1[dv]);
         const uint32_t a1 = pack(r0[dv + 8], r1[dv + 8]);
         const uint32_t a2 = pack(r8[dv], r9[dv]);
@@ -468,8 +499,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         }
         float* a = P.acc_out + row * DV * P.C + c;
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int dv = 64 * warp + 16 * mi + g;
+        for (int mi = 0; mi < MT; ++mi) {
+          const int dv = WROWS * warp + 16 * mi + g;
           a[(size_t)dv * P.C] = acc[mi][ni][e];
           a[(size_t)(dv + 8) * P.C] = acc[mi][ni][e + 2];
         }
@@ -478,8 +509,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         using OT = QT;                         // bf16, or fp32 for fp32 q
         OT* o = static_cast<OT*>(P.out) + ((size_t)b * P.C + c) * DV;
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int dv = 64 * warp + 16 * mi + g;
+        for (int mi = 0; mi < MT; ++mi) {
+          const int dv = WROWS * warp + 16 * mi + g;
           if constexpr (QF32) {
             o[dv] = acc[mi][ni][e] / l;
             o[dv + 8] = acc[mi][ni][e + 2] / l;
@@ -493,16 +524,17 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   }
 }
 
-template <bool STATS, int MODE, bool QF32>
+template <bool STATS, int MODE, bool QF32, int DK = LATENT_DK,
+          int DV = LATENT_DV>
 int launch_mode(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(SmemOf<MODE, QF32>));
+  const int smem = static_cast<int>(sizeof(SmemOf<MODE, QF32, DK>));
   cudaError_t err = cudaFuncSetAttribute(
-      etap_kernel<STATS, MODE, QF32>,
+      etap_kernel<STATS, MODE, QF32, DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.C + NT - 1) / NT, n_splits, B);
-  etap_kernel<STATS, MODE, QF32><<<grid, NTHREAD, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(p);
+  etap_kernel<STATS, MODE, QF32, DK, DV><<<
+      grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,7 +544,6 @@ Params make_params(const void* q, const void* pool, const int* table,
   p.q = q;
   p.k = pool;
   p.table = table;
-  p.ldk = DK;
   p.C = C;
   p.nbt = nbt;
   p.npb = nbt;

@@ -11,11 +11,15 @@
 //     S = Q K^T * scale            [16, 64]   mma.sync, heads on M
 //     mask kpos > length - 1 to -1e30
 //     online-softmax update per head row (m, l in shared memory)
-//     O += P V                     [16, 512]  mma.sync, heads on M
+//     O += P V                     [16, Dv]   mma.sync, heads on M
 // This is the orientation the paper measures ETAP against: the thin head
-// axis rides the M side of both products.  Everything else is the ETAP
-// body's K3/K5 — the same 64-row tiles, address modes (dense rows with a
-// zero-filled tail; V the first 512 K columns or its own strided rows),
+// axis rides the M side of both products (a GQA group of G = 4 heads
+// leaves 12 of the 16 M rows empty).  (Dk, Dv) is a template parameter,
+// one instantiation per pair of mma_tile.cuh's DENSE_WIDTHS: the MLA latent
+// (576, 512) and the 128-wide GQA head (128, 128).  Everything else is the
+// ETAP body's K5 — the same 64-row tiles, address modes (dense rows with a
+// zero-filled tail, a GQA cache [B, S, K, hd] read in place through its
+// kv-head stride; V the first Dv K columns or its own strided rows),
 // horizon mask, tile skipping past the horizon, online-softmax update
 // (mma_tile.cuh: tile_update), exact AMLA and P as bf16 hi + lo — so the
 // orientation of the products is the only difference.  K7 ends with
@@ -24,8 +28,9 @@
 // the same body, so K8(n_splits=1) + combine is bitwise K7.
 //
 // What bounds it on the H100: like K3/K5, the KV bytes over 3.35 TB/s (the
-// multiply-adds are 2 * H * (576 + 512) per row).  Acc [16, 512] fp32 is
-// spread over the 8 warps, 64 Dv columns each (32 registers per thread);
+// multiply-adds are 2 * H * (Dk + Dv) per row).  Acc [16, Dv] fp32 is
+// spread over the 8 warps, Dv / 8 columns each (Dv / 16 registers per
+// thread: 32 at the latent);
 // 128 heads take 8 CTAs, each re-reading the row's tiles (the re-reads
 // mostly hit L2), as K3 does for its column tiles.  First version: the
 // fragments come from shared memory with 32/16-bit loads and one tile is in
@@ -45,11 +50,12 @@ using namespace etap;
 constexpr int NH = 16;         // heads per CTA
 constexpr int NWARP = 8;
 constexpr int NTHREAD = NWARP * 32;
-constexpr int KSTR = DK + 8;   // padded smem row (bf16)
 constexpr int PSTR = PAGE + 8; // padded P row (bf16)
 constexpr int SSTR = PAGE + 4; // padded score row (fp32)
 
+template <int DK>
 struct Smem {
+  static constexpr int KSTR = DK + 8;  // padded row (bf16)
   bf16 k[PAGE * KSTR];         // the current KV tile (V: first DV columns)
   bf16 q[NH * KSTR];           // the CTA's heads
   float s[NH * SSTR];          // scaled, masked scores S [head][row]
@@ -63,12 +69,15 @@ struct Smem {
 
 struct Params {
   const bf16* q;      // [B, H, DK]
-  const bf16* k;      // rows b*kb + s*ldk, s < S
+  const bf16* k;      // rows (b / kvh)*kb + (b % kvh)*kh + s*ldk, s < S
   long long kb;
+  long long kh;       // kv-head stride (a GQA cache read in place)
+  int kvh;            // kv heads per batch row (1: plain [B, S, D])
   int ldk;
   int S;
-  const bf16* v;      // separate V rows b*vb + s*ldv, or null (V in K)
+  const bf16* v;      // separate V rows as K's, or null (V in K)
   long long vb;
+  long long vh;
   int ldv;
   const int* lengths; // [B]
   int H;
@@ -82,10 +91,24 @@ struct Params {
   float* acc_out;     // [B, n_splits, H, DV]
 };
 
-template <bool STATS>
+// Row b's first element in a dense K or V operand: kv head b % kvh of
+// batch row b / kvh of a GQA cache, or row b (kvh = 1).  The walk computes
+// it per tile: holding the two 64-bit offsets across the walk costs the
+// latent instantiation 3 more registers.
+__device__ __forceinline__ size_t row_base(int b, int kvh, long long sb,
+                                           long long sh) {
+  return (size_t)(b / kvh) * sb + (size_t)(b % kvh) * sh;
+}
+
+template <bool STATS, int DK, int DV>
 __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
+  static_assert(DK % 16 == 0 && DV % (8 * NWARP) == 0 && DV <= DK,
+                "DK a multiple of 16; DV of 64, within the K tile");
+  constexpr int KSTR = Smem<DK>::KSTR;
+  constexpr int NI = DV / (8 * NWARP);         // O n-tiles per warp
+  constexpr int WCOLS = DV / NWARP;            // O columns per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<DK>& sm = *reinterpret_cast<Smem<DK>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
@@ -118,16 +141,17 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
   int j_end = j1;
   if (hmax >= j0 * PAGE) j_end = min(j1, hmax / PAGE + 1);
 
-  float acc[8][4];                             // [Dv n-tile][fragment]
+  float acc[NI][4];                            // [Dv n-tile][fragment]
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
+  for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
 
   for (int j = j0; j < j_end; ++j) {
     const int rows = min(PAGE, P.S - j * PAGE);
     load_tile<NTHREAD>(sm.k, KSTR,
-                       P.k + (size_t)b * P.kb + (size_t)j * PAGE * P.ldk,
+                       P.k + row_base(b, P.kvh, P.kb, P.kh) +
+                           (size_t)j * PAGE * P.ldk,
                        P.ldk, rows, DK, true);
     cp_async_wait_all();
     __syncthreads();
@@ -161,7 +185,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
     // ---- a separate V replaces the K tile's first DV columns
     if (P.v)
       load_tile<NTHREAD>(sm.k, KSTR,
-                         P.v + (size_t)b * P.vb + (size_t)j * PAGE * P.ldv,
+                         P.v + row_base(b, P.kvh, P.vb, P.vh) +
+                             (size_t)j * PAGE * P.ldv,
                          P.ldv, rows, DV, false);
 
     // ---- online-softmax update: 16 lanes per head row, 4 rows per lane
@@ -176,11 +201,11 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
     cp_async_wait_all();
     __syncthreads();
 
-    // ---- O = O * corr + P V: warp owns Dv columns [64 warp, +64)
+    // ---- O = O * corr + P V: warp owns Dv columns [WCOLS warp, +WCOLS)
     {
       const float c_lo = sm.corr[g], c_hi = sm.corr[g + 8];
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
+      for (int ni = 0; ni < NI; ++ni) {
         acc[ni][0] *= c_lo;
         acc[ni][1] *= c_lo;
         acc[ni][2] *= c_hi;
@@ -201,8 +226,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       const bf16* r8 = r0 + 8 * KSTR;                 // V rows k0+2t+8, +9
       const bf16* r9 = r8 + KSTR;
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int dv = 64 * warp + 8 * ni + g;
+      for (int ni = 0; ni < NI; ++ni) {
+        const int dv = WCOLS * warp + 8 * ni + g;
         const uint32_t b0 = pack(r0[dv], r1[dv]);
         const uint32_t b1 = pack(r8[dv], r9[dv]);
         mma16816(acc[ni], ah0, ah1, ah2, ah3, b0, b1);
@@ -213,7 +238,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
   }
 
   // ---- epilogue: thread holds heads g and g + 8, Dv columns 2t, 2t + 1 of
-  //      each of its 8 n-tiles
+  //      each of its NI n-tiles
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = g + 8 * half;
@@ -227,8 +252,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       }
       float* a = P.acc_out + (sr * P.H + h) * DV;
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int dv = 64 * warp + 8 * ni + 2 * t;
+      for (int ni = 0; ni < NI; ++ni) {
+        const int dv = WCOLS * warp + 8 * ni + 2 * t;
         *reinterpret_cast<float2*>(&a[dv]) =
             make_float2(acc[ni][2 * half], acc[ni][2 * half + 1]);
       }
@@ -236,8 +261,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       const float l = sm.l[row];
       bf16* o = P.out + ((size_t)b * P.H + h) * DV;
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int dv = 64 * warp + 8 * ni + 2 * t;
+      for (int ni = 0; ni < NI; ++ni) {
+        const int dv = WCOLS * warp + 8 * ni + 2 * t;
         *reinterpret_cast<__nv_bfloat162*>(&o[dv]) = __halves2bfloat162(
             __float2bfloat16_rn(acc[ni][2 * half] / l),
             __float2bfloat16_rn(acc[ni][2 * half + 1] / l));
@@ -246,31 +271,43 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
   }
 }
 
-template <bool STATS>
-int launch(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
+template <bool STATS, int DK, int DV>
+int launch_widths(const Params& p, int B, int n_splits, void* stream) {
+  const int smem = static_cast<int>(sizeof(Smem<DK>));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_decode_kernel<STATS, DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.H + NH - 1) / NH, n_splits, B);
-  flash_decode_kernel<STATS><<<grid, NTHREAD, smem,
-                               static_cast<cudaStream_t>(stream)>>>(p);
+  flash_decode_kernel<STATS, DK, DV><<<grid, NTHREAD, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STATS>
+int launch(const Params& p, int dk, int dv, int B, int n_splits,
+           void* stream) {
+  return with_dense_widths(dk, dv, [&](auto DK, auto DV) {
+    return launch_widths<STATS, decltype(DK)::value, decltype(DV)::value>(
+        p, B, n_splits, stream);
+  });
 }
 
 Params make_params(const void* q, const void* k, long long kb, int ldk,
                    const void* v, long long vb, int ldv, int S,
-                   const int* lengths, int H, int nbt, float scale,
-                   int amla) {
+                   const int* lengths, int kvh, long long kh, long long vh,
+                   int H, int nbt, float scale, int amla) {
   Params p{};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.kb = kb;
+  p.kh = kh;
+  p.kvh = kvh;
   p.ldk = ldk;
   p.S = S;
   p.v = static_cast<const bf16*>(v);
   p.vb = vb;
+  p.vh = vh;
   p.ldv = ldv;
   p.lengths = lengths;
   p.H = H;
@@ -285,33 +322,43 @@ Params make_params(const void* q, const void* k, long long kb, int ldk,
 
 extern "C" {
 
-// K7: q [B,H,DK]; K rows k + b*kb + s*ldk for s < S (DK wide); V null (the
-// first DV columns of K) or rows v + b*vb + s*ldv (DV wide); lengths [B];
-// out [B,H,DV] bf16.  Strides in elements.
+// The (Dk, Dv) pairs K7 / K8 take (written to out as dk, dv, ...; returns
+// their number).
+int flash_decode_widths(int* out, int cap) {
+  return write_dense_widths(out, cap);
+}
+
+// K7: q [B,H,dk]; K rows k + (b / kvh)*kb + (b % kvh)*kh + s*ldk for s < S
+// (dk wide); V null (the first dv columns of K) or rows at v with strides
+// vb, vh, ldv (dv wide); lengths [B]; out [B,H,dv] bf16.  Strides in
+// elements; (dk, dv) one of flash_decode_widths.
 int flash_decode(const void* q, const void* k, long long kb, int ldk,
                  const void* v, long long vb, int ldv, int S,
-                 const int* lengths, void* out, int B, int H, float scale,
+                 const int* lengths, int kvh, long long kh, long long vh,
+                 int dk, int dv, void* out, int B, int H, float scale,
                  int amla, void* stream) {
-  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, H,
-                         (S + PAGE - 1) / PAGE, scale, amla);
+  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
+                         H, (S + PAGE - 1) / PAGE, scale, amla);
   p.out = static_cast<bf16*>(out);
-  return launch<false>(p, B, 1, stream);
+  return launch<false>(p, dk, dv, B, 1, stream);
 }
 
 // K8: as K7, cut into n_splits splits of tps 64-row tiles (rows past S read
-// as zero); writes fp32 m, l [B,n,H] and acc [B,n,H,DV].
+// as zero); writes fp32 m, l [B,n,H] and acc [B,n,H,dv].
 int flash_decode_partial(const void* q, const void* k, long long kb, int ldk,
                          const void* v, long long vb, int ldv, int S,
-                         const int* lengths, float* m_out, float* l_out,
-                         float* acc_out, int B, int H, int n_splits, int tps,
-                         float scale, int amla, void* stream) {
-  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, H,
-                         n_splits * tps, scale, amla);
+                         const int* lengths, int kvh, long long kh,
+                         long long vh, int dk, int dv, float* m_out,
+                         float* l_out, float* acc_out, int B, int H,
+                         int n_splits, int tps, float scale, int amla,
+                         void* stream) {
+  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
+                         H, n_splits * tps, scale, amla);
   p.npb = tps;
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;
-  return launch<true>(p, B, n_splits, stream);
+  return launch<true>(p, dk, dv, B, n_splits, stream);
 }
 
 }  // extern "C"

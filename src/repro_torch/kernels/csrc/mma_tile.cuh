@@ -1,11 +1,13 @@
 // Building blocks shared by the hand-written decode kernels (etap_body.cuh,
 // flash_decode.cu): bf16 fragment loads, the m16n8k16 tensor-core product,
-// cp.async tile copies, and the online-softmax update of one 64-row KV
-// tile.  Both orientations run the SAME update code, so the ETAP and the
-// untransposed kernels differ only in which operand rides the M side.
+// cp.async tile copies, the online-softmax update of one 64-row KV tile, and
+// the (Dk, Dv) widths the dense kernels are built for.  Both orientations
+// run the SAME update code, so the ETAP and the untransposed kernels differ
+// only in which operand rides the M side.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -16,9 +18,43 @@ namespace etap {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DK = 576;        // latent width: kv_lora 512 + rope 64
-constexpr int DV = 512;        // V = the first DV latent columns
+constexpr int LATENT_DK = 576; // MLA latent width: kv_lora 512 + rope 64
+constexpr int LATENT_DV = 512; // MLA V = the first 512 latent columns
 constexpr int PAGE = 64;       // KV rows per tile (the paged pool's page)
+
+// The (Dk, Dv) pairs the dense decode kernels (K5-K8) are instantiated for:
+// DeepSeek's latent, and a 128-wide GQA head (Dk = Dv = head_dim: Qwen3,
+// Granite, the Llama family).  The paged and quantized kernels take the
+// latent only.
+constexpr int N_DENSE_WIDTHS = 2;
+constexpr int DENSE_WIDTHS[N_DENSE_WIDTHS][2] = {{LATENT_DK, LATENT_DV},
+                                                 {128, 128}};
+
+// f(integral_constant<DK>, integral_constant<DV>) for the DENSE_WIDTHS pair
+// (dk, dv), searched from entry I on; cudaErrorInvalidValue for any other
+// pair.
+template <int I = 0, class F>
+int with_dense_widths(int dk, int dv, F&& f) {
+  if constexpr (I == N_DENSE_WIDTHS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    constexpr int DK = DENSE_WIDTHS[I][0], DV = DENSE_WIDTHS[I][1];
+    if (dk == DK && dv == DV)
+      return f(std::integral_constant<int, DK>{},
+               std::integral_constant<int, DV>{});
+    return with_dense_widths<I + 1>(dk, dv, f);
+  }
+}
+
+// Write the DENSE_WIDTHS pairs to out[2 i], out[2 i + 1] (at most cap
+// pairs); returns their number.
+inline int write_dense_widths(int* out, int cap) {
+  for (int i = 0; i < N_DENSE_WIDTHS && i < cap; ++i) {
+    out[2 * i] = DENSE_WIDTHS[i][0];
+    out[2 * i + 1] = DENSE_WIDTHS[i][1];
+  }
+  return N_DENSE_WIDTHS;
+}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

@@ -1,7 +1,9 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
-The port of ``repro/kernels/etap/etap.py`` for the MLA latent widths.  Eight
-kernels, all one CUDA body (``kernels/csrc/etap_body.cuh``, whose header
+The port of ``repro/kernels/etap/etap.py``: the paged and quantized kernels
+at the MLA latent's widths (Dk 576, Dv 512), the dense ones also at a
+128-wide GQA head (Dk = Dv = 128).  Eight kernels, all one CUDA body
+(``kernels/csrc/etap_body.cuh``, whose header
 note says what bounds each on the H100 and how the design answers it;
 ``etap.cu`` builds the bf16 kernels from it, ``etap_quant.cu`` the
 quantized ones):
@@ -18,6 +20,8 @@ quantized ones):
      (replaces ``repro/kernels/etap/etap.py:154``, ``_call``)
   K6 :func:`etap_partial_dense`      split-KV phase 1, dense
      (replaces ``repro/kernels/etap/etap.py:603``)
+     K5 and K6 also read a GQA cache [B, S, K, hd] in place as its grouped
+     form [B·K, S, hd] (:mod:`repro_torch.kernels.splitkv`).
   K3q, K1q, K4q :func:`etap_decode_mla_paged_quant`,
      :func:`etap_paged_partial_quant`, :func:`etap_prefill_mla_paged_quant`
      / :func:`etap_verify_mla_paged_quant`: K3, K1 and K4 over an int8 or
@@ -208,15 +212,16 @@ def _dense_splits_plain(q, k, v, length, plan, *, scale, mode):
     the cache zero-padded to the plan as the reference pads it."""
     horizon = _decode_horizon(length, q.shape[1])
     return split_walks_plain(k, v, plan, lambda fetch, tiles: _walk_plain(
-        q, fetch, tiles, plan.block, horizon, scale=scale, dv=v.shape[2],
+        q, fetch, tiles, plan.block, horizon, scale=scale, dv=v.shape[-1],
         mode=mode))
 
 
 def etap_decode_dense_plain(q, k, v, length, *, scale, block=512,
                             rescale=None):
-    """Plain K5. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv]; length [BG].  Walks
-    ``min(block, S)``-row blocks, S zero-padded to a block multiple.
-    Returns [BG,H,Dv] in v's dtype."""
+    """Plain K5. q [BG,H,Dk]; k [BG,S,Dk] and v [BG,S,Dv], or a GQA cache
+    [B,S,K,D*] (BG = B·K); length [BG].  Walks ``min(block, S)``-row
+    blocks, S zero-padded to a block multiple.  Returns [BG,H,Dv] in v's
+    dtype."""
     (state,) = _dense_splits_plain(q, k, v, length,
                                    dense_split_plan(k.shape[1], block, 1),
                                    scale=scale,
@@ -236,7 +241,7 @@ def etap_partial_dense_plain(q, k, v, length, *, scale, plan, rescale=None):
 # ----------------------------------------------------------- CUDA launches
 def _check_cuda(q, kv_pool, dv, *, what):
     lib = build.library()
-    check_widths(lib, q, kv_pool, dv, what=what)
+    check_widths(q, kv_pool, dv, {(lib.etap_dk(), lib.etap_dv())}, what=what)
     if kv_pool.shape[1] != lib.etap_page():
         raise NotImplementedError(
             f"{what}: the CUDA kernel takes page {lib.etap_page()}, got "
@@ -467,7 +472,8 @@ def etap_verify_mla_paged_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *,
 
 def etap_decode_dense(q, k, v, length, *, scale, block=512, rescale=None):
     """K5: single-pass dense ETAP decode. q [BG,H,Dk]; k [BG,S,Dk];
-    v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place);
+    v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place), or a
+    GQA cache k, v [B,S,K,hd] read in place as its grouped form (BG = B·K);
     length [BG].  ``block`` is the reference's padding unit, which the
     plain version walks; the kernel walks 64-row tiles and reads rows past
     S as zero, so no padded copy is made.  Returns [BG,H,Dv] in v's
@@ -477,9 +483,10 @@ def etap_decode_dense(q, k, v, length, *, scale, block=512, rescale=None):
         return etap_decode_dense_plain(q, k, v, length, scale=scale,
                                        block=block, rescale=rescale)
     lib, args, keep = dense_operands(q, k, v, length,
+                                     widths="etap_dense_widths",
                                      what="etap_decode_dense")
     B, H, _ = q.shape
-    out = torch.empty(B, H, v.shape[2], dtype=v.dtype, device=dev)
+    out = torch.empty(B, H, v.shape[-1], dtype=v.dtype, device=dev)
     etap_decode_dense.launches += 1
     build.check(lib.etap_decode_dense(
         *args, ptr(out), B, H, float(scale), amla_flag(rescale), stream(dev)),
@@ -502,13 +509,15 @@ def etap_partial_dense(q, k, v, length, *, scale, plan, rescale=None):
     :class:`repro_torch.kernels.etap.schedule.SplitPlan`, as
     :func:`repro_torch.kernels.splitkv.split_plan` works it out).  Split s
     covers rows [s·npb·block, (s+1)·npb·block) of the cache padded to
-    ``plan.padded_s`` rows; rows past S read as zero, no copy.  Returns
-    fp32 (m [BG,n,H], l [BG,n,H], accT [BG,n,Dv,H])."""
+    ``plan.padded_s`` rows; rows past S read as zero, no copy.  k, v as
+    :func:`etap_decode_dense` takes them.  Returns fp32 (m [BG,n,H],
+    l [BG,n,H], accT [BG,n,Dv,H])."""
     dev = device_of(q, k, v, length)
     if dev.type == "cpu":
         return etap_partial_dense_plain(q, k, v, length, scale=scale,
                                         plan=plan, rescale=rescale)
     lib, args, keep = dense_operands(q, k, v, length,
+                                     widths="etap_dense_widths",
                                      what="etap_partial_dense")
     tps = dense_split_tiles(k.shape[1], plan, what="etap_partial_dense")
     B, H, _ = q.shape
@@ -516,7 +525,7 @@ def etap_partial_dense(q, k, v, length, *, scale, plan, rescale=None):
     f32 = dict(dtype=torch.float32, device=dev)
     m = torch.empty(B, n, H, **f32)
     l = torch.empty(B, n, H, **f32)
-    acc = torch.empty(B, n, v.shape[2], H, **f32)
+    acc = torch.empty(B, n, v.shape[-1], H, **f32)
     etap_partial_dense.launches += 1
     build.check(lib.etap_partial_dense(
         *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n, tps,

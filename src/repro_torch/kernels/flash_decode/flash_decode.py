@@ -18,6 +18,10 @@ bounds it on the H100):
   K8 :func:`flash_decode_partial`   split-KV phase 1, Acc [B,n,H,Dv]
      (replaces ``repro/kernels/flash_decode/flash_decode.py:168``)
 
+Both at the MLA latent's widths (Dk 576, Dv 512) and at a 128-wide GQA
+head (Dk = Dv = 128), whose cache [B, S, K, hd] they read in place as its
+grouped form [B·K, S, hd] (:mod:`repro_torch.kernels.splitkv`).
+
 CPU tensors run the ``*_plain`` versions, which walk ``block``-row blocks
 of the cache (zero-padded to the split geometry) as the reference does;
 CUDA tensors launch the kernel or raise.  Each wrapper's ``launches``
@@ -63,13 +67,14 @@ def _splits_plain(q, k, v, length, plan, *, scale, mode):
     zero-padded to ``plan.padded_s`` rows."""
     last = (length.to(torch.int32) - 1)[:, None, None]          # [B,1,1]
     return split_walks_plain(k, v, plan, lambda fetch, tiles: _walk_plain(
-        q, fetch, tiles, plan.block, last, scale=scale, dv=v.shape[2],
+        q, fetch, tiles, plan.block, last, scale=scale, dv=v.shape[-1],
         mode=mode))
 
 
 def flash_decode_plain(q, k, v, length, *, scale, block=512, rescale=None):
-    """Plain K7. q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv]; length [BG].
-    Returns [BG,H,Dv] in v's dtype."""
+    """Plain K7. q [BG,H,Dk]; k [BG,S,Dk] and v [BG,S,Dv], or a GQA cache
+    [B,S,K,D*] (BG = B·K); length [BG].  Returns [BG,H,Dv] in v's
+    dtype."""
     (state,) = _splits_plain(q, k, v, length,
                              dense_split_plan(k.shape[1], block, 1),
                              scale=scale, mode=softmax_state.resolve(rescale))
@@ -90,16 +95,19 @@ def flash_decode_partial_plain(q, k, v, length, *, scale, plan,
 # ----------------------------------------------------------- CUDA launches
 def flash_decode(q, k, v, length, *, scale, block=512, rescale=None):
     """K7: single-pass untransposed decode. q [BG,H,Dk]; k [BG,S,Dk];
-    v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place);
+    v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place), or a
+    GQA cache k, v [B,S,K,hd] read in place as its grouped form (BG = B·K);
     length [BG].  The kernel walks 64-row tiles and reads rows past S as
     zero (no padded copy).  Returns [BG,H,Dv] in v's dtype."""
     dev = device_of(q, k, v, length)
     if dev.type == "cpu":
         return flash_decode_plain(q, k, v, length, scale=scale, block=block,
                                   rescale=rescale)
-    lib, args, keep = dense_operands(q, k, v, length, what="flash_decode")
+    lib, args, keep = dense_operands(q, k, v, length,
+                                     widths="flash_decode_widths",
+                                     what="flash_decode")
     B, H, _ = q.shape
-    out = torch.empty(B, H, v.shape[2], dtype=v.dtype, device=dev)
+    out = torch.empty(B, H, v.shape[-1], dtype=v.dtype, device=dev)
     flash_decode.launches += 1
     build.check(lib.flash_decode(
         *args, ptr(out), B, H, float(scale), amla_flag(rescale), stream(dev)),
@@ -118,6 +126,7 @@ def flash_decode_partial(q, k, v, length, *, scale, plan, rescale=None):
         return flash_decode_partial_plain(q, k, v, length, scale=scale,
                                           plan=plan, rescale=rescale)
     lib, args, keep = dense_operands(q, k, v, length,
+                                     widths="flash_decode_widths",
                                      what="flash_decode_partial")
     tps = dense_split_tiles(k.shape[1], plan, what="flash_decode_partial")
     B, H, _ = q.shape
@@ -125,7 +134,7 @@ def flash_decode_partial(q, k, v, length, *, scale, plan, rescale=None):
     f32 = dict(dtype=torch.float32, device=dev)
     m = torch.empty(B, n, H, **f32)
     l = torch.empty(B, n, H, **f32)
-    acc = torch.empty(B, n, H, v.shape[2], **f32)
+    acc = torch.empty(B, n, H, v.shape[-1], **f32)
     flash_decode_partial.launches += 1
     build.check(lib.flash_decode_partial(
         *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n, tps,

@@ -3,7 +3,12 @@ ETAP entries (``kernels/etap/ops.py``: K5, K6 + K2 transposed) and the
 untransposed baseline's (``kernels/flash_decode/ops.py``: K7, K8 + K2
 [n,H,Dv]).  The split plan is worked out once, here, and handed to the
 kernel wrappers; the plain versions of both orientations share the
-zero-padded block walk of :func:`split_walks_plain`."""
+zero-padded block walk of :func:`split_walks_plain`.
+
+K and V are [BG, S, D], or a GQA cache [B, S, K, D] that stands for its
+grouped form [B·K, S, D] (row bg = b·K + kh, the reference's
+``gqa_to_grouped`` order): the CUDA kernels read it in place through its
+kv-head stride, the plain versions copy it with :func:`grouped`."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +16,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.etap.schedule import (SplitPlan, dense_split_plan,
                                                num_cores, plan_splits)
+
+
+def grouped(x):
+    """A GQA cache [B, S, K, D] as its grouped rows [B·K, S, D] (row
+    b·K + kh is kv head kh of batch row b; a copy); [BG, S, D] as it is."""
+    if x.dim() == 3:
+        return x
+    B, S, K, D = x.shape
+    return x.transpose(1, 2).reshape(B * K, S, D)
 
 
 def full_length(q, S: int):
@@ -26,7 +40,7 @@ def split_plan(q, k, v, *, spec) -> SplitPlan:
     S = k.shape[1]
     n_splits = int(spec.kv_splits or 0)
     if not n_splits:
-        n_splits = plan_splits(BG, S, H, v.shape[2], block=spec.block,
+        n_splits = plan_splits(BG, S, H, v.shape[-1], block=spec.block,
                                num_cores=num_cores(q.device)).n_splits
     return dense_split_plan(S, spec.block, n_splits)
 
@@ -35,8 +49,8 @@ def decode_splitkv(q, k, v, length, *, spec, single, partial, combine):
     """Two-phase split-KV decode of one orientation: ``single`` (the
     single-pass kernel) when the plan has one split, else ``partial`` (its
     phase 1) and ``combine`` (K2 in the matching orientation).  q [BG,H,Dk];
-    k [BG,S,Dk]; v [BG,S,Dv]; length [BG] or None (all S).  Returns
-    [BG,H,Dv] in v's dtype."""
+    k [BG,S,Dk] and v [BG,S,Dv], or a GQA cache [B,S,K,D*] (BG = B·K);
+    length [BG] or None (all S).  Returns [BG,H,Dv] in v's dtype."""
     if length is None:
         length = full_length(q, k.shape[1])
     plan = split_plan(q, k, v, spec=spec)
@@ -48,11 +62,12 @@ def decode_splitkv(q, k, v, length, *, spec, single, partial, combine):
 
 
 def split_walks_plain(k, v, plan: SplitPlan, walk):
-    """The plain versions' walk: k and v zero-padded to ``plan.padded_s``
-    rows (the reference's padding), then ``walk(fetch, tiles)`` once per
-    split, where ``fetch(j)`` returns block j's K [B,block,Dk] and V
-    [B,block,Dv] rows and split s walks blocks [s·npb, (s+1)·npb).  Returns
-    the list of the walks' results."""
+    """The plain versions' walk: k and v (a GQA cache grouped first)
+    zero-padded to ``plan.padded_s`` rows (the reference's padding), then
+    ``walk(fetch, tiles)`` once per split, where ``fetch(j)`` returns block
+    j's K [BG,block,Dk] and V [BG,block,Dv] rows and split s walks blocks
+    [s·npb, (s+1)·npb).  Returns the list of the walks' results."""
+    k, v = grouped(k), grouped(v)
     pad = plan.padded_s - k.shape[1]
     if pad < 0:
         raise ValueError(f"the split plan covers {plan.padded_s} of "

@@ -2,21 +2,33 @@
 layouts:
 
   paged (default, :func:`run_paged`) — continuous batching over the paged
-      latent cache.  Ragged requests are admitted into free batch slots when
-      the allocator can reserve their whole token budget; their prompts run
+      KV cache (the MLA latent pool, or a GQA model's {"k", "v"} pools).
+      Ragged requests are admitted into free batch slots when the
+      allocator can reserve their whole token budget; their prompts run
       as chunked paged prefill interleaved with the decode batch under a
       per-step token budget; decode steps run the whole ragged batch
-      through the paged decode kernels; and finished sequences release
+      through the paged decode kernels (a GQA model: the dense ones over
+      the gathered pools); and finished sequences release
       their blocks so queued requests join mid-stream.  The scheduler
       (priorities, preemption by swap or recompute, SLOs, prefix cache) is
       the reference's, copied.
 
   dense (:func:`run_dense`) — the fixed-batch path: one full-sequence
       prefill of B prompts, then ``--gen`` decode steps in which every
-      sequence runs every step, over a [B, prompt + gen, latent] cache.
+      sequence runs every step, over a [B, prompt + gen, latent] cache (or
+      [B, prompt + gen, K, hd] K and V caches for a GQA model).
 
 ``--mode etap`` (default) runs the paper's transposed decode kernels;
 ``--mode standard`` the untransposed baseline, on either layout.
+
+``--arch`` picks the model: DeepSeek-R1 (MLA, the default; cut its depth
+to the dense layers with ``--layers 3``), a full-attention GQA model
+without MoE (``qwen3_8b``, ``granite_20b``, ``smollm_360m``,
+``stablelm_1_6b``; on the card the decode kernels take head_dim 128), or
+Falcon-Mamba-7B.  A GQA model decodes through the dense kernels K5-K8 over
+its cache's grouped rows (the paged layout gathers its pools first, as the
+reference does); its paged pools are fp only, so ``--kv-dtype int8|fp8``
+with a GQA model on the paged layout is refused (ROADMAP A5b).
 
 ``--arch falcon_mamba_7b`` serves Falcon-Mamba-7B on the dense layout (its
 prefill runs the selective-scan kernel in every layer); its state is per
@@ -29,6 +41,10 @@ sequence, so the paged layout raises the reference's ``ValueError``, and
         --mode standard --batch 4 --prompt 4096 --gen 32 --layers 3
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
         --cache-layout dense --batch 8 --prompt 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
+        --batch 8 --requests 16 --prompt 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
+        --reduced --device cpu --batch 2 --prompt 24 --gen 6
 
 Flags of the reference that this port does not serve yet are refused with
 a "not yet ported" error, never ignored.
@@ -508,6 +524,10 @@ def parse_args(argv=None):
         ap.error("--trace-out/--profile-kernels require --cache-layout "
                  "paged: the dense loop has no per-request lifecycle or "
                  "per-launch entries to record")
+    if args.kv_dtype != "fp" and args.cache_layout == "paged" \
+            and get_config(args.arch).attention_kind == "full":
+        ap.error(f"--kv-dtype {args.kv_dtype} with --arch {args.arch}: "
+                 "quantized GQA pools are not yet ported (ROADMAP A5b)")
     if args.kv_dtype != "fp" and args.mode == "standard" \
             and args.cache_layout == "paged":
         ap.error("--mode standard with --kv-dtype int8/fp8: the baseline "

@@ -1,16 +1,33 @@
-"""Full-sequence causal attention for the dense prefill — the port of
-``repro/models/attention.py``'s ``causal_attention`` and ``_expand_kv``.
+"""Attention layers of the GQA family (full causal attention) — the port of
+``repro/models/attention.py``: the full-sequence causal attention of the
+dense prefill, the attention module (projections, qk-norm, rope), decode
+over the dense [B, S, K, hd] cache and over the paged {"k", "v"} pools, and
+chunked paged prefill.
 
-The reference computes this outside any Pallas kernel (XLA einsums and a
-softmax, chunked over queries); the port does the same in plain PyTorch.
-Scores and probabilities are fp32, as the reference's
-``preferred_element_type=float32`` products make them.  The Pallas prefill
-kernel of the reference (``kernels/flash_prefill``) is reached only from its
-own ``ops.py`` and is not ported yet (ROADMAP A9).
+Decode runs the dense decode kernels of :mod:`repro_torch.core.etap` over
+the cache in its grouped form (:func:`gqa_decode`): B·K rows of G = H/K
+query columns (K5 / K6 + K2 for ``etap``, K7 / K8 + K2 for ``standard``).
+The reference copies the cache into that form every layer and step when it
+takes its kernel path; the CUDA kernels here read the [B, S, K, hd] cache
+in place.  The paged layout gathers its pools to the dense layout first,
+as the reference does (the GQA pool has a kv-head axis that the paged
+kernels do not stride over), and chunked prefill is the reference's plain
+masked product.  Scores and probabilities are fp32, as the reference's
+``preferred_element_type=float32`` products make them.
+
+The Pallas prefill kernel of the reference (``kernels/flash_prefill``) is
+reached only from its own ``ops.py`` and is not ported yet (ROADMAP A9);
+local-window attention (A8), draft verification (A2) and quantized GQA
+pools (A5b) are not ported either.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.core.etap import decode_attention, gqa_grouped_view
+from repro_torch.models import layers
+from repro_torch.runtime import paged_cache
 
 NEG_INF = -1e30
 
@@ -47,3 +64,197 @@ def causal_attention(q, k, v, *, scale: float, q_block: int = 512):
         o = torch.matmul(p, vf)                                # [B,H,qb,Dv]
         out[:, i:i + q_block] = o.transpose(1, 2).to(v.dtype)
     return out
+
+
+# ------------------------------------------------------------------- decode
+def gqa_decode(q, k_cache, v_cache, length, *, spec: AttnSpec):
+    """One-token decode against a [B,S,K,hd] cache: q [B,H,hd], length [B]
+    → [B,H,Dv].  spec.mode picks ETAP (the paper) or the untransposed
+    baseline, spec.kv_splits the split count (None = auto).  The cache
+    decodes as its grouped form (row b·K + kh holds G = H/K query columns),
+    read in place by the kernels (:func:`repro_torch.core.etap
+    .gqa_grouped_view`)."""
+    K = k_cache.shape[2]
+    qg, kg, vg, restore = gqa_grouped_view(q.contiguous(), k_cache, v_cache)
+    return restore(decode_attention(qg, kg, vg, length.repeat_interleave(K),
+                                    spec=spec))
+
+
+# --------------------------------------------------------- attention module
+def init_attention(gen, cfg, dtype, device):
+    H, Kv, hd, D = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                    cfg.d_model)
+    dense = lambda i, o: layers.init_dense(gen, i, o, dtype, device)  # noqa: E731
+    p = {"w_q": dense(D, H * hd), "w_k": dense(D, Kv * hd),
+         "w_v": dense(D, Kv * hd), "w_o": dense(H * hd, D)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(hd, dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros(hd, dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params, cfg, x, positions):
+    """x [..., S, D], positions [..., S] → q [..., S, H, hd], k and v
+    [..., S, K, hd]: projections, qk-norm (when the config has it), then
+    rope on q and k."""
+    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    lead = x.shape[:-1]
+    q = layers.dense(x, params["w_q"]).reshape(*lead, H, hd)
+    k = layers.dense(x, params["w_k"]).reshape(*lead, Kv, hd)
+    v = layers.dense(x, params["w_v"]).reshape(*lead, Kv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _check_full(cfg) -> None:
+    if cfg.attention_kind != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.attention_kind} attention is not ported yet "
+            "(local windows: ROADMAP A8)")
+
+
+def attention_train(params, cfg, x, positions, *, return_cache: bool = False):
+    """Full causal attention over a whole sequence, forward only.  x
+    [B,S,D]; positions [B,S].  Returns out [B,S,D], and with
+    ``return_cache`` also the cache rows {"k", "v": [B,S,K,hd]}."""
+    _check_full(cfg)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    o = causal_attention(q, k, v, scale=cfg.resolved_head_dim ** -0.5)
+    out = layers.dense(o.reshape(*x.shape[:-1], -1), params["w_o"])
+    if return_cache:
+        return out, {"k": k, "v": v}
+    return out
+
+
+def attention_decode(params, cfg, x, cache, pos: int, *,
+                     spec: AttnSpec | None = None):
+    """Decode over the dense cache.  x [B,D] one token; cache {"k", "v":
+    [B,Smax,K,hd]}; pos the new token's position, shared by every row.  The
+    new K/V rows are written at ``pos`` in place and attention runs over
+    positions <= pos.  Returns (out [B,D], cache)."""
+    spec = spec or AttnSpec()
+    _check_full(cfg)
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
+    kc, vc = cache["k"], cache["v"]
+    kc[:, pos] = k[:, 0]
+    vc[:, pos] = v[:, 0]
+    length = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    o = gqa_decode(q[:, 0], kc, vc, length,
+                   spec=spec.replace(scale=cfg.resolved_head_dim ** -0.5))
+    return layers.dense(o.reshape(B, -1), params["w_o"]), {"k": kc, "v": vc}
+
+
+def _check_fp(cache) -> None:
+    if "k_sz" in cache:
+        raise NotImplementedError(
+            "quantized GQA pools are not ported yet: ROADMAP A5b")
+
+
+def _append_paged_kv(cache, table, lengths, k, v):
+    """Append one row per sequence (k, v [B,K,hd]) or a chunk ([B,C,K,hd])
+    into the paged {"k", "v"} pools through the table, in place.  Returns
+    the cache dict."""
+    _check_fp(cache)
+    app = paged_cache.append_chunk if k.dim() == 4 else paged_cache.append_rows
+    return {"k": app(cache["k"], table, lengths, k),
+            "v": app(cache["v"], table, lengths, v)}
+
+
+def _gather_paged_kv(cache, table):
+    """Dense [B, nb·page, K, hd] copies of the paged pools through the
+    table (the reference's gather route: the GQA decode and chunked prefill
+    attend over the gathered rows)."""
+    _check_fp(cache)
+    return (paged_cache.gather_blocks(cache["k"], table),
+            paged_cache.gather_blocks(cache["v"], table))
+
+
+def attention_decode_paged(params, cfg, x, cache, table, lengths, *,
+                           spec: AttnSpec | None = None):
+    """One-token decode against the paged cache: {"k", "v"} pools
+    [num_blocks, page, K, hd], the shared block table [B,max_blocks] and
+    per-sequence lengths [B] (row b's new token lands at lengths[b]).  The
+    new rows are appended through the table, the pools gathered to the
+    dense [B,S,K,hd] layout, and :func:`gqa_decode` runs over them with the
+    page as the split block, as in the reference.  Returns (out [B,D],
+    cache) — the pools are updated in place."""
+    spec = spec or AttnSpec()
+    _check_full(cfg)
+    B = x.shape[0]
+    positions = lengths[:, None].to(torch.int32)
+    q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
+    cache = _append_paged_kv(cache, table, lengths, k[:, 0], v[:, 0])
+    kd, vd = _gather_paged_kv(cache, table)
+    o = gqa_decode(q[:, 0], kd, vd, lengths + 1,
+                   spec=spec.replace(scale=cfg.resolved_head_dim ** -0.5,
+                                     block=cache["k"].shape[1]))
+    return layers.dense(o.reshape(B, -1), params["w_o"]), cache
+
+
+def _attention_chunk(params, cfg, x, cache, table, lengths, positions):
+    """Append the chunk's K/V rows through the table, gather the pools, and
+    run the masked chunk-against-context product: key position p is live
+    for chunk row c iff p <= positions[b, c].  The G query heads of a kv
+    head attend to its rows directly (no [B,S,H,hd] expansion).  Returns
+    (out [B,C,D], cache)."""
+    B, C, _ = x.shape
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = _project_qkv(params, cfg, x, positions)  # [B,C,H,hd],[B,C,K,hd]
+    cache = _append_paged_kv(cache, table, lengths, k, v)
+    kd, vd = _gather_paged_kv(cache, table)                   # [B,S,K,hd]
+    S = kd.shape[1]
+    qg = q.float().reshape(B, C, K, H // K, -1)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, kd.float()) * \
+        cfg.resolved_head_dim ** -0.5
+    kpos = torch.arange(S, device=x.device)
+    valid = kpos[None, None, :] <= positions[:, :, None]       # [B,C,S]
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgcs,bskv->bckgv", p, vd.float()).to(v.dtype)
+    return layers.dense(o.reshape(B, C, -1), params["w_o"]), cache
+
+
+def attention_prefill_chunk(params, cfg, x, cache, table, lengths, *,
+                            spec: AttnSpec | None = None):
+    """Chunked prefill of C prompt tokens against the paged cache.  x
+    [B,C,D] at positions lengths[b] + c; lengths [B] tokens already written
+    (the chunk start).  The spec is taken for parity with the MLA entry;
+    this masked product has no knobs (the reference's chunk route is no
+    kernel either).  Returns (out [B,C,D], cache)."""
+    _check_full(cfg)
+    C = x.shape[1]
+    positions = lengths[:, None].to(torch.int32) + torch.arange(
+        C, dtype=torch.int32, device=x.device)[None, :]
+    return _attention_chunk(params, cfg, x, cache, table, lengths, positions)
+
+
+def init_attention_cache(cfg, batch: int, max_len: int, dtype, *,
+                         device="cuda"):
+    """Dense cache {"k", "v": zeros [batch, max_len, K, hd]}."""
+    _check_full(cfg)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_attention_cache_paged(cfg, layout, dtype, kv_dtype: str = "fp", *,
+                               device="cuda"):
+    """Paged {"k", "v"} pools [num_blocks, page, K, hd] (block 0 = the
+    reserved null block).  Only the fp layout is ported: int8 / fp8 GQA
+    pools need the fp32-input K5/K6 the reference runs on their dequantized
+    rows (ROADMAP A5b)."""
+    _check_full(cfg)
+    if kv_dtype != "fp":
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r} GQA pools are not ported yet: ROADMAP "
+            "A5b")
+    shape = (layout.num_blocks, layout.block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

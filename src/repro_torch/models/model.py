@@ -1,12 +1,15 @@
-"""Config-driven LM — the port of ``repro/models/model.py`` for MLA stacks of
-dense (GLU MLP) blocks and for all-Mamba stacks (falcon-mamba): embedding →
-layers → head, served over the dense or (MLA) the paged cache.
+"""Config-driven LM — the port of ``repro/models/model.py`` for stacks of
+attention blocks with a dense (GLU MLP) FFN, the attention either MLA
+(DeepSeek) or full-causal GQA (Qwen3, Granite, SmolLM, StableLM), and for
+all-Mamba stacks (falcon-mamba): embedding → layers → head, served over the
+dense cache or (attention stacks) the paged one.
 
 The reference stacks each layer group on a leading axis and scans it with
 ``lax.scan``; the port keeps one parameter dict per layer (and one cache
 dict per layer) and loops in Python.  :func:`layer_groups` is kept as the
 reference's static plan, which tells the two apart when weights are
-converted.  MoE blocks, the GQA family, RG-LRU / local attention, the
+converted.  A layer's cache is {"c"} (the MLA latent), {"k", "v"} (GQA) or
+{"h", "conv"} (Mamba).  MoE blocks, RG-LRU / local attention, the
 frontends, training (``loss_fn``) and ``verify_step`` are not ported yet
 (ROADMAP) and raise ``NotImplementedError``.
 """
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
-from repro_torch.models import layers, mamba
+from repro_torch.models import attention, layers, mamba
 from repro_torch.runtime import paged_cache
 
 
@@ -53,8 +56,9 @@ def layer_groups(cfg) -> list:
 
 
 def check_ported(cfg) -> None:
-    """Raise unless the stack is one the port serves: every layer an MLA
-    block with a dense MLP, or every layer a Mamba block."""
+    """Raise unless the stack is one the port serves: every layer an MLA or
+    a full-attention GQA block with a dense MLP, or every layer a Mamba
+    block."""
     if cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
@@ -66,10 +70,6 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: RG-LRU and local attention are not ported yet "
             "(ROADMAP A8)")
-    if cfg.attention_kind != "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: attention_kind {cfg.attention_kind!r} is not ported "
-            "yet (GQA: ROADMAP A5)")
     for i, (_, is_moe) in enumerate(signatures(cfg)):
         if is_moe:
             raise NotImplementedError(
@@ -84,9 +84,11 @@ def _init_block(gen, cfg, kind, dtype, device):
     if kind == "ssm":                  # a Mamba block has no FFN
         return {"norm1": torch.zeros(D, dtype=dtype, device=device),
                 "mix": mamba.init_mamba(gen, cfg, dtype, device)}
+    mix = (mla_mod.init_mla if cfg.attention_kind == "mla"
+           else attention.init_attention)
     return {
         "norm1": torch.zeros(D, dtype=dtype, device=device),
-        "mix": mla_mod.init_mla(gen, cfg, dtype, device),
+        "mix": mix(gen, cfg, dtype, device),
         "norm2": torch.zeros(D, dtype=dtype, device=device),
         "ffn": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
@@ -125,11 +127,12 @@ def _block_seq(lp, cfg, kind, x, positions, collect_cache: bool):
         else:
             mixed, cache = mamba.mamba_seq(lp["mix"], cfg, h), {}
         return x + mixed, cache
+    fn = (mla_mod.mla_train if cfg.attention_kind == "mla"
+          else attention.attention_train)
     if collect_cache:
-        mixed, cache = mla_mod.mla_train(lp["mix"], cfg, h, positions,
-                                         return_cache=True)
+        mixed, cache = fn(lp["mix"], cfg, h, positions, return_cache=True)
     else:
-        mixed, cache = mla_mod.mla_train(lp["mix"], cfg, h, positions), {}
+        mixed, cache = fn(lp["mix"], cfg, h, positions), {}
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + layers.mlp(lp["ffn"], h2), cache
@@ -161,23 +164,31 @@ def forward(params, cfg, tokens):
 # ----------------------------------------------------------------- serving
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
     """Dense serving cache, one dict per layer: {"c": [batch, max_len,
-    latent]} for an MLA layer, the Mamba state {"h", "conv"} for an ssm
-    layer."""
+    latent]} for an MLA layer, {"k", "v": [batch, max_len, K, hd]} for a
+    GQA layer, the Mamba state {"h", "conv"} for an ssm layer."""
     check_ported(cfg)
     dtype = cfg.torch_dtype
-    return [mamba.init_mamba_cache(cfg, batch, dtype, device=device)
-            if kind == "ssm" else
-            mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device=device)
-            for kind in cfg.layer_kinds()]
+
+    def one(kind):
+        if kind == "ssm":
+            return mamba.init_mamba_cache(cfg, batch, dtype, device=device)
+        if cfg.attention_kind == "mla":
+            return mla_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                          device=device)
+        return attention.init_attention_cache(cfg, batch, max_len, dtype,
+                                              device=device)
+    return [one(kind) for kind in cfg.layer_kinds()]
 
 
 def _pad_cache_rows(cache_rows, max_len):
-    """Pad one layer's prefill cache rows out to the serving length (a
-    Mamba layer's state passes as it is)."""
+    """Pad one layer's prefill cache rows ({"c": [B,S,latent]} or {"k",
+    "v": [B,S,K,hd]}) out to the serving length along S (a Mamba layer's
+    state passes as it is)."""
     if "h" in cache_rows:
         return cache_rows
-    c = cache_rows["c"]
-    return {"c": torch.nn.functional.pad(c, (0, 0, 0, max_len - c.shape[1]))}
+    return {key: torch.nn.functional.pad(
+        rows, (0, 0) * (rows.dim() - 2) + (0, max_len - rows.shape[1]))
+        for key, rows in cache_rows.items()}
 
 
 def prefill(params, cfg, tokens, max_len: int):
@@ -191,10 +202,12 @@ def prefill(params, cfg, tokens, max_len: int):
 
 
 def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
-    """Paged serving cache: one latent pool per layer, all layers sharing
-    the one block table the scheduler owns (runtime/paged_cache.BlockPool).
-    Returns a list of per-layer {"c": pool} dicts; kv_dtype "int8" / "fp8"
-    stores codes and adds the per-row (scale, zp) pool under "c_sz".  Every
+    """Paged serving cache: one pool per layer, all layers sharing the one
+    block table the scheduler owns (runtime/paged_cache.BlockPool).
+    Returns a list of per-layer dicts: {"c": latent pool} for MLA, where
+    kv_dtype "int8" / "fp8" stores codes and adds the per-row (scale, zp)
+    pool under "c_sz"; {"k", "v": [N, page, K, hd]} for GQA, in fp only
+    (quantized GQA pools: ROADMAP A5b).  Every
     later path (decode, chunked prefill, block copy, swap) keys off the
     dict, so the layout is chosen here once.  Attention-only stacks: a
     recurrent or SSM state is per sequence, not per token, so there is
@@ -204,22 +217,26 @@ def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
             raise ValueError(
                 f"paged cache requires an attention-only stack (got {kind})")
     check_ported(cfg)
-    return [mla_mod.init_mla_cache_paged(cfg, layout, cfg.torch_dtype,
-                                         kv_dtype, device=device)
+    init = (mla_mod.init_mla_cache_paged if cfg.attention_kind == "mla"
+            else attention.init_attention_cache_paged)
+    return [init(cfg, layout, cfg.torch_dtype, kv_dtype, device=device)
             for _ in range(cfg.num_layers)]
 
 
 def paged_row_bytes(cfg, kv_dtype: str = "fp") -> int:
     """KV-cache bytes one token costs across the layer stack of a paged
-    cache in the given layout (one latent row per layer) — what the serve
-    loop's byte-budget sizing divides by.  GQA pools (K and V heads, one
-    pair per head) come with the GQA path."""
-    if cfg.attention_kind != "mla":
-        raise NotImplementedError(
-            f"{cfg.attention_kind} paged caches are not ported yet: "
-            "ROADMAP A5")
-    return cfg.num_layers * paged_cache.row_bytes(
-        cfg.mla.latent_dim, kv_dtype, cfg.torch_dtype)
+    cache in the given layout — what the serve loop's byte-budget sizing
+    divides by.  MLA: one latent row per layer; GQA: K heads × head_dim for
+    K and V each, every head its own quantization granule with its own
+    (scale, zp) (the reference's formula, for every layout, ported or
+    not)."""
+    n_layers = len(cfg.layer_kinds())
+    if cfg.attention_kind == "mla":
+        return n_layers * paged_cache.row_bytes(
+            cfg.mla.latent_dim, kv_dtype, cfg.torch_dtype)
+    Kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return n_layers * 2 * paged_cache.row_bytes(
+        Kv * hd, kv_dtype, cfg.torch_dtype, granules=Kv)
 
 
 def copy_paged_block(cache, src: int, dst: int):
@@ -262,8 +279,9 @@ def write_paged_blocks(cache, ids, rows):
 
 def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec):
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    mixed, cache = mla_mod.mla_prefill_chunk(lp["mix"], cfg, h, cache, table,
-                                             lengths, spec=spec)
+    fn = (mla_mod.mla_prefill_chunk if cfg.attention_kind == "mla"
+          else attention.attention_prefill_chunk)
+    mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec)
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + layers.mlp(lp["ffn"], h2), cache
@@ -275,12 +293,14 @@ def _block_decode(lp, cfg, kind, x, cache, pos, spec, cache_layout, table,
     if kind == "ssm":
         mixed, cache = mamba.mamba_decode(lp["mix"], cfg, h, cache)
         return x + mixed, cache
+    mla = cfg.attention_kind == "mla"
     if cache_layout == "paged":
-        mixed, cache = mla_mod.mla_decode_paged(lp["mix"], cfg, h, cache,
-                                                table, lengths, spec=spec)
+        fn = mla_mod.mla_decode_paged if mla else \
+            attention.attention_decode_paged
+        mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec)
     else:
-        mixed, cache = mla_mod.mla_decode(lp["mix"], cfg, h, cache, pos,
-                                          spec=spec)
+        fn = mla_mod.mla_decode if mla else attention.attention_decode
+        mixed, cache = fn(lp["mix"], cfg, h, cache, pos, spec=spec)
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + layers.mlp(lp["ffn"], h2), cache

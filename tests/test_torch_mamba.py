@@ -204,11 +204,13 @@ def test_paged_layout_refused_as_in_reference(weights):
 
 
 @pytest.mark.parametrize("arch,label", [
-    ("qwen3_8b", "A5"), ("recurrentgemma_9b", "A8"), ("llava_next_34b", "A8"),
-    ("falcon_mamba_7b", None), ("deepseek_r1_671b", "A3")])
+    ("qwen3_8b", None), ("recurrentgemma_9b", "A8"), ("llava_next_34b", "A8"),
+    ("falcon_mamba_7b", None), ("deepseek_r1_671b", "A3"),
+    ("dbrx_132b", "A3")])
 def test_check_ported_labels(arch, label):
-    """Only all-ssm stacks are admitted beside the MLA ones; the rest keep
-    their ROADMAP labels."""
+    """All-ssm stacks and full-attention GQA stacks without MoE are
+    admitted beside the MLA ones; the rest keep their ROADMAP labels (a GQA
+    MoE stack is refused for its MoE layers)."""
     cfg = get_config(arch)
     if label is None:
         model.check_ported(cfg)

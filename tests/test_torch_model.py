@@ -290,11 +290,13 @@ def test_unported_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="MoE"):
         model.check_ported(dataclasses.replace(full, num_layers=4))
     model.check_ported(dataclasses.replace(full, num_layers=3))
-    with pytest.raises(NotImplementedError, match="A5"):
-        model.check_ported(reduced(get_config("qwen3_8b")))
-    with pytest.raises(NotImplementedError, match="A5"):
-        model.paged_row_bytes(reduced(get_config("qwen3_8b")), "int8")
+    qwen = reduced(get_config("qwen3_8b"))
+    model.check_ported(qwen)                 # the GQA path is ported (A5)
+    assert model.paged_row_bytes(qwen, "int8") == jmodel.paged_row_bytes(
+        jreduced(jget_config("qwen3_8b")), "int8")
     lay = pc.layout_for(1, 8, block_size=8)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        model.init_paged_cache(qwen, lay, kv_dtype="int8", device="cpu")
     cache = model.init_paged_cache(cfg, lay, kv_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         model.decode_step(params, cfg, cache, torch.zeros(1, dtype=torch.int32),
