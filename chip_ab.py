@@ -4,9 +4,10 @@ checkouts of this repository on one GPU, in turns, so that a change to the
 kernels can be held against its parent on one card in one call.
 
 Each checkout runs in its own process (it builds its own kernels from its
-own sources) and times K3, K1 (n = 4), K5, K6, K7 and K8 at chip_smoke.py's
-timing shapes (B 8, H 128, ragged context up to 4096) with CUDA events over
-200 launches each; the medians per checkout close the output.
+own sources) and times K3, K1 (n = 4), K5, K6, K7 and K8, and K3q and K1q
+(n = 4) over int8 and e4m3 pools, at chip_smoke.py's timing shapes (B 8,
+H 128, ragged context up to 4096, bf16 q) with CUDA events over 200
+launches each; the medians per checkout close the output.
 
     git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
     python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
@@ -18,7 +19,8 @@ import statistics
 import subprocess
 import sys
 
-KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8")
+KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
+           "K3q-fp8", "K1q-fp8")
 
 
 def time_one(root: str) -> dict:
@@ -43,6 +45,8 @@ def time_one(root: str) -> dict:
     q = torch.randn(B, H, cs.DK, generator=gen, device=dev).to(torch.bfloat16)
     pool, table = cs.dense_as_paged(k, gen)
     plan = dense_split_plan(ctx, 512, 4)
+    quant = {kvd: cs.make_quant_pool(B, ctx // cs.PAGE, lengths.tolist(), kvd,
+                                     gen, dev) for kvd in ("int8", "fp8")}
     fns = {
         "K3": lambda: K.etap_decode_mla_paged(q, pool, cs.DV, table, lengths,
                                               scale=S),
@@ -56,6 +60,12 @@ def time_one(root: str) -> dict:
         "K8": lambda: FD.flash_decode_partial(q, k, v, lengths, scale=S,
                                               plan=plan),
     }
+    for kvd, (codes, sz, qtable) in quant.items():
+        fns[f"K3q-{kvd}"] = lambda c=codes, z=sz, t=qtable: \
+            K.etap_decode_mla_paged_quant(q, c, z, cs.DV, t, lengths, scale=S)
+        fns[f"K1q-{kvd}"] = lambda c=codes, z=sz, t=qtable: \
+            K.etap_paged_partial_quant(q, c, z, cs.DV, t, lengths, scale=S,
+                                       n_splits=4)
     return {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
 
 

@@ -43,20 +43,34 @@ Phases, each of which fails the run when it fails:
              plans (the [B, S, K, 128] cache read in place) and at an MQA
              shape (G = 48), with the bitwise contracts there (split(n=1) +
              K2 == single pass; in place == on gqa_to_grouped's copy),
-             their times, bounds and SDPA's (enable_gqa);
+             their times, bounds and SDPA's (enable_gqa); and the
+             quantized dense kernels K5q-K8q over int8 and e4m3 code rows
+             (K5q / K6q at (128, 128), K7q / K8q at (128, 128) and at the
+             latent with fused V) at the quantized serve phases' shapes and
+             split plans, in both rescale modes, with fp32 q for GQA and
+             bf16 q for DeepSeek (and the other q type once): each against
+             its plain version, K2 in both orientations with fp32 output,
+             split(n=1) + K2 == single pass bitwise, the RMSE against the
+             fp64 oracle on the unquantized rows with the phases' lengths
+             (the reference's gate where the reference's own route meets
+             it, else within 1% of that route), the reference's RMSE test
+             at its geometry for K7q and K8q + K2, and their times;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
              (etap; the fp8 short and int8 long phases with a few requests
-             and tokens): short runs one split (K3 / K7 / K3q), long picks
-             n >= 2 (K1 + K2, K8 + K2 [n,H,Dv], K1q + K2); K4 or K4q runs
-             every prefill;
+             and tokens), and in the standard mode over int8 (short) and
+             fp8 (long) pools, cut the same way: short runs one split (K3 /
+             K7 / K3q / K7q), long picks n >= 2 (K1 + K2, K8 + K2 [n,H,Dv],
+             K1q + K2, K8q + K2 [n,H,Dv]); K4 or K4q runs every prefill;
   4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
              (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
              [n,H,Dv]);
   5. decode  one full-width decode step over the paged cache, the same
-             step over an int8 pool, the split-KV step of serve-long-int8
-             (int8, 7 slots over 65 pages, 4 splits), and over the dense
+             step over an int8 pool, and in the standard mode over an fp8
+             pool (K7q), the split-KV step of serve-long-int8 (int8, 7
+             slots over 65 pages, 4 splits) in both modes (K1q, K8q), and
+             over the dense
              cache one in each mode with one split and with two, each
              through the kernels and through the plain versions on the
              same weights and cache: logits agree, greedy tokens agree;
@@ -80,19 +94,33 @@ Phases, each of which fails the run when it fails:
              weights from a seed; Falcon's parameters freed first):
              qwen-short and qwen-short-std (paged, B 8 x 512, one split:
              K5 / K7), qwen-long and qwen-long-std (paged, B 1 x 4096:
-             K6 / K8 + K2), qwen-dense (B 8 x 512: K5 on the dense cache);
+             K6 / K8 + K2), qwen-dense (B 8 x 512: K5 on the dense cache),
+             and over int8 / fp8 pools sized to the fp pool's bytes:
+             qwen-short-int8 (15 slots: K5q), qwen-long-fp8 (K6q + K2),
+             and, cut to a few requests and tokens, qwen-short-std-fp8
+             (K7q) and qwen-long-std-int8 (K8q + K2 [n,H,Dv]);
   9. decode  full-width Qwen3-8B decode steps through the kernels, the
              plain versions and the reordered plain versions (paged, one
-             split, both modes; dense, two splits, both modes), then one
-             paged step under torch.profiler.
+             split, both modes; over int8 and fp8 pools, both modes, one
+             split and the auto plan's three: K5q, K7q, K6q, K8q; dense,
+             two splits, both modes), then one paged step under
+             torch.profiler; then the per-layer check on teacher-forced
+             inputs: each of the 36 layers fed its plain-path input, its
+             attention output (before w_o) through the kernels held to the
+             plain path's at the per-kernel tolerance, over fp, int8 and
+             fp8 pools with one split (K5, K5q) and three (K6 / K6q + K2).
 
 Each phase's seconds are printed as ``[time]`` lines.
 
 The launch counters are zeroed just before each serve phase and read just
 after it; each of K1-K8, both K2 orientations, each quantized body on each
 code type and K10 must have launched on a serve path, and K5-K8 and both
-K2 orientations at 128 (the ``[128]`` entries) on a Qwen phase.  The line before
-the last is the ``kernels`` JSON; the last line is the device JSON.
+K2 orientations at 128 (the ``[128]`` entries) on a Qwen phase.  Each
+quantized dense kernel (K5q-K8q, ``[width,code]`` entries) must launch on a
+serve phase, and each of its (width, code type) pairs on a main-path call
+(a serve phase or a full-width decode-step check, whose kernel path's
+launches are counted as well).  The line before the last is the
+``kernels`` JSON; the last line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # phases 1-2 (K10 too), one iteration
@@ -1209,6 +1237,357 @@ def phase_gqa_kernels(quick: bool, report: dict) -> None:
                                   "bound_by": by, "library_ms": tl}
 
 
+# ------------------------------------ phase 2: K5q-K8q over dense code rows
+# the quantized dense kernels, one entry per width and code type: entry ->
+# (the TPU kernel it replaces, its CUDA source, the wrapper, the width, the
+# code type).  K5q / K6q at the GQA head only; K7q / K8q also at the latent
+# (DeepSeek's --mode standard over its code pool).
+QDENSE_KERNELS = {
+    f"{wrapper}[{w},{kvd}]": (tpu, _CSRC + src, wrapper, w, kvd)
+    for wrapper, tpu, src, widths in (
+        ("etap_decode_dense_quant", "src/repro/kernels/etap/etap.py:154",
+         "etap_quant.cu", (128,)),
+        ("etap_partial_dense_quant", "src/repro/kernels/etap/etap.py:603",
+         "etap_quant.cu", (128,)),
+        ("flash_decode_quant",
+         "src/repro/kernels/flash_decode/flash_decode.py:83",
+         "flash_decode.cu", (128, DK)),
+        ("flash_decode_partial_quant",
+         "src/repro/kernels/flash_decode/flash_decode.py:168",
+         "flash_decode.cu", (128, DK)))
+    for w in widths for kvd in ("int8", "fp8")}
+
+
+def f32_close(out, ref, what: str) -> float:
+    """Max |out - ref| of fp32 outputs; raises beyond F32_Q_TOL * (1 +
+    |ref|), the CPU tests' fp32 tolerance (atol = rtol = 1e-5): the
+    quantized kernels carry fp32 q and P * scale as three bf16 terms (24
+    bits) and sum in another order than the plain version; the relative
+    term covers outputs of a few units (a row with one live key is that
+    key's V row)."""
+    import torch
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    err = float(d.max())
+    if not (bool((d <= F32_Q_TOL * (1 + r.abs())).all())
+            and bool(torch.isfinite(o).all())):
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e})")
+    return err
+
+
+def f32_finalized_close(state, ref, what: str, transposed: bool) -> float:
+    """Split stats of a quantized kernel: acc / l per split against its
+    plain version's under f32_close's tolerance (NaN where l = 0 on
+    both)."""
+    import torch
+    _, l, acc = state
+    _, rl, racc = ref
+    ex = (lambda x: x[:, :, None, :]) if transposed else \
+        (lambda x: x[..., None])
+    o, r = acc / ex(l), racc / ex(rl)
+    nan_r = torch.isnan(r)
+    if not torch.equal(torch.isnan(o), nan_r):
+        raise AssertionError(f"{what}: empty splits differ")
+    return f32_close(o[~nan_r], r[~nan_r], what) if (~nan_r).any() else 0.0
+
+
+def quant_dense_cases():
+    """The dense code rows the quantized serve phases give K5q-K8q, with
+    lengths in the phases' own ranges (their prompts are 512 or 4096 tokens
+    plus up to 32 generated; a ragged set with a one-key row for the
+    kernel-vs-plain checks): (tag, B, S, K, G, Dk, Dv, fused V, q dtype,
+    split count of the phase's auto plan, ragged lengths [B], serve lengths
+    [B]).  qwen-short-int8 and qwen-short-std-fp8: 15 slots of 9 pages
+    (the int8 / fp8 pool at the fp pool's bytes), K = 8 kv heads of G = 4,
+    one split (--kv-splits 1); qwen-long-fp8 and qwen-long-std-int8: one
+    slot of 65 pages, 22 splits; serve-short-std-int8: DeepSeek's 15 slots
+    of 9 latent pages, H = 128, one split; serve-long-std-fp8: 7 slots of
+    65 pages, 4 splits.  GQA q is fp32 (the model casts it, as the
+    reference does), DeepSeek's bf16."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    short = [512 + (7 * i) % 33 for i in range(15)]
+    yield ("qwen-short", 15, 576, 8, 4, HD, HD, False, f32, 1,
+           [545, 544, 289, 1, 64, 300, 541, 520, 513, 2, 100, 576, 575, 33,
+            400], short)
+    yield ("qwen-long", 1, 4160, 8, 4, HD, HD, False, f32, 22, [4128],
+           [4128])
+    yield ("serve-short-std", 15, 576, 1, 128, DK, DV, True, bf16, 1,
+           [545, 544, 289, 1, 64, 300, 541, 520, 513, 2, 100, 576, 575, 33,
+            400], short)
+    yield ("serve-long-std", 7, 4160, 1, 128, DK, DV, True, bf16, 4,
+           [4127, 4096, 1088, 64, 4160, 2, 3000],
+           [4096 + (5 * i) % 33 for i in range(7)])
+
+
+def quant_dense_inputs(B, S, Kv, G, Dk, Dv, fused, qdt, kv_dtype, rng):
+    """fp32 rows from numpy's ``rng`` (q [B·K, G, Dk]; k [B, S, K, Dk] and
+    v [B, S, K, Dv], or a latent k [B, S, Dk] with V its first Dv columns)
+    and their codes and (scale, zp) rows on the card: (q, rows k, rows v,
+    codes k, pairs k, codes v, pairs v)."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import paged_cache
+    dev = torch.device("cuda")
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev)
+
+    q = normal(B * Kv, G, Dk).to(qdt)
+    if fused:
+        k = normal(B, S, Dk)
+        v = k[..., :Dv]
+    else:
+        k, v = normal(B, S, Kv, Dk), normal(B, S, Kv, Dv)
+    kc, ks = paged_cache.quantize_rows(k, kv_dtype)
+    if fused:
+        vc, vs = kc[..., :Dv], ks
+    else:
+        vc, vs = paged_cache.quantize_rows(v, kv_dtype)
+    return q, k, v, kc, ks, vc, vs
+
+
+def phase_quant_dense_kernels(quick: bool, report: dict) -> None:
+    """K5q / K6q (ETAP) and K7q / K8q (the baseline) over dense int8 and
+    fp8 code rows, at the quantized serve phases' shapes
+    (quant_dense_cases), in both rescale modes: each against its plain
+    version (fp32 outputs, f32_close; split stats finalized per split), K2
+    in both orientations over their stats, split(n=1) + K2 == single pass
+    bitwise, and the RMSE against the fp64 oracle on the unquantized rows
+    with the phases' own lengths; then the reference's own RMSE test at its
+    geometry (B 2, H 16, S 1024, lengths 515 and 1024, numpy
+    default_rng(0), scale Dk^-0.5: tests/test_softmax_state.py:258) for
+    K7q and K8q (n = 4) + K2 at the latent; then each instance's time, its
+    plain version's and its byte bound at its phase's shape."""
+    import numpy as np
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels import splitkv
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.ref import etap_decode_ref
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+
+    dev = torch.device("cuda")
+    errs = {k: 0.0 for k in QDENSE_KERNELS}
+    k2_err = {"combine_splits[128]": 0.0, "combine_splits_std[128]": 0.0,
+              "combine_splits_std": 0.0}
+    plain_partial = {K.etap_partial_dense_quant:
+                     K.etap_partial_dense_quant_plain,
+                     FD.flash_decode_partial_quant:
+                     FD.flash_decode_partial_quant_plain}
+    timing_cases = []
+    for (tag, B, S, Kv, G, Dk, Dv, fused, qdt, n, ragged,
+         serve_lens) in quant_dense_cases():
+        etap_ok = Dk == HD                   # K5q / K6q: the GQA head only
+        plan = dense_split_plan(S, PAGE, n)
+        one = dense_split_plan(S, PAGE, 1)
+        scale = Dk ** -0.5
+        for kvd in ("int8", "fp8"):
+            rng = np.random.default_rng(11)
+            q, kf, vf, kc, ks, vc, vs = quant_dense_inputs(
+                B, S, Kv, G, Dk, Dv, fused, qdt, kvd, rng)
+            auto = splitkv.split_plan(q, kc, vc, spec=AttnSpec(block=PAGE))
+            if tag != "qwen-short" and auto.n_splits != n:   # it pins one
+                raise AssertionError(f"{tag}: the auto plan has "
+                                     f"{auto.n_splits} splits, not {n}")
+            kgrp = splitkv.grouped(kf)
+            vgrp = kgrp[..., :Dv] if fused else splitkv.grouped(vf)
+            w = 128 if Dk == HD else DK
+            name = {x: f"{x}[{w},{kvd}]" for x in (
+                "etap_decode_dense_quant", "etap_partial_dense_quant",
+                "flash_decode_quant", "flash_decode_partial_quant")}
+            qkw = dict(k_sz=ks, v_sz=vs)
+            for lens_of, what in ((ragged, "ragged"), (serve_lens, "serve")):
+                lengths = torch.tensor(lens_of, dtype=torch.int32,
+                                       device=dev).repeat_interleave(Kv)
+                oracle = etap_decode_ref(
+                    q.double(), kgrp.double(), vgrp.double(), lengths,
+                    scale=scale, dtype=torch.float64)
+                for mode in ("amla", "mul"):
+                    t = f"{tag} {kvd} {what} {mode}"
+                    kw = dict(scale=scale, rescale=mode)
+                    f32 = dict(out_dtype=torch.float32, rescale=mode)
+                    singles = [("flash_decode_quant",
+                                FD.flash_decode_quant,
+                                FD.flash_decode_quant_plain,
+                                FD.flash_decode_partial_quant,
+                                C.combine_splits_std)]
+                    if etap_ok:
+                        singles.insert(0, (
+                            "etap_decode_dense_quant",
+                            K.etap_decode_dense_quant,
+                            K.etap_decode_dense_quant_plain,
+                            K.etap_partial_dense_quant, C.combine_splits))
+                    outs = {}
+                    for key, fn, plain, part, comb in singles:
+                        if n == 1:
+                            o = fn(q, kc, vc, lengths, block=PAGE, **qkw,
+                                   **kw)
+                            r = plain(q, kc, vc, lengths, block=PAGE, **qkw,
+                                      **kw)
+                            errs[name[key]] = max(errs[name[key]], f32_close(
+                                o, r, f"{key} {t}"))
+                            bitwise(comb(*part(q, kc, vc, lengths, plan=one,
+                                               **qkw, **kw), **f32), o,
+                                    f"{key} split(n=1)+K2 vs single {t}")
+                            outs[key] = o
+                            continue
+                        # the phase's split plan: phase 1 against its plain
+                        # version, K2 over its stats against K2's plain
+                        # version, and split(n=1) + K2 == the single pass
+                        pkey = name[part.__name__]
+                        st = part(q, kc, vc, lengths, plan=plan, **qkw, **kw)
+                        rs = plain_partial[part](q, kc, vc, lengths,
+                                                 plan=plan, **qkw, **kw)
+                        errs[pkey] = max(errs[pkey], f32_finalized_close(
+                            st, rs, f"{part.__name__} {t}",
+                            transposed=part is K.etap_partial_dense_quant))
+                        o = comb(*st, **f32)
+                        cplain = getattr(C, comb.__name__ + "_plain")
+                        ckey = (f"{comb.__name__}[128]" if Dk == HD
+                                else comb.__name__)
+                        k2_err[ckey] = max(k2_err[ckey], f32_close(
+                            o, cplain(*st, **f32), f"K2 {comb.__name__} {t}"))
+                        o1 = fn(q, kc, vc, lengths, block=PAGE, **qkw, **kw)
+                        bitwise(comb(*part(q, kc, vc, lengths, plan=one,
+                                           **qkw, **kw), **f32), o1,
+                                f"{key} split(n=1)+K2 vs single {t}")
+                        outs[key] = o
+                    if what != "serve":
+                        continue
+                    for key, o in outs.items():
+                        rmse = float(((o.double() - oracle) ** 2).mean()
+                                     .sqrt())
+                        kw_plain = dict(block=PAGE, **qkw, **kw)
+                        plain = (K.etap_decode_dense_quant_plain
+                                 if key == "etap_decode_dense_quant"
+                                 else FD.flash_decode_quant_plain)
+                        pr = float(((plain(q, kc, vc, lengths, **kw_plain)
+                                     .double() - oracle) ** 2).mean().sqrt())
+                        gate = QUANT_RMSE[kvd]
+                        limit = gate if pr <= gate else pr * 1.01
+                        log(f"[qdense] RMSE {key} {t} (n={n}): {rmse:.4e}, "
+                            f"the reference's route (plain) {pr:.4e}, gate "
+                            f"{gate:.3e}, limit {limit:.4e}")
+                        if not rmse <= limit:
+                            raise AssertionError(
+                                f"{key} {t}: RMSE {rmse:.4e} against the "
+                                f"fp64 oracle exceeds {limit:.4e}")
+            # the other q type, once: fp32 q at the latent, bf16 at 128
+            lengths = torch.tensor(ragged, dtype=torch.int32,
+                                   device=dev).repeat_interleave(Kv)
+            qo = q.to(torch.bfloat16 if qdt == torch.float32
+                      else torch.float32)
+            kw = dict(scale=scale, rescale="amla", block=PAGE, **qkw)
+            for key, fn, plain in (
+                    ("flash_decode_quant", FD.flash_decode_quant,
+                     FD.flash_decode_quant_plain),
+                    ("etap_decode_dense_quant", K.etap_decode_dense_quant,
+                     K.etap_decode_dense_quant_plain)):
+                if key == "etap_decode_dense_quant" and not etap_ok:
+                    continue
+                f32_close(fn(qo, kc, vc, lengths, **kw),
+                          plain(qo, kc, vc, lengths, **kw),
+                          f"{key} {tag} {kvd} q {qo.dtype}")
+            log(f"[qdense] {tag} {kvd}: B={B} S={S} K={Kv} G={G} "
+                f"(Dk, Dv)=({Dk}, {Dv}) {'fused' if fused else 'separate'} "
+                f"V, q {qdt}, n_splits={n}: "
+                + ("K5q, K7q" if n == 1 and etap_ok else
+                   "K7q" if n == 1 else
+                   "K6q + K2, K8q + K2" if etap_ok else "K8q + K2")
+                + " ok against their plain versions in both modes (ragged "
+                "and serve lengths); split(n=1)+K2 == single pass bitwise; "
+                f"other q type ({qo.dtype}) ok")
+            timing_cases.append((tag, B, S, Kv, G, Dk, Dv, n, qdt, kvd,
+                                 serve_lens, q, kc, ks, vc, vs))
+
+    # the reference's RMSE test at its own geometry, for the latent's K7q
+    # and K8q (n = 4) + K2 (the ETAP paged bodies hold it in rmse_gate)
+    for kvd in ("int8", "fp8"):
+        rng = np.random.default_rng(0)
+        Bg, Hg, Sg = 2, 16, 1024
+        qg = torch.from_numpy(rng.normal(size=(Bg, Hg, DK)).astype(
+            np.float32)).to(dev)
+        kvg = torch.from_numpy(rng.normal(size=(Bg, Sg, DK)).astype(
+            np.float32)).to(dev)
+        lg = torch.tensor([Sg // 2 + 3, Sg], dtype=torch.int32, device=dev)
+        oracle = etap_decode_ref(qg.double(), kvg.double(),
+                                 kvg[..., :DV].double(), lg, scale=DK ** -0.5,
+                                 dtype=torch.float64)
+        from repro_torch.runtime import paged_cache
+        kc, ks = paged_cache.quantize_rows(kvg, kvd)
+        for mode in ("amla", "mul"):
+            kw = dict(scale=DK ** -0.5, rescale=mode, k_sz=ks, v_sz=ks)
+            o7 = FD.flash_decode_quant(qg, kc, kc[..., :DV], lg, block=PAGE,
+                                       **kw)
+            o8 = C.combine_splits_std(*FD.flash_decode_partial_quant(
+                qg, kc, kc[..., :DV], lg, plan=dense_split_plan(Sg, PAGE, 4),
+                **kw), out_dtype=torch.float32, rescale=mode)
+            for what, o in (("K7q", o7), ("K8q(n=4)+K2", o8)):
+                r = float(((o.double() - oracle) ** 2).mean().sqrt())
+                log(f"[qdense] reference RMSE test {what} {kvd} {mode}: "
+                    f"{r:.4e} <= {QUANT_RMSE[kvd]:.3e}")
+                if not r <= QUANT_RMSE[kvd]:
+                    raise AssertionError(f"{what} {kvd} {mode}: RMSE {r:.4e} "
+                                         "exceeds the reference's gate")
+    for key, e in k2_err.items():
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], e)
+
+    # ---- timing at the phases' shapes, serve lengths
+    iters, piters = (1, 1) if quick else (50, 3)
+    for (tag, B, S, Kv, G, Dk, Dv, n, qdt, kvd, serve_lens, q, kc, ks, vc,
+         vs) in timing_cases:
+        lengths = torch.tensor(serve_lens, dtype=torch.int32,
+                               device=dev).repeat_interleave(Kv)
+        BG = B * Kv
+        keys = int(lengths.sum())
+        w = 128 if Dk == HD else DK
+        row_b = Dk + 8 + (0 if Dk != HD else Dv + 8)   # codes + pairs
+        q_b = BG * G * Dk * q.element_size()
+        out_b = BG * G * Dv * 4
+        flops = 2 * keys * G * (Dk + Dv)
+        plan = dense_split_plan(S, PAGE, n)
+        stats_b = BG * n * G * (Dv + 2) * 4
+        kw = dict(scale=Dk ** -0.5, k_sz=ks, v_sz=vs)
+        cases = []
+        if n == 1:
+            cases.append(("flash_decode_quant", FD.flash_decode_quant,
+                          FD.flash_decode_quant_plain, dict(block=PAGE),
+                          q_b + keys * row_b + out_b))
+            if Dk == HD:
+                cases.append(("etap_decode_dense_quant",
+                              K.etap_decode_dense_quant,
+                              K.etap_decode_dense_quant_plain,
+                              dict(block=PAGE), q_b + keys * row_b + out_b))
+        else:
+            cases.append(("flash_decode_partial_quant",
+                          FD.flash_decode_partial_quant,
+                          FD.flash_decode_partial_quant_plain,
+                          dict(plan=plan), q_b + keys * row_b + stats_b))
+            if Dk == HD:
+                cases.append(("etap_partial_dense_quant",
+                              K.etap_partial_dense_quant,
+                              K.etap_partial_dense_quant_plain,
+                              dict(plan=plan), q_b + keys * row_b + stats_b))
+        for wrapper, fn, plain, extra, nbytes in cases:
+            t = cuda_time_ms(lambda fn=fn, extra=extra: fn(
+                q, kc, vc, lengths, **kw, **extra), iters)
+            tp = cuda_time_ms(lambda plain=plain, extra=extra: plain(
+                q, kc, vc, lengths, **kw, **extra), piters, warmup=1)
+            tb, by = bound_ms(nbytes, flops)
+            key = f"{wrapper}[{w},{kvd}]"
+            log(f"[timing] {key} ({tag} BG={BG} G={G} S={S} n_splits={n} "
+                f"q {qdt}): {t:.4f} ms, plain {tp:.4f} ms, bound {tb:.4f} ms "
+                f"({by}), library null ms")
+            report[key] = {"max_abs_err": errs[key], "ms": t, "plain_ms": tp,
+                           "bound_ms": tb, "bound_by": by,
+                           "library_ms": None}
+
+
 # ------------------------------------------------- phase 2: K10 (scan)
 # the reference test's shapes (tests/test_kernels.py:174): (B, L, D, N)
 SCAN_SMALL = [(2, 64, 32, 8), (1, 100, 48, 4), (2, 256, 128, 16)]
@@ -1342,6 +1721,15 @@ SERVE_PHASES = [
     ("serve-long-int8", LONG_CUT + ["--kv-dtype", "int8"],
      ("etap_paged_partial_quant", "combine_splits",
       "etap_prefill_mla_paged_quant")),
+    # --mode standard over the quantized pools (K7q / K8q at the latent on
+    # the gathered codes), cut as serve-short-fp8 and serve-long-int8 are
+    ("serve-short-std-int8", SHORT_CUT + ["--mode", "standard", "--kv-dtype",
+                                          "int8"],
+     ("flash_decode_quant", "etap_prefill_mla_paged_quant")),
+    ("serve-long-std-fp8", LONG_CUT + ["--mode", "standard", "--kv-dtype",
+                                       "fp8"],
+     ("flash_decode_partial_quant", "combine_splits_std",
+      "etap_prefill_mla_paged_quant")),
     ("dense-short", DENSE + ["--batch", "8", "--prompt", "512"],
      ("etap_decode_dense",)),
     ("dense-long", DENSE + ["--batch", "4", "--prompt", "4096"],
@@ -1376,6 +1764,12 @@ QWEN_SHORT = QWEN + ["--batch", "8", "--requests", "16", "--prompt", "512",
                      "--gen", "32", "--kv-splits", "1"]
 QWEN_LONG = QWEN + ["--batch", "1", "--requests", "2", "--prompt", "4096",
                     "--gen", "32", "--prefill-chunk", "256"]
+# the quantized pools' standard twins are cut to a few requests and tokens,
+# only so that K7q and K8q at 128 launch on a serve path
+QWEN_SHORT_CUT = QWEN + ["--batch", "8", "--requests", "4", "--prompt",
+                         "512", "--gen", "8", "--kv-splits", "1"]
+QWEN_LONG_CUT = QWEN + ["--batch", "1", "--requests", "1", "--prompt", "4096",
+                        "--gen", "8", "--prefill-chunk", "256"]
 QWEN_PHASES = [
     ("qwen-short", QWEN_SHORT, ("etap_decode_dense",)),
     ("qwen-short-std", QWEN_SHORT + ["--mode", "standard"], ("flash_decode",)),
@@ -1385,6 +1779,18 @@ QWEN_PHASES = [
     ("qwen-dense", QWEN + ["--cache-layout", "dense", "--batch", "8",
                            "--prompt", "512", "--gen", "32"],
      ("etap_decode_dense",)),
+    # int8 / fp8 pools at the fp pool's bytes: 15 slots for qwen-short's 8,
+    # one for qwen-long's one; decode over the gathered codes and pairs
+    ("qwen-short-int8", QWEN_SHORT + ["--kv-dtype", "int8"],
+     ("etap_decode_dense_quant",)),
+    ("qwen-long-fp8", QWEN_LONG + ["--kv-dtype", "fp8"],
+     ("etap_partial_dense_quant", "combine_splits")),
+    ("qwen-short-std-fp8", QWEN_SHORT_CUT + ["--mode", "standard",
+                                             "--kv-dtype", "fp8"],
+     ("flash_decode_quant",)),
+    ("qwen-long-std-int8", QWEN_LONG_CUT + ["--mode", "standard",
+                                            "--kv-dtype", "int8"],
+     ("flash_decode_partial_quant", "combine_splits_std")),
 ]
 
 
@@ -1396,8 +1802,23 @@ def full_config(layers: int = 3):
 
 def wrapper_names() -> list:
     """Every kernel wrapper the kernels line reports on."""
-    return list(KERNELS) + sorted({w for _, _, w, _ in
-                                   QUANT_KERNELS.values()})
+    return list(KERNELS) + sorted(
+        {w for _, _, w, _ in QUANT_KERNELS.values()}
+        | {w for _, _, w, _, _ in QDENSE_KERNELS.values()})
+
+
+def kv_dtype_of(flags) -> str:
+    """The --kv-dtype a phase's flags set (fp by default)."""
+    return flags[flags.index("--kv-dtype") + 1] if "--kv-dtype" in flags \
+        else "fp"
+
+
+def add_qdense(launches: dict, got: dict, width: int, kvd: str) -> None:
+    """Credit a main-path call's launches of the quantized dense wrappers
+    (``got``: wrapper -> launches) to their (width, code type) entries."""
+    for k, (_, _, wrapper, w, code) in QDENSE_KERNELS.items():
+        if (w, code) == (width, kvd):
+            launches[k] += got.get(wrapper, 0)
 
 
 def wrapper_module(name: str):
@@ -1484,12 +1905,15 @@ def reordered_plain():
     plain_kernels() is the noise floor of a kernel-vs-plain comparison."""
     with plain_kernels():
         saved = []
-        for name in ("etap_decode_dense", "flash_decode"):
+        for name in ("etap_decode_dense", "flash_decode",
+                     "etap_decode_dense_quant", "flash_decode_quant"):
             mod = wrapper_module(name)
             saved.append((mod, name, getattr(mod, name)))
             setattr(mod, name, lambda *a, block, _p=getattr(mod, name), **kw:
                     _p(*a, block=max(1, block // 2), **kw))
-        for name in ("etap_partial_dense", "flash_decode_partial"):
+        for name in ("etap_partial_dense", "flash_decode_partial",
+                     "etap_partial_dense_quant",
+                     "flash_decode_partial_quant"):
             mod = wrapper_module(name)
             saved.append((mod, name, getattr(mod, name)))
             setattr(mod, name, lambda *a, plan, _p=getattr(mod, name), **kw:
@@ -1742,12 +2166,31 @@ def _leaves(tree):
         yield tree
 
 
-def phase_decode_step(params) -> None:
+def quant_pools(cache, kv_dtype, gen):
+    """Fill a quantized paged cache's pools with the codes and (scale, zp)
+    rows of random fp32 rows (every pool and its "*_sz" pool).  Returns
+    the cache."""
+    import torch
+    from repro_torch.runtime import paged_cache
+    for layer in cache:
+        for key in [k for k in layer if not k.endswith("_sz")]:
+            codes, sz = paged_cache.quantize_pool(
+                torch.randn(layer[key].shape, generator=gen,
+                            device=layer[key].device), kv_dtype)
+            paged_cache.raw(layer[key]).copy_(paged_cache.raw(codes))
+            layer[key + "_sz"].copy_(sz)
+    return cache
+
+
+def phase_decode_step(params, launches: dict) -> None:
     """Full-width decode steps, each through the kernels and through the
     plain versions on the same weights and cache: over the paged cache
     (one split), over int8 pools (one split; and four, at serve-long-int8's
-    7 slots and 65-page rows), and over the dense cache in both modes with
-    one split and with two."""
+    7 slots and 65-page rows), in the standard mode over an fp8 pool (one
+    split: K7q) and an int8 pool (four splits at serve-long-int8's rows:
+    K8q + K2), and over the dense cache in both modes with one split and
+    with two.  The kernel paths' K7q / K8q launches are credited to
+    ``launches``."""
     import torch
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.models import model
@@ -1806,6 +2249,31 @@ def phase_decode_step(params) -> None:
     check_step(lk, lp, f"paged int8, full width, B={B} ctx<={ctx}")
     del qcache
 
+    # --mode standard over an fp8 pool: the gathered codes through K7q
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    fcache = quant_pools(model.init_paged_cache(cfg, layout, kv_dtype="fp8",
+                                                device=dev), "fp8", gen)
+    sspec = AttnSpec(mode="standard", kv_splits=1)
+
+    def fstep():
+        c = [{k: v.clone() for k, v in layer.items()} for layer in fcache]
+        return model.decode_step(params, cfg, c, toks, spec=sspec,
+                                 cache_layout="paged", block_table=table,
+                                 lengths=lengths)[0]
+
+    before = FD.flash_decode_quant.launches
+    lk = fstep()
+    got = FD.flash_decode_quant.launches - before
+    if got != cfg.num_layers:
+        raise AssertionError("the fp8 standard step did not launch K7q once "
+                             "a layer")
+    add_qdense(launches, {"flash_decode_quant": got}, DK, "fp8")
+    with plain_kernels():
+        lp = fstep()
+    check_step(lk, lp, f"paged fp8 standard kv_splits=1, full width, B={B} "
+               f"ctx<={ctx}")
+    del fcache
+
     # the split-KV int8 step of serve-long-int8: 7 slots over 65-page
     # rows (4 splits of 17 after padding to 68), three of them idle.  The
     # idle slots' writes race for row 0 of the null block, which each of
@@ -1847,6 +2315,32 @@ def phase_decode_step(params) -> None:
         f"(not compared)")
     check_step(lk[:len(lens)], lp[:len(lens)], f"paged int8 kv_splits=4, "
                f"full width, {len(lens)} live of B=7, ctx<={lctx}")
+
+    # the same rows in the standard mode: K8q + K2 [n,H,Dv] over the
+    # gathered codes (the idle rows as above)
+    lsspec = AttnSpec(mode="standard", kv_splits=4)
+
+    def lsstep():
+        c = [{k: v.clone() for k, v in layer.items()} for layer in lcache]
+        return model.decode_step(params, cfg, c, ltoks, spec=lsspec,
+                                 cache_layout="paged", block_table=ltable,
+                                 lengths=llengths)[0]
+
+    before = FD.flash_decode_partial_quant.launches
+    lk = lsstep()
+    got = FD.flash_decode_partial_quant.launches - before
+    if got != cfg.num_layers:
+        raise AssertionError("the int8 standard split step did not launch "
+                             "K8q once a layer")
+    add_qdense(launches, {"flash_decode_partial_quant": got}, DK, "int8")
+    with plain_kernels():
+        lp = lsstep()
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("the int8 standard split step gave non-finite "
+                             "logits")
+    check_step(lk[:len(lens)], lp[:len(lens)], f"paged int8 standard "
+               f"kv_splits=4, full width, {len(lens)} live of B=7, "
+               f"ctx<={lctx}")
     del lcache
 
     # dense: S 2080 ends in a 32-row tile; two splits of 1536 rows pad it
@@ -1873,16 +2367,19 @@ def phase_decode_step(params) -> None:
                        f"width, B={B} S={dctx} pos={pos}")
 
 
-def phase_qwen_decode_step(params, cfg) -> None:
+def phase_qwen_decode_step(params, cfg, launches: dict) -> None:
     """Full-width Qwen3-8B decode steps (all 36 layers), each through the
     kernels, through the plain versions and through the reordered plain
     versions on the same weights and cache (check_step's floor: 36 random
     layers carry a one-ulp difference past LOGIT_RTOL, between two plain
     orders as between kernel and plain): over the paged cache at
     qwen-short's shapes (8 slots of up to 544 tokens, one split: K5, or K7
-    in the standard mode), and over the dense cache with two splits (K6 +
-    K2, K8 + K2 [n,H,Dv]); then the paged etap step under
-    torch.profiler."""
+    in the standard mode), over int8 and fp8 pools at the same shapes in
+    both modes with one split (K5q, K7q) and with the auto plan's three
+    (K6q + K2, K8q + K2 [n,H,Dv]), and over the dense cache with two splits
+    (K6 + K2, K8 + K2 [n,H,Dv]); then the paged etap step under
+    torch.profiler.  The quantized steps' kernel launches are credited to
+    ``launches``."""
     import torch
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.kernels.etap import etap as K
@@ -1935,6 +2432,42 @@ def phase_qwen_decode_step(params, cfg) -> None:
                         spec=AttnSpec(kv_splits=1), tag="qwen-decode-step")
     del cache
 
+    # int8 / fp8 pools: both modes, one split and the auto plan's three
+    for kvd in ("int8", "fp8"):
+        qcache = quant_pools(model.init_paged_cache(cfg, layout, kv_dtype=kvd,
+                                                    device=dev), kvd, gen)
+        for mode, kv_splits, want in (
+                ("etap", 1, K.etap_decode_dense_quant),
+                ("standard", 1, FD.flash_decode_quant),
+                ("etap", None, K.etap_partial_dense_quant),
+                ("standard", None, FD.flash_decode_partial_quant)):
+            spec = AttnSpec(mode=mode, kv_splits=kv_splits)
+
+            def qstep(spec=spec):
+                c = [{k: v.clone() for k, v in layer.items()}
+                     for layer in qcache]
+                return model.decode_step(params, cfg, c, toks, spec=spec,
+                                         cache_layout="paged",
+                                         block_table=table,
+                                         lengths=lengths)[0]
+
+            before = want.launches
+            lk = qstep()
+            got = want.launches - before
+            if got != cfg.num_layers:
+                raise AssertionError(f"the paged {kvd} {mode} step did not "
+                                     f"launch {want.__name__} once a layer")
+            add_qdense(launches, {want.__name__: got}, HD, kvd)
+            with plain_kernels():
+                lp = qstep()
+            with reordered_plain():
+                floor = float((qstep() - lp).abs().max())
+            check_step(lk, lp, f"qwen3-8b paged {kvd} {mode} "
+                       f"kv_splits={kv_splits or 'auto'}, full width, "
+                       f"{cfg.num_layers} layers, B={B} ctx<={ctx}",
+                       tag="qwen-decode-step", floor=floor)
+        del qcache
+
     # dense: S 2080 ends in a 32-row tile; two splits of 1536 rows pad it
     # to 3072, the second split holding the tile and the padding
     dctx, pos = 2080, 2070
@@ -1960,6 +2493,107 @@ def phase_qwen_decode_step(params, cfg) -> None:
         check_step(lk, lp, f"qwen3-8b dense {mode} kv_splits=2, full width, "
                    f"{cfg.num_layers} layers, B={B} S={dctx} pos={pos}",
                    tag="qwen-decode-step", floor=floor)
+
+
+def phase_qwen_layer_check(params, cfg) -> None:
+    """The per-layer check on teacher-forced inputs, at full width and all
+    36 layers, qwen-short's paged shapes (8 slots of up to 544 tokens): one
+    decode step down the plain path records each layer's input to its
+    attention block and the attention output before w_o; then each layer
+    is fed that same input on the kernel path, over the same pre-step
+    pools, and its attention output is held to the plain path's at the
+    per-kernel tolerance: one bf16 ulp plus 1e-3 (bf16_close) over fp
+    pools, f32_close's over int8 / fp8 pools (fp32 outputs).  Over fp, int8
+    and fp8 pools, with one split (K5, K5q) and the auto plan's three (K6
+    + K2, K6q + K2).  The whole-step logit checks cannot see a wiring fault
+    this small under 36 random layers; this check sees each layer's."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.models import attention, model
+    from repro_torch.runtime.paged_cache import BlockPool, layout_for
+    dev = torch.device("cuda")
+    B, ctx = 8, 544
+    layout = layout_for(B, ctx, block_size=PAGE)
+    bp = BlockPool(layout, B)
+    for n in [543, 500, 1, 290, 511, 64, 300, 520]:
+        bp.extend(bp.admit(0, ctx), n)
+    table, lengths = bp.device_views(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+    decode_paged, gqa = attention.attention_decode_paged, attention.gqa_decode
+
+    def clone(layer):
+        return {k: v.clone() for k, v in layer.items()}
+
+    for kvd in ("fp", "int8", "fp8"):
+        cache = model.init_paged_cache(cfg, layout, kv_dtype=kvd, device=dev)
+        if kvd == "fp":
+            for layer in cache:
+                for pool in layer.values():
+                    pool.copy_(torch.randn(pool.shape, generator=gen,
+                                           device=dev).to(pool.dtype))
+        else:
+            quant_pools(cache, kvd, gen)
+        for kv_splits in (1, None):
+            spec = AttnSpec(kv_splits=kv_splits)
+            want = {(True, 1): K.etap_decode_dense,
+                    (True, None): K.etap_partial_dense,
+                    (False, 1): K.etap_decode_dense_quant,
+                    (False, None): K.etap_partial_dense_quant}[
+                        kvd == "fp", kv_splits]
+            inputs, outputs = [], []
+
+            def record_in(lp, cfg_, x, *a, **kw):
+                inputs.append(x.clone())
+                return decode_paged(lp, cfg_, x, *a, **kw)
+
+            def record_out(*a, **kw):
+                o = gqa(*a, **kw)
+                outputs.append(o.clone())
+                return o
+
+            attention.attention_decode_paged = record_in
+            attention.gqa_decode = record_out
+            try:
+                with plain_kernels():
+                    model.decode_step(params, cfg, [clone(x) for x in cache],
+                                      toks, spec=spec, cache_layout="paged",
+                                      block_table=table, lengths=lengths)
+                plain_out = outputs[:]
+                outputs.clear()
+                before = want.launches
+                for i, (lp, x) in enumerate(zip(params["layers"], inputs,
+                                                strict=True)):
+                    decode_paged(lp["mix"], cfg, x, clone(cache[i]), table,
+                                 lengths, spec=spec)
+                if want.launches - before != cfg.num_layers:
+                    raise AssertionError(f"per-layer check: {want.__name__}"
+                                         " did not launch once a layer")
+            finally:
+                attention.attention_decode_paged = decode_paged
+                attention.gqa_decode = gqa
+            if len(plain_out) != cfg.num_layers or \
+                    len(outputs) != cfg.num_layers:
+                raise AssertionError("per-layer check: not one attention "
+                                     "output a layer")
+            worst, where = 0.0, 0
+            for i, (ok, op) in enumerate(zip(outputs, plain_out,
+                                             strict=True)):
+                what = (f"layer {i} attention output, {kvd} pool, "
+                        f"kv_splits={kv_splits or 'auto'}")
+                e = (bf16_close(ok, op, what) if ok.dtype == torch.bfloat16
+                     else f32_close(ok, op, what))
+                if e >= worst:
+                    worst, where = e, i
+            log(f"[layer-check] qwen3-8b {kvd} pool kv_splits="
+                f"{kv_splits or 'auto'} ({want.__name__} once a layer): "
+                f"{cfg.num_layers} layers on "
+                f"teacher-forced inputs, attention output ({outputs[0].dtype})"
+                f" kernel vs plain within the per-kernel tolerance at every "
+                f"layer; worst max abs err {worst:.3e} (layer {where})")
+        del cache
 
 
 def main(argv=None) -> int:
@@ -1998,6 +2632,8 @@ def main(argv=None) -> int:
     timed("dense kernels", phase_dense_kernels, args.quick, report)
     timed("quantized kernels", phase_quant_kernels, args.quick, report)
     timed("GQA kernels (128)", phase_gqa_kernels, args.quick, report)
+    timed("quantized dense kernels", phase_quant_dense_kernels, args.quick,
+          report)
     timed("selective scan", phase_scan, args.quick, report)
     if args.quick:
         log(json.dumps({"kernels": [dict(name=k, **v)
@@ -2013,19 +2649,22 @@ def main(argv=None) -> int:
         f"{model.param_count(params) / 1e9:.3f} B params bf16 in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    launches = {k: 0 for k in [*KERNELS, *QUANT_KERNELS, *GQA_KERNELS]}
+    launches = {k: 0 for k in [*KERNELS, *QUANT_KERNELS, *GQA_KERNELS,
+                               *QDENSE_KERNELS]}
+    served = {k: 0 for k in QDENSE_KERNELS}      # on the serve phases only
     t_serve = time.perf_counter()
     for name, flags, expect in SERVE_PHASES:
         got = phase_serve(name, flags + ["--layers", "3"], params, expect)
-        kvd = flags[flags.index("--kv-dtype") + 1] \
-            if "--kv-dtype" in flags else "fp"
+        kvd = kv_dtype_of(flags)
         for k in KERNELS:
             launches[k] += got[k]
         for k, (_, _, wrapper, code) in QUANT_KERNELS.items():
             if code == kvd:
                 launches[k] += got[wrapper]
+        add_qdense(launches, got, DK, kvd)
+        add_qdense(served, got, DK, kvd)
     log(f"[time] serve phases: {time.perf_counter() - t_serve:.1f} s")
-    timed("decode steps", phase_decode_step, params)
+    timed("decode steps", phase_decode_step, params, launches)
     del params
     torch.cuda.empty_cache()
 
@@ -2065,12 +2704,20 @@ def main(argv=None) -> int:
         got = phase_serve(name, flags, params, expect)
         for k, (_, _, wrapper) in GQA_KERNELS.items():
             launches[k] += got[wrapper]
+        add_qdense(launches, got, HD, kv_dtype_of(flags))
+        add_qdense(served, got, HD, kv_dtype_of(flags))
     log(f"[time] qwen serve phases: {time.perf_counter() - t_serve:.1f} s")
-    log(f"[launches] serve paths: {launches}")
+    for wrapper, w in {v[2:4] for v in QDENSE_KERNELS.values()}:
+        if not any(n for k, n in served.items()
+                   if QDENSE_KERNELS[k][2:4] == (wrapper, w)):
+            raise AssertionError(f"{wrapper} at {w} launched on no serve "
+                                 "phase")
+    timed("qwen decode steps", phase_qwen_decode_step, params, cfg, launches)
+    log(f"[launches] serve paths and decode-step checks: {launches}")
     for k, v in launches.items():
         if v == 0:
-            raise AssertionError(f"{k} never launched on the serve paths")
-    timed("qwen decode steps", phase_qwen_decode_step, params, cfg)
+            raise AssertionError(f"{k} never launched on a main-path call")
+    timed("qwen per-layer check", phase_qwen_layer_check, params, cfg)
     log(f"[time] build to here: {time.perf_counter() - t_run:.1f} s")
     log(gpu_line())               # again beside the results, for the record
 
@@ -2083,6 +2730,9 @@ def main(argv=None) -> int:
     kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
                      launches=launches[k], **report[k])
                 for k, (tpu, src, _) in GQA_KERNELS.items()]
+    kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
+                     launches=launches[k], **report[k])
+                for k, (tpu, src, *_) in QDENSE_KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,13 +15,17 @@ baseline), whose operands' device picks the CUDA kernel or its plain
 version.  A GQA cache [B, S, K, hd] decodes through the dense entry in its
 grouped form (BG = B·K rows of G = H/K query columns): the reference copies
 the cache into that form, the port hands the kernels the cache itself and
-they read it in place.  The paged entries take the MLA-fused latent pool in
-fp or as int8 / fp8 codes with their per-row (scale, zp) pool ``k_sz`` (the
-quantized bodies dequantize in registers).  Separate-V paged pools (their
+they read it in place.  The dense entry also takes int8 / fp8 code rows
+with their (scale, zp) rows ``k_sz`` / ``v_sz`` (the gathered rows of a
+quantized GQA pool, or of the latent pool): K5q / K6q or K7q / K8q read the
+codes, where the reference dequantizes them to fp32 first, and the output
+is fp32.  The paged entries take the MLA-fused latent pool in fp or as
+int8 / fp8 codes with their per-row (scale, zp) pool ``k_sz`` (the
+quantized bodies dequantize in registers; the ``standard`` baseline
+gathers codes and pairs for K7q / K8q).  Separate-V paged pools (their
 kernels are reached only from ``kernels/etap/ops.py`` in the reference; the
-GQA paged path gathers its pools to the dense layout instead) and the
-``standard`` baseline over a quantized pool are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item.
+GQA paged path gathers its pools to the dense layout instead) are not
+ported yet and raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -68,16 +72,21 @@ def gqa_grouped_view(q, k, v):
     return q.reshape(B * K, H // K, D), k, v, _restorer(B, H)
 
 
-def decode_attention(q, k, v, length=None, *, spec: AttnSpec):
+def decode_attention(q, k, v, length=None, *, spec: AttnSpec, k_sz=None,
+                     v_sz=None):
     """Dense decode attention. q [BG,H,Dk]; k [BG,S,Dk] and v [BG,S,Dv], or
     a GQA cache [B,S,K,D*] standing for its grouped rows (BG = B·K,
     :func:`gqa_grouped_view`); length [BG] valid-prefix lengths (None = all
     S).  spec.mode "etap" (the paper) or "standard" (the untransposed
-    baseline); spec.kv_splits None = auto split-KV on both.  Returns
-    [BG,H,Dv]."""
+    baseline); spec.kv_splits None = auto split-KV on both.  ``k_sz`` /
+    ``v_sz``: the (scale, zp) rows [..., 2] of int8 / fp8 code rows k, v
+    (the quantized kernels run; q as the caller leaves it).  Returns
+    [BG,H,Dv] in v's dtype, fp32 over codes."""
     if spec.mode == "etap":
-        return etap_ops.etap_decode_splitkv(q, k, v, length, spec=spec)
-    return fd_ops.flash_decode_splitkv(q, k, v, length, spec=spec)
+        return etap_ops.etap_decode_splitkv(q, k, v, length, spec=spec,
+                                            k_sz=k_sz, v_sz=v_sz)
+    return fd_ops.flash_decode_splitkv(q, k, v, length, spec=spec,
+                                       k_sz=k_sz, v_sz=v_sz)
 
 
 def _gather_kv(k_pool, table, dv: int):
@@ -96,19 +105,21 @@ def decode_attention_paged(q, k_pool, v_pool, table, lengths, *,
     lengths [B].  spec.kv_splits None = auto split-KV.  The "standard"
     baseline runs on the gathered dense layout with block = page, as the
     reference's does (it exists for comparison, not serving).  Returns
-    [B,H,dv].  ``k_sz``: the (scale, zp) pool of an int8 / fp8 code pool
-    (ETAP only: the baseline's kernels take bf16 K/V)."""
+    [B,H,dv].  ``k_sz``: the (scale, zp) pool of an int8 / fp8 code pool:
+    ETAP reads the pool in place (K3q / K1q); the baseline gathers the
+    codes and their pairs, and K7q / K8q read them with V the codes' first
+    ``dv`` columns (the reference gathers the rows dequantized to fp32);
+    the output is then q's dtype (ETAP) or fp32 (the baseline, as the
+    reference's)."""
     _check(v_pool, v_sz)
     if spec.mode == "etap":
         return etap_ops.etap_decode_mla_paged_splitkv(
             q, k_pool, dv, table, lengths, spec=spec, kv_sz=k_sz)
-    if k_sz is not None:
-        raise NotImplementedError(
-            "--mode standard over a quantized pool is not yet ported: "
-            "ROADMAP A12 (K7/K8 on fp32 K/V)")
     k, v = _gather_kv(k_pool, table, dv)
+    sz = None if k_sz is None else gather_blocks(k_sz, table)
     return fd_ops.flash_decode_splitkv(
-        q, k, v, lengths, spec=spec.replace(block=k_pool.shape[1]))
+        q, k, v, lengths, spec=spec.replace(block=k_pool.shape[1]), k_sz=sz,
+        v_sz=sz)
 
 
 def prefill_attention_paged(q, k_pool, v_pool, table, start, *,

@@ -34,12 +34,19 @@ _F = ctypes.c_float
 # the dense kernels' operand block: q, k, kb, ldk, v, vb, ldv, S, lengths,
 # kvh, kh, vh, dk, dv
 _DENSE = [_P, _P, _L, _I, _P, _L, _I, _I, _P, _I, _L, _L, _I, _I]
+# the quantized dense kernels' pairs and code type after it: kz, zb, zh,
+# ldz, vz, vzb, vzh, ldvz, code, qf32
+_PAIRS = [_P, _L, _L, _I, _P, _L, _L, _I, _I, _I]
+_SINGLE = [_P, _I, _I, _F, _I, _P]           # out, B, H, scale, amla, stream
+_SPLIT = [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P]   # m, l, acc, B, H, n, tps
 SIGNATURES = {
     "etap_dk": [],
     "etap_dv": [],
     "etap_page": [],
     "etap_dense_widths": [_P, _I],
+    "etap_dense_quant_widths": [_P, _I],
     "flash_decode_widths": [_P, _I],
+    "flash_decode_quant_widths": [_P, _I],
     "etap_decode_mla_paged": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "etap_paged_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                            _I, _P],
@@ -51,13 +58,17 @@ SIGNATURES = {
                                  _I, _F, _I, _I, _I, _P],
     "etap_prefill_mla_paged_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _F, _I, _I, _I, _P],
-    "etap_decode_dense": _DENSE + [_P, _I, _I, _F, _I, _P],
-    "etap_partial_dense": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "flash_decode": _DENSE + [_P, _I, _I, _F, _I, _P],
-    "flash_decode_partial": _DENSE + [_P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                      _P],
+    "etap_decode_dense": _DENSE + _SINGLE,
+    "etap_partial_dense": _DENSE + _SPLIT,
+    "etap_decode_dense_quant": _DENSE + _PAIRS + _SINGLE,
+    "etap_partial_dense_quant": _DENSE + _PAIRS + _SPLIT,
+    "flash_decode": _DENSE + _SINGLE,
+    "flash_decode_partial": _DENSE + _SPLIT,
+    "flash_decode_quant": _DENSE + _PAIRS + _SINGLE,
+    "flash_decode_partial_quant": _DENSE + _PAIRS + _SPLIT,
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P],
     # dA, dBx, c, y, h, B, L, D, N, stream
     "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

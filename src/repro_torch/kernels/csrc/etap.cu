@@ -16,7 +16,7 @@
 //       (etap_partial_pallas :557)
 //
 // The paged kernels (K1, K3, K4) are built at the MLA latent's widths; the
-// dense ones (K5, K6) at each (Dk, Dv) of mma_tile.cuh's DENSE_WIDTHS: the
+// dense ones (K5, K6) at each (Dk, Dv) of mma_tile.cuh's DenseWidths: the
 // latent (576, 512) and the 128-wide GQA head (128, 128).
 #include "etap_body.cuh"
 
@@ -24,38 +24,16 @@ namespace {
 
 template <bool STATS>
 int launch(const Params& p, int B, int n_splits, void* stream) {
-  return launch_mode<STATS, kPaged, false>(p, B, n_splits, stream);
+  return launch_mode<STATS, false, kBf16, false>(p, B, n_splits, stream);
 }
 
 template <bool STATS>
 int launch_dense(const Params& p, int dk, int dv, int B, int n_splits,
                  void* stream) {
-  return with_dense_widths(dk, dv, [&](auto DK, auto DV) {
-    return launch_mode<STATS, kDense, false, decltype(DK)::value,
+  return with_widths<DenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    return launch_mode<STATS, true, kBf16, false, decltype(DK)::value,
                        decltype(DV)::value>(p, B, n_splits, stream);
   });
-}
-
-// Dense decode (K5 / K6): one split per npb tiles of nbt; row b of the
-// grid reads K at k + (b / kvh)*kb + (b % kvh)*kh (V alike).
-Params dense_params(const void* q, const void* k, long long kb, int ldk,
-                    const void* v, long long vb, int ldv, int S,
-                    const int* lengths, int kvh, long long kh, long long vh,
-                    int H, int nbt, float scale, int amla) {
-  Params p = make_params(q, k, nullptr, H, nbt, scale, amla);
-  p.kb = kb;
-  p.kh = kh;
-  p.kvh = kvh;
-  p.ldk = ldk;
-  p.S = S;
-  p.v = static_cast<const bf16*>(v);
-  p.vb = vb;
-  p.vh = vh;
-  p.ldv = ldv;
-  p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
-  return p;
 }
 
 }  // namespace
@@ -68,7 +46,9 @@ extern "C" {
 int etap_dk() { return LATENT_DK; }
 int etap_dv() { return LATENT_DV; }
 int etap_page() { return PAGE; }
-int etap_dense_widths(int* out, int cap) { return write_dense_widths(out, cap); }
+int etap_dense_widths(int* out, int cap) {
+  return write_widths<DenseWidths>(out, cap);
+}
 
 // K3: q [B,H,DK]; pool [N,PAGE,DK]; table [B,nbt]; lengths [B];
 // out [B,H,DV] — all bf16 / int32, contiguous.

@@ -1,8 +1,10 @@
 // The body of the MLA ETAP attention kernels for Hopper (sm_90a), one
-// template serving eight kernels of the JAX package.  etap.cu instantiates
-// its bf16 address modes (K3, K1, K4, K5, K6) and etap_quant.cu its
-// quantized ones (K3q, K1q, K4q), so the two compile in parallel; each
-// source's header says which pallas_call bodies it replaces.
+// template serving five pallas_call sites of the JAX package over bf16
+// rows and over int8 / e4m3 codes.  etap.cu instantiates its bf16 kernels
+// (K3, K1, K4, K5, K6) and etap_quant.cu its quantized ones (K3q, K1q, K4q
+// over the paged latent, K5q, K6q over dense GQA rows), so the two compile
+// in parallel; each source's header says which pallas_call bodies it
+// replaces.
 //
 // What they compute.  A CTA owns NT = 16 query columns of one batch row (16
 // heads of a decode query, or 16 of the Cq*H columns of a prefill chunk)
@@ -13,10 +15,11 @@
 //     O^T += V^T P^T               [Dv, 16]   mma.sync, Dv on M
 // The widths (Dk, Dv) are template parameters: the MLA latent (576, 512),
 // where V is the first 512 columns of the same latent page (read once for
-// both products), and, for the dense kernels K5/K6 only, a 128-wide GQA
-// head (128, 128) with K and V in their own caches.
+// both products), and, for the dense kernels K5/K6 (and K5q/K6q) only, a
+// 128-wide GQA head (128, 128) with K and V in their own caches.
 //
-// Address modes (a template parameter).  Paged (K1, K3, K4): tile j of row
+// Address modes (template parameters: DENSE, and CODE, the element type of
+// K and V: bf16 rows, or int8 / e4m3 codes).  Paged (K1, K3, K4): tile j of row
 // b is pool block table[b, j].  Dense (K5, K6): tile j of row b is rows
 // [64 j, 64 j + 64) of k + b * kb with row stride ldk; rows at or past S
 // are zero-filled, so the caller never pads the cache (the reference pads
@@ -28,9 +31,16 @@
 // either the first 512 columns of the K tile (v null: the MLA latent, V =
 // cache[..., :512], read in place with no copy) or its own rows at v + b *
 // vb, stride ldv, loaded over the K tile's first 512 columns once the score
-// product is done.  Quantized (K1q, K3q, K4q): paged, the page holding
-// int8 or e4m3 codes [64, 576] (1 byte each) and the sz pool its rows'
-// (scale, zp) [64, 2] fp32.
+// product is done.  Quantized paged (K1q, K3q, K4q): the page holds int8
+// or e4m3 codes [64, 576] (1 byte each) and the sz pool its rows' (scale,
+// zp) [64, 2] fp32.  Quantized dense (K5q, K6q): the dense address over
+// code rows, each operand with its own (scale, zp) rows addressed as its
+// codes are, through (batch, kv-head, row) strides in floats (a GQA pair
+// cache [B, S, K, 2] read in place); a separate V brings its own pairs
+// (szv), loaded with K's at the top of the tile so that the V codes can
+// replace the K tile's first Dv columns after the score product, as the
+// bf16 V does.  That separate-V code address is the one the separate-V
+// paged bodies (K1/K3/K4 over K and V pools) will take.
 //
 // Column c is live for key position kpos iff kpos <= horizon(c), with
 // horizon = lengths[b] - 1 (decode), start[b] +
@@ -57,17 +67,23 @@
 // they are and the affine is applied around the products:
 //     S_r  = scale_r * (codes_r . q) + zp_r * sum(q)
 //     O^T += sum_r codes_r (scale_r p_r) + sum_r zp_r p_r
-// scale_r folds into p before its hi + lo split (mma_tile.cuh:
+// scale_r folds into p before its split into three bf16 terms (mma_tile.cuh:
 // tile_update<true>), and the zp term is one fp32 number per column and
 // tile, added to every Dv row on the CUDA cores.  sum(q) is taken in fp32
-// from q as given.  q is bf16 on the serve path (exact in one term); an
-// fp32 q (the accuracy gate against the fp64 oracle) enters as hi + lo
-// bf16 tiles, two products into one fp32 accumulator.  The codes are read
-// with 16-byte loads and widened to bf16 into the page buffer (e4m3 ->
-// f16 -> bf16 is exact), so the products and the online softmax are the
-// fp kernels' own.  The other design, dequantizing to fp32 and splitting
-// each element into hi + lo, doubles the products on both sides; this one
-// keeps the fp kernels' mma count (one more for fp32 q).  Null blocks and
+// from q as given.  q is bf16 on DeepSeek's serve path (exact in one
+// term); an fp32 q (the GQA serve path, which casts q to fp32 as the
+// reference does, and the accuracy gate against the fp64 oracle) enters as
+// three bf16 tiles hi + mid + lo, which carry its 24 bits (mma_tile.cuh:
+// load_q_tile), three products into one fp32 accumulator; two tiles (16
+// bits) would leave a score up to 2^-18 sum|q k| off the fp32 product.
+// P * scale is three terms too (mma_tile.cuh: tile_update).  The codes
+// are read with 16-byte loads and widened to bf16 into the page buffer
+// (e4m3 -> f16 -> bf16 is exact), so the products and the online softmax
+// are the fp kernels' own (mma_tile.cuh: load_code_tile).  The other
+// design, dequantizing to fp32 and splitting each element into bf16
+// terms, multiplies the products on both sides; this one adds one mma to
+// the fp kernels' second product (the mid term of P * scale) and two to
+// the first for fp32 q.  Null blocks and
 // rows past the length hold finite codes with scale 1 / zp 0 or their
 // written pairs, so V never carries a NaN into the masked p = 0.
 //
@@ -115,14 +131,10 @@ constexpr int NTHREAD = NWARP * 32;
 constexpr int PSTR = PAGE + 8; // padded P^T row (bf16)
 constexpr int SSTR = NT + 1;   // padded score row (fp32)
 
-// Address mode of the KV tiles: bf16 pool pages, bf16 dense rows, or pool
-// pages of int8 / e4m3 codes with per-row (scale, zp).
-enum Mode { kPaged, kDense, kInt8, kE4m3 };
-
 template <int DK>
 struct Smem {
   static constexpr int KSTR = DK + 8;  // padded row (bf16): conflict-free
-  alignas(16) bf16 k[PAGE * KSTR];   // the current latent page (bf16)
+  alignas(16) bf16 k[PAGE * KSTR];   // the current page / tile (bf16)
   alignas(16) bf16 q[NT * KSTR];     // the CTA's query columns (hi)
   alignas(16) float s[PAGE * SSTR];  // scaled, masked scores S^T
   alignas(16) bf16 p_hi[NT * PSTR];  // P (column-major: [column][row])
@@ -133,27 +145,33 @@ struct Smem {
   int hz[NT];                        // per-column horizon
 };
 
-// The quantized bodies' shared memory: the fp bodies' plus the page's
-// (scale, zp) rows, and for fp32 q (QLO) the lo tile of q.
+// The quantized bodies' shared memory: the fp bodies' plus the tile's
+// (scale, zp) rows (K's, and a separate V's), the middle term of P * scale,
+// and for fp32 q (QLO) the mid and lo tiles of q.
 template <int DK, bool QLO>
 struct SmemQuant : Smem<DK> {
-  alignas(16) float2 sz[PAGE];       // the page's (scale, zp)
+  alignas(16) bf16 p_mid[NT * PSTR]; // P * scale: hi, mid (here), lo
+  alignas(16) float2 sz[PAGE];       // the tile's K (scale, zp)
+  alignas(16) float2 szv[PAGE];      // a separate V's (scale, zp)
   float qsum[NT];                    // sum of each column's q
   float zc[NT];                      // sum_r zp_r p_r of the tile
+  alignas(16) bf16 q_mid[QLO ? NT * Smem<DK>::KSTR : 8];
   alignas(16) bf16 q_lo[QLO ? NT * Smem<DK>::KSTR : 8];
 };
 
-template <int MODE, bool QF32, int DK>
-using SmemOf = typename std::conditional<MODE == kInt8 || MODE == kE4m3,
-                                         SmemQuant<DK, QF32>,
+template <int CODE, bool QF32, int DK>
+using SmemOf = typename std::conditional<CODE != kBf16, SmemQuant<DK, QF32>,
                                          Smem<DK>>::type;
 
 struct Params {
   const void* q;      // [B, C, DK] bf16, or fp32 (quantized bodies)
   const void* k;      // paged: pool [N, PAGE, DK]; dense: rows
                       // (b / kvh)*kb + (b % kvh)*kh + s*ldk
-  const float* sz;    // quantized: (scale, zp) pool [N, PAGE, 2], else null
-  int code;           // quantized: 0 int8, 1 e4m3
+  const float* sz;    // quantized: K's (scale, zp): paged pool [N, PAGE, 2];
+                      // dense rows (b / kvh)*zb + (b % kvh)*zh + s*ldz
+  long long zb;       // dense quantized: the pairs' strides (floats)
+  long long zh;
+  int ldz;
   int qf32;           // quantized: q is fp32
   const int* table;   // [B, nbt] (paged) or null (dense)
   long long kb;       // dense batch stride (elements)
@@ -161,10 +179,14 @@ struct Params {
   int kvh;            // dense: kv heads per batch row (1: plain [B, S, D])
   int ldk;            // dense row stride (elements)
   int S;              // dense rows per batch row (rows >= S read as zero)
-  const bf16* v;      // dense separate V rows as K's, or null
+  const void* v;      // dense separate V rows as K's, or null
   long long vb;
   long long vh;
   int ldv;
+  const float* vsz;   // dense quantized separate V: its pairs, as K's
+  long long vzb;
+  long long vzh;
+  int ldvz;
   const int* base;    // [B] horizon base: lengths (decode) or start (prefill)
   const int* qpos;    // [B, C] explicit horizons (verify), or null
   int hz_off;         // -1 for decode (pos < length), 0 for prefill
@@ -174,81 +196,40 @@ struct Params {
   int npb;            // pages per split
   float scale;
   int amla;
-  void* out;          // [B, C, DV] bf16, or q's type (quantized)
+  void* out;          // [B, C, DV] bf16, or fp32 (see OUT_F32)
   float* m_out;       // [B, n_splits, C]           (split partial)
   float* l_out;       // [B, n_splits, C]
   float* acc_out;     // [B, n_splits, DV, C]
 };
 
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Row b's offset in a dense operand of batch stride sb and kv-head stride
+// sh: kv head b % kvh of batch row b / kvh (a GQA cache), or row b.
+__device__ __forceinline__ size_t dense_row(int b, int kvh, long long sb,
+                                           long long sh) {
+  const int bo = b / kvh;
+  return (size_t)bo * sb + (size_t)(b - bo * kvh) * sh;
 }
 
-// Two codes (the low byte first) as exact bf16 values.
-template <int MODE>
-__device__ __forceinline__ uint32_t widen2(uint32_t two) {
-  if constexpr (MODE == kInt8) {
-    return bf16x2(static_cast<float>(static_cast<int8_t>(two & 0xffu)),
-                  static_cast<float>(static_cast<int8_t>((two >> 8) & 0xffu)));
-  } else {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
-    const float2 f = __half22float2(__half2(h));
-    return bf16x2(f.x, f.y);
-  }
-}
-
-// Load a page of codes [PAGE, DK] (16 codes per 16-byte load), widened to
-// bf16 into the page buffer (row stride KSTR), and its rows' (scale, zp).
-// All threads take part; the caller synchronises.
-template <int MODE, int NTHREAD_, int DK, int KSTR>
-__device__ __forceinline__ void load_code_page(bf16* kbuf, float2* szbuf,
-                                               const uint8_t* codes,
-                                               const float* sz) {
-  constexpr int CHUNKS = DK / 16;
-  for (int i = threadIdx.x; i < PAGE * CHUNKS; i += NTHREAD_) {
-    const int r = i / CHUNKS, cc = i % CHUNKS;
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-        codes + (size_t)r * DK + cc * 16));
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[8];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      o[2 * h] = widen2<MODE>(w[h]);
-      o[2 * h + 1] = widen2<MODE>(w[h] >> 16);
-    }
-    uint4* dst = reinterpret_cast<uint4*>(&kbuf[r * KSTR + cc * 16]);
-    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-  if (threadIdx.x < PAGE / 2) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(sz) + threadIdx.x);
-    szbuf[2 * threadIdx.x] = make_float2(v.x, v.y);
-    szbuf[2 * threadIdx.x + 1] = make_float2(v.z, v.w);
-  }
-}
-
-// MODE selects the address mode at compile time, so each kernel carries
-// only its own mode's code; QF32 (quantized modes only) takes fp32 q and
-// writes fp32 O; DK and DV are the widths (the paged and quantized modes
-// are built at the latent's only).
-template <bool STATS, int MODE, bool QF32, int DK, int DV>
+// DENSE selects the address mode and CODE the element type of K and V at
+// compile time, so each kernel carries only its own mode's code; QF32
+// (quantized bodies only) takes fp32 q; DK and DV are the widths (the
+// paged bodies are built at the latent's only).  O is fp32 for fp32 q and
+// for the dense quantized kernels, bf16 otherwise.
+template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV>
 __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
-  constexpr bool DENSE = MODE == kDense;
-  constexpr bool QUANT = MODE == kInt8 || MODE == kE4m3;
+  constexpr bool QUANT = CODE != kBf16;
+  constexpr bool OUT_F32 = QF32 || (DENSE && QUANT);
   static_assert(QUANT || !QF32, "fp32 q is taken by the quantized bodies");
   static_assert(DENSE || (DK == LATENT_DK && DV == LATENT_DV),
-                "the paged and quantized bodies take the latent widths");
+                "the paged bodies take the latent widths");
   static_assert(DK % 16 == 0 && DV % (16 * NWARP) == 0 && DV <= DK,
                 "DK a multiple of 16; DV of 128, within the K tile");
   constexpr int KSTR = Smem<DK>::KSTR;
   constexpr int MT = DV / (16 * NWARP);        // O^T m-tiles per warp
   constexpr int WROWS = DV / NWARP;            // O^T rows per warp
-  using QT = typename std::conditional<QF32, float, bf16>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemOf<MODE, QF32, DK>& sm =
-      *reinterpret_cast<SmemOf<MODE, QF32, DK>*>(smem_raw);
+  SmemOf<CODE, QF32, DK>& sm =
+      *reinterpret_cast<SmemOf<CODE, QF32, DK>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
@@ -257,7 +238,6 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   const int n_splits = gridDim.y;
   const int b = blockIdx.z;
   const bool amla = P.amla != 0;
-  const QT* qg = static_cast<const QT*>(P.q);
 
   if (tid < NT) {
     const int c = c0 + tid;
@@ -269,48 +249,12 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }
-  if constexpr (QF32) {                        // fp32 q -> bf16 hi + lo
-    for (int i = tid; i < NT * (DK / 4); i += NTHREAD) {
-      const int r = i / (DK / 4), cc = i % (DK / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c0 + r < P.C)
-        v = reinterpret_cast<const float4*>(
-            qg + ((size_t)b * P.C + c0 + r) * DK)[cc];
-      const float x[4] = {v.x, v.y, v.z, v.w};
-      bf16 hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        hi[e] = __float2bfloat16_rn(x[e]);
-        lo[e] = __float2bfloat16_rn(x[e] - __bfloat162float(hi[e]));
-      }
-      *reinterpret_cast<uint2*>(&sm.q[r * KSTR + cc * 4]) =
-          make_uint2(pack(hi[0], hi[1]), pack(hi[2], hi[3]));
-      *reinterpret_cast<uint2*>(&sm.q_lo[r * KSTR + cc * 4]) =
-          make_uint2(pack(lo[0], lo[1]), pack(lo[2], lo[3]));
-    }
-  } else {
-    for (int i = tid; i < NT * (DK / 8); i += NTHREAD) {
-      const int r = i / (DK / 8), cc = i % (DK / 8);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (c0 + r < P.C)
-        v = reinterpret_cast<const uint4*>(
-            qg + ((size_t)b * P.C + c0 + r) * DK)[cc];
-      *reinterpret_cast<uint4*>(&sm.q[r * KSTR + cc * 8]) = v;
-    }
-  }
-  if constexpr (QUANT) {                       // sum(q) per column, in fp32
-    for (int col = warp; col < NT; col += NWARP) {
-      float acc_q = 0.f;
-      if (c0 + col < P.C) {
-        const QT* qc = qg + ((size_t)b * P.C + c0 + col) * DK;
-        for (int d = lane; d < DK; d += 32) acc_q += static_cast<float>(qc[d]);
-      }
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        acc_q += __shfl_xor_sync(0xffffffffu, acc_q, off);
-      if (lane == 0) sm.qsum[col] = acc_q;
-    }
-  }
+  if constexpr (QUANT)                   // fp32 q -> bf16 hi + mid + lo
+    load_q_tile<QF32, true, NT, NTHREAD, DK>(sm.q, sm.q_mid, sm.q_lo, KSTR,
+                                             sm.qsum, P.q, b, P.C, c0);
+  else
+    load_q_tile<false, false, NT, NTHREAD, DK>(sm.q, nullptr, nullptr, KSTR,
+                                               nullptr, P.q, b, P.C, c0);
   __syncthreads();
 
   // the split's page range, cut after the last page holding a live position
@@ -332,25 +276,42 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   // a dense row's K and V: (bo, kh) of a GQA cache, or row b (kvh = 1)
   size_t kbase = 0, vbase = 0;
   if constexpr (DENSE) {
-    const int bo = b / P.kvh, kh = b - bo * P.kvh;
-    kbase = (size_t)bo * P.kb + (size_t)kh * P.kh;
-    vbase = (size_t)bo * P.vb + (size_t)kh * P.vh;
+    kbase = dense_row(b, P.kvh, P.kb, P.kh);
+    vbase = dense_row(b, P.kvh, P.vb, P.vh);
   }
 
   const int smi = warp & 3, sni = warp >> 2;   // this warp's S^T tile
   for (int j = j0; j < j_end; ++j) {
     int rows = PAGE;
+    if constexpr (DENSE) rows = min(PAGE, P.S - j * PAGE);
     if constexpr (QUANT) {
-      const size_t blk = P.table[(size_t)b * P.nbt + j];
-      load_code_page<MODE, NTHREAD, DK, KSTR>(
-          sm.k, sm.sz, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
-          P.sz + blk * PAGE * 2);
+      if constexpr (DENSE) {
+        load_code_tile<CODE, NTHREAD>(
+            sm.k, KSTR,
+            static_cast<const uint8_t*>(P.k) + kbase +
+                (size_t)j * PAGE * P.ldk,
+            P.ldk, rows, DK);
+        load_sz_tile(sm.sz,
+                     P.sz + dense_row(b, P.kvh, P.zb, P.zh) +
+                         (size_t)j * PAGE * P.ldz,
+                     P.ldz, rows);
+        if (P.v)                               // V's own pairs
+          load_sz_tile(sm.szv,
+                       P.vsz + dense_row(b, P.kvh, P.vzb, P.vzh) +
+                           (size_t)j * PAGE * P.ldvz,
+                       P.ldvz, rows);
+      } else {
+        const size_t blk = P.table[(size_t)b * P.nbt + j];
+        load_code_tile<CODE, NTHREAD>(
+            sm.k, KSTR, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
+            DK, PAGE, DK);
+        load_sz_tile(sm.sz, P.sz + blk * PAGE * 2, 2, PAGE);
+      }
     } else {
       const bf16* src;
       if constexpr (DENSE) {
         src = static_cast<const bf16*>(P.k) + kbase +
               (size_t)j * PAGE * P.ldk;
-        rows = min(PAGE, P.S - j * PAGE);
       } else {
         src = static_cast<const bf16*>(P.k) +
               (size_t)P.table[(size_t)b * P.nbt + j] * PAGE * DK;
@@ -375,7 +336,10 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         mma16816(sacc, a0, a1, a2, a3, ld32(&qb[g * KSTR + k0 + 2 * t]),
                  ld32(&qb[g * KSTR + k0 + 8 + 2 * t]));
         if constexpr (QF32) {
+          const bf16* qmb = &sm.q_mid[(8 * sni) * KSTR];
           const bf16* qlb = &sm.q_lo[(8 * sni) * KSTR];
+          mma16816(sacc, a0, a1, a2, a3, ld32(&qmb[g * KSTR + k0 + 2 * t]),
+                   ld32(&qmb[g * KSTR + k0 + 8 + 2 * t]));
           mma16816(sacc, a0, a1, a2, a3, ld32(&qlb[g * KSTR + k0 + 2 * t]),
                    ld32(&qlb[g * KSTR + k0 + 8 + 2 * t]));
         }
@@ -403,10 +367,19 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 
     // ---- a separate V replaces the K tile's first DV columns (rows past
     //      S stay zero from the K load)
-    if (DENSE && P.v)
-      load_tile<NTHREAD>(sm.k, KSTR,
-                         P.v + vbase + (size_t)j * PAGE * P.ldv,
-                         P.ldv, rows, DV, false);
+    if (DENSE && P.v) {
+      if constexpr (QUANT)
+        load_code_tile<CODE, NTHREAD>(
+            sm.k, KSTR,
+            static_cast<const uint8_t*>(P.v) + vbase +
+                (size_t)j * PAGE * P.ldv,
+            P.ldv, rows, DV);
+      else
+        load_tile<NTHREAD>(sm.k, KSTR,
+                           static_cast<const bf16*>(P.v) + vbase +
+                               (size_t)j * PAGE * P.ldv,
+                           P.ldv, rows, DV, false);
+    }
 
     // ---- online-softmax update: 16 lanes per column, 4 rows per lane
     {
@@ -417,7 +390,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       if constexpr (QUANT)
         tile_update<true>(sv, r, amla, &sm.p_hi[col * PSTR],
                           &sm.p_lo[col * PSTR], &sm.m[col], &sm.l[col],
-                          &sm.corr[col], sm.sz, &sm.zc[col]);
+                          &sm.corr[col], (DENSE && P.v) ? sm.szv : sm.sz,
+                          &sm.zc[col], &sm.p_mid[col * PSTR]);
       else
         tile_update(sv, r, amla, &sm.p_hi[col * PSTR], &sm.p_lo[col * PSTR],
                     &sm.m[col], &sm.l[col], &sm.corr[col]);
@@ -426,7 +400,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     __syncthreads();
 
     // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [WROWS warp,
-    //      +WROWS); a code page adds sum_r zp_r p_r to every row of its
+    //      +WROWS); a code tile adds sum_r zp_r p_r to every row of its
     //      column
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni) {
@@ -457,7 +431,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       const bf16* r1 = r0 + KSTR;
       const bf16* r8 = r0 + 8 * KSTR;
       const bf16* r9 = r8 + KSTR;
-      uint32_t bh[2][2], bl[2][2];
+      uint32_t bh[2][2], bl[2][2], bm[2][2];
 #pragma unroll
       for (int ni = 0; ni < 2; ++ni) {
         const int pc = (8 * ni + g) * PSTR + k0 + 2 * t;
@@ -465,6 +439,10 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         bh[ni][1] = ld32(&sm.p_hi[pc + 8]);
         bl[ni][0] = ld32(&sm.p_lo[pc]);
         bl[ni][1] = ld32(&sm.p_lo[pc + 8]);
+        if constexpr (QUANT) {
+          bm[ni][0] = ld32(&sm.p_mid[pc]);
+          bm[ni][1] = ld32(&sm.p_mid[pc + 8]);
+        }
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
@@ -476,6 +454,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) {
           mma16816(acc[mi][ni], a0, a1, a2, a3, bh[ni][0], bh[ni][1]);
+          if constexpr (QUANT)
+            mma16816(acc[mi][ni], a0, a1, a2, a3, bm[ni][0], bm[ni][1]);
           mma16816(acc[mi][ni], a0, a1, a2, a3, bl[ni][0], bl[ni][1]);
         }
       }
@@ -506,12 +486,12 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         }
       } else {
         const float l = sm.l[col];
-        using OT = QT;                         // bf16, or fp32 for fp32 q
+        using OT = typename std::conditional<OUT_F32, float, bf16>::type;
         OT* o = static_cast<OT*>(P.out) + ((size_t)b * P.C + c) * DV;
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
           const int dv = WROWS * warp + 16 * mi + g;
-          if constexpr (QF32) {
+          if constexpr (OUT_F32) {
             o[dv] = acc[mi][ni][e] / l;
             o[dv + 8] = acc[mi][ni][e + 2] / l;
           } else {
@@ -524,16 +504,16 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   }
 }
 
-template <bool STATS, int MODE, bool QF32, int DK = LATENT_DK,
+template <bool STATS, bool DENSE, int CODE, bool QF32, int DK = LATENT_DK,
           int DV = LATENT_DV>
 int launch_mode(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(SmemOf<MODE, QF32, DK>));
+  const int smem = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
   cudaError_t err = cudaFuncSetAttribute(
-      etap_kernel<STATS, MODE, QF32, DK, DV>,
+      etap_kernel<STATS, DENSE, CODE, QF32, DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.C + NT - 1) / NT, n_splits, B);
-  etap_kernel<STATS, MODE, QF32, DK, DV><<<
+  etap_kernel<STATS, DENSE, CODE, QF32, DK, DV><<<
       grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -549,6 +529,28 @@ Params make_params(const void* q, const void* pool, const int* table,
   p.npb = nbt;
   p.scale = scale;
   p.amla = amla;
+  return p;
+}
+
+// Dense decode (K5 / K6, and K5q / K6q): one split per npb tiles of nbt;
+// row b of the grid reads K at k + (b / kvh)*kb + (b % kvh)*kh (V alike).
+Params dense_params(const void* q, const void* k, long long kb, int ldk,
+                    const void* v, long long vb, int ldv, int S,
+                    const int* lengths, int kvh, long long kh, long long vh,
+                    int H, int nbt, float scale, int amla) {
+  Params p = make_params(q, k, nullptr, H, nbt, scale, amla);
+  p.kb = kb;
+  p.kh = kh;
+  p.kvh = kvh;
+  p.ldk = ldk;
+  p.S = S;
+  p.v = v;
+  p.vb = vb;
+  p.vh = vh;
+  p.ldv = ldv;
+  p.base = lengths;
+  p.hz_off = -1;
+  p.heads = H;
   return p;
 }
 

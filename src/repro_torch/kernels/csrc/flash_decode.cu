@@ -1,10 +1,18 @@
 // The untransposed decode baseline for Hopper (sm_90a): FlashMLA without
-// ETAP.  One body serving two kernels of the JAX package:
+// ETAP.  One body serving two kernels of the JAX package, over bf16 rows
+// and over int8 / e4m3 codes:
 //
 //   K7  single-pass decode         replaces repro/kernels/flash_decode/
 //       (flash_decode_pallas :58)  flash_decode.py:83
 //   K8  split-KV phase 1           replaces repro/kernels/flash_decode/
 //       (flash_decode_partial_pallas :136)  flash_decode.py:168
+//   K7q, K8q  K7 and K8 over dense code rows with per-row (scale, zp): the
+//       reference gathers a quantized pool, dequantizes it to fp32 and
+//       runs K7 / K8 on the fp32 rows (repro/core/etap.py:311-327, :391-394
+//       for DeepSeek's latent in --mode standard; repro/models/
+//       attention.py:249-260 for a GQA pool).  Built at mma_tile.cuh's
+//       QuantDenseWidths: the latent with V its first 512 columns, and the
+//       128-wide GQA head with V in its own rows.
 //
 // What they compute.  A CTA owns NH = 16 heads of one batch row and walks
 // that row's dense KV rows in 64-row tiles.  Per tile:
@@ -15,7 +23,7 @@
 // This is the orientation the paper measures ETAP against: the thin head
 // axis rides the M side of both products (a GQA group of G = 4 heads
 // leaves 12 of the 16 M rows empty).  (Dk, Dv) is a template parameter,
-// one instantiation per pair of mma_tile.cuh's DENSE_WIDTHS: the MLA latent
+// one instantiation per pair of mma_tile.cuh's DenseWidths: the MLA latent
 // (576, 512) and the 128-wide GQA head (128, 128).  Everything else is the
 // ETAP body's K5 — the same 64-row tiles, address modes (dense rows with a
 // zero-filled tail, a GQA cache [B, S, K, hd] read in place through its
@@ -25,9 +33,20 @@
 // orientation of the products is the only difference.  K7 ends with
 // O = Acc / l in bf16; K8 writes the raw fp32 (m, l, Acc) of its split in
 // the [n, H, Dv] orientation for combine.cu's second entry.  K7 and K8 are
-// the same body, so K8(n_splits=1) + combine is bitwise K7.
+// the same body, so K8(n_splits=1) + combine is bitwise K7; so are K8q and
+// K7q.
 //
-// What bounds it on the H100: like K3/K5, the KV bytes over 3.35 TB/s (the
+// The quantized kernels take the ETAP body's code address and numerics
+// (etap_body.cuh, "Numerics of the quantized bodies"): the codes widen to
+// exact bf16 in the tile buffer, S = scale_r * (q . codes_r) + zp_r *
+// sum(q) per row, scale_r folds into P before its split into three bf16
+// terms (hi, mid, lo) and
+// sum_r zp_r p_r joins each head's O row; fp32 q (the GQA path) enters the
+// score product as three bf16 tiles hi + mid + lo.  They write fp32 O, as the
+// reference's K7 / K8 write V's fp32 type after its dequantization.
+//
+// What bounds it on the H100: like K3/K5, the KV bytes (the codes' bytes
+// plus 8 per row and granule for K7q / K8q) over 3.35 TB/s (the
 // multiply-adds are 2 * H * (Dk + Dv) per row).  Acc [16, Dv] fp32 is
 // spread over the 8 warps, Dv / 8 columns each (Dv / 16 registers per
 // thread: 32 at the latent);
@@ -37,6 +56,7 @@
 // flight.
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,8 +76,9 @@ constexpr int SSTR = PAGE + 4; // padded score row (fp32)
 template <int DK>
 struct Smem {
   static constexpr int KSTR = DK + 8;  // padded row (bf16)
-  bf16 k[PAGE * KSTR];         // the current KV tile (V: first DV columns)
-  bf16 q[NH * KSTR];           // the CTA's heads
+  alignas(16) bf16 k[PAGE * KSTR];     // the current KV tile (V: first DV
+                                       // columns)
+  alignas(16) bf16 q[NH * KSTR];       // the CTA's heads (hi)
   float s[NH * SSTR];          // scaled, masked scores S [head][row]
   bf16 p_hi[NH * PSTR];        // P [head][row]
   bf16 p_lo[NH * PSTR];
@@ -67,25 +88,51 @@ struct Smem {
   int hz[NH];                  // per-head horizon (length - 1)
 };
 
+// The quantized kernels' shared memory: the bf16 kernels' plus the tile's
+// (scale, zp) rows (K's, and a separate V's) and, for fp32 q (QLO), the mid
+// and lo tiles of q.
+template <int DK, bool QLO>
+struct SmemQuant : Smem<DK> {
+  alignas(16) bf16 p_mid[NH * PSTR];  // P * scale: hi, mid (here), lo
+  alignas(16) float2 sz[PAGE];
+  alignas(16) float2 szv[PAGE];
+  float qsum[NH];              // sum of each head's q
+  float zc[NH];                // sum_r zp_r p_r of the tile, per head
+  alignas(16) bf16 q_mid[QLO ? NH * Smem<DK>::KSTR : 8];
+  alignas(16) bf16 q_lo[QLO ? NH * Smem<DK>::KSTR : 8];
+};
+
+template <int CODE, bool QF32, int DK>
+using SmemOf = typename std::conditional<CODE != kBf16, SmemQuant<DK, QF32>,
+                                         Smem<DK>>::type;
+
 struct Params {
-  const bf16* q;      // [B, H, DK]
-  const bf16* k;      // rows (b / kvh)*kb + (b % kvh)*kh + s*ldk, s < S
+  const void* q;      // [B, H, DK] bf16, or fp32 (quantized kernels)
+  const void* k;      // rows (b / kvh)*kb + (b % kvh)*kh + s*ldk, s < S
   long long kb;
   long long kh;       // kv-head stride (a GQA cache read in place)
   int kvh;            // kv heads per batch row (1: plain [B, S, D])
   int ldk;
   int S;
-  const bf16* v;      // separate V rows as K's, or null (V in K)
+  const void* v;      // separate V rows as K's, or null (V in K)
   long long vb;
   long long vh;
   int ldv;
+  const float* sz;    // quantized: K's (scale, zp) rows, strides in floats
+  long long zb;
+  long long zh;
+  int ldz;
+  const float* vsz;   // quantized separate V: its pairs, as K's
+  long long vzb;
+  long long vzh;
+  int ldvz;
   const int* lengths; // [B]
   int H;
   int nbt;            // 64-row tiles per batch row (a multiple of npb)
   int npb;            // tiles per split
   float scale;
   int amla;
-  bf16* out;          // [B, H, DV]                 (single pass)
+  void* out;          // [B, H, DV] bf16, or fp32 (quantized)  (single pass)
   float* m_out;       // [B, n_splits, H]           (split partial)
   float* l_out;       // [B, n_splits, H]
   float* acc_out;     // [B, n_splits, H, DV]
@@ -100,15 +147,20 @@ __device__ __forceinline__ size_t row_base(int b, int kvh, long long sb,
   return (size_t)(b / kvh) * sb + (size_t)(b % kvh) * sh;
 }
 
-template <bool STATS, int DK, int DV>
+// CODE: the element type of K and V (bf16, or int8 / e4m3 codes); QF32
+// (quantized kernels only): q is fp32.
+template <bool STATS, int CODE, bool QF32, int DK, int DV>
 __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
+  constexpr bool QUANT = CODE != kBf16;
+  static_assert(QUANT || !QF32, "fp32 q is taken by the quantized kernels");
   static_assert(DK % 16 == 0 && DV % (8 * NWARP) == 0 && DV <= DK,
                 "DK a multiple of 16; DV of 64, within the K tile");
   constexpr int KSTR = Smem<DK>::KSTR;
   constexpr int NI = DV / (8 * NWARP);         // O n-tiles per warp
   constexpr int WCOLS = DV / NWARP;            // O columns per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<DK>& sm = *reinterpret_cast<Smem<DK>*>(smem_raw);
+  SmemOf<CODE, QF32, DK>& sm =
+      *reinterpret_cast<SmemOf<CODE, QF32, DK>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
@@ -123,14 +175,12 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }
-  for (int i = tid; i < NH * (DK / 8); i += NTHREAD) {
-    const int r = i / (DK / 8), cc = i % (DK / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (h0 + r < P.H)
-      v = reinterpret_cast<const uint4*>(
-          P.q + ((size_t)b * P.H + h0 + r) * DK)[cc];
-    *reinterpret_cast<uint4*>(&sm.q[r * KSTR + cc * 8]) = v;
-  }
+  if constexpr (QUANT)
+    load_q_tile<QF32, true, NH, NTHREAD, DK>(sm.q, sm.q_mid, sm.q_lo, KSTR,
+                                             sm.qsum, P.q, b, P.H, h0);
+  else
+    load_q_tile<false, false, NH, NTHREAD, DK>(sm.q, nullptr, nullptr, KSTR,
+                                               nullptr, P.q, b, P.H, h0);
   __syncthreads();
 
   // the split's tile range, cut after the last tile holding a live position
@@ -149,11 +199,29 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
 
   for (int j = j0; j < j_end; ++j) {
     const int rows = min(PAGE, P.S - j * PAGE);
-    load_tile<NTHREAD>(sm.k, KSTR,
-                       P.k + row_base(b, P.kvh, P.kb, P.kh) +
-                           (size_t)j * PAGE * P.ldk,
-                       P.ldk, rows, DK, true);
-    cp_async_wait_all();
+    if constexpr (QUANT) {
+      load_code_tile<CODE, NTHREAD>(
+          sm.k, KSTR,
+          static_cast<const uint8_t*>(P.k) + row_base(b, P.kvh, P.kb, P.kh) +
+              (size_t)j * PAGE * P.ldk,
+          P.ldk, rows, DK);
+      load_sz_tile(sm.sz,
+                   P.sz + row_base(b, P.kvh, P.zb, P.zh) +
+                       (size_t)j * PAGE * P.ldz,
+                   P.ldz, rows);
+      if (P.v)
+        load_sz_tile(sm.szv,
+                     P.vsz + row_base(b, P.kvh, P.vzb, P.vzh) +
+                         (size_t)j * PAGE * P.ldvz,
+                     P.ldvz, rows);
+    } else {
+      load_tile<NTHREAD>(sm.k, KSTR,
+                         static_cast<const bf16*>(P.k) +
+                             row_base(b, P.kvh, P.kb, P.kh) +
+                             (size_t)j * PAGE * P.ldk,
+                         P.ldk, rows, DK, true);
+      cp_async_wait_all();
+    }
     __syncthreads();
 
     // ---- S = Q K^T: warp tile heads [0, 16), rows [8 warp, +8)
@@ -162,15 +230,35 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       const bf16* kb = &sm.k[(8 * warp + g) * KSTR];
 #pragma unroll 4
       for (int k0 = 0; k0 < DK; k0 += 16) {
+        const uint32_t b0 = ld32(&kb[k0 + 2 * t]);
+        const uint32_t b1 = ld32(&kb[k0 + 8 + 2 * t]);
         mma16816(sacc,
                  ld32(&sm.q[g * KSTR + k0 + 2 * t]),
                  ld32(&sm.q[(g + 8) * KSTR + k0 + 2 * t]),
                  ld32(&sm.q[g * KSTR + k0 + 8 + 2 * t]),
-                 ld32(&sm.q[(g + 8) * KSTR + k0 + 8 + 2 * t]),
-                 ld32(&kb[k0 + 2 * t]),
-                 ld32(&kb[k0 + 8 + 2 * t]));
+                 ld32(&sm.q[(g + 8) * KSTR + k0 + 8 + 2 * t]), b0, b1);
+        if constexpr (QF32) {
+          mma16816(sacc,
+                   ld32(&sm.q_mid[g * KSTR + k0 + 2 * t]),
+                   ld32(&sm.q_mid[(g + 8) * KSTR + k0 + 2 * t]),
+                   ld32(&sm.q_mid[g * KSTR + k0 + 8 + 2 * t]),
+                   ld32(&sm.q_mid[(g + 8) * KSTR + k0 + 8 + 2 * t]), b0, b1);
+          mma16816(sacc,
+                   ld32(&sm.q_lo[g * KSTR + k0 + 2 * t]),
+                   ld32(&sm.q_lo[(g + 8) * KSTR + k0 + 2 * t]),
+                   ld32(&sm.q_lo[g * KSTR + k0 + 8 + 2 * t]),
+                   ld32(&sm.q_lo[(g + 8) * KSTR + k0 + 8 + 2 * t]), b0, b1);
+        }
       }
       const int ca = 8 * warp + 2 * t;          // tile row of sacc[0]
+      if constexpr (QUANT) {                    // the affine of each row
+        const float2 z0 = sm.sz[ca], z1 = sm.sz[ca + 1];
+        const float qs0 = sm.qsum[g], qs8 = sm.qsum[g + 8];
+        sacc[0] = z0.x * sacc[0] + z0.y * qs0;
+        sacc[1] = z1.x * sacc[1] + z1.y * qs0;
+        sacc[2] = z0.x * sacc[2] + z0.y * qs8;
+        sacc[3] = z1.x * sacc[3] + z1.y * qs8;
+      }
       const int kp = j * PAGE + ca;
       sm.s[g * SSTR + ca] = kp <= sm.hz[g] ? sacc[0] * P.scale : NEG_INF;
       sm.s[g * SSTR + ca + 1] =
@@ -183,11 +271,20 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- a separate V replaces the K tile's first DV columns
-    if (P.v)
-      load_tile<NTHREAD>(sm.k, KSTR,
-                         P.v + row_base(b, P.kvh, P.vb, P.vh) +
-                             (size_t)j * PAGE * P.ldv,
-                         P.ldv, rows, DV, false);
+    if (P.v) {
+      if constexpr (QUANT)
+        load_code_tile<CODE, NTHREAD>(
+            sm.k, KSTR,
+            static_cast<const uint8_t*>(P.v) +
+                row_base(b, P.kvh, P.vb, P.vh) + (size_t)j * PAGE * P.ldv,
+            P.ldv, rows, DV);
+      else
+        load_tile<NTHREAD>(sm.k, KSTR,
+                           static_cast<const bf16*>(P.v) +
+                               row_base(b, P.kvh, P.vb, P.vh) +
+                               (size_t)j * PAGE * P.ldv,
+                           P.ldv, rows, DV, false);
+    }
 
     // ---- online-softmax update: 16 lanes per head row, 4 rows per lane
     {
@@ -195,21 +292,39 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       float sv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = sm.s[h * SSTR + r + 16 * i];
-      tile_update(sv, r, amla, &sm.p_hi[h * PSTR], &sm.p_lo[h * PSTR],
-                  &sm.m[h], &sm.l[h], &sm.corr[h]);
+      if constexpr (QUANT)
+        tile_update<true>(sv, r, amla, &sm.p_hi[h * PSTR], &sm.p_lo[h * PSTR],
+                          &sm.m[h], &sm.l[h], &sm.corr[h],
+                          P.v ? sm.szv : sm.sz, &sm.zc[h],
+                          &sm.p_mid[h * PSTR]);
+      else
+        tile_update(sv, r, amla, &sm.p_hi[h * PSTR], &sm.p_lo[h * PSTR],
+                    &sm.m[h], &sm.l[h], &sm.corr[h]);
     }
-    cp_async_wait_all();
+    if constexpr (!QUANT) cp_async_wait_all();
     __syncthreads();
 
-    // ---- O = O * corr + P V: warp owns Dv columns [WCOLS warp, +WCOLS)
+    // ---- O = O * corr + P V: warp owns Dv columns [WCOLS warp, +WCOLS); a
+    //      code tile adds sum_r zp_r p_r to every column of its head's row
     {
       const float c_lo = sm.corr[g], c_hi = sm.corr[g + 8];
+      float z_lo = 0.f, z_hi = 0.f;
+      if constexpr (QUANT) {
+        z_lo = sm.zc[g];
+        z_hi = sm.zc[g + 8];
+      }
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         acc[ni][0] *= c_lo;
         acc[ni][1] *= c_lo;
         acc[ni][2] *= c_hi;
         acc[ni][3] *= c_hi;
+        if constexpr (QUANT) {
+          acc[ni][0] += z_lo;
+          acc[ni][1] += z_lo;
+          acc[ni][2] += z_hi;
+          acc[ni][3] += z_hi;
+        }
       }
     }
 #pragma unroll
@@ -221,6 +336,14 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       const uint32_t ah2 = ld32(&hi[pa + 8]), ah3 = ld32(&hi[pb + 8]);
       const uint32_t al0 = ld32(&lo[pa]), al1 = ld32(&lo[pb]);
       const uint32_t al2 = ld32(&lo[pa + 8]), al3 = ld32(&lo[pb + 8]);
+      uint32_t am0 = 0, am1 = 0, am2 = 0, am3 = 0;
+      if constexpr (QUANT) {
+        const bf16* mid = sm.p_mid;
+        am0 = ld32(&mid[pa]);
+        am1 = ld32(&mid[pb]);
+        am2 = ld32(&mid[pa + 8]);
+        am3 = ld32(&mid[pb + 8]);
+      }
       const bf16* r0 = &sm.k[(k0 + 2 * t) * KSTR];    // V rows k0+2t, +1
       const bf16* r1 = r0 + KSTR;
       const bf16* r8 = r0 + 8 * KSTR;                 // V rows k0+2t+8, +9
@@ -231,6 +354,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
         const uint32_t b0 = pack(r0[dv], r1[dv]);
         const uint32_t b1 = pack(r8[dv], r9[dv]);
         mma16816(acc[ni], ah0, ah1, ah2, ah3, b0, b1);
+        if constexpr (QUANT)
+          mma16816(acc[ni], am0, am1, am2, am3, b0, b1);
         mma16816(acc[ni], al0, al1, al2, al3, b0, b1);
       }
     }
@@ -257,9 +382,18 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
         *reinterpret_cast<float2*>(&a[dv]) =
             make_float2(acc[ni][2 * half], acc[ni][2 * half + 1]);
       }
+    } else if constexpr (QUANT) {
+      const float l = sm.l[row];
+      float* o = static_cast<float*>(P.out) + ((size_t)b * P.H + h) * DV;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int dv = WCOLS * warp + 8 * ni + 2 * t;
+        *reinterpret_cast<float2*>(&o[dv]) = make_float2(
+            acc[ni][2 * half] / l, acc[ni][2 * half + 1] / l);
+      }
     } else {
       const float l = sm.l[row];
-      bf16* o = P.out + ((size_t)b * P.H + h) * DV;
+      bf16* o = static_cast<bf16*>(P.out) + ((size_t)b * P.H + h) * DV;
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int dv = WCOLS * warp + 8 * ni + 2 * t;
@@ -271,25 +405,43 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
   }
 }
 
-template <bool STATS, int DK, int DV>
+template <bool STATS, int CODE, bool QF32, int DK, int DV>
 int launch_widths(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(Smem<DK>));
+  const int smem = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<STATS, DK, DV>,
+      flash_decode_kernel<STATS, CODE, QF32, DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.H + NH - 1) / NH, n_splits, B);
-  flash_decode_kernel<STATS, DK, DV><<<grid, NTHREAD, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(p);
+  flash_decode_kernel<STATS, CODE, QF32, DK, DV><<<
+      grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool STATS>
 int launch(const Params& p, int dk, int dv, int B, int n_splits,
            void* stream) {
-  return with_dense_widths(dk, dv, [&](auto DK, auto DV) {
-    return launch_widths<STATS, decltype(DK)::value, decltype(DV)::value>(
-        p, B, n_splits, stream);
+  return with_widths<DenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    return launch_widths<STATS, kBf16, false, decltype(DK)::value,
+                         decltype(DV)::value>(p, B, n_splits, stream);
+  });
+}
+
+template <bool STATS, int CODE, int DK, int DV>
+int launch_q(const Params& p, int qf32, int B, int n_splits, void* stream) {
+  return qf32 ? launch_widths<STATS, CODE, true, DK, DV>(p, B, n_splits,
+                                                         stream)
+              : launch_widths<STATS, CODE, false, DK, DV>(p, B, n_splits,
+                                                          stream);
+}
+
+template <bool STATS>
+int launch_quant(const Params& p, int code, int qf32, int dk, int dv, int B,
+                 int n_splits, void* stream) {
+  return with_widths<QuantDenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    return code ? launch_q<STATS, kE4m3, K, V>(p, qf32, B, n_splits, stream)
+                : launch_q<STATS, kInt8, K, V>(p, qf32, B, n_splits, stream);
   });
 }
 
@@ -298,14 +450,14 @@ Params make_params(const void* q, const void* k, long long kb, int ldk,
                    const int* lengths, int kvh, long long kh, long long vh,
                    int H, int nbt, float scale, int amla) {
   Params p{};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
+  p.q = q;
+  p.k = k;
   p.kb = kb;
   p.kh = kh;
   p.kvh = kvh;
   p.ldk = ldk;
   p.S = S;
-  p.v = static_cast<const bf16*>(v);
+  p.v = v;
   p.vb = vb;
   p.vh = vh;
   p.ldv = ldv;
@@ -318,14 +470,33 @@ Params make_params(const void* q, const void* k, long long kb, int ldk,
   return p;
 }
 
+// The quantized kernels' pairs: K's at kz (strides zb, zh, ldz in floats),
+// a separate V's at vz (null with v).
+void set_pairs(Params& p, const float* kz, long long zb, long long zh,
+               int ldz, const float* vz, long long vzb, long long vzh,
+               int ldvz) {
+  p.sz = kz;
+  p.zb = zb;
+  p.zh = zh;
+  p.ldz = ldz;
+  p.vsz = vz;
+  p.vzb = vzb;
+  p.vzh = vzh;
+  p.ldvz = ldvz;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The (Dk, Dv) pairs K7 / K8 take (written to out as dk, dv, ...; returns
-// their number).
+// The (Dk, Dv) pairs K7 / K8 and K7q / K8q take (written to out as dk, dv,
+// ...; returns their number).
 int flash_decode_widths(int* out, int cap) {
-  return write_dense_widths(out, cap);
+  return write_widths<DenseWidths>(out, cap);
+}
+
+int flash_decode_quant_widths(int* out, int cap) {
+  return write_widths<QuantDenseWidths>(out, cap);
 }
 
 // K7: q [B,H,dk]; K rows k + (b / kvh)*kb + (b % kvh)*kh + s*ldk for s < S
@@ -339,7 +510,7 @@ int flash_decode(const void* q, const void* k, long long kb, int ldk,
                  int amla, void* stream) {
   Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
                          H, (S + PAGE - 1) / PAGE, scale, amla);
-  p.out = static_cast<bf16*>(out);
+  p.out = out;
   return launch<false>(p, dk, dv, B, 1, stream);
 }
 
@@ -359,6 +530,48 @@ int flash_decode_partial(const void* q, const void* k, long long kb, int ldk,
   p.l_out = l_out;
   p.acc_out = acc_out;
   return launch<true>(p, dk, dv, B, n_splits, stream);
+}
+
+// K7q: K7 over int8 (code 0) or e4m3 (code 1) rows addressed as K7's
+// (strides in bytes), K's (scale, zp) pairs at kz + (b / kvh)*zb +
+// (b % kvh)*zh + s*ldz (floats); V null (its codes and pairs are K's) or
+// codes at v with pairs at vz.  q bf16, or fp32 with qf32 set; out
+// [B,H,dv] fp32; (dk, dv) one of flash_decode_quant_widths.
+int flash_decode_quant(const void* q, const void* k, long long kb, int ldk,
+                       const void* v, long long vb, int ldv, int S,
+                       const int* lengths, int kvh, long long kh,
+                       long long vh, int dk, int dv, const float* kz,
+                       long long zb, long long zh, int ldz, const float* vz,
+                       long long vzb, long long vzh, int ldvz, int code,
+                       int qf32, void* out, int B, int H, float scale,
+                       int amla, void* stream) {
+  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
+                         H, (S + PAGE - 1) / PAGE, scale, amla);
+  set_pairs(p, kz, zb, zh, ldz, vz, vzb, vzh, ldvz);
+  p.out = out;
+  return launch_quant<false>(p, code, qf32, dk, dv, B, 1, stream);
+}
+
+// K8q: as K7q, cut into n_splits splits of tps tiles; writes fp32 m, l
+// [B,n,H] and acc [B,n,H,dv].
+int flash_decode_partial_quant(const void* q, const void* k, long long kb,
+                               int ldk, const void* v, long long vb, int ldv,
+                               int S, const int* lengths, int kvh,
+                               long long kh, long long vh, int dk, int dv,
+                               const float* kz, long long zb, long long zh,
+                               int ldz, const float* vz, long long vzb,
+                               long long vzh, int ldvz, int code, int qf32,
+                               float* m_out, float* l_out, float* acc_out,
+                               int B, int H, int n_splits, int tps,
+                               float scale, int amla, void* stream) {
+  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
+                         H, n_splits * tps, scale, amla);
+  set_pairs(p, kz, zb, zh, ldz, vz, vzb, vzh, ldvz);
+  p.npb = tps;
+  p.m_out = m_out;
+  p.l_out = l_out;
+  p.acc_out = acc_out;
+  return launch_quant<true>(p, code, qf32, dk, dv, B, n_splits, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Building blocks shared by the hand-written decode kernels (etap_body.cuh,
 // flash_decode.cu): bf16 fragment loads, the m16n8k16 tensor-core product,
-// cp.async tile copies, the online-softmax update of one 64-row KV tile, and
+// cp.async tile copies, the loads of int8 / e4m3 code tiles (widened to
+// exact bf16) with their rows' (scale, zp), the query tile (bf16, or fp32
+// as three bf16 terms), the online-softmax update of one 64-row KV tile, and
 // the (Dk, Dv) widths the dense kernels are built for.  Both orientations
 // run the SAME update code, so the ETAP and the untransposed kernels differ
 // only in which operand rides the M side.
@@ -10,6 +12,8 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include "softmax_state.cuh"
@@ -22,38 +26,53 @@ constexpr int LATENT_DK = 576; // MLA latent width: kv_lora 512 + rope 64
 constexpr int LATENT_DV = 512; // MLA V = the first 512 latent columns
 constexpr int PAGE = 64;       // KV rows per tile (the paged pool's page)
 
-// The (Dk, Dv) pairs the dense decode kernels (K5-K8) are instantiated for:
-// DeepSeek's latent, and a 128-wide GQA head (Dk = Dv = head_dim: Qwen3,
-// Granite, the Llama family).  The paged and quantized kernels take the
-// latent only.
-constexpr int N_DENSE_WIDTHS = 2;
-constexpr int DENSE_WIDTHS[N_DENSE_WIDTHS][2] = {{LATENT_DK, LATENT_DV},
-                                                 {128, 128}};
+// A list of (Dk, Dv) pairs a family of kernels is instantiated for, as
+// Widths<dk0, dv0, dk1, dv1, ...>: the dispatch (with_widths) and the
+// library's width query (write_widths) both read it, so the two cannot
+// drift apart.
+template <int... P>
+struct Widths {
+  static_assert(sizeof...(P) % 2 == 0, "(Dk, Dv) pairs");
+  static constexpr int N = sizeof...(P) / 2;
+  static constexpr int W[sizeof...(P)] = {P...};
+};
 
-// f(integral_constant<DK>, integral_constant<DV>) for the DENSE_WIDTHS pair
-// (dk, dv), searched from entry I on; cudaErrorInvalidValue for any other
+// The dense decode kernels (K5-K8) over bf16 rows: DeepSeek's latent, and
+// a 128-wide GQA head (Dk = Dv = head_dim: Qwen3, Granite, the Llama
+// family).  The paged kernels take the latent only.
+using DenseWidths = Widths<LATENT_DK, LATENT_DV, 128, 128>;
+// The baseline over int8 / e4m3 codes (K7q, K8q): the latent, whose
+// standard mode decodes the gathered code pool, and the GQA head.
+using QuantDenseWidths = Widths<LATENT_DK, LATENT_DV, 128, 128>;
+// The ETAP dense kernels over codes (K5q, K6q): the GQA head (the latent's
+// ETAP decode reads its code pool in place through K1q / K3q).
+using EtapQuantDenseWidths = Widths<128, 128>;
+
+// f(integral_constant<DK>, integral_constant<DV>) for the pair (dk, dv) of
+// list L, searched from entry I on; cudaErrorInvalidValue for any other
 // pair.
-template <int I = 0, class F>
-int with_dense_widths(int dk, int dv, F&& f) {
-  if constexpr (I == N_DENSE_WIDTHS) {
+template <class L, int I = 0, class F>
+int with_widths(int dk, int dv, F&& f) {
+  if constexpr (I == L::N) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    constexpr int DK = DENSE_WIDTHS[I][0], DV = DENSE_WIDTHS[I][1];
+    constexpr int DK = L::W[2 * I], DV = L::W[2 * I + 1];
     if (dk == DK && dv == DV)
       return f(std::integral_constant<int, DK>{},
                std::integral_constant<int, DV>{});
-    return with_dense_widths<I + 1>(dk, dv, f);
+    return with_widths<L, I + 1>(dk, dv, f);
   }
 }
 
-// Write the DENSE_WIDTHS pairs to out[2 i], out[2 i + 1] (at most cap
-// pairs); returns their number.
-inline int write_dense_widths(int* out, int cap) {
-  for (int i = 0; i < N_DENSE_WIDTHS && i < cap; ++i) {
-    out[2 * i] = DENSE_WIDTHS[i][0];
-    out[2 * i + 1] = DENSE_WIDTHS[i][1];
+// Write list L's pairs to out[2 i], out[2 i + 1] (at most cap pairs);
+// returns their number.
+template <class L>
+int write_widths(int* out, int cap) {
+  for (int i = 0; i < L::N && i < cap; ++i) {
+    out[2 * i] = L::W[2 * i];
+    out[2 * i + 1] = L::W[2 * i + 1];
   }
-  return N_DENSE_WIDTHS;
+  return L::N;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -104,6 +123,135 @@ __device__ __forceinline__ void load_tile(bf16* smem, int sstr,
   }
 }
 
+// The element type of a KV operand: bf16 rows, or 1-byte codes (int8, or
+// e4m3) with one fp32 (scale, zp) pair per row.
+enum Code { kBf16, kInt8, kE4m3 };
+
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two codes (the low byte first) as exact bf16 values: every int8 code
+// (-127..127) and every e4m3 code is a bf16 number (e4m3 -> f16 -> bf16).
+template <int CODE>
+__device__ __forceinline__ uint32_t widen2(uint32_t two) {
+  if constexpr (CODE == kInt8) {
+    return bf16x2(static_cast<float>(static_cast<int8_t>(two & 0xffu)),
+                  static_cast<float>(static_cast<int8_t>((two >> 8) & 0xffu)));
+  } else {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    return bf16x2(f.x, f.y);
+  }
+}
+
+// Load `rows` rows of `width` codes (a multiple of 16) from src (row
+// stride ld bytes; src and ld 16-byte aligned), 16 codes per 16-byte load,
+// widened to bf16 into smem (row stride sstr); rows in [rows, PAGE) are
+// zero.  All threads take part; the caller synchronises.
+template <int CODE, int NTHREAD>
+__device__ __forceinline__ void load_code_tile(bf16* smem, int sstr,
+                                               const uint8_t* src, size_t ld,
+                                               int rows, int width) {
+  const int chunks = width / 16;
+  for (int i = threadIdx.x; i < PAGE * chunks; i += NTHREAD) {
+    const int r = i / chunks, cc = i % chunks;
+    uint4* dst = reinterpret_cast<uint4*>(&smem[r * sstr + cc * 16]);
+    if (r >= rows) {
+      dst[0] = dst[1] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const uint4 v =
+        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * ld + cc * 16));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      o[2 * h] = widen2<CODE>(w[h]);
+      o[2 * h + 1] = widen2<CODE>(w[h] >> 16);
+    }
+    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// Load the (scale, zp) pairs of rows [0, rows) from sz (row stride ldz
+// floats; sz and ldz 8-byte aligned) into dst[PAGE]; rows in [rows, PAGE)
+// take (1, 0), so a zero code there decodes to 0.  Threads 0..PAGE-1 take
+// part; the caller synchronises.
+__device__ __forceinline__ void load_sz_tile(float2* dst, const float* sz,
+                                             size_t ldz, int rows) {
+  const int r = threadIdx.x;
+  if (r < PAGE)
+    dst[r] = r < rows ? __ldg(reinterpret_cast<const float2*>(
+                            sz + (size_t)r * ldz))
+                      : make_float2(1.f, 0.f);
+}
+
+// Load the NT query rows [c0, c0 + NT) of batch row b (C rows of DK, row
+// stride DK) into q_hi (row stride sstr); rows at or past C are zero.  An
+// fp32 q (QF32) is split into three bf16 terms, hi = bf16(x), mid =
+// bf16(x - hi) and lo = bf16(x - hi - mid), into q_hi, q_mid and q_lo:
+// together they carry the 24 bits of x, so products with exact bf16 codes
+// summed in fp32 are the fp32 product's (two terms, 16 bits, leave a score
+// 2^-18 sum|q k| off it).  With QSUM, qsum[i] = the fp32 sum of row c0 + i
+// as given (the zp term of a code row's score).  All threads take part;
+// the caller synchronises.
+template <bool QF32, bool QSUM, int NT, int NTHREAD, int DK>
+__device__ __forceinline__ void load_q_tile(bf16* q_hi, bf16* q_mid,
+                                            bf16* q_lo, int sstr,
+                                            float* qsum, const void* q, int b,
+                                            int C, int c0) {
+  using QT = typename std::conditional<QF32, float, bf16>::type;
+  const QT* qg = static_cast<const QT*>(q) + ((size_t)b * C + c0) * DK;
+  if constexpr (QF32) {
+    for (int i = threadIdx.x; i < NT * (DK / 4); i += NTHREAD) {
+      const int r = i / (DK / 4), cc = i % (DK / 4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c0 + r < C)
+        v = reinterpret_cast<const float4*>(qg + (size_t)r * DK)[cc];
+      const float x[4] = {v.x, v.y, v.z, v.w};
+      bf16 hi[4], mid[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = __float2bfloat16_rn(x[e]);
+        const float rem = x[e] - __bfloat162float(hi[e]);    // exact
+        mid[e] = __float2bfloat16_rn(rem);
+        lo[e] = __float2bfloat16_rn(rem - __bfloat162float(mid[e]));
+      }
+      *reinterpret_cast<uint2*>(&q_hi[r * sstr + cc * 4]) =
+          make_uint2(pack(hi[0], hi[1]), pack(hi[2], hi[3]));
+      *reinterpret_cast<uint2*>(&q_mid[r * sstr + cc * 4]) =
+          make_uint2(pack(mid[0], mid[1]), pack(mid[2], mid[3]));
+      *reinterpret_cast<uint2*>(&q_lo[r * sstr + cc * 4]) =
+          make_uint2(pack(lo[0], lo[1]), pack(lo[2], lo[3]));
+    }
+  } else {
+    for (int i = threadIdx.x; i < NT * (DK / 8); i += NTHREAD) {
+      const int r = i / (DK / 8), cc = i % (DK / 8);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (c0 + r < C)
+        v = reinterpret_cast<const uint4*>(qg + (size_t)r * DK)[cc];
+      *reinterpret_cast<uint4*>(&q_hi[r * sstr + cc * 8]) = v;
+    }
+  }
+  if constexpr (QSUM) {                        // one warp per row, in fp32
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int col = warp; col < NT; col += NTHREAD / 32) {
+      float acc = 0.f;
+      if (c0 + col < C)
+        for (int d = lane; d < DK; d += 32)
+          acc += static_cast<float>(qg[(size_t)col * DK + d]);
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) qsum[col] = acc;
+    }
+  }
+}
+
 // Online-softmax update of one query column (ETAP) or head row (standard)
 // over a 64-row tile, run by a half-warp: lane r (0..15) holds the scaled,
 // masked scores of tile rows r, r+16, r+32, r+48 in sv.  Writes the
@@ -114,14 +262,19 @@ __device__ __forceinline__ void load_tile(bf16* smem, int sstr,
 //
 // QUANT: the tile's V rows are codes with a per-row (scale, zp) in rsz, so
 // V^T P^T = sum_r codes_r (scale_r p_r) + (sum_r zp_r p_r) on every Dv row.
-// The hi + lo terms then carry scale_r * p_r, and the column's
-// sum_r zp_r p_r goes to *zsum; l still sums the plain p.
+// w_r = scale_r * p_r is then written as three bf16 terms, hi, mid and lo
+// (to p_hi, p_mid, p_lo), which carry its 24 bits: an output near 0 is
+// the difference of sum_r codes_r w_r and sum_r zp_r p_r, which cancel,
+// so two terms (2^-18 of each w) leave it off the fp32 product by more
+// than the fp32 tolerance (1.2e-5 on a Qwen3-8B layer, on an H100).  The
+// column's sum_r zp_r p_r goes to *zsum; l still sums the plain p.
 template <bool QUANT = false>
 __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
                                             bf16* p_hi, bf16* p_lo, float* m,
                                             float* l, float* corr,
                                             const float2* rsz = nullptr,
-                                            float* zsum = nullptr) {
+                                            float* zsum = nullptr,
+                                            bf16* p_mid = nullptr) {
   float mx = NEG_INF * LOG2E;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -147,7 +300,14 @@ __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
     }
     const bf16 hi = __float2bfloat16_rn(w);
     p_hi[r + 16 * i] = hi;
-    p_lo[r + 16 * i] = __float2bfloat16_rn(w - __bfloat162float(hi));
+    const float rem = w - __bfloat162float(hi);          // exact
+    if constexpr (QUANT) {
+      const bf16 mid = __float2bfloat16_rn(rem);
+      p_mid[r + 16 * i] = mid;
+      p_lo[r + 16 * i] = __float2bfloat16_rn(rem - __bfloat162float(mid));
+    } else {
+      p_lo[r + 16 * i] = __float2bfloat16_rn(rem);
+    }
   }
 #pragma unroll
   for (int off = 8; off; off >>= 1) {

@@ -77,8 +77,9 @@ def combine_splits(m, l, acc, *, out_dtype, rescale=None):
 
 
 def combine_splits_std(m, l, acc, *, out_dtype, rescale=None):
-    """K2, [n,H,Dv] orientation (the untransposed baseline's partials; bf16
-    output)."""
+    """K2, [n,H,Dv] orientation (the untransposed baseline's partials):
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16 or fp32 output)."""
     if m.device.type == "cpu":
         return combine_splits_std_plain(m, l, acc, out_dtype=out_dtype,
                                         rescale=rescale)
@@ -87,7 +88,8 @@ def combine_splits_std(m, l, acc, *, out_dtype, rescale=None):
     return _launch(combine_splits_std,
                    build.library().etap_combine_splits_rows, m, l, acc, Dv,
                    out_dtype=out_dtype, rescale=rescale,
-                   acc_shape=(B, n, H, Dv), what="etap_combine_splits_rows")
+                   acc_shape=(B, n, H, Dv), what="etap_combine_splits_rows",
+                   f32_out=True)
 
 
 combine_splits.launches = 0

@@ -1,8 +1,8 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
-The port of ``repro/kernels/etap/etap.py``: the paged and quantized kernels
-at the MLA latent's widths (Dk 576, Dv 512), the dense ones also at a
-128-wide GQA head (Dk = Dv = 128).  Eight kernels, all one CUDA body
+The port of ``repro/kernels/etap/etap.py``: the paged kernels at the MLA
+latent's widths (Dk 576, Dv 512), the dense ones also at a 128-wide GQA
+head (Dk = Dv = 128).  Ten kernels, all one CUDA body
 (``kernels/csrc/etap_body.cuh``, whose header
 note says what bounds each on the H100 and how the design answers it;
 ``etap.cu`` builds the bf16 kernels from it, ``etap_quant.cu`` the
@@ -31,6 +31,14 @@ quantized ones):
      codes enter the tensor cores as exact bf16 values and the affine is
      applied around the products in fp32, so no dequantized row is rounded
      to bf16; q is bf16 or fp32 and the output takes q's dtype.
+  K5q, K6q :func:`etap_decode_dense_quant`, :func:`etap_partial_dense_quant`:
+     K5 and K6 over dense int8 / fp8 code rows (a GQA cache [B, S, K, hd]
+     read in place) with their (scale, zp) rows ``k_sz`` / ``v_sz``, at the
+     128-wide head: the GQA decode over a quantized paged pool, which
+     gathers codes and pairs where the reference gathers them dequantized
+     to fp32 and hands K5 / K6 the fp32 rows (the same two ``pallas_call``
+     sites, ``etap.py:154, :603``).  Codes and affine as in K3q; q bf16 or
+     fp32; the output is fp32, as the reference's (V's fp32 type).
 
 Each wrapper dispatches on the device of its operands: CPU tensors run the
 ``*_plain`` version, CUDA tensors launch the kernel (or raise on a shape or
@@ -52,7 +60,7 @@ import torch
 from repro_torch.kernels import build, softmax_state
 from repro_torch.kernels.etap.schedule import dense_split_plan
 from repro_torch.kernels.launch import (amla_flag, check_widths,
-                                        dense_operands, dense_split_tiles,
+                                        dense_partial, dense_single,
                                         device_of, i32, ptr, stream)
 from repro_torch.kernels.splitkv import split_walks_plain
 from repro_torch.runtime.paged_cache import dequantize_rows, raw
@@ -207,13 +215,15 @@ def etap_prefill_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, start,
                           scale=scale, rescale=rescale)
 
 
-def _dense_splits_plain(q, k, v, length, plan, *, scale, mode):
+def _dense_splits_plain(q, k, v, length, plan, *, scale, mode, k_sz=None,
+                        v_sz=None):
     """Per-split fp32 states of a dense walk over ``plan.block``-row blocks,
-    the cache zero-padded to the plan as the reference pads it."""
+    the cache zero-padded to the plan as the reference pads it (code rows
+    dequantized block by block with their pairs ``k_sz`` / ``v_sz``)."""
     horizon = _decode_horizon(length, q.shape[1])
     return split_walks_plain(k, v, plan, lambda fetch, tiles: _walk_plain(
         q, fetch, tiles, plan.block, horizon, scale=scale, dv=v.shape[-1],
-        mode=mode))
+        mode=mode), k_sz=k_sz, v_sz=v_sz)
 
 
 def etap_decode_dense_plain(q, k, v, length, *, scale, block=512,
@@ -235,6 +245,31 @@ def etap_partial_dense_plain(q, k, v, length, *, scale, plan, rescale=None):
     l [BG,n,H], accT [BG,n,Dv,H])."""
     parts = _dense_splits_plain(q, k, v, length, plan, scale=scale,
                                 mode=softmax_state.resolve(rescale))
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
+
+
+def etap_decode_dense_quant_plain(q, k, v, length, *, k_sz, v_sz, scale,
+                                  block=512, rescale=None):
+    """Plain K5q: K5 over int8 / fp8 code rows k, v (as
+    :func:`etap_decode_dense_plain` takes them) with their (scale, zp)
+    rows k_sz, v_sz [..., 2]; each fetched block is dequantized to fp32
+    and q taken in fp32, as the reference's K5 on its dequantized rows.
+    Returns [BG,H,Dv] fp32."""
+    (state,) = _dense_splits_plain(q, k, v, length,
+                                   dense_split_plan(k.shape[1], block, 1),
+                                   scale=scale,
+                                   mode=softmax_state.resolve(rescale),
+                                   k_sz=k_sz, v_sz=v_sz)
+    return _finalize(state, torch.float32)
+
+
+def etap_partial_dense_quant_plain(q, k, v, length, *, k_sz, v_sz, scale,
+                                   plan, rescale=None):
+    """Plain K6q: K6 over code rows with their pairs.  Returns fp32 (m, l,
+    accT) as :func:`etap_partial_dense_plain`."""
+    parts = _dense_splits_plain(q, k, v, length, plan, scale=scale,
+                                mode=softmax_state.resolve(rescale),
+                                k_sz=k_sz, v_sz=v_sz)
     return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
 
 
@@ -478,21 +513,12 @@ def etap_decode_dense(q, k, v, length, *, scale, block=512, rescale=None):
     plain version walks; the kernel walks 64-row tiles and reads rows past
     S as zero, so no padded copy is made.  Returns [BG,H,Dv] in v's
     dtype."""
-    dev = device_of(q, k, v, length)
-    if dev.type == "cpu":
+    if device_of(q, k, v, length).type == "cpu":
         return etap_decode_dense_plain(q, k, v, length, scale=scale,
                                        block=block, rescale=rescale)
-    lib, args, keep = dense_operands(q, k, v, length,
-                                     widths="etap_dense_widths",
-                                     what="etap_decode_dense")
-    B, H, _ = q.shape
-    out = torch.empty(B, H, v.shape[-1], dtype=v.dtype, device=dev)
-    etap_decode_dense.launches += 1
-    build.check(lib.etap_decode_dense(
-        *args, ptr(out), B, H, float(scale), amla_flag(rescale), stream(dev)),
-        "etap_decode_dense")
-    del keep
-    return out
+    return dense_single(etap_decode_dense, "etap_decode_dense",
+                        "etap_dense_widths", q, k, v, length, scale=scale,
+                        rescale=rescale)
 
 
 def etap_decode_mla_dense(q, kv, dv, length, *, scale, block=512,
@@ -512,26 +538,43 @@ def etap_partial_dense(q, k, v, length, *, scale, plan, rescale=None):
     ``plan.padded_s`` rows; rows past S read as zero, no copy.  k, v as
     :func:`etap_decode_dense` takes them.  Returns fp32 (m [BG,n,H],
     l [BG,n,H], accT [BG,n,Dv,H])."""
-    dev = device_of(q, k, v, length)
-    if dev.type == "cpu":
+    if device_of(q, k, v, length).type == "cpu":
         return etap_partial_dense_plain(q, k, v, length, scale=scale,
                                         plan=plan, rescale=rescale)
-    lib, args, keep = dense_operands(q, k, v, length,
-                                     widths="etap_dense_widths",
-                                     what="etap_partial_dense")
-    tps = dense_split_tiles(k.shape[1], plan, what="etap_partial_dense")
-    B, H, _ = q.shape
-    n = plan.n_splits
-    f32 = dict(dtype=torch.float32, device=dev)
-    m = torch.empty(B, n, H, **f32)
-    l = torch.empty(B, n, H, **f32)
-    acc = torch.empty(B, n, v.shape[-1], H, **f32)
-    etap_partial_dense.launches += 1
-    build.check(lib.etap_partial_dense(
-        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n, tps,
-        float(scale), amla_flag(rescale), stream(dev)), "etap_partial_dense")
-    del keep
-    return m, l, acc
+    return dense_partial(etap_partial_dense, "etap_partial_dense",
+                         "etap_dense_widths", q, k, v, length, plan=plan,
+                         transposed=True, scale=scale, rescale=rescale)
+
+
+def etap_decode_dense_quant(q, k, v, length, *, k_sz, v_sz, scale,
+                            block=512, rescale=None):
+    """K5q: single-pass dense ETAP decode over int8 / fp8 code rows.  q
+    [BG,H,Dk] bf16 or fp32; k, v code rows as :func:`etap_decode_dense`
+    takes them (a GQA cache [B,S,K,hd] read in place) and k_sz, v_sz their
+    fp32 (scale, zp) rows [..., 2], read in place too.  Returns [BG,H,Dv]
+    fp32."""
+    if device_of(q, k, v, length, k_sz, v_sz).type == "cpu":
+        return etap_decode_dense_quant_plain(q, k, v, length, k_sz=k_sz,
+                                             v_sz=v_sz, scale=scale,
+                                             block=block, rescale=rescale)
+    return dense_single(etap_decode_dense_quant, "etap_decode_dense_quant",
+                        "etap_dense_quant_widths", q, k, v, length,
+                        scale=scale, rescale=rescale, k_sz=k_sz, v_sz=v_sz)
+
+
+def etap_partial_dense_quant(q, k, v, length, *, k_sz, v_sz, scale, plan,
+                             rescale=None):
+    """K6q: dense split-KV phase 1 over code rows under ``plan``, as
+    :func:`etap_partial_dense`.  Returns fp32 (m [BG,n,H], l [BG,n,H],
+    accT [BG,n,Dv,H])."""
+    if device_of(q, k, v, length, k_sz, v_sz).type == "cpu":
+        return etap_partial_dense_quant_plain(q, k, v, length, k_sz=k_sz,
+                                              v_sz=v_sz, scale=scale,
+                                              plan=plan, rescale=rescale)
+    return dense_partial(etap_partial_dense_quant, "etap_partial_dense_quant",
+                         "etap_dense_quant_widths", q, k, v, length,
+                         plan=plan, transposed=True, scale=scale,
+                         rescale=rescale, k_sz=k_sz, v_sz=v_sz)
 
 
 etap_decode_mla_paged.launches = 0
@@ -542,3 +585,5 @@ etap_partial_dense.launches = 0
 etap_decode_mla_paged_quant.launches = 0
 etap_paged_partial_quant.launches = 0
 etap_prefill_mla_paged_quant.launches = 0
+etap_decode_dense_quant.launches = 0
+etap_partial_dense_quant.launches = 0

@@ -43,13 +43,20 @@ def etap_partial(q, k, v, length=None, *, spec):
         plan=dense_split_plan(k.shape[1], spec.block, n_splits))
 
 
-def etap_decode_splitkv(q, k, v, length=None, *, spec):
+def etap_decode_splitkv(q, k, v, length=None, *, spec, k_sz=None,
+                        v_sz=None):
     """Two-phase split-KV ETAP decode over the dense cache.  spec.kv_splits
     None/0 → auto (the scheduler, sized to the device); 1 → the
-    single-pass kernel K5; else K6 + the transposed combine K2."""
+    single-pass kernel K5; else K6 + the transposed combine K2.  ``k_sz`` /
+    ``v_sz``: the (scale, zp) rows of int8 / fp8 code rows k, v — K5q /
+    K6q run and the output is fp32."""
+    quant = k_sz is not None
     return splitkv.decode_splitkv(
-        q, k, v, length, spec=spec, single=K.etap_decode_dense,
-        partial=K.etap_partial_dense, combine=combine_mod.combine_splits)
+        q, k, v, length, spec=spec,
+        single=K.etap_decode_dense_quant if quant else K.etap_decode_dense,
+        partial=K.etap_partial_dense_quant if quant
+        else K.etap_partial_dense,
+        combine=combine_mod.combine_splits, k_sz=k_sz, v_sz=v_sz)
 
 
 # ------------------------------------------------------------------- paged

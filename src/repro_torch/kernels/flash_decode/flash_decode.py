@@ -9,7 +9,7 @@ changed — the comparison target of the paper's Figure-1 claim:
     m, ℓ : per-ROW stats   [H]
     Acc += P·V  [H, Dv]
 
-Two kernels, one CUDA body (``kernels/csrc/flash_decode.cu``, beside the
+Two kernels (and their quantized twins), one CUDA body (``kernels/csrc/flash_decode.cu``, beside the
 building blocks it shares with the ETAP kernels; its header note says what
 bounds it on the H100):
 
@@ -20,7 +20,18 @@ bounds it on the H100):
 
 Both at the MLA latent's widths (Dk 576, Dv 512) and at a 128-wide GQA
 head (Dk = Dv = 128), whose cache [B, S, K, hd] they read in place as its
-grouped form [B·K, S, hd] (:mod:`repro_torch.kernels.splitkv`).
+grouped form [B·K, S, hd] (:mod:`repro_torch.kernels.splitkv`).  Their
+quantized twins, at the same two widths:
+
+  K7q :func:`flash_decode_quant`, K8q :func:`flash_decode_partial_quant`
+     K7 and K8 over int8 / fp8 code rows with their (scale, zp) rows
+     ``k_sz`` / ``v_sz``: the baseline over a quantized pool, whose codes
+     and pairs the callers gather (the reference gathers them dequantized
+     to fp32 and hands K7 / K8 the fp32 rows; the same two ``pallas_call``
+     sites).  The codes enter the tensor cores as exact bf16 values and the
+     affine is applied around the products in fp32
+     (``kernels/csrc/etap_body.cuh``, "Numerics of the quantized bodies");
+     q bf16 or fp32; the output is fp32, as the reference's.
 
 CPU tensors run the ``*_plain`` versions, which walk ``block``-row blocks
 of the cache (zero-padded to the split geometry) as the reference does;
@@ -31,11 +42,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, softmax_state
+from repro_torch.kernels import softmax_state
 from repro_torch.kernels.etap.schedule import dense_split_plan
-from repro_torch.kernels.launch import (amla_flag, dense_operands,
-                                        dense_split_tiles, device_of, ptr,
-                                        stream)
+from repro_torch.kernels.launch import (dense_partial, dense_single,
+                                        device_of)
 from repro_torch.kernels.splitkv import split_walks_plain
 
 NEG_INF = softmax_state.NEG_INF
@@ -61,14 +71,16 @@ def _walk_plain(q, fetch, tiles, block, last, *, scale, dv, mode):
     return state
 
 
-def _splits_plain(q, k, v, length, plan, *, scale, mode):
+def _splits_plain(q, k, v, length, plan, *, scale, mode, k_sz=None,
+                  v_sz=None):
     """Per-split fp32 states (m [B,H], l [B,H], acc [B,H,Dv]) of the
     untransposed walk over ``plan.block``-row blocks of the cache,
-    zero-padded to ``plan.padded_s`` rows."""
+    zero-padded to ``plan.padded_s`` rows (code rows dequantized block by
+    block with their pairs ``k_sz`` / ``v_sz``)."""
     last = (length.to(torch.int32) - 1)[:, None, None]          # [B,1,1]
     return split_walks_plain(k, v, plan, lambda fetch, tiles: _walk_plain(
         q, fetch, tiles, plan.block, last, scale=scale, dv=v.shape[-1],
-        mode=mode))
+        mode=mode), k_sz=k_sz, v_sz=v_sz)
 
 
 def flash_decode_plain(q, k, v, length, *, scale, block=512, rescale=None):
@@ -92,6 +104,29 @@ def flash_decode_partial_plain(q, k, v, length, *, scale, plan,
     return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
 
 
+def flash_decode_quant_plain(q, k, v, length, *, k_sz, v_sz, scale,
+                            block=512, rescale=None):
+    """Plain K7q: K7 over int8 / fp8 code rows with their (scale, zp) rows
+    k_sz, v_sz; each fetched block is dequantized to fp32 and q taken in
+    fp32, as the reference's K7 on its dequantized rows.  Returns [BG,H,Dv]
+    fp32."""
+    (state,) = _splits_plain(q, k, v, length,
+                             dense_split_plan(k.shape[1], block, 1),
+                             scale=scale, mode=softmax_state.resolve(rescale),
+                             k_sz=k_sz, v_sz=v_sz)
+    return softmax_state.finalize(state, expand=lambda l: l[:, :, None])
+
+
+def flash_decode_partial_quant_plain(q, k, v, length, *, k_sz, v_sz, scale,
+                                     plan, rescale=None):
+    """Plain K8q: K8 over code rows with their pairs.  Returns fp32 (m, l,
+    acc) as :func:`flash_decode_partial_plain`."""
+    parts = _splits_plain(q, k, v, length, plan, scale=scale,
+                          mode=softmax_state.resolve(rescale), k_sz=k_sz,
+                          v_sz=v_sz)
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts, strict=True))
+
+
 # ----------------------------------------------------------- CUDA launches
 def flash_decode(q, k, v, length, *, scale, block=512, rescale=None):
     """K7: single-pass untransposed decode. q [BG,H,Dk]; k [BG,S,Dk];
@@ -99,21 +134,11 @@ def flash_decode(q, k, v, length, *, scale, block=512, rescale=None):
     GQA cache k, v [B,S,K,hd] read in place as its grouped form (BG = B·K);
     length [BG].  The kernel walks 64-row tiles and reads rows past S as
     zero (no padded copy).  Returns [BG,H,Dv] in v's dtype."""
-    dev = device_of(q, k, v, length)
-    if dev.type == "cpu":
+    if device_of(q, k, v, length).type == "cpu":
         return flash_decode_plain(q, k, v, length, scale=scale, block=block,
                                   rescale=rescale)
-    lib, args, keep = dense_operands(q, k, v, length,
-                                     widths="flash_decode_widths",
-                                     what="flash_decode")
-    B, H, _ = q.shape
-    out = torch.empty(B, H, v.shape[-1], dtype=v.dtype, device=dev)
-    flash_decode.launches += 1
-    build.check(lib.flash_decode(
-        *args, ptr(out), B, H, float(scale), amla_flag(rescale), stream(dev)),
-        "flash_decode")
-    del keep
-    return out
+    return dense_single(flash_decode, "flash_decode", "flash_decode_widths",
+                        q, k, v, length, scale=scale, rescale=rescale)
 
 
 def flash_decode_partial(q, k, v, length, *, scale, plan, rescale=None):
@@ -121,28 +146,46 @@ def flash_decode_partial(q, k, v, length, *, scale, plan, rescale=None):
     geometry of :func:`repro_torch.kernels.etap.etap.etap_partial_dense`.
     Returns fp32 (m [BG,n,H], l [BG,n,H], acc [BG,n,H,Dv]) for
     :func:`repro_torch.kernels.etap.combine.combine_splits_std`."""
-    dev = device_of(q, k, v, length)
-    if dev.type == "cpu":
+    if device_of(q, k, v, length).type == "cpu":
         return flash_decode_partial_plain(q, k, v, length, scale=scale,
                                           plan=plan, rescale=rescale)
-    lib, args, keep = dense_operands(q, k, v, length,
-                                     widths="flash_decode_widths",
-                                     what="flash_decode_partial")
-    tps = dense_split_tiles(k.shape[1], plan, what="flash_decode_partial")
-    B, H, _ = q.shape
-    n = plan.n_splits
-    f32 = dict(dtype=torch.float32, device=dev)
-    m = torch.empty(B, n, H, **f32)
-    l = torch.empty(B, n, H, **f32)
-    acc = torch.empty(B, n, H, v.shape[-1], **f32)
-    flash_decode_partial.launches += 1
-    build.check(lib.flash_decode_partial(
-        *args, m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, H, n, tps,
-        float(scale), amla_flag(rescale), stream(dev)),
-        "flash_decode_partial")
-    del keep
-    return m, l, acc
+    return dense_partial(flash_decode_partial, "flash_decode_partial",
+                         "flash_decode_widths", q, k, v, length, plan=plan,
+                         transposed=False, scale=scale, rescale=rescale)
+
+
+def flash_decode_quant(q, k, v, length, *, k_sz, v_sz, scale, block=512,
+                       rescale=None):
+    """K7q: single-pass untransposed decode over int8 / fp8 code rows.  q
+    [BG,H,Dk] bf16 or fp32; k, v code rows as :func:`flash_decode` takes
+    them (``k[..., :Dv]`` with ``v_sz = k_sz`` for the latent: read in
+    place) and k_sz, v_sz their fp32 (scale, zp) rows [..., 2].  Returns
+    [BG,H,Dv] fp32."""
+    if device_of(q, k, v, length, k_sz, v_sz).type == "cpu":
+        return flash_decode_quant_plain(q, k, v, length, k_sz=k_sz,
+                                        v_sz=v_sz, scale=scale, block=block,
+                                        rescale=rescale)
+    return dense_single(flash_decode_quant, "flash_decode_quant",
+                        "flash_decode_quant_widths", q, k, v, length,
+                        scale=scale, rescale=rescale, k_sz=k_sz, v_sz=v_sz)
+
+
+def flash_decode_partial_quant(q, k, v, length, *, k_sz, v_sz, scale, plan,
+                               rescale=None):
+    """K8q: split-KV phase 1 of the baseline over code rows under
+    ``plan``.  Returns fp32 (m [BG,n,H], l [BG,n,H], acc [BG,n,H,Dv])."""
+    if device_of(q, k, v, length, k_sz, v_sz).type == "cpu":
+        return flash_decode_partial_quant_plain(q, k, v, length, k_sz=k_sz,
+                                                v_sz=v_sz, scale=scale,
+                                                plan=plan, rescale=rescale)
+    return dense_partial(flash_decode_partial_quant,
+                         "flash_decode_partial_quant",
+                         "flash_decode_quant_widths", q, k, v, length,
+                         plan=plan, transposed=False, scale=scale,
+                         rescale=rescale, k_sz=k_sz, v_sz=v_sz)
 
 
 flash_decode.launches = 0
 flash_decode_partial.launches = 0
+flash_decode_quant.launches = 0
+flash_decode_partial_quant.launches = 0

@@ -20,11 +20,16 @@ def flash_decode(q, k, v, length=None, *, spec):
                            block=spec.block, rescale=spec.rescale)
 
 
-def flash_decode_splitkv(q, k, v, length=None, *, spec):
+def flash_decode_splitkv(q, k, v, length=None, *, spec, k_sz=None,
+                         v_sz=None):
     """Two-phase split-KV baseline decode (the ETAP path's scheduler;
     spec.kv_splits None/0 → auto, 1 → single-pass K7, else K8 + the
-    [n,H,Dv] combine K2)."""
+    [n,H,Dv] combine K2).  ``k_sz`` / ``v_sz``: the (scale, zp) rows of
+    int8 / fp8 code rows k, v — K7q / K8q run and the output is fp32."""
+    quant = k_sz is not None
     return splitkv.decode_splitkv(
-        q, k, v, length, spec=spec, single=FD.flash_decode,
-        partial=FD.flash_decode_partial,
-        combine=combine_mod.combine_splits_std)
+        q, k, v, length, spec=spec,
+        single=FD.flash_decode_quant if quant else FD.flash_decode,
+        partial=FD.flash_decode_partial_quant if quant
+        else FD.flash_decode_partial,
+        combine=combine_mod.combine_splits_std, k_sz=k_sz, v_sz=v_sz)

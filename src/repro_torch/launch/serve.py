@@ -27,8 +27,16 @@ without MoE (``qwen3_8b``, ``granite_20b``, ``smollm_360m``,
 ``stablelm_1_6b``; on the card the decode kernels take head_dim 128), or
 Falcon-Mamba-7B.  A GQA model decodes through the dense kernels K5-K8 over
 its cache's grouped rows (the paged layout gathers its pools first, as the
-reference does); its paged pools are fp only, so ``--kv-dtype int8|fp8``
-with a GQA model on the paged layout is refused (ROADMAP A5b).
+reference does).
+
+``--kv-dtype int8|fp8`` stores the paged pools as codes with per-row
+(scale, zp) pairs (per kv head for a GQA model), the pool sized to the fp
+pool's bytes, so it holds about twice the slots: DeepSeek's ETAP decode
+reads the latent code pool in place (K3q / K1q), its ``--mode standard``
+and a GQA model (either mode) gather codes and pairs for the quantized
+dense kernels K5q-K8q; chunked prefill runs K4q (DeepSeek) or the plain
+product on the dequantized rows (GQA).  The dense layout takes the flag and
+ignores it, as the reference's ``run_dense`` does.
 
 ``--arch falcon_mamba_7b`` serves Falcon-Mamba-7B on the dense layout (its
 prefill runs the selective-scan kernel in every layer); its state is per
@@ -524,15 +532,6 @@ def parse_args(argv=None):
         ap.error("--trace-out/--profile-kernels require --cache-layout "
                  "paged: the dense loop has no per-request lifecycle or "
                  "per-launch entries to record")
-    if args.kv_dtype != "fp" and args.cache_layout == "paged" \
-            and get_config(args.arch).attention_kind == "full":
-        ap.error(f"--kv-dtype {args.kv_dtype} with --arch {args.arch}: "
-                 "quantized GQA pools are not yet ported (ROADMAP A5b)")
-    if args.kv_dtype != "fp" and args.mode == "standard" \
-            and args.cache_layout == "paged":
-        ap.error("--mode standard with --kv-dtype int8/fp8: the baseline "
-                 "over a quantized pool (ROADMAP A12) is not yet ported to "
-                 "repro_torch")
     for flag, (served, what) in _NOT_PORTED.items():
         if getattr(args, flag) != served:
             ap.error(f"--{flag.replace('_', '-')}: {what} is not yet ported "

@@ -15,10 +15,19 @@ kernels do not stride over), and chunked prefill is the reference's plain
 masked product.  Scores and probabilities are fp32, as the reference's
 ``preferred_element_type=float32`` products make them.
 
+The paged pools may hold int8 / fp8 codes (``--kv-dtype``), each kv head's
+``hd``-vector of a row its own quantization granule with its own (scale,
+zp) in the "k_sz" / "v_sz" pools [N, page, K, 2]: rows are quantized on
+write; decode gathers codes and pairs and runs the quantized kernels K5q /
+K6q (etap) or K7q / K8q (standard) with q in fp32, where the reference
+gathers the rows dequantized to fp32 and runs K5-K8 on them; chunked
+prefill dequantizes the gathered rows for its fp32 product, as the
+reference does.
+
 The Pallas prefill kernel of the reference (``kernels/flash_prefill``) is
 reached only from its own ``ops.py`` and is not ported yet (ROADMAP A9);
-local-window attention (A8), draft verification (A2) and quantized GQA
-pools (A5b) are not ported either.
+local-window attention (A8) and draft verification (A2) are not ported
+either.
 """
 from __future__ import annotations
 
@@ -67,17 +76,20 @@ def causal_attention(q, k, v, *, scale: float, q_block: int = 512):
 
 
 # ------------------------------------------------------------------- decode
-def gqa_decode(q, k_cache, v_cache, length, *, spec: AttnSpec):
+def gqa_decode(q, k_cache, v_cache, length, *, spec: AttnSpec, k_sz=None,
+               v_sz=None):
     """One-token decode against a [B,S,K,hd] cache: q [B,H,hd], length [B]
     → [B,H,Dv].  spec.mode picks ETAP (the paper) or the untransposed
     baseline, spec.kv_splits the split count (None = auto).  The cache
     decodes as its grouped form (row b·K + kh holds G = H/K query columns),
     read in place by the kernels (:func:`repro_torch.core.etap
-    .gqa_grouped_view`)."""
+    .gqa_grouped_view`).  ``k_sz`` / ``v_sz``: the (scale, zp) rows
+    [B,S,K,2] of a code cache, read in place the same way; the output is
+    then fp32."""
     K = k_cache.shape[2]
     qg, kg, vg, restore = gqa_grouped_view(q.contiguous(), k_cache, v_cache)
     return restore(decode_attention(qg, kg, vg, length.repeat_interleave(K),
-                                    spec=spec))
+                                    spec=spec, k_sz=k_sz, v_sz=v_sz))
 
 
 # --------------------------------------------------------- attention module
@@ -150,64 +162,78 @@ def attention_decode(params, cfg, x, cache, pos: int, *,
     return layers.dense(o.reshape(B, -1), params["w_o"]), {"k": kc, "v": vc}
 
 
-def _check_fp(cache) -> None:
-    if "k_sz" in cache:
-        raise NotImplementedError(
-            "quantized GQA pools are not ported yet: ROADMAP A5b")
-
-
 def _append_paged_kv(cache, table, lengths, k, v):
     """Append one row per sequence (k, v [B,K,hd]) or a chunk ([B,C,K,hd])
-    into the paged {"k", "v"} pools through the table, in place.  Returns
-    the cache dict."""
-    _check_fp(cache)
-    app = paged_cache.append_chunk if k.dim() == 4 else paged_cache.append_rows
+    into the paged {"k", "v"} pools through the table, in place; a code
+    cache quantizes the rows on write, each kv head's hd-vector with its
+    own (scale, zp) in "k_sz" / "v_sz".  Returns the cache dict."""
+    chunked = k.dim() == 4
+    if "k_sz" in cache:
+        app = (paged_cache.append_chunk_quant if chunked
+               else paged_cache.append_rows_quant)
+        kc, k_sz = app(cache["k"], cache["k_sz"], table, lengths, k)
+        vc, v_sz = app(cache["v"], cache["v_sz"], table, lengths, v)
+        return {"k": kc, "v": vc, "k_sz": k_sz, "v_sz": v_sz}
+    app = paged_cache.append_chunk if chunked else paged_cache.append_rows
     return {"k": app(cache["k"], table, lengths, k),
             "v": app(cache["v"], table, lengths, v)}
 
 
 def _gather_paged_kv(cache, table):
-    """Dense [B, nb·page, K, hd] copies of the paged pools through the
-    table (the reference's gather route: the GQA decode and chunked prefill
-    attend over the gathered rows)."""
-    _check_fp(cache)
-    return (paged_cache.gather_blocks(cache["k"], table),
-            paged_cache.gather_blocks(cache["v"], table))
+    """Dense [B, nb·page, K, *] copies of the paged pools through the table
+    (the reference's gather route: the GQA decode and chunked prefill
+    attend over the gathered rows): {"k", "v"}, and for a code cache also
+    the gathered (scale, zp) rows {"k_sz", "v_sz"} [B, S, K, 2]."""
+    return {key: paged_cache.gather_blocks(pool, table)
+            for key, pool in cache.items()}
 
 
 def attention_decode_paged(params, cfg, x, cache, table, lengths, *,
                            spec: AttnSpec | None = None):
     """One-token decode against the paged cache: {"k", "v"} pools
-    [num_blocks, page, K, hd], the shared block table [B,max_blocks] and
-    per-sequence lengths [B] (row b's new token lands at lengths[b]).  The
-    new rows are appended through the table, the pools gathered to the
-    dense [B,S,K,hd] layout, and :func:`gqa_decode` runs over them with the
-    page as the split block, as in the reference.  Returns (out [B,D],
-    cache) — the pools are updated in place."""
+    [num_blocks, page, K, hd] (and, for int8 / fp8 codes, their (scale, zp)
+    pools "k_sz", "v_sz" [num_blocks, page, K, 2]), the shared block table
+    [B,max_blocks] and per-sequence lengths [B] (row b's new token lands at
+    lengths[b]).  The new rows are appended through the table, the pools
+    gathered to the dense [B,S,K,*] layout, and :func:`gqa_decode` runs
+    over them with the page as the split block, as in the reference.  Over
+    codes q is taken in fp32 and the fp32 output is cast back to x's dtype
+    before ``w_o``, as the reference does.  Returns (out [B,D], cache) —
+    the pools are updated in place."""
     spec = spec or AttnSpec()
     _check_full(cfg)
     B = x.shape[0]
     positions = lengths[:, None].to(torch.int32)
     q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
     cache = _append_paged_kv(cache, table, lengths, k[:, 0], v[:, 0])
-    kd, vd = _gather_paged_kv(cache, table)
-    o = gqa_decode(q[:, 0], kd, vd, lengths + 1,
+    rows = _gather_paged_kv(cache, table)
+    q = q[:, 0]
+    if "k_sz" in rows:
+        q = q.float()                  # match the dequantized fp32 rows
+    o = gqa_decode(q, rows["k"], rows["v"], lengths + 1,
                    spec=spec.replace(scale=cfg.resolved_head_dim ** -0.5,
-                                     block=cache["k"].shape[1]))
-    return layers.dense(o.reshape(B, -1), params["w_o"]), cache
+                                     block=cache["k"].shape[1]),
+                   k_sz=rows.get("k_sz"), v_sz=rows.get("v_sz"))
+    return layers.dense(o.reshape(B, -1).to(x.dtype), params["w_o"]), cache
 
 
 def _attention_chunk(params, cfg, x, cache, table, lengths, positions):
     """Append the chunk's K/V rows through the table, gather the pools, and
     run the masked chunk-against-context product: key position p is live
     for chunk row c iff p <= positions[b, c].  The G query heads of a kv
-    head attend to its rows directly (no [B,S,H,hd] expansion).  Returns
+    head attend to its rows directly (no [B,S,H,hd] expansion).  A code
+    cache's gathered rows are dequantized to fp32 first, as the reference
+    does (its chunk route is a plain product, no kernel).  Returns
     (out [B,C,D], cache)."""
     B, C, _ = x.shape
     H, K = cfg.num_heads, cfg.num_kv_heads
     q, k, v = _project_qkv(params, cfg, x, positions)  # [B,C,H,hd],[B,C,K,hd]
     cache = _append_paged_kv(cache, table, lengths, k, v)
-    kd, vd = _gather_paged_kv(cache, table)                   # [B,S,K,hd]
+    rows = _gather_paged_kv(cache, table)                     # [B,S,K,*]
+    kd, vd = rows["k"], rows["v"]
+    if "k_sz" in rows:
+        kd = paged_cache.dequantize_rows(kd, rows["k_sz"])
+        vd = paged_cache.dequantize_rows(vd, rows["v_sz"])
     S = kd.shape[1]
     qg = q.float().reshape(B, C, K, H // K, -1)
     s = torch.einsum("bckgd,bskd->bkgcs", qg, kd.float()) * \
@@ -246,15 +272,19 @@ def init_attention_cache(cfg, batch: int, max_len: int, dtype, *,
 def init_attention_cache_paged(cfg, layout, dtype, kv_dtype: str = "fp", *,
                                device="cuda"):
     """Paged {"k", "v"} pools [num_blocks, page, K, hd] (block 0 = the
-    reserved null block).  Only the fp layout is ported: int8 / fp8 GQA
-    pools need the fp32-input K5/K6 the reference runs on their dequantized
-    rows (ROADMAP A5b)."""
+    reserved null block).  kv_dtype "int8" / "fp8": the pools hold codes
+    (zero bits), and "k_sz" / "v_sz" [num_blocks, page, K, 2] hold each
+    row's per-kv-head (scale, zp), initialised to scale 1 and zp 0 so the
+    all-zero rows decode to exact zeros (the reference's layout)."""
     _check_full(cfg)
-    if kv_dtype != "fp":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r} GQA pools are not ported yet: ROADMAP "
-            "A5b")
     shape = (layout.num_blocks, layout.block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    qdt = paged_cache.quant_dtype(kv_dtype)
+    if qdt is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    sz = torch.zeros(shape[:3] + (2,), dtype=torch.float32, device=device)
+    sz[..., 0] = 1.0                                     # scale 1, zp 0
+    codes = [torch.zeros(shape, dtype=torch.uint8, device=device).view(qdt)
+             for _ in "kv"]
+    return {"k": codes[0], "v": codes[1], "k_sz": sz, "v_sz": sz.clone()}

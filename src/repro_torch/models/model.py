@@ -206,10 +206,11 @@ def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     block table the scheduler owns (runtime/paged_cache.BlockPool).
     Returns a list of per-layer dicts: {"c": latent pool} for MLA, where
     kv_dtype "int8" / "fp8" stores codes and adds the per-row (scale, zp)
-    pool under "c_sz"; {"k", "v": [N, page, K, hd]} for GQA, in fp only
-    (quantized GQA pools: ROADMAP A5b).  Every
-    later path (decode, chunked prefill, block copy, swap) keys off the
-    dict, so the layout is chosen here once.  Attention-only stacks: a
+    pool under "c_sz"; {"k", "v": [N, page, K, hd]} for GQA, where a
+    quantized layout adds "k_sz" / "v_sz" [N, page, K, 2] (one (scale, zp)
+    per row and kv head).  Every later path (decode, chunked prefill,
+    block copy, swap) keys off the dict, so the layout is chosen here
+    once.  Attention-only stacks: a
     recurrent or SSM state is per sequence, not per token, so there is
     nothing to page (the reference's ``ValueError``)."""
     for kind in cfg.layer_kinds():

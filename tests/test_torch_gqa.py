@@ -3,7 +3,8 @@ weights: the dense decode kernels' plain versions at GQA shapes against
 the Pallas kernels in interpret mode, the grouped form of the cache, the
 attention module (qk-norm, rope, full causal attention, dense and paged
 decode, chunked paged prefill), the model on both cache layouts, the serve
-loops, and the refusals of what is not ported (A5b).
+loops, and what was refused before quantized GQA pools were ported (the
+separate-V paged pools, A5b(b), still are).
 
 Configs: reduced Qwen3-8B with 2 kv heads for 4 heads (G = 2: plain
 ``reduced()`` gives qwen3 4 kv heads for 4 heads, which is MHA) and reduced
@@ -380,27 +381,40 @@ def test_serve_loops_tokens_equal_jax(weights, mode):
 # (model.paged_row_bytes against the reference for every arch, GQA ones
 # included, and every layout: tests/test_torch_quant.py)
 def test_quantized_gqa_pools_refused():
-    """--kv-dtype int8|fp8 with a GQA arch on the paged layout is refused
-    at parse time, and init_paged_cache refuses a quantized GQA pool, both
-    naming A5b; the dense layout takes and ignores the flag, as the
-    reference's run_dense does."""
+    """Quantized GQA pools were refused (ROADMAP A5b) and are ported now:
+    --kv-dtype int8|fp8 with a GQA arch on the paged layout parses, and
+    init_paged_cache builds the reference's {"k", "v", "k_sz", "v_sz"}
+    pools (codes zero, scale 1, zp 0), bitwise; the dense layout still
+    takes and ignores the flag, as the reference's run_dense does."""
     for kvd in ("int8", "fp8"):
-        with pytest.raises(SystemExit):
-            serve.parse_args(["--arch", "qwen3_8b", "--kv-dtype", kvd])
+        assert serve.parse_args(["--arch", "qwen3_8b", "--kv-dtype",
+                                 kvd]).kv_dtype == kvd
     args = serve.parse_args(["--arch", "qwen3_8b", "--kv-dtype", "int8",
                              "--cache-layout", "dense"])
     assert args.kv_dtype == "int8"
-    _, cfg = _cfgs("qwen3_8b")
+    jcfg, cfg = _cfgs("qwen3_8b")
     lay = pc.layout_for(1, 8, block_size=4)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        model.init_paged_cache(cfg, lay, kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        attention._append_paged_kv(
-            {"k": None, "v": None, "k_sz": None, "v_sz": None}, None, None,
-            None, None)
+    for kvd in ("int8", "fp8"):
+        cache = model.init_paged_cache(cfg, lay, kv_dtype=kvd, device="cpu")
+        jcache = jmodel.init_paged_cache(jcfg, lay, kv_dtype=kvd)
+        for key in ("k", "v", "k_sz", "v_sz"):
+            want = np.asarray(jcache[0]["b0"][key][0])
+            got = pc.raw(cache[0][key]).numpy()
+            assert got.shape == want.shape, key
+            np.testing.assert_array_equal(
+                got.view(np.uint8) if got.dtype.itemsize == 1 else got,
+                want.view(np.uint8) if want.dtype.itemsize == 1 else want)
 
 
 def test_refusal_message_names_a5b(capsys):
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--arch", "granite_20b", "--kv-dtype", "fp8"])
-    assert "not yet ported (ROADMAP A5b)" in capsys.readouterr().err
+    """The GQA flag pair that was refused (A5b) serves now; what is left of
+    A5b, the separate-V paged pools, is still refused naming it."""
+    assert serve.parse_args(["--arch", "granite_20b", "--kv-dtype",
+                             "fp8"]).kv_dtype == "fp8"
+    assert capsys.readouterr().err == ""
+    q = torch.zeros(1, 4, 32)
+    pool = torch.zeros(3, 4, 32)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        core.decode_attention_paged(
+            q, pool, pool, torch.ones(1, 2, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), spec=AttnSpec(), dv=32)

@@ -294,12 +294,16 @@ def test_unported_paths_raise(weights):
     model.check_ported(qwen)                 # the GQA path is ported (A5)
     assert model.paged_row_bytes(qwen, "int8") == jmodel.paged_row_bytes(
         jreduced(jget_config("qwen3_8b")), "int8")
+    # quantized GQA pools (A5b(a)) and the baseline over a quantized pool
+    # (A12) were refused here; both are ported now and run
     lay = pc.layout_for(1, 8, block_size=8)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        model.init_paged_cache(qwen, lay, kv_dtype="int8", device="cpu")
+    qcache = model.init_paged_cache(qwen, lay, kv_dtype="int8", device="cpu")
+    assert set(qcache[0]) == {"k", "v", "k_sz", "v_sz"}
     cache = model.init_paged_cache(cfg, lay, kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        model.decode_step(params, cfg, cache, torch.zeros(1, dtype=torch.int32),
-                          spec=AttnSpec(mode="standard"), cache_layout="paged",
-                          block_table=torch.zeros(1, 1, dtype=torch.int32),
-                          lengths=torch.zeros(1, dtype=torch.int32))
+    logits, _ = model.decode_step(
+        params, cfg, cache, torch.zeros(1, dtype=torch.int32),
+        spec=AttnSpec(mode="standard"), cache_layout="paged",
+        block_table=torch.ones(1, 1, dtype=torch.int32),
+        lengths=torch.zeros(1, dtype=torch.int32))
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())

@@ -16,7 +16,9 @@ its kernels' plain versions and JAX its Pallas kernels in interpret mode:
     geometry and seed;
   * the reduced DeepSeek model on converted weights (fp32, no MoE):
     prefill then decode over quantized pools, the serve loop's prefix-cache
-    and swap contracts inside the int8 layout, and the refusals.
+    and swap contracts inside the int8 layout, and the refusals (the
+    baseline over a quantized pool is ported now; separate-V paged pools
+    are not).
 """
 import dataclasses
 
@@ -146,9 +148,8 @@ def test_row_bytes_and_layout_for_bytes_match_reference():
 @pytest.mark.parametrize("reduce", [False, True], ids=["full", "reduced"])
 def test_paged_row_bytes_match_reference(reduce):
     """model.paged_row_bytes equals the reference's for every config and
-    every layout, full and reduced (the GQA formula too, whose quantized
-    pools are not ported yet: A5b); int8 rows cost under half the bf16
-    ones."""
+    every layout, full and reduced (the GQA formula too: one (scale, zp)
+    per kv head); int8 rows cost under half the bf16 ones."""
     for arch in ARCH_IDS:
         cfg, jcfg = get_config(arch), jget_config(arch)
         if reduce:
@@ -397,13 +398,27 @@ def test_rmse_gate_vs_fp64_oracle(kv_dtype, mode):
 
 
 def test_standard_and_separate_v_over_quant_pools_refused():
-    """The untransposed baseline over a quantized pool (A12) and
-    separate-V paged pools (A5b) raise, naming their ROADMAP items."""
+    """The untransposed baseline over a quantized pool was refused (A12)
+    and is ported now: it gathers codes and pairs and runs K7q / K8q, and
+    matches the reference's standard route (which gathers the rows
+    dequantized to fp32) with one split and with two, fp32 output.
+    Separate-V paged pools (A5b) still raise, naming their ROADMAP item."""
+    from repro.core import etap as jcore
+    from repro.core.attn_spec import AttnSpec as JSpec
+    for kv_dtype in LAYOUTS:
+        q, codes, sz, table, lengths = _quant_case(9, [37, 1, 20], kv_dtype)
+        for kv_splits in (1, 2):
+            out = core_etap.decode_attention_paged(
+                q, codes, None, table, lengths, dv=DV, k_sz=sz,
+                spec=AttnSpec(scale=SCALE, mode="standard",
+                              kv_splits=kv_splits))
+            want = jcore.decode_attention_paged(
+                _to_jax(q), _to_jax(codes), None, *_jax_args(table, lengths),
+                dv=DV, k_sz=_to_jax(sz),
+                spec=JSpec(scale=SCALE, mode="standard", kv_splits=kv_splits))
+            assert out.dtype == torch.float32
+            _close(out, want)
     q, codes, sz, table, lengths = _quant_case(9, [37, 1, 20], "int8")
-    with pytest.raises(NotImplementedError, match="A12"):
-        core_etap.decode_attention_paged(
-            q, codes, None, table, lengths, dv=DV, k_sz=sz,
-            spec=AttnSpec(scale=SCALE, mode="standard"))
     for fn, extra in ((core_etap.decode_attention_paged, (lengths,)),
                       (core_etap.prefill_attention_paged, (lengths,))):
         with pytest.raises(NotImplementedError, match="A5"):
@@ -565,13 +580,13 @@ def test_serve_int8_swap_restores_bitwise(weights):
 @pytest.mark.parametrize("kv_dtype", LAYOUTS)
 def test_standard_mode_with_quant_refused_dense_layout_served(kv_dtype,
                                                               capsys):
-    """--mode standard over a quantized paged pool is refused as not yet
-    ported; the dense layout takes the flag and, as the reference's
-    run_dense does, does not read it."""
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--device", "cpu", "--mode", "standard",
-                          "--kv-dtype", kv_dtype])
-    assert "not yet ported" in capsys.readouterr().err
+    """--mode standard over a quantized paged pool was refused as not yet
+    ported (A12) and parses now; the dense layout takes the flag and, as
+    the reference's run_dense does, does not read it."""
+    args = serve.parse_args(["--device", "cpu", "--mode", "standard",
+                             "--kv-dtype", kv_dtype])
+    assert (args.mode, args.kv_dtype) == ("standard", kv_dtype)
+    assert capsys.readouterr().err == ""
     for mode in ("etap", "standard"):
         args = serve.parse_args(["--cache-layout", "dense", "--mode", mode,
                                  "--kv-dtype", kv_dtype])
