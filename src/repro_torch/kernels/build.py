@@ -66,6 +66,12 @@ SIGNATURES = {
     "flash_decode_partial": _DENSE + _SPLIT,
     "flash_decode_quant": _DENSE + _PAIRS + _SINGLE,
     "flash_decode_partial_quant": _DENSE + _PAIRS + _SPLIT,
+    # (dk, dv, stats[, code, qf32], out[3]): registers, shared memory and
+    # local memory of one dense instance
+    "etap_dense_attrs": [_I, _I, _I, _P],
+    "etap_dense_quant_attrs": [_I, _I, _I, _I, _I, _P],
+    "flash_decode_attrs": [_I, _I, _I, _P],
+    "flash_decode_quant_attrs": [_I, _I, _I, _I, _I, _P],
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P],

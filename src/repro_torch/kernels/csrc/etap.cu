@@ -17,7 +17,7 @@
 //
 // The paged kernels (K1, K3, K4) are built at the MLA latent's widths; the
 // dense ones (K5, K6) at each (Dk, Dv) of mma_tile.cuh's DenseWidths: the
-// latent (576, 512) and the 128-wide GQA head (128, 128).
+// latent (576, 512) and the GQA heads (128, 128), (64, 64) and (256, 256).
 #include "etap_body.cuh"
 
 namespace {
@@ -48,6 +48,16 @@ int etap_dv() { return LATENT_DV; }
 int etap_page() { return PAGE; }
 int etap_dense_widths(int* out, int cap) {
   return write_widths<DenseWidths>(out, cap);
+}
+
+// The registers, dynamic shared memory and local memory of the dense
+// instance K5 (stats 0) or K6 (stats 1) at (dk, dv), into out[0..2].
+int etap_dense_attrs(int dk, int dv, int stats, int* out) {
+  return with_widths<DenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    return stats ? attrs_of<true, true, kBf16, false, K, V>(out)
+                 : attrs_of<false, true, kBf16, false, K, V>(out);
+  });
 }
 
 // K3: q [B,H,DK]; pool [N,PAGE,DK]; table [B,nbt]; lengths [B];

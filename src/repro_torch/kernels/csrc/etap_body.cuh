@@ -15,8 +15,23 @@
 //     O^T += V^T P^T               [Dv, 16]   mma.sync, Dv on M
 // The widths (Dk, Dv) are template parameters: the MLA latent (576, 512),
 // where V is the first 512 columns of the same latent page (read once for
-// both products), and, for the dense kernels K5/K6 (and K5q/K6q) only, a
-// 128-wide GQA head (128, 128) with K and V in their own caches.
+// both products), and, for the dense kernels K5/K6 (and K5q/K6q) only, the
+// GQA heads (128, 128), (64, 64) and (256, 256) with K and V in their own
+// caches (mma_tile.cuh's width lists say which kernel takes which).
+//
+// Dv 64.  Acc^T [64, 16] is the grid of eight 16 x 8 tiles that S^T
+// [64, 16] is, so each of the 8 warps takes the Acc^T tile at its S^T
+// tile's coordinates (m-tile warp & 3, n-tile warp >> 2) instead of whole
+// m-tiles: the same 256 threads, launch bounds and shared-memory layout as
+// every other width, and one instantiation of one body, so the bitwise
+// contracts (split(n = 1) + K2 == single pass; a GQA cache read in place ==
+// gqa_to_grouped's copy) hold by construction.  A 4-warp instance would
+// halve the threads that load each tile and change the block shape for
+// one width.  Each Acc^T element still sums its products in the same
+// order (one mma per 16 KV rows, hi then mid then lo), so no width
+// changes the numerics.  Dv 256 gives MT = 2 m-tiles a warp (16 fp32
+// registers of Acc^T a thread) and a 64 x 264 bf16 K tile (33 KB; about
+// 51 KB of shared memory a CTA, two CTAs an SM).
 //
 // Address modes (template parameters: DENSE, and CODE, the element type of
 // K and V: bf16 rows, or int8 / e4m3 codes).  Paged (K1, K3, K4): tile j of row
@@ -105,7 +120,10 @@
 // mma.sync fragments loaded from shared memory with 32/16-bit loads, one
 // page in flight (cp.async, no double buffer; the code pages by plain
 // 16-byte loads), 16 columns per CTA so the [Dv, 16] fp32 accumulator
-// fits in registers (Dv / 16 per thread: 32 at the latent).  Removing the
+// fits in registers (Dv / 16 per thread: 32 at the latent, 4 at Dv 64).
+// G = 1 (an MHA head, StableLM, MusicGen) leaves 15 of the 16 columns as
+// padding and G = 3 (SmolLM) 13, masked like any padding column (horizon
+// INT_MIN); G = 16 (RecurrentGemma) fills the tile.  Removing the
 // per-tile re-read of the pool (wider tiles, wgmma, TMA, a pipelined ring
 // of pages) is the work of a later version.
 #pragma once
@@ -222,11 +240,15 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   static_assert(QUANT || !QF32, "fp32 q is taken by the quantized bodies");
   static_assert(DENSE || (DK == LATENT_DK && DV == LATENT_DV),
                 "the paged bodies take the latent widths");
-  static_assert(DK % 16 == 0 && DV % (16 * NWARP) == 0 && DV <= DK,
-                "DK a multiple of 16; DV of 128, within the K tile");
+  static_assert(DK % 16 == 0 && DV <= DK &&
+                    (DV % (16 * NWARP) == 0 || 2 * DV == 16 * NWARP),
+                "DK a multiple of 16; DV of 128, or 64, within the K tile");
   constexpr int KSTR = Smem<DK>::KSTR;
-  constexpr int MT = DV / (16 * NWARP);        // O^T m-tiles per warp
-  constexpr int WROWS = DV / NWARP;            // O^T rows per warp
+  // O^T [DV, 16] is DV / 16 m-tiles by 2 n-tiles of 16 x 8.  From DV 128
+  // on, each warp owns MT = DV / 128 whole m-tiles, both n-tiles; at DV 64
+  // the 8 tiles go one to a warp, the same (m, n) tile as its S^T tile.
+  constexpr int NN = DV >= 16 * NWARP ? 2 : 1; // O^T n-tiles per warp
+  constexpr int MT = 2 * DV / (16 * NWARP * NN); // O^T m-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemOf<CODE, QF32, DK>& sm =
       *reinterpret_cast<SmemOf<CODE, QF32, DK>*>(smem_raw);
@@ -265,11 +287,11 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   int j_end = j1;
   if (hmax >= j0 * PAGE) j_end = min(j1, hmax / PAGE + 1);
 
-  float acc[MT][2][4];                         // [m-tile][n-tile][fragment]
+  float acc[MT][NN][4];                        // [m-tile][n-tile][fragment]
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
+    for (int ni = 0; ni < NN; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
@@ -281,6 +303,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   }
 
   const int smi = warp & 3, sni = warp >> 2;   // this warp's S^T tile
+  // this warp's O^T tiles: m-tiles [MT wm, +MT), n-tiles [wn, +NN)
+  const int wm = NN == 2 ? warp : smi, wn = NN == 2 ? 0 : sni;
   for (int j = j0; j < j_end; ++j) {
     int rows = PAGE;
     if constexpr (DENSE) rows = min(PAGE, P.S - j * PAGE);
@@ -399,17 +423,18 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     if constexpr (!QUANT) cp_async_wait_all();
     __syncthreads();
 
-    // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [WROWS warp,
-    //      +WROWS); a code tile adds sum_r zp_r p_r to every row of its
-    //      column
+    // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [16 MT wm,
+    //      +16 MT) of columns [8 wn, +8 NN); a code tile adds sum_r zp_r
+    //      p_r to every row of its column
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      const float ca = sm.corr[8 * ni + 2 * t];
-      const float cb = sm.corr[8 * ni + 2 * t + 1];
+    for (int ni = 0; ni < NN; ++ni) {
+      const int c = 8 * (wn + ni) + 2 * t;
+      const float ca = sm.corr[c];
+      const float cb = sm.corr[c + 1];
       float za = 0.f, zb = 0.f;
       if constexpr (QUANT) {
-        za = sm.zc[8 * ni + 2 * t];
-        zb = sm.zc[8 * ni + 2 * t + 1];
+        za = sm.zc[c];
+        zb = sm.zc[c + 1];
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
@@ -431,10 +456,10 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       const bf16* r1 = r0 + KSTR;
       const bf16* r8 = r0 + 8 * KSTR;
       const bf16* r9 = r8 + KSTR;
-      uint32_t bh[2][2], bl[2][2], bm[2][2];
+      uint32_t bh[NN][2], bl[NN][2], bm[NN][2];
 #pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const int pc = (8 * ni + g) * PSTR + k0 + 2 * t;
+      for (int ni = 0; ni < NN; ++ni) {
+        const int pc = (8 * (wn + ni) + g) * PSTR + k0 + 2 * t;
         bh[ni][0] = ld32(&sm.p_hi[pc]);
         bh[ni][1] = ld32(&sm.p_hi[pc + 8]);
         bl[ni][0] = ld32(&sm.p_lo[pc]);
@@ -446,13 +471,13 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
-        const int dv = WROWS * warp + 16 * mi + g;
+        const int dv = 16 * (MT * wm + mi) + g;
         const uint32_t a0 = pack(r0[dv], r1[dv]);
         const uint32_t a1 = pack(r0[dv + 8], r1[dv + 8]);
         const uint32_t a2 = pack(r8[dv], r9[dv]);
         const uint32_t a3 = pack(r8[dv + 8], r9[dv + 8]);
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
+        for (int ni = 0; ni < NN; ++ni) {
           mma16816(acc[mi][ni], a0, a1, a2, a3, bh[ni][0], bh[ni][1]);
           if constexpr (QUANT)
             mma16816(acc[mi][ni], a0, a1, a2, a3, bm[ni][0], bm[ni][1]);
@@ -465,22 +490,22 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 
 // ---- epilogue
 #pragma unroll
-  for (int ni = 0; ni < 2; ++ni) {
+  for (int ni = 0; ni < NN; ++ni) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = 8 * ni + 2 * t + e;
+      const int col = 8 * (wn + ni) + 2 * t + e;
       const int c = c0 + col;
       if (c >= P.C) continue;
       if (STATS) {
         const size_t row = ((size_t)b * n_splits + split);
-        if (warp == 0 && g == 0) {
+        if (wm == 0 && g == 0) {             // one writer per column
           P.m_out[row * P.C + c] = sm.m[col];
           P.l_out[row * P.C + c] = sm.l[col];
         }
         float* a = P.acc_out + row * DV * P.C + c;
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
-          const int dv = WROWS * warp + 16 * mi + g;
+          const int dv = 16 * (MT * wm + mi) + g;
           a[(size_t)dv * P.C] = acc[mi][ni][e];
           a[(size_t)(dv + 8) * P.C] = acc[mi][ni][e + 2];
         }
@@ -490,7 +515,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         OT* o = static_cast<OT*>(P.out) + ((size_t)b * P.C + c) * DV;
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
-          const int dv = WROWS * warp + 16 * mi + g;
+          const int dv = 16 * (MT * wm + mi) + g;
           if constexpr (OUT_F32) {
             o[dv] = acc[mi][ni][e] / l;
             o[dv + 8] = acc[mi][ni][e + 2] / l;
@@ -516,6 +541,20 @@ int launch_mode(const Params& p, int B, int n_splits, void* stream) {
   etap_kernel<STATS, DENSE, CODE, QF32, DK, DV><<<
       grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance's registers per thread, dynamic shared memory (bytes) and
+// local memory per thread (bytes; spills) into out[0..2].
+template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV>
+int attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, etap_kernel<STATS, DENSE, CODE, QF32, DK, DV>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
+  out[2] = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 Params make_params(const void* q, const void* pool, const int* table,

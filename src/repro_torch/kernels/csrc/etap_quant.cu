@@ -14,7 +14,8 @@
 //       pool, which gathers the codes and pairs (the reference gathers and
 //       dequantizes them to fp32, repro/models/attention.py:249-260, and
 //       feeds K5 / K6 the fp32 rows: repro/kernels/etap/etap.py:154, :603).
-//       Built at mma_tile.cuh's EtapQuantDenseWidths, the 128-wide head.
+//       Built at mma_tile.cuh's EtapQuantDenseWidths, the 128- and
+//       64-wide heads.
 //
 // What bounds them on the H100: the code bytes (1 per element, plus 8 per
 // row and granule for the pair) over 3.35 TB/s, half of the bf16 rows'.
@@ -91,6 +92,28 @@ extern "C" {
 // returns their number).
 int etap_dense_quant_widths(int* out, int cap) {
   return write_widths<EtapQuantDenseWidths>(out, cap);
+}
+
+// The registers, dynamic shared memory and local memory of K5q (stats 0)
+// or K6q (stats 1) at (dk, dv) over int8 (code 0) or e4m3 (code 1) rows,
+// with fp32 q when qf32 is set, into out[0..2].
+int etap_dense_quant_attrs(int dk, int dv, int stats, int code, int qf32,
+                           int* out) {
+  return with_widths<EtapQuantDenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    auto pick = [&](auto S, auto C) {
+      constexpr bool ST = decltype(S)::value;
+      constexpr int CD = decltype(C)::value;
+      return qf32 ? attrs_of<ST, true, CD, true, K, V>(out)
+                  : attrs_of<ST, true, CD, false, K, V>(out);
+    };
+    using T = std::true_type;
+    using F = std::false_type;
+    using I8 = std::integral_constant<int, kInt8>;
+    using E4 = std::integral_constant<int, kE4m3>;
+    return stats ? (code ? pick(T{}, E4{}) : pick(T{}, I8{}))
+                 : (code ? pick(F{}, E4{}) : pick(F{}, I8{}));
+  });
 }
 
 // K3q / K1q / K4q: as K3 / K1 / K4 over an int8 (code 0) or e4m3 (code 1)

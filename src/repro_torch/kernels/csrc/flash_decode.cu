@@ -12,7 +12,7 @@
 //       for DeepSeek's latent in --mode standard; repro/models/
 //       attention.py:249-260 for a GQA pool).  Built at mma_tile.cuh's
 //       QuantDenseWidths: the latent with V its first 512 columns, and the
-//       128-wide GQA head with V in its own rows.
+//       128- and 64-wide GQA heads with V in their own rows.
 //
 // What they compute.  A CTA owns NH = 16 heads of one batch row and walks
 // that row's dense KV rows in 64-row tiles.  Per tile:
@@ -24,7 +24,10 @@
 // axis rides the M side of both products (a GQA group of G = 4 heads
 // leaves 12 of the 16 M rows empty).  (Dk, Dv) is a template parameter,
 // one instantiation per pair of mma_tile.cuh's DenseWidths: the MLA latent
-// (576, 512) and the 128-wide GQA head (128, 128).  Everything else is the
+// (576, 512) and the GQA heads (128, 128), (64, 64) and (256, 256): Acc
+// [16, Dv] gives each of the 8 warps Dv / 64 n-tiles of 8 columns (1 at
+// Dv 64, 4 at 256), and every load loop steps over its width in 16-byte
+// pieces, so no width needs code of its own.  Everything else is the
 // ETAP body's K5 — the same 64-row tiles, address modes (dense rows with a
 // zero-filled tail, a GQA cache [B, S, K, hd] read in place through its
 // kv-head stride; V the first Dv K columns or its own strided rows),
@@ -49,7 +52,8 @@
 // plus 8 per row and granule for K7q / K8q) over 3.35 TB/s (the
 // multiply-adds are 2 * H * (Dk + Dv) per row).  Acc [16, Dv] fp32 is
 // spread over the 8 warps, Dv / 8 columns each (Dv / 16 registers per
-// thread: 32 at the latent);
+// thread: 32 at the latent, 4 at Dv 64); an MHA head (G = 1) leaves 15 of
+// the 16 M rows empty (horizon INT_MIN: all masked);
 // 128 heads take 8 CTAs, each re-reading the row's tiles (the re-reads
 // mostly hit L2), as K3 does for its column tiles.  First version: the
 // fragments come from shared memory with 32/16-bit loads and one tile is in
@@ -445,6 +449,20 @@ int launch_quant(const Params& p, int code, int qf32, int dk, int dv, int B,
   });
 }
 
+// The instance's registers per thread, dynamic shared memory (bytes) and
+// local memory per thread (bytes; spills) into out[0..2].
+template <bool STATS, int CODE, bool QF32, int DK, int DV>
+int attrs_of(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, flash_decode_kernel<STATS, CODE, QF32, DK, DV>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
+  out[2] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
 Params make_params(const void* q, const void* k, long long kb, int ldk,
                    const void* v, long long vb, int ldv, int S,
                    const int* lengths, int kvh, long long kh, long long vh,
@@ -497,6 +515,36 @@ int flash_decode_widths(int* out, int cap) {
 
 int flash_decode_quant_widths(int* out, int cap) {
   return write_widths<QuantDenseWidths>(out, cap);
+}
+
+// The registers, dynamic shared memory and local memory of K7 (stats 0)
+// or K8 (stats 1) at (dk, dv), into out[0..2]; the _quant twin: K7q / K8q
+// over int8 (code 0) or e4m3 (code 1) rows, with fp32 q when qf32 is set.
+int flash_decode_attrs(int dk, int dv, int stats, int* out) {
+  return with_widths<DenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    return stats ? attrs_of<true, kBf16, false, K, V>(out)
+                 : attrs_of<false, kBf16, false, K, V>(out);
+  });
+}
+
+int flash_decode_quant_attrs(int dk, int dv, int stats, int code, int qf32,
+                             int* out) {
+  return with_widths<QuantDenseWidths>(dk, dv, [&](auto DK, auto DV) {
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    auto pick = [&](auto S, auto C) {
+      constexpr bool ST = decltype(S)::value;
+      constexpr int CD = decltype(C)::value;
+      return qf32 ? attrs_of<ST, CD, true, K, V>(out)
+                  : attrs_of<ST, CD, false, K, V>(out);
+    };
+    using T = std::true_type;
+    using F = std::false_type;
+    using I8 = std::integral_constant<int, kInt8>;
+    using E4 = std::integral_constant<int, kE4m3>;
+    return stats ? (code ? pick(T{}, E4{}) : pick(T{}, I8{}))
+                 : (code ? pick(F{}, E4{}) : pick(F{}, I8{}));
+  });
 }
 
 // K7: q [B,H,dk]; K rows k + (b / kvh)*kb + (b % kvh)*kh + s*ldk for s < S

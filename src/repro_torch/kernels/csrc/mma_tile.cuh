@@ -38,15 +38,20 @@ struct Widths {
 };
 
 // The dense decode kernels (K5-K8) over bf16 rows: DeepSeek's latent, and
-// a 128-wide GQA head (Dk = Dv = head_dim: Qwen3, Granite, the Llama
-// family).  The paged kernels take the latent only.
-using DenseWidths = Widths<LATENT_DK, LATENT_DV, 128, 128>;
+// the GQA heads (Dk = Dv = head_dim) at 128 (Qwen3, Granite, LLaVA-NeXT),
+// 64 (SmolLM, StableLM, MusicGen) and 256 (RecurrentGemma's local
+// attention).  The paged kernels take the latent only.
+using DenseWidths =
+    Widths<LATENT_DK, LATENT_DV, 128, 128, 64, 64, 256, 256>;
 // The baseline over int8 / e4m3 codes (K7q, K8q): the latent, whose
-// standard mode decodes the gathered code pool, and the GQA head.
-using QuantDenseWidths = Widths<LATENT_DK, LATENT_DV, 128, 128>;
-// The ETAP dense kernels over codes (K5q, K6q): the GQA head (the latent's
-// ETAP decode reads its code pool in place through K1q / K3q).
-using EtapQuantDenseWidths = Widths<128, 128>;
+// standard mode decodes the gathered code pool, and the GQA heads a
+// quantized paged pool serves (128 and 64; RecurrentGemma's stack has no
+// paged layout).
+using QuantDenseWidths = Widths<LATENT_DK, LATENT_DV, 128, 128, 64, 64>;
+// The ETAP dense kernels over codes (K5q, K6q): the GQA heads at 128 and
+// 64 (the latent's ETAP decode reads its code pool in place through K1q /
+// K3q).
+using EtapQuantDenseWidths = Widths<128, 128, 64, 64>;
 
 // f(integral_constant<DK>, integral_constant<DV>) for the pair (dk, dv) of
 // list L, searched from entry I on; cudaErrorInvalidValue for any other

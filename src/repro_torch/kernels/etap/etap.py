@@ -1,8 +1,9 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
 The port of ``repro/kernels/etap/etap.py``: the paged kernels at the MLA
-latent's widths (Dk 576, Dv 512), the dense ones also at a 128-wide GQA
-head (Dk = Dv = 128).  Ten kernels, all one CUDA body
+latent's widths (Dk 576, Dv 512), the dense ones also at the GQA heads
+(Dk = Dv = 128, 64 and 256; ``kernels/csrc/mma_tile.cuh`` lists the pairs
+each kernel is built for).  Ten kernels, all one CUDA body
 (``kernels/csrc/etap_body.cuh``, whose header
 note says what bounds each on the H100 and how the design answers it;
 ``etap.cu`` builds the bf16 kernels from it, ``etap_quant.cu`` the
@@ -33,12 +34,13 @@ quantized ones):
      to bf16; q is bf16 or fp32 and the output takes q's dtype.
   K5q, K6q :func:`etap_decode_dense_quant`, :func:`etap_partial_dense_quant`:
      K5 and K6 over dense int8 / fp8 code rows (a GQA cache [B, S, K, hd]
-     read in place) with their (scale, zp) rows ``k_sz`` / ``v_sz``, at the
-     128-wide head: the GQA decode over a quantized paged pool, which
-     gathers codes and pairs where the reference gathers them dequantized
-     to fp32 and hands K5 / K6 the fp32 rows (the same two ``pallas_call``
-     sites, ``etap.py:154, :603``).  Codes and affine as in K3q; q bf16 or
-     fp32; the output is fp32, as the reference's (V's fp32 type).
+     read in place) with their (scale, zp) rows ``k_sz`` / ``v_sz``, at
+     the 128- and 64-wide heads: the GQA decode over a quantized paged
+     pool, which gathers codes and pairs where the reference gathers them
+     dequantized to fp32 and hands K5 / K6 the fp32 rows (the same two
+     ``pallas_call`` sites, ``etap.py:154, :603``).  Codes and affine as
+     in K3q; q bf16 or fp32; the output is fp32, as the reference's (V's
+     fp32 type).
 
 Each wrapper dispatches on the device of its operands: CPU tensors run the
 ``*_plain`` version, CUDA tensors launch the kernel (or raise on a shape or

@@ -18,10 +18,11 @@ bounds it on the H100):
   K8 :func:`flash_decode_partial`   split-KV phase 1, Acc [B,n,H,Dv]
      (replaces ``repro/kernels/flash_decode/flash_decode.py:168``)
 
-Both at the MLA latent's widths (Dk 576, Dv 512) and at a 128-wide GQA
-head (Dk = Dv = 128), whose cache [B, S, K, hd] they read in place as its
-grouped form [B·K, S, hd] (:mod:`repro_torch.kernels.splitkv`).  Their
-quantized twins, at the same two widths:
+Both at the MLA latent's widths (Dk 576, Dv 512) and at the GQA heads
+(Dk = Dv = 128, 64 and 256: ``kernels/csrc/mma_tile.cuh:DenseWidths``),
+whose cache [B, S, K, hd] they read in place as its grouped form [B·K, S,
+hd] (:mod:`repro_torch.kernels.splitkv`).  Their quantized twins, at the
+latent and the 128- and 64-wide heads (``QuantDenseWidths``):
 
   K7q :func:`flash_decode_quant`, K8q :func:`flash_decode_partial_quant`
      K7 and K8 over int8 / fp8 code rows with their (scale, zp) rows

@@ -23,11 +23,15 @@ layouts:
 
 ``--arch`` picks the model: DeepSeek-R1 (MLA, the default; cut its depth
 to the dense layers with ``--layers 3``), a full-attention GQA model
-without MoE (``qwen3_8b``, ``granite_20b``, ``smollm_360m``,
-``stablelm_1_6b``; on the card the decode kernels take head_dim 128), or
-Falcon-Mamba-7B.  A GQA model decodes through the dense kernels K5-K8 over
-its cache's grouped rows (the paged layout gathers its pools first, as the
-reference does).
+without MoE (``qwen3_8b``, ``granite_20b`` and ``llava_next_34b`` at
+head_dim 128; ``smollm_360m``, ``stablelm_1_6b`` and ``musicgen_large`` at
+64), RecurrentGemma-9B (RG-LRU and local attention at head_dim 256, dense
+layout only), or Falcon-Mamba-7B.  A GQA model decodes through the dense
+kernels K5-K8 over its cache's grouped rows (the paged layout gathers its
+pools first, as the reference does); on the card they are built at
+head_dim 64, 128 and 256 (``kernels/csrc/mma_tile.cuh``).  MusicGen's and
+LLaVA-NeXT's frontends project precomputed embeddings; serving runs in
+token space, as the reference's does.
 
 ``--kv-dtype int8|fp8`` stores the paged pools as codes with per-row
 (scale, zp) pairs (per kv head for a GQA model), the pool sized to the fp
@@ -42,6 +46,9 @@ ignores it, as the reference's ``run_dense`` does.
 prefill runs the selective-scan kernel in every layer); its state is per
 sequence, so the paged layout raises the reference's ``ValueError``, and
 ``--mode`` / ``--kv-dtype`` are accepted and not read, as in the reference.
+``--arch recurrentgemma_9b`` is the same: the dense layout (its local
+attention decodes over a ring of ``window`` rows, in either ``--mode``),
+and the reference's ``ValueError`` on the paged one.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 \\
         --requests 16 --prompt 512 --gen 32 --layers 3
@@ -53,6 +60,11 @@ sequence, so the paged layout raises the reference's ``ValueError``, and
         --batch 8 --requests 16 --prompt 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
         --reduced --device cpu --batch 2 --prompt 24 --gen 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \\
+        --batch 8 --requests 16 --prompt 512 --gen 32 --kv-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma_9b --cache-layout dense --batch 1 \\
+        --prompt 4096 --gen 32
 
 Flags of the reference that this port does not serve yet are refused with
 a "not yet ported" error, never ignored.
@@ -202,6 +214,7 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     :func:`repro_torch.models.convert.params_from_jax`); None draws them
     from the port's own seeded init.  Returns the outputs per request id
     and the run's counters and timings."""
+    model.check_pageable(cfg)            # before any weights are made
     reg = telemetry.MetricsRegistry()
     if params is None:
         params = model.init(cfg, seed=args.seed, device=device)

@@ -1,8 +1,9 @@
-"""Attention layers of the GQA family (full causal attention) — the port of
-``repro/models/attention.py``: the full-sequence causal attention of the
-dense prefill, the attention module (projections, qk-norm, rope), decode
-over the dense [B, S, K, hd] cache and over the paged {"k", "v"} pools, and
-chunked paged prefill.
+"""Attention layers of the GQA family — the port of
+``repro/models/attention.py``: the full-sequence causal and sliding-window
+(local) attention of the dense prefill, the attention module (projections,
+qk-norm, rope), decode over the dense [B, S, K, hd] cache (a ring buffer of
+``window`` rows for local attention) and over the paged {"k", "v"} pools,
+and chunked paged prefill.
 
 Decode runs the dense decode kernels of :mod:`repro_torch.core.etap` over
 the cache in its grouped form (:func:`gqa_decode`): B·K rows of G = H/K
@@ -24,10 +25,15 @@ gathers the rows dequantized to fp32 and runs K5-K8 on them; chunked
 prefill dequantizes the gathered rows for its fp32 product, as the
 reference does.
 
+Local attention (RecurrentGemma) keeps its dense ring buffer: decode
+writes slot ``pos % Smax`` of a cache of ``min(max_len, window)`` rows and
+attends over ``min(pos + 1, Smax)`` of them, through the same decode
+kernels as full attention.  A window never pages: the paged entries refuse
+it, as the reference's do.
+
 The Pallas prefill kernel of the reference (``kernels/flash_prefill``) is
 reached only from its own ``ops.py`` and is not ported yet (ROADMAP A9);
-local-window attention (A8) and draft verification (A2) are not ported
-either.
+nor is draft verification (A2).
 """
 from __future__ import annotations
 
@@ -72,6 +78,37 @@ def causal_attention(q, k, v, *, scale: float, q_block: int = 512):
         del s
         o = torch.matmul(p, vf)                                # [B,H,qb,Dv]
         out[:, i:i + q_block] = o.transpose(1, 2).to(v.dtype)
+    return out
+
+
+def local_attention(q, k, v, *, window: int, scale: float):
+    """Sliding-window causal attention, chunk = window: query chunk i
+    attends key chunks i - 1 and i under the band mask (key p live for
+    query t iff t - window < p <= t); chunk 0 has no previous chunk.  q
+    [B,S,H,D]; k, v [B,S,K,D*] with H = K·G; S a multiple of
+    min(window, S), as the reference asserts.  The G query heads of a kv
+    head attend to its rows directly, in fp32.  Returns [B,S,H,Dv] in v's
+    dtype."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    w = min(window, S)
+    if S % w:
+        raise ValueError(f"S={S} % window={w} != 0")
+    dev = q.device
+    qpos = torch.arange(w, device=dev)[:, None] + w       # within-pair coords
+    kpos = torch.arange(2 * w, device=dev)[None, :]
+    band = (qpos >= kpos) & (qpos - kpos < w)             # causal and window
+    out = torch.empty(B, S, H, v.shape[-1], dtype=v.dtype, device=dev)
+    for i in range(S // w):
+        lo = max(0, (i - 1) * w)
+        qi = q[:, i * w:(i + 1) * w].float().reshape(B, w, K, H // K, D)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qi,
+                         k[:, lo:(i + 1) * w].float()) * scale
+        valid = band if i else band[:, w:]                # no chunk before 0
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskv->bqkgv", p, v[:, lo:(i + 1) * w].float())
+        out[:, i * w:(i + 1) * w] = o.reshape(B, w, H, -1).to(v.dtype)
     return out
 
 
@@ -122,20 +159,26 @@ def _project_qkv(params, cfg, x, positions):
     return q, k, v
 
 
-def _check_full(cfg) -> None:
+def _check_paged(cfg) -> None:
+    """The paged pools hold full attention only: a local window keeps its
+    dense ring buffer (the reference asserts the same)."""
     if cfg.attention_kind != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention_kind} attention is not ported yet "
-            "(local windows: ROADMAP A8)")
+        raise ValueError(
+            f"{cfg.name}: paged cache supports full attention (local "
+            f"windows stay dense), got {cfg.attention_kind}")
 
 
 def attention_train(params, cfg, x, positions, *, return_cache: bool = False):
-    """Full causal attention over a whole sequence, forward only.  x
-    [B,S,D]; positions [B,S].  Returns out [B,S,D], and with
-    ``return_cache`` also the cache rows {"k", "v": [B,S,K,hd]}."""
-    _check_full(cfg)
+    """Full or local causal attention (per ``cfg.attention_kind``) over a
+    whole sequence, forward only.  x [B,S,D]; positions [B,S].  Returns out
+    [B,S,D], and with ``return_cache`` also the cache rows {"k", "v":
+    [B,S,K,hd]}."""
     q, k, v = _project_qkv(params, cfg, x, positions)
-    o = causal_attention(q, k, v, scale=cfg.resolved_head_dim ** -0.5)
+    scale = cfg.resolved_head_dim ** -0.5
+    if cfg.attention_kind == "local":
+        o = local_attention(q, k, v, window=cfg.window_size, scale=scale)
+    else:
+        o = causal_attention(q, k, v, scale=scale)
     out = layers.dense(o.reshape(*x.shape[:-1], -1), params["w_o"])
     if return_cache:
         return out, {"k": k, "v": v}
@@ -146,17 +189,20 @@ def attention_decode(params, cfg, x, cache, pos: int, *,
                      spec: AttnSpec | None = None):
     """Decode over the dense cache.  x [B,D] one token; cache {"k", "v":
     [B,Smax,K,hd]}; pos the new token's position, shared by every row.  The
-    new K/V rows are written at ``pos`` in place and attention runs over
-    positions <= pos.  Returns (out [B,D], cache)."""
+    new K/V rows are written in place at row ``pos`` (full attention) or
+    ``pos % Smax`` (local attention's ring buffer), and attention runs over
+    the first ``min(pos + 1, Smax)`` rows.  Returns (out [B,D], cache)."""
     spec = spec or AttnSpec()
-    _check_full(cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
     kc, vc = cache["k"], cache["v"]
-    kc[:, pos] = k[:, 0]
-    vc[:, pos] = v[:, 0]
-    length = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    Smax = kc.shape[1]
+    slot = pos % Smax if cfg.attention_kind == "local" else pos
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = v[:, 0]
+    length = torch.full((B,), min(pos + 1, Smax), dtype=torch.int32,
+                        device=x.device)
     o = gqa_decode(q[:, 0], kc, vc, length,
                    spec=spec.replace(scale=cfg.resolved_head_dim ** -0.5))
     return layers.dense(o.reshape(B, -1), params["w_o"]), {"k": kc, "v": vc}
@@ -201,7 +247,7 @@ def attention_decode_paged(params, cfg, x, cache, table, lengths, *,
     before ``w_o``, as the reference does.  Returns (out [B,D], cache) —
     the pools are updated in place."""
     spec = spec or AttnSpec()
-    _check_full(cfg)
+    _check_paged(cfg)
     B = x.shape[0]
     positions = lengths[:, None].to(torch.int32)
     q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
@@ -253,7 +299,7 @@ def attention_prefill_chunk(params, cfg, x, cache, table, lengths, *,
     (the chunk start).  The spec is taken for parity with the MLA entry;
     this masked product has no knobs (the reference's chunk route is no
     kernel either).  Returns (out [B,C,D], cache)."""
-    _check_full(cfg)
+    _check_paged(cfg)
     C = x.shape[1]
     positions = lengths[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=x.device)[None, :]
@@ -262,9 +308,11 @@ def attention_prefill_chunk(params, cfg, x, cache, table, lengths, *,
 
 def init_attention_cache(cfg, batch: int, max_len: int, dtype, *,
                          device="cuda"):
-    """Dense cache {"k", "v": zeros [batch, max_len, K, hd]}."""
-    _check_full(cfg)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    """Dense cache {"k", "v": zeros [batch, n, K, hd]}: n = max_len, or for
+    local attention the ring buffer's min(max_len, window) rows."""
+    n = min(max_len, cfg.window_size) if cfg.attention_kind == "local" \
+        else max_len
+    shape = (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -276,7 +324,7 @@ def init_attention_cache_paged(cfg, layout, dtype, kv_dtype: str = "fp", *,
     (zero bits), and "k_sz" / "v_sz" [num_blocks, page, K, 2] hold each
     row's per-kv-head (scale, zp), initialised to scale 1 and zp 0 so the
     all-zero rows decode to exact zeros (the reference's layout)."""
-    _check_full(cfg)
+    _check_paged(cfg)
     shape = (layout.num_blocks, layout.block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     qdt = paged_cache.quant_dtype(kv_dtype)

@@ -6,9 +6,12 @@ returns the port's parameters.  The reference stacks each layer group on a
 leading axis (``repro/models/model.py:layer_groups``): ``groups[g]["b<j>"]``
 holds block j of every repeat of group g.  The port keeps one dict per
 layer, so the stacked axis is unstacked here in the reference's layer order
-(repeat i of a group runs its blocks b0, b1, ... in turn).  Every leaf
-keeps the reference's dtype: a bf16 model's weights stay bf16 and its fp32
-leaves (Mamba's ``dt_bias``, ``log_neg_A`` and ``D``) stay fp32.
+(repeat i of a group runs its blocks b0, b1, ... in turn: RecurrentGemma's
+rglru, rglru, attn superblock, then its remainder).  A frontend's
+projection (``params["frontend"]``) is carried as it is.  Every leaf keeps
+the reference's dtype: a bf16 model's weights stay bf16 and its fp32
+leaves (Mamba's ``dt_bias``, ``log_neg_A`` and ``D``; RG-LRU's
+``log_lambda``) stay fp32.
 """
 from __future__ import annotations
 
@@ -54,5 +57,8 @@ def params_from_jax(tree, device="cuda") -> dict:
         "final_norm": _tensor(tree["final_norm"], device),
         "layers": out_layers,
     }
+    if "frontend" in tree:
+        params["frontend"] = _map(tree["frontend"],
+                                  lambda a: _tensor(a, device))
     params["embed_f32"] = layers.unembed_table(params["embed"])
     return params

@@ -1,17 +1,22 @@
 """Config-driven LM — the port of ``repro/models/model.py`` for stacks of
 attention blocks with a dense (GLU MLP) FFN, the attention either MLA
-(DeepSeek) or full-causal GQA (Qwen3, Granite, SmolLM, StableLM), and for
-all-Mamba stacks (falcon-mamba): embedding → layers → head, served over the
-dense cache or (attention stacks) the paged one.
+(DeepSeek), full-causal GQA (Qwen3, Granite, SmolLM, StableLM, MusicGen,
+LLaVA-NeXT) or local GQA, for the hybrid RG-LRU / local-attention stack
+(RecurrentGemma's rglru, rglru, attn cycle) and for all-Mamba stacks
+(falcon-mamba): frontend or embedding → layers → head, served over the
+dense cache or (attention-only stacks) the paged one.
 
 The reference stacks each layer group on a leading axis and scans it with
 ``lax.scan``; the port keeps one parameter dict per layer (and one cache
 dict per layer) and loops in Python.  :func:`layer_groups` is kept as the
 reference's static plan, which tells the two apart when weights are
-converted.  A layer's cache is {"c"} (the MLA latent), {"k", "v"} (GQA) or
-{"h", "conv"} (Mamba).  MoE blocks, RG-LRU / local attention, the
-frontends, training (``loss_fn``) and ``verify_step`` are not ported yet
-(ROADMAP) and raise ``NotImplementedError``.
+converted.  A layer's cache is {"c"} (the MLA latent), {"k", "v"} (GQA;
+local attention's holds the last ``window`` rows as a ring) or {"h",
+"conv"} (Mamba, RG-LRU).  A frontend (audio, vision) projects a batch's
+precomputed embeddings (``{"embeds"}``) into the model's width; serving
+decodes in token space.  MoE blocks, training (``loss_fn``) and
+``verify_step`` are not ported yet (ROADMAP) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
-from repro_torch.models import attention, layers, mamba
+from repro_torch.models import attention, frontend, layers, mamba, rglru
 from repro_torch.runtime import paged_cache
 
 
@@ -56,20 +61,9 @@ def layer_groups(cfg) -> list:
 
 
 def check_ported(cfg) -> None:
-    """Raise unless the stack is one the port serves: every layer an MLA or
-    a full-attention GQA block with a dense MLP, or every layer a Mamba
-    block."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP A8)")
-    kinds = cfg.layer_kinds()
-    if cfg.family == "ssm" and all(k == "ssm" for k in kinds):
-        return
-    if cfg.attention_kind == "local" or any(k != "attn" for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU and local attention are not ported yet "
-            "(ROADMAP A8)")
+    """Raise unless the stack is one the port serves: attention blocks (MLA,
+    full or local GQA) and RG-LRU blocks with a dense MLP, or Mamba blocks,
+    behind the embedding or a frontend.  MoE layers are not ported."""
     for i, (_, is_moe) in enumerate(signatures(cfg)):
         if is_moe:
             raise NotImplementedError(
@@ -84,8 +78,11 @@ def _init_block(gen, cfg, kind, dtype, device):
     if kind == "ssm":                  # a Mamba block has no FFN
         return {"norm1": torch.zeros(D, dtype=dtype, device=device),
                 "mix": mamba.init_mamba(gen, cfg, dtype, device)}
-    mix = (mla_mod.init_mla if cfg.attention_kind == "mla"
-           else attention.init_attention)
+    if kind == "rglru":
+        mix = rglru.init_rglru
+    else:
+        mix = (mla_mod.init_mla if cfg.attention_kind == "mla"
+               else attention.init_attention)
     return {
         "norm1": torch.zeros(D, dtype=dtype, device=device),
         "mix": mix(gen, cfg, dtype, device),
@@ -99,7 +96,8 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
     (the port's own stream: it does not reproduce the reference's
     ``jax.random`` draws — use :mod:`repro_torch.models.convert` for the
     reference's weights).  ``embed_f32`` is the unembedding table, upcast
-    once here."""
+    once here; a config with a frontend also gets its projection
+    ``frontend``."""
     check_ported(cfg)
     dtype = cfg.torch_dtype
     gen = torch.Generator(device=device)
@@ -108,9 +106,12 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
         "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
                                    device),
         "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-        "layers": [_init_block(gen, cfg, kind, dtype, device)
-                   for kind in cfg.layer_kinds()],
     }
+    fe = frontend.init_frontend(gen, cfg, dtype, device)
+    if fe is not None:
+        params["frontend"] = fe
+    params["layers"] = [_init_block(gen, cfg, kind, dtype, device)
+                        for kind in cfg.layer_kinds()]
     params["embed_f32"] = layers.unembed_table(params["embed"])
     return params
 
@@ -120,29 +121,42 @@ def _block_seq(lp, cfg, kind, x, positions, collect_cache: bool):
     """One block over a full sequence.  Returns (x, cache rows or {}).  The
     reference's MoE aux losses are zero here: MoE is not ported."""
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    if kind == "ssm":
+    if kind in ("ssm", "rglru"):
+        fn = mamba.mamba_seq if kind == "ssm" else rglru.rglru_seq
         if collect_cache:
-            mixed, cache = mamba.mamba_seq(lp["mix"], cfg, h,
-                                           return_state=True)
+            mixed, cache = fn(lp["mix"], cfg, h, return_state=True)
         else:
-            mixed, cache = mamba.mamba_seq(lp["mix"], cfg, h), {}
-        return x + mixed, cache
-    fn = (mla_mod.mla_train if cfg.attention_kind == "mla"
-          else attention.attention_train)
-    if collect_cache:
-        mixed, cache = fn(lp["mix"], cfg, h, positions, return_cache=True)
+            mixed, cache = fn(lp["mix"], cfg, h), {}
     else:
-        mixed, cache = fn(lp["mix"], cfg, h, positions), {}
+        fn = (mla_mod.mla_train if cfg.attention_kind == "mla"
+              else attention.attention_train)
+        if collect_cache:
+            mixed, cache = fn(lp["mix"], cfg, h, positions,
+                              return_cache=True)
+        else:
+            mixed, cache = fn(lp["mix"], cfg, h, positions), {}
     x = x + mixed
+    if kind == "ssm":                  # a Mamba block has no FFN
+        return x, cache
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + layers.mlp(lp["ffn"], h2), cache
 
 
-def _hidden(params, cfg, tokens, collect_cache: bool):
-    """The final-normed hidden states [B,S,D] of a full sequence and the
-    per-layer cache rows."""
+def _embed_inputs(params, batch):
+    """A batch {"tokens": [B,S]} (or the tokens themselves) through the
+    embedding table, or {"embeds": [B,S,d_frontend]} through the frontend's
+    projection."""
+    if isinstance(batch, dict) and "embeds" in batch:
+        return frontend.apply_frontend(params["frontend"], batch["embeds"])
+    tokens = batch["tokens"] if isinstance(batch, dict) else batch
+    return layers.embed(params["embed"], tokens)
+
+
+def _hidden(params, cfg, batch, collect_cache: bool):
+    """The final-normed hidden states [B,S,D] of a full sequence (a batch
+    as :func:`_embed_inputs` takes it) and the per-layer cache rows."""
     check_ported(cfg)
-    x = layers.embed(params["embed"], tokens)
+    x = _embed_inputs(params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
@@ -154,10 +168,11 @@ def _hidden(params, cfg, tokens, collect_cache: bool):
     return x, caches
 
 
-def forward(params, cfg, tokens):
-    """Full-sequence forward.  tokens: [B,S].  Returns logits [B,S,V] fp32
-    (the reference's ``forward`` without its aux losses and cache)."""
-    x, _ = _hidden(params, cfg, tokens, collect_cache=False)
+def forward(params, cfg, batch):
+    """Full-sequence forward.  batch: tokens [B,S], {"tokens": [B,S]} or
+    {"embeds": [B,S,d_frontend]}.  Returns logits [B,S,V] fp32 (the
+    reference's ``forward`` without its aux losses and cache)."""
+    x, _ = _hidden(params, cfg, batch, collect_cache=False)
     return layers.unembed(params["embed_f32"], x)
 
 
@@ -165,13 +180,16 @@ def forward(params, cfg, tokens):
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
     """Dense serving cache, one dict per layer: {"c": [batch, max_len,
     latent]} for an MLA layer, {"k", "v": [batch, max_len, K, hd]} for a
-    GQA layer, the Mamba state {"h", "conv"} for an ssm layer."""
+    GQA layer (local attention: min(max_len, window) rows, a ring), the
+    recurrent state {"h", "conv"} for an ssm or RG-LRU layer."""
     check_ported(cfg)
     dtype = cfg.torch_dtype
 
     def one(kind):
         if kind == "ssm":
             return mamba.init_mamba_cache(cfg, batch, dtype, device=device)
+        if kind == "rglru":
+            return rglru.init_rglru_cache(cfg, batch, dtype, device=device)
         if cfg.attention_kind == "mla":
             return mla_mod.init_mla_cache(cfg, batch, max_len, dtype,
                                           device=device)
@@ -180,25 +198,43 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
     return [one(kind) for kind in cfg.layer_kinds()]
 
 
-def _pad_cache_rows(cache_rows, max_len):
+def _pad_cache_rows(cfg, kind, cache_rows, max_len):
     """Pad one layer's prefill cache rows ({"c": [B,S,latent]} or {"k",
-    "v": [B,S,K,hd]}) out to the serving length along S (a Mamba layer's
-    state passes as it is)."""
-    if "h" in cache_rows:
+    "v": [B,S,K,hd]}) out to the serving length along S (a Mamba or RG-LRU
+    layer's state passes as it is).  Local attention keeps a ring of n =
+    min(max_len, window) rows: a longer prompt keeps its last n rows, at
+    slots 0..n-1, where decode's ``pos % n`` finds them because the prompt
+    is a multiple of the window (local_attention's condition)."""
+    if kind != "attn":
         return cache_rows
+    n = max_len
+    if cfg.attention_kind == "local":
+        n = min(max_len, cfg.window_size)
+        cache_rows = {key: rows[:, -n:] for key, rows in cache_rows.items()}
     return {key: torch.nn.functional.pad(
-        rows, (0, 0) * (rows.dim() - 2) + (0, max_len - rows.shape[1]))
+        rows, (0, 0) * (rows.dim() - 2) + (0, n - rows.shape[1]))
         for key, rows in cache_rows.items()}
 
 
-def prefill(params, cfg, tokens, max_len: int):
-    """Run the prompt and build the dense serving cache.  tokens: [B,S].
-    Returns (last_logits [B,V] fp32, cache, pos = S).  Only the last row is
-    unembedded: the full [B,S,V] logits are never made."""
-    x, caches = _hidden(params, cfg, tokens, collect_cache=True)
+def prefill(params, cfg, batch, max_len: int):
+    """Run the prompt and build the dense serving cache.  batch: tokens
+    [B,S] (or a batch as :func:`forward` takes it).  Returns (last_logits
+    [B,V] fp32, cache, pos = S).  Only the last row is unembedded: the full
+    [B,S,V] logits are never made."""
+    x, caches = _hidden(params, cfg, batch, collect_cache=True)
     logits = layers.unembed(params["embed_f32"], x[:, -1])
-    return (logits, [_pad_cache_rows(c, max_len) for c in caches],
-            tokens.shape[1])
+    return (logits, [_pad_cache_rows(cfg, kind, c, max_len)
+                     for c, kind in zip(caches, cfg.layer_kinds(),
+                                        strict=True)], x.shape[1])
+
+
+def check_pageable(cfg) -> None:
+    """The reference's ``ValueError`` unless every layer is an attention
+    block: a recurrent or SSM state is per sequence, not per token."""
+    for kind in cfg.layer_kinds():
+        if kind != "attn":
+            raise ValueError(
+                f"paged cache requires an attention-only stack (got {kind})")
 
 
 def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
@@ -213,10 +249,7 @@ def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     once.  Attention-only stacks: a
     recurrent or SSM state is per sequence, not per token, so there is
     nothing to page (the reference's ``ValueError``)."""
-    for kind in cfg.layer_kinds():
-        if kind != "attn":
-            raise ValueError(
-                f"paged cache requires an attention-only stack (got {kind})")
+    check_pageable(cfg)
     check_ported(cfg)
     init = (mla_mod.init_mla_cache_paged if cfg.attention_kind == "mla"
             else attention.init_attention_cache_paged)
@@ -295,7 +328,9 @@ def _block_decode(lp, cfg, kind, x, cache, pos, spec, cache_layout, table,
         mixed, cache = mamba.mamba_decode(lp["mix"], cfg, h, cache)
         return x + mixed, cache
     mla = cfg.attention_kind == "mla"
-    if cache_layout == "paged":
+    if kind == "rglru":
+        mixed, cache = rglru.rglru_decode(lp["mix"], cfg, h, cache)
+    elif cache_layout == "paged":
         fn = mla_mod.mla_decode_paged if mla else \
             attention.attention_decode_paged
         mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec)

@@ -204,13 +204,13 @@ def test_paged_layout_refused_as_in_reference(weights):
 
 
 @pytest.mark.parametrize("arch,label", [
-    ("qwen3_8b", None), ("recurrentgemma_9b", "A8"), ("llava_next_34b", "A8"),
-    ("falcon_mamba_7b", None), ("deepseek_r1_671b", "A3"),
-    ("dbrx_132b", "A3")])
+    ("qwen3_8b", None), ("recurrentgemma_9b", None), ("llava_next_34b", None),
+    ("musicgen_large", None), ("falcon_mamba_7b", None),
+    ("deepseek_r1_671b", "A3"), ("dbrx_132b", "A3")])
 def test_check_ported_labels(arch, label):
-    """All-ssm stacks and full-attention GQA stacks without MoE are
-    admitted beside the MLA ones; the rest keep their ROADMAP labels (a GQA
-    MoE stack is refused for its MoE layers)."""
+    """All-ssm stacks, GQA stacks without MoE (full or local attention,
+    the hybrid RG-LRU cycle, behind a frontend or not) are admitted beside
+    the MLA ones; a MoE stack keeps its ROADMAP label (A3), GQA or MLA."""
     cfg = get_config(arch)
     if label is None:
         model.check_ported(cfg)
