@@ -15,6 +15,8 @@ attention, logits and caches fp32 ``atol = rtol = 2e-5`` (through three
 layers), as ``tests/test_torch_gqa.py``; the serve loops' greedy tokens
 equal (``tests/test_torch_head64.py``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,3 +244,37 @@ def test_paged_layout_refuses_hybrid(rgemma):
     with pytest.raises(ValueError, match="local windows stay dense"):
         attention.init_attention_cache_paged(cfg, lay, torch.float32,
                                              device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "musicgen_large"])
+def test_params_carry_reference_dtypes(arch):
+    """A bf16 model converts with RG-LRU's log_lambda in fp32 and every
+    other leaf (the frontend's projection too) in bf16, and the port's own
+    init builds the same leaves, dtypes and shapes."""
+    kw = dict(layers=3) if arch == "recurrentgemma_9b" else {}
+    jcfg = dataclasses.replace(jreduced(jget_config(arch), **kw),
+                               dtype="bfloat16")
+    cfg = dataclasses.replace(reduced(get_config(arch), **kw),
+                              dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0), jcfg))
+    conv = params_from_jax(tree, device="cpu")
+    own = model.init(cfg, seed=0, device="cpu")
+
+    def leaves(p, prefix=""):
+        if isinstance(p, dict):
+            for k, v in p.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        elif isinstance(p, list):
+            for i, v in enumerate(p):
+                yield from leaves(v, f"{prefix}/{i}")
+        else:
+            yield prefix, p
+
+    got = dict(leaves({k: v for k, v in conv.items() if k != "embed_f32"}))
+    want = dict(leaves({k: v for k, v in own.items() if k != "embed_f32"}))
+    assert set(got) == set(want)
+    for name, t in got.items():
+        dt = torch.float32 if name.endswith("log_lambda") else torch.bfloat16
+        assert t.dtype == want[name].dtype == dt, name
+        assert t.shape == want[name].shape, name
+    assert ("/frontend/proj" in got) == (arch == "musicgen_large")
