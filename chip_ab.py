@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Time the latent-width (Dk 576, Dv 512) decode kernels of several
-checkouts of this repository on one GPU, in turns, so that a change to the
-kernels can be held against its parent on one card in one call.
+"""Time the latent-width (Dk 576, Dv 512) decode kernels, or with
+``--prefill`` DeepSeek-R1's dense prefill, of several checkouts of this
+repository on one GPU, in turns, so that a change can be held against its
+parent on one card in one call.
 
 Each checkout runs in its own process (it builds its own kernels from its
-own sources) and times K3, K1 (n = 4), K5, K6, K7 and K8, and K3q and K1q
-(n = 4) over int8 and e4m3 pools, at chip_smoke.py's timing shapes (B 8,
-H 128, ragged context up to 4096, bf16 q) with CUDA events over 200
-launches each; the medians per checkout close the output.
+own sources).  By default it times K3, K1 (n = 4), K5, K6, K7 and K8, and
+K3q and K1q (n = 4) over int8 and e4m3 pools, at chip_smoke.py's timing
+shapes (B 8, H 128, ragged context up to 4096, bf16 q) with CUDA events
+over 200 launches each.  With ``--prefill`` it runs ``model.prefill`` on
+DeepSeek-R1 at full width cut to its 3 dense layers (random bf16 weights,
+seed 0) at dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts:
+the median wall of 5 synchronised runs (ms) and the peak device memory of
+those runs (GiB, weights included).  The medians per checkout close the
+output.
 
     git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
     python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
+    python3 chip_ab.py --prefill .proof/parent . . .proof/parent
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import sys
 
 KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K3q-fp8", "K1q-fp8")
+PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB")
 
 
 def time_one(root: str) -> dict:
@@ -69,10 +77,48 @@ def time_one(root: str) -> dict:
     return {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
 
 
+def prefill_one(root: str) -> dict:
+    sys.path[:0] = [root + "/src", root]
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cs.full_config()
+    params = model.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    out = {}
+    for tag, B, S in (("short", 8, 512), ("long", 4, 4096)):
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+        def run(toks=toks, S=S):
+            model.prefill(params, cfg, toks, S + 32)
+            torch.cuda.synchronize()
+
+        run()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"{tag}-ms"] = statistics.median(walls)
+        out[f"{tag}-GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
 def main(argv: list) -> int:
-    if argv[:1] == ["--one"]:
-        print(json.dumps(time_one(argv[1])), flush=True)
+    if argv[:1] in (["--one"], ["--one-prefill"]):
+        fn = time_one if argv[0] == "--one" else prefill_one
+        print(json.dumps(fn(argv[1])), flush=True)
         return 0
+    one, names = "--one", KERNELS
+    if argv[:1] == ["--prefill"]:
+        argv, one, names = argv[1:], "--one-prefill", PREFILL
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -81,16 +127,16 @@ def main(argv: list) -> int:
                          text=True, check=True).stdout.strip())
     runs: dict = {}
     for root in argv:
-        out = subprocess.run([sys.executable, __file__, "--one", root],
+        out = subprocess.run([sys.executable, __file__, one, root],
                              capture_output=True, text=True, check=True)
         ms = json.loads(out.stdout.strip().splitlines()[-1])
         runs.setdefault(root, []).append(ms)
-        print(root, " ".join(f"{n} {ms[n]:.4f}" for n in KERNELS),
+        print(root, " ".join(f"{n} {ms[n]:.4f}" for n in names),
               flush=True)
     for root, rs in runs.items():
         print(f"median of {len(rs)} {root}: " + " ".join(
             f"{n} {statistics.median(r[n] for r in rs):.4f}"
-            for n in KERNELS))
+            for n in names))
     return 0
 
 

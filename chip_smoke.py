@@ -54,7 +54,15 @@ Phases, each of which fails the run when it fails:
              fp64 oracle on the unquantized rows with the phases' lengths
              (the reference's gate where the reference's own route meets
              it, else within 1% of that route), the reference's RMSE test
-             at its geometry for K7q and K8q + K2, and their times;
+             at its geometry for K7q and K8q + K2, and their times; and
+             K9, the causal prefill, at (D, Dv) = (192, 128), (128, 128)
+             and (64, 64) against its plain version in both rescale modes,
+             at the dense serve phases' prefill shapes (DeepSeek B 4 x
+             4096 and B 8 x 512 at H 128, Qwen3 G 4, LLaVA G 7, StableLM G
+             1), a SmolLM (G 3) and an MQA (G 48) shape and a ragged S 200
+             at each width, rows [:T] bitwise a call on the first T rows,
+             with each width's time, its plain version's, its bound and
+             SDPA's (is_causal, enable_gqa);
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -65,7 +73,7 @@ Phases, each of which fails the run when it fails:
              K1q + K2, K8q + K2 [n,H,Dv]); K4 or K4q runs every prefill;
   4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
              (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
-             [n,H,Dv]);
+             [n,H,Dv]), each prefill launching K9 once a layer;
   5. decode  one full-width decode step over the paged cache, the same
              step over an int8 pool, and in the standard mode over an fp8
              pool (K7q), the split-KV step of serve-long-int8 (int8, 7
@@ -76,6 +84,10 @@ Phases, each of which fails the run when it fails:
              same weights and cache: logits agree, greedy tokens agree;
              then one paged step under torch.profiler: its wall time,
              the device's busy and idle share of it, device time by kernel;
+             then dense-long's B 4 x 4096 prefill through K9 and through
+             its plain version (check_step's floor-based gate on the last
+             position's logits), and one such prefill under torch.profiler
+             (wall, busy, K9's share);
   6. serve   ``run_dense`` on Falcon-Mamba-7B at full width and all 64
              layers (bf16, random weights from a seed; DeepSeek's
              parameters freed first): mamba-short (B 8 x 512, 32 tokens)
@@ -110,6 +122,11 @@ Phases, each of which fails the run when it fails:
              attention output (before w_o) through the kernels held to the
              plain path's at the per-kernel tolerance, over fp, int8 and
              fp8 pools with one split (K5, K5q) and three (K6 / K6q + K2);
+             then qwen-dense's B 8 x 512 prefill through K9 and through its
+             plain version (as DeepSeek's), and the per-layer check of the
+             prefill: each layer's causal attention through K9 on the
+             plain path's q, k, v, held to the plain output at the
+             per-kernel tolerance;
  10. widths  the last dense-decode widths, each model at full width, the
              one before freed first: SmolLM-360M (32 layers, G = 3,
              head_dim 64), paged, smol-short / smol-short-std (B 8 x 512,
@@ -149,11 +166,15 @@ at 64 and 256 (``[64]``, ``[256]``) on a main-path call of a 64- or
 quantized dense kernel (K5q-K8q, ``[width,code]`` entries) must launch on a
 serve phase, and each of its (width, code type) pairs on a main-path call
 (a serve phase or a full-width decode-step check, whose kernel path's
-launches are counted as well).  The line before the last is the
+launches are counted as well).  K9 (``flash_prefill[D,Dv]`` entries) must
+launch once a full-attention layer of every dense serve phase's prefill,
+and never on the paged layout; its widths are credited from the serve
+phases, [192,128] on dense-short / -long, [128,128] on qwen-dense and
+llava-dense, [64,64] on stablelm-dense.  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
-    python3 chip_smoke.py --quick    # phases 1-2 (K10 too), one iteration
+    python3 chip_smoke.py --quick    # phases 1-2 (K10, K9 too), one iteration
 """
 from __future__ import annotations
 
@@ -1809,6 +1830,121 @@ def phase_scan(quick: bool, report: dict) -> None:
                                 "library_ms": None}
 
 
+# ------------------------------------------- phase 2: K9 (causal prefill)
+# the causal prefill kernel at each (D, Dv) it is built for: entry -> (the
+# TPU kernel it replaces, its CUDA source, the wrapper, (D, Dv)).  Launches
+# are counted on the dense serve phases of the models of that width:
+# [192,128] DeepSeek-R1's decompressed MLA heads, [128,128] Qwen3-8B and
+# LLaVA-NeXT, [64,64] StableLM-1.6B
+PREFILL_WIDTHS = ((192, 128), (128, 128), (64, 64))
+PREFILL_KERNELS = {
+    f"flash_prefill[{d},{dv}]": (
+        "src/repro/kernels/flash_prefill/flash_prefill.py:78",
+        _CSRC + "flash_prefill.cu", "flash_prefill", (d, dv))
+    for d, dv in PREFILL_WIDTHS}
+# (tag, (D, Dv), B, S, H, K): the dense serve phases' prefill shapes, a
+# SmolLM and an MQA shape (G = 3, G = 48) and a ragged S at each width
+PREFILL_CASES = [
+    ("dense-long MLA", (192, 128), 4, 4096, 128, 128),
+    ("dense-short MLA", (192, 128), 8, 512, 128, 128),
+    ("ragged MLA", (192, 128), 2, 200, 128, 128),
+    ("qwen-dense G=4", (128, 128), 8, 512, 32, 8),
+    ("llava-dense G=7", (128, 128), 4, 512, 56, 8),
+    ("granite MQA G=48", (128, 128), 2, 2048, 48, 1),
+    ("ragged G=4", (128, 128), 2, 200, 32, 8),
+    ("stablelm-dense G=1", (64, 64), 8, 512, 32, 32),
+    ("smollm G=3", (64, 64), 8, 512, 15, 5),
+    ("ragged G=3", (64, 64), 2, 200, 15, 5),
+]
+# the shape each width is timed at: its main serve phase's prefill
+PREFILL_TIMED = {(192, 128): "dense-long MLA", (128, 128): "qwen-dense G=4",
+                 (64, 64): "stablelm-dense G=1"}
+
+
+def prefill_bytes_ops(B, S, H, K, D, Dv) -> tuple[float, float]:
+    """Bytes K9 must move (q, k, v read once, out written once, bf16) and
+    the operations of its causal half: both products over the S (S + 1) / 2
+    live (query, key) pairs of each head."""
+    nbytes = 2 * B * S * (H * D + K * D + K * Dv + H * Dv)
+    flops = 2 * B * H * (S * (S + 1) / 2) * (D + Dv)
+    return nbytes, flops
+
+
+def sdpa_causal(q, k, v, scale):
+    """Yardstick: one scaled_dot_product_attention call (is_causal,
+    enable_gqa) on [B, H, S, D] views of the same q, k, v."""
+    import torch
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+
+
+def phase_prefill_kernels(quick: bool, report: dict) -> None:
+    """K9 against its plain version on the card at each width it is built
+    for (the library's list must be PREFILL_WIDTHS), at PREFILL_CASES'
+    shapes, in both rescale modes (bf16_close); rows [:T] of a call
+    bitwise a call on the first T rows; each instance's registers and
+    shared memory; then at PREFILL_TIMED's shapes its time (CUDA events),
+    the plain version's, its bound and SDPA's."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.kernels.launch import dense_widths
+    dev = torch.device("cuda")
+    built = dense_widths(build.library(), "flash_prefill_widths")
+    if built != set(PREFILL_WIDTHS):
+        raise AssertionError(f"K9 is built for {sorted(built)}, the checks "
+                             f"cover {sorted(PREFILL_WIDTHS)}")
+    for d, dv in PREFILL_WIDTHS:
+        log(f"[attrs] K9 ({d}, {dv}): "
+            + instance_attrs("flash_prefill_attrs", d, dv))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    errs = {w: 0.0 for w in PREFILL_WIDTHS}
+    inputs = {}
+    for tag, (d, dv), B, S, H, K in PREFILL_CASES:
+        q, k, v = (torch.randn(B, S, n, w, generator=gen, device=dev).to(
+            torch.bfloat16) for n, w in ((H, d), (K, d), (K, dv)))
+        scale = d ** -0.5
+        for mode in ("amla", "mul"):
+            out = FP.flash_prefill(q, k, v, scale=scale, rescale=mode)
+            ref = FP.flash_prefill_plain(q, k, v, scale=scale, rescale=mode)
+            errs[(d, dv)] = max(errs[(d, dv)], bf16_close(
+                out, ref, f"K9 ({d}, {dv}) {tag} B={B} S={S} {mode}"))
+            del ref
+        T = S - 77
+        bitwise(FP.flash_prefill(q[:, :T], k[:, :T], v[:, :T], scale=scale),
+                FP.flash_prefill(q, k, v, scale=scale)[:, :T],
+                f"K9 prefix invariance {tag} T={T}")
+        log(f"[kernels] K9 ({d}, {dv}) {tag}: B={B} S={S} H={H} K={K} "
+            f"(G {H // K}): kernel vs plain ok in both modes; rows [:{T}] "
+            "bitwise a call on the first rows")
+        if tag in PREFILL_TIMED.values():
+            inputs[(d, dv)] = (tag, B, S, H, K, q, k, v)
+        del q, k, v, out
+    torch.cuda.empty_cache()
+
+    iters, piters = (1, 1) if quick else (10, 2)
+    for (d, dv), (tag, B, S, H, K, q, k, v) in inputs.items():
+        scale = d ** -0.5
+        t = cuda_time_ms(lambda q=q, k=k, v=v, s=scale: FP.flash_prefill(
+            q, k, v, scale=s), iters)
+        tp = cuda_time_ms(lambda q=q, k=k, v=v, s=scale:
+                          FP.flash_prefill_plain(q, k, v, scale=s), piters,
+                          warmup=1)
+        tl = cuda_time_ms(sdpa_causal(q, k, v, scale), iters)
+        tb, by = bound_ms(*prefill_bytes_ops(B, S, H, K, d, dv))
+        log(f"[timing] flash_prefill[{d},{dv}] ({tag} B={B} S={S} H={H} "
+            f"K={K}): {t:.4f} ms, plain {tp:.4f} ms, bound {tb:.4f} ms "
+            f"({by}; {100 * tb / t:.1f}% of it), library (SDPA, is_causal) "
+            f"{tl:.4f} ms")
+        report[f"flash_prefill[{d},{dv}]"] = {
+            "max_abs_err": errs[(d, dv)], "ms": t, "plain_ms": tp,
+            "bound_ms": tb, "bound_by": by, "library_ms": tl}
+    del inputs
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- phases 3 - 5
 SHORT = ["--batch", "8", "--requests", "16", "--prompt", "512", "--gen", "32"]
 LONG = ["--batch", "4", "--requests", "4", "--prompt", "4096", "--gen", "32",
@@ -1853,12 +1989,12 @@ SERVE_PHASES = [
      ("flash_decode_partial_quant", "combine_splits_std",
       "etap_prefill_mla_paged_quant")),
     ("dense-short", DENSE + ["--batch", "8", "--prompt", "512"],
-     ("etap_decode_dense",)),
+     ("etap_decode_dense", "flash_prefill")),
     ("dense-long", DENSE + ["--batch", "4", "--prompt", "4096"],
-     ("etap_partial_dense", "combine_splits")),
+     ("etap_partial_dense", "combine_splits", "flash_prefill")),
     ("dense-long-std", DENSE + ["--batch", "4", "--prompt", "4096",
                                 "--mode", "standard"],
-     ("flash_decode_partial", "combine_splits_std")),
+     ("flash_decode_partial", "combine_splits_std", "flash_prefill")),
 ]
 
 
@@ -1900,7 +2036,7 @@ QWEN_PHASES = [
      ("flash_decode_partial", "combine_splits_std")),
     ("qwen-dense", QWEN + ["--cache-layout", "dense", "--batch", "8",
                            "--prompt", "512", "--gen", "32"],
-     ("etap_decode_dense",)),
+     ("etap_decode_dense", "flash_prefill")),
     # int8 / fp8 pools at the fp pool's bytes: 15 slots for qwen-short's 8,
     # one for qwen-long's one; decode over the gathered codes and pairs
     ("qwen-short-int8", QWEN_SHORT + ["--kv-dtype", "int8"],
@@ -1961,11 +2097,12 @@ WIDTH_PHASES = {
     "stablelm_1_6b": [
         ("stablelm-dense", ["--arch", "stablelm_1_6b", "--cache-layout",
                             "dense", "--batch", "8", "--prompt", "512",
-                            "--gen", "32"], ("etap_decode_dense",)),
+                            "--gen", "32"],
+         ("etap_decode_dense", "flash_prefill")),
         ("stablelm-dense-std", ["--arch", "stablelm_1_6b", "--cache-layout",
                                 "dense", "--batch", "8", "--prompt", "512",
                                 "--gen", "32", "--mode", "standard"],
-         ("flash_decode",)),
+         ("flash_decode", "flash_prefill")),
     ],
     # MusicGen-large's decoder (48 layers, MHA: 32 heads, head_dim 64),
     # paged, in token space: 256 grouped rows of 9 pages get 2 splits
@@ -2001,7 +2138,7 @@ WIDTH_PHASES = {
         ("llava-dense", ["--arch", "llava_next_34b", "--layers", "8",
                          "--cache-layout", "dense", "--batch", "4",
                          "--prompt", "512", "--gen", "16"],
-         ("etap_decode_dense",)),
+         ("etap_decode_dense", "flash_prefill")),
     ],
 }
 
@@ -2016,7 +2153,8 @@ def wrapper_names() -> list:
     """Every kernel wrapper the kernels line reports on."""
     return list(KERNELS) + sorted(
         {w for _, _, w, _ in QUANT_KERNELS.values()}
-        | {w for _, _, w, _, _ in QDENSE_KERNELS.values()})
+        | {w for _, _, w, _, _ in QDENSE_KERNELS.values()}
+        | {w for _, _, w, _ in PREFILL_KERNELS.values()})
 
 
 def kv_dtype_of(flags) -> str:
@@ -2037,8 +2175,9 @@ def wrapper_module(name: str):
     from repro_torch.kernels.etap import combine as C
     from repro_torch.kernels.etap import etap as K
     from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
     from repro_torch.kernels.selective_scan import scan as S
-    return next(m for m in (K, C, FD, S) if hasattr(m, name))
+    return next(m for m in (K, C, FD, FP, S) if hasattr(m, name))
 
 
 def counters():
@@ -2071,6 +2210,13 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
             res["t_total"]
     launched = {k: fn.launches for k, fn in counters().items()}
     t_wall = time.perf_counter() - t_wall
+    # K9 runs once a full-attention layer of a dense prefill, never on the
+    # paged layout's chunked prefill
+    want = cfg.layer_kinds().count("attn") if args.cache_layout == "dense" \
+        and prefill_kernel_width(cfg) else 0
+    if launched["flash_prefill"] != want:
+        raise AssertionError(f"{name}: K9 launched "
+                             f"{launched['flash_prefill']} times, not {want}")
     if len(outputs) != n_req:
         raise AssertionError(f"{name}: {len(outputs)} of {n_req} "
                              "requests finished")
@@ -2191,6 +2337,19 @@ def reordered_plain(kernel_p: bool = True):
 NOISE_RATE = 5e-3
 
 
+def one_ulp(o, gen):
+    """o with NOISE_RATE of its elements moved one bf16 ulp up or down,
+    chosen by ``gen``."""
+    import torch
+    x = o.float()
+    _, e = torch.frexp(x)
+    ulp = torch.where(x == 0, torch.zeros_like(x),
+                      torch.ldexp(torch.ones_like(x), e - 8))
+    pick = torch.rand(x.shape, generator=gen, device=x.device) < NOISE_RATE
+    sign = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
+    return (x + torch.where(sign, ulp, -ulp) * pick).to(o.dtype)
+
+
 @contextlib.contextmanager
 def ulp_noise(seed: int = 0):
     """plain_kernels(), with every attention output moved by one bf16 ulp
@@ -2206,15 +2365,7 @@ def ulp_noise(seed: int = 0):
     gen.manual_seed(seed)
 
     def noisy(*a, **kw):
-        o = gqa(*a, **kw)
-        x = o.float()
-        _, e = torch.frexp(x)
-        ulp = torch.where(x == 0, torch.zeros_like(x),
-                          torch.ldexp(torch.ones_like(x), e - 8))
-        pick = torch.rand(x.shape, generator=gen, device=x.device) < \
-            NOISE_RATE
-        sign = torch.rand(x.shape, generator=gen, device=x.device) < 0.5
-        return (x + torch.where(sign, ulp, -ulp) * pick).to(o.dtype)
+        return one_ulp(gqa(*a, **kw), gen)
 
     with plain_kernels():
         attention.gqa_decode = noisy
@@ -2370,12 +2521,17 @@ def profile_decode_step(params, cfg, cache, toks, *, spec=None,
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
-    """Where one full-width falcon prefill (B x S, mamba-short's) spends
-    its device time, from one torch.profiler run: the run's wall time and
-    the device's busy and idle share of it; K10, the eager
-    ``_ssm_inputs`` and conv (elementwise kernels over [B, S, 8192(, 16)]),
-    the projections (GEMMs), and the rest."""
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
+ELEMENTWISE_NAMES = ("elementwise", "vectorized", "unrolled", "reduce")
+
+
+def profile_prefill(params, cfg, B: int, S: int, *, tag: str,
+                    kernel: tuple) -> None:
+    """Where one full-width prefill (B x S) spends its device time, from
+    one torch.profiler run: the run's wall time and the device's busy and
+    idle share of it; device time in the kernel ``kernel`` = (label, a
+    substring of its name), in the GEMMs, in the elementwise passes and in
+    the rest, and the kernel's share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2402,25 +2558,33 @@ def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
-    groups = {"selective_scan (K10)": 0.0, "gemm": 0.0,
-              "elementwise": 0.0, "other": 0.0}
+    label, name_part = kernel
+    groups = {label: 0.0, "gemm": 0.0, "elementwise": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        key = ("selective_scan (K10)" if "scan_kernel" in name
-               else "gemm" if any(x in name for x in ("gemm", "xmma",
-                                                      "cutlass", "nvjet"))
-               else "elementwise" if any(x in name for x in (
-                   "elementwise", "vectorized", "unrolled", "reduce"))
+        key = (label if name_part in name
+               else "gemm" if any(x in name for x in GEMM_NAMES)
+               else "elementwise" if any(x in name for x in ELEMENTWISE_NAMES)
                else "other")
         groups[key] += e.self_device_time_total / 1e3
-    log(f"[mamba-prefill] B={B} S={S}, {cfg.num_layers} layers, "
+    log(f"[{tag}] B={B} S={S}, {cfg.num_layers} layers, "
         + timeline_line(wall, busy, span, n, unprofiled)
         + f"; {sum(e.count for e in kernels)} kernel launches")
-    log("[mamba-prefill] device ms by group: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in groups.items()))
+    log(f"[{tag}] device ms by group: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in groups.items())
+        + f"; {label} {100 * groups[label] / busy:.1f}% of the busy time")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[mamba-prefill]   {e.self_device_time_total / 1e3:8.2f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+def profile_mamba_prefill(params, cfg, B: int, S: int) -> None:
+    """Where one full-width falcon prefill (B x S, mamba-short's) spends
+    its device time: K10, the eager ``_ssm_inputs`` and conv (elementwise
+    kernels over [B, S, 8192(, 16)]), the projections (GEMMs), and the
+    rest (profile_prefill)."""
+    profile_prefill(params, cfg, B, S, tag="mamba-prefill",
+                    kernel=("selective_scan (K10)", "scan_kernel"))
 
 
 # (B, prompt, layers) of the falcon prefill check: the B 2 x 128 case at
@@ -2957,6 +3121,140 @@ def phase_rgemma_prefill_check(params, cfg) -> None:
         f"{scale:.3f}), greedy agreement {agree}/{B}")
 
 
+# ------------------------------------------------ the dense prefill's checks
+def prefill_kernel_width(cfg):
+    """The (D, Dv) K9 runs at in cfg's dense prefill, or None when the
+    stack has no full-attention block (a Mamba stack; RecurrentGemma's
+    local attention never takes K9)."""
+    if "attn" not in cfg.layer_kinds() or \
+            cfg.attention_kind not in ("full", "mla"):
+        return None
+    m = cfg.mla
+    return (m.qk_head_dim, m.v_head_dim) if m is not None else \
+        (cfg.resolved_head_dim,) * 2
+
+
+def credit_prefill(launches: dict, got: dict, cfg) -> None:
+    """Credit a main-path call's K9 launches to cfg's width entry."""
+    if got.get("flash_prefill"):
+        d, dv = prefill_kernel_width(cfg)
+        launches[f"flash_prefill[{d},{dv}]"] += got["flash_prefill"]
+
+
+@contextlib.contextmanager
+def prefill_wrapped(wrap):
+    """plain_kernels(), with K9's plain version replaced by ``wrap(plain)``
+    (the entry reaches it through the module's attribute)."""
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    with plain_kernels():
+        plain = FP.flash_prefill
+        FP.flash_prefill = wrap(plain)
+        try:
+            yield
+        finally:
+            FP.flash_prefill = plain
+
+
+def phase_prefill_check(params, cfg, B: int, S: int) -> None:
+    """A whole prefill at full width through K9 and through its plain
+    version on the same weights and tokens: K9 launches once a
+    full-attention layer, and the last position's logits agree as
+    check_step says, its floor the larger of the plain version reordered
+    (blocks of 128 query and 64 KV rows instead of 256, P rounded as the
+    kernel carries it) and the plain path with one-ulp noise on
+    NOISE_RATE of each layer's attention output."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.models import model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    n = cfg.layer_kinds().count("attn")
+    what = (f"{cfg.name} prefill, full width, {cfg.num_layers} layers, "
+            f"B={B} S={S}")
+    before = FP.flash_prefill.launches
+    lk = model.prefill(params, cfg, toks, S + 1)[0]
+    if FP.flash_prefill.launches - before != n:
+        raise AssertionError(f"{what}: K9 launched "
+                             f"{FP.flash_prefill.launches - before} times "
+                             f"for {n} attention layers")
+    with plain_kernels():
+        lp = model.prefill(params, cfg, toks, S + 1)[0]
+    with prefill_wrapped(lambda plain: _p16(
+            lambda *a, **kw: plain(*a, **dict(kw, bq=128, bkv=64)))):
+        floor = float((model.prefill(params, cfg, toks, S + 1)[0]
+                       - lp).abs().max())
+    noise_gen = torch.Generator(device="cuda")
+    noise_gen.manual_seed(0)
+    with prefill_wrapped(lambda plain: lambda *a, **kw: one_ulp(
+            plain(*a, **kw), noise_gen)):
+        noise = float((model.prefill(params, cfg, toks, S + 1)[0]
+                       - lp).abs().max())
+    log(f"[prefill-check] {what}: K9 x {n}; last-position logits bitwise "
+        f"equal to the plain path's: {torch.equal(lk, lp)}")
+    check_step(lk, lp, f"{what}; floor: the larger of reordered plain "
+               f"{floor:.4e} and one-ulp noise at {NOISE_RATE:.1%} "
+               f"{noise:.4e}", tag="prefill-check", floor=max(floor, noise))
+    del lk, lp
+    torch.cuda.empty_cache()
+
+
+def phase_prefill_layer_check(params, cfg, B: int, S: int) -> None:
+    """The per-layer check of the prefill's attention: one prefill down the
+    plain path records each layer's causal-attention inputs (q, k, v) and
+    output; then K9 runs on each layer's recorded inputs and its output is
+    held to the plain path's at the per-kernel tolerance (bf16_close).  A
+    deep stack of random layers hides a small wiring fault from the logit
+    check; this one sees each layer's."""
+    import torch
+    from repro_torch.core import mla
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.models import attention, model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    causal = attention.causal_attention
+    seen = []
+
+    def record(q, k, v, *, scale, **kw):
+        o = causal(q, k, v, scale=scale, **kw)
+        seen.append((q, k, v, scale, o))
+        return o
+
+    attention.causal_attention = mla.causal_attention = record
+    try:
+        with plain_kernels():
+            model.prefill(params, cfg, toks, S + 1)
+    finally:
+        attention.causal_attention = mla.causal_attention = causal
+    n = cfg.layer_kinds().count("attn")
+    if len(seen) != n:
+        raise AssertionError(f"per-layer prefill check: {len(seen)} causal "
+                             f"attention calls for {n} layers")
+    before = FP.flash_prefill.launches
+    worst, where, differ, total = 0.0, 0, 0, 0
+    for i, (q, k, v, scale, op) in enumerate(seen):
+        ok = FP.flash_prefill(q, k, v, scale=scale)
+        e = bf16_close(ok, op, f"{cfg.name} layer {i} prefill attention "
+                       "output")
+        if e >= worst:
+            worst, where = e, i
+        differ += int((ok != op).sum())
+        total += op.numel()
+    if FP.flash_prefill.launches - before != n:
+        raise AssertionError("per-layer prefill check: K9 did not launch "
+                             "once a layer")
+    log(f"[prefill-layer-check] {cfg.name} B={B} S={S}: {n} attention "
+        f"layers on teacher-forced inputs, K9's output within the "
+        f"per-kernel tolerance of the plain path's at every layer; worst "
+        f"max abs err {worst:.3e} (layer {where}); {differ / total:.4%} of "
+        f"the elements differ")
+    del seen
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2997,6 +3295,8 @@ def main(argv=None) -> int:
     timed("quantized dense kernels", phase_quant_dense_kernels, args.quick,
           report)
     timed("selective scan", phase_scan, args.quick, report)
+    timed("causal prefill kernel (K9)", phase_prefill_kernels, args.quick,
+          report)
     if args.quick:
         log(json.dumps({"kernels": [dict(name=k, **v)
                                     for k, v in report.items()]}))
@@ -3012,7 +3312,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     launches = {k: 0 for k in [*KERNELS, *QUANT_KERNELS, *GQA_KERNELS,
-                               *QDENSE_KERNELS]}
+                               *QDENSE_KERNELS, *PREFILL_KERNELS]}
     served = {k: 0 for k in QDENSE_KERNELS}      # on the serve phases only
     t_serve = time.perf_counter()
     for name, flags, expect in SERVE_PHASES:
@@ -3025,8 +3325,14 @@ def main(argv=None) -> int:
                 launches[k] += got[wrapper]
         add_qdense(launches, got, DK, kvd)
         add_qdense(served, got, DK, kvd)
+        credit_prefill(launches, got, cfg)
     log(f"[time] serve phases: {time.perf_counter() - t_serve:.1f} s")
     timed("decode steps", phase_decode_step, params, launches)
+    timed("deepseek prefill check", phase_prefill_check, params, cfg, 4,
+          4096)
+    timed("deepseek prefill profile", profile_prefill, params, cfg, 4, 4096,
+          tag="deepseek-prefill",
+          kernel=("flash_prefill (K9)", "flash_prefill_kernel"))
     del params
     torch.cuda.empty_cache()
 
@@ -3066,7 +3372,11 @@ def main(argv=None) -> int:
         got = phase_serve(name, flags, params, expect)
         credit(launches, got, HD, kv_dtype_of(flags))
         add_qdense(served, got, HD, kv_dtype_of(flags))
+        credit_prefill(launches, got, cfg)
     log(f"[time] qwen serve phases: {time.perf_counter() - t_serve:.1f} s")
+    timed("qwen prefill check", phase_prefill_check, params, cfg, 8, 512)
+    timed("qwen per-layer prefill check", phase_prefill_layer_check, params,
+          cfg, 8, 512)
     timed("qwen decode steps", phase_gqa_decode_steps, params, cfg,
           launches, layout="paged", kvds=("fp", "int8", "fp8"))
     timed("qwen dense decode steps", phase_gqa_decode_steps, params, cfg,
@@ -3095,6 +3405,7 @@ def main(argv=None) -> int:
             got = phase_serve(name, flags, params, expect)
             credit(launches, got, width, kv_dtype_of(flags))
             add_qdense(served, got, width, kv_dtype_of(flags))
+            credit_prefill(launches, got, cfg)
         log(f"[time] {arch} serve phases: "
             f"{time.perf_counter() - t_serve:.1f} s")
         if arch == "smollm_360m":
@@ -3141,6 +3452,9 @@ def main(argv=None) -> int:
     kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
                      launches=launches[k], **report[k])
                 for k, (tpu, src, *_) in QDENSE_KERNELS.items()]
+    kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
+                     launches=launches[k], **report[k])
+                for k, (tpu, src, *_) in PREFILL_KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP kernels,
-the untransposed baseline, the split combine and the selective scan) on
-first use.
+the untransposed baseline, the split combine, the causal prefill and the
+selective scan) on first use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -77,6 +77,12 @@ SIGNATURES = {
                                  _P],
     # dA, dBx, c, y, h, B, L, D, N, stream
     "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_prefill_widths": [_P, _I],
+    "flash_prefill_attrs": [_I, _I, _P],
+    # q, qb, qs, qh, k, kb, ks, kh, v, vb, vs, vh, out, B, S, H, K, d, dv,
+    # scale, amla, stream
+    "flash_prefill": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _I,
+                      _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _LIB: list = []

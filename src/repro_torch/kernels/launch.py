@@ -1,9 +1,9 @@
 """Operand checks and launch plumbing shared by the CUDA kernel wrappers
-(``etap``, ``combine`` and ``flash_decode`` modules): device dispatch,
-pointers, the current stream, the widths each kernel library is built for,
-and the dense KV operand layout the dense kernels take (row and kv-head
-strides, no copies), for bf16 rows and for int8 / e4m3 code rows with
-their fp32 (scale, zp) rows."""
+(``etap``, ``combine``, ``flash_decode`` and ``flash_prefill`` modules):
+device dispatch, pointers, the current stream, the widths each kernel
+library is built for, and the dense KV operand layout the dense kernels
+take (row and kv-head strides, no copies), for bf16 rows and for int8 /
+e4m3 code rows with their fp32 (scale, zp) rows."""
 from __future__ import annotations
 
 import ctypes
@@ -49,8 +49,8 @@ _MAX_WIDTHS = 16
 @functools.lru_cache(maxsize=None)
 def dense_widths(lib, fn: str) -> frozenset:
     """The (Dk, Dv) pairs the library's ``fn`` (``etap_dense_widths`` for
-    K5/K6, ``flash_decode_widths`` for K7/K8) says its kernels are built
-    for."""
+    K5/K6, ``flash_decode_widths`` for K7/K8, ``flash_prefill_widths`` for
+    K9) says its kernels are built for."""
     buf = (ctypes.c_int * (2 * _MAX_WIDTHS))()
     n = getattr(lib, fn)(buf, _MAX_WIDTHS)
     return frozenset((buf[2 * i], buf[2 * i + 1])
@@ -90,10 +90,10 @@ def _strides(t):
     return t.stride(0), 0, t.stride(1)
 
 
-def _dense_strides(t, name, *, what):
-    """The strides of a dense K or V operand (bf16 rows or 1-byte codes),
-    which the kernels read in 16-byte pieces: unit column stride, other
-    strides and the base on 16 bytes."""
+def dense_strides(t, name, *, what):
+    """The strides of a dense Q, K or V operand (bf16 rows or 1-byte
+    codes), which the kernels read in 16-byte pieces: unit column stride,
+    other strides and the base on 16 bytes."""
     if t.stride(-1) != 1 or any(s * t.element_size() % 16
                                 for s in t.stride()[:-1]):
         raise NotImplementedError(
@@ -153,8 +153,8 @@ def dense_operands(q, k, v, length, *, widths: str, what, k_sz=None,
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, length {tuple(length.shape)} "
                          "do not agree")
-    kb, kh, ldk = _dense_strides(k, "k", what=what)
-    vb, vh, ldv = _dense_strides(v, "v", what=what)
+    kb, kh, ldk = dense_strides(k, "k", what=what)
+    vb, vh, ldv = dense_strides(v, "v", what=what)
     fused = v.data_ptr() == k.data_ptr() and (vb, vh, ldv) == (kb, kh, ldk)
     q, lengths = q.contiguous(), i32(length)
     args = [ptr(q), k.data_ptr(), kb, ldk, None if fused else v.data_ptr(),

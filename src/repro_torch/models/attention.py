@@ -31,9 +31,13 @@ attends over ``min(pos + 1, Smax)`` of them, through the same decode
 kernels as full attention.  A window never pages: the paged entries refuse
 it, as the reference's do.
 
-The Pallas prefill kernel of the reference (``kernels/flash_prefill``) is
-reached only from its own ``ops.py`` and is not ported yet (ROADMAP A9);
-nor is draft verification (A2).
+The dense prefill's causal attention (:func:`causal_attention`, from
+``attention_train`` and ``core/mla.py:mla_train``) runs K9, the causal
+prefill kernel (:mod:`repro_torch.kernels.flash_prefill`), on CUDA
+operands: the reference names that kernel the accelerator route of its
+masked product, which computes the upper triangle the kernel skips.  On
+CPU operands it stays the reference's masked product.  Local attention
+never takes K9.  Draft verification is not ported yet (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.core.etap import decode_attention, gqa_grouped_view
+from repro_torch.kernels.flash_prefill import ops as prefill_ops
 from repro_torch.models import layers
 from repro_torch.runtime import paged_cache
 
@@ -57,14 +62,20 @@ def _expand_kv(k, H: int):
 
 
 def causal_attention(q, k, v, *, scale: float, q_block: int = 512):
-    """Blockwise causal attention, walked over ``q_block`` query rows (each
-    block against the whole masked context, so one block's fp32 scores are
-    the peak).  q [B,S,H,D]; k, v [B,S,K,D*] with H = K·G.  Returns
-    [B,S,H,Dv] in v's dtype."""
+    """Causal attention over a whole sequence.  q [B,S,H,D]; k, v
+    [B,S,K,D*] with H = K·G.  Returns [B,S,H,Dv] in v's dtype.  CUDA
+    operands run K9 (``flash_prefill.ops.flash_prefill``: no scores in
+    device memory, the blocks above the diagonal skipped); CPU operands the
+    reference's route, walked over ``q_block`` query rows, each block
+    against the whole masked context (one block's fp32 scores are the
+    peak).  Both refuse an S that is not a multiple of ``q_block`` (capped
+    at S), as the reference does."""
     B, S, H, _ = q.shape
     q_block = min(q_block, S)
     if S % q_block:
         raise ValueError(f"S={S} not a multiple of q_block={q_block}")
+    if q.device.type == "cuda":
+        return prefill_ops.flash_prefill(q, k, v, spec=AttnSpec(scale=scale))
     kf = _expand_kv(k, H).float().permute(0, 2, 3, 1).contiguous()  # [B,H,D,S]
     vf = _expand_kv(v, H).float().transpose(1, 2).contiguous()  # [B,H,S,Dv]
     kpos = torch.arange(S, device=q.device)
