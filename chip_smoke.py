@@ -62,7 +62,23 @@ Phases, each of which fails the run when it fails:
              1), a SmolLM (G 3) and an MQA (G 48) shape and a ragged S 200
              at each width, rows [:T] bitwise a call on the first T rows,
              with each width's time, its plain version's, its bound and
-             SDPA's (is_causal, enable_gqa);
+             SDPA's (is_causal, enable_gqa); and the paged bodies over
+             separate K and V pools (phase_sepv_kernels: K3, K1 + K2 and
+             K4, and K3q, K1q, K4q over int8 / fp8 pools each with its own
+             (scale, zp) pool, at (576, 512) and (128, 128)): the latent
+             with V = pool[..., :512] as its own pool at serve-long's and
+             serve-short's decode shapes and 256-token chunks, bitwise the
+             fused kernels there; Granite-20B's MQA pools (48 heads over
+             one kv head of 128, a shuffled 32-column table, ragged
+             lengths) with the auto plan and one split and K4 at Cq 128,
+             paged == dense bitwise at block-aligned lengths (K3 == K5, K1
+             == K6), the code pools' RMSE against the fp64 oracle; each
+             instance's registers, time, plain time, bound and SDPA time,
+             the fused kernels beside at the latent, the paper's geometry
+             (B 16, H 16, context 65,536) fused against separate V
+             through K1 + K2, and this slice's path: core.etap's paged
+             entries with a v_pool in both modes over fp, int8 and fp8
+             pools at both widths, their launches counted;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -170,7 +186,11 @@ launches are counted as well).  K9 (``flash_prefill[D,Dv]`` entries) must
 launch once a full-attention layer of every dense serve phase's prefill,
 and never on the paged layout; its widths are credited from the serve
 phases, [192,128] on dense-short / -long, [128,128] on qwen-dense and
-llava-dense, [64,64] on stablelm-dense.  The line before the last is the
+llava-dense, [64,64] on stablelm-dense.  The separate-V paged kernels
+(``<wrapper>[Dk,Dv]`` and ``<wrapper>_quant[Dk,Dv,code]`` entries) are
+counted on their own path, the paged attention entries with a v_pool
+(phase 2's sepv_entry_path), zeroed just before each (width, code type)
+group and read just after; no serve loop reaches them.  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
@@ -643,13 +663,22 @@ def make_quant_pool(B, nb, lengths, kv_dtype, gen, device):
     return codes, sz, table
 
 
+def latent_v(pool, sz=None):
+    """The latent pool's V as a pool of its own: its first DV columns
+    (codes through their bytes) and, over codes, a copy of its pairs."""
+    from repro_torch.runtime.paged_cache import raw
+    v = raw(pool)[..., :DV].contiguous().view(pool.dtype)
+    return v if sz is None else (v, sz.clone())
+
+
 def rmse_gate(kv_dtype, mode, dev):
     """The reference's accuracy gate at its own geometry and seed (B 2,
     H 16, S 1024, page 64, numpy default_rng(0), lengths 515 and 1024):
     fp32 q through K3q, and through K1q (n = 4) + K2, over the quantized
     pool, against the fp64 oracle on the unquantized rows, and against the
-    plain version within F32_Q_TOL.  Returns the larger RMSE and K3q's
-    max abs error from its plain version."""
+    plain version within F32_Q_TOL; their separate-V twins over the V
+    columns as a pool of their own give the same bits.  Returns the larger
+    RMSE and K3q's max abs error from its plain version."""
     import numpy as np
     import torch
     from repro_torch.kernels.etap import combine as C
@@ -686,6 +715,16 @@ def rmse_gate(kv_dtype, mode, dev):
     plain = K.etap_decode_mla_paged_quant_plain(qd, codes, sz, dv, table,
                                                 lens, scale=DK ** -0.5,
                                                 rescale=mode)
+    # the separate-V twins over V = the codes' first dv columns with a
+    # copy of K's pairs: the fused kernels' bits, so the same RMSE
+    vc, vs = latent_v(codes, sz)
+    bitwise(K.etap_decode_paged_quant(qd, codes, sz, vc, vs, table, lens,
+                                      scale=DK ** -0.5, rescale=mode), out1,
+            f"K3q separate V vs fused {kv_dtype} {mode} fp32 q")
+    bitwise(C.combine_splits(*K.etap_paged_partial_sepv_quant(
+        qd, codes, sz, vc, vs, table, lens, scale=DK ** -0.5, n_splits=n,
+        rescale=mode), out_dtype=torch.float32, rescale=mode), out4,
+        f"K1q(n=4)+K2 separate V vs fused {kv_dtype} {mode} fp32 q")
     for what, out in (("K3q", out1), ("K1q+K2", out4)):
         err = float((out - plain).abs().max())
         if not err <= F32_Q_TOL:
@@ -1731,6 +1770,636 @@ def phase_quant_dense_kernels(quick: bool, report: dict) -> None:
                            "library_ms": None}
 
 
+# ------------------------------------------ phase 2: separate-V paged pools
+# The paged bodies over separate K and V pools, one entry per width and
+# code type: entry -> (the TPU kernel it replaces, its CUDA source, the
+# wrapper, (Dk, Dv), kv_dtype).  Their launches are counted on the paged
+# attention entries (core.etap with a v_pool), this slice's path.
+SEPV_WIDTHS = ((DK, DV), (HD, HD))
+SEPV_KERNELS = {
+    f"{wrapper}{'' if kvd == 'fp' else '_quant'}[{dk},{dv}"
+    f"{'' if kvd == 'fp' else ',' + kvd}]":
+        (tpu, _CSRC + "etap_sepv.cu",
+         wrapper + ("" if kvd == "fp" else "_quant"), (dk, dv), kvd)
+    for dk, dv in SEPV_WIDTHS
+    for kvd in ("fp", "int8", "fp8")
+    for wrapper, tpu in (
+        ("etap_decode_paged", "src/repro/kernels/etap/etap.py:237"),
+        ("etap_paged_partial_sepv", "src/repro/kernels/etap/etap.py:713"),
+        ("etap_prefill_paged", "src/repro/kernels/etap/etap.py:430"))}
+# Granite-20B's MQA pools: 48 query heads over one kv head of 128, pages of
+# 64 rows, a 32-column table; gqa_cases' granite lengths, and block-aligned
+# ones for paged == dense
+GRANITE_H, GRANITE_NB = 48, 32
+GRANITE_LENGTHS = [2048, 2047, 1, 64, 65, 1500, 999, 1234]
+GRANITE_ALIGNED = [2048, 1984, 64, 128, 640, 1536, 960, 1216]
+GRANITE_CQ, GRANITE_STARTS = 128, (1920, 0)   # K4: 6,144 columns a row
+# the latent at serve-long's decode shapes (4 live slots; 3 idle ones on a
+# code pool), serve-short's (B 8, 9 pages) and its 256-token chunks
+SEPV_LONG = [4128, 4097, 1089, 65]
+SEPV_SHORT = [545, 544, 289, 1, 64, 300, 541, 520]
+SEPV_CQ, SEPV_STARTS = 256, (0, 3840)
+# the latent's timed decode shape (phase_kernels' timing: B 8, ~4K ragged)
+LATENT_TIMED = [4096, 3900, 4033, 3500, 4000, 2500, 3999, 3210]
+# the paper's geometry (B, H, context), fused against separate V
+PAPER = (16, 16, 65536)
+
+
+def pages(lengths) -> int:
+    """Table columns that hold the longest of ``lengths``."""
+    return -(-max(lengths) // PAGE)
+
+
+def sepv_pools(k_rows, v_rows, kvd):
+    """Separate K and V pools from fp32 rows [N, PAGE, D*]: bf16 ("fp"), or
+    int8 / fp8 codes, each with its own (scale, zp) pool.  Returns the
+    wrappers' pool arguments (k, v) or (k, k_sz, v, v_sz)."""
+    import torch
+    from repro_torch.runtime import paged_cache
+    if kvd == "fp":
+        return k_rows.to(torch.bfloat16), v_rows.to(torch.bfloat16)
+    kc, ks = paged_cache.quantize_rows(k_rows, kvd)
+    vc, vs = paged_cache.quantize_rows(v_rows, kvd)
+    return kc, ks, vc, vs
+
+
+def pool_kw(args):
+    """The attention entries' pool keywords of the wrappers' arguments."""
+    if len(args) == 2:
+        return dict(k_pool=args[0], v_pool=args[1])
+    return dict(k_pool=args[0], k_sz=args[1], v_pool=args[2], v_sz=args[3])
+
+
+def granite_case(kvd, lengths, gen, dev):
+    """Granite's pools with K and V drawn independently (so, over codes,
+    V's pairs differ from K's), a shuffled 32-column table with the null
+    block past each row's length, q [8, 48, 128] (bf16 over bf16 pools,
+    fp32 over codes, as the GQA decode casts it) and the lengths; also the
+    fp32 rows, for the fp64 oracle.  Returns (q, pool args, table,
+    lengths, (k rows, v rows))."""
+    import torch
+    B = len(lengths)
+    N = 1 + B * GRANITE_NB
+    k = torch.randn(N, PAGE, HD, generator=gen, device=dev)
+    v = torch.randn(N, PAGE, HD, generator=gen, device=dev)
+    perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
+    table = perm.reshape(B, GRANITE_NB).to(torch.int32)
+    for b, n in enumerate(lengths):
+        table[b, -(-n // PAGE):] = 0
+    q = torch.randn(B, GRANITE_H, HD, generator=gen, device=dev)
+    q = q.to(torch.bfloat16) if kvd == "fp" else q
+    return (q, sepv_pools(k, v, kvd), table,
+            torch.tensor(lengths, dtype=torch.int32, device=dev), (k, v))
+
+
+def latent_case(kvd, lengths, nb, gen, dev):
+    """A random latent pool (bf16, or int8 / fp8 codes) with V its first
+    512 columns as a pool of its own (pairs a copy of K's): (fused pool
+    args (pool[, sz]), separate pool args, table)."""
+    if kvd == "fp":
+        pool, table = make_pool(len(lengths), nb, lengths, gen, dev)
+        return (pool,), (pool, latent_v(pool)), table
+    codes, sz, table = make_quant_pool(len(lengths), nb, lengths, kvd, gen,
+                                       dev)
+    return (codes, sz), (codes, sz, *latent_v(codes, sz)), table
+
+
+def sepv_out_close(out, ref, what):
+    """bf16 outputs at the bf16 tolerance, fp32 ones (fp32 q over codes)
+    at the fp32 one."""
+    import torch
+    if out.dtype == torch.float32:
+        return f32_close(out, ref, what)
+    return bf16_close(out, ref, what)
+
+
+def check_sepv_decode(q, args, table, lens, *, kvd, tag, errs, key,
+                      fused=None, n_splits=None):
+    """K3 (K3q) over separate pools, K1 (K1q) under ``n_splits`` (the auto
+    plan's when None) with K2, against their plain versions in both modes;
+    split(n=1) + K2 == K3 and the auto entry == K1 + K2, bitwise; with
+    ``fused`` (the latent pool's fused args), K3 and K1 give the fused
+    kernels' bits.  Returns the split count."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap import ops
+    sfx = "" if kvd == "fp" else "_quant"
+    dk, dv = q.shape[-1], args[-1 if kvd == "fp" else -2].shape[-1]
+    qt = "fp32 q" if q.dtype == torch.float32 else "bf16 q"
+    pkw = {} if kvd == "fp" else dict(kv_sz=args[1], v_sz=args[3])
+    vpool = args[1] if kvd == "fp" else args[2]
+    spec = AttnSpec(scale=dk ** -0.5)
+    n = n_splits or ops._paged_n_splits(q, table, PAGE, dv, spec)
+    _, _, padded = ops.paged_split_geometry(table.shape[1], n)
+    tpad = ops._pad_table(table, padded)
+    for mode in ("amla", "mul"):
+        t = f"{tag} {kvd} {mode} {qt}"
+        kw = dict(scale=dk ** -0.5, rescale=mode)
+        out_kw = dict(out_dtype=q.dtype, rescale=mode)
+        o3 = getattr(K, f"etap_decode_paged{sfx}")(q, *args, table, lens,
+                                                   **kw)
+        r3 = getattr(K, f"etap_decode_paged{sfx}_plain")(q, *args, table,
+                                                         lens, **kw)
+        k3 = key("etap_decode_paged")
+        errs[k3] = max(errs[k3], sepv_out_close(o3, r3, f"K3{sfx} {t}"))
+        st = ops._paged_partial(q, args[0], dv, table, lens, n_splits=n,
+                                v_pool=vpool, **pkw, **kw)
+        rs = getattr(K, f"etap_paged_partial_sepv{sfx}_plain")(
+            q, *args, tpad, lens, n_splits=n, **kw)
+        k1 = key("etap_paged_partial_sepv")
+        errs[k1] = max(errs[k1], f32_finalized_close(
+            st, rs, f"K1{sfx} {t}", transposed=True)
+            if q.dtype == torch.float32 else
+            finalized_close(st, rs, f"K1{sfx} {t}"))
+        o2 = C.combine_splits(*st, **out_kw)
+        sepv_out_close(o2, r3, f"K1{sfx}(n={n})+K2 vs plain K3{sfx} {t}")
+        bitwise(C.combine_splits(*ops._paged_partial(
+            q, args[0], dv, table, lens, n_splits=1, v_pool=vpool, **pkw,
+            **kw), **out_kw), o3, f"K1{sfx}(n=1)+K2 vs K3{sfx} {t}")
+        if n_splits is None:
+            bitwise(ops.etap_decode_paged_splitkv(
+                q, args[0], vpool, table, lens, spec=AttnSpec(
+                    scale=dk ** -0.5, rescale=mode),
+                k_sz=pkw.get("kv_sz"), v_sz=pkw.get("v_sz")),
+                o2 if n > 1 else o3, f"auto plan (n={n}) {t}")
+        if fused is not None:
+            bitwise(getattr(K, f"etap_decode_mla_paged{sfx}")(
+                q, *fused, DV, table, lens, **kw), o3,
+                f"K3{sfx} separate V vs fused {t}")
+            sf = ops._paged_partial(q, fused[0], DV, table, lens, n_splits=n,
+                                    kv_sz=pkw.get("kv_sz"), **kw)
+            for a, b in zip(st, sf, strict=True):
+                bitwise(a, b, f"K1{sfx} separate V vs fused {t}")
+    return n
+
+
+def check_sepv_prefill(qp, args, table, start, *, kvd, tag, errs, key,
+                       fused=None):
+    """K4 (K4q) over separate pools, prefill and a tree-shaped verify,
+    against their plain versions in both modes; a linear verify ==
+    prefill, bitwise; with ``fused``, the fused K4's bits."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    sfx = "" if kvd == "fp" else "_quant"
+    dk = qp.shape[-1]
+    Cq = qp.shape[1]
+    dev = qp.device
+    qt = "fp32 q" if qp.dtype == torch.float32 else "bf16 q"
+    depth = torch.tensor([0] + [1 + (c - 1) // 3 for c in range(1, Cq)],
+                         dtype=torch.int32, device=dev)
+    tree = start[:, None] + depth[None, :]
+    linear = start[:, None] + torch.arange(Cq, dtype=torch.int32,
+                                           device=dev)[None, :]
+    k4 = key("etap_prefill_paged")
+    for mode in ("amla", "mul"):
+        t = f"{tag} {kvd} {mode} {qt}"
+        kw = dict(scale=dk ** -0.5, rescale=mode)
+        out = getattr(K, f"etap_prefill_paged{sfx}")(qp, *args, table, start,
+                                                     **kw)
+        ref = getattr(K, f"etap_prefill_paged{sfx}_plain")(
+            qp, *args, table, start, **kw)
+        errs[k4] = max(errs[k4], sepv_out_close(out, ref, f"K4{sfx} {t}"))
+        outv = getattr(K, f"etap_verify_paged{sfx}")(qp, *args, table, start,
+                                                     tree, **kw)
+        refv = getattr(K, f"etap_prefill_paged{sfx}_plain")(
+            qp, *args, table, start, qpos=tree, **kw)
+        errs[k4] = max(errs[k4], sepv_out_close(outv, refv,
+                                                f"K4{sfx} verify(tree) {t}"))
+        bitwise(getattr(K, f"etap_verify_paged{sfx}")(
+            qp, *args, table, start, linear, **kw), out,
+            f"K4{sfx} verify(linear) vs prefill {t}")
+        if fused is not None:
+            bitwise(getattr(K, f"etap_prefill_mla_paged{sfx}")(
+                qp, *fused, DV, table, start, **kw), out,
+                f"K4{sfx} separate V vs fused {t}")
+
+
+def granite_paged_is_dense(q, args, table, lens, kvd, tag):
+    """Paged == dense, bitwise, at block-aligned lengths: K3 (K3q) over the
+    pools against K5 (K5q) on the gathered rows with block = page, and K1
+    (K1q, n = 4) against K6 (K6q) under the same split plan."""
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.runtime.paged_cache import gather_blocks
+    quant = kvd != "fp"
+    sfx = "_quant" if quant else ""
+    k, v = gather_blocks(args[0], table), gather_blocks(args[-2 if quant
+                                                             else -1], table)
+    dkw = {}
+    if quant:
+        dkw = dict(k_sz=gather_blocks(args[1], table),
+                   v_sz=gather_blocks(args[3], table))
+    kw = dict(scale=HD ** -0.5)
+    bitwise(getattr(K, f"etap_decode_paged{sfx}")(q, *args, table, lens,
+                                                  **kw),
+            getattr(K, f"etap_decode_dense{sfx}")(q, k, v, lens, block=PAGE,
+                                                  **dkw, **kw),
+            f"K3{sfx} paged vs K5{sfx} dense {tag}")
+    st = getattr(K, f"etap_paged_partial_sepv{sfx}")(
+        q, *args, table, lens, n_splits=4, **kw)
+    sd = getattr(K, f"etap_partial_dense{sfx}")(
+        q, k, v, lens, plan=dense_split_plan(k.shape[1], PAGE, 4), **dkw,
+        **kw)
+    for a, b in zip(st, sd, strict=True):
+        bitwise(a, b, f"K1{sfx} paged vs K6{sfx} dense {tag}")
+
+
+def granite_rmse(q, args, table, lens, rows, kvd, tag):
+    """K3q over Granite's code pools and K1q + K2 under the auto plan, fp32
+    q, against the fp64 oracle on the unquantized rows.  At these ragged
+    lengths (a one-key row decodes one V row's quantization error) the
+    reference's own route is above its gate, so the gate is the
+    reference's where that route meets it, else 1% above that route's
+    RMSE (the rule of phase_quant_dense_kernels)."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap import ops
+    from repro_torch.kernels.etap.ref import etap_decode_ref
+    from repro_torch.runtime.paged_cache import gather_blocks
+    k, v = (gather_blocks(r, table) for r in rows)
+    oracle = etap_decode_ref(q.double(), k.double(), v.double(), lens,
+                             scale=HD ** -0.5, dtype=torch.float64)
+    kw = dict(scale=HD ** -0.5)
+    plain = K.etap_decode_paged_quant_plain(q, *args, table, lens, **kw)
+    pr = float(((plain.double() - oracle) ** 2).mean().sqrt())
+    gate = QUANT_RMSE[kvd]
+    limit = gate if pr <= gate else pr * 1.01
+    for what, out in (
+            ("K3q", K.etap_decode_paged_quant(q, *args, table, lens, **kw)),
+            ("K1q+K2 auto", ops.etap_decode_paged_splitkv(
+                q, args[0], args[2], table, lens, spec=AttnSpec(**kw),
+                k_sz=args[1], v_sz=args[3]))):
+        r = float(((out.double() - oracle) ** 2).mean().sqrt())
+        log(f"[sepv] RMSE {what} {tag} {kvd} fp32 q: {r:.4e}, the "
+            f"reference's route (plain) {pr:.4e}, gate {gate:.3e}, limit "
+            f"{limit:.4e}")
+        if not r <= limit:
+            raise AssertionError(f"{what} {tag} {kvd}: RMSE {r:.4e} against "
+                                 f"the fp64 oracle exceeds {limit:.4e}")
+
+
+def sepv_entry_path(dev, gen) -> dict:
+    """This slice's path: core.etap's paged entries with a v_pool, in both
+    modes, over fp, int8 and fp8 pools, at Granite's MQA shapes (decode
+    with the auto plan and one split, prefill and verify at Cq 16) and at
+    the latent's timed shapes (B 8 ~4K ragged; Cq 32): every launch count
+    zeroed just before each (width, code type) group and read just after,
+    and each output held to the same call through the plain versions.
+    Returns {entry: launches}."""
+    import torch
+    from repro_torch.core import etap as core
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import etap as K
+    launches = {k: 0 for k in SEPV_KERNELS}
+    fd_names = ("flash_decode", "flash_decode_partial", "flash_decode_quant",
+                "flash_decode_partial_quant")
+    for (dk, dv), kvd in [(w, c) for w in SEPV_WIDTHS
+                          for c in ("fp", "int8", "fp8")]:
+        sfx = "" if kvd == "fp" else "_quant"
+        if dk == HD:
+            q, args, table, lens, _ = granite_case(kvd, GRANITE_LENGTHS, gen,
+                                                   dev)
+            Cq, start = 16, torch.tensor([GRANITE_LENGTHS[0] - 16, 0],
+                                         dtype=torch.int32, device=dev)
+            ptable = table[:2]
+        else:
+            _, args, table = latent_case(kvd, LATENT_TIMED,
+                                         pages(LATENT_TIMED), gen, dev)
+            lens = torch.tensor(LATENT_TIMED, dtype=torch.int32, device=dev)
+            q = torch.randn(len(LATENT_TIMED), 128, DK, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            Cq, start = 32, torch.tensor([LATENT_TIMED[0] - 32],
+                                         dtype=torch.int32, device=dev)
+            ptable = table[:1]
+        qp = torch.randn(start.shape[0], Cq, q.shape[1], dk, generator=gen,
+                         device=dev).to(q.dtype)
+        qpos = start[:, None] + torch.arange(Cq, dtype=torch.int32,
+                                             device=dev)[None, :] // 2
+        pools = pool_kw(args)
+        plain_k4 = getattr(K, f"etap_prefill_paged{sfx}_plain")
+        calls = []                          # (what, entry call, plain call)
+        for mode in ("etap", "standard"):
+            for kv_splits in (None, 1):
+                spec = AttnSpec(scale=dk ** -0.5, mode=mode,
+                                kv_splits=kv_splits)
+
+                def decode(spec=spec):
+                    return core.decode_attention_paged(
+                        q, table=table, lengths=lens, spec=spec, **pools)
+                calls.append((f"decode {mode} kv_splits={kv_splits}", decode,
+                              None))
+        spec = AttnSpec(scale=dk ** -0.5)
+        calls.append(("prefill", lambda: core.prefill_attention_paged(
+            qp, table=ptable, start=start, spec=spec, **pools),
+            lambda: plain_k4(qp, *args, ptable, start, scale=dk ** -0.5)))
+        calls.append(("verify", lambda: core.verify_attention_paged(
+            qp, table=ptable, start=start, qpos=qpos, spec=spec, **pools),
+            lambda: plain_k4(qp, *args, ptable, start, scale=dk ** -0.5,
+                             qpos=qpos)))
+        for fn in counters().values():
+            fn.launches = 0
+        outs = [call() for _, call, _ in calls]
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters().items()}
+        err = 0.0
+        with plain_kernels():              # decode: the entry, plain
+            for (what, call, plain), out in zip(calls, outs, strict=True):
+                err = max(err, sepv_out_close(
+                    out, (plain or call)(),
+                    f"entry {what} ({dk}, {dv}) {kvd}"))
+        for k, (_, _, wrapper, w, code) in SEPV_KERNELS.items():
+            if (w, code) == ((dk, dv), kvd):
+                launches[k] = got[wrapper]
+                if not got[wrapper]:
+                    raise AssertionError(f"entry path ({dk}, {dv}) {kvd}: "
+                                         f"{wrapper} did not launch")
+        if not any(got[n] for n in fd_names):
+            raise AssertionError(f"entry path ({dk}, {dv}) {kvd}: the "
+                                 "standard mode launched no baseline kernel")
+        log(f"[sepv] entry path ({dk}, {dv}) {kvd} q {q.dtype}: "
+            f"{len(calls)} calls (decode etap / standard x auto / 1 split, "
+            f"prefill, verify Cq={Cq}), within tolerance of their plain "
+            f"routes (max abs err {err:.3e}); launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+    return launches
+
+
+def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
+    """K3, K1 + K2 and K4 over separate K and V pools, and their quantized
+    twins over int8 / fp8 code pools each with its own (scale, zp) pool, at
+    (576, 512) and (128, 128), in both rescale modes, against their plain
+    versions: the latent with V = pool[..., :512] as its own pool at
+    serve-long's decode shapes (4 / 7 slots, idle rows on the null block,
+    a 65-column table padded to 68: 4 splits of 17), serve-short's (B 8,
+    9 pages, one split) and K4 at Cq 256 from start 0 and 3840, bitwise
+    the fused kernels there; Granite-20B's MQA pools (q [8, 48, 128], a
+    shuffled 32-column table, ragged lengths) with the auto plan and one
+    split, K4 at Cq 128 (6,144 columns), paged == dense bitwise at
+    block-aligned lengths, and the RMSE of the code pools against the
+    fp64 oracle; then each instance's registers, its time beside its
+    plain version's, its bound and SDPA's, the fused kernels beside at
+    the latent, and the paper's geometry (B 16, H 16, context 65,536)
+    fused against separate V through K1 + K2, timed only; then this
+    slice's path, the paged attention entries (sepv_entry_path), whose
+    launches go to ``launches``."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap import ops
+    from repro_torch.runtime.paged_cache import gather_blocks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    errs = {k: 0.0 for k in SEPV_KERNELS}
+    codes = ("fp", "int8", "fp8")
+
+    def keyf(dk, dv, kvd):
+        sfx = "" if kvd == "fp" else "_quant"
+        tail = "" if kvd == "fp" else f",{kvd}"
+        return lambda w: f"{w}{sfx}[{dk},{dv}{tail}]"
+
+    for dk, dv in SEPV_WIDTHS:
+        for code, qf in ((-1, 0), (0, 0), (0, 1), (1, 0), (1, 1)):
+            what = {-1: "bf16", 0: "int8", 1: "fp8"}[code] + \
+                (" fp32 q" if qf else "")
+            log(f"[attrs] separate V ({dk}, {dv}) {what}: K3 / K4 "
+                + instance_attrs("etap_paged_sepv_attrs", dk, dv, 0, code, qf)
+                + "; K1 "
+                + instance_attrs("etap_paged_sepv_attrs", dk, dv, 1, code,
+                                 qf))
+
+    # ---- the latent, V in its own pool: the fused kernels' bits
+    for kvd in codes:
+        key = keyf(DK, DV, kvd)
+        quant = kvd != "fp"
+        lengths = SEPV_LONG + ([1, 1, 1] if quant else [])
+        fused, args, table = latent_case(kvd, lengths, pages(lengths), gen,
+                                         dev)
+        table[4:] = 0                      # idle slots read the null block
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.randn(len(lengths), 128, DK, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        n = check_sepv_decode(q, args, table, lens, kvd=kvd,
+                              tag="serve-long", errs=errs, key=key,
+                              fused=fused)
+        if n != 4:
+            raise AssertionError(f"serve-long {kvd}: the auto plan has {n} "
+                                 "splits, not serve-long's 4")
+        fused, args, table = latent_case(kvd, SEPV_SHORT, pages(SEPV_SHORT),
+                                         gen, dev)
+        lens = torch.tensor(SEPV_SHORT, dtype=torch.int32, device=dev)
+        q = torch.randn(8, 128, DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        n = check_sepv_decode(q, args, table, lens, kvd=kvd,
+                              tag="serve-short", errs=errs, key=key,
+                              fused=fused)
+        if n != 1:
+            raise AssertionError(f"serve-short {kvd}: the auto plan has {n} "
+                                 "splits, not one")
+        fused, args, table = latent_case(kvd, SEPV_LONG[:1],
+                                         pages(SEPV_LONG), gen, dev)
+        qp = torch.randn(1, SEPV_CQ, 128, DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        for s0 in SEPV_STARTS:
+            check_sepv_prefill(qp, args, table,
+                               torch.tensor([s0], dtype=torch.int32,
+                                            device=dev),
+                               kvd=kvd, tag=f"Cq={SEPV_CQ} start={s0}",
+                               errs=errs, key=key, fused=fused)
+        log(f"[sepv] latent {kvd}: K3, K1 (n=4) + K2 at serve-long's shapes "
+            f"and K3 at serve-short's, K4 at Cq {SEPV_CQ} (start "
+            f"{SEPV_STARTS}): ok "
+            "against their plain versions in both modes; bitwise the fused "
+            "kernels; auto plan, split(n=1)+K2 and linear verify bitwise")
+
+    # ---- Granite-20B's MQA pools
+    for kvd in codes:
+        key = keyf(HD, HD, kvd)
+        q, args, table, lens, rows = granite_case(kvd, GRANITE_LENGTHS, gen,
+                                                  dev)
+        n = check_sepv_decode(q, args, table, lens, kvd=kvd, tag="granite",
+                              errs=errs, key=key)
+        check_sepv_decode(q, args, table, lens, kvd=kvd,
+                          tag="granite one split", errs=errs, key=key,
+                          n_splits=1)
+        if kvd != "fp":                    # the other q type, once
+            qb = q.to(torch.bfloat16)
+            sepv_out_close(K.etap_decode_paged_quant(qb, *args, table, lens,
+                                                     scale=HD ** -0.5),
+                           K.etap_decode_paged_quant_plain(
+                               qb, *args, table, lens, scale=HD ** -0.5),
+                           f"K3q granite {kvd} bf16 q")
+            granite_rmse(q, args, table, lens, rows, kvd, "granite")
+        qp = torch.randn(2, GRANITE_CQ, GRANITE_H, HD, generator=gen,
+                         device=dev).to(q.dtype)
+        check_sepv_prefill(qp, args, table[:2],
+                           torch.tensor(GRANITE_STARTS, dtype=torch.int32,
+                                        device=dev),
+                           kvd=kvd, tag=f"granite Cq={GRANITE_CQ}",
+                           errs=errs, key=key)
+        qa, aargs, atable, alens, _ = granite_case(kvd, GRANITE_ALIGNED, gen,
+                                                   dev)
+        granite_paged_is_dense(qa, aargs, atable, alens, kvd,
+                               "granite aligned")
+        log(f"[sepv] granite {kvd} q {q.dtype}: K3, K1 (auto plan: {n} "
+            f"splits) + K2 and one split, K4 at Cq {GRANITE_CQ}: ok "
+            "against their plain versions in both modes; paged == dense "
+            "bitwise at block-aligned lengths (K3 == K5, K1 == K6)"
+            + ("" if kvd == "fp" else "; RMSE within its limit"))
+
+    # ---- timing: each instance beside its plain version, bound, SDPA
+    iters, piters = (1, 1) if quick else (20, 3)
+    for (dk, dv), kvd in [(w, c) for w in SEPV_WIDTHS for c in codes]:
+        key = keyf(dk, dv, kvd)
+        quant = kvd != "fp"
+        sfx = "_quant" if quant else ""
+        if dk == DK:
+            nb = pages(LATENT_TIMED)
+            fused, args, table = latent_case(kvd, LATENT_TIMED, nb, gen, dev)
+            lens = torch.tensor(LATENT_TIMED, dtype=torch.int32, device=dev)
+            q = torch.randn(len(LATENT_TIMED), 128, DK, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            Cq, start = 32, torch.tensor([nb * PAGE - 32], dtype=torch.int32,
+                                         device=dev)
+            pfused, pargs, ptable = latent_case(kvd, [nb * PAGE], nb, gen,
+                                                dev)
+            qp = torch.randn(1, Cq, 128, DK, generator=gen, device=dev).to(
+                torch.bfloat16)
+            n = 4
+        else:
+            fused = None
+            q, args, table, lens, _ = granite_case(kvd, GRANITE_LENGTHS, gen,
+                                                   dev)
+            n = ops._paged_n_splits(q, table, PAGE, HD,
+                                    AttnSpec(scale=HD ** -0.5))
+            Cq, start = GRANITE_CQ, torch.tensor(
+                GRANITE_STARTS, dtype=torch.int32, device=dev)
+            pargs, ptable = args, table[:2]
+            qp = torch.randn(2, Cq, GRANITE_H, HD, generator=gen,
+                             device=dev).to(q.dtype)
+        B, H = q.shape[:2]
+        _, _, padded = ops.paged_split_geometry(table.shape[1], n)
+        tpad = ops._pad_table(table, padded)
+        keys = int(lens.sum())
+        row_b = dk + dv + (16 if quant else (dk + dv))  # K, V (+ 2 pairs)
+        q_b, out_b = q.numel() * q.element_size(), B * H * dv * \
+            q.element_size()
+        stats_b = B * n * H * (dv + 2) * 4
+        flops = 2 * keys * H * (dk + dv)
+        pcols = [int(s) + c + 1 for s in start.tolist() for c in range(Cq)]
+        keys_p = sum(pcols) * qp.shape[2]
+        prow = int(start.max()) + Cq
+        p_bytes = (qp.numel() * qp.element_size()
+                   + sum(int(s) + Cq for s in start.tolist()) * row_b
+                   + qp.numel() // dk * dv * qp.element_size())
+        kw = dict(scale=dk ** -0.5)
+        dec = (q, *args, table, lens)
+        cases = {
+            "etap_decode_paged": (lambda f: f(*dec, **kw),
+                                  bound_ms(q_b + keys * row_b + out_b,
+                                           flops)),
+            "etap_paged_partial_sepv": (
+                lambda f: f(q, *args, tpad, lens, n_splits=n, **kw),
+                bound_ms(q_b + keys * row_b + stats_b, flops)),
+            "etap_prefill_paged": (
+                lambda f: f(qp, *pargs, ptable, start, **kw),
+                bound_ms(p_bytes, 2 * keys_p * (dk + dv))),
+        }
+        lib = {"etap_decode_paged": None, "etap_paged_partial_sepv": None,
+               "etap_prefill_paged": None}
+        if not quant:                       # SDPA on the gathered rows
+            kd, vd = (gather_blocks(x, table) for x in args)
+            mask = (torch.arange(kd.shape[1], device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            qd = q[:, :, None, :]
+            lib["etap_decode_paged"] = lambda: \
+                torch.nn.functional.scaled_dot_product_attention(
+                    qd, kd[:, None], vd[:, None], attn_mask=mask,
+                    scale=dk ** -0.5, enable_gqa=True)
+            kp, vp = (gather_blocks(x, ptable)[:, :prow] for x in pargs)
+            pmask = (torch.arange(prow, device=dev)[None, None, :]
+                     <= (start[:, None] + torch.arange(
+                         Cq, device=dev)[None, :])[:, :, None])[:, None]
+            qpd = qp.transpose(1, 2)
+            lib["etap_prefill_paged"] = lambda: \
+                torch.nn.functional.scaled_dot_product_attention(
+                    qpd, kp[:, None], vp[:, None], attn_mask=pmask,
+                    scale=dk ** -0.5, enable_gqa=True)
+        shapes = {"etap_decode_paged": f"B={B} H={H} ctx<={max(lens.tolist())}"
+                  " ragged", "etap_paged_partial_sepv": f"B={B} H={H} "
+                  f"n_splits={n}", "etap_prefill_paged":
+                  f"B={start.shape[0]} Cq={Cq} H={qp.shape[2]} "
+                  f"start={start.tolist()}"}
+        for wrapper, (call, (tb, by)) in cases.items():
+            fn = getattr(K, wrapper + sfx)
+            plain = getattr(K, wrapper + sfx + "_plain")
+            t = cuda_time_ms(lambda: call(fn), iters)
+            tp = cuda_time_ms(lambda: call(plain), piters, warmup=1)
+            tl = cuda_time_ms(lib[wrapper], iters) if lib[wrapper] else None
+            k = key(wrapper)
+            extra = ""
+            if fused is not None:           # the fused kernel, in turns
+                ffn = {"etap_decode_paged":
+                       lambda: getattr(K, f"etap_decode_mla_paged{sfx}")(
+                           q, *fused, DV, table, lens, **kw),
+                       "etap_paged_partial_sepv":
+                       lambda: getattr(K, f"etap_paged_partial{sfx}")(
+                           q, *fused, DV, tpad, lens, n_splits=n, **kw),
+                       "etap_prefill_paged":
+                       lambda: getattr(K, f"etap_prefill_mla_paged{sfx}")(
+                           qp, *pfused, DV, ptable, start, **kw)}[wrapper]
+                tf = [cuda_time_ms(ffn, iters),
+                      cuda_time_ms(lambda: call(fn), iters)]
+                tf += [cuda_time_ms(lambda: call(fn), iters),
+                       cuda_time_ms(ffn, iters)]
+                tfused, tsep = (tf[0] + tf[3]) / 2, (tf[1] + tf[2]) / 2
+                extra = (f"; fused {tfused:.4f} ms, separate V in turns "
+                         f"{tsep:.4f} ms: {tsep / tfused:.2f}x")
+            lname = "null" if tl is None else f"{tl:.4f}"
+            log(f"[timing] {k} ({shapes[wrapper]}): {t:.4f} ms, plain "
+                f"{tp:.4f} ms, bound {tb:.4f} ms ({by}), library {lname} ms"
+                + extra)
+            report[k] = {"max_abs_err": errs[k], "ms": t, "plain_ms": tp,
+                         "bound_ms": tb, "bound_by": by, "library_ms": tl}
+
+    # ---- the paper's geometry, fused against separate V, timed only
+    Bp, Hp, ctx = PAPER
+    nbp = ctx // PAGE
+    pool, table = make_pool(Bp, nbp, [ctx] * Bp, gen, dev)
+    vpool = latent_v(pool)
+    lens = torch.full((Bp,), ctx, dtype=torch.int32, device=dev)
+    q = torch.randn(Bp, Hp, DK, generator=gen, device=dev).to(torch.bfloat16)
+    spec = AttnSpec(scale=SCALE)
+    n = ops._paged_n_splits(q, table, PAGE, DV, spec)
+
+    def fused_call():
+        return ops.etap_decode_mla_paged_splitkv(q, pool, DV, table, lens,
+                                                 spec=spec)
+
+    def sep_call():
+        return ops.etap_decode_paged_splitkv(q, pool, vpool, table, lens,
+                                             spec=spec)
+    bitwise(sep_call(), fused_call(), "paper geometry separate V vs fused")
+    pit = 1 if quick else 10
+    ts = [cuda_time_ms(fused_call, pit), cuda_time_ms(sep_call, pit),
+          cuda_time_ms(sep_call, pit), cuda_time_ms(fused_call, pit)]
+    tfu, tse = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+    keys = Bp * ctx
+    bf, _ = bound_ms(keys * DK * 2, 2 * keys * Hp * (DK + DV))
+    bs, _ = bound_ms(keys * (DK + DV) * 2, 2 * keys * Hp * (DK + DV))
+    log(f"[timing] paper geometry B={Bp} H={Hp} ctx={ctx} latent, K1 + K2 "
+        f"(auto plan: {n} splits), in turns: fused {tfu:.4f} ms (bound "
+        f"{bf:.4f}, bytes), separate V {tse:.4f} ms (bound {bs:.4f}, "
+        f"bytes): {tse / tfu:.2f}x; bitwise equal")
+    del pool, vpool, table
+    torch.cuda.empty_cache()
+
+    launches.update(sepv_entry_path(dev, gen))
+
+
 # ------------------------------------------------- phase 2: K10 (scan)
 # the reference test's shapes (tests/test_kernels.py:174): (B, L, D, N)
 SCAN_SMALL = [(2, 64, 32, 8), (1, 100, 48, 4), (2, 256, 128, 16)]
@@ -2154,7 +2823,8 @@ def wrapper_names() -> list:
     return list(KERNELS) + sorted(
         {w for _, _, w, _ in QUANT_KERNELS.values()}
         | {w for _, _, w, _, _ in QDENSE_KERNELS.values()}
-        | {w for _, _, w, _ in PREFILL_KERNELS.values()})
+        | {w for _, _, w, _ in PREFILL_KERNELS.values()}
+        | {w for _, _, w, _, _ in SEPV_KERNELS.values()})
 
 
 def kv_dtype_of(flags) -> str:
@@ -3290,6 +3960,9 @@ def main(argv=None) -> int:
     timed("kernels", phase_kernels, args.quick, report)
     timed("dense kernels", phase_dense_kernels, args.quick, report)
     timed("quantized kernels", phase_quant_kernels, args.quick, report)
+    sepv_launches: dict = {}
+    timed("separate-V paged kernels", phase_sepv_kernels, args.quick,
+          report, sepv_launches)
     timed("GQA kernels (128, 64, 256)", phase_gqa_kernels, args.quick,
           report)
     timed("quantized dense kernels", phase_quant_dense_kernels, args.quick,
@@ -3298,8 +3971,10 @@ def main(argv=None) -> int:
     timed("causal prefill kernel (K9)", phase_prefill_kernels, args.quick,
           report)
     if args.quick:
-        log(json.dumps({"kernels": [dict(name=k, **v)
-                                    for k, v in report.items()]}))
+        log(json.dumps({"kernels": [
+            dict(name=k, **v, **({"launches": sepv_launches[k]}
+                                 if k in sepv_launches else {}))
+            for k, v in report.items()]}))
         return 0
 
     from repro_torch.models import model
@@ -3313,6 +3988,7 @@ def main(argv=None) -> int:
 
     launches = {k: 0 for k in [*KERNELS, *QUANT_KERNELS, *GQA_KERNELS,
                                *QDENSE_KERNELS, *PREFILL_KERNELS]}
+    launches.update(sepv_launches)          # the paged entries' own path
     served = {k: 0 for k in QDENSE_KERNELS}      # on the serve phases only
     t_serve = time.perf_counter()
     for name, flags, expect in SERVE_PHASES:
@@ -3455,6 +4131,9 @@ def main(argv=None) -> int:
     kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
                      launches=launches[k], **report[k])
                 for k, (tpu, src, *_) in PREFILL_KERNELS.items()]
+    kernels += [dict(name=k, route="cuda", source=src, replaces=tpu,
+                     launches=launches[k], **report[k])
+                for k, (tpu, src, *_) in SEPV_KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP kernels,
-the untransposed baseline, the split combine, the causal prefill and the
-selective scan) on first use.
+fused, quantized and over separate K and V pools, the untransposed
+baseline, the split combine, the causal prefill and the selective scan) on
+first use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -77,6 +78,18 @@ SIGNATURES = {
                                  _P],
     # dA, dBx, c, y, h, B, L, D, N, stream
     "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the separate-V paged kernels: widths, (dk, dv, stats, code, qf32,
+    # out[3]) attrs, then pointers, shapes (.., dk, dv), scale, amla[,
+    # code, qf32], stream
+    "etap_paged_sepv_widths": [_P, _I],
+    "etap_paged_sepv_attrs": [_I, _I, _I, _I, _I, _P],
+    "etap_decode_paged": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    "etap_paged_partial_sepv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "etap_prefill_paged": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "etap_decode_paged_quant": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    "etap_paged_partial_sepv_quant": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _I,
+                                                             _P],
+    "etap_prefill_paged_quant": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "flash_prefill_widths": [_P, _I],
     "flash_prefill_attrs": [_I, _I, _P],
     # q, qb, qs, qh, k, kb, ks, kh, v, vb, vs, vh, out, B, S, H, K, d, dv,

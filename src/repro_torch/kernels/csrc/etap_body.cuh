@@ -1,10 +1,11 @@
 // The body of the MLA ETAP attention kernels for Hopper (sm_90a), one
 // template serving five pallas_call sites of the JAX package over bf16
 // rows and over int8 / e4m3 codes.  etap.cu instantiates its bf16 kernels
-// (K3, K1, K4, K5, K6) and etap_quant.cu its quantized ones (K3q, K1q, K4q
-// over the paged latent, K5q, K6q over dense GQA rows), so the two compile
-// in parallel; each source's header says which pallas_call bodies it
-// replaces.
+// (K3, K1, K4, K5, K6), etap_quant.cu its quantized ones (K3q, K1q, K4q
+// over the paged latent, K5q, K6q over dense GQA rows) and etap_sepv.cu the
+// paged K3, K1, K4 and their quantized twins over separate K and V pools,
+// so the three compile in parallel; each source's header says which
+// pallas_call bodies it replaces.
 //
 // What they compute.  A CTA owns NT = 16 query columns of one batch row (16
 // heads of a decode query, or 16 of the Cq*H columns of a prefill chunk)
@@ -15,9 +16,11 @@
 //     O^T += V^T P^T               [Dv, 16]   mma.sync, Dv on M
 // The widths (Dk, Dv) are template parameters: the MLA latent (576, 512),
 // where V is the first 512 columns of the same latent page (read once for
-// both products), and, for the dense kernels K5/K6 (and K5q/K6q) only, the
-// GQA heads (128, 128), (64, 64) and (256, 256) with K and V in their own
-// caches (mma_tile.cuh's width lists say which kernel takes which).
+// both products) or, paged, a pool of its own; the GQA heads (128, 128),
+// (64, 64) and (256, 256) for the dense kernels K5/K6 (and K5q/K6q), with
+// K and V in their own caches; and (128, 128) for the paged kernels over
+// separate K and V pools (mma_tile.cuh's width lists say which kernel
+// takes which).
 //
 // Dv 64.  Acc^T [64, 16] is the grid of eight 16 x 8 tiles that S^T
 // [64, 16] is, so each of the 8 warps takes the Acc^T tile at its S^T
@@ -35,7 +38,13 @@
 //
 // Address modes (template parameters: DENSE, and CODE, the element type of
 // K and V: bf16 rows, or int8 / e4m3 codes).  Paged (K1, K3, K4): tile j of row
-// b is pool block table[b, j].  Dense (K5, K6): tile j of row b is rows
+// b is pool block table[b, j]; V is the block's first Dv columns (the MLA
+// latent), or, in the separate-V instances (template parameter SEPV, so
+// the fused ones carry none of its code), block table[b, j] of its own
+// pool [N, 64, Dv] (the same entry, rows Dv wide), loaded over the K
+// tile's first Dv columns once the score product is done, as a dense
+// separate V is; null blocks and idle rows read block 0 of both pools,
+// masked.  Dense (K5, K6): tile j of row b is rows
 // [64 j, 64 j + 64) of k + b * kb with row stride ldk; rows at or past S
 // are zero-filled, so the caller never pads the cache (the reference pads
 // with zeros, and the horizon masks those rows either way).  Row b may also
@@ -54,8 +63,9 @@
 // cache [B, S, K, 2] read in place); a separate V brings its own pairs
 // (szv), loaded with K's at the top of the tile so that the V codes can
 // replace the K tile's first Dv columns after the score product, as the
-// bf16 V does.  That separate-V code address is the one the separate-V
-// paged bodies (K1/K3/K4 over K and V pools) will take.
+// bf16 V does.  Quantized paged with a separate V: the V code pool [N, 64,
+// Dv] and its own (scale, zp) pool, both at block table[b, j], loaded as
+// the dense separate V's; the tile update weighs P by V's scales (szv).
 //
 // Column c is live for key position kpos iff kpos <= horizon(c), with
 // horizon = lengths[b] - 1 (decode), start[b] +
@@ -113,7 +123,9 @@
 // What bounds it on the H100.  Decode reads each latent page once per head
 // tile (128 heads = 8 tiles, the re-reads mostly hit L2); its floor is the
 // pool bytes over 3.35 TB/s (about half of them for a code pool: 584 B a
-// row against 1152).  A GQA group (G = 4 heads of Qwen3-8B) fills 4 of the
+// row against 1152; a separate V pool reads its Dv columns again: 2176 B a
+// latent row, 512 B at Granite's 128, 1104 B and 272 B as codes with both
+// pairs).  A GQA group (G = 4 heads of Qwen3-8B) fills 4 of the
 // 16 columns: 12 are padding, masked, and the floor is again the K and V
 // bytes.  Prefill at 128 heads is compute-bound
 // (Cq*H*kpos*(576 + 512) multiply-adds).  This first version is simple:
@@ -197,11 +209,14 @@ struct Params {
   int kvh;            // dense: kv heads per batch row (1: plain [B, S, D])
   int ldk;            // dense row stride (elements)
   int S;              // dense rows per batch row (rows >= S read as zero)
-  const void* v;      // dense separate V rows as K's, or null
+  const void* v;      // a separate V, or null (the first DV columns of K):
+                      // paged, a pool [N, PAGE, DV] read through the
+                      // table; dense, rows as K's with strides vb, vh, ldv
   long long vb;
   long long vh;
   int ldv;
-  const float* vsz;   // dense quantized separate V: its pairs, as K's
+  const float* vsz;   // quantized separate V: its pairs, as K's (paged,
+                      // a pool [N, PAGE, 2]; dense, strides vzb, vzh, ldvz)
   long long vzb;
   long long vzh;
   int ldvz;
@@ -228,18 +243,29 @@ __device__ __forceinline__ size_t dense_row(int b, int kvh, long long sb,
   return (size_t)bo * sb + (size_t)(b - bo * kvh) * sh;
 }
 
+// Whether the paged bodies are built at (DK, DV): a constexpr scalar, so
+// the kernel's static check reads its value without calling host code.
+template <int DK, int DV>
+constexpr bool kPagedWidths = has_widths<PagedSepWidths>(DK, DV);
+
 // DENSE selects the address mode and CODE the element type of K and V at
 // compile time, so each kernel carries only its own mode's code; QF32
 // (quantized bodies only) takes fp32 q; DK and DV are the widths (the
-// paged bodies are built at the latent's only).  O is fp32 for fp32 q and
-// for the dense quantized kernels, bf16 otherwise.
-template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV>
+// paged bodies are built at PagedSepWidths': the latent's, fused or with a
+// separate V, and 128 with a separate V).  O is fp32 for fp32 q and for
+// the dense quantized kernels, bf16 otherwise.
+template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV,
+          bool SEPV = false>
 __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   constexpr bool QUANT = CODE != kBf16;
   constexpr bool OUT_F32 = QF32 || (DENSE && QUANT);
   static_assert(QUANT || !QF32, "fp32 q is taken by the quantized bodies");
-  static_assert(DENSE || (DK == LATENT_DK && DV == LATENT_DV),
-                "the paged bodies take the latent widths");
+  static_assert(DENSE || kPagedWidths<DK, DV>,
+                "the paged bodies take PagedSepWidths");
+  static_assert(!(DENSE && SEPV), "SEPV is the paged separate-V address");
+  // V has rows of its own: a dense V passed beside K, or a paged V pool
+  // (a compile-time choice, so the fused paged kernels carry none of it)
+  const bool own_v = DENSE ? P.v != nullptr : SEPV;
   static_assert(DK % 16 == 0 && DV <= DK &&
                     (DV % (16 * NWARP) == 0 || 2 * DV == 16 * NWARP),
                 "DK a multiple of 16; DV of 128, or 64, within the K tile");
@@ -319,7 +345,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
                      P.sz + dense_row(b, P.kvh, P.zb, P.zh) +
                          (size_t)j * PAGE * P.ldz,
                      P.ldz, rows);
-        if (P.v)                               // V's own pairs
+        if (own_v)                             // V's own pairs
           load_sz_tile(sm.szv,
                        P.vsz + dense_row(b, P.kvh, P.vzb, P.vzh) +
                            (size_t)j * PAGE * P.ldvz,
@@ -330,6 +356,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
             sm.k, KSTR, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
             DK, PAGE, DK);
         load_sz_tile(sm.sz, P.sz + blk * PAGE * 2, 2, PAGE);
+        if constexpr (SEPV)                    // V's own pairs
+          load_sz_tile(sm.szv, P.vsz + blk * PAGE * 2, 2, PAGE);
       }
     } else {
       const bf16* src;
@@ -390,19 +418,24 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     __syncthreads();
 
     // ---- a separate V replaces the K tile's first DV columns (rows past
-    //      S stay zero from the K load)
-    if (DENSE && P.v) {
+    //      S stay zero from the K load): dense rows, or the V pool's block
+    //      at the same table entry
+    if (own_v) {
+      size_t voff, ldv;
+      if constexpr (DENSE) {
+        voff = vbase + (size_t)j * PAGE * P.ldv;
+        ldv = P.ldv;
+      } else {
+        voff = (size_t)P.table[(size_t)b * P.nbt + j] * PAGE * DV;
+        ldv = DV;
+      }
       if constexpr (QUANT)
         load_code_tile<CODE, NTHREAD>(
-            sm.k, KSTR,
-            static_cast<const uint8_t*>(P.v) + vbase +
-                (size_t)j * PAGE * P.ldv,
-            P.ldv, rows, DV);
+            sm.k, KSTR, static_cast<const uint8_t*>(P.v) + voff, ldv, rows,
+            DV);
       else
-        load_tile<NTHREAD>(sm.k, KSTR,
-                           static_cast<const bf16*>(P.v) + vbase +
-                               (size_t)j * PAGE * P.ldv,
-                           P.ldv, rows, DV, false);
+        load_tile<NTHREAD>(sm.k, KSTR, static_cast<const bf16*>(P.v) + voff,
+                           ldv, rows, DV, false);
     }
 
     // ---- online-softmax update: 16 lanes per column, 4 rows per lane
@@ -414,7 +447,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       if constexpr (QUANT)
         tile_update<true>(sv, r, amla, &sm.p_hi[col * PSTR],
                           &sm.p_lo[col * PSTR], &sm.m[col], &sm.l[col],
-                          &sm.corr[col], (DENSE && P.v) ? sm.szv : sm.sz,
+                          &sm.corr[col], own_v ? sm.szv : sm.sz,
                           &sm.zc[col], &sm.p_mid[col * PSTR]);
       else
         tile_update(sv, r, amla, &sm.p_hi[col * PSTR], &sm.p_lo[col * PSTR],
@@ -530,26 +563,27 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 }
 
 template <bool STATS, bool DENSE, int CODE, bool QF32, int DK = LATENT_DK,
-          int DV = LATENT_DV>
+          int DV = LATENT_DV, bool SEPV = false>
 int launch_mode(const Params& p, int B, int n_splits, void* stream) {
   const int smem = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
   cudaError_t err = cudaFuncSetAttribute(
-      etap_kernel<STATS, DENSE, CODE, QF32, DK, DV>,
+      etap_kernel<STATS, DENSE, CODE, QF32, DK, DV, SEPV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.C + NT - 1) / NT, n_splits, B);
-  etap_kernel<STATS, DENSE, CODE, QF32, DK, DV><<<
+  etap_kernel<STATS, DENSE, CODE, QF32, DK, DV, SEPV><<<
       grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instance's registers per thread, dynamic shared memory (bytes) and
 // local memory per thread (bytes; spills) into out[0..2].
-template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV>
+template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV,
+          bool SEPV = false>
 int attrs_of(int* out) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(
-      &a, etap_kernel<STATS, DENSE, CODE, QF32, DK, DV>);
+      &a, etap_kernel<STATS, DENSE, CODE, QF32, DK, DV, SEPV>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));

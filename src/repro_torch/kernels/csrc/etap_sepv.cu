@@ -1,0 +1,213 @@
+// Paged ETAP attention over separate K and V pools for Hopper (sm_90a):
+// the separate-V instantiations of etap_body.cuh's body, which says what
+// they compute and how (its "Address modes").  K and V each sit in their
+// own paged pool [N, 64, D*], read through one block table; over int8 /
+// e4m3 codes each pool has its own (scale, zp) pool [N, 64, 2].
+//
+//   K3  single-pass paged decode   replaces repro/kernels/etap/etap.py:237
+//       (_paged_call :185, bodies _paged_body :98 and _paged_body_quant
+//        :110, reached from etap_decode_paged_pallas :247)
+//   K1  split-KV phase 1           replaces repro/kernels/etap/etap.py:713
+//       (etap_paged_partial_pallas :646, bodies _paged_partial_body :619
+//        and _paged_partial_body_quant :631)
+//   K4  chunked prefill / verify   replaces repro/kernels/etap/etap.py:430
+//       (_prefill_call :373, bodies _etap_prefill_body :271,
+//        _prefill_body_quant :334, _verify_body :348 and
+//        _verify_body_quant :360, reached from etap_prefill_paged_pallas
+//        :440 and etap_verify_paged_pallas :474)
+//
+// Built at mma_tile.cuh's PagedSepWidths: DeepSeek's latent (576, 512)
+// with V in its own pool, and Granite-20B's MQA head (128, 128), as the
+// body's SEPV instances (the fused ones in etap.cu and etap_quant.cu
+// carry none of the separate-V code).  The V tile replaces the K tile's
+// first Dv columns after the score product, so a separate V adds no
+// shared memory, and at the latent, over a V pool that holds the fused
+// pool's first 512 columns, the kernels give the fused ones' bits.
+//
+// What bounds them on the H100: the K and V bytes, each read once per head
+// tile, over 3.35 TB/s: 2176 B a latent row against the fused kernel's
+// 1152, 512 B at 128; over codes 1104 B and 272 B with both pairs.
+#include "etap_body.cuh"
+
+namespace {
+
+// The instance of list PagedSepWidths at (dk, dv) for STATS, CODE and
+// fp32 q: f(launch or attrs of that instance).
+template <bool STATS, int CODE, bool QF32, class F>
+int with_instance(int dk, int dv, F&& f) {
+  return with_widths<PagedSepWidths>(dk, dv, [&](auto DK, auto DV) {
+    return f(std::integral_constant<int, decltype(DK)::value>{},
+             std::integral_constant<int, decltype(DV)::value>{},
+             std::bool_constant<STATS>{}, std::integral_constant<int, CODE>{},
+             std::bool_constant<QF32>{});
+  });
+}
+
+// Launch the paged instance for (dk, dv), STATS, the pools' code type
+// (-1 bf16, 0 int8, 1 e4m3) and whether q is fp32.
+template <bool STATS>
+int launch(const Params& p, int dk, int dv, int code, int B, int n_splits,
+           void* stream) {
+  auto go = [&](auto DK, auto DV, auto ST, auto CD, auto QF) {
+    return launch_mode<decltype(ST)::value, false, decltype(CD)::value,
+                       decltype(QF)::value, decltype(DK)::value,
+                       decltype(DV)::value, true>(p, B, n_splits, stream);
+  };
+  if (code < 0) return with_instance<STATS, kBf16, false>(dk, dv, go);
+  if (code == 0)
+    return p.qf32 ? with_instance<STATS, kInt8, true>(dk, dv, go)
+                  : with_instance<STATS, kInt8, false>(dk, dv, go);
+  return p.qf32 ? with_instance<STATS, kE4m3, true>(dk, dv, go)
+                : with_instance<STATS, kE4m3, false>(dk, dv, go);
+}
+
+// The separate-V paged parameters: K's and V's pools (and, over codes,
+// their (scale, zp) pools) read through one table.
+Params sepv_params(const void* q, const void* k_pool, const float* k_sz,
+                   const void* v_pool, const float* v_sz, const int* table,
+                   int C, int nbt, float scale, int amla, int qf32) {
+  Params p = make_params(q, k_pool, table, C, nbt, scale, amla);
+  p.sz = k_sz;
+  p.v = v_pool;
+  p.vsz = v_sz;
+  p.qf32 = qf32;
+  return p;
+}
+
+template <bool STATS>
+int decode(const Params& base, const int* lengths, int dk, int dv, int code,
+           int B, int H, int n_splits, void* stream) {
+  Params p = base;
+  p.npb = p.nbt / n_splits;
+  p.base = lengths;
+  p.hz_off = -1;
+  p.heads = H;
+  return launch<STATS>(p, dk, dv, code, B, n_splits, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The (Dk, Dv) pairs the separate-V paged kernels take (written to out as
+// dk, dv, ...; returns their number).
+int etap_paged_sepv_widths(int* out, int cap) {
+  return write_widths<PagedSepWidths>(out, cap);
+}
+
+// The registers, dynamic shared memory and local memory of the separate-V
+// K3 / K4 (stats 0) or K1 (stats 1) instance at (dk, dv) over bf16 pools
+// (code -1) or int8 (0) / e4m3 (1) codes, with fp32 q when qf32 is set,
+// into out[0..2].
+int etap_paged_sepv_attrs(int dk, int dv, int stats, int code, int qf32,
+                          int* out) {
+  auto get = [&](auto DK, auto DV, auto ST, auto CD, auto QF) {
+    return attrs_of<decltype(ST)::value, false, decltype(CD)::value,
+                    decltype(QF)::value, decltype(DK)::value,
+                    decltype(DV)::value, true>(out);
+  };
+  auto pick = [&](auto ST) {
+    constexpr bool S = decltype(ST)::value;
+    if (code < 0) return with_instance<S, kBf16, false>(dk, dv, get);
+    if (code == 0)
+      return qf32 ? with_instance<S, kInt8, true>(dk, dv, get)
+                  : with_instance<S, kInt8, false>(dk, dv, get);
+    return qf32 ? with_instance<S, kE4m3, true>(dk, dv, get)
+                : with_instance<S, kE4m3, false>(dk, dv, get);
+  };
+  return stats ? pick(std::true_type{}) : pick(std::false_type{});
+}
+
+// K3, separate V: q [B,H,dk] bf16; k_pool [N,PAGE,dk], v_pool [N,PAGE,dv]
+// bf16; table [B,nbt]; lengths [B]; out [B,H,dv] bf16.
+int etap_decode_paged(const void* q, const void* k_pool, const void* v_pool,
+                      const int* table, const int* lengths, void* out, int B,
+                      int H, int nbt, int dk, int dv, float scale, int amla,
+                      void* stream) {
+  Params p = sepv_params(q, k_pool, nullptr, v_pool, nullptr, table, H, nbt,
+                         scale, amla, 0);
+  p.out = out;
+  return decode<false>(p, lengths, dk, dv, -1, B, H, 1, stream);
+}
+
+// K1, separate V: as K3 with the table padded to n_splits * npb columns;
+// writes fp32 m, l [B,n,H] and acc [B,n,dv,H].
+int etap_paged_partial_sepv(const void* q, const void* k_pool,
+                            const void* v_pool, const int* table,
+                            const int* lengths, float* m_out, float* l_out,
+                            float* acc_out, int B, int H, int nbt,
+                            int n_splits, int dk, int dv, float scale,
+                            int amla, void* stream) {
+  Params p = sepv_params(q, k_pool, nullptr, v_pool, nullptr, table, H, nbt,
+                         scale, amla, 0);
+  p.m_out = m_out;
+  p.l_out = l_out;
+  p.acc_out = acc_out;
+  return decode<true>(p, lengths, dk, dv, -1, B, H, n_splits, stream);
+}
+
+// K4, separate V: q [B, Cq*H, dk]; start [B]; qpos [B, Cq*H] or null;
+// out [B, Cq*H, dv].
+int etap_prefill_paged(const void* q, const void* k_pool, const void* v_pool,
+                       const int* table, const int* start, const int* qpos,
+                       void* out, int B, int C, int H, int nbt, int dk,
+                       int dv, float scale, int amla, void* stream) {
+  Params p = sepv_params(q, k_pool, nullptr, v_pool, nullptr, table, C, nbt,
+                         scale, amla, 0);
+  p.base = start;
+  p.qpos = qpos;
+  p.hz_off = 0;
+  p.heads = H;
+  p.out = out;
+  return launch<false>(p, dk, dv, -1, B, 1, stream);
+}
+
+// K3q / K1q / K4q, separate V: as K3 / K1 / K4 over int8 (code 0) or e4m3
+// (code 1) pools, K's and V's codes each with its own (scale, zp) pool
+// [N,PAGE,2] fp32; q bf16, or fp32 with qf32 set, and out in q's type.
+int etap_decode_paged_quant(const void* q, const void* k_pool,
+                            const float* k_sz, const void* v_pool,
+                            const float* v_sz, const int* table,
+                            const int* lengths, void* out, int B, int H,
+                            int nbt, int dk, int dv, float scale, int amla,
+                            int code, int qf32, void* stream) {
+  Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, H, nbt, scale,
+                         amla, qf32);
+  p.out = out;
+  return decode<false>(p, lengths, dk, dv, code, B, H, 1, stream);
+}
+
+int etap_paged_partial_sepv_quant(const void* q, const void* k_pool,
+                                  const float* k_sz, const void* v_pool,
+                                  const float* v_sz, const int* table,
+                                  const int* lengths, float* m_out,
+                                  float* l_out, float* acc_out, int B, int H,
+                                  int nbt, int n_splits, int dk, int dv,
+                                  float scale, int amla, int code, int qf32,
+                                  void* stream) {
+  Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, H, nbt, scale,
+                         amla, qf32);
+  p.m_out = m_out;
+  p.l_out = l_out;
+  p.acc_out = acc_out;
+  return decode<true>(p, lengths, dk, dv, code, B, H, n_splits, stream);
+}
+
+int etap_prefill_paged_quant(const void* q, const void* k_pool,
+                             const float* k_sz, const void* v_pool,
+                             const float* v_sz, const int* table,
+                             const int* start, const int* qpos, void* out,
+                             int B, int C, int H, int nbt, int dk, int dv,
+                             float scale, int amla, int code, int qf32,
+                             void* stream) {
+  Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, C, nbt, scale,
+                         amla, qf32);
+  p.base = start;
+  p.qpos = qpos;
+  p.hz_off = 0;
+  p.heads = H;
+  p.out = out;
+  return launch<false>(p, dk, dv, code, B, 1, stream);
+}
+
+}  // extern "C"

@@ -4,7 +4,7 @@
 // int8 / e4m3 code tiles (widened to exact bf16) with their rows' (scale,
 // zp), the query tile (bf16, or fp32 as three bf16 terms), the
 // online-softmax update of one 64-row KV tile, and the (Dk, Dv) widths the
-// dense and prefill kernels are built for.  Both decode orientations run
+// dense, prefill and separate-V paged kernels are built for.  Both decode orientations run
 // the SAME update code, so the ETAP and the untransposed kernels differ
 // only in which operand rides the M side.
 #pragma once
@@ -41,7 +41,7 @@ struct Widths {
 // The dense decode kernels (K5-K8) over bf16 rows: DeepSeek's latent, and
 // the GQA heads (Dk = Dv = head_dim) at 128 (Qwen3, Granite, LLaVA-NeXT),
 // 64 (SmolLM, StableLM, MusicGen) and 256 (RecurrentGemma's local
-// attention).  The paged kernels take the latent only.
+// attention).  The paged kernels take the widths of PagedSepWidths below.
 using DenseWidths =
     Widths<LATENT_DK, LATENT_DV, 128, 128, 64, 64, 256, 256>;
 // The baseline over int8 / e4m3 codes (K7q, K8q): the latent, whose
@@ -58,6 +58,23 @@ using EtapQuantDenseWidths = Widths<128, 128, 64, 64>;
 // 128 (Qwen3, LLaVA-NeXT, Granite) and 64 (StableLM, SmolLM, MusicGen).
 // RecurrentGemma's 256-wide heads attend locally and never reach it.
 using PrefillWidths = Widths<192, 128, 128, 128, 64, 64>;
+// The paged bodies (K1, K3, K4 and their quantized twins) with V in a
+// pool of its own: DeepSeek's latent with V beside it (the paper's shape;
+// its V pool holds the fused pool's first 512 columns, so the fused
+// kernel is an exact yardstick), and Granite-20B's MQA head, one [N, 64,
+// 128] K pool and one V pool, the one supported model whose per-layer
+// cache has the reference's separate-V layout.  The fused paged bodies
+// take the latent only.
+using PagedSepWidths = Widths<LATENT_DK, LATENT_DV, 128, 128>;
+
+// Whether (dk, dv) is a pair of list L (for static checks, evaluated on
+// the host side: see etap_body.cuh's kPagedWidths).
+template <class L>
+constexpr bool has_widths(int dk, int dv) {
+  for (int i = 0; i < L::N; ++i)
+    if (L::W[2 * i] == dk && L::W[2 * i + 1] == dv) return true;
+  return false;
+}
 
 // f(integral_constant<DK>, integral_constant<DV>) for the pair (dk, dv) of
 // list L, searched from entry I on; cudaErrorInvalidValue for any other

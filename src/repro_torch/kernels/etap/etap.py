@@ -1,13 +1,14 @@
 """ETAP kernels: wrappers, launch counters and plain versions.
 
 The port of ``repro/kernels/etap/etap.py``: the paged kernels at the MLA
-latent's widths (Dk 576, Dv 512), the dense ones also at the GQA heads
+latent's widths (Dk 576, Dv 512), over separate K and V pools also at
+Granite-20B's MQA head (128, 128), the dense ones also at the GQA heads
 (Dk = Dv = 128, 64 and 256; ``kernels/csrc/mma_tile.cuh`` lists the pairs
-each kernel is built for).  Ten kernels, all one CUDA body
+each kernel is built for).  Sixteen kernels, all one CUDA body
 (``kernels/csrc/etap_body.cuh``, whose header
 note says what bounds each on the H100 and how the design answers it;
 ``etap.cu`` builds the bf16 kernels from it, ``etap_quant.cu`` the
-quantized ones):
+quantized ones, ``etap_sepv.cu`` the paged ones over separate pools):
 
   K3 :func:`etap_decode_mla_paged`   single-pass paged decode
      (replaces ``repro/kernels/etap/etap.py:237``, ``_paged_call``)
@@ -41,6 +42,17 @@ quantized ones):
      ``pallas_call`` sites, ``etap.py:154, :603``).  Codes and affine as
      in K3q; q bf16 or fp32; the output is fp32, as the reference's (V's
      fp32 type).
+  K3, K1, K4 over separate K and V pools :func:`etap_decode_paged`,
+     :func:`etap_paged_partial_sepv`, :func:`etap_prefill_paged` /
+     :func:`etap_verify_paged`, and over int8 / fp8 code pools, each with
+     its own (scale, zp) pool, :func:`etap_decode_paged_quant`,
+     :func:`etap_paged_partial_sepv_quant`, :func:`etap_prefill_paged_quant`
+     / :func:`etap_verify_paged_quant`: the reference's separate-V bodies
+     under the same three ``pallas_call`` sites (``etap.py:98, :110, :271,
+     :334, :348, :360, :619, :631``), at (576, 512) and (128, 128).  One
+     table reads both pools; V's tile replaces K's first Dv columns after
+     the score product, so at the latent over ``v_pool = pool[..., :Dv]``
+     they give the fused kernels' bits.
 
 Each wrapper dispatches on the device of its operands: CPU tensors run the
 ``*_plain`` version, CUDA tensors launch the kernel (or raise on a shape or
@@ -61,9 +73,10 @@ import torch
 
 from repro_torch.kernels import build, softmax_state
 from repro_torch.kernels.etap.schedule import dense_split_plan
-from repro_torch.kernels.launch import (amla_flag, check_widths,
+from repro_torch.kernels.launch import (CODES, amla_flag, check_widths,
                                         dense_partial, dense_single,
-                                        device_of, i32, ptr, stream)
+                                        dense_widths, device_of, i32, ptr,
+                                        stream)
 from repro_torch.kernels.splitkv import split_walks_plain
 from repro_torch.runtime.paged_cache import dequantize_rows, raw
 
@@ -93,16 +106,24 @@ def _walk_plain(q, fetch, tiles, block, horizon, *, scale, dv, mode):
     return state
 
 
-def _pool_fetch(pool, table, dv, sz=None):
-    """Tile j of every row: pool block table[:, j], dequantized to fp32 rows
-    (``codes*scale + zp``) when ``sz`` holds the quantized pool's pairs;
-    V is its first ``dv`` columns (sliced after the dequant)."""
+def _pool_rows(pool, sz, ids):
+    """Blocks ``ids`` of a pool [N, page, D], dequantized to fp32 rows
+    (``codes*scale + zp``) when ``sz`` holds the code pool's pairs."""
+    blk = raw(pool)[ids].view(pool.dtype)                      # [B,page,D]
+    return blk if sz is None else dequantize_rows(blk, sz[ids])
+
+
+def _pool_fetch(pool, table, dv, sz=None, v_pool=None, v_sz=None):
+    """Tile j of every row: pool block table[:, j] (dequantized with its
+    pairs ``sz`` over codes); V is its first ``dv`` columns (sliced after
+    the dequant), or with ``v_pool`` block table[:, j] of the V pool
+    (dequantized with its own pairs ``v_sz``)."""
     def fetch(j):
         ids = table[:, j].long()
-        blk = raw(pool)[ids].view(pool.dtype)                  # [B,page,Dk]
-        if sz is not None:
-            blk = dequantize_rows(blk, sz[ids])
-        return blk, blk[..., :dv]
+        k = _pool_rows(pool, sz, ids)
+        if v_pool is None:
+            return k, k[..., :dv]
+        return k, _pool_rows(v_pool, v_sz, ids)
     return fetch
 
 
@@ -123,30 +144,34 @@ def _chunk_horizon(start, qpos, Cq, H, device):
     return start.to(torch.int32)[:, None] + col[None, :]
 
 
-def _out_dtype(q, kv_pool, kv_sz):
+def _out_dtype(q, kv_pool, kv_sz, v_pool=None):
     """A quantized pool's outputs take q's dtype (as the reference's), an
-    fp pool's its own."""
-    return q.dtype if kv_sz is not None else kv_pool.dtype
+    fp pool's its own (V's, when V has a pool of its own)."""
+    if kv_sz is not None:
+        return q.dtype
+    return (kv_pool if v_pool is None else v_pool).dtype
 
 
-def _decode_plain(q, kv_pool, kv_sz, dv, table, lengths, *, scale, rescale):
+def _decode_plain(q, kv_pool, kv_sz, dv, table, lengths, *, scale, rescale,
+                  v_pool=None, v_sz=None):
     mode = softmax_state.resolve(rescale)
-    state = _walk_plain(q, _pool_fetch(kv_pool, table, dv, kv_sz),
+    state = _walk_plain(q, _pool_fetch(kv_pool, table, dv, kv_sz, v_pool,
+                                       v_sz),
                         range(table.shape[1]), kv_pool.shape[1],
                         _decode_horizon(lengths, q.shape[1]), scale=scale,
                         dv=dv, mode=mode)
-    return _finalize(state, _out_dtype(q, kv_pool, kv_sz))
+    return _finalize(state, _out_dtype(q, kv_pool, kv_sz, v_pool))
 
 
 def _partial_plain(q, kv_pool, kv_sz, dv, table, lengths, *, scale,
-                   n_splits, rescale):
+                   n_splits, rescale, v_pool=None, v_sz=None):
     mode = softmax_state.resolve(rescale)
     nb = table.shape[1]
     if nb % n_splits:
         raise ValueError(f"table width {nb} not a multiple of {n_splits}")
     npb = nb // n_splits
     horizon = _decode_horizon(lengths, q.shape[1])
-    fetch = _pool_fetch(kv_pool, table, dv, kv_sz)
+    fetch = _pool_fetch(kv_pool, table, dv, kv_sz, v_pool, v_sz)
     parts = [_walk_plain(q, fetch, range(s * npb, (s + 1) * npb),
                          kv_pool.shape[1], horizon, scale=scale, dv=dv,
                          mode=mode) for s in range(n_splits)]
@@ -154,15 +179,15 @@ def _partial_plain(q, kv_pool, kv_sz, dv, table, lengths, *, scale,
 
 
 def _prefill_plain(q, kv_pool, kv_sz, dv, table, start, qpos, *, scale,
-                   rescale):
+                   rescale, v_pool=None, v_sz=None):
     mode = softmax_state.resolve(rescale)
     B, Cq, H, Dk = q.shape
     horizon = _chunk_horizon(start, qpos, Cq, H, q.device)
     state = _walk_plain(q.reshape(B, Cq * H, Dk),
-                        _pool_fetch(kv_pool, table, dv, kv_sz),
+                        _pool_fetch(kv_pool, table, dv, kv_sz, v_pool, v_sz),
                         range(table.shape[1]), kv_pool.shape[1], horizon,
                         scale=scale, dv=dv, mode=mode)
-    return _finalize(state, _out_dtype(q, kv_pool, kv_sz)).reshape(
+    return _finalize(state, _out_dtype(q, kv_pool, kv_sz, v_pool)).reshape(
         B, Cq, H, dv)
 
 
@@ -215,6 +240,61 @@ def etap_prefill_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, start,
     pool.  Returns [B,Cq,H,dv] in q's dtype."""
     return _prefill_plain(q, kv_pool, kv_sz, dv, table, start, qpos,
                           scale=scale, rescale=rescale)
+
+
+def etap_decode_paged_plain(q, k_pool, v_pool, table, lengths, *, scale,
+                            rescale=None):
+    """Plain K3 over separate pools: K block table[b, j] of k_pool
+    [N,page,Dk], V the same block of v_pool [N,page,Dv].  Returns [B,H,Dv]
+    in v_pool's dtype."""
+    return _decode_plain(q, k_pool, None, v_pool.shape[-1], table, lengths,
+                         scale=scale, rescale=rescale, v_pool=v_pool)
+
+
+def etap_paged_partial_sepv_plain(q, k_pool, v_pool, table, lengths, *,
+                                  scale, n_splits, rescale=None):
+    """Plain K1 over separate pools (table width a multiple of
+    ``n_splits``).  Returns fp32 (m [B,n,H], l [B,n,H], accT
+    [B,n,Dv,H])."""
+    return _partial_plain(q, k_pool, None, v_pool.shape[-1], table, lengths,
+                          scale=scale, n_splits=n_splits, rescale=rescale,
+                          v_pool=v_pool)
+
+
+def etap_prefill_paged_plain(q, k_pool, v_pool, table, start, *, scale,
+                             rescale=None, qpos=None):
+    """Plain K4 over separate pools (verify with ``qpos`` [B,Cq]).
+    Returns [B,Cq,H,Dv] in v_pool's dtype."""
+    return _prefill_plain(q, k_pool, None, v_pool.shape[-1], table, start,
+                          qpos, scale=scale, rescale=rescale, v_pool=v_pool)
+
+
+def etap_decode_paged_quant_plain(q, k_pool, k_sz, v_pool, v_sz, table,
+                                  lengths, *, scale, rescale=None):
+    """Plain K3q over separate int8 / fp8 code pools, each dequantized to
+    fp32 with its own (scale, zp) pool (k_sz, v_sz [N,page,2]), q taken in
+    fp32.  Returns [B,H,Dv] in q's dtype."""
+    return _decode_plain(q, k_pool, k_sz, v_pool.shape[-1], table, lengths,
+                         scale=scale, rescale=rescale, v_pool=v_pool,
+                         v_sz=v_sz)
+
+
+def etap_paged_partial_sepv_quant_plain(q, k_pool, k_sz, v_pool, v_sz,
+                                        table, lengths, *, scale, n_splits,
+                                        rescale=None):
+    """Plain K1q over separate code pools.  Returns fp32 (m, l, accT)."""
+    return _partial_plain(q, k_pool, k_sz, v_pool.shape[-1], table, lengths,
+                          scale=scale, n_splits=n_splits, rescale=rescale,
+                          v_pool=v_pool, v_sz=v_sz)
+
+
+def etap_prefill_paged_quant_plain(q, k_pool, k_sz, v_pool, v_sz, table,
+                                   start, *, scale, rescale=None, qpos=None):
+    """Plain K4q over separate code pools (verify with ``qpos``).  Returns
+    [B,Cq,H,Dv] in q's dtype."""
+    return _prefill_plain(q, k_pool, k_sz, v_pool.shape[-1], table, start,
+                          qpos, scale=scale, rescale=rescale, v_pool=v_pool,
+                          v_sz=v_sz)
 
 
 def _dense_splits_plain(q, k, v, length, plan, *, scale, mode, k_sz=None,
@@ -507,6 +587,250 @@ def etap_verify_mla_paged_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *,
                           what="etap_verify_mla_paged_quant")
 
 
+def _check_pools(k_pool, v_pool, k_sz=None, v_sz=None, *, what):
+    """Separate K and V pools on any device: V's pool [N, page, Dv] shares
+    K's blocks and page (one table reads both), and code pools come with
+    both (scale, zp) pools."""
+    if v_pool.dim() != 3 or tuple(v_pool.shape[:2]) != \
+            tuple(k_pool.shape[:2]):
+        raise ValueError(f"{what}: v_pool {tuple(v_pool.shape)} must have "
+                         f"k_pool's blocks and page {tuple(k_pool.shape[:2])}")
+    if (k_sz is None) != (v_sz is None):
+        raise ValueError(f"{what}: k_sz and v_sz come together")
+
+
+def _sepv_operands(q, k_pool, v_pool, k_sz, v_sz, table, *, what):
+    """Check separate-V pools for the CUDA kernels and return the library,
+    the leading pointers (q, k[, k_sz], v[, v_sz], table), the trailing
+    (code type, q is fp32) of the quantized entries, and the tensors the
+    launch must keep alive.  The kernels take bf16 pools, or int8 / e4m3
+    code pools with fp32 (scale, zp) pools [N, page, 2] and bf16 or fp32
+    q, at a (Dk, Dv) of the library's ``etap_paged_sepv_widths``
+    (``csrc/mma_tile.cuh:PagedSepWidths``) and page 64."""
+    lib = build.library()
+    widths = dense_widths(lib, "etap_paged_sepv_widths")
+    got = (q.shape[-1], v_pool.shape[-1])
+    if got not in widths or k_pool.shape[-1] != got[0]:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels over separate pools are built at "
+            f"(Dk, Dv) in {sorted(widths)} (csrc/mma_tile.cuh: "
+            f"PagedSepWidths), got ({q.shape[-1]}/{k_pool.shape[-1]}, "
+            f"{got[1]})")
+    check_widths(q, k_pool, got[1], widths, what=what)
+    if v_pool.dtype != k_pool.dtype:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes V's pool in K's type "
+            f"({k_pool.dtype}), got {v_pool.dtype}")
+    if k_pool.shape[1] != lib.etap_page():
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes page {lib.etap_page()}, got "
+            f"{k_pool.shape[1]}")
+    quant = k_pool.dtype in CODES
+    if quant != (k_sz is not None):
+        raise NotImplementedError(
+            f"{what}: (scale, zp) pools go with int8 / float8_e4m3fn code "
+            f"pools, and only with them (got {k_pool.dtype})")
+    q, table = q.contiguous(), i32(table)
+    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    ptrs = [ptr(q), ptr(k_pool)]
+    keep = [q, table, k_pool, v_pool]
+    tail = []
+    if quant:
+        for name, sz in (("k_sz", k_sz), ("v_sz", v_sz)):
+            if sz.dtype != torch.float32 or \
+                    tuple(sz.shape) != (*k_pool.shape[:2], 2):
+                raise NotImplementedError(
+                    f"{what}: {name} must be fp32 {(*k_pool.shape[:2], 2)} "
+                    f"beside its code pool, got {sz.dtype} "
+                    f"{tuple(sz.shape)}")
+        k_sz, v_sz = k_sz.contiguous(), v_sz.contiguous()
+        keep += [k_sz, v_sz]
+        ptrs += [ptr(k_sz), ptr(v_pool), ptr(v_sz)]
+        tail = [CODES[k_pool.dtype], int(q.dtype == torch.float32)]
+    else:
+        ptrs.append(ptr(v_pool))
+    return lib, ptrs + [table.data_ptr()], tail, keep
+
+
+def _decode_sepv(wrapper, fn, q, k_pool, v_pool, k_sz, v_sz, table, lengths,
+                 *, scale, rescale, n_splits=None):
+    """Launch the separate-V decode kernel ``fn`` (K3 / K3q, or with
+    ``n_splits`` K1 / K1q), counting it on ``wrapper.launches``."""
+    lib, ptrs, tail, keep = _sepv_operands(q, k_pool, v_pool, k_sz, v_sz,
+                                           table, what=fn)
+    B, H, dk = q.shape
+    dv, nb, dev = v_pool.shape[-1], table.shape[1], q.device
+    lengths = i32(lengths)
+    if n_splits is None:
+        out = torch.empty(B, H, dv, device=dev,
+                          dtype=_out_dtype(q, k_pool, k_sz, v_pool))
+        res, outs, shape = out, [ptr(out)], [B, H, nb]
+    else:
+        if nb % n_splits:
+            raise ValueError(f"table width {nb} not a multiple of "
+                             f"{n_splits}")
+        f32 = dict(dtype=torch.float32, device=dev)
+        res = (torch.empty(B, n_splits, H, **f32),
+               torch.empty(B, n_splits, H, **f32),
+               torch.empty(B, n_splits, dv, H, **f32))
+        outs, shape = [x.data_ptr() for x in res], [B, H, nb, n_splits]
+    wrapper.launches += 1
+    build.check(getattr(lib, fn)(
+        *ptrs, lengths.data_ptr(), *outs, *shape, dk, dv, float(scale),
+        amla_flag(rescale), *tail, stream(dev)), fn)
+    del keep
+    return res
+
+
+def _prefill_sepv(wrapper, fn, q, k_pool, v_pool, k_sz, v_sz, table, start,
+                  qpos, *, scale, rescale, what):
+    """Launch the separate-V chunk kernel ``fn`` (K4 / K4q: prefill, or
+    verify with ``qpos``), counting it on ``wrapper.launches``."""
+    B, Cq, H, Dk = q.shape
+    C, dv, dev = Cq * H, v_pool.shape[-1], q.device
+    lib, ptrs, tail, keep = _sepv_operands(q.reshape(B, C, Dk), k_pool,
+                                           v_pool, k_sz, v_sz, table,
+                                           what=what)
+    start = i32(start)
+    cols = _chunk_horizon(start, qpos, Cq, H, dev).contiguous() \
+        if qpos is not None else None
+    out = torch.empty(B, C, dv, dtype=_out_dtype(q, k_pool, k_sz, v_pool),
+                      device=dev)
+    wrapper.launches += 1
+    build.check(getattr(lib, fn)(
+        *ptrs, start.data_ptr(), cols.data_ptr() if cols is not None else None,
+        ptr(out), B, C, H, table.shape[1], Dk, dv, float(scale),
+        amla_flag(rescale), *tail, stream(dev)), what)
+    del keep
+    return out.reshape(B, Cq, H, dv)
+
+
+def etap_decode_paged(q, k_pool, v_pool, table, lengths, *, scale,
+                      rescale=None):
+    """K3 over separate pools: single-pass paged ETAP decode. q [B,H,Dk];
+    k_pool [N,page,Dk] and v_pool [N,page,Dv] read through one table
+    [B,nb] (null block 0 in padded entries); lengths [B].  Returns
+    [B,H,Dv] in v_pool's dtype."""
+    _check_pools(k_pool, v_pool, what="etap_decode_paged")
+    if device_of(q, k_pool, v_pool, table, lengths).type == "cpu":
+        return etap_decode_paged_plain(q, k_pool, v_pool, table, lengths,
+                                       scale=scale, rescale=rescale)
+    return _decode_sepv(etap_decode_paged, "etap_decode_paged", q, k_pool,
+                        v_pool, None, None, table, lengths, scale=scale,
+                        rescale=rescale)
+
+
+def etap_paged_partial_sepv(q, k_pool, v_pool, table, lengths, *, scale,
+                            n_splits, rescale=None):
+    """K1 over separate pools: split-KV phase 1 (table width a multiple of
+    ``n_splits``).  Returns fp32 (m [B,n,H], l [B,n,H], accT
+    [B,n,Dv,H])."""
+    _check_pools(k_pool, v_pool, what="etap_paged_partial_sepv")
+    if device_of(q, k_pool, v_pool, table, lengths).type == "cpu":
+        return etap_paged_partial_sepv_plain(
+            q, k_pool, v_pool, table, lengths, scale=scale,
+            n_splits=n_splits, rescale=rescale)
+    return _decode_sepv(etap_paged_partial_sepv, "etap_paged_partial_sepv",
+                        q, k_pool, v_pool, None, None, table, lengths,
+                        scale=scale, rescale=rescale, n_splits=n_splits)
+
+
+def _prefill_paged(q, k_pool, v_pool, table, start, qpos, *, scale, rescale,
+                   what):
+    _check_pools(k_pool, v_pool, what=what)
+    if device_of(q, k_pool, v_pool, table, start, qpos).type == "cpu":
+        return etap_prefill_paged_plain(q, k_pool, v_pool, table, start,
+                                        scale=scale, rescale=rescale,
+                                        qpos=qpos)
+    return _prefill_sepv(etap_prefill_paged, "etap_prefill_paged", q, k_pool,
+                         v_pool, None, None, table, start, qpos, scale=scale,
+                         rescale=rescale, what=what)
+
+
+def etap_prefill_paged(q, k_pool, v_pool, table, start, *, scale,
+                       rescale=None):
+    """K4 over separate pools: chunked paged prefill. q [B,Cq,H,Dk]; start
+    [B] tokens before the chunk (its rows already appended); row c attends
+    to positions <= start + c.  Returns [B,Cq,H,Dv]."""
+    return _prefill_paged(q, k_pool, v_pool, table, start, None, scale=scale,
+                          rescale=rescale, what="etap_prefill_paged")
+
+
+def etap_verify_paged(q, k_pool, v_pool, table, start, qpos, *, scale,
+                      rescale=None):
+    """K4 over separate pools with the explicit per-row horizon qpos
+    [B,Cq]; a linear qpos is bitwise :func:`etap_prefill_paged`.  Counts
+    as a K4 launch."""
+    return _prefill_paged(q, k_pool, v_pool, table, start, qpos, scale=scale,
+                          rescale=rescale, what="etap_verify_paged")
+
+
+def etap_decode_paged_quant(q, k_pool, k_sz, v_pool, v_sz, table, lengths, *,
+                            scale, rescale=None):
+    """K3q over separate int8 / fp8 code pools [N,page,Dk], [N,page,Dv],
+    each with its own (scale, zp) pool k_sz, v_sz [N,page,2].  q [B,H,Dk]
+    bf16 or fp32.  Returns [B,H,Dv] in q's dtype."""
+    _check_pools(k_pool, v_pool, k_sz, v_sz, what="etap_decode_paged_quant")
+    if device_of(q, k_pool, k_sz, v_pool, v_sz, table,
+                 lengths).type == "cpu":
+        return etap_decode_paged_quant_plain(
+            q, k_pool, k_sz, v_pool, v_sz, table, lengths, scale=scale,
+            rescale=rescale)
+    return _decode_sepv(etap_decode_paged_quant, "etap_decode_paged_quant",
+                        q, k_pool, v_pool, k_sz, v_sz, table, lengths,
+                        scale=scale, rescale=rescale)
+
+
+def etap_paged_partial_sepv_quant(q, k_pool, k_sz, v_pool, v_sz, table,
+                                  lengths, *, scale, n_splits, rescale=None):
+    """K1q over separate code pools (table width a multiple of
+    ``n_splits``).  Returns fp32 (m [B,n,H], l [B,n,H], accT
+    [B,n,Dv,H])."""
+    _check_pools(k_pool, v_pool, k_sz, v_sz,
+                what="etap_paged_partial_sepv_quant")
+    if device_of(q, k_pool, k_sz, v_pool, v_sz, table,
+                 lengths).type == "cpu":
+        return etap_paged_partial_sepv_quant_plain(
+            q, k_pool, k_sz, v_pool, v_sz, table, lengths, scale=scale,
+            n_splits=n_splits, rescale=rescale)
+    return _decode_sepv(etap_paged_partial_sepv_quant,
+                        "etap_paged_partial_sepv_quant", q, k_pool, v_pool,
+                        k_sz, v_sz, table, lengths, scale=scale,
+                        rescale=rescale, n_splits=n_splits)
+
+
+def _prefill_paged_quant(q, k_pool, k_sz, v_pool, v_sz, table, start, qpos,
+                         *, scale, rescale, what):
+    _check_pools(k_pool, v_pool, k_sz, v_sz, what=what)
+    if device_of(q, k_pool, k_sz, v_pool, v_sz, table, start,
+                 qpos).type == "cpu":
+        return etap_prefill_paged_quant_plain(
+            q, k_pool, k_sz, v_pool, v_sz, table, start, scale=scale,
+            rescale=rescale, qpos=qpos)
+    return _prefill_sepv(etap_prefill_paged_quant, "etap_prefill_paged_quant",
+                         q, k_pool, v_pool, k_sz, v_sz, table, start, qpos,
+                         scale=scale, rescale=rescale, what=what)
+
+
+def etap_prefill_paged_quant(q, k_pool, k_sz, v_pool, v_sz, table, start, *,
+                             scale, rescale=None):
+    """K4q over separate code pools: chunked paged prefill.  q
+    [B,Cq,H,Dk] bf16 or fp32.  Returns [B,Cq,H,Dv] in q's dtype."""
+    return _prefill_paged_quant(q, k_pool, k_sz, v_pool, v_sz, table, start,
+                                None, scale=scale, rescale=rescale,
+                                what="etap_prefill_paged_quant")
+
+
+def etap_verify_paged_quant(q, k_pool, k_sz, v_pool, v_sz, table, start,
+                            qpos, *, scale, rescale=None):
+    """K4q over separate code pools with the explicit horizon qpos [B,Cq];
+    a linear qpos is bitwise :func:`etap_prefill_paged_quant`.  Counts as
+    a K4q launch."""
+    return _prefill_paged_quant(q, k_pool, k_sz, v_pool, v_sz, table, start,
+                                qpos, scale=scale, rescale=rescale,
+                                what="etap_verify_paged_quant")
+
+
 def etap_decode_dense(q, k, v, length, *, scale, block=512, rescale=None):
     """K5: single-pass dense ETAP decode. q [BG,H,Dk]; k [BG,S,Dk];
     v [BG,S,Dv] (``k[..., :Dv]`` for the MLA latent: read in place), or a
@@ -589,3 +913,9 @@ etap_paged_partial_quant.launches = 0
 etap_prefill_mla_paged_quant.launches = 0
 etap_decode_dense_quant.launches = 0
 etap_partial_dense_quant.launches = 0
+etap_decode_paged.launches = 0
+etap_paged_partial_sepv.launches = 0
+etap_prefill_paged.launches = 0
+etap_decode_paged_quant.launches = 0
+etap_paged_partial_sepv_quant.launches = 0
+etap_prefill_paged_quant.launches = 0

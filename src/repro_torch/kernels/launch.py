@@ -50,7 +50,8 @@ _MAX_WIDTHS = 16
 def dense_widths(lib, fn: str) -> frozenset:
     """The (Dk, Dv) pairs the library's ``fn`` (``etap_dense_widths`` for
     K5/K6, ``flash_decode_widths`` for K7/K8, ``flash_prefill_widths`` for
-    K9) says its kernels are built for."""
+    K9, ``etap_paged_sepv_widths`` for K1/K3/K4 over separate K and V
+    pools) says its kernels are built for."""
     buf = (ctypes.c_int * (2 * _MAX_WIDTHS))()
     n = getattr(lib, fn)(buf, _MAX_WIDTHS)
     return frozenset((buf[2 * i], buf[2 * i + 1])
@@ -63,8 +64,9 @@ CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 def check_widths(q, kv, dv, widths, *, what):
     """The kernels take q and KV at one of ``widths``, their (Dk, Dv)
-    pairs (the paged ones DeepSeek's latent (576, 512) only): bf16 q and
-    KV, or, over an int8 or e4m3 code operand ``kv``, bf16 or fp32 q."""
+    pairs (the fused paged ones DeepSeek's latent (576, 512) only): bf16 q
+    and KV, or, over an int8 or e4m3 code operand ``kv``, bf16 or fp32
+    q."""
     if kv.dtype in CODES:
         ok, want = q.dtype in (torch.bfloat16, torch.float32), \
             "bf16 or fp32 q over int8 or float8_e4m3fn codes"

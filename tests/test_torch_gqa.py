@@ -3,8 +3,8 @@ weights: the dense decode kernels' plain versions at GQA shapes against
 the Pallas kernels in interpret mode, the grouped form of the cache, the
 attention module (qk-norm, rope, full causal attention, dense and paged
 decode, chunked paged prefill), the model on both cache layouts, the serve
-loops, and what was refused before quantized GQA pools were ported (the
-separate-V paged pools, A5b(b), still are).
+loops, and what was refused before quantized GQA pools and separate-V
+paged pools were ported (A5b).
 
 Configs: reduced Qwen3-8B with 2 kv heads for 4 heads (G = 2: plain
 ``reduced()`` gives qwen3 4 kv heads for 4 heads, which is MHA) and reduced
@@ -407,14 +407,45 @@ def test_quantized_gqa_pools_refused():
 
 
 def test_refusal_message_names_a5b(capsys):
-    """The GQA flag pair that was refused (A5b) serves now; what is left of
-    A5b, the separate-V paged pools, is still refused naming it."""
+    """The GQA flag pair that was refused (A5b) serves now, and so do the
+    separate-V paged pools, A5b's last part: Granite's per-layer pool (one
+    kv head) read as one K and one V pool [N, page, hd] through the paged
+    entries matches the reference's in both modes, decode (one split and
+    auto), prefill and verify."""
     assert serve.parse_args(["--arch", "granite_20b", "--kv-dtype",
                              "fp8"]).kv_dtype == "fp8"
     assert capsys.readouterr().err == ""
-    q = torch.zeros(1, 4, 32)
-    pool = torch.zeros(3, 4, 32)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        core.decode_attention_paged(
-            q, pool, pool, torch.ones(1, 2, dtype=torch.int32),
-            torch.ones(1, dtype=torch.int32), spec=AttnSpec(), dv=32)
+    _, cfg = _cfgs("granite_20b")
+    hd, H, page = cfg.resolved_head_dim, cfg.num_heads, 4
+    assert cfg.num_kv_heads == 1
+    rng = np.random.default_rng(3)
+    k_pool, v_pool = (torch.from_numpy(rng.normal(size=(9, page, 1, hd))
+                                       .astype(np.float32))[:, :, 0]
+                      for _ in range(2))
+    table = torch.tensor([[3, 1, 7, 0], [2, 8, 5, 4]], dtype=torch.int32)
+    lengths = torch.tensor([10, 16], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(2, H, hd)).astype(np.float32))
+    jargs = [jnp.asarray(x.numpy()) for x in (k_pool, v_pool, table)]
+    for mode in MODES:
+        for kv_splits in (1, None):
+            got = core.decode_attention_paged(
+                q, k_pool, v_pool, table, lengths,
+                spec=AttnSpec(scale=hd ** -0.5, mode=mode,
+                              kv_splits=kv_splits))
+            want = jcore.decode_attention_paged(
+                jnp.asarray(q.numpy()), *jargs, jnp.asarray(lengths.numpy()),
+                spec=JSpec(scale=hd ** -0.5, mode=mode, kv_splits=kv_splits))
+            _close(got, want)
+    qp = torch.from_numpy(rng.normal(size=(2, 3, H, hd)).astype(np.float32))
+    start = torch.tensor([7, 13], dtype=torch.int32)
+    qpos = start[:, None] + torch.tensor([[0, 1, 1]], dtype=torch.int32)
+    spec, jspec = AttnSpec(scale=hd ** -0.5), JSpec(scale=hd ** -0.5)
+    jq, js = jnp.asarray(qp.numpy()), jnp.asarray(start.numpy())
+    _close(core.prefill_attention_paged(qp, k_pool, v_pool, table, start,
+                                        spec=spec),
+           jcore.prefill_attention_paged(jq, *jargs, js, spec=jspec))
+    _close(core.verify_attention_paged(qp, k_pool, v_pool, table, start, qpos,
+                                       spec=spec),
+           jcore.verify_attention_paged(jq, *jargs, js,
+                                        jnp.asarray(qpos.numpy()),
+                                        spec=jspec))

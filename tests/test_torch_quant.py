@@ -16,9 +16,8 @@ its kernels' plain versions and JAX its Pallas kernels in interpret mode:
     geometry and seed;
   * the reduced DeepSeek model on converted weights (fp32, no MoE):
     prefill then decode over quantized pools, the serve loop's prefix-cache
-    and swap contracts inside the int8 layout, and the refusals (the
-    baseline over a quantized pool is ported now; separate-V paged pools
-    are not).
+    and swap contracts inside the int8 layout, and what was refused before
+    (the baseline over a quantized pool, and separate-V paged pools).
 """
 import dataclasses
 
@@ -402,7 +401,9 @@ def test_standard_and_separate_v_over_quant_pools_refused():
     and is ported now: it gathers codes and pairs and runs K7q / K8q, and
     matches the reference's standard route (which gathers the rows
     dequantized to fp32) with one split and with two, fp32 output.
-    Separate-V paged pools (A5b) still raise, naming their ROADMAP item."""
+    Separate-V paged pools (A5b) are ported too: an int8 K pool with a V
+    pool quantized on its own, through the decode (etap, two splits) and
+    prefill entries, matches the reference's route."""
     from repro.core import etap as jcore
     from repro.core.attn_spec import AttnSpec as JSpec
     for kv_dtype in LAYOUTS:
@@ -419,11 +420,21 @@ def test_standard_and_separate_v_over_quant_pools_refused():
             assert out.dtype == torch.float32
             _close(out, want)
     q, codes, sz, table, lengths = _quant_case(9, [37, 1, 20], "int8")
-    for fn, extra in ((core_etap.decode_attention_paged, (lengths,)),
-                      (core_etap.prefill_attention_paged, (lengths,))):
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn(q, codes, codes[..., :DV], table, *extra, dv=DV, k_sz=sz,
-               v_sz=sz, spec=AttnSpec(scale=SCALE))
+    rows = np.random.default_rng(10).normal(size=(codes.shape[0], PAGE, DV))
+    v_codes, v_sz = pc.quantize_pool(
+        torch.from_numpy((2 * rows).astype(np.float32)), "int8")
+    spec = dict(scale=SCALE, kv_splits=2)
+    for fn, jfn, qq, extra in (
+            (core_etap.decode_attention_paged, jcore.decode_attention_paged,
+             q, lengths),
+            (core_etap.prefill_attention_paged, jcore.prefill_attention_paged,
+             q[:, None], lengths - 1)):
+        out = fn(qq, codes, v_codes, table, extra, k_sz=sz, v_sz=v_sz,
+                 spec=AttnSpec(**spec))
+        want = jfn(*_jax_args(qq, codes, v_codes, table, extra),
+                   k_sz=_to_jax(sz), v_sz=_to_jax(v_sz), spec=JSpec(**spec))
+        assert out.dtype == torch.float32 and out.shape[-1] == DV
+        _close(out, want)
 
 
 # --------------------------------------------------------------- model
