@@ -12,8 +12,10 @@ over 200 launches each.  With ``--prefill`` it runs ``model.prefill`` on
 DeepSeek-R1 at full width cut to its 3 dense layers (random bf16 weights,
 seed 0) at dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts:
 the median wall of 5 synchronised runs (ms) and the peak device memory of
-those runs (GiB, weights included).  The medians per checkout close the
-output.
+those runs (GiB, weights included); then K9 alone at each width, at
+chip_smoke.PREFILL_TIMED's shapes (dense-long MLA, qwen-dense G 4,
+stablelm-dense G 1; random bf16 q, k, v), with CUDA events over 50
+launches.  The medians per checkout close the output.
 
     git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
     python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
@@ -28,7 +30,8 @@ import sys
 
 KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K3q-fp8", "K1q-fp8")
-PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB")
+PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "K9[192,128]-ms",
+           "K9[128,128]-ms", "K9[64,64]-ms")
 
 
 def time_one(root: str) -> dict:
@@ -108,6 +111,16 @@ def prefill_one(root: str) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
         out[f"{tag}-ms"] = statistics.median(walls)
         out[f"{tag}-GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    for (d, dv), tag in cs.PREFILL_TIMED.items():
+        B, S, H, K = next(c[2:] for c in cs.PREFILL_CASES if c[0] == tag)
+        q, k, v = (torch.randn(B, S, n, w, generator=gen, device="cuda").to(
+            torch.bfloat16) for n, w in ((H, d), (K, d), (K, dv)))
+        out[f"K9[{d},{dv}]-ms"] = cs.cuda_time_ms(
+            lambda q=q, k=k, v=v, s=d ** -0.5: FP.flash_prefill(q, k, v,
+                                                                scale=s),
+            50, warmup=3)
+        del q, k, v
     return out
 
 

@@ -59,12 +59,17 @@ Phases, each of which fails the run when it fails:
              and (64, 64) against its plain version in both rescale modes,
              at the dense serve phases' prefill shapes (DeepSeek B 4 x
              4096 and B 8 x 512 at H 128, Qwen3 G 4, LLaVA G 7, StableLM G
-             1), a SmolLM (G 3) and an MQA (G 48) shape and a ragged S 200
-             at each width, rows [:T] bitwise a call on the first T rows,
-             with each width's time, its plain version's, its bound and
-             SDPA's (is_causal, enable_gqa); and the paged bodies over
-             separate K and V pools (phase_sepv_kernels: K3, K1 + K2 and
-             K4, and K3q, K1q, K4q over int8 / fp8 pools each with its own
+             1), a SmolLM (G 3) and an MQA (G 48) shape, a ragged S 200
+             and an S of 576 (a multiple of 64, not of the kernel's 128-row
+             tiles) at each width, fewer work items than SMs (B 1 x 256, H
+             4) and a long GQA case (B 2 x 4096, G 4: many items a CTA of
+             the persistent grid), rows [:T] bitwise a call on the first T
+             rows, no local memory (spills) in any width's [attrs], with
+             each width's time, achieved TFLOP/s, its plain version's
+             time, its bound and SDPA's (is_causal, enable_gqa); and the
+             paged bodies over separate K and V pools
+             (phase_sepv_kernels: K3, K1 + K2 and K4, and K3q, K1q, K4q
+             over int8 / fp8 pools each with its own
              (scale, zp) pool, at (576, 512) and (128, 128)): the latent
              with V = pool[..., :512] as its own pool at serve-long's and
              serve-short's decode shapes and 256-token chunks, bitwise the
@@ -1233,15 +1238,20 @@ GQA_COMPARED = ("stablelm-dense S=544", "smol-short paged S=576",
                 "llava-dense G=7 S=528", "rgemma-short S=544")
 
 
-def instance_attrs(fn: str, *args) -> str:
+def attr_values(fn: str, *args) -> tuple[int, int, int]:
     """Registers a thread, dynamic shared memory and local memory (spills)
-    of one dense kernel instance, from the library's query ``fn``."""
+    of one kernel instance, from the library's query ``fn``."""
     import ctypes
     from repro_torch.kernels import build
     buf = (ctypes.c_int * 3)()
     build.check(getattr(build.library(), fn)(*args, buf), fn)
-    return (f"{buf[0]} registers, {buf[1]} B shared memory, {buf[2]} B "
-            "local")
+    return buf[0], buf[1], buf[2]
+
+
+def instance_attrs(fn: str, *args) -> str:
+    """attr_values, as printed on an ``[attrs]`` line."""
+    regs, smem, local = attr_values(fn, *args)
+    return f"{regs} registers, {smem} B shared memory, {local} B local"
 
 
 def sdpa_gqa(q, k, v, lengths, hd):
@@ -2512,18 +2522,26 @@ PREFILL_KERNELS = {
         _CSRC + "flash_prefill.cu", "flash_prefill", (d, dv))
     for d, dv in PREFILL_WIDTHS}
 # (tag, (D, Dv), B, S, H, K): the dense serve phases' prefill shapes, a
-# SmolLM and an MQA shape (G = 3, G = 48) and a ragged S at each width
+# SmolLM and an MQA shape (G = 3, G = 48), a ragged S and an S that is a
+# multiple of 64 but not of the kernel's 128-row tiles at each width, a
+# grid of fewer work items (B H S / 128) than SMs, and a long GQA case whose
+# persistent CTAs each take many items
 PREFILL_CASES = [
     ("dense-long MLA", (192, 128), 4, 4096, 128, 128),
     ("dense-short MLA", (192, 128), 8, 512, 128, 128),
     ("ragged MLA", (192, 128), 2, 200, 128, 128),
+    ("S 576 MLA", (192, 128), 2, 576, 128, 128),
     ("qwen-dense G=4", (128, 128), 8, 512, 32, 8),
     ("llava-dense G=7", (128, 128), 4, 512, 56, 8),
     ("granite MQA G=48", (128, 128), 2, 2048, 48, 1),
     ("ragged G=4", (128, 128), 2, 200, 32, 8),
+    ("S 576 G=4", (128, 128), 2, 576, 32, 8),
+    ("few items G=4", (128, 128), 1, 256, 4, 1),
+    ("long GQA G=4", (128, 128), 2, 4096, 32, 8),
     ("stablelm-dense G=1", (64, 64), 8, 512, 32, 32),
     ("smollm G=3", (64, 64), 8, 512, 15, 5),
     ("ragged G=3", (64, 64), 2, 200, 15, 5),
+    ("S 576 G=1", (64, 64), 2, 576, 32, 32),
 ]
 # the shape each width is timed at: its main serve phase's prefill
 PREFILL_TIMED = {(192, 128): "dense-long MLA", (128, 128): "qwen-dense G=4",
@@ -2553,8 +2571,9 @@ def phase_prefill_kernels(quick: bool, report: dict) -> None:
     for (the library's list must be PREFILL_WIDTHS), at PREFILL_CASES'
     shapes, in both rescale modes (bf16_close); rows [:T] of a call
     bitwise a call on the first T rows; each instance's registers and
-    shared memory; then at PREFILL_TIMED's shapes its time (CUDA events),
-    the plain version's, its bound and SDPA's."""
+    shared memory, failing on any local memory (spills); then at
+    PREFILL_TIMED's shapes its time (CUDA events) and achieved TFLOP/s,
+    the plain version's time, its bound and SDPA's."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_prefill import flash_prefill as FP
@@ -2567,6 +2586,8 @@ def phase_prefill_kernels(quick: bool, report: dict) -> None:
     for d, dv in PREFILL_WIDTHS:
         log(f"[attrs] K9 ({d}, {dv}): "
             + instance_attrs("flash_prefill_attrs", d, dv))
+        if attr_values("flash_prefill_attrs", d, dv)[2]:
+            raise AssertionError(f"K9 ({d}, {dv}) spills to local memory")
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     errs = {w: 0.0 for w in PREFILL_WIDTHS}
@@ -2602,10 +2623,12 @@ def phase_prefill_kernels(quick: bool, report: dict) -> None:
                           FP.flash_prefill_plain(q, k, v, scale=s), piters,
                           warmup=1)
         tl = cuda_time_ms(sdpa_causal(q, k, v, scale), iters)
-        tb, by = bound_ms(*prefill_bytes_ops(B, S, H, K, d, dv))
+        nbytes, flops = prefill_bytes_ops(B, S, H, K, d, dv)
+        tb, by = bound_ms(nbytes, flops)
         log(f"[timing] flash_prefill[{d},{dv}] ({tag} B={B} S={S} H={H} "
-            f"K={K}): {t:.4f} ms, plain {tp:.4f} ms, bound {tb:.4f} ms "
-            f"({by}; {100 * tb / t:.1f}% of it), library (SDPA, is_causal) "
+            f"K={K}): {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s of the "
+            f"causal half), plain {tp:.4f} ms, bound {tb:.4f} ms ({by}; "
+            f"{100 * tb / t:.1f}% of it), library (SDPA, is_causal) "
             f"{tl:.4f} ms")
         report[f"flash_prefill[{d},{dv}]"] = {
             "max_abs_err": errs[(d, dv)], "ms": t, "plain_ms": tp,

@@ -1,8 +1,8 @@
 // Building blocks shared by the hand-written kernels (etap_body.cuh,
-// flash_decode.cu, flash_prefill.cu): bf16 fragment loads (ldmatrix too),
-// the m16n8k16 tensor-core product, cp.async tile copies, the loads of
-// int8 / e4m3 code tiles (widened to exact bf16) with their rows' (scale,
-// zp), the query tile (bf16, or fp32 as three bf16 terms), the
+// flash_decode.cu; flash_prefill.cu takes the width lists): bf16 fragment
+// loads, the m16n8k16 tensor-core product, cp.async tile copies, the
+// loads of int8 / e4m3 code tiles (widened to exact bf16) with their rows'
+// (scale, zp), the query tile (bf16, or fp32 as three bf16 terms), the
 // online-softmax update of one 64-row KV tile, and the (Dk, Dv) widths the
 // dense, prefill and separate-V paged kernels are built for.  Both decode orientations run
 // the SAME update code, so the ETAP and the untransposed kernels differ
@@ -131,37 +131,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N committed cp.async groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ldmatrix: four 8x8 bf16 matrices from shared memory; lane i gives the
-// address of row i % 8 of matrix i / 8 (16-byte aligned), and register j
-// of lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of
-// matrix j (with TRANS: row and column swapped, so that a row-major
-// [k][n] tile gives the col-major B fragment of m16n8k16).
-template <bool TRANS = false>
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
 }
 
 // Copy `rows` rows of `width` bf16 (a multiple of 8) from src (row stride

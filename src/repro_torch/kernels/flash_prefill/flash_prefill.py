@@ -97,7 +97,7 @@ def flash_prefill(q, k, v, *, scale, rescale=None, bq: int = 256,
     """K9.  q [B,S,H,D]; k [B,S,K,D]; v [B,S,K,Dv] with H = K·G.  Returns
     [B,S,H,Dv] in v's dtype.  CPU tensors run :func:`flash_prefill_plain`
     (``bq`` / ``bkv`` are its block sizes); CUDA tensors launch the kernel,
-    which tiles at 64 rows whatever ``bq`` / ``bkv`` say and takes bf16 q,
+    which tiles at 128 rows whatever ``bq`` / ``bkv`` say and takes bf16 q,
     k, v at the library's (D, Dv) pairs with unit column strides and other
     strides on 16 bytes, and raises otherwise."""
     _check_no_grad(q, k, v)

@@ -1,7 +1,7 @@
 """Public wrapper for the causal prefill kernel — the port of
 ``repro/kernels/flash_prefill/ops.py``: the :class:`repro_torch.core
 .attn_spec.AttnSpec` entry.  ``bq`` / ``bkv`` stay explicit keywords, the
-plain version's block sizes (the CUDA kernel tiles at 64 rows).  The kernel
+plain version's block sizes (the CUDA kernel tiles at 128 rows).  The kernel
 is called through the module's attribute, never bound here."""
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 package on the same numpy inputs: ``flash_prefill_plain`` and the
 ``AttnSpec`` entry against ``flash_prefill_pallas`` in interpret mode and
 against the direct oracle, in both rescale modes, at G = 1, 2 and 4, D = Dv
-and D != Dv (MLA's ratio, 24 / 16 for 192 / 128), block sizes bq != bkv
-and a context S that is not a power of two; prefix invariance; the
+and D != Dv (MLA's ratio, 24 / 16 for 192 / 128), block sizes bq != bkv,
+the CUDA kernel's 128 x 128 tiles, and a context S that is not a power of
+two; prefix invariance at small blocks and at the kernel's tiles; the
 wrapper's dispatch without a card (CPU operands run the plain version and
 launch nothing; on the CUDA branch an unbuilt width, a non-bf16 operand,
 a failed launch or an input that requires grad raises, never falling back);
@@ -47,13 +48,17 @@ ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "src/repro_torch/kernels/csrc"
 TOL = dict(atol=1e-5, rtol=1e-5)
 MODES = ["amla", "mul"]
-# (B, S, H, K, D, Dv, bq, bkv): G = H / K
+# (B, S, H, K, D, Dv, bq, bkv): G = H / K; the last two at the CUDA
+# kernel's tiles (128 query rows, 128 KV rows)
 CASES = [
     (2, 48, 2, 2, 16, 16, 16, 24),     # G 1, bq < bkv
     (1, 96, 4, 2, 24, 16, 32, 48),     # G 2, D != Dv (MLA's 3 : 2)
     (1, 64, 8, 2, 16, 16, 32, 16),     # G 4, bq > bkv
+    (1, 256, 4, 2, 24, 16, 128, 128),  # G 2, MLA's ratio, two tiles
+    (2, 384, 2, 2, 16, 16, 128, 128),  # G 1, three tiles
 ]
-IDS = ["G1", "G2-mla-widths", "G4"]
+IDS = ["G1", "G2-mla-widths", "G4", "G2-mla-kernel-tiles",
+       "G1-kernel-tiles"]
 
 
 def _inputs(B, S, H, K, D, Dv, seed=0, dtype=np.float32):
@@ -142,17 +147,22 @@ def test_unaligned_and_short_contexts(mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_prefix_invariance(mode):
+@pytest.mark.parametrize("S,bq,bkv,T,ragged", [(96, 32, 16, 64, 53),
+                                               (384, 128, 128, 256, 203)],
+                         ids=["small-blocks", "kernel-tiles"])
+def test_prefix_invariance(S, bq, bkv, T, ragged, mode):
     """Rows [:T] of a length-S call equal a length-T call: bitwise when T
     falls on the block boundaries (the later KV blocks are wholly masked
-    for those rows and change nothing), within fp32 tolerance otherwise."""
-    q, k, v = _t(*_inputs(2, 96, 4, 2, 24, 16, seed=3))
-    kw = dict(scale=0.2, rescale=mode, bq=32, bkv=16)
+    for those rows and change nothing), within fp32 tolerance otherwise;
+    at small blocks and at the CUDA kernel's 128-row tiles."""
+    q, k, v = _t(*_inputs(2, S, 4, 2, 24, 16, seed=3))
+    kw = dict(scale=0.2, rescale=mode, bq=bq, bkv=bkv)
     full = FP.flash_prefill_plain(q, k, v, **kw)
-    head = FP.flash_prefill_plain(q[:, :64], k[:, :64], v[:, :64], **kw)
-    assert torch.equal(full[:, :64], head)
-    head = FP.flash_prefill_plain(q[:, :53], k[:, :53], v[:, :53], **kw)
-    _close(full[:, :53], head)
+    head = FP.flash_prefill_plain(q[:, :T], k[:, :T], v[:, :T], **kw)
+    assert torch.equal(full[:, :T], head)
+    head = FP.flash_prefill_plain(q[:, :ragged], k[:, :ragged],
+                                  v[:, :ragged], **kw)
+    _close(full[:, :ragged], head)
 
 
 # ------------------------------------------------------ dispatch
