@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
-"""Time the latent-width (Dk 576, Dv 512) decode kernels, or with
-``--prefill`` DeepSeek-R1's dense prefill, of several checkouts of this
-repository on one GPU, in turns, so that a change can be held against its
-parent on one card in one call.
+"""Time the latent-width (Dk 576, Dv 512) decode kernels and K4, or with
+``--prefill`` DeepSeek-R1's dense and paged prefills, of several checkouts
+of this repository on one GPU, in turns, so that a change can be held
+against its parent on one card in one call.
 
 Each checkout runs in its own process (it builds its own kernels from its
 own sources).  By default it times K3, K1 (n = 4), K5, K6, K7 and K8, and
 K3q and K1q (n = 4) over int8 and e4m3 pools, at chip_smoke.py's timing
 shapes (B 8, H 128, ragged context up to 4096, bf16 q) with CUDA events
-over 200 launches each.  With ``--prefill`` it runs ``model.prefill`` on
+over 200 launches each; then K4 over bf16 pools (B 1, H 128, a 4096-row
+latent pool): fused at Cq 32 from start 4064, at Cq 32 from 256
+(serve-short's chunk shape: a 512-token prompt in 32-token chunks walks
+at most 8 pages) and at serve-long's Cq 256 from 3840, with V in its own
+pool at Cq 256, and over Granite-20B's
+separate (128, 128) pools at B 2 x Cq 128 x H 48 from starts 1920 and 0,
+over 50 launches each.  With ``--prefill`` it runs ``model.prefill`` on
 DeepSeek-R1 at full width cut to its 3 dense layers (random bf16 weights,
 seed 0) at dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts:
 the median wall of 5 synchronised runs (ms) and the peak device memory of
-those runs (GiB, weights included); then K9 alone at each width, at
+those runs (GiB, weights included); then its paged chunked prefill
+(``model.prefill_chunk`` over a one-slot block pool, K4 in every layer):
+one 4096-token prompt in 256-token chunks (serve-long's) and one
+512-token prompt in 32-token chunks (serve-short's), the median wall of 5
+synchronised runs; then K9 alone at each width, at
 chip_smoke.PREFILL_TIMED's shapes (dense-long MLA, qwen-dense G 4,
 stablelm-dense G 1; random bf16 q, k, v), with CUDA events over 50
-launches.  The medians per checkout close the output.
+launches.  With ``--paged`` it runs only the paged chunked prefills, so
+that many alternating pairs fit one call.  The medians per checkout
+close the output, with the quartiles where a checkout ran 4 times or
+more.
 
     git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
     python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
     python3 chip_ab.py --prefill .proof/parent . . .proof/parent
+    python3 chip_ab.py --paged .proof/parent . . .proof/parent ...
 """
 from __future__ import annotations
 
@@ -29,9 +43,12 @@ import subprocess
 import sys
 
 KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
-           "K3q-fp8", "K1q-fp8")
-PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "K9[192,128]-ms",
-           "K9[128,128]-ms", "K9[64,64]-ms")
+           "K3q-fp8", "K1q-fp8", "K4-Cq32", "K4-Cq32-s256", "K4-Cq256",
+           "K4sep-Cq256", "K4sep[128]-Cq128")
+PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "paged-long-ms",
+           "paged-short-ms", "K9[192,128]-ms", "K9[128,128]-ms",
+           "K9[64,64]-ms")
+PAGED = ("paged-long-ms", "paged-short-ms")
 
 
 def time_one(root: str) -> dict:
@@ -77,13 +94,72 @@ def time_one(root: str) -> dict:
         fns[f"K1q-{kvd}"] = lambda c=codes, z=sz, t=qtable: \
             K.etap_paged_partial_quant(q, c, z, cs.DV, t, lengths, scale=S,
                                        n_splits=4)
-    return {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
+    out = {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
+    del k, v, pool, table, quant
+    # K4 over bf16 pools: the latent's 4096-row pool, and Granite's pools
+    pool, table = cs.make_pool(1, 64, [4096], gen, dev)
+    vpool = pool[..., :cs.DV].contiguous()
+    k4 = {}
+    for name, Cq, s0 in (("K4-Cq32", 32, 4064), ("K4-Cq32-s256", 32, 256),
+                         ("K4-Cq256", 256, 3840)):
+        qp = torch.randn(1, Cq, H, cs.DK, generator=gen, device=dev).to(
+            torch.bfloat16)
+        st = torch.tensor([s0], dtype=torch.int32, device=dev)
+        k4[name] = lambda qp=qp, st=st: K.etap_prefill_mla_paged(
+            qp, pool, cs.DV, table, st, scale=S)
+        if Cq == 256:
+            k4["K4sep-Cq256"] = lambda qp=qp, st=st: K.etap_prefill_paged(
+                qp, pool, vpool, table, st, scale=S)
+    _, gargs, gtable, _, _ = cs.granite_case("fp", cs.GRANITE_LENGTHS, gen,
+                                             dev)
+    gq = torch.randn(2, cs.GRANITE_CQ, cs.GRANITE_H, 128, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    gst = torch.tensor(cs.GRANITE_STARTS, dtype=torch.int32, device=dev)
+    k4["K4sep[128]-Cq128"] = lambda: K.etap_prefill_paged(
+        gq, *gargs, gtable[:2], gst, scale=128 ** -0.5)
+    out.update({n: cs.cuda_time_ms(f, 50, warmup=3) for n, f in k4.items()})
+    return out
 
 
-def prefill_one(root: str) -> dict:
-    sys.path[:0] = [root + "/src", root]
+def paged_prefill_ms(model, cfg, params, S: int, chunk: int, gen) -> float:
+    """The median wall (ms) of 5 synchronised chunked prefills of one
+    S-token prompt in ``chunk``-token chunks over a one-slot paged cache,
+    each chunk one ``model.prefill_chunk`` (its rows appended, then K4)."""
     import time
 
+    import torch
+    from repro_torch.runtime.paged_cache import BlockPool, layout_for
+    layout = layout_for(1, S + 32, block_size=64)
+    bp = BlockPool(layout, 1)
+    slot = bp.admit(S, S + 32)
+    cache = model.init_paged_cache(cfg, layout, device="cuda")
+    table = torch.tensor(bp.table[slot:slot + 1], dtype=torch.int32,
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    starts = [torch.tensor([c0], dtype=torch.int32, device="cuda")
+              for c0 in range(0, S, chunk)]
+
+    def run():
+        for i, st in enumerate(starts):
+            model.prefill_chunk(params, cfg, cache,
+                                toks[:, i * chunk:(i + 1) * chunk], table, st)
+        torch.cuda.synchronize()
+
+    run()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del cache
+    return statistics.median(walls)
+
+
+def deepseek(root: str):
+    """root's DeepSeek-R1 (3 dense layers, random bf16 weights, seed 0):
+    (model module, cfg, params, a CUDA generator)."""
+    sys.path[:0] = [root + "/src", root]
     import torch
 
     import chip_smoke as cs
@@ -93,6 +169,27 @@ def prefill_one(root: str) -> dict:
     params = model.init(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
+    return model, cfg, params, gen
+
+
+def paged_prefills(model, cfg, params, gen) -> dict:
+    """serve-long's and serve-short's paged chunked prefills (ms)."""
+    return {f"{tag}-ms": paged_prefill_ms(model, cfg, params, S, chunk, gen)
+            for tag, S, chunk in (("paged-long", 4096, 256),
+                                  ("paged-short", 512, 32))}
+
+
+def paged_one(root: str) -> dict:
+    return paged_prefills(*deepseek(root))
+
+
+def prefill_one(root: str) -> dict:
+    import time
+
+    model, cfg, params, gen = deepseek(root)
+    import torch
+
+    import chip_smoke as cs
     out = {}
     for tag, B, S in (("short", 8, 512), ("long", 4, 4096)):
         toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
@@ -111,6 +208,7 @@ def prefill_one(root: str) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
         out[f"{tag}-ms"] = statistics.median(walls)
         out[f"{tag}-GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out.update(paged_prefills(model, cfg, params, gen))
     from repro_torch.kernels.flash_prefill import flash_prefill as FP
     for (d, dv), tag in cs.PREFILL_TIMED.items():
         B, S, H, K = next(c[2:] for c in cs.PREFILL_CASES if c[0] == tag)
@@ -124,14 +222,27 @@ def prefill_one(root: str) -> dict:
     return out
 
 
+ONE = {"--one": time_one, "--one-prefill": prefill_one,
+       "--one-paged": paged_one}
+MODES = {"--prefill": ("--one-prefill", PREFILL),
+         "--paged": ("--one-paged", PAGED)}
+
+
+def spread(xs: list) -> str:
+    """The median, with the quartiles where there are 4 values or more."""
+    if len(xs) < 4:
+        return f"{statistics.median(xs):.4f}"
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return f"{q2:.4f} [{q1:.4f}, {q3:.4f}]"
+
+
 def main(argv: list) -> int:
-    if argv[:1] in (["--one"], ["--one-prefill"]):
-        fn = time_one if argv[0] == "--one" else prefill_one
-        print(json.dumps(fn(argv[1])), flush=True)
+    if argv[:1] and argv[0] in ONE:
+        print(json.dumps(ONE[argv[0]](argv[1])), flush=True)
         return 0
     one, names = "--one", KERNELS
-    if argv[:1] == ["--prefill"]:
-        argv, one, names = argv[1:], "--one-prefill", PREFILL
+    if argv[:1] and argv[0] in MODES:
+        (one, names), argv = MODES[argv[0]], argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -148,8 +259,7 @@ def main(argv: list) -> int:
               flush=True)
     for root, rs in runs.items():
         print(f"median of {len(rs)} {root}: " + " ".join(
-            f"{n} {statistics.median(r[n] for r in rs):.4f}"
-            for n in names))
+            f"{n} {spread([r[n] for r in rs])}" for n in names))
     return 0
 
 

@@ -83,7 +83,18 @@ Phases, each of which fails the run when it fails:
              (B 16, H 16, context 65,536) fused against separate V
              through K1 + K2, and this slice's path: core.etap's paged
              entries with a v_pool in both modes over fp, int8 and fp8
-             pools at both widths, their launches counted;
+             pools at both widths, their launches counted; and K4 over
+             bf16 pools (etap_prefill.cu: fused and separate-V latent,
+             Granite's (128, 128)) at the edges of its tiling
+             (K4_EDGES: 144 columns, 4 query rows a unit, start 0 and a
+             horizon mid-page, an idle row on the null block, each with
+             fewer units than SMs, so units of 32 columns; 132 units of
+             64; a horizon past a 3-page table) in both modes, a tree
+             verify, linear verify == prefill and separate V == fused
+             bitwise, an [attrs] line per instance and unit width (local
+             memory fails the run), and its time at Cq 32 and serve-long's
+             Cq 256 (start 3840) with its TFLOP/s, plain time, bound and
+             SDPA's;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -246,7 +257,7 @@ KERNELS = {
     "etap_decode_mla_paged": ("src/repro/kernels/etap/etap.py:237",
                               _CSRC + "etap.cu"),
     "etap_prefill_mla_paged": ("src/repro/kernels/etap/etap.py:430",
-                               _CSRC + "etap.cu"),
+                               _CSRC + "etap_prefill.cu"),
     "etap_decode_dense": ("src/repro/kernels/etap/etap.py:154",
                           _CSRC + "etap.cu"),
     "etap_partial_dense": ("src/repro/kernels/etap/etap.py:603",
@@ -626,31 +637,25 @@ def phase_kernels(quick: bool, report: dict) -> None:
     pf_bytes = (Bp * Cq * H * DK * 2 + 4096 * row_bytes
                 + Bp * Cq * H * DV * 2)
 
-    def sdpa_prefill():
-        kd = poolp[tablep.long()].reshape(Bp, nb * PAGE, DK)
-        kpos = torch.arange(nb * PAGE, device=dev)
-        qpos = start[:, None] + torch.arange(Cq, device=dev)[None, :]
-        mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
-        qd = qp.transpose(1, 2)                            # [B, H, Cq, DK]
-        kk = kd[:, None]
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kk, kk[..., :DV], attn_mask=mask, scale=SCALE,
-            enable_gqa=True)
-
+    kd = poolp[tablep.long()].reshape(Bp, nb * PAGE, DK)
     t = cuda_time_ms(lambda: K.etap_prefill_mla_paged(
         qp, poolp, DV, tablep, start, scale=SCALE), iters)
     tp = cuda_time_ms(lambda: K.etap_prefill_mla_paged_plain(
         qp, poolp, DV, tablep, start, scale=SCALE), piters, warmup=1)
-    tl = cuda_time_ms(sdpa_prefill(), iters)
+    tl = cuda_time_ms(sdpa_chunk(qp, kd, kd[..., :DV], start, SCALE), iters)
+    del kd
     timing["etap_prefill_mla_paged"] = (
         t, tp, *bound_ms(pf_bytes, 2 * keys_p * (DK + DV)), tl,
         f"B={Bp} Cq={Cq} H={H} start={int(start[0])}")
     for name, (t, tp, tb, by, tl, shape) in timing.items():
         lib = "null" if tl is None else f"{tl:.4f}"
-        log(f"[timing] {name} ({shape}): {t:.4f} ms, plain {tp:.4f} ms, "
-            f"bound {tb:.4f} ms ({by}), library {lib} ms")
+        rate = (f" ({2 * keys_p * (DK + DV) / t / 1e9:.1f} TFLOP/s)"
+                if name == "etap_prefill_mla_paged" else "")
+        log(f"[timing] {name} ({shape}): {t:.4f} ms{rate}, plain {tp:.4f} "
+            f"ms, bound {tb:.4f} ms ({by}), library {lib} ms")
         report[name] = {"max_abs_err": errs[name], "ms": t, "plain_ms": tp,
                         "bound_ms": tb, "bound_by": by, "library_ms": tl}
+    k4_timing(gen, dev, iters, piters)
 
 
 # ------------------------------------------------- phase 2: quantized
@@ -1789,7 +1794,8 @@ SEPV_WIDTHS = ((DK, DV), (HD, HD))
 SEPV_KERNELS = {
     f"{wrapper}{'' if kvd == 'fp' else '_quant'}[{dk},{dv}"
     f"{'' if kvd == 'fp' else ',' + kvd}]":
-        (tpu, _CSRC + "etap_sepv.cu",
+        (tpu, _CSRC + ("etap_prefill.cu" if (wrapper, kvd) == (
+            "etap_prefill_paged", "fp") else "etap_sepv.cu"),
          wrapper + ("" if kvd == "fp" else "_quant"), (dk, dv), kvd)
     for dk, dv in SEPV_WIDTHS
     for kvd in ("fp", "int8", "fp8")
@@ -1986,6 +1992,172 @@ def check_sepv_prefill(qp, args, table, start, *, kvd, tag, errs, key,
                 f"K4{sfx} separate V vs fused {t}")
 
 
+# K4 over bf16 pools (etap_prefill.cu: wgmma on the page's 64 rows, units
+# of 64 columns of one batch row, or 32 where 64-column units would leave
+# SMs idle), at the edges of its tiling: (what, H, Cq, start per row, the
+# second row idle on the null block, table columns or 0 for what the
+# chunks need).  All but the B 44 case have fewer units than SMs, so units
+# of 32 columns run; B 44 rows of 144 columns make 132 units of 64 (as the
+# serve shapes do, Cq 256 at the latent and Cq 128 at Granite).  The last
+# has horizons past its 3-page table: at Granite's page pairs the walk's
+# second step takes a pad page, masked whole.
+K4_EDGES = (
+    ("H 48 x Cq 3 (144 columns, not a multiple of 64)", 48, 3, (100, 37),
+     False, 0),
+    ("H 16 x Cq 5 (4 query rows a unit)", 16, 5, (37, 0), False, 0),
+    ("start 0, and a horizon mid-page", 128, 4, (0, 81), False, 0),
+    ("B 2, the second row idle on the null block", 128, 8, (2000, 0), True,
+     0),
+    ("B 44 x H 48 x Cq 3 (132 units of 64 columns)", 48, 3,
+     tuple(37 * i % 211 for i in range(44)), False, 0),
+    ("horizons past a 3-page table (an odd page count)", 48, 4, (200, 70),
+     False, 3),
+)
+
+
+def k4_edge_checks(dk, dv, gen, dev) -> dict:
+    """K4 over bf16 pools at (dk, dv) (the latent, fused and with V in its
+    own pool; Granite's (128, 128) over separate pools) at K4_EDGES in both
+    rescale modes: prefill and a tree-shaped verify against their plain
+    versions; linear verify == prefill and, at the latent, separate V ==
+    fused, bitwise.  Returns {"fused": err, "sepv": err} (max abs)."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap import ops
+    latent = dk == DK
+    errs = {"fused": 0.0, "sepv": 0.0}
+    widths = set()
+    for what, H, Cq, starts, idle, nbt in K4_EDGES:
+        B = len(starts)
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        lengths = [st + Cq for st in starts]
+        nb = nbt or pages(lengths)
+        N = 1 + B * nb
+        k = torch.randn(N, PAGE, dk, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = k[..., :dv].contiguous() if latent else torch.randn(
+            N, PAGE, dv, generator=gen, device=dev).to(torch.bfloat16)
+        table = (torch.randperm(N - 1, generator=gen, device=dev) + 1
+                 ).reshape(B, nb).to(torch.int32)
+        for b, n in enumerate(lengths):
+            table[b, -(-n // PAGE):] = 0
+        if idle:
+            table[1:] = 0
+        q = torch.randn(B, Cq, H, dk, generator=gen, device=dev).to(
+            torch.bfloat16)
+        depth = torch.tensor([0] + [1 + (c - 1) // 3 for c in range(1, Cq)],
+                             dtype=torch.int32, device=dev)
+        tree = start[:, None] + depth[None, :]
+        linear = start[:, None] + torch.arange(Cq, dtype=torch.int32,
+                                               device=dev)[None, :]
+        # the kernel's pick (etap_prefill.cu: unit_cols)
+        units = 64 if B * -(-Cq * H // 64) >= ops.num_cores(dev) else 32
+        widths.add(units)
+        for mode in ("amla", "mul"):
+            kw = dict(scale=dk ** -0.5, rescale=mode)
+            tag = f"K4 ({dk}, {dv}) {what}, units of {units}, {mode}"
+            sep = K.etap_prefill_paged(q, k, v, table, start, **kw)
+            e = bf16_close(sep, K.etap_prefill_paged_plain(
+                q, k, v, table, start, **kw), f"{tag}, separate V")
+            e = max(e, bf16_close(
+                K.etap_verify_paged(q, k, v, table, start, tree, **kw),
+                K.etap_prefill_paged_plain(q, k, v, table, start, qpos=tree,
+                                           **kw),
+                f"{tag}, separate V, verify(tree)"))
+            errs["sepv"] = max(errs["sepv"], e)
+            bitwise(K.etap_verify_paged(q, k, v, table, start, linear, **kw),
+                    sep, f"{tag}, separate V, verify(linear) vs prefill")
+            if not latent:
+                continue
+            fused = K.etap_prefill_mla_paged(q, k, DV, table, start, **kw)
+            e = bf16_close(fused, K.etap_prefill_mla_paged_plain(
+                q, k, DV, table, start, **kw), f"{tag}, fused")
+            e = max(e, bf16_close(
+                K.etap_verify_mla_paged(q, k, DV, table, start, tree, **kw),
+                K.etap_prefill_mla_paged_plain(q, k, DV, table, start,
+                                               qpos=tree, **kw),
+                f"{tag}, fused, verify(tree)"))
+            errs["fused"] = max(errs["fused"], e)
+            bitwise(K.etap_verify_mla_paged(q, k, DV, table, start, linear,
+                                            **kw), fused,
+                    f"{tag}, fused, verify(linear) vs prefill")
+            bitwise(sep, fused, f"{tag}, separate V vs fused")
+        log(f"[k4] ({dk}, {dv}) {what}, units of {units}: prefill and tree "
+            "verify within tolerance of their plain versions in both modes; "
+            "linear verify == prefill"
+            + (", separate V == fused" if latent else "") + " bitwise")
+    if widths != {64, 32}:
+        raise AssertionError(f"K4 ({dk}, {dv}) edges ran units of {widths} "
+                             "only: both widths must run")
+    return errs
+
+
+def k4_attrs() -> None:
+    """An [attrs] line for each K4 instance over bf16 pools at each unit
+    width; fails on local memory (spills)."""
+    for dk, dv, sepv in ((DK, DV, 0), (DK, DV, 1), (HD, HD, 1)):
+        for cols in (64, 32):
+            regs, smem, local = attr_values("etap_prefill_attrs", dk, dv,
+                                            sepv, cols)
+            log(f"[attrs] K4 ({dk}, {dv}) "
+                f"{'separate V' if sepv else 'fused'}, units of {cols}: "
+                f"{regs} registers, {smem} B shared memory, {local} B local")
+            if local:
+                raise AssertionError(f"K4 ({dk}, {dv}) sepv={sepv} units of "
+                                     f"{cols}: {local} B of local memory")
+
+
+def sdpa_chunk(qp, k, v, start, scale):
+    """Yardstick for a paged chunk: one SDPA call (enable_gqa, a causal
+    chunk mask) over the rows the table gathered, before the timing."""
+    import torch
+    Cq, S = qp.shape[1], k.shape[1]
+    dev = qp.device
+    mask = (torch.arange(S, device=dev)[None, None, :]
+            <= (start[:, None] + torch.arange(Cq, device=dev)[None, :])
+            [:, :, None])[:, None]
+    qd = qp.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, k[:, None], v[:, None], attn_mask=mask, scale=scale,
+        enable_gqa=True)
+
+
+def k4_timing(gen, dev, iters: int, piters: int) -> None:
+    """K4 at serve-long's chunk (B 1, Cq 256 from start 3840, H 128, the
+    latent's 64 pages), fused and with V in its own pool, each beside its
+    achieved TFLOP/s, its plain version's time, its bound and SDPA's (Cq
+    32's line and Granite's are phase_kernels' and phase_sepv_kernels')."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    nb = 4096 // PAGE
+    pool, table = make_pool(1, nb, [nb * PAGE], gen, dev)
+    vpool = latent_v(pool)
+    Cq, s0 = 256, 3840
+    start = torch.tensor([s0], dtype=torch.int32, device=dev)
+    qp = torch.randn(1, Cq, 128, DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    flops = 2 * sum(s0 + c + 1 for c in range(Cq)) * 128 * (DK + DV)
+    kd = pool[table.long()].reshape(1, nb * PAGE, DK)[:, :s0 + Cq]
+    tl = cuda_time_ms(sdpa_chunk(qp, kd, kd[..., :DV], start, SCALE), iters)
+    for what, call, plain, v_bytes in (
+            ("fused", lambda: K.etap_prefill_mla_paged(
+                qp, pool, DV, table, start, scale=SCALE),
+             lambda: K.etap_prefill_mla_paged_plain(
+                 qp, pool, DV, table, start, scale=SCALE), 0),
+            ("separate V", lambda: K.etap_prefill_paged(
+                qp, pool, vpool, table, start, scale=SCALE),
+             lambda: K.etap_prefill_paged_plain(
+                 qp, pool, vpool, table, start, scale=SCALE), DV * 2)):
+        nbytes = (qp.numel() * 2 + (s0 + Cq) * (DK * 2 + v_bytes)
+                  + Cq * 128 * DV * 2)
+        tb, by = bound_ms(nbytes, flops)
+        t = cuda_time_ms(call, iters)
+        tp = cuda_time_ms(plain, piters, warmup=1)
+        log(f"[timing] K4 {what} B=1 Cq={Cq} H=128 start={s0}: {t:.4f} ms "
+            f"({flops / t / 1e9:.1f} TFLOP/s), plain {tp:.4f} ms, bound "
+            f"{tb:.4f} ms ({by}), SDPA {tl:.4f} ms")
+
+
 def granite_paged_is_dense(q, args, table, lens, kvd, tag):
     """Paged == dense, bitwise, at block-aligned lengths: K3 (K3q) over the
     pools against K5 (K5q) on the gathered rows with block = page, and K1
@@ -2175,11 +2347,23 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
         for code, qf in ((-1, 0), (0, 0), (0, 1), (1, 0), (1, 1)):
             what = {-1: "bf16", 0: "int8", 1: "fp8"}[code] + \
                 (" fp32 q" if qf else "")
-            log(f"[attrs] separate V ({dk}, {dv}) {what}: K3 / K4 "
+            log(f"[attrs] separate V ({dk}, {dv}) {what}: "
+                + ("K3 " if code < 0 else "K3 / K4q ")
                 + instance_attrs("etap_paged_sepv_attrs", dk, dv, 0, code, qf)
                 + "; K1 "
                 + instance_attrs("etap_paged_sepv_attrs", dk, dv, 1, code,
                                  qf))
+
+    k4_attrs()
+
+    # ---- K4 over bf16 pools at the edges of its tiling
+    for dk, dv in SEPV_WIDTHS:
+        got = k4_edge_checks(dk, dv, gen, dev)
+        k4 = keyf(dk, dv, "fp")("etap_prefill_paged")
+        errs[k4] = max(errs[k4], got["sepv"])
+        if dk == DK:
+            rep = report["etap_prefill_mla_paged"]
+            rep["max_abs_err"] = max(rep["max_abs_err"], got["fused"])
 
     # ---- the latent, V in its own pool: the fused kernels' bits
     for kvd in codes:
@@ -2330,14 +2514,8 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
                     qd, kd[:, None], vd[:, None], attn_mask=mask,
                     scale=dk ** -0.5, enable_gqa=True)
             kp, vp = (gather_blocks(x, ptable)[:, :prow] for x in pargs)
-            pmask = (torch.arange(prow, device=dev)[None, None, :]
-                     <= (start[:, None] + torch.arange(
-                         Cq, device=dev)[None, :])[:, :, None])[:, None]
-            qpd = qp.transpose(1, 2)
-            lib["etap_prefill_paged"] = lambda: \
-                torch.nn.functional.scaled_dot_product_attention(
-                    qpd, kp[:, None], vp[:, None], attn_mask=pmask,
-                    scale=dk ** -0.5, enable_gqa=True)
+            lib["etap_prefill_paged"] = sdpa_chunk(qp, kp, vp, start,
+                                                   dk ** -0.5)
         shapes = {"etap_decode_paged": f"B={B} H={H} ctx<={max(lens.tolist())}"
                   " ragged", "etap_paged_partial_sepv": f"B={B} H={H} "
                   f"n_splits={n}", "etap_prefill_paged":
@@ -2369,6 +2547,9 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
                 extra = (f"; fused {tfused:.4f} ms, separate V in turns "
                          f"{tsep:.4f} ms: {tsep / tfused:.2f}x")
             lname = "null" if tl is None else f"{tl:.4f}"
+            if wrapper == "etap_prefill_paged":
+                extra = (f"; {2 * keys_p * (dk + dv) / t / 1e9:.1f} TFLOP/s"
+                         + extra)
             log(f"[timing] {k} ({shapes[wrapper]}): {t:.4f} ms, plain "
                 f"{tp:.4f} ms, bound {tb:.4f} ms ({by}), library {lname} ms"
                 + extra)

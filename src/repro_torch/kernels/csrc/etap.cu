@@ -1,23 +1,21 @@
-// MLA ETAP attention for Hopper (sm_90a): the bf16 instantiations of
-// etap_body.cuh's body, which says what they compute and how.
+// MLA ETAP attention for Hopper (sm_90a): the bf16 decode instantiations
+// of etap_body.cuh's body, which says what they compute and how.
 //
 //   K3  single-pass paged decode   replaces repro/kernels/etap/etap.py:237
 //       (_paged_call, reached from etap_decode_mla_paged_pallas :259)
 //   K1  split-KV phase 1           replaces repro/kernels/etap/etap.py:713
 //       (etap_paged_partial_pallas :646, body _etap_partial_body :506)
-//   K4  chunked paged prefill /    replaces repro/kernels/etap/etap.py:430
-//       draft verify               (_prefill_call :373, reached from
-//                                   etap_prefill_mla_paged_pallas :456 and
-//                                   etap_verify_mla_paged_pallas :493)
 //   K5  single-pass dense decode   replaces repro/kernels/etap/etap.py:154
 //       (_call :122, reached from etap_decode_pallas :164 and
 //        etap_decode_mla_pallas :171)
 //   K6  dense split-KV phase 1     replaces repro/kernels/etap/etap.py:603
 //       (etap_partial_pallas :557)
 //
-// The paged kernels (K1, K3, K4) are built at the MLA latent's widths; the
+// The paged kernels (K1, K3) are built at the MLA latent's widths; the
 // dense ones (K5, K6) at each (Dk, Dv) of mma_tile.cuh's DenseWidths: the
 // latent (576, 512) and the GQA heads (128, 128), (64, 64) and (256, 256).
+// K4, the chunked paged prefill and verify over bf16 pools, is
+// etap_prefill.cu's (wgmma and TMA); over code pools it is etap_quant.cu's.
 #include "etap_body.cuh"
 
 namespace {
@@ -88,20 +86,6 @@ int etap_paged_partial(const void* q, const void* pool, const int* table,
   p.l_out = l_out;
   p.acc_out = acc_out;
   return launch<true>(p, B, n_splits, stream);
-}
-
-// K4: q [B, Cq*H, DK]; start [B]; qpos [B, Cq*H] or null; out [B,Cq*H,DV].
-int etap_prefill_mla_paged(const void* q, const void* pool, const int* table,
-                           const int* start, const int* qpos, void* out,
-                           int B, int C, int H, int nbt, float scale,
-                           int amla, void* stream) {
-  Params p = make_params(q, pool, table, C, nbt, scale, amla);
-  p.base = start;
-  p.qpos = qpos;
-  p.hz_off = 0;
-  p.heads = H;
-  p.out = out;
-  return launch<false>(p, B, 1, stream);
 }
 
 // K5: q [B,H,dk]; K rows k + (b / kvh)*kb + (b % kvh)*kh + s*ldk for

@@ -1,14 +1,16 @@
 // The body of the MLA ETAP attention kernels for Hopper (sm_90a), one
 // template serving five pallas_call sites of the JAX package over bf16
 // rows and over int8 / e4m3 codes.  etap.cu instantiates its bf16 kernels
-// (K3, K1, K4, K5, K6), etap_quant.cu its quantized ones (K3q, K1q, K4q
+// (K3, K1, K5, K6), etap_quant.cu its quantized ones (K3q, K1q, K4q
 // over the paged latent, K5q, K6q over dense GQA rows) and etap_sepv.cu the
-// paged K3, K1, K4 and their quantized twins over separate K and V pools,
-// so the three compile in parallel; each source's header says which
-// pallas_call bodies it replaces.
+// paged K3, K1 and the quantized K3q, K1q, K4q over separate K and V
+// pools, so the three compile in parallel; each source's header says which
+// pallas_call bodies it replaces.  K4 over bf16 pools (fused and with a
+// separate V) is etap_prefill.cu's own kernel, on wgmma and TMA; the
+// prefill / verify address below serves K4q.
 //
 // What they compute.  A CTA owns NT = 16 query columns of one batch row (16
-// heads of a decode query, or 16 of the Cq*H columns of a prefill chunk)
+// heads of a decode query, or 16 of the Cq*H columns of a K4q chunk)
 // and walks that row's KV rows in 64-row tiles (pages).  Per tile:
 //     S^T = K Q^T * scale          [64, 16]   mma.sync, page rows on M
 //     mask kpos > horizon(column) to -1e30
@@ -71,7 +73,7 @@
 // horizon = lengths[b] - 1 (decode), start[b] +
 // c / H (prefill), or qpos[b, c] (verify) — so decode, prefill and verify
 // share the mask code, and verify with a linear qpos is bitwise prefill.
-// K3/K4/K5 end with O = (Acc^T / l)^T in bf16 (the quantized ones in q's
+// K3/K4q/K5 end with O = (Acc^T / l)^T in bf16 (the quantized ones in q's
 // type, bf16 or fp32); K1/K6 write the raw fp32 (m, l, Acc^T) of their
 // split for the combine kernel (combine.cu).  The split and single-pass
 // kernels are the same body, so partial(n_splits=1) + combine is bitwise
@@ -127,7 +129,7 @@
 // latent row, 512 B at Granite's 128, 1104 B and 272 B as codes with both
 // pairs).  A GQA group (G = 4 heads of Qwen3-8B) fills 4 of the
 // 16 columns: 12 are padding, masked, and the floor is again the K and V
-// bytes.  Prefill at 128 heads is compute-bound
+// bytes.  K4q's prefill at 128 heads is compute-bound
 // (Cq*H*kpos*(576 + 512) multiply-adds).  This first version is simple:
 // mma.sync fragments loaded from shared memory with 32/16-bit loads, one
 // page in flight (cp.async, no double buffer; the code pages by plain

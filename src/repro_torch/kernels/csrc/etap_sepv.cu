@@ -10,11 +10,15 @@
 //   K1  split-KV phase 1           replaces repro/kernels/etap/etap.py:713
 //       (etap_paged_partial_pallas :646, bodies _paged_partial_body :619
 //        and _paged_partial_body_quant :631)
-//   K4  chunked prefill / verify   replaces repro/kernels/etap/etap.py:430
-//       (_prefill_call :373, bodies _etap_prefill_body :271,
-//        _prefill_body_quant :334, _verify_body :348 and
-//        _verify_body_quant :360, reached from etap_prefill_paged_pallas
-//        :440 and etap_verify_paged_pallas :474)
+//   K4q chunked prefill / verify   replaces repro/kernels/etap/etap.py:430
+//       over code pools            (_prefill_call :373, bodies
+//                                   _prefill_body_quant :334 and
+//                                   _verify_body_quant :360, reached from
+//                                   etap_prefill_paged_pallas :440 and
+//                                   etap_verify_paged_pallas :474)
+//
+// K4 over bf16 pools (bodies _etap_prefill_body :271 and _verify_body
+// :348) is etap_prefill.cu's, on wgmma and TMA.
 //
 // Built at mma_tile.cuh's PagedSepWidths: DeepSeek's latent (576, 512)
 // with V in its own pool, and Granite-20B's MQA head (128, 128), as the
@@ -96,9 +100,9 @@ int etap_paged_sepv_widths(int* out, int cap) {
 }
 
 // The registers, dynamic shared memory and local memory of the separate-V
-// K3 / K4 (stats 0) or K1 (stats 1) instance at (dk, dv) over bf16 pools
-// (code -1) or int8 (0) / e4m3 (1) codes, with fp32 q when qf32 is set,
-// into out[0..2].
+// K3 (and, over codes, K4q; stats 0) or K1 (stats 1) instance at (dk, dv)
+// over bf16 pools (code -1) or int8 (0) / e4m3 (1) codes, with fp32 q when
+// qf32 is set, into out[0..2].
 int etap_paged_sepv_attrs(int dk, int dv, int stats, int code, int qf32,
                           int* out) {
   auto get = [&](auto DK, auto DV, auto ST, auto CD, auto QF) {
@@ -144,22 +148,6 @@ int etap_paged_partial_sepv(const void* q, const void* k_pool,
   p.l_out = l_out;
   p.acc_out = acc_out;
   return decode<true>(p, lengths, dk, dv, -1, B, H, n_splits, stream);
-}
-
-// K4, separate V: q [B, Cq*H, dk]; start [B]; qpos [B, Cq*H] or null;
-// out [B, Cq*H, dv].
-int etap_prefill_paged(const void* q, const void* k_pool, const void* v_pool,
-                       const int* table, const int* start, const int* qpos,
-                       void* out, int B, int C, int H, int nbt, int dk,
-                       int dv, float scale, int amla, void* stream) {
-  Params p = sepv_params(q, k_pool, nullptr, v_pool, nullptr, table, C, nbt,
-                         scale, amla, 0);
-  p.base = start;
-  p.qpos = qpos;
-  p.hz_off = 0;
-  p.heads = H;
-  p.out = out;
-  return launch<false>(p, dk, dv, -1, B, 1, stream);
 }
 
 // K3q / K1q / K4q, separate V: as K3 / K1 / K4 over int8 (code 0) or e4m3

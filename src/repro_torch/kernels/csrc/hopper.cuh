@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_prefill.cu): shared-memory mbarriers, TMA tile loads through a
-// tensor map, the wgmma shared-memory descriptor of a 128-byte-swizzled
-// tile, wgmma products with their fences, and setmaxnreg.
+// (flash_prefill.cu, etap_prefill.cu): shared-memory mbarriers, TMA tile
+// loads through a tensor map, the wgmma shared-memory descriptor of a
+// 128-byte-swizzled tile, wgmma products with their fences, stmatrix,
+// named barriers and setmaxnreg.
 //
 // Tiles.  A TMA box is 64 bf16 columns (128 bytes) by `rows` rows, laid
 // out row after row with the 128-byte swizzle; a wider operand is several
@@ -14,7 +15,9 @@
 //   MN-major (the n axis along the row: V, read transposed for P V):
 //     SBO = 1024 B from one 8-row (k) group to the next, LBO = one box
 //     (rows x 128 B) from one 64-column n block to the next; the k16 step
-//     kk starts 16 kk rows (2048 kk bytes) in.
+//     kk starts 16 kk rows (2048 kk bytes) in.  An A operand read MN-major
+//     (V^T, the transpose-A bit set) takes the same descriptor: its 64 m
+//     rows are one box's 64 columns.
 #pragma once
 
 #include <cstdint>
@@ -261,6 +264,84 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, A and B in shared memory
+// (descriptors da, db): B K-major; A K-major, or MN-major with TA (the
+// transpose-A bit).  FIRST: the first k16 step of a product (scale-d
+// false: D's old values are not read, so they are dead here).
+template <bool FIRST, bool TA>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                  uint64_t da, uint64_t db) {
+  if constexpr (FIRST) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(da), "l"(db), "r"(0), "n"(TA ? 1 : 0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1), "n"(TA ? 1 : 0));
+  }
+}
+
+// The same at N = 16.
+template <bool FIRST, bool TA>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8],
+                                                  uint64_t da, uint64_t db) {
+  if constexpr (FIRST) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+        : "l"(da), "l"(db), "r"(0), "n"(TA ? 1 : 0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1), "n"(TA ? 1 : 0));
+  }
+}
+
+// Store four 8 x 8 bf16 matrices, transposed: r[i] is matrix i's mma
+// fragment (lane l: row l / 4, columns 2 (l % 4) and + 1), and lane
+// 8 i + j gives the shared-memory address of the 16 bytes that receive
+// column j of matrix i (its 8 rows in order).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
+// Make this thread's shared-memory writes visible to the async proxy
+// (wgmma's operand reads, TMA) once a barrier orders them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---- host: tensor maps

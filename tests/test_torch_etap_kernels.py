@@ -4,7 +4,10 @@ contracts.
 
 Tolerance: fp32 ``atol = rtol = 1e-5`` — both sides compute in fp32 and
 differ only in summation order.  Inputs: ragged lengths, block tables padded
-with the null block 0, both rescale modes, a tree-shaped verify ``qpos``.
+with the null block 0, both rescale modes, a tree-shaped verify ``qpos``,
+and K4's edge shapes (columns not a multiple of the card kernel's unit,
+several query rows a unit, start 0, a horizon mid-page, an idle row on the
+null block, a horizon past the table).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -129,6 +132,62 @@ def test_verify_tree_plain_matches_pallas(mode):
     out = etap.etap_verify_mla_paged(*_t(q, pool), DV,
                                      *_t(table, start, qpos), scale=SCALE,
                                      rescale=mode)
+    _close(out, ref)
+
+
+# The edges of K4's tiling on the card (units of 64 or 32 of the Cq*H
+# columns of one batch row, each walking up to its largest horizon), at
+# reduced widths: (H, Cq, start per row, tree-shaped verify qpos).
+EDGES = {
+    "columns_not_a_unit_multiple": (7, 3, [10, 2, 25], False),
+    "several_rows_per_unit": (2, 9, [5, 17, 0], False),
+    "start_zero": (4, 6, [0, 0, 0], False),
+    "horizon_mid_page": (4, 5, [11, 19, 3], False),
+    "idle_row_on_null_block": (4, 4, [10, 25, 0], False),
+    "tree_qpos": (5, 7, [10, 0, 25], True),
+    # row 1's horizons lie past its five-page table (an odd page count)
+    "horizon_past_the_table": (4, 4, [10, 41, 3], False),
+}
+
+
+def _edge_case(name, seed=20):
+    """q [B,Cq,H',DK] with H' heads a row, the pool and table of _case
+    (the null block past each row's chunk; every entry of an idle row's
+    table the null block, its chunk at start 0), start and the verify
+    qpos (None for a prefill)."""
+    H_, Cq, start, tree = EDGES[name]
+    _, pool, table, _ = _case(seed, [s + Cq for s in start])
+    if name == "idle_row_on_null_block":
+        table[2] = 0
+    rng = np.random.default_rng(seed + 1)
+    q = rng.normal(size=(B, Cq, H_, DK)).astype(np.float32)
+    start = np.asarray(start, np.int32)
+    qpos = None
+    if tree:
+        depth = np.asarray([0] + [1 + (c - 1) // 3 for c in range(1, Cq)])
+        qpos = (start[:, None] + depth[None, :]).astype(np.int32)
+    return q, pool, table, start, qpos
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", list(EDGES))
+def test_prefill_edges_plain_match_pallas(name, mode):
+    """K4 plain (prefill, or verify with a tree qpos) vs the Pallas kernel
+    at the edge shapes of the card's tiling."""
+    q, pool, table, start, qpos = _edge_case(name)
+    kw = dict(scale=SCALE, rescale=mode)
+    if qpos is None:
+        ref = jetap.etap_prefill_mla_paged_pallas(*_j(q, pool), DV,
+                                                  *_j(table, start), **kw)
+        out = etap.etap_prefill_mla_paged(*_t(q, pool), DV,
+                                          *_t(table, start), **kw)
+    else:
+        ref = jetap.etap_verify_mla_paged_pallas(*_j(q, pool), DV,
+                                                 *_j(table, start, qpos),
+                                                 **kw)
+        out = etap.etap_verify_mla_paged(*_t(q, pool), DV,
+                                         *_t(table, start, qpos), **kw)
+    assert out.shape == (B, q.shape[1], q.shape[2], DV)
     _close(out, ref)
 
 

@@ -174,6 +174,50 @@ def test_prefill_and_verify_plain_match_pallas(kv_dtype, verify, mode):
     _close(got, want)
 
 
+# The edges of K4's tiling on the card (units of 64 or 32 of the Cq*H
+# columns of one batch row, each walking up to its largest horizon), at
+# reduced widths: (H, Cq, start per row, tree-shaped verify qpos).
+EDGES = {
+    "columns_not_a_unit_multiple": (7, 3, [10, 2, 25], False),
+    "several_rows_per_unit": (2, 9, [5, 17, 0], False),
+    "start_zero": (4, 6, [0, 0, 0], False),
+    "horizon_mid_page": (4, 5, [11, 60, 3], False),
+    "idle_row_on_null_block": (4, 4, [10, 25, 0], False),
+    "tree_qpos": (5, 7, [30, 0, 60], True),
+    # row 1's horizons lie past its five-page table (an odd page count)
+    "horizon_past_the_table": (4, 4, [40, 85, 3], False),
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", list(EDGES))
+def test_prefill_edges_plain_match_pallas(name, mode):
+    """K4 over separate bf16-layout pools (fp32 here), plain vs
+    etap_prefill_paged_pallas / etap_verify_paged_pallas at the edge
+    shapes of the card's tiling; an idle row's table is all null blocks,
+    its chunk at start 0."""
+    H_, Cq, start, tree = EDGES[name]
+    start = torch.tensor(start, dtype=torch.int32)
+    _, pools, table, _ = _case(5, lengths=[int(s) + Cq for s in start])
+    if name == "idle_row_on_null_block":
+        table[2] = 0
+    qp = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(B, Cq, H_, DK)).astype(np.float32))
+    jp = _jpools(pools)
+    kw = dict(scale=SCALE, rescale=mode)
+    args = (pools["k_pool"], pools["v_pool"], table, start)
+    jargs = (_j(qp), jp["k_pool"], jp["v_pool"], _j(table), _j(start))
+    if tree:
+        qpos = _tree(start, Cq)
+        want = jetap.etap_verify_paged_pallas(*jargs, _j(qpos), **kw)
+        got = K.etap_verify_paged(qp, *args, qpos, **kw)
+    else:
+        want = jetap.etap_prefill_paged_pallas(*jargs, **kw)
+        got = K.etap_prefill_paged(qp, *args, **kw)
+    assert got.shape == (B, Cq, H_, DV)
+    _close(got, want)
+
+
 # ------------------------------------------- the attention entries vs JAX
 @pytest.mark.parametrize("kv_dtype", ["fp", *CODES])
 def test_entries_match_reference(kv_dtype):
@@ -528,3 +572,24 @@ def test_width_list_and_bindings():
             assert name in build.SIGNATURES
     for name in ("etap_paged_sepv_widths", "etap_paged_sepv_attrs"):
         assert name in build.SIGNATURES
+
+
+def test_bf16_chunk_kernel_is_the_hopper_source():
+    """K4 over bf16 pools, fused and separate-V, is defined in
+    etap_prefill.cu alone (wgmma over TMA-loaded boxes: no mma.sync, no
+    cp.async page loads), under its unchanged C signatures; K4q stays on
+    the shared body."""
+    src = (CSRC / "etap_prefill.cu").read_text()
+    for name in ("etap_prefill_mla_paged", "etap_prefill_paged"):
+        defs = [f.name for f in sorted(CSRC.glob("*.cu"))
+                if re.search(rf"\bint {name}\(", f.read_text())]
+        assert defs == ["etap_prefill.cu"], (name, defs)
+    assert len(build.SIGNATURES["etap_prefill_mla_paged"]) == 13
+    assert len(build.SIGNATURES["etap_prefill_paged"]) == 16
+    assert "etap_prefill_attrs" in build.SIGNATURES
+    assert "wgmma" in src and "tma_load_4d" in src
+    for banned in ("mma16816(", "cp_async", '#include "etap_body.cuh"'):
+        assert banned not in src
+    for name, where in (("etap_prefill_mla_paged_quant", "etap_quant.cu"),
+                        ("etap_prefill_paged_quant", "etap_sepv.cu")):
+        assert re.search(rf"\bint {name}\(", (CSRC / where).read_text())
