@@ -14,7 +14,15 @@ latent pool): fused at Cq 32 from start 4064, at Cq 32 from 256
 at most 8 pages) and at serve-long's Cq 256 from 3840, with V in its own
 pool at Cq 256, and over Granite-20B's
 separate (128, 128) pools at B 2 x Cq 128 x H 48 from starts 1920 and 0,
-over 50 launches each.  With ``--prefill`` it runs ``model.prefill`` on
+over 50 launches each; then K4q at the same latent shapes over int8 and
+e4m3 pools (bf16 q; with V in its own pool at Cq 256 over int8) and over
+Granite's separate code pools (fp32 q), over 50 launches each; then K3
+over Granite's separate bf16 pools (B 8 x 48 heads, ragged lengths)
+beside one SDPA call on the gathered rows, over 200 launches each.  Each
+checkout also hands back a digest of the outputs of the decode bodies on
+etap_body.cuh (K3q, K1q at the timing shapes, K5q / K6q at a 128-wide
+head), and the run says whether they are bitwise equal across the
+checkouts.  With ``--prefill`` it runs ``model.prefill`` on
 DeepSeek-R1 at full width cut to its 3 dense layers (random bf16 weights,
 seed 0) at dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts:
 the median wall of 5 synchronised runs (ms) and the peak device memory of
@@ -22,7 +30,9 @@ those runs (GiB, weights included); then its paged chunked prefill
 (``model.prefill_chunk`` over a one-slot block pool, K4 in every layer):
 one 4096-token prompt in 256-token chunks (serve-long's) and one
 512-token prompt in 32-token chunks (serve-short's), the median wall of 5
-synchronised runs; then K9 alone at each width, at
+synchronised runs (``--paged`` adds the same prompts over an fp8 pool,
+serve-long-fp8's, and an int8 pool, serve-short-int8's: K4q in every
+layer); then K9 alone at each width, at
 chip_smoke.PREFILL_TIMED's shapes (dense-long MLA, qwen-dense G 4,
 stablelm-dense G 1; random bf16 q, k, v), with CUDA events over 50
 launches.  With ``--paged`` it runs only the paged chunked prefills, so
@@ -44,11 +54,20 @@ import sys
 
 KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K3q-fp8", "K1q-fp8", "K4-Cq32", "K4-Cq32-s256", "K4-Cq256",
-           "K4sep-Cq256", "K4sep[128]-Cq128")
+           "K4sep-Cq256", "K4sep[128]-Cq128", "K4q-int8-Cq32",
+           "K4q-int8-Cq32-s256", "K4q-int8-Cq256", "K4q-fp8-Cq32",
+           "K4q-fp8-Cq32-s256", "K4q-fp8-Cq256", "K4qsep-int8-Cq256",
+           "K4qsep[128]-int8-Cq128", "K4qsep[128]-fp8-Cq128", "K3sep[128]",
+           "SDPA-K3sep[128]")
+# the kernels whose outputs must keep their bits from one checkout to the
+# next (the decode bodies on etap_body.cuh), each a digest of its output
+BITS = ("K3q-int8", "K1q-int8", "K3q-fp8", "K1q-fp8", "K5q[128]-int8",
+        "K6q[128]-fp8")
 PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "paged-long-ms",
            "paged-short-ms", "K9[192,128]-ms", "K9[128,128]-ms",
            "K9[64,64]-ms")
-PAGED = ("paged-long-ms", "paged-short-ms")
+PAGED = ("paged-long-ms", "paged-short-ms", "paged-long-fp8-ms",
+         "paged-short-int8-ms")
 
 
 def time_one(root: str) -> dict:
@@ -60,6 +79,7 @@ def time_one(root: str) -> dict:
     from repro_torch.kernels.etap import etap as K
     from repro_torch.kernels.etap.schedule import dense_split_plan
     from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.runtime.paged_cache import gather_blocks
     build.library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -110,21 +130,95 @@ def time_one(root: str) -> dict:
         if Cq == 256:
             k4["K4sep-Cq256"] = lambda qp=qp, st=st: K.etap_prefill_paged(
                 qp, pool, vpool, table, st, scale=S)
-    _, gargs, gtable, _, _ = cs.granite_case("fp", cs.GRANITE_LENGTHS, gen,
-                                             dev)
+    gq3, gargs, gtable, glens, _ = cs.granite_case("fp", cs.GRANITE_LENGTHS,
+                                                   gen, dev)
     gq = torch.randn(2, cs.GRANITE_CQ, cs.GRANITE_H, 128, generator=gen,
                      device=dev).to(torch.bfloat16)
     gst = torch.tensor(cs.GRANITE_STARTS, dtype=torch.int32, device=dev)
     k4["K4sep[128]-Cq128"] = lambda: K.etap_prefill_paged(
         gq, *gargs, gtable[:2], gst, scale=128 ** -0.5)
+    # K4q over int8 / e4m3 pools (bf16 q) at K4's latent shapes, and over
+    # Granite's separate code pools (fp32 q, as the GQA paths cast it)
+    for kvd in ("int8", "fp8"):
+        codes, sz, ctable = cs.make_quant_pool(1, 64, [4096], kvd, gen, dev)
+        for name, Cq, s0 in (("Cq32", 32, 4064), ("Cq32-s256", 32, 256),
+                             ("Cq256", 256, 3840)):
+            qp = torch.randn(1, Cq, H, cs.DK, generator=gen, device=dev).to(
+                torch.bfloat16)
+            st = torch.tensor([s0], dtype=torch.int32, device=dev)
+            k4[f"K4q-{kvd}-{name}"] = lambda qp=qp, st=st, c=codes, z=sz, \
+                t=ctable: K.etap_prefill_mla_paged_quant(qp, c, z, cs.DV, t,
+                                                         st, scale=S)
+            if kvd == "int8" and Cq == 256:
+                vc, vs = cs.latent_v(codes, sz)
+                k4["K4qsep-int8-Cq256"] = lambda qp=qp, st=st, c=codes, \
+                    z=sz, t=ctable, vc=vc, vs=vs: K.etap_prefill_paged_quant(
+                        qp, c, z, vc, vs, t, st, scale=S)
+        _, qargs, qtable, _, _ = cs.granite_case(kvd, cs.GRANITE_LENGTHS,
+                                                 gen, dev)
+        gqf = torch.randn(2, cs.GRANITE_CQ, cs.GRANITE_H, 128, generator=gen,
+                          device=dev)
+        k4[f"K4qsep[128]-{kvd}-Cq128"] = lambda a=qargs, t=qtable, q=gqf: \
+            K.etap_prefill_paged_quant(q, *a, t[:2], gst, scale=128 ** -0.5)
     out.update({n: cs.cuda_time_ms(f, 50, warmup=3) for n, f in k4.items()})
+    # K3 over Granite's separate pools (B 8 x 48 heads) and its SDPA
+    # yardstick on the gathered rows (gathered before the timing)
+    kd, vd = (gather_blocks(x, gtable) for x in gargs)
+    mask = (torch.arange(kd.shape[1], device=dev)[None, :]
+            < glens[:, None])[:, None, None, :]
+    qd = gq3[:, :, None, :]
+    out["K3sep[128]"] = cs.cuda_time_ms(lambda: K.etap_decode_paged(
+        gq3, *gargs, gtable, glens, scale=128 ** -0.5), 200, warmup=5)
+    out["SDPA-K3sep[128]"] = cs.cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qd, kd[:, None], vd[:, None], attn_mask=mask, scale=128 ** -0.5,
+            enable_gqa=True), 200, warmup=5)
+    out["bits"] = bits_of(cs, K, gen, dev, {n: fns[n] for n in BITS
+                                             if n in fns})
     return out
 
 
-def paged_prefill_ms(model, cfg, params, S: int, chunk: int, gen) -> float:
+def bits_of(cs, K, gen, dev, fns: dict) -> dict:
+    """A digest of each output of ``fns`` (the latent decode bodies at
+    time_one's inputs) and of K5q / K6q at a 128-wide GQA head (B 16 rows
+    of G 4 heads over int8 / e4m3 code rows, fp32 q), so that checkouts
+    can be held bitwise against each other."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.runtime import paged_cache
+
+    def digest(x):
+        h = hashlib.sha256()
+        for t in x if isinstance(x, tuple) else (x,):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()[:16]
+    out = {n: digest(f()) for n, f in fns.items()}
+    BG, S, hd = 16, 1024, 128
+    q = torch.randn(BG, 4, hd, generator=gen, device=dev)
+    lengths = torch.randint(1, S + 1, (BG,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    for kvd, name in (("int8", "K5q[128]-int8"), ("fp8", "K6q[128]-fp8")):
+        kc, ks = paged_cache.quantize_rows(torch.randn(
+            BG, S, hd, generator=gen, device=dev), kvd)
+        vc, vs = paged_cache.quantize_rows(torch.randn(
+            BG, S, hd, generator=gen, device=dev), kvd)
+        kw = dict(k_sz=ks, v_sz=vs, scale=hd ** -0.5)
+        out[name] = digest(
+            K.etap_decode_dense_quant(q, kc, vc, lengths, **kw)
+            if name.startswith("K5q") else K.etap_partial_dense_quant(
+                q, kc, vc, lengths, plan=dense_split_plan(S, 512, 2), **kw))
+    return out
+
+
+def paged_prefill_ms(model, cfg, params, S: int, chunk: int, gen,
+                     kv_dtype: str = "fp") -> float:
     """The median wall (ms) of 5 synchronised chunked prefills of one
-    S-token prompt in ``chunk``-token chunks over a one-slot paged cache,
-    each chunk one ``model.prefill_chunk`` (its rows appended, then K4)."""
+    S-token prompt in ``chunk``-token chunks over a one-slot paged cache
+    (bf16, or int8 / fp8 codes), each chunk one ``model.prefill_chunk``
+    (its rows appended, quantized over codes, then K4 or K4q)."""
     import time
 
     import torch
@@ -132,7 +226,7 @@ def paged_prefill_ms(model, cfg, params, S: int, chunk: int, gen) -> float:
     layout = layout_for(1, S + 32, block_size=64)
     bp = BlockPool(layout, 1)
     slot = bp.admit(S, S + 32)
-    cache = model.init_paged_cache(cfg, layout, device="cuda")
+    cache = model.init_paged_cache(cfg, layout, kv_dtype, device="cuda")
     table = torch.tensor(bp.table[slot:slot + 1], dtype=torch.int32,
                          device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
@@ -172,15 +266,21 @@ def deepseek(root: str):
     return model, cfg, params, gen
 
 
-def paged_prefills(model, cfg, params, gen) -> dict:
-    """serve-long's and serve-short's paged chunked prefills (ms)."""
-    return {f"{tag}-ms": paged_prefill_ms(model, cfg, params, S, chunk, gen)
-            for tag, S, chunk in (("paged-long", 4096, 256),
-                                  ("paged-short", 512, 32))}
+def paged_prefills(model, cfg, params, gen, quant: bool = False) -> dict:
+    """serve-long's and serve-short's paged chunked prefills (ms), and with
+    ``quant`` those of serve-long-fp8 and serve-short-int8 (the same
+    prompts over fp8 / int8 pools)."""
+    runs = [("paged-long", 4096, 256, "fp"), ("paged-short", 512, 32, "fp")]
+    if quant:
+        runs += [("paged-long-fp8", 4096, 256, "fp8"),
+                 ("paged-short-int8", 512, 32, "int8")]
+    return {f"{tag}-ms": paged_prefill_ms(model, cfg, params, S, chunk, gen,
+                                          kvd)
+            for tag, S, chunk, kvd in runs}
 
 
 def paged_one(root: str) -> dict:
-    return paged_prefills(*deepseek(root))
+    return paged_prefills(*deepseek(root), quant=True)
 
 
 def prefill_one(root: str) -> dict:
@@ -250,16 +350,23 @@ def main(argv: list) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     runs: dict = {}
+    bits: dict = {}
     for root in argv:
         out = subprocess.run([sys.executable, __file__, one, root],
                              capture_output=True, text=True, check=True)
         ms = json.loads(out.stdout.strip().splitlines()[-1])
         runs.setdefault(root, []).append(ms)
+        for n, d in ms.get("bits", {}).items():
+            bits.setdefault(n, set()).add(d)
         print(root, " ".join(f"{n} {ms[n]:.4f}" for n in names),
               flush=True)
     for root, rs in runs.items():
         print(f"median of {len(rs)} {root}: " + " ".join(
             f"{n} {spread([r[n] for r in rs])}" for n in names))
+    if bits:
+        print("outputs across the checkouts: " + ", ".join(
+            f"{n} {'bitwise equal' if len(d) == 1 else 'DIFFER'}"
+            for n, d in bits.items()))
     return 0
 
 

@@ -94,7 +94,17 @@ Phases, each of which fails the run when it fails:
              bitwise, an [attrs] line per instance and unit width (local
              memory fails the run), and its time at Cq 32 and serve-long's
              Cq 256 (start 3840) with its TFLOP/s, plain time, bound and
-             SDPA's;
+             SDPA's; and K4q, the same kernel over int8 / e4m3 pools, at
+             K4Q_EDGES (K4's edges) over both code types with bf16 q
+             (both unit widths must run) and fp32 q (units of 32), fused,
+             separate-V latent and Granite, both modes, linear verify ==
+             prefill and separate V == fused bitwise, whether a column's
+             bits depend on the unit width (logged), its RMSE with fp32 q
+             against the fp64 oracle (the reference's geometry: the gate;
+             a 16-row chunk and Granite's chunks: within 1% of the
+             reference's route where that route misses the gate), its
+             [attrs] lines, and its time at Cq 256 from 3840 beside K4's
+             in turns;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -277,14 +287,15 @@ KERNELS = {
 # quantized bodies, one entry per code type: entry -> (the TPU kernel it
 # replaces, its CUDA source, the wrapper, the pool's kv_dtype)
 QUANT_KERNELS = {
-    f"{wrapper}[{kvd}]": (tpu, _CSRC + "etap_quant.cu", wrapper, kvd)
+    f"{wrapper}[{kvd}]": (tpu, _CSRC + src, wrapper, kvd)
     for kvd in ("int8", "fp8")
-    for wrapper, tpu in (
+    for wrapper, tpu, src in (
         ("etap_decode_mla_paged_quant",
-         "src/repro/kernels/etap/etap.py:237"),
-        ("etap_paged_partial_quant", "src/repro/kernels/etap/etap.py:713"),
+         "src/repro/kernels/etap/etap.py:237", "etap_quant.cu"),
+        ("etap_paged_partial_quant", "src/repro/kernels/etap/etap.py:713",
+         "etap_quant.cu"),
         ("etap_prefill_mla_paged_quant",
-         "src/repro/kernels/etap/etap.py:430"))}
+         "src/repro/kernels/etap/etap.py:430", "etap_prefill.cu"))}
 # RMSE gates of the quantized decode against the fp64 oracle on the
 # unquantized rows (the reference's tests/test_softmax_state.py:258-280)
 QUANT_RMSE = {"int8": 6.12e-4, "fp8": 2.22e-3}
@@ -684,11 +695,13 @@ def latent_v(pool, sz=None):
 def rmse_gate(kv_dtype, mode, dev):
     """The reference's accuracy gate at its own geometry and seed (B 2,
     H 16, S 1024, page 64, numpy default_rng(0), lengths 515 and 1024):
-    fp32 q through K3q, and through K1q (n = 4) + K2, over the quantized
+    fp32 q through K3q, through K1q (n = 4) + K2, and through K4q (the
+    decode queries as one-row chunks, the gate strictly, and a 16-row
+    chunk at the end of each row: k4q_rmse), over the quantized
     pool, against the fp64 oracle on the unquantized rows, and against the
     plain version within F32_Q_TOL; their separate-V twins over the V
-    columns as a pool of their own give the same bits.  Returns the larger
-    RMSE and K3q's max abs error from its plain version."""
+    columns as a pool of their own give the same bits.  Returns the
+    largest RMSE and K3q's max abs error from its plain version."""
     import numpy as np
     import torch
     from repro_torch.kernels.etap import combine as C
@@ -740,7 +753,19 @@ def rmse_gate(kv_dtype, mode, dev):
         if not err <= F32_Q_TOL:
             raise AssertionError(f"{what} {kv_dtype} {mode} fp32 q: "
                                  f"{err:.3e} from its plain version")
+    # K4q: the decode queries as one-row chunks (the gate, strictly), and
+    # a chunk of 16 rows at the end of each row
+    rows = pool.to(dev)
     worst = 0.0
+    for Cq in (1, 16):
+        qc = qd[:, None] if Cq == 1 else torch.from_numpy(rng.normal(
+            size=(B, Cq, H, DK)).astype(np.float32)).to(dev)
+        start = torch.tensor([n - Cq for n in lengths], dtype=torch.int32,
+                             device=dev)
+        worst = max(worst, k4q_rmse(
+            qc, (codes, sz, vc, vs), table, start, (rows, rows[..., :dv]),
+            kv_dtype, f"reference geometry Cq={Cq} {mode}", rescale=mode,
+            fused=(codes, sz), strict=Cq == 1))
     for what, out in (("K3q", out1), ("K1q+K2", out4)):
         if out.dtype != torch.float32:
             raise AssertionError(f"{what} fp32 q gave {out.dtype}")
@@ -788,6 +813,7 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
                                  "pairs differ from the CPU's")
     log("[quant] quantize_rows on the card == on the CPU, bitwise, int8 "
         "and fp8 (4096 rows of 576)")
+    k4q_widen_check(dev)
 
     for kvd in ("int8", "fp8"):
         name = {w: f"{w}[{kvd}]" for w in (
@@ -866,7 +892,8 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
         for mode in ("amla", "mul"):
             r, e = rmse_gate(kvd, mode, dev)
             log(f"[quant] RMSE gate {kvd} {mode} (fp32 q, reference "
-                f"geometry): {r:.4e} <= {QUANT_RMSE[kvd]:.3e}; K3q within "
+                f"geometry; K3q, K1q+K2, K4q): {r:.4e} <= "
+                f"{QUANT_RMSE[kvd]:.3e} or its limit; K3q within "
                 f"{e:.3e} of its plain version")
 
         for wrapper, e in paged_main_path(kvd, gen, dev).items():
@@ -926,6 +953,45 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
             report[key] = {"max_abs_err": errs[key], "ms": t, "plain_ms": tp,
                            "bound_ms": tb, "bound_by": by,
                            "library_ms": None}
+    k4q_timing(gen, dev, iters, piters)
+
+
+def k4q_timing(gen, dev, iters: int, piters: int) -> None:
+    """K4q at serve-long's chunk (B 1, Cq 256 from start 3840, H 128, the
+    latent's 64 pages, bf16 q), over int8 and e4m3 pools, each beside its
+    achieved TFLOP/s, its plain version's time, its operations bound, and
+    K4 over a bf16 pool at the same shape timed in turns with it (Cq 32's
+    line is phase_quant_kernels')."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    nb = 4096 // PAGE
+    Cq, s0 = 256, 3840
+    start = torch.tensor([s0], dtype=torch.int32, device=dev)
+    qp = torch.randn(1, Cq, 128, DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    flops = 2 * sum(s0 + c + 1 for c in range(Cq)) * 128 * (DK + DV)
+    pool, table = make_pool(1, nb, [nb * PAGE], gen, dev)
+
+    def k4():
+        return K.etap_prefill_mla_paged(qp, pool, DV, table, start,
+                                        scale=SCALE)
+    for kvd in ("int8", "fp8"):
+        codes, sz, ctable = make_quant_pool(1, nb, [nb * PAGE], kvd, gen,
+                                            dev)
+        args = (qp, codes, sz, DV, ctable, start)
+
+        def k4q(args=args):
+            return K.etap_prefill_mla_paged_quant(*args, scale=SCALE)
+        nbytes = qp.numel() * 2 + (s0 + Cq) * (DK + 8) + Cq * 128 * DV * 2
+        tb, by = bound_ms(nbytes, flops)
+        ts = [cuda_time_ms(f, iters) for f in (k4q, k4, k4, k4q)]
+        t, t4 = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+        tp = cuda_time_ms(lambda args=args: K.etap_prefill_mla_paged_quant_plain(
+            *args, scale=SCALE), piters, warmup=1)
+        log(f"[timing] K4q {kvd} B=1 Cq={Cq} H=128 start={s0}: {t:.4f} ms "
+            f"({flops / t / 1e9:.1f} TFLOP/s), plain {tp:.4f} ms, bound "
+            f"{tb:.4f} ms ({by}); K4 over bf16 in turns {t4:.4f} ms: "
+            f"{t / t4:.2f}x")
 
 
 def dense_as_paged(k, gen):
@@ -1794,8 +1860,8 @@ SEPV_WIDTHS = ((DK, DV), (HD, HD))
 SEPV_KERNELS = {
     f"{wrapper}{'' if kvd == 'fp' else '_quant'}[{dk},{dv}"
     f"{'' if kvd == 'fp' else ',' + kvd}]":
-        (tpu, _CSRC + ("etap_prefill.cu" if (wrapper, kvd) == (
-            "etap_prefill_paged", "fp") else "etap_sepv.cu"),
+        (tpu, _CSRC + ("etap_prefill.cu" if wrapper == "etap_prefill_paged"
+                       else "etap_sepv.cu"),
          wrapper + ("" if kvd == "fp" else "_quant"), (dk, dv), kvd)
     for dk, dv in SEPV_WIDTHS
     for kvd in ("fp", "int8", "fp8")
@@ -2015,95 +2081,251 @@ K4_EDGES = (
 )
 
 
-def k4_edge_checks(dk, dv, gen, dev) -> dict:
-    """K4 over bf16 pools at (dk, dv) (the latent, fused and with V in its
-    own pool; Granite's (128, 128) over separate pools) at K4_EDGES in both
-    rescale modes: prefill and a tree-shaped verify against their plain
-    versions; linear verify == prefill and, at the latent, separate V ==
-    fused, bitwise.  Returns {"fused": err, "sepv": err} (max abs)."""
+def k4_edge_checks(dk, dv, kvd, gen, dev) -> dict:
+    """K4 over bf16 pools (``kvd`` "fp") or K4q over int8 / e4m3 pools
+    quantized from random rows ("int8", "fp8") at (dk, dv) (the latent,
+    fused and with V in its own pool: V the pool's first 512 columns, over
+    codes with a copy of K's pairs; Granite's (128, 128) over separate
+    pools) at K4_EDGES in both rescale modes, with bf16 q (units of 64 or
+    32, the grid's pick) and, over codes, fp32 q (units of 32): prefill and
+    a tree-shaped verify against their plain versions (bf16 outputs at the
+    bf16 tolerance, fp32 ones at f32_close's); linear verify == prefill
+    and, at the latent, separate V == fused, bitwise; both unit widths
+    must run with bf16 q.  Returns {"fused": err, "sepv": err} (max
+    abs)."""
     import torch
     from repro_torch.kernels.etap import etap as K
     from repro_torch.kernels.etap import ops
-    latent = dk == DK
+    from repro_torch.runtime import paged_cache
+    latent, quant = dk == DK, kvd != "fp"
+    sfx, name = ("_quant", "K4q") if quant else ("", "K4")
     errs = {"fused": 0.0, "sepv": 0.0}
     widths = set()
-    for what, H, Cq, starts, idle, nbt in K4_EDGES:
+    for what, H, Cq, starts, idle, nbt in (K4Q_EDGES if quant else K4_EDGES):
         B = len(starts)
         start = torch.tensor(starts, dtype=torch.int32, device=dev)
         lengths = [st + Cq for st in starts]
         nb = nbt or pages(lengths)
         N = 1 + B * nb
-        k = torch.randn(N, PAGE, dk, generator=gen, device=dev).to(
-            torch.bfloat16)
-        v = k[..., :dv].contiguous() if latent else torch.randn(
-            N, PAGE, dv, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(N, PAGE, dk, generator=gen, device=dev)
+        if quant:                          # (k, k_sz, v, v_sz)
+            kc, ks = paged_cache.quantize_rows(k, kvd)
+            pools = (kc, ks, *(latent_v(kc, ks) if latent else
+                               paged_cache.quantize_rows(torch.randn(
+                                   N, PAGE, dv, generator=gen, device=dev),
+                                   kvd)))
+            fpools = (kc, ks)
+        else:                              # (k, v)
+            k = k.to(torch.bfloat16)
+            pools = (k, k[..., :dv].contiguous() if latent else torch.randn(
+                N, PAGE, dv, generator=gen, device=dev).to(torch.bfloat16))
+            fpools = (k,)
         table = (torch.randperm(N - 1, generator=gen, device=dev) + 1
                  ).reshape(B, nb).to(torch.int32)
         for b, n in enumerate(lengths):
             table[b, -(-n // PAGE):] = 0
         if idle:
             table[1:] = 0
-        q = torch.randn(B, Cq, H, dk, generator=gen, device=dev).to(
-            torch.bfloat16)
+        qf = torch.randn(B, Cq, H, dk, generator=gen, device=dev)
         depth = torch.tensor([0] + [1 + (c - 1) // 3 for c in range(1, Cq)],
                              dtype=torch.int32, device=dev)
         tree = start[:, None] + depth[None, :]
         linear = start[:, None] + torch.arange(Cq, dtype=torch.int32,
                                                device=dev)[None, :]
-        # the kernel's pick (etap_prefill.cu: unit_cols)
+        # the kernel's pick (etap_prefill.cu: unit_cols; fp32 q: 32)
         units = 64 if B * -(-Cq * H // 64) >= ops.num_cores(dev) else 32
         widths.add(units)
-        for mode in ("amla", "mul"):
-            kw = dict(scale=dk ** -0.5, rescale=mode)
-            tag = f"K4 ({dk}, {dv}) {what}, units of {units}, {mode}"
-            sep = K.etap_prefill_paged(q, k, v, table, start, **kw)
-            e = bf16_close(sep, K.etap_prefill_paged_plain(
-                q, k, v, table, start, **kw), f"{tag}, separate V")
-            e = max(e, bf16_close(
-                K.etap_verify_paged(q, k, v, table, start, tree, **kw),
-                K.etap_prefill_paged_plain(q, k, v, table, start, qpos=tree,
-                                           **kw),
-                f"{tag}, separate V, verify(tree)"))
-            errs["sepv"] = max(errs["sepv"], e)
-            bitwise(K.etap_verify_paged(q, k, v, table, start, linear, **kw),
-                    sep, f"{tag}, separate V, verify(linear) vs prefill")
-            if not latent:
-                continue
-            fused = K.etap_prefill_mla_paged(q, k, DV, table, start, **kw)
-            e = bf16_close(fused, K.etap_prefill_mla_paged_plain(
-                q, k, DV, table, start, **kw), f"{tag}, fused")
-            e = max(e, bf16_close(
-                K.etap_verify_mla_paged(q, k, DV, table, start, tree, **kw),
-                K.etap_prefill_mla_paged_plain(q, k, DV, table, start,
-                                               qpos=tree, **kw),
-                f"{tag}, fused, verify(tree)"))
-            errs["fused"] = max(errs["fused"], e)
-            bitwise(K.etap_verify_mla_paged(q, k, DV, table, start, linear,
-                                            **kw), fused,
+        args, fargs = (*pools, table, start), (*fpools, DV, table, start)
+        for q in (qf.to(torch.bfloat16), qf) if quant else \
+                (qf.to(torch.bfloat16),):
+            u = units if q.dtype == torch.bfloat16 else 32
+            qt = "bf16 q" if q.dtype == torch.bfloat16 else "fp32 q"
+            for mode in ("amla", "mul"):
+                kw = dict(scale=dk ** -0.5, rescale=mode)
+                tag = (f"{name} ({dk}, {dv}) {kvd} {qt} {what}, units of "
+                       f"{u}, {mode}")
+                sep = getattr(K, f"etap_prefill_paged{sfx}")(q, *args, **kw)
+                plain = getattr(K, f"etap_prefill_paged{sfx}_plain")
+                e = sepv_out_close(sep, plain(q, *args, **kw),
+                                   f"{tag}, separate V")
+                e = max(e, sepv_out_close(
+                    getattr(K, f"etap_verify_paged{sfx}")(q, *args, tree,
+                                                          **kw),
+                    plain(q, *args, qpos=tree, **kw),
+                    f"{tag}, separate V, verify(tree)"))
+                errs["sepv"] = max(errs["sepv"], e)
+                bitwise(getattr(K, f"etap_verify_paged{sfx}")(
+                    q, *args, linear, **kw), sep,
+                    f"{tag}, separate V, verify(linear) vs prefill")
+                if not latent:
+                    continue
+                fused = getattr(K, f"etap_prefill_mla_paged{sfx}")(
+                    q, *fargs, **kw)
+                plain = getattr(K, f"etap_prefill_mla_paged{sfx}_plain")
+                e = sepv_out_close(fused, plain(q, *fargs, **kw),
+                                   f"{tag}, fused")
+                e = max(e, sepv_out_close(
+                    getattr(K, f"etap_verify_mla_paged{sfx}")(
+                        q, *fargs, tree, **kw),
+                    plain(q, *fargs, qpos=tree, **kw),
+                    f"{tag}, fused, verify(tree)"))
+                errs["fused"] = max(errs["fused"], e)
+                bitwise(getattr(K, f"etap_verify_mla_paged{sfx}")(
+                    q, *fargs, linear, **kw), fused,
                     f"{tag}, fused, verify(linear) vs prefill")
-            bitwise(sep, fused, f"{tag}, separate V vs fused")
-        log(f"[k4] ({dk}, {dv}) {what}, units of {units}: prefill and tree "
-            "verify within tolerance of their plain versions in both modes; "
-            "linear verify == prefill"
+                bitwise(sep, fused, f"{tag}, separate V vs fused")
+            if u == 64:
+                unit_width_bits(
+                    f"{name} ({dk}, {dv}) {kvd} {qt}", sep,
+                    lambda q=q: getattr(K, f"etap_prefill_paged{sfx}")(
+                        q[:1], *pools, table[:1], start[:1],
+                        scale=dk ** -0.5, rescale="mul"))
+        log(f"[{name.lower()}] ({dk}, {dv}) {kvd} {what}, units of {units}"
+            + (" (bf16 q) and 32 (fp32 q)" if quant else "") + ": prefill "
+            "and tree verify within tolerance of their plain versions in "
+            "both modes; linear verify == prefill"
             + (", separate V == fused" if latent else "") + " bitwise")
     if widths != {64, 32}:
-        raise AssertionError(f"K4 ({dk}, {dv}) edges ran units of {widths} "
-                             "only: both widths must run")
+        raise AssertionError(f"{name} ({dk}, {dv}) {kvd} edges ran units of "
+                             f"{widths} only: both widths must run")
     return errs
 
 
+def unit_width_bits(what, out, alone) -> bool:
+    """Whether a column's bits depend on the unit width: ``out`` (a call
+    whose units are 64 columns wide, its last mode "mul") against
+    ``alone()``, its first batch row on its own (fewer units than SMs, so
+    units of 32), compared bitwise and logged; the serve contracts that
+    could see a difference (prefix cache on / off, whose chunks start at
+    other rows and so may split a batch differently) are named in
+    PERF.md."""
+    import torch
+    a, b = out[:1], alone()
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    same = bool(torch.equal(bits(a), bits(b)))
+    log(f"[unit width] {what}: a row in units of 64 columns "
+        + ("== " if same else "!= ") + "the same row alone in units of 32, "
+        f"bitwise (max abs diff {float((a.float() - b.float()).abs().max()):.3e})")
+    return same
+
+
+# K4q, K4 over int8 / e4m3 code pools (etap_prefill.cu: the same kernel over
+# code boxes the producer warpgroup's other warps widen to bf16), at the same
+# edges of its tiling as K4 (k4_edge_checks), with bf16 q (units of 64 or
+# 32, the grid's pick) and with fp32 q (units of 32 always).
+K4Q_EDGES = K4_EDGES
+
+
+def k4q_widen_check(dev) -> None:
+    """Every code value through K4q's widening, exactly: a latent code pool
+    whose block 1, row 0 holds each byte value (int8 -128..127; e4m3 all
+    but its two NaN codes, 0 in their place) twice over the 512 V columns,
+    its pairs (1, 0); a one-row chunk at start 0 with fp32 q in the "mul"
+    rescale mode (one live row: p = exp(0) = 1, the output is that row)
+    gives the codes' values, bitwise the plain version's dequantized row,
+    fused and with V in its own pool."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    for kvd, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        raw = torch.arange(256, device=dev).to(torch.uint8)
+        if kvd == "fp8":
+            raw[(raw & 0x7F) == 0x7F] = 0
+        codes = torch.zeros(2, PAGE, DK, dtype=torch.uint8, device=dev)
+        codes[1, 0] = torch.cat([raw, raw, raw[:DK - 2 * 256]])
+        codes = codes.view(dt)
+        sz = torch.zeros(2, PAGE, 2, device=dev)
+        sz[..., 0] = 1.0
+        table = torch.ones(1, 1, dtype=torch.int32, device=dev)
+        start = torch.zeros(1, dtype=torch.int32, device=dev)
+        q = torch.ones(1, 1, 16, DK, device=dev)
+        kw = dict(scale=SCALE, rescale="mul")
+        out = K.etap_prefill_mla_paged_quant(q, codes, sz, DV, table, start,
+                                             **kw)
+        ref = K.etap_prefill_mla_paged_quant_plain(q, codes, sz, DV, table,
+                                                   start, **kw)
+        bad = (out != ref).nonzero()
+        if bad.numel():
+            i = tuple(bad[0].tolist())
+            raise AssertionError(
+                f"K4q widening {kvd}: {bad.shape[0]} values differ, first "
+                f"at {i} (code byte {int(raw[i[-1] % 256])}): "
+                f"{float(out[i])} against {float(ref[i])}")
+        bitwise(K.etap_prefill_paged_quant(q, codes, sz, *latent_v(codes, sz),
+                                           table, start, **kw), out,
+                f"K4q widening {kvd}, separate V")
+        log(f"[k4q] widening {kvd}: every code value exact (bitwise the "
+            "plain version's dequantized row), fused and separate V")
+
+
+def chunk_oracle(q, k, v, start, scale):
+    """fp64 attention of a chunk q [B, Cq, H, Dk] over the rows k [B, S,
+    Dk], v [B, S, Dv]: column (c, h) of row b attends to rows <= start[b] +
+    c.  Returns [B, Cq, H, Dv] fp64."""
+    import torch
+    q, k, v = q.double(), k.double(), v.double()
+    Cq, S = q.shape[1], k.shape[1]
+    s = torch.einsum("bchd,bsd->bchs", q, k) * scale
+    live = (torch.arange(S, device=q.device)[None, None, :]
+            <= (start[:, None] + torch.arange(Cq, device=q.device)[None, :])
+            [:, :, None])[:, :, None, :]
+    p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
+    return torch.einsum("bchs,bsv->bchv", p, v)
+
+
+def k4q_rmse(q, args, table, start, rows, kvd, tag, *, rescale=None,
+             fused=None, strict=False):
+    """K4q with fp32 q over code pools ``args`` (k, k_sz, v, v_sz: the
+    separate-V entry's; ``fused`` the fused entry's (codes, sz) over the
+    same rows) against the fp64 oracle on the unquantized rows ``rows``
+    (K's and V's fp32 pools): RMSE within the reference's gate (``strict``)
+    or, where the reference's own route (the plain version) misses it,
+    within 1% above that route's RMSE; within f32_close of the plain
+    version; the fused entry bitwise the separate-V one.  Returns the
+    kernel's RMSE."""
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.runtime.paged_cache import gather_blocks
+    dk = q.shape[-1]
+    kw = dict(scale=dk ** -0.5, rescale=rescale)
+    k, v = (gather_blocks(r, table) for r in rows)
+    oracle = chunk_oracle(q, k, v, start, dk ** -0.5)
+    plain = K.etap_prefill_paged_quant_plain(q, *args, table, start, **kw)
+    out = K.etap_prefill_paged_quant(q, *args, table, start, **kw)
+    f32_close(out, plain, f"K4q {tag} {kvd} fp32 q")
+    if fused is not None:
+        bitwise(K.etap_prefill_mla_paged_quant(q, *fused, DV, table, start,
+                                               **kw), out,
+                f"K4q {tag} {kvd} fp32 q, fused vs separate V")
+    pr = float(((plain.double() - oracle) ** 2).mean().sqrt())
+    r = float(((out.double() - oracle) ** 2).mean().sqrt())
+    gate = QUANT_RMSE[kvd]
+    limit = gate if strict or pr <= gate else pr * 1.01
+    log(f"[quant] RMSE K4q {tag} {kvd} fp32 q: {r:.4e}, the reference's "
+        f"route (plain) {pr:.4e}, gate {gate:.3e}, limit {limit:.4e}")
+    if not r <= limit:
+        raise AssertionError(f"K4q {tag} {kvd}: RMSE {r:.4e} against the "
+                             f"fp64 oracle exceeds {limit:.4e}")
+    return r
+
+
 def k4_attrs() -> None:
-    """An [attrs] line for each K4 instance over bf16 pools at each unit
-    width; fails on local memory (spills)."""
+    """An [attrs] line for each K4 instance over bf16 pools and each K4q
+    instance over code pools (bf16 q at each unit width, fp32 q at 32);
+    fails on local memory (spills)."""
     for dk, dv, sepv in ((DK, DV, 0), (DK, DV, 1), (HD, HD, 1)):
-        for cols in (64, 32):
-            regs, smem, local = attr_values("etap_prefill_attrs", dk, dv,
-                                            sepv, cols)
-            log(f"[attrs] K4 ({dk}, {dv}) "
-                f"{'separate V' if sepv else 'fused'}, units of {cols}: "
+        kind = "separate V" if sepv else "fused"
+        for what, fn, cols, extra in (
+                ("K4", "etap_prefill_attrs", 64, ()),
+                ("K4", "etap_prefill_attrs", 32, ()),
+                ("K4q bf16 q", "etap_prefill_quant_attrs", 64, (0,)),
+                ("K4q bf16 q", "etap_prefill_quant_attrs", 32, (0,)),
+                ("K4q fp32 q", "etap_prefill_quant_attrs", 32, (1,))):
+            regs, smem, local = attr_values(fn, dk, dv, sepv, cols, *extra)
+            log(f"[attrs] {what} ({dk}, {dv}) {kind}, units of {cols}: "
                 f"{regs} registers, {smem} B shared memory, {local} B local")
             if local:
-                raise AssertionError(f"K4 ({dk}, {dv}) sepv={sepv} units of "
+                raise AssertionError(f"{what} ({dk}, {dv}) {kind} units of "
                                      f"{cols}: {local} B of local memory")
 
 
@@ -2348,7 +2570,7 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
             what = {-1: "bf16", 0: "int8", 1: "fp8"}[code] + \
                 (" fp32 q" if qf else "")
             log(f"[attrs] separate V ({dk}, {dv}) {what}: "
-                + ("K3 " if code < 0 else "K3 / K4q ")
+                + ("K3 " if code < 0 else "K3q ")
                 + instance_attrs("etap_paged_sepv_attrs", dk, dv, 0, code, qf)
                 + "; K1 "
                 + instance_attrs("etap_paged_sepv_attrs", dk, dv, 1, code,
@@ -2356,14 +2578,17 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
 
     k4_attrs()
 
-    # ---- K4 over bf16 pools at the edges of its tiling
-    for dk, dv in SEPV_WIDTHS:
-        got = k4_edge_checks(dk, dv, gen, dev)
-        k4 = keyf(dk, dv, "fp")("etap_prefill_paged")
-        errs[k4] = max(errs[k4], got["sepv"])
-        if dk == DK:
-            rep = report["etap_prefill_mla_paged"]
-            rep["max_abs_err"] = max(rep["max_abs_err"], got["fused"])
+    # ---- K4 over bf16 pools and K4q over int8 / e4m3 pools at the edges
+    #      of their tiling
+    for kvd in codes:
+        for dk, dv in SEPV_WIDTHS:
+            got = k4_edge_checks(dk, dv, kvd, gen, dev)
+            k4 = keyf(dk, dv, kvd)("etap_prefill_paged")
+            errs[k4] = max(errs[k4], got["sepv"])
+            if dk == DK:
+                rep = report["etap_prefill_mla_paged" + (
+                    "" if kvd == "fp" else f"_quant[{kvd}]")]
+                rep["max_abs_err"] = max(rep["max_abs_err"], got["fused"])
 
     # ---- the latent, V in its own pool: the fused kernels' bits
     for kvd in codes:
@@ -2429,11 +2654,13 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
             granite_rmse(q, args, table, lens, rows, kvd, "granite")
         qp = torch.randn(2, GRANITE_CQ, GRANITE_H, HD, generator=gen,
                          device=dev).to(q.dtype)
-        check_sepv_prefill(qp, args, table[:2],
-                           torch.tensor(GRANITE_STARTS, dtype=torch.int32,
-                                        device=dev),
-                           kvd=kvd, tag=f"granite Cq={GRANITE_CQ}",
-                           errs=errs, key=key)
+        gst = torch.tensor(GRANITE_STARTS, dtype=torch.int32, device=dev)
+        check_sepv_prefill(qp, args, table[:2], gst, kvd=kvd,
+                           tag=f"granite Cq={GRANITE_CQ}", errs=errs,
+                           key=key)
+        if kvd != "fp":                    # fp32 q, the fp64 oracle
+            k4q_rmse(qp, args, table[:2], gst, rows, kvd,
+                     f"granite Cq={GRANITE_CQ}")
         qa, aargs, atable, alens, _ = granite_case(kvd, GRANITE_ALIGNED, gen,
                                                    dev)
         granite_paged_is_dense(qa, aargs, atable, alens, kvd,

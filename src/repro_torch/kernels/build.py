@@ -1,7 +1,7 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP kernels,
-fused, quantized and over separate K and V pools, the chunked paged
-prefill, the untransposed baseline, the split combine, the causal prefill
-and the selective scan) on first use.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP decode
+kernels, fused, quantized and over separate K and V pools, the chunked
+paged prefill over bf16 and code pools, the untransposed baseline, the
+split combine, the causal prefill and the selective scan) on first use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -91,8 +91,9 @@ SIGNATURES = {
                                                              _P],
     "etap_prefill_paged_quant": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
     # K4 over bf16 pools (etap_prefill.cu): (dk, dv, sepv, cols, out[3])
-    # attrs at units of 64 or 32 columns
+    # attrs at units of 64 or 32 columns; K4q's with qf32 before out
     "etap_prefill_attrs": [_I, _I, _I, _I, _P],
+    "etap_prefill_quant_attrs": [_I, _I, _I, _I, _I, _P],
     "flash_prefill_widths": [_P, _I],
     "flash_prefill_attrs": [_I, _I, _P],
     # q, qb, qs, qh, k, kb, ks, kh, v, vb, vs, vh, out, B, S, H, K, d, dv,

@@ -14,8 +14,8 @@
 // The paged kernels (K1, K3) are built at the MLA latent's widths; the
 // dense ones (K5, K6) at each (Dk, Dv) of mma_tile.cuh's DenseWidths: the
 // latent (576, 512) and the GQA heads (128, 128), (64, 64) and (256, 256).
-// K4, the chunked paged prefill and verify over bf16 pools, is
-// etap_prefill.cu's (wgmma and TMA); over code pools it is etap_quant.cu's.
+// K4, the chunked paged prefill and verify over bf16 pools, and K4q over
+// code pools are etap_prefill.cu's (wgmma and TMA).
 #include "etap_body.cuh"
 
 namespace {
@@ -65,8 +65,6 @@ int etap_decode_mla_paged(const void* q, const void* pool, const int* table,
                           int nbt, float scale, int amla, void* stream) {
   Params p = make_params(q, pool, table, H, nbt, scale, amla);
   p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
   p.out = out;
   return launch<false>(p, B, 1, stream);
 }
@@ -80,8 +78,6 @@ int etap_paged_partial(const void* q, const void* pool, const int* table,
   Params p = make_params(q, pool, table, H, nbt, scale, amla);
   p.npb = nbt / n_splits;
   p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;

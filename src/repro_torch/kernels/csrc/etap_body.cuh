@@ -1,17 +1,17 @@
-// The body of the MLA ETAP attention kernels for Hopper (sm_90a), one
-// template serving five pallas_call sites of the JAX package over bf16
+// The body of the MLA ETAP decode kernels for Hopper (sm_90a), one
+// template serving four pallas_call sites of the JAX package over bf16
 // rows and over int8 / e4m3 codes.  etap.cu instantiates its bf16 kernels
-// (K3, K1, K5, K6), etap_quant.cu its quantized ones (K3q, K1q, K4q
-// over the paged latent, K5q, K6q over dense GQA rows) and etap_sepv.cu the
-// paged K3, K1 and the quantized K3q, K1q, K4q over separate K and V
-// pools, so the three compile in parallel; each source's header says which
-// pallas_call bodies it replaces.  K4 over bf16 pools (fused and with a
-// separate V) is etap_prefill.cu's own kernel, on wgmma and TMA; the
-// prefill / verify address below serves K4q.
+// (K3, K1, K5, K6), etap_quant.cu its quantized ones (K3q, K1q over the
+// paged latent, K5q, K6q over dense GQA rows) and etap_sepv.cu the paged
+// K3, K1 and the quantized K3q, K1q over separate K and V pools, so the
+// three compile in parallel; each source's header says which pallas_call
+// bodies it replaces.  K4 and K4q, the chunked prefill and verify over bf16
+// and code pools (fused and with a separate V), are etap_prefill.cu's own
+// kernel, on wgmma and TMA.
 //
-// What they compute.  A CTA owns NT = 16 query columns of one batch row (16
-// heads of a decode query, or 16 of the Cq*H columns of a K4q chunk)
-// and walks that row's KV rows in 64-row tiles (pages).  Per tile:
+// What they compute.  A CTA owns NT = 16 query columns (heads) of one
+// batch row and walks that row's KV rows in 64-row tiles (pages).  Per
+// tile:
 //     S^T = K Q^T * scale          [64, 16]   mma.sync, page rows on M
 //     mask kpos > horizon(column) to -1e30
 //     online-softmax update per column (m, l in shared memory)
@@ -39,7 +39,7 @@
 // 51 KB of shared memory a CTA, two CTAs an SM).
 //
 // Address modes (template parameters: DENSE, and CODE, the element type of
-// K and V: bf16 rows, or int8 / e4m3 codes).  Paged (K1, K3, K4): tile j of row
+// K and V: bf16 rows, or int8 / e4m3 codes).  Paged (K1, K3): tile j of row
 // b is pool block table[b, j]; V is the block's first Dv columns (the MLA
 // latent), or, in the separate-V instances (template parameter SEPV, so
 // the fused ones carry none of its code), block table[b, j] of its own
@@ -57,7 +57,7 @@
 // either the first 512 columns of the K tile (v null: the MLA latent, V =
 // cache[..., :512], read in place with no copy) or its own rows at v + b *
 // vb, stride ldv, loaded over the K tile's first 512 columns once the score
-// product is done.  Quantized paged (K1q, K3q, K4q): the page holds int8
+// product is done.  Quantized paged (K1q, K3q): the page holds int8
 // or e4m3 codes [64, 576] (1 byte each) and the sz pool its rows' (scale,
 // zp) [64, 2] fp32.  Quantized dense (K5q, K6q): the dense address over
 // code rows, each operand with its own (scale, zp) rows addressed as its
@@ -69,11 +69,9 @@
 // Dv] and its own (scale, zp) pool, both at block table[b, j], loaded as
 // the dense separate V's; the tile update weighs P by V's scales (szv).
 //
-// Column c is live for key position kpos iff kpos <= horizon(c), with
-// horizon = lengths[b] - 1 (decode), start[b] +
-// c / H (prefill), or qpos[b, c] (verify) — so decode, prefill and verify
-// share the mask code, and verify with a linear qpos is bitwise prefill.
-// K3/K4q/K5 end with O = (Acc^T / l)^T in bf16 (the quantized ones in q's
+// Column c is live for key position kpos iff kpos <= lengths[b] - 1, and
+// a padding column (c >= C) for none.
+// K3/K5 end with O = (Acc^T / l)^T in bf16 (the quantized ones in q's
 // type, bf16 or fp32); K1/K6 write the raw fp32 (m, l, Acc^T) of their
 // split for the combine kernel (combine.cu).  The split and single-pass
 // kernels are the same body, so partial(n_splits=1) + combine is bitwise
@@ -129,8 +127,7 @@
 // latent row, 512 B at Granite's 128, 1104 B and 272 B as codes with both
 // pairs).  A GQA group (G = 4 heads of Qwen3-8B) fills 4 of the
 // 16 columns: 12 are padding, masked, and the floor is again the K and V
-// bytes.  K4q's prefill at 128 heads is compute-bound
-// (Cq*H*kpos*(576 + 512) multiply-adds).  This first version is simple:
+// bytes.  This first version is simple:
 // mma.sync fragments loaded from shared memory with 32/16-bit loads, one
 // page in flight (cp.async, no double buffer; the code pages by plain
 // 16-byte loads), 16 columns per CTA so the [Dv, 16] fp32 accumulator
@@ -222,10 +219,7 @@ struct Params {
   long long vzb;
   long long vzh;
   int ldvz;
-  const int* base;    // [B] horizon base: lengths (decode) or start (prefill)
-  const int* qpos;    // [B, C] explicit horizons (verify), or null
-  int hz_off;         // -1 for decode (pos < length), 0 for prefill
-  int heads;          // column c belongs to query row c / heads
+  const int* base;    // [B] lengths: column c attends to rows < base[b]
   int C;              // query columns per batch row
   int nbt;            // tiles per batch row (a multiple of npb)
   int npb;            // pages per split
@@ -291,11 +285,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 
   if (tid < NT) {
     const int c = c0 + tid;
-    int h = INT_MIN;                           // padding column: all masked
-    if (c < P.C)
-      h = P.qpos ? P.qpos[(size_t)b * P.C + c]
-                 : P.base[b] + c / P.heads + P.hz_off;
-    sm.hz[tid] = h;
+    // a padding column is all masked
+    sm.hz[tid] = c < P.C ? P.base[b] - 1 : INT_MIN;
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }
@@ -624,8 +615,6 @@ Params dense_params(const void* q, const void* k, long long kb, int ldk,
   p.vh = vh;
   p.ldv = ldv;
   p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
   return p;
 }
 

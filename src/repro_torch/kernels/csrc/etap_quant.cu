@@ -2,13 +2,13 @@
 // instantiations of etap_body.cuh's body, which says what they compute and
 // how (see its "Numerics of the quantized bodies").
 //
-//   K3q, K1q, K4q  K3, K1 and K4 (etap.cu) over an int8 or e4m3 latent code
-//       pool with one fp32 (scale, zp) pair per row: they replace the
+//   K3q, K1q  K3 and K1 (etap.cu) over an int8 or e4m3 latent code pool
+//       with one fp32 (scale, zp) pair per row: they replace the
 //       reference's quantized MLA-fused bodies _paged_body_quant_fused :116
-//       (under repro/kernels/etap/etap.py:237),
-//       _paged_partial_body_quant_fused :639 (under :713),
-//       _prefill_body_quant_fused :340 and _verify_body_quant_fused :367
-//       (under :430), all built on _dequant :31.
+//       (under repro/kernels/etap/etap.py:237) and
+//       _paged_partial_body_quant_fused :639 (under :713), both built on
+//       _dequant :31.  K4q, the chunked prefill and verify over the same
+//       pools, is etap_prefill.cu's.
 //   K5q, K6q  K5 and K6 (etap.cu) over dense code rows, K and V each with
 //       its own (scale, zp) rows: the GQA decode over a quantized paged
 //       pool, which gathers the codes and pairs (the reference gathers and
@@ -116,7 +116,7 @@ int etap_dense_quant_attrs(int dk, int dv, int stats, int code, int qf32,
   });
 }
 
-// K3q / K1q / K4q: as K3 / K1 / K4 over an int8 (code 0) or e4m3 (code 1)
+// K3q / K1q: as K3 / K1 over an int8 (code 0) or e4m3 (code 1)
 // pool [N,PAGE,DK] with its (scale, zp) pool sz [N,PAGE,2] fp32; q bf16,
 // or fp32 with qf32 set, and out in q's type.
 int etap_decode_mla_paged_quant(const void* q, const void* pool,
@@ -126,8 +126,6 @@ int etap_decode_mla_paged_quant(const void* q, const void* pool,
                                 int qf32, void* stream) {
   Params p = quant_params(q, pool, sz, table, H, nbt, scale, amla, qf32);
   p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
   p.out = out;
   return launch<false>(p, code, B, 1, stream);
 }
@@ -140,26 +138,10 @@ int etap_paged_partial_quant(const void* q, const void* pool, const float* sz,
   Params p = quant_params(q, pool, sz, table, H, nbt, scale, amla, qf32);
   p.npb = nbt / n_splits;
   p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;
   return launch<true>(p, code, B, n_splits, stream);
-}
-
-int etap_prefill_mla_paged_quant(const void* q, const void* pool,
-                                 const float* sz, const int* table,
-                                 const int* start, const int* qpos, void* out,
-                                 int B, int C, int H, int nbt, float scale,
-                                 int amla, int code, int qf32, void* stream) {
-  Params p = quant_params(q, pool, sz, table, C, nbt, scale, amla, qf32);
-  p.base = start;
-  p.qpos = qpos;
-  p.hz_off = 0;
-  p.heads = H;
-  p.out = out;
-  return launch<false>(p, code, B, 1, stream);
 }
 
 // K5q: K5 (etap.cu) over int8 (code 0) or e4m3 (code 1) rows: K codes at

@@ -10,15 +10,11 @@
 //   K1  split-KV phase 1           replaces repro/kernels/etap/etap.py:713
 //       (etap_paged_partial_pallas :646, bodies _paged_partial_body :619
 //        and _paged_partial_body_quant :631)
-//   K4q chunked prefill / verify   replaces repro/kernels/etap/etap.py:430
-//       over code pools            (_prefill_call :373, bodies
-//                                   _prefill_body_quant :334 and
-//                                   _verify_body_quant :360, reached from
-//                                   etap_prefill_paged_pallas :440 and
-//                                   etap_verify_paged_pallas :474)
 //
-// K4 over bf16 pools (bodies _etap_prefill_body :271 and _verify_body
-// :348) is etap_prefill.cu's, on wgmma and TMA.
+// K4 and K4q, the chunked prefill and verify over bf16 and code pools
+// (bodies _etap_prefill_body :271, _verify_body :348, _prefill_body_quant
+// :334 and _verify_body_quant :360), are etap_prefill.cu's, on wgmma and
+// TMA.
 //
 // Built at mma_tile.cuh's PagedSepWidths: DeepSeek's latent (576, 512)
 // with V in its own pool, and Granite-20B's MQA head (128, 128), as the
@@ -80,12 +76,10 @@ Params sepv_params(const void* q, const void* k_pool, const float* k_sz,
 
 template <bool STATS>
 int decode(const Params& base, const int* lengths, int dk, int dv, int code,
-           int B, int H, int n_splits, void* stream) {
+           int B, int n_splits, void* stream) {
   Params p = base;
   p.npb = p.nbt / n_splits;
   p.base = lengths;
-  p.hz_off = -1;
-  p.heads = H;
   return launch<STATS>(p, dk, dv, code, B, n_splits, stream);
 }
 
@@ -100,7 +94,7 @@ int etap_paged_sepv_widths(int* out, int cap) {
 }
 
 // The registers, dynamic shared memory and local memory of the separate-V
-// K3 (and, over codes, K4q; stats 0) or K1 (stats 1) instance at (dk, dv)
+// K3 (stats 0) or K1 (stats 1) instance at (dk, dv)
 // over bf16 pools (code -1) or int8 (0) / e4m3 (1) codes, with fp32 q when
 // qf32 is set, into out[0..2].
 int etap_paged_sepv_attrs(int dk, int dv, int stats, int code, int qf32,
@@ -131,7 +125,7 @@ int etap_decode_paged(const void* q, const void* k_pool, const void* v_pool,
   Params p = sepv_params(q, k_pool, nullptr, v_pool, nullptr, table, H, nbt,
                          scale, amla, 0);
   p.out = out;
-  return decode<false>(p, lengths, dk, dv, -1, B, H, 1, stream);
+  return decode<false>(p, lengths, dk, dv, -1, B, 1, stream);
 }
 
 // K1, separate V: as K3 with the table padded to n_splits * npb columns;
@@ -147,10 +141,10 @@ int etap_paged_partial_sepv(const void* q, const void* k_pool,
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;
-  return decode<true>(p, lengths, dk, dv, -1, B, H, n_splits, stream);
+  return decode<true>(p, lengths, dk, dv, -1, B, n_splits, stream);
 }
 
-// K3q / K1q / K4q, separate V: as K3 / K1 / K4 over int8 (code 0) or e4m3
+// K3q / K1q, separate V: as K3 / K1 over int8 (code 0) or e4m3
 // (code 1) pools, K's and V's codes each with its own (scale, zp) pool
 // [N,PAGE,2] fp32; q bf16, or fp32 with qf32 set, and out in q's type.
 int etap_decode_paged_quant(const void* q, const void* k_pool,
@@ -162,7 +156,7 @@ int etap_decode_paged_quant(const void* q, const void* k_pool,
   Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, H, nbt, scale,
                          amla, qf32);
   p.out = out;
-  return decode<false>(p, lengths, dk, dv, code, B, H, 1, stream);
+  return decode<false>(p, lengths, dk, dv, code, B, 1, stream);
 }
 
 int etap_paged_partial_sepv_quant(const void* q, const void* k_pool,
@@ -178,24 +172,7 @@ int etap_paged_partial_sepv_quant(const void* q, const void* k_pool,
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;
-  return decode<true>(p, lengths, dk, dv, code, B, H, n_splits, stream);
-}
-
-int etap_prefill_paged_quant(const void* q, const void* k_pool,
-                             const float* k_sz, const void* v_pool,
-                             const float* v_sz, const int* table,
-                             const int* start, const int* qpos, void* out,
-                             int B, int C, int H, int nbt, int dk, int dv,
-                             float scale, int amla, int code, int qf32,
-                             void* stream) {
-  Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, C, nbt, scale,
-                         amla, qf32);
-  p.base = start;
-  p.qpos = qpos;
-  p.hz_off = 0;
-  p.heads = H;
-  p.out = out;
-  return launch<false>(p, dk, dv, code, B, 1, stream);
+  return decode<true>(p, lengths, dk, dv, code, B, n_splits, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@
 //
 // Tiles.  A TMA box is 64 bf16 columns (128 bytes) by `rows` rows, laid
 // out row after row with the 128-byte swizzle; a wider operand is several
-// boxes, one after another.  Every box starts on 1024 bytes (8 rows, the
+// boxes, one after another.  A box of 1-byte codes is 64 codes (64 bytes)
+// a row, unswizzled (code_rows_map): threads widen it into a bf16 box.  Every box starts on 1024 bytes (8 rows, the
 // swizzle's period), so the descriptors' base offset is 0:
 //   K-major (the k axis along the 128-byte row: Q, K): SBO = 1024 B from
 //     one 8-row group to the next, LBO unused (1); the k16 step kk of a
@@ -372,15 +373,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 operand [batch, rows, heads, width] at base, with element strides
-// (head, row, batch) and unit column stride, as a 4-D map (width, heads,
-// rows, batch) whose box is 64 columns x 1 head x box_rows rows x 1: the
-// 128-byte-swizzled [box_rows][64] tile of the header.  Rows past `rows`
-// (and columns past `width`) read as zero.  Returns a cudaError_t.
-inline int bf16_rows_map(CUtensorMap* map, const void* base, int width,
-                         int heads, int rows, int batch, long long head_stride,
-                         long long row_stride, long long batch_stride,
-                         int box_rows) {
+// An operand [batch, rows, heads, width] of `type` (elements of `elem`
+// bytes) at base, with element strides (head, row, batch) and unit column
+// stride, as a 4-D map (width, heads, rows, batch) whose box is box_cols
+// columns x 1 head x box_rows rows x 1, laid out row after row with
+// `swizzle`.  Rows past `rows` (and columns past `width`) read as zero.
+// Returns a cudaError_t.
+inline int rows_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                    CUtensorMapSwizzle swizzle, const void* base, int width,
+                    int heads, int rows, int batch, long long head_stride,
+                    long long row_stride, long long batch_stride,
+                    int box_cols, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width),
@@ -388,20 +391,43 @@ inline int bf16_rows_map(CUtensorMap* map, const void* base, int width,
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(batch)};
   // a dimension of extent 1 is never stepped: any 16-byte stride will do
-  auto bytes = [](long long stride, int extent) {
-    return static_cast<cuuint64_t>(extent == 1 ? 16 : stride * 2);
+  auto bytes = [elem](long long stride, int extent) {
+    return static_cast<cuuint64_t>(extent == 1 ? 16 : stride * elem);
   };
   const cuuint64_t strides[3] = {bytes(head_stride, heads),
                                  bytes(row_stride, rows),
                                  bytes(batch_stride, batch)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 operand as rows_map gives it, boxes of 64 columns (128 bytes)
+// with the 128-byte swizzle: the [box_rows][64] tile of the header.
+inline int bf16_rows_map(CUtensorMap* map, const void* base, int width,
+                         int heads, int rows, int batch, long long head_stride,
+                         long long row_stride, long long batch_stride,
+                         int box_rows) {
+  return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  CU_TENSOR_MAP_SWIZZLE_128B, base, width, heads, rows, batch,
+                  head_stride, row_stride, batch_stride, 64, box_rows);
+}
+
+// An operand of 1-byte codes (int8 or e4m3, moved as bytes) as rows_map
+// gives it, boxes of 64 codes (64 bytes) a row, unswizzled: a dense
+// [box_rows][64] byte tile, which threads widen to bf16.
+inline int code_rows_map(CUtensorMap* map, const void* base, int width,
+                         int heads, int rows, int batch, long long head_stride,
+                         long long row_stride, long long batch_stride,
+                         int box_rows) {
+  return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, base, width, heads, rows, batch,
+                  head_stride, row_stride, batch_stride, 64, box_rows);
 }
 
 }  // namespace hopper

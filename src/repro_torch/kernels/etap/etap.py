@@ -4,9 +4,10 @@ The port of ``repro/kernels/etap/etap.py``: the paged kernels at the MLA
 latent's widths (Dk 576, Dv 512), over separate K and V pools also at
 Granite-20B's MQA head (128, 128), the dense ones also at the GQA heads
 (Dk = Dv = 128, 64 and 256; ``kernels/csrc/mma_tile.cuh`` lists the pairs
-each kernel is built for).  Sixteen kernels: K4 over bf16 pools, fused
-and with a separate V, is ``kernels/csrc/etap_prefill.cu`` (wgmma and
-TMA for Hopper); the rest are one CUDA body
+each kernel is built for).  Sixteen kernels: K4 and K4q, the chunked
+prefill and verify over bf16 and int8 / fp8 pools, fused and with a
+separate V, are ``kernels/csrc/etap_prefill.cu`` (wgmma and TMA for
+Hopper); the rest are one CUDA body
 (``kernels/csrc/etap_body.cuh``, whose header
 note says what bounds each on the H100 and how the design answers it;
 ``etap.cu`` builds the bf16 decode kernels from it, ``etap_quant.cu`` the

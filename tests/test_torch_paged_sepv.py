@@ -218,6 +218,38 @@ def test_prefill_edges_plain_match_pallas(name, mode):
     _close(got, want)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kv_dtype", CODES)
+@pytest.mark.parametrize("name", list(EDGES))
+def test_prefill_quant_edges_plain_match_pallas(name, kv_dtype, mode):
+    """K4q over separate code pools (K and V each with its own pairs),
+    plain vs etap_prefill_paged_pallas / etap_verify_paged_pallas with
+    k_sz and v_sz at the edge shapes of the card's tiling (K4's EDGES);
+    an idle row's table is all null blocks, its chunk at start 0."""
+    H_, Cq, start, tree = EDGES[name]
+    start = torch.tensor(start, dtype=torch.int32)
+    _, pools, table, _ = _case(9, lengths=[int(s) + Cq for s in start],
+                               kv_dtype=kv_dtype)
+    if name == "idle_row_on_null_block":
+        table[2] = 0
+    qp = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(B, Cq, H_, DK)).astype(np.float32))
+    jp = _jpools(pools)
+    kw = dict(scale=SCALE, rescale=mode)
+    jkw = dict(kw, k_sz=jp["k_sz"], v_sz=jp["v_sz"])
+    args = (*_port_args(pools, True), table, start)
+    jargs = (_j(qp), jp["k_pool"], jp["v_pool"], _j(table), _j(start))
+    if tree:
+        qpos = _tree(start, Cq)
+        want = jetap.etap_verify_paged_pallas(*jargs, _j(qpos), **jkw)
+        got = K.etap_verify_paged_quant(qp, *args, qpos, **kw)
+    else:
+        want = jetap.etap_prefill_paged_pallas(*jargs, **jkw)
+        got = K.etap_prefill_paged_quant(qp, *args, **kw)
+    assert got.dtype == torch.float32 and got.shape == (B, Cq, H_, DV)
+    _close(got, want)
+
+
 # ------------------------------------------- the attention entries vs JAX
 @pytest.mark.parametrize("kv_dtype", ["fp", *CODES])
 def test_entries_match_reference(kv_dtype):
@@ -575,21 +607,25 @@ def test_width_list_and_bindings():
 
 
 def test_bf16_chunk_kernel_is_the_hopper_source():
-    """K4 over bf16 pools, fused and separate-V, is defined in
-    etap_prefill.cu alone (wgmma over TMA-loaded boxes: no mma.sync, no
-    cp.async page loads), under its unchanged C signatures; K4q stays on
-    the shared body."""
+    """K4 over bf16 pools and K4q over code pools, fused and separate-V,
+    are defined in etap_prefill.cu alone (wgmma over TMA-loaded boxes: no
+    mma.sync, no cp.async page loads), under their unchanged C signatures;
+    the shared mma.sync body keeps no prefill / verify address."""
     src = (CSRC / "etap_prefill.cu").read_text()
-    for name in ("etap_prefill_mla_paged", "etap_prefill_paged"):
+    for name in ("etap_prefill_mla_paged", "etap_prefill_paged",
+                 "etap_prefill_mla_paged_quant", "etap_prefill_paged_quant"):
         defs = [f.name for f in sorted(CSRC.glob("*.cu"))
                 if re.search(rf"\bint {name}\(", f.read_text())]
         assert defs == ["etap_prefill.cu"], (name, defs)
     assert len(build.SIGNATURES["etap_prefill_mla_paged"]) == 13
     assert len(build.SIGNATURES["etap_prefill_paged"]) == 16
+    assert len(build.SIGNATURES["etap_prefill_mla_paged_quant"]) == 16
+    assert len(build.SIGNATURES["etap_prefill_paged_quant"]) == 20
     assert "etap_prefill_attrs" in build.SIGNATURES
+    assert "etap_prefill_quant_attrs" in build.SIGNATURES
     assert "wgmma" in src and "tma_load_4d" in src
     for banned in ("mma16816(", "cp_async", '#include "etap_body.cuh"'):
         assert banned not in src
-    for name, where in (("etap_prefill_mla_paged_quant", "etap_quant.cu"),
-                        ("etap_prefill_paged_quant", "etap_sepv.cu")):
-        assert re.search(rf"\bint {name}\(", (CSRC / where).read_text())
+    body = (CSRC / "etap_body.cuh").read_text()
+    for gone in ("qpos", "hz_off"):
+        assert gone not in body

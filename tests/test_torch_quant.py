@@ -302,6 +302,56 @@ def test_verify_quant_plain_matches_pallas(kv_dtype, shape, mode):
     _close(got, want)
 
 
+# The edges of K4q's tiling on the card (csrc/etap_prefill.cu: units of 64
+# or 32 of the Cq*H columns of one batch row, each walking up to its
+# largest horizon), at reduced widths: (H, Cq, start per row, tree-shaped
+# verify qpos).
+QUANT_EDGES = {
+    "columns_not_a_unit_multiple": (7, 3, [10, 2, 25], False),
+    "start_zero": (4, 6, [0, 0, 0], False),
+    "idle_row_on_null_block": (4, 4, [10, 25, 0], False),
+    "tree_qpos": (5, 7, [20, 0, 30], True),
+    # row 1's horizons lie past its five-page table (40 rows)
+    "horizon_past_the_table": (4, 4, [30, 45, 3], False),
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kv_dtype", LAYOUTS)
+@pytest.mark.parametrize("name", list(QUANT_EDGES))
+def test_prefill_quant_edges_plain_match_pallas(name, kv_dtype, mode):
+    """K4q over the fused latent code pool, plain vs
+    etap_prefill_mla_paged_pallas / etap_verify_mla_paged_pallas with kv_sz
+    at the edge shapes of the card's tiling (fp32 q, both sides in fp32:
+    fp32 atol = rtol = 1e-5); an idle row's table is all null blocks, its
+    chunk at start 0."""
+    H_, Cq, start, tree = QUANT_EDGES[name]
+    _, codes, sz, table, _ = _quant_case(7, [s + Cq for s in start],
+                                         kv_dtype)
+    if name == "idle_row_on_null_block":
+        table[2] = 0
+    start = torch.tensor(start, dtype=torch.int32)
+    q = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(B, Cq, H_, DK)).astype(np.float32))
+    kw = dict(scale=SCALE, rescale=mode)
+    jkw = dict(kw, kv_sz=_to_jax(sz))
+    if tree:
+        qpos = start[:, None] + torch.tensor(
+            [0] + [1 + (c - 1) // 3 for c in range(1, Cq)],
+            dtype=torch.int32)[None, :]
+        want = jetap.etap_verify_mla_paged_pallas(
+            *_jax_args(q, codes), DV, *_jax_args(table, start, qpos), **jkw)
+        got = etap.etap_verify_mla_paged_quant(q, codes, sz, DV, table,
+                                               start, qpos, **kw)
+    else:
+        want = jetap.etap_prefill_mla_paged_pallas(
+            *_jax_args(q, codes), DV, *_jax_args(table, start), **jkw)
+        got = etap.etap_prefill_mla_paged_quant(q, codes, sz, DV, table,
+                                                start, **kw)
+    assert got.dtype == torch.float32 and got.shape == (B, Cq, H_, DV)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("kv_dtype", LAYOUTS)
 def test_quant_bitwise_contracts(kv_dtype, mode):
