@@ -18,8 +18,16 @@ over 50 launches each; then K4q at the same latent shapes over int8 and
 e4m3 pools (bf16 q; with V in its own pool at Cq 256 over int8) and over
 Granite's separate code pools (fp32 q), over 50 launches each; then K3
 over Granite's separate bf16 pools (B 8 x 48 heads, ragged lengths)
-beside one SDPA call on the gathered rows, over 200 launches each.  Each
-checkout also hands back a digest of the outputs of the decode bodies on
+beside one SDPA call on the gathered rows, and K1 there under its auto
+plan, over 200 launches each; then K5 and K6 at a 128-, 64- and 256-wide
+GQA head at chip_smoke.GQA_TIMED's shapes (qwen-dense / qwen-long,
+stablelm-dense / smol-long, rgemma-short / rgemma-long), over 200 launches
+each, the host time of one K5 [128] call (µs), and the paper's geometry
+(B 16, H 16, context 65,536) through the paged entry's K1 + K2, over 20.
+A launch that the wrapper's host time outpaces reads as that host time
+under CUDA events, so the bf16 decode kernels also get a ``-dev`` column:
+their kernels' device time under torch.profiler.  Each checkout also hands
+back a digest of the outputs of the quantized decode bodies on
 etap_body.cuh (K3q, K1q at the timing shapes, K5q / K6q at a 128-wide
 head), and the run says whether they are bitwise equal across the
 checkouts.  With ``--prefill`` it runs ``model.prefill`` on
@@ -58,7 +66,12 @@ KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K4q-int8-Cq32-s256", "K4q-int8-Cq256", "K4q-fp8-Cq32",
            "K4q-fp8-Cq32-s256", "K4q-fp8-Cq256", "K4qsep-int8-Cq256",
            "K4qsep[128]-int8-Cq128", "K4qsep[128]-fp8-Cq128", "K3sep[128]",
-           "SDPA-K3sep[128]")
+           "SDPA-K3sep[128]", "K1sep[128]", "K5[128]", "K6[128]", "K5[64]",
+           "K6[64]", "K5[256]", "K6[256]", "paper-K1+K2", "host-us-K5[128]",
+           "K3-dev", "K1-dev", "K5-dev", "K6-dev", "K3sep[128]-dev",
+           "SDPA-K3sep[128]-dev", "K1sep[128]-dev", "K5[128]-dev",
+           "K6[128]-dev", "K5[64]-dev", "K6[64]-dev", "K5[256]-dev",
+           "K6[256]-dev", "paper-K1+K2-dev")
 # the kernels whose outputs must keep their bits from one checkout to the
 # next (the decode bodies on etap_body.cuh), each a digest of its output
 BITS = ("K3q-int8", "K1q-int8", "K3q-fp8", "K1q-fp8", "K5q[128]-int8",
@@ -115,6 +128,8 @@ def time_one(root: str) -> dict:
             K.etap_paged_partial_quant(q, c, z, cs.DV, t, lengths, scale=S,
                                        n_splits=4)
     out = {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
+    out.update({f"{n}-dev": device_ms(fns[n]) for n in ("K3", "K1", "K5",
+                                                         "K6")})
     del k, v, pool, table, quant
     # K4 over bf16 pools: the latent's 4096-row pool, and Granite's pools
     pool, table = cs.make_pool(1, 64, [4096], gen, dev)
@@ -169,12 +184,95 @@ def time_one(root: str) -> dict:
     qd = gq3[:, :, None, :]
     out["K3sep[128]"] = cs.cuda_time_ms(lambda: K.etap_decode_paged(
         gq3, *gargs, gtable, glens, scale=128 ** -0.5), 200, warmup=5)
-    out["SDPA-K3sep[128]"] = cs.cuda_time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kd[:, None], vd[:, None], attn_mask=mask, scale=128 ** -0.5,
-            enable_gqa=True), 200, warmup=5)
+    sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd[:, None], vd[:, None], attn_mask=mask, scale=128 ** -0.5,
+        enable_gqa=True))
+    out["SDPA-K3sep[128]"] = cs.cuda_time_ms(sdpa, 200, warmup=5)
+    out["K3sep[128]-dev"] = device_ms(lambda: K.etap_decode_paged(
+        gq3, *gargs, gtable, glens, scale=128 ** -0.5))
+    out["SDPA-K3sep[128]-dev"] = device_ms(sdpa)
+    out.update(gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens))
     out["bits"] = bits_of(cs, K, gen, dev, {n: fns[n] for n in BITS
                                              if n in fns})
+    return out
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """The device time of one call of ``fn`` (ms): its kernels' durations
+    summed over ``iters`` calls under torch.profiler, over ``iters``.  A
+    launch that the wrappers' host time (tens of µs a call) outpaces reads
+    as that host time in cuda_time_ms; this reads the kernel alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memset", "Memcpy")))
+    return us / iters / 1e3
+
+
+def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
+    """K5 and K6 at chip_smoke.GQA_TIMED's shapes (each width's single
+    pass and split shape, the split one under its auto plan) and K1 over
+    Granite's separate pools under its auto plan, over 200 launches each;
+    the paper's geometry (B 16, H 16, context 65,536: K1 + K2 through the
+    paged entry's auto plan) over 20; and the host time a K5 [128] launch
+    takes (the wrapper's call, µs, the mean of 200 unsynchronised calls)."""
+    import time
+
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels import splitkv
+    from repro_torch.kernels.etap import ops
+    by_tag = {c[0]: c for c in cs.gqa_cases(gen, dev)}
+    fns = {}
+    for hd, (single, split) in cs.GQA_TIMED.items():
+        _, _, q, k, v, lens, blk = by_tag[single]
+        fns[f"K5[{hd}]"] = lambda q=q, k=k, v=v, lens=lens, blk=blk, s=hd ** \
+            -0.5: K.etap_decode_dense(q, k, v, lens, block=blk, scale=s)
+        _, _, q, k, v, lens, blk = by_tag[split]
+        plan = splitkv.split_plan(q, k, v, spec=AttnSpec(block=blk))
+        fns[f"K6[{hd}]"] = lambda q=q, k=k, v=v, lens=lens, plan=plan, \
+            s=hd ** -0.5: K.etap_partial_dense(q, k, v, lens, plan=plan,
+                                               scale=s)
+    spec = AttnSpec(scale=128 ** -0.5)
+    n = ops._paged_n_splits(gq3, gtable, cs.PAGE, 128, spec)
+    gpad = ops._pad_table(gtable, ops.paged_split_geometry(
+        gtable.shape[1], n)[2])
+    fns["K1sep[128]"] = lambda: K.etap_paged_partial_sepv(
+        gq3, *gargs, gpad, glens, n_splits=n, scale=128 ** -0.5)
+    out = {name: cs.cuda_time_ms(f, 200, warmup=5) for name, f in fns.items()}
+    out.update({f"{name}-dev": device_ms(f) for name, f in fns.items()})
+    f = fns["K5[128]"]
+    for _ in range(5):
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        f()
+    out["host-us-K5[128]"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    del by_tag, fns
+    Bp, Hp, ctx = cs.PAPER
+    pool, table = cs.make_pool(Bp, ctx // cs.PAGE, [ctx] * Bp, gen, dev)
+    lens = torch.full((Bp,), ctx, dtype=torch.int32, device=dev)
+    q = torch.randn(Bp, Hp, cs.DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    spec = AttnSpec(scale=cs.SCALE)
+    out["paper-K1+K2"] = cs.cuda_time_ms(
+        lambda: ops.etap_decode_mla_paged_splitkv(q, pool, cs.DV, table,
+                                                  lens, spec=spec), 20,
+        warmup=2)
+    out["paper-K1+K2-dev"] = device_ms(
+        lambda: ops.etap_decode_mla_paged_splitkv(q, pool, cs.DV, table,
+                                                  lens, spec=spec), 10)
+    del pool
+    torch.cuda.empty_cache()
     return out
 
 

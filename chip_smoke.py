@@ -104,7 +104,17 @@ Phases, each of which fails the run when it fails:
              a 16-row chunk and Granite's chunks: within 1% of the
              reference's route where that route misses the gate), its
              [attrs] lines, and its time at Cq 256 from 3840 beside K4's
-             in turns;
+             in turns; and the bf16 decode kernels (etap_decode.cuh: K3 /
+             K1 paged, fused and over separate pools, K5 / K6 dense at
+             every width) at DECODE_EDGES (G 1, 3, 4, 7, 16, 32, 48 and H
+             16, 128; length 1, a horizon mid-page, an idle row on the
+             null block, splits with no live position, fewer and many
+             more units than SMs, a dense S not a multiple of 64) in both
+             modes against their plain versions, with split(n=1) + K2 ==
+             single pass, separate V == fused, dense == paged and in
+             place == gqa_to_grouped's copy bitwise, every unit width
+             run, an [attrs] line per instance and unit width (local
+             memory fails the run) and [unit width] lines (logged);
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -261,11 +271,11 @@ LOGIT_RTOL = 2e-2
 _CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "etap_paged_partial": ("src/repro/kernels/etap/etap.py:713",
-                           _CSRC + "etap.cu"),
+                           _CSRC + "etap_decode.cu"),
     "combine_splits": ("src/repro/kernels/etap/combine.py:60",
                        _CSRC + "combine.cu"),
     "etap_decode_mla_paged": ("src/repro/kernels/etap/etap.py:237",
-                              _CSRC + "etap.cu"),
+                              _CSRC + "etap_decode.cu"),
     "etap_prefill_mla_paged": ("src/repro/kernels/etap/etap.py:430",
                                _CSRC + "etap_prefill.cu"),
     "etap_decode_dense": ("src/repro/kernels/etap/etap.py:154",
@@ -499,6 +509,352 @@ def paged_main_path(kvd: str, gen, dev) -> dict:
     return errs
 
 
+# ---------------------------------- phase 2: the bf16 decode kernels' edges
+# The bf16 decode kernels (etap_decode.cuh, wgmma and TMA): K3 / K1 paged
+# (etap_decode.cu: the fused latent, and separate K and V pools at the
+# latent and at Granite's 128) and K5 / K6 dense (etap.cu: the latent,
+# fused or with V rows of its own, and GQA caches read in place at 128, 64
+# and 256), at the edges of their tiling.  Each entry: (what, lengths per
+# batch row, table pages / dense S, split counts, idle rows); rows of
+# length 1 on an all-null table row are serve's idle slots.
+DECODE_EDGES = (
+    # length 1, a horizon mid-page, one on a page's last row, an idle row
+    # on the null block, two pages and a bit; one split, and three of two
+    # pages (splits past a row's length: no live position); few units
+    ("edges", [1, 100, 64, 1, 130, 257], 6, (1, 3), (3,)),
+    # many more units than SMs: 60 rows x 5 splits (units of 64 at H 128
+    # and G 48; their single pass takes units of 64 or 32)
+    ("many units", None, 10, (5,), ()),
+)
+# the columns a row: the latent's heads, the GQA groups' G (with the kv
+# heads of a cache row that give each; 32 makes units of 32 columns run)
+DECODE_LATENT_H = (16, 128)
+DECODE_GQA = ((1, 4), (3, 2), (4, 2), (7, 2), (16, 1), (32, 1), (48, 1))
+# dense S: not a multiple of 64 (edges 300 in 5 tiles, many units 600)
+DECODE_DENSE_S = {"edges": 300, "many units": 600}
+
+
+def decode_unit_cols(dk: int, rows: int, C: int) -> int:
+    """The unit width the bf16 decode kernels take on this card for
+    ``rows`` = B n_splits row splits of C columns at Dk = ``dk``
+    (etap_decode.cuh's decode_unit_cols, asked from the library)."""
+    from repro_torch.kernels import build
+    cols = build.library().etap_decode_unit_cols(dk, rows, C)
+    if cols <= 0:
+        raise RuntimeError(f"etap_decode_unit_cols: cudaError {-cols}")
+    return cols
+
+
+def decode_edge_lengths(what, gen, dev, cap=None):
+    """DECODE_EDGES' lengths for ``what`` (ragged random ones for the many
+    units' 60 rows, up to ``cap`` rows or 10 pages)."""
+    import torch
+    lens, nb = next((e[1], e[2]) for e in DECODE_EDGES if e[0] == what)
+    if lens is None:
+        top = cap or nb * PAGE
+        lens = [int(x) for x in torch.randint(
+            1, top + 1, (60,), generator=gen, device=dev)]
+        lens[0] = top
+    return lens
+
+
+def check_decode_pair(single, partial, plain_single, plain_partial, n_list,
+                      tag, errs, key, *, mode, fused_out=None,
+                      fused_st=None):
+    """The single pass against its plain version at the bf16 tolerance;
+    the partial under each split count of ``n_list`` after finalizing
+    (finalized_close), split(n=1) + K2 == the single pass bitwise, and,
+    with ``fused_out`` / ``fused_st``, the outputs bitwise those of the
+    kernel they must equal (separate V == fused, dense == paged).  Returns
+    the single pass's output and the partials by split count."""
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    out = single()
+    errs[key[0]] = max(errs.get(key[0], 0.0),
+                       bf16_close(out, plain_single(), f"{tag} single"))
+    sts = {}
+    for n in sorted(set(n_list) | {1}):
+        st = partial(n)
+        sts[n] = st
+        if n > 1:
+            errs[key[1]] = max(errs.get(key[1], 0.0), finalized_close(
+                st, plain_partial(n), f"{tag} partial n={n}"))
+    bitwise(C.combine_splits(*sts[1], out_dtype=torch.bfloat16,
+                             rescale=mode), out,
+            f"{tag}: partial(n=1)+K2 vs single pass")
+    if fused_out is not None:
+        bitwise(out, fused_out, f"{tag}: single pass")
+        for n, st in sts.items():
+            for a, b in zip(st, fused_st[n], strict=True):
+                bitwise(a, b, f"{tag}: partial n={n}")
+    return out, sts
+
+
+def decode_edge_checks(gen, dev) -> dict:
+    """Every bf16 decode instance at DECODE_EDGES in both rescale modes
+    against its plain version: the paged latent (H 16 and 128), fused, with
+    V = pool[..., :512] as its own pool (bitwise the fused kernels) and as
+    dense rows (the pool's pages gathered: fused and with V rows of its
+    own, bitwise the paged kernels); Granite's separate (128, 128) pools
+    and GQA caches [B, S, K, hd] at 128, 64 and 256 with G = 1, 3, 4, 7,
+    16, 32 and 48 (dense S not a multiple of 64; in place bitwise the
+    kernel on gqa_to_grouped's copy; at 128 the paged pools bitwise the
+    dense rows gathered from them).  Each case logs its unit width; every
+    instance must run each unit width it is built at (16 and 32 columns,
+    and 64 where Dk < 256).  Returns {wrapper: max abs err}."""
+    import torch
+    from repro_torch.core.etap import gqa_to_grouped
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.runtime.paged_cache import gather_blocks
+    errs: dict = {}
+    widths: dict = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def table_of(B, nb, lens, idle):
+        t = (torch.randperm(B * nb, generator=gen, device=dev) + 1
+             ).reshape(B, nb).to(torch.int32)
+        for b, n in enumerate(lens):
+            t[b, -(-n // PAGE):] = 0
+        for b in idle:
+            t[b] = 0
+        return t
+
+    def ran(insts, dk, rows, n_list, C, tag):
+        """The unit widths of the single pass and each split count."""
+        got = {n: decode_unit_cols(dk, rows * n, C) for n in (1, *n_list)}
+        for inst in insts:
+            widths.setdefault(inst, set()).update(got.values())
+        return tag + ", units of " + ", ".join(
+            f"{c} (n={n})" for n, c in got.items())
+
+    paged_keys = ("etap_decode_mla_paged", "etap_paged_partial")
+    sepv_keys = ("etap_decode_paged", "etap_paged_partial_sepv")
+    dense_keys = ("etap_decode_dense", "etap_partial_dense")
+    for what, _, nb, n_list, idle in DECODE_EDGES:
+        # ---- the latent: paged fused, paged separate V, dense (both)
+        for H in DECODE_LATENT_H:
+            lens = decode_edge_lengths(what, gen, dev)
+            B = len(lens)
+            pool = rand(1 + B * nb, PAGE, DK)
+            vpool = pool[..., :DV].contiguous()
+            table = table_of(B, nb, lens, idle)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = rand(B, H, DK)
+            kd = gather_blocks(pool, table)        # [B, nb 64, DK]
+            vd = kd[..., :DV].contiguous()
+            plans = {n: dense_split_plan(kd.shape[1], PAGE, n)
+                     for n in set(n_list) | {1}}
+            for mode in ("amla", "mul"):
+                kw = dict(scale=SCALE, rescale=mode)
+                tag = ran(("paged latent", "dense latent"), DK, B, n_list, H,
+                          f"K3/K1 latent {what} B={B} H={H} {mode}")
+                fo, fs = check_decode_pair(
+                    lambda: K.etap_decode_mla_paged(q, pool, DV, table,
+                                                    lengths, **kw),
+                    lambda n: K.etap_paged_partial(q, pool, DV, table,
+                                                   lengths, n_splits=n, **kw),
+                    lambda: K.etap_decode_mla_paged_plain(
+                        q, pool, DV, table, lengths, **kw),
+                    lambda n: K.etap_paged_partial_plain(
+                        q, pool, DV, table, lengths, n_splits=n, **kw),
+                    n_list, tag, errs, paged_keys, mode=mode)
+                check_decode_pair(
+                    lambda: K.etap_decode_paged(q, pool, vpool, table,
+                                                lengths, **kw),
+                    lambda n: K.etap_paged_partial_sepv(
+                        q, pool, vpool, table, lengths, n_splits=n, **kw),
+                    lambda: K.etap_decode_paged_plain(
+                        q, pool, vpool, table, lengths, **kw),
+                    lambda n: K.etap_paged_partial_sepv_plain(
+                        q, pool, vpool, table, lengths, n_splits=n, **kw),
+                    n_list, tag + ", separate V", errs, sepv_keys,
+                    mode=mode, fused_out=fo, fused_st=fs)
+                for v, kind in ((kd[..., :DV], "fused"), (vd, "own V")):
+                    check_decode_pair(
+                        lambda v=v: K.etap_decode_dense(q, kd, v, lengths,
+                                                        **kw),
+                        lambda n, v=v: K.etap_partial_dense(
+                            q, kd, v, lengths, plan=plans[n], **kw),
+                        lambda v=v: K.etap_decode_dense_plain(
+                            q, kd, v, lengths, **kw),
+                        lambda n, v=v: K.etap_partial_dense_plain(
+                            q, kd, v, lengths, plan=plans[n], **kw),
+                        n_list, tag + f", dense {kind}", errs, dense_keys,
+                        mode=mode, fused_out=fo, fused_st=fs)
+            log(f"[decode edges] {tag}: K3, K1 n="
+                f"{','.join(map(str, n_list))}, separate V, dense (fused and "
+                "own V) ok in both modes; bitwise: n=1 + K2 == single pass, "
+                "separate V == fused, dense == paged")
+        # ---- the GQA widths: dense caches in place, Granite's paged pools
+        for hd in (HD, 64, 256):
+            for G, Kv in DECODE_GQA:
+                if what == "many units" and G not in (4, 32, 48):
+                    continue
+                S = DECODE_DENSE_S[what]
+                lens_b = decode_edge_lengths(what, gen, dev, cap=S)
+                Bo = len(lens_b)
+                lengths = torch.tensor(lens_b, dtype=torch.int32,
+                                       device=dev).repeat_interleave(Kv)
+                BG = Bo * Kv
+                k, v = rand(Bo, S, Kv, hd), rand(Bo, S, Kv, hd)
+                q = rand(BG, G, hd)
+                _, kg, vg, _ = gqa_to_grouped(q.reshape(Bo, -1, hd), k, v)
+                plans = {n: dense_split_plan(S, PAGE, n)
+                         for n in set(n_list) | {1}}
+                for mode in ("amla", "mul"):
+                    kw = dict(scale=hd ** -0.5, rescale=mode)
+                    insts = (f"dense {hd}",) + (("paged 128",) if hd == HD
+                                                 else ())
+                    tag = ran(insts, hd, BG, n_list, G,
+                              f"K5/K6 [{hd}] {what} B={Bo} K={Kv} G={G} "
+                              f"S={S} {mode}")
+                    fo, fs = check_decode_pair(
+                        lambda: K.etap_decode_dense(q, kg, vg, lengths, **kw),
+                        lambda n: K.etap_partial_dense(
+                            q, kg, vg, lengths, plan=plans[n], **kw),
+                        lambda: K.etap_decode_dense_plain(
+                            q, kg, vg, lengths, **kw),
+                        lambda n: K.etap_partial_dense_plain(
+                            q, kg, vg, lengths, plan=plans[n], **kw),
+                        n_list, tag + ", grouped copy", errs,
+                        tuple(f"{x}[{hd}]" for x in dense_keys), mode=mode)
+                    check_decode_pair(
+                        lambda: K.etap_decode_dense(q, k, v, lengths, **kw),
+                        lambda n: K.etap_partial_dense(
+                            q, k, v, lengths, plan=plans[n], **kw),
+                        lambda: K.etap_decode_dense_plain(
+                            q, k, v, lengths, **kw),
+                        lambda n: K.etap_partial_dense_plain(
+                            q, k, v, lengths, plan=plans[n], **kw),
+                        n_list, tag + ", in place", errs,
+                        tuple(f"{x}[{hd}]" for x in dense_keys), mode=mode,
+                        fused_out=fo, fused_st=fs)
+                    if hd != HD:
+                        continue
+                    # Granite's separate pools over the same rows: paged ==
+                    # dense, bitwise (the dense rows are the pages gathered)
+                    npg = -(-S // PAGE)      # a multiple of every n
+                    npg = -(-npg // max(n_list)) * max(n_list)
+                    kp = torch.zeros(1 + BG * npg, PAGE, hd, device=dev,
+                                     dtype=torch.bfloat16)
+                    vp = torch.zeros_like(kp)
+                    tab = table_of(BG, npg, lengths.tolist(), ())
+                    live = tab > 0
+                    kpad = torch.zeros(BG, npg * PAGE, hd, device=dev,
+                                       dtype=torch.bfloat16)
+                    vpad = torch.zeros_like(kpad)
+                    kpad[:, :S], vpad[:, :S] = kg, vg
+                    kp[tab[live].long()] = kpad.reshape(BG, npg, PAGE, hd)[
+                        live]
+                    vp[tab[live].long()] = vpad.reshape(BG, npg, PAGE, hd)[
+                        live]
+                    kd2, vd2 = gather_blocks(kp, tab), gather_blocks(vp, tab)
+                    do, ds = check_decode_pair(
+                        lambda: K.etap_decode_dense(q, kd2, vd2, lengths,
+                                                    **kw),
+                        lambda n: K.etap_partial_dense(
+                            q, kd2, vd2, lengths,
+                            plan=dense_split_plan(npg * PAGE, PAGE, n), **kw),
+                        lambda: K.etap_decode_dense_plain(
+                            q, kd2, vd2, lengths, **kw),
+                        lambda n: K.etap_partial_dense_plain(
+                            q, kd2, vd2, lengths,
+                            plan=dense_split_plan(npg * PAGE, PAGE, n), **kw),
+                        n_list, tag + ", gathered pages", errs,
+                        tuple(f"{x}[{hd}]" for x in dense_keys), mode=mode)
+                    check_decode_pair(
+                        lambda: K.etap_decode_paged(q, kp, vp, tab, lengths,
+                                                    **kw),
+                        lambda n: K.etap_paged_partial_sepv(
+                            q, kp, vp, tab, lengths, n_splits=n, **kw),
+                        lambda: K.etap_decode_paged_plain(
+                            q, kp, vp, tab, lengths, **kw),
+                        lambda n: K.etap_paged_partial_sepv_plain(
+                            q, kp, vp, tab, lengths, n_splits=n, **kw),
+                        n_list, tag + ", Granite's paged pools", errs,
+                        tuple(f"{x}[128]" for x in sepv_keys), mode=mode,
+                        fused_out=do, fused_st=ds)
+                log(f"[decode edges] {tag}: K5, K6 n="
+                    f"{','.join(map(str, n_list))} ok in both modes; "
+                    "bitwise: n=1 + K2 == single pass, in place == "
+                    "gqa_to_grouped's copy"
+                    + (", Granite's paged pools == dense" if hd == HD
+                       else ""))
+    for inst, got in widths.items():
+        want = {16, 32} if "latent" in inst or "256" in inst else \
+            {16, 32, 64}
+        log(f"[decode edges] {inst}: units of {sorted(got)} columns ran")
+        if got != want:
+            raise AssertionError(f"decode edges {inst}: units of "
+                                 f"{sorted(got)}; {sorted(want)} must run")
+    return errs
+
+
+# the bf16 decode instances: (what, dense, Dk, Dv, V of its own)
+DECODE_INSTANCES = (
+    ("paged latent, fused", 0, DK, DV, 0),
+    ("paged latent, separate V", 0, DK, DV, 1),
+    ("paged Granite (128, 128)", 0, 128, 128, 1),
+    ("dense latent, fused", 1, DK, DV, 0),
+    ("dense latent, own V", 1, DK, DV, 1),
+    ("dense (128, 128)", 1, 128, 128, 1),
+    ("dense (64, 64)", 1, 64, 64, 1),
+    ("dense (256, 256)", 1, 256, 256, 1))
+
+
+def decode_attrs() -> None:
+    """An [attrs] line for each bf16 decode instance and unit width (16,
+    32, 64 columns), single pass and split partial; fails on local memory
+    (spills)."""
+    for what, dense, dk, dv, sepv in DECODE_INSTANCES:
+        for cols in (16, 32) if dk >= 256 else (16, 32, 64):
+            got = [attr_values("etap_decode_attrs", dense, dk, dv, sepv,
+                               stats, cols) for stats in (0, 1)]
+            log(f"[attrs] bf16 decode {what}, units of {cols}: "
+                + "; ".join(f"{kind} {r} registers, {s} B shared memory, "
+                            f"{loc} B local"
+                            for kind, (r, s, loc) in zip(
+                                ("single pass", "split"), got, strict=True)))
+            if any(loc for _, _, loc in got):
+                raise AssertionError(f"bf16 decode {what} units of {cols}: "
+                                     "local memory")
+
+
+def decode_unit_width_bits(gen, dev) -> None:
+    """Whether a column's bits depend on the decode kernels' unit width
+    (logged, not gated): K3 at H 128 and K5 [128] at G 48, row 0 of a batch
+    of 60 rows (units of 32) against row 0 alone (units of 16)."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    lens = [4000] + [int(x) for x in torch.randint(
+        1, 4097, (59,), generator=gen, device=dev)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pool, table = make_pool(60, 64, lens, gen, dev)
+    q = torch.randn(60, 128, DK, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(scale=SCALE, rescale="mul")
+    unit_width_bits(
+        "K3 latent H=128", K.etap_decode_mla_paged(q, pool, DV, table,
+                                                   lengths, **kw),
+        lambda: K.etap_decode_mla_paged(q[:1], pool, DV, table[:1],
+                                        lengths[:1], **kw),
+        wide=decode_unit_cols(DK, 60, 128), narrow=decode_unit_cols(DK, 1,
+                                                                    128))
+    k = torch.randn(60, 2048, 1, HD, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn_like(k)
+    q = torch.randn(60, 48, HD, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = lengths.clamp(max=2048)
+    kw = dict(scale=HD ** -0.5, rescale="mul")
+    unit_width_bits(
+        "K5 [128] G=48", K.etap_decode_dense(q, k, v, lengths, **kw),
+        lambda: K.etap_decode_dense(q[:1], k[:1], v[:1], lengths[:1], **kw),
+        wide=decode_unit_cols(HD, 60, 48), narrow=decode_unit_cols(HD, 1, 48))
+
+
 def phase_kernels(quick: bool, report: dict) -> None:
     import torch
     from repro_torch.kernels.etap import combine as C
@@ -587,6 +943,11 @@ def phase_kernels(quick: bool, report: dict) -> None:
 
     for name, e in paged_main_path("fp", gen, dev).items():
         errs[name] = max(errs[name], e)
+    decode_attrs()
+    for name, e in decode_edge_checks(gen, dev).items():
+        if name in errs:
+            errs[name] = max(errs[name], e)
+    decode_unit_width_bits(gen, dev)
 
     # ---- timing at the main path's widths: H = 128, ~4K ragged context
     iters, piters = (1, 1) if quick else (20, 3)
@@ -1861,6 +2222,7 @@ SEPV_KERNELS = {
     f"{wrapper}{'' if kvd == 'fp' else '_quant'}[{dk},{dv}"
     f"{'' if kvd == 'fp' else ',' + kvd}]":
         (tpu, _CSRC + ("etap_prefill.cu" if wrapper == "etap_prefill_paged"
+                       else "etap_decode.cu" if kvd == "fp"
                        else "etap_sepv.cu"),
          wrapper + ("" if kvd == "fp" else "_quant"), (dk, dv), kvd)
     for dk, dv in SEPV_WIDTHS
@@ -2191,13 +2553,13 @@ def k4_edge_checks(dk, dv, kvd, gen, dev) -> dict:
     return errs
 
 
-def unit_width_bits(what, out, alone) -> bool:
+def unit_width_bits(what, out, alone, wide=64, narrow=32) -> bool:
     """Whether a column's bits depend on the unit width: ``out`` (a call
-    whose units are 64 columns wide, its last mode "mul") against
+    whose units are ``wide`` columns wide, its last mode "mul") against
     ``alone()``, its first batch row on its own (fewer units than SMs, so
-    units of 32), compared bitwise and logged; the serve contracts that
-    could see a difference (prefix cache on / off, whose chunks start at
-    other rows and so may split a batch differently) are named in
+    units of ``narrow``), compared bitwise and logged; the serve contracts
+    that could see a difference (prefix cache on / off, whose chunks start
+    at other rows and so may split a batch differently) are named in
     PERF.md."""
     import torch
     a, b = out[:1], alone()
@@ -2205,9 +2567,9 @@ def unit_width_bits(what, out, alone) -> bool:
     def bits(x):
         return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
     same = bool(torch.equal(bits(a), bits(b)))
-    log(f"[unit width] {what}: a row in units of 64 columns "
-        + ("== " if same else "!= ") + "the same row alone in units of 32, "
-        f"bitwise (max abs diff {float((a.float() - b.float()).abs().max()):.3e})")
+    log(f"[unit width] {what}: a row in units of {wide} columns "
+        + ("== " if same else "!= ") + f"the same row alone in units of "
+        f"{narrow}, bitwise (max abs diff {float((a.float() - b.float()).abs().max()):.3e})")
     return same
 
 

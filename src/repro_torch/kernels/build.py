@@ -1,5 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP decode
-kernels, fused, quantized and over separate K and V pools, the chunked
+kernels over bf16 rows (paged and dense, on wgmma and TMA), their
+quantized twins (fused and over separate K and V pools), the chunked
 paged prefill over bf16 and code pools, the untransposed baseline, the
 split combine, the causal prefill and the selective scan) on first use.
 
@@ -90,6 +91,11 @@ SIGNATURES = {
     "etap_paged_partial_sepv_quant": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _I,
                                                              _P],
     "etap_prefill_paged_quant": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    # the bf16 decode kernels K1 / K3 / K5 / K6 (etap_decode.cuh): (dense,
+    # dk, dv, sepv, stats, cols, out[3]) attrs at units of 16, 32 or 64
+    # columns, and the unit width for (dk, B n_splits, C)
+    "etap_decode_attrs": [_I, _I, _I, _I, _I, _I, _P],
+    "etap_decode_unit_cols": [_I, _L, _I],
     # K4 over bf16 pools (etap_prefill.cu): (dk, dv, sepv, cols, out[3])
     # attrs at units of 64 or 32 columns; K4q's with qf32 before out
     "etap_prefill_attrs": [_I, _I, _I, _I, _P],

@@ -1,13 +1,13 @@
-// The body of the MLA ETAP decode kernels for Hopper (sm_90a), one
-// template serving four pallas_call sites of the JAX package over bf16
-// rows and over int8 / e4m3 codes.  etap.cu instantiates its bf16 kernels
-// (K3, K1, K5, K6), etap_quant.cu its quantized ones (K3q, K1q over the
-// paged latent, K5q, K6q over dense GQA rows) and etap_sepv.cu the paged
-// K3, K1 and the quantized K3q, K1q over separate K and V pools, so the
-// three compile in parallel; each source's header says which pallas_call
-// bodies it replaces.  K4 and K4q, the chunked prefill and verify over bf16
-// and code pools (fused and with a separate V), are etap_prefill.cu's own
-// kernel, on wgmma and TMA.
+// The mma.sync body of the quantized ETAP decode kernels for Hopper
+// (sm_90a): one template serving three pallas_call sites of the JAX
+// package over int8 / e4m3 codes.  etap_quant.cu instantiates K3q, K1q
+// over the paged latent code pool and K5q, K6q over dense GQA code rows;
+// etap_sepv.cu K3q, K1q over separate K and V code pools; each source's
+// header says which pallas_call bodies it replaces.  The bf16 decode
+// kernels (K3, K1, K5, K6) are etap_decode.cuh's kernel (wgmma on the
+// page's 64 rows, a TMA ring, warp-specialised), and K4 / K4q, the chunked
+// prefill and verify over bf16 and code pools, etap_prefill.cu's, on the
+// same design; this body is the next to move there.
 //
 // What they compute.  A CTA owns NT = 16 query columns (heads) of one
 // batch row and walks that row's KV rows in 64-row tiles (pages).  Per
@@ -18,11 +18,10 @@
 //     O^T += V^T P^T               [Dv, 16]   mma.sync, Dv on M
 // The widths (Dk, Dv) are template parameters: the MLA latent (576, 512),
 // where V is the first 512 columns of the same latent page (read once for
-// both products) or, paged, a pool of its own; the GQA heads (128, 128),
-// (64, 64) and (256, 256) for the dense kernels K5/K6 (and K5q/K6q), with
-// K and V in their own caches; and (128, 128) for the paged kernels over
-// separate K and V pools (mma_tile.cuh's width lists say which kernel
-// takes which).
+// both products) or, paged, a pool of its own; the GQA heads (128, 128)
+// and (64, 64) for the dense kernels K5q/K6q, with K and V in their own
+// caches; and (128, 128) for the paged kernels over separate K and V pools
+// (mma_tile.cuh's width lists say which kernel takes which).
 //
 // Dv 64.  Acc^T [64, 16] is the grid of eight 16 x 8 tiles that S^T
 // [64, 16] is, so each of the 8 warps takes the Acc^T tile at its S^T
@@ -30,16 +29,12 @@
 // m-tiles: the same 256 threads, launch bounds and shared-memory layout as
 // every other width, and one instantiation of one body, so the bitwise
 // contracts (split(n = 1) + K2 == single pass; a GQA cache read in place ==
-// gqa_to_grouped's copy) hold by construction.  A 4-warp instance would
-// halve the threads that load each tile and change the block shape for
-// one width.  Each Acc^T element still sums its products in the same
-// order (one mma per 16 KV rows, hi then mid then lo), so no width
-// changes the numerics.  Dv 256 gives MT = 2 m-tiles a warp (16 fp32
-// registers of Acc^T a thread) and a 64 x 264 bf16 K tile (33 KB; about
-// 51 KB of shared memory a CTA, two CTAs an SM).
+// gqa_to_grouped's copy) hold by construction.  Each Acc^T element sums
+// its products in the same order (one mma per 16 KV rows, hi then mid
+// then lo), so no width changes the numerics.
 //
 // Address modes (template parameters: DENSE, and CODE, the element type of
-// K and V: bf16 rows, or int8 / e4m3 codes).  Paged (K1, K3): tile j of row
+// K and V: int8 or e4m3 codes).  Paged (K1, K3): tile j of row
 // b is pool block table[b, j]; V is the block's first Dv columns (the MLA
 // latent), or, in the separate-V instances (template parameter SEPV, so
 // the fused ones carry none of its code), block table[b, j] of its own
@@ -120,23 +115,18 @@
 // no live position at all walks all of its pages, as the reference does, so
 // its stats are the reference's.
 //
-// What bounds it on the H100.  Decode reads each latent page once per head
+// What bounds it on the H100.  Decode reads each code page once per head
 // tile (128 heads = 8 tiles, the re-reads mostly hit L2); its floor is the
-// pool bytes over 3.35 TB/s (about half of them for a code pool: 584 B a
-// row against 1152; a separate V pool reads its Dv columns again: 2176 B a
-// latent row, 512 B at Granite's 128, 1104 B and 272 B as codes with both
-// pairs).  A GQA group (G = 4 heads of Qwen3-8B) fills 4 of the
-// 16 columns: 12 are padding, masked, and the floor is again the K and V
-// bytes.  This first version is simple:
-// mma.sync fragments loaded from shared memory with 32/16-bit loads, one
-// page in flight (cp.async, no double buffer; the code pages by plain
-// 16-byte loads), 16 columns per CTA so the [Dv, 16] fp32 accumulator
-// fits in registers (Dv / 16 per thread: 32 at the latent, 4 at Dv 64).
-// G = 1 (an MHA head, StableLM, MusicGen) leaves 15 of the 16 columns as
-// padding and G = 3 (SmolLM) 13, masked like any padding column (horizon
-// INT_MIN); G = 16 (RecurrentGemma) fills the tile.  Removing the
-// per-tile re-read of the pool (wider tiles, wgmma, TMA, a pipelined ring
-// of pages) is the work of a later version.
+// code bytes over 3.35 TB/s (584 B a latent row with its pair; a separate
+// V pool reads its Dv columns again: 1104 B a latent row, 272 B at
+// Granite's 128 with both pairs).  A GQA group (G = 4 heads of Qwen3-8B)
+// fills 4 of the 16 columns: 12 are padding, masked.  This version is
+// simple: mma.sync fragments loaded from shared memory with 32/16-bit
+// loads, one page in flight (plain 16-byte code loads, no double buffer),
+// 16 columns per CTA so the [Dv, 16] fp32 accumulator fits in registers
+// (Dv / 16 per thread: 32 at the latent, 4 at Dv 64).  G = 1 (an MHA head)
+// leaves 15 of the 16 columns as padding and G = 3 (SmolLM) 13, masked
+// like any padding column (horizon INT_MIN).
 #pragma once
 
 #include <climits>
@@ -174,7 +164,7 @@ struct Smem {
   int hz[NT];                        // per-column horizon
 };
 
-// The quantized bodies' shared memory: the fp bodies' plus the tile's
+// The quantized bodies' shared memory: Smem's fields plus the tile's
 // (scale, zp) rows (K's, and a separate V's), the middle term of P * scale,
 // and for fp32 q (QLO) the mid and lo tiles of q.
 template <int DK, bool QLO>
@@ -187,10 +177,6 @@ struct SmemQuant : Smem<DK> {
   alignas(16) bf16 q_mid[QLO ? NT * Smem<DK>::KSTR : 8];
   alignas(16) bf16 q_lo[QLO ? NT * Smem<DK>::KSTR : 8];
 };
-
-template <int CODE, bool QF32, int DK>
-using SmemOf = typename std::conditional<CODE != kBf16, SmemQuant<DK, QF32>,
-                                         Smem<DK>>::type;
 
 struct Params {
   const void* q;      // [B, C, DK] bf16, or fp32 (quantized bodies)
@@ -253,9 +239,8 @@ constexpr bool kPagedWidths = has_widths<PagedSepWidths>(DK, DV);
 template <bool STATS, bool DENSE, int CODE, bool QF32, int DK, int DV,
           bool SEPV = false>
 __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
-  constexpr bool QUANT = CODE != kBf16;
-  constexpr bool OUT_F32 = QF32 || (DENSE && QUANT);
-  static_assert(QUANT || !QF32, "fp32 q is taken by the quantized bodies");
+  constexpr bool OUT_F32 = QF32 || DENSE;
+  static_assert(CODE != kBf16, "the bf16 bodies are etap_decode.cuh's");
   static_assert(DENSE || kPagedWidths<DK, DV>,
                 "the paged bodies take PagedSepWidths");
   static_assert(!(DENSE && SEPV), "SEPV is the paged separate-V address");
@@ -272,8 +257,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   constexpr int NN = DV >= 16 * NWARP ? 2 : 1; // O^T n-tiles per warp
   constexpr int MT = 2 * DV / (16 * NWARP * NN); // O^T m-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemOf<CODE, QF32, DK>& sm =
-      *reinterpret_cast<SmemOf<CODE, QF32, DK>*>(smem_raw);
+  SmemQuant<DK, QF32>& sm =
+      *reinterpret_cast<SmemQuant<DK, QF32>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
@@ -290,12 +275,9 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }
-  if constexpr (QUANT)                   // fp32 q -> bf16 hi + mid + lo
-    load_q_tile<QF32, true, NT, NTHREAD, DK>(sm.q, sm.q_mid, sm.q_lo, KSTR,
-                                             sm.qsum, P.q, b, P.C, c0);
-  else
-    load_q_tile<false, false, NT, NTHREAD, DK>(sm.q, nullptr, nullptr, KSTR,
-                                               nullptr, P.q, b, P.C, c0);
+  // fp32 q -> bf16 hi + mid + lo
+  load_q_tile<QF32, true, NT, NTHREAD, DK>(sm.q, sm.q_mid, sm.q_lo, KSTR,
+                                           sm.qsum, P.q, b, P.C, c0);
   __syncthreads();
 
   // the split's page range, cut after the last page holding a live position
@@ -327,43 +309,29 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
   for (int j = j0; j < j_end; ++j) {
     int rows = PAGE;
     if constexpr (DENSE) rows = min(PAGE, P.S - j * PAGE);
-    if constexpr (QUANT) {
-      if constexpr (DENSE) {
-        load_code_tile<CODE, NTHREAD>(
-            sm.k, KSTR,
-            static_cast<const uint8_t*>(P.k) + kbase +
-                (size_t)j * PAGE * P.ldk,
-            P.ldk, rows, DK);
-        load_sz_tile(sm.sz,
-                     P.sz + dense_row(b, P.kvh, P.zb, P.zh) +
-                         (size_t)j * PAGE * P.ldz,
-                     P.ldz, rows);
-        if (own_v)                             // V's own pairs
-          load_sz_tile(sm.szv,
-                       P.vsz + dense_row(b, P.kvh, P.vzb, P.vzh) +
-                           (size_t)j * PAGE * P.ldvz,
-                       P.ldvz, rows);
-      } else {
-        const size_t blk = P.table[(size_t)b * P.nbt + j];
-        load_code_tile<CODE, NTHREAD>(
-            sm.k, KSTR, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
-            DK, PAGE, DK);
-        load_sz_tile(sm.sz, P.sz + blk * PAGE * 2, 2, PAGE);
-        if constexpr (SEPV)                    // V's own pairs
-          load_sz_tile(sm.szv, P.vsz + blk * PAGE * 2, 2, PAGE);
-      }
+    if constexpr (DENSE) {
+      load_code_tile<CODE, NTHREAD>(
+          sm.k, KSTR,
+          static_cast<const uint8_t*>(P.k) + kbase +
+              (size_t)j * PAGE * P.ldk,
+          P.ldk, rows, DK);
+      load_sz_tile(sm.sz,
+                   P.sz + dense_row(b, P.kvh, P.zb, P.zh) +
+                       (size_t)j * PAGE * P.ldz,
+                   P.ldz, rows);
+      if (own_v)                             // V's own pairs
+        load_sz_tile(sm.szv,
+                     P.vsz + dense_row(b, P.kvh, P.vzb, P.vzh) +
+                         (size_t)j * PAGE * P.ldvz,
+                     P.ldvz, rows);
     } else {
-      const bf16* src;
-      if constexpr (DENSE) {
-        src = static_cast<const bf16*>(P.k) + kbase +
-              (size_t)j * PAGE * P.ldk;
-      } else {
-        src = static_cast<const bf16*>(P.k) +
-              (size_t)P.table[(size_t)b * P.nbt + j] * PAGE * DK;
-      }
-      load_tile<NTHREAD>(sm.k, KSTR, src, DENSE ? (size_t)P.ldk : DK, rows,
-                         DK, DENSE);
-      cp_async_wait_all();
+      const size_t blk = P.table[(size_t)b * P.nbt + j];
+      load_code_tile<CODE, NTHREAD>(
+          sm.k, KSTR, static_cast<const uint8_t*>(P.k) + blk * PAGE * DK,
+          DK, PAGE, DK);
+      load_sz_tile(sm.sz, P.sz + blk * PAGE * 2, 2, PAGE);
+      if constexpr (SEPV)                    // V's own pairs
+        load_sz_tile(sm.szv, P.vsz + blk * PAGE * 2, 2, PAGE);
     }
     __syncthreads();
 
@@ -391,7 +359,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       }
       const int r0 = 16 * smi + g;
       const int ca = 8 * sni + 2 * t;
-      if constexpr (QUANT) {                   // the affine of each row
+      {                                        // the affine of each row
         const float2 z0 = sm.sz[r0], z1 = sm.sz[r0 + 8];
         const float qs0 = sm.qsum[ca], qs1 = sm.qsum[ca + 1];
         sacc[0] = z0.x * sacc[0] + z0.y * qs0;
@@ -422,13 +390,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         voff = (size_t)P.table[(size_t)b * P.nbt + j] * PAGE * DV;
         ldv = DV;
       }
-      if constexpr (QUANT)
-        load_code_tile<CODE, NTHREAD>(
-            sm.k, KSTR, static_cast<const uint8_t*>(P.v) + voff, ldv, rows,
-            DV);
-      else
-        load_tile<NTHREAD>(sm.k, KSTR, static_cast<const bf16*>(P.v) + voff,
-                           ldv, rows, DV, false);
+      load_code_tile<CODE, NTHREAD>(
+          sm.k, KSTR, static_cast<const uint8_t*>(P.v) + voff, ldv, rows, DV);
     }
 
     // ---- online-softmax update: 16 lanes per column, 4 rows per lane
@@ -437,16 +400,11 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       float sv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = sm.s[(r + 16 * i) * SSTR + col];
-      if constexpr (QUANT)
-        tile_update<true>(sv, r, amla, &sm.p_hi[col * PSTR],
-                          &sm.p_lo[col * PSTR], &sm.m[col], &sm.l[col],
-                          &sm.corr[col], own_v ? sm.szv : sm.sz,
-                          &sm.zc[col], &sm.p_mid[col * PSTR]);
-      else
-        tile_update(sv, r, amla, &sm.p_hi[col * PSTR], &sm.p_lo[col * PSTR],
-                    &sm.m[col], &sm.l[col], &sm.corr[col]);
+      tile_update<true>(sv, r, amla, &sm.p_hi[col * PSTR],
+                        &sm.p_lo[col * PSTR], &sm.m[col], &sm.l[col],
+                        &sm.corr[col], own_v ? sm.szv : sm.sz, &sm.zc[col],
+                        &sm.p_mid[col * PSTR]);
     }
-    if constexpr (!QUANT) cp_async_wait_all();
     __syncthreads();
 
     // ---- O^T = O^T * corr + V^T P^T: warp owns Dv rows [16 MT wm,
@@ -457,23 +415,18 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
       const int c = 8 * (wn + ni) + 2 * t;
       const float ca = sm.corr[c];
       const float cb = sm.corr[c + 1];
-      float za = 0.f, zb = 0.f;
-      if constexpr (QUANT) {
-        za = sm.zc[c];
-        zb = sm.zc[c + 1];
-      }
+      const float za = sm.zc[c];
+      const float zb = sm.zc[c + 1];
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
         acc[mi][ni][0] *= ca;
         acc[mi][ni][1] *= cb;
         acc[mi][ni][2] *= ca;
         acc[mi][ni][3] *= cb;
-        if constexpr (QUANT) {
-          acc[mi][ni][0] += za;
-          acc[mi][ni][1] += zb;
-          acc[mi][ni][2] += za;
-          acc[mi][ni][3] += zb;
-        }
+        acc[mi][ni][0] += za;
+        acc[mi][ni][1] += zb;
+        acc[mi][ni][2] += za;
+        acc[mi][ni][3] += zb;
       }
     }
 #pragma unroll
@@ -490,10 +443,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
         bh[ni][1] = ld32(&sm.p_hi[pc + 8]);
         bl[ni][0] = ld32(&sm.p_lo[pc]);
         bl[ni][1] = ld32(&sm.p_lo[pc + 8]);
-        if constexpr (QUANT) {
-          bm[ni][0] = ld32(&sm.p_mid[pc]);
-          bm[ni][1] = ld32(&sm.p_mid[pc + 8]);
-        }
+        bm[ni][0] = ld32(&sm.p_mid[pc]);
+        bm[ni][1] = ld32(&sm.p_mid[pc + 8]);
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
@@ -505,8 +456,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 #pragma unroll
         for (int ni = 0; ni < NN; ++ni) {
           mma16816(acc[mi][ni], a0, a1, a2, a3, bh[ni][0], bh[ni][1]);
-          if constexpr (QUANT)
-            mma16816(acc[mi][ni], a0, a1, a2, a3, bm[ni][0], bm[ni][1]);
+          mma16816(acc[mi][ni], a0, a1, a2, a3, bm[ni][0], bm[ni][1]);
           mma16816(acc[mi][ni], a0, a1, a2, a3, bl[ni][0], bl[ni][1]);
         }
       }
@@ -558,7 +508,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) etap_kernel(Params P) {
 template <bool STATS, bool DENSE, int CODE, bool QF32, int DK = LATENT_DK,
           int DV = LATENT_DV, bool SEPV = false>
 int launch_mode(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
+  const int smem = static_cast<int>(sizeof(SmemQuant<DK, QF32>));
   cudaError_t err = cudaFuncSetAttribute(
       etap_kernel<STATS, DENSE, CODE, QF32, DK, DV, SEPV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -579,7 +529,7 @@ int attrs_of(int* out) {
       &a, etap_kernel<STATS, DENSE, CODE, QF32, DK, DV, SEPV>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
-  out[1] = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
+  out[1] = static_cast<int>(sizeof(SmemQuant<DK, QF32>));
   out[2] = static_cast<int>(a.localSizeBytes);
   return 0;
 }

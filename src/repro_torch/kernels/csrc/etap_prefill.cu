@@ -911,29 +911,6 @@ __global__ void __launch_bounds__(NTHREAD, 1) etap_prefill_kernel(
   }
 }
 
-constexpr int MAX_DEVICES = 64;
-
-// The current device, or -1.
-int current_device() {
-  int dev = 0;
-  return cudaGetDevice(&dev) == cudaSuccess && dev >= 0 &&
-                 dev < MAX_DEVICES
-             ? dev
-             : -1;
-}
-
-// The SM count of device dev, asked once a device.
-int sm_count(int dev) {
-  static std::atomic<int> cached[MAX_DEVICES];
-  int n = cached[dev].load(std::memory_order_relaxed);
-  if (n > 0) return n;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  cached[dev].store(n, std::memory_order_relaxed);
-  return n;
-}
-
 // The unit width for B rows of C columns: 64, or 32 where 64-column
 // units would leave SMs idle.
 int unit_cols(int B, int C, int sms) {

@@ -2,8 +2,8 @@
 // instantiations of etap_body.cuh's body, which says what they compute and
 // how (see its "Numerics of the quantized bodies").
 //
-//   K3q, K1q  K3 and K1 (etap.cu) over an int8 or e4m3 latent code pool
-//       with one fp32 (scale, zp) pair per row: they replace the
+//   K3q, K1q  K3 and K1 (etap_decode.cu) over an int8 or e4m3 latent
+//       code pool with one fp32 (scale, zp) pair per row: they replace the
 //       reference's quantized MLA-fused bodies _paged_body_quant_fused :116
 //       (under repro/kernels/etap/etap.py:237) and
 //       _paged_partial_body_quant_fused :639 (under :713), both built on

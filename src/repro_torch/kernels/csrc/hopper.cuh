@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_prefill.cu, etap_prefill.cu): shared-memory mbarriers, TMA tile
-// loads through a tensor map, the wgmma shared-memory descriptor of a
-// 128-byte-swizzled tile, wgmma products with their fences, stmatrix,
-// named barriers and setmaxnreg.
+// (flash_prefill.cu, etap_prefill.cu, etap_decode.cuh): shared-memory
+// mbarriers, TMA tile loads through a tensor map, the wgmma shared-memory
+// descriptor of a 128-byte-swizzled tile, wgmma products with their
+// fences, stmatrix, named barriers and setmaxnreg.
 //
 // Tiles.  A TMA box is 64 bf16 columns (128 bytes) by `rows` rows, laid
 // out row after row with the 128-byte swizzle; a wider operand is several
@@ -21,6 +21,7 @@
 //     rows are one box's 64 columns.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda.h>
@@ -322,6 +323,47 @@ __device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8],
   }
 }
 
+// The same at N = 64.
+template <bool FIRST, bool TA>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                  uint64_t da, uint64_t db) {
+  if constexpr (FIRST) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, "
+        "0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+          "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(da), "l"(db), "r"(0), "n"(TA ? 1 : 0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, "
+        "0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(TA ? 1 : 0));
+  }
+}
+
 // Store four 8 x 8 bf16 matrices, transposed: r[i] is matrix i's mma
 // fragment (lane l: row l / 4, columns 2 (l % 4) and + 1), and lane
 // 8 i + j gives the shared-memory address of the 16 bytes that receive
@@ -343,6 +385,29 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- host: the device and its SM count
+constexpr int MAX_DEVICES = 64;
+
+// The current device, or -1.
+inline int current_device() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < MAX_DEVICES
+             ? dev
+             : -1;
+}
+
+// The SM count of device dev, asked once a device.
+inline int sm_count(int dev) {
+  static std::atomic<int> cached[MAX_DEVICES];
+  int n = cached[dev].load(std::memory_order_relaxed);
+  if (n > 0) return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  cached[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // ---- host: tensor maps
