@@ -5,48 +5,52 @@ of this repository on one GPU, in turns, so that a change can be held
 against its parent on one card in one call.
 
 Each checkout runs in its own process (it builds its own kernels from its
-own sources).  By default it times K3, K1 (n = 4), K5, K6, K7 and K8, and
+own sources). By default it times K3, K1 (n = 4), K5, K6, K7 and K8, and
 K3q and K1q (n = 4) over int8 and e4m3 pools, at chip_smoke.py's timing
 shapes (B 8, H 128, ragged context up to 4096, bf16 q) with CUDA events
 over 200 launches each; then K4 over bf16 pools (B 1, H 128, a 4096-row
 latent pool): fused at Cq 32 from start 4064, at Cq 32 from 256
-(serve-short's chunk shape: a 512-token prompt in 32-token chunks walks
-at most 8 pages) and at serve-long's Cq 256 from 3840, with V in its own
-pool at Cq 256, and over Granite-20B's
-separate (128, 128) pools at B 2 x Cq 128 x H 48 from starts 1920 and 0,
-over 50 launches each; then K4q at the same latent shapes over int8 and
-e4m3 pools (bf16 q; with V in its own pool at Cq 256 over int8) and over
-Granite's separate code pools (fp32 q), over 50 launches each; then K3
-over Granite's separate bf16 pools (B 8 x 48 heads, ragged lengths)
-beside one SDPA call on the gathered rows, and K1 there under its auto
-plan, over 200 launches each; then K5 and K6 at a 128-, 64- and 256-wide
-GQA head at chip_smoke.GQA_TIMED's shapes (qwen-dense / qwen-long,
-stablelm-dense / smol-long, rgemma-short / rgemma-long), over 200 launches
-each, the host time of one K5 [128] call (µs), and the paper's geometry
-(B 16, H 16, context 65,536) through the paged entry's K1 + K2, over 20.
-A launch that the wrapper's host time outpaces reads as that host time
-under CUDA events, so the bf16 decode kernels also get a ``-dev`` column:
-their kernels' device time under torch.profiler.  Each checkout also hands
-back a digest of the outputs of the quantized decode bodies on
-etap_body.cuh (K3q, K1q at the timing shapes, K5q / K6q at a 128-wide
-head), and the run says whether they are bitwise equal across the
-checkouts.  With ``--prefill`` it runs ``model.prefill`` on
-DeepSeek-R1 at full width cut to its 3 dense layers (random bf16 weights,
-seed 0) at dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts:
-the median wall of 5 synchronised runs (ms) and the peak device memory of
-those runs (GiB, weights included); then its paged chunked prefill
+(serve-short's chunk shape: a 512-token prompt in 32-token chunks walks at
+most 8 pages) and at serve-long's Cq 256 from 3840, with V in its own pool
+at Cq 256, and over Granite-20B's separate (128, 128) pools at B 2 x Cq
+128 x H 48 from starts 1920 and 0, over 50 launches each; then K4q at the
+same latent shapes over int8 and e4m3 pools (bf16 q; with V in its own
+pool at Cq 256 over int8) and over Granite's separate code pools (fp32 q),
+over 50 launches each; then K3 over Granite's separate bf16 pools (B 8 x
+48 heads, ragged lengths) beside one SDPA call on the gathered rows, and
+K1 there under its auto plan, over 200 launches each; then K5 and K6 at a
+128-, 64- and 256-wide GQA head at chip_smoke.GQA_TIMED's shapes
+(qwen-dense / qwen-long, stablelm-dense / smol-long, rgemma-short /
+rgemma-long; at 128 the baseline K7 / K8 at the same shapes), over 200
+launches each, the host time of one K5 [128] call (µs), and the paper's
+geometry (B 16, H 16, context 65,536) through the paged entry's K1 + K2,
+over 20. Then K5q and K6q over the quantized GQA serve phases' code rows
+with fp32 q (chip_smoke.quant_dense_cases: qwen-short's int8 rows and
+qwen-long's fp8 rows at 128, smol-short's and smol-long's at 64), over 200
+launches each. A launch that the wrapper's host time outpaces reads as
+that host time under CUDA events, so the decode kernels (bf16 and over
+codes) also get a ``-dev`` column: their kernels' device time under
+torch.profiler. Each checkout also hands back a digest of the outputs of
+the bf16 decode kernels (K3, K1, K5, K6 at the timing shapes), whose bits
+must not move when their kernel's template gains its code instances, and
+of the baseline over codes (K7q / K8q at a 128-wide head,
+flash_decode.cu), and the run says whether they are bitwise equal across
+the checkouts. With ``--prefill`` it runs ``model.prefill`` on DeepSeek-R1
+at full width cut to its 3 dense layers (random bf16 weights, seed 0) at
+dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts: the median
+wall of 5 synchronised runs (ms) and the peak device memory of those runs
+(GiB, weights included); then its paged chunked prefill
 (``model.prefill_chunk`` over a one-slot block pool, K4 in every layer):
-one 4096-token prompt in 256-token chunks (serve-long's) and one
-512-token prompt in 32-token chunks (serve-short's), the median wall of 5
+one 4096-token prompt in 256-token chunks (serve-long's) and one 512-token
+prompt in 32-token chunks (serve-short's), the median wall of 5
 synchronised runs (``--paged`` adds the same prompts over an fp8 pool,
 serve-long-fp8's, and an int8 pool, serve-short-int8's: K4q in every
-layer); then K9 alone at each width, at
-chip_smoke.PREFILL_TIMED's shapes (dense-long MLA, qwen-dense G 4,
-stablelm-dense G 1; random bf16 q, k, v), with CUDA events over 50
-launches.  With ``--paged`` it runs only the paged chunked prefills, so
-that many alternating pairs fit one call.  The medians per checkout
-close the output, with the quartiles where a checkout ran 4 times or
-more.
+layer); then K9 alone at each width, at chip_smoke.PREFILL_TIMED's shapes
+(dense-long MLA, qwen-dense G 4, stablelm-dense G 1; random bf16 q, k, v),
+with CUDA events over 50 launches. With ``--paged`` it runs only the paged
+chunked prefills, so that many alternating pairs fit one call. The medians
+per checkout close the output, with the quartiles where a checkout ran 4
+times or more.
 
     git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
     python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
@@ -71,11 +75,15 @@ KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K3-dev", "K1-dev", "K5-dev", "K6-dev", "K3sep[128]-dev",
            "SDPA-K3sep[128]-dev", "K1sep[128]-dev", "K5[128]-dev",
            "K6[128]-dev", "K5[64]-dev", "K6[64]-dev", "K5[256]-dev",
-           "K6[256]-dev", "paper-K1+K2-dev")
+           "K6[256]-dev", "paper-K1+K2-dev", "K3q-int8-dev", "K1q-int8-dev",
+           "K3q-fp8-dev", "K1q-fp8-dev", "K5q[128]-int8", "K6q[128]-fp8",
+           "K5q[64]-int8", "K6q[64]-fp8", "K5q[128]-int8-dev",
+           "K6q[128]-fp8-dev", "K5q[64]-int8-dev", "K6q[64]-fp8-dev",
+           "K7[128]", "K8[128]", "K7[128]-dev", "K8[128]-dev")
 # the kernels whose outputs must keep their bits from one checkout to the
-# next (the decode bodies on etap_body.cuh), each a digest of its output
-BITS = ("K3q-int8", "K1q-int8", "K3q-fp8", "K1q-fp8", "K5q[128]-int8",
-        "K6q[128]-fp8")
+# next (the bf16 decode kernels, and the baseline over codes), each a
+# digest of its output
+BITS = ("K3", "K1", "K5", "K6", "K7q[128]-int8", "K8q[128]-fp8")
 PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "paged-long-ms",
            "paged-short-ms", "K9[192,128]-ms", "K9[128,128]-ms",
            "K9[64,64]-ms")
@@ -128,8 +136,11 @@ def time_one(root: str) -> dict:
             K.etap_paged_partial_quant(q, c, z, cs.DV, t, lengths, scale=S,
                                        n_splits=4)
     out = {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
-    out.update({f"{n}-dev": device_ms(fns[n]) for n in ("K3", "K1", "K5",
-                                                         "K6")})
+    out.update({f"{n}-dev": device_ms(fns[n]) for n in (
+        "K3", "K1", "K5", "K6", "K3q-int8", "K1q-int8", "K3q-fp8",
+        "K1q-fp8")})
+    out["bits"] = bits_of(cs, FD, gen, dev, {n: fns[n] for n in BITS
+                                             if n in fns})
     del k, v, pool, table, quant
     # K4 over bf16 pools: the latent's 4096-row pool, and Granite's pools
     pool, table = cs.make_pool(1, 64, [4096], gen, dev)
@@ -192,8 +203,7 @@ def time_one(root: str) -> dict:
         gq3, *gargs, gtable, glens, scale=128 ** -0.5))
     out["SDPA-K3sep[128]-dev"] = device_ms(sdpa)
     out.update(gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens))
-    out["bits"] = bits_of(cs, K, gen, dev, {n: fns[n] for n in BITS
-                                             if n in fns})
+    out.update(quant_dense_times(cs, K, dev))
     return out
 
 
@@ -218,7 +228,8 @@ def device_ms(fn, iters: int = 50) -> float:
 
 def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
     """K5 and K6 at chip_smoke.GQA_TIMED's shapes (each width's single
-    pass and split shape, the split one under its auto plan) and K1 over
+    pass and split shape, the split one under its auto plan; at 128 K7
+    and K8, the baseline, beside them) and K1 over
     Granite's separate pools under its auto plan, over 200 launches each;
     the paper's geometry (B 16, H 16, context 65,536: K1 + K2 through the
     paged entry's auto plan) over 20; and the host time a K5 [128] launch
@@ -229,6 +240,7 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.kernels import splitkv
     from repro_torch.kernels.etap import ops
+    from repro_torch.kernels.flash_decode import flash_decode as FD
     by_tag = {c[0]: c for c in cs.gqa_cases(gen, dev)}
     fns = {}
     for hd, (single, split) in cs.GQA_TIMED.items():
@@ -240,6 +252,14 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
         fns[f"K6[{hd}]"] = lambda q=q, k=k, v=v, lens=lens, plan=plan, \
             s=hd ** -0.5: K.etap_partial_dense(q, k, v, lens, plan=plan,
                                                scale=s)
+        if hd == 128:                      # the baseline at the same shapes
+            fns["K8[128]"] = lambda q=q, k=k, v=v, lens=lens, plan=plan, \
+                s=hd ** -0.5: FD.flash_decode_partial(q, k, v, lens,
+                                                      plan=plan, scale=s)
+            _, _, q, k, v, lens, blk = by_tag[single]
+            fns["K7[128]"] = lambda q=q, k=k, v=v, lens=lens, blk=blk, \
+                s=hd ** -0.5: FD.flash_decode(q, k, v, lens, block=blk,
+                                              scale=s)
     spec = AttnSpec(scale=128 ** -0.5)
     n = ops._paged_n_splits(gq3, gtable, cs.PAGE, 128, spec)
     gpad = ops._pad_table(gtable, ops.paged_split_geometry(
@@ -276,11 +296,45 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
     return out
 
 
-def bits_of(cs, K, gen, dev, fns: dict) -> dict:
-    """A digest of each output of ``fns`` (the latent decode bodies at
-    time_one's inputs) and of K5q / K6q at a 128-wide GQA head (B 16 rows
-    of G 4 heads over int8 / e4m3 code rows, fp32 q), so that checkouts
-    can be held bitwise against each other."""
+def quant_dense_times(cs, K, dev) -> dict:
+    """K5q / K6q with fp32 q over the quantized GQA serve phases' code
+    rows and serve lengths (chip_smoke.quant_dense_cases: qwen-short int8
+    and qwen-long fp8 at 128, smol-short int8 and smol-long fp8 at 64; the
+    split ones under the phase's plan), over 200 launches each, and their
+    device times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    cases = {c[0]: c for c in cs.quant_dense_cases()}
+    out = {}
+    for name, tag, kvd in (("K5q[128]-int8", "qwen-short", "int8"),
+                           ("K6q[128]-fp8", "qwen-long", "fp8"),
+                           ("K5q[64]-int8", "smol-short", "int8"),
+                           ("K6q[64]-fp8", "smol-long", "fp8")):
+        _, B, S, Kv, G, Dk, Dv, fused, qdt, n, _, serve = cases[tag]
+        q, _, _, kc, ks, vc, vs = cs.quant_dense_inputs(
+            B, S, Kv, G, Dk, Dv, fused, qdt, kvd, np.random.default_rng(11))
+        lengths = torch.tensor(serve, dtype=torch.int32,
+                               device=dev).repeat_interleave(Kv)
+        kw = dict(k_sz=ks, v_sz=vs, scale=Dk ** -0.5)
+        if n == 1:
+            def f(q=q, kc=kc, vc=vc, lengths=lengths, kw=kw):
+                return K.etap_decode_dense_quant(q, kc, vc, lengths, **kw)
+        else:
+            def f(q=q, kc=kc, vc=vc, lengths=lengths, kw=kw,
+                  plan=dense_split_plan(S, cs.PAGE, n)):
+                return K.etap_partial_dense_quant(q, kc, vc, lengths,
+                                                  plan=plan, **kw)
+        out[name] = cs.cuda_time_ms(f, 200, warmup=5)
+        out[name + "-dev"] = device_ms(f)
+    return out
+
+
+def bits_of(cs, FD, gen, dev, fns: dict) -> dict:
+    """A digest of each output of ``fns`` (the bf16 latent decode kernels
+    at time_one's inputs) and of K7q / K8q at a 128-wide GQA head (B 16
+    rows of G 4 heads over int8 / e4m3 code rows, fp32 q), so that
+    checkouts can be held bitwise against each other."""
     import hashlib
 
     import torch
@@ -298,15 +352,15 @@ def bits_of(cs, K, gen, dev, fns: dict) -> dict:
     q = torch.randn(BG, 4, hd, generator=gen, device=dev)
     lengths = torch.randint(1, S + 1, (BG,), generator=gen, device=dev,
                             dtype=torch.int32)
-    for kvd, name in (("int8", "K5q[128]-int8"), ("fp8", "K6q[128]-fp8")):
+    for kvd, name in (("int8", "K7q[128]-int8"), ("fp8", "K8q[128]-fp8")):
         kc, ks = paged_cache.quantize_rows(torch.randn(
             BG, S, hd, generator=gen, device=dev), kvd)
         vc, vs = paged_cache.quantize_rows(torch.randn(
             BG, S, hd, generator=gen, device=dev), kvd)
         kw = dict(k_sz=ks, v_sz=vs, scale=hd ** -0.5)
         out[name] = digest(
-            K.etap_decode_dense_quant(q, kc, vc, lengths, **kw)
-            if name.startswith("K5q") else K.etap_partial_dense_quant(
+            FD.flash_decode_quant(q, kc, vc, lengths, **kw)
+            if name.startswith("K7q") else FD.flash_decode_partial_quant(
                 q, kc, vc, lengths, plan=dense_split_plan(S, 512, 2), **kw))
     return out
 

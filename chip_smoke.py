@@ -114,7 +114,16 @@ Phases, each of which fails the run when it fails:
              single pass, separate V == fused, dense == paged and in
              place == gqa_to_grouped's copy bitwise, every unit width
              run, an [attrs] line per instance and unit width (local
-             memory fails the run) and [unit width] lines (logged);
+             memory fails the run) and [unit width] lines (logged); and
+             their quantized twins on the same kernel (K3q / K1q over the
+             latent code pool, fused and with V a pool of its own, and
+             over Granite's code pools, K5q / K6q over GQA code caches
+             at 128 and 64) at DECODE_EDGES over int8 and e4m3 codes with
+             bf16 and fp32 q in both modes (quant_decode_edge_checks):
+             against their plain versions, the same bitwise contracts,
+             fp32 q's RMSE against the fp64 oracle (the reference's gate,
+             or 1% of the reference's route where that misses it), every
+             unit width run, [attrs] and [unit width] lines;
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -534,15 +543,25 @@ DECODE_GQA = ((1, 4), (3, 2), (4, 2), (7, 2), (16, 1), (32, 1), (48, 1))
 DECODE_DENSE_S = {"edges": 300, "many units": 600}
 
 
-def decode_unit_cols(dk: int, rows: int, C: int) -> int:
-    """The unit width the bf16 decode kernels take on this card for
-    ``rows`` = B n_splits row splits of C columns at Dk = ``dk``
-    (etap_decode.cuh's decode_unit_cols, asked from the library)."""
+def decode_unit_cap(dk: int, quant: bool, fp32_q: bool) -> int:
+    """The widest unit an instance takes (etap_decode.cuh's unit_cap): 64
+    columns, 32 where Dk >= 256 and over codes, 16 over codes with fp32 q
+    where Dk >= 256."""
+    return 16 if quant and fp32_q and dk >= 256 else \
+        32 if quant or dk >= 256 else 64
+
+
+def decode_unit_cols(dk: int, rows: int, C: int, quant: bool = False,
+                     fp32_q: bool = False) -> int:
+    """The unit width the decode kernels take on this card for ``rows`` =
+    B n_splits row splits of C columns at Dk = ``dk`` (etap_decode.cuh's
+    decode_unit_cols, asked from the library; over codes, ``quant``, at
+    most the instance's decode_unit_cap)."""
     from repro_torch.kernels import build
     cols = build.library().etap_decode_unit_cols(dk, rows, C)
     if cols <= 0:
         raise RuntimeError(f"etap_decode_unit_cols: cudaError {-cols}")
-    return cols
+    return min(cols, decode_unit_cap(dk, quant, fp32_q))
 
 
 def decode_edge_lengths(what, gen, dev, cap=None):
@@ -807,21 +826,29 @@ DECODE_INSTANCES = (
 
 
 def decode_attrs() -> None:
-    """An [attrs] line for each bf16 decode instance and unit width (16,
+    """An [attrs] line for each decode instance (bf16 rows, and over codes
+    with bf16 and with fp32 q: QUANT_DECODE_INSTANCES) and unit width (16,
     32, 64 columns), single pass and split partial; fails on local memory
     (spills)."""
-    for what, dense, dk, dv, sepv in DECODE_INSTANCES:
-        for cols in (16, 32) if dk >= 256 else (16, 32, 64):
-            got = [attr_values("etap_decode_attrs", dense, dk, dv, sepv,
-                               stats, cols) for stats in (0, 1)]
-            log(f"[attrs] bf16 decode {what}, units of {cols}: "
-                + "; ".join(f"{kind} {r} registers, {s} B shared memory, "
-                            f"{loc} B local"
-                            for kind, (r, s, loc) in zip(
+    for insts, qs in ((DECODE_INSTANCES, (-1,)),
+                      (QUANT_DECODE_INSTANCES, (0, 1))):
+        for what, dense, dk, dv, sepv in insts:
+            for q in qs:
+                kind = {-1: "bf16 decode", 0: "quantized decode, bf16 q",
+                        1: "quantized decode, fp32 q"}[q]
+                cap = decode_unit_cap(dk, q >= 0, q == 1)
+                for cols in (c for c in (16, 32, 64) if c <= cap):
+                    got = [attr_values("etap_decode_attrs", dense, dk, dv,
+                                       sepv, stats, cols, q)
+                           for stats in (0, 1)]
+                    log(f"[attrs] {kind} {what}, units of {cols}: "
+                        + "; ".join(
+                            f"{x} {r} registers, {s} B shared memory, "
+                            f"{loc} B local" for x, (r, s, loc) in zip(
                                 ("single pass", "split"), got, strict=True)))
-            if any(loc for _, _, loc in got):
-                raise AssertionError(f"bf16 decode {what} units of {cols}: "
-                                     "local memory")
+                    if any(loc for _, _, loc in got):
+                        raise AssertionError(f"{kind} {what} units of "
+                                             f"{cols}: local memory")
 
 
 def decode_unit_width_bits(gen, dev) -> None:
@@ -853,6 +880,368 @@ def decode_unit_width_bits(gen, dev) -> None:
         "K5 [128] G=48", K.etap_decode_dense(q, k, v, lengths, **kw),
         lambda: K.etap_decode_dense(q[:1], k[:1], v[:1], lengths[:1], **kw),
         wide=decode_unit_cols(HD, 60, 48), narrow=decode_unit_cols(HD, 1, 48))
+
+
+# the decode instances over int8 / e4m3 codes (etap_decode.cuh, QUANT):
+# (what, dense, Dk, Dv, V of its own); each with bf16 q and with fp32 q,
+# one instance for both code types (the converters read the code type)
+QUANT_DECODE_INSTANCES = (
+    ("paged latent, fused", 0, DK, DV, 0),
+    ("paged latent, separate V", 0, DK, DV, 1),
+    ("paged Granite (128, 128)", 0, 128, 128, 1),
+    ("dense (128, 128)", 1, 128, 128, 1),
+    ("dense (64, 64)", 1, 64, 64, 1))
+# the quantized decode entries' keys in the kernels line, by instance
+QUANT_EDGE_ERRS: dict = {}
+
+
+def quant_close(out, ref, what: str) -> float:
+    """A quantized decode output against its plain version: bf16_close
+    for a bf16 output (bf16 q, paged), f32_close for an fp32 one."""
+    import torch
+    return (bf16_close if out.dtype == torch.bfloat16 else f32_close)(
+        out, ref, what)
+
+
+def quant_stats_close(st, ref, what: str, fp32_q: bool) -> float:
+    """Split stats of a quantized decode kernel against its plain
+    version's: finalized per split at the fp32 tolerance with fp32 q
+    (f32_finalized_close), at F32_TOL with bf16 q (finalized_close)."""
+    if fp32_q:
+        return f32_finalized_close(st, ref, what, transposed=True)
+    return finalized_close(st, ref, what)
+
+
+def rmse_within(out, plain, oracle, kvd: str, what: str) -> float:
+    """The RMSE of ``out`` against the fp64 ``oracle`` on the unquantized
+    rows: the reference's gate (QUANT_RMSE) where the reference's route
+    (the plain version, dequantized rows in fp32) meets it, else within 1%
+    of that route's RMSE (a row of one key is one V row's quantization
+    error).  Returns the RMSE."""
+    def rms(x):
+        return float(((x.double() - oracle) ** 2).mean().sqrt())
+    r, pr = rms(out), rms(plain)
+    gate = QUANT_RMSE[kvd]
+    limit = gate if pr <= gate else pr * 1.01
+    if not r <= limit:
+        raise AssertionError(f"{what}: RMSE {r:.4e} against the fp64 oracle "
+                             f"exceeds {limit:.4e} (the reference's route "
+                             f"{pr:.4e}, gate {gate:.3e})")
+    return r
+
+
+def quant_decode_edge_checks(gen, dev) -> dict:
+    """Every decode instance over codes (QUANT_DECODE_INSTANCES) at
+    DECODE_EDGES over int8 and e4m3 codes, with bf16 and with fp32 q, in
+    both rescale modes, against its plain version: K3q / K1q over the paged
+    latent code pool (H 16 and 128) and over its first 512 columns and
+    pairs as a V pool of their own (bitwise the fused kernels), K5q / K6q
+    over GQA code caches [B, S, K, hd] and their pairs [B, S, K, 2] at 128
+    and 64 with G = 1, 3, 4, 7, 16, 32 and 48 (S not a multiple of 64; in
+    place bitwise the kernel on the grouped copies), and at 128 Granite's
+    separate code pools over the same rows (bitwise the dense kernels on
+    the pages gathered); split(n=1) + K2 == the single pass bitwise; with
+    fp32 q each output's RMSE against the fp64 oracle on the unquantized
+    rows (rmse_within).  Every instance must run each unit width it is
+    built at (16 and 32 columns).  Returns {kernels-line key: max abs
+    err}."""
+    import torch
+    from repro_torch.kernels import splitkv
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.etap.ref import etap_decode_ref
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.runtime import paged_cache
+    from repro_torch.runtime.paged_cache import gather_blocks, raw
+    errs: dict = {}
+    widths: dict = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def table_of(B, nb, lens, idle):
+        t = (torch.randperm(B * nb, generator=gen, device=dev) + 1
+             ).reshape(B, nb).to(torch.int32)
+        for b, n in enumerate(lens):
+            t[b, -(-n // PAGE):] = 0
+        for b in idle:
+            t[b] = 0
+        return t
+
+    def ran(insts, dk, rows, n_list, C_, tag, fp32_q):
+        got = {n: decode_unit_cols(dk, rows * n, C_, quant=True,
+                                   fp32_q=fp32_q) for n in (1, *n_list)}
+        for inst in insts:
+            widths.setdefault(inst, set()).update(got.values())
+        return tag + ", units of " + ", ".join(
+            f"{c} (n={n})" for n, c in got.items())
+
+    def pair(single, partial, plain_single, plain_partial, n_list, tag,
+             keys, *, mode, qdt, comb_dtype):
+        """The single pass and the partials under n_list against their
+        plain versions, split(n=1) + K2 == the single pass bitwise.
+        Returns (single pass, {n: partial}, plain single pass)."""
+        out, plain = single(), plain_single()
+        note(keys[0], quant_close(out, plain, f"{tag} single"))
+        sts = {}
+        for n in sorted(set(n_list) | {1}):
+            sts[n] = partial(n)
+            if n > 1:
+                note(keys[1], quant_stats_close(
+                    sts[n], plain_partial(n), f"{tag} partial n={n}",
+                    qdt == f32))
+        bitwise(C.combine_splits(*sts[1], out_dtype=comb_dtype,
+                                 rescale=mode), out,
+                f"{tag}: partial(n=1)+K2 vs single pass")
+        return out, sts, plain
+
+    def same(a, b, sa, sb, tag):
+        bitwise(a, b, f"{tag}: single pass")
+        for n, st in sa.items():
+            for x, y in zip(st, sb[n], strict=True):
+                bitwise(x, y, f"{tag}: partial n={n}")
+
+    def gate(out, sts, plain, plain_partial, n_list, oracle, kvd, mode,
+             tag):
+        """fp32 q: the single pass and K1q / K6q + K2 at the largest split
+        count within rmse_within of the oracle."""
+        f = dict(out_dtype=f32, rescale=mode)
+        rmse_within(out, plain, oracle, kvd, f"{tag} single")
+        n = max(sts)
+        rmse_within(C.combine_splits(*sts[n], **f),
+                    C.combine_splits_plain(*plain_partial(n), **f), oracle,
+                    kvd, f"{tag} n={n} + K2")
+
+    for what, _, nb, n_list, idle in DECODE_EDGES:
+        # ---- the latent: the fused code pool, its V as a pool of its own
+        for H in DECODE_LATENT_H:
+            lens = decode_edge_lengths(what, gen, dev)
+            B = len(lens)
+            rows = randn(1 + B * nb, PAGE, DK)
+            table = table_of(B, nb, lens, idle)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            qf = randn(B, H, DK)
+            kd = gather_blocks(rows, table)
+            oracle = etap_decode_ref(qf.double(), kd.double(),
+                                     kd[..., :DV].double(), lengths,
+                                     scale=SCALE, dtype=torch.float64)
+            del kd
+            for kvd in ("int8", "fp8"):
+                codes, sz = paged_cache.quantize_pool(rows, kvd)
+                vc, vs = latent_v(codes, sz)
+                keys = (f"etap_decode_mla_paged_quant[{kvd}]",
+                        f"etap_paged_partial_quant[{kvd}]")
+                skeys = (f"etap_decode_paged_quant[{DK},{DV},{kvd}]",
+                         f"etap_paged_partial_sepv_quant[{DK},{DV},{kvd}]")
+                for qdt in (bf16, f32):
+                    q = qf.to(qdt)
+                    for mode in ("amla", "mul"):
+                        kw = dict(scale=SCALE, rescale=mode)
+                        tag = ran(("paged latent, fused",
+                                   "paged latent, separate V"), DK, B, n_list,
+                                  H, f"K3q/K1q latent {what} B={B} H={H} "
+                                  f"{kvd} q {str(qdt)[6:]} {mode}",
+                                  qdt == f32)
+                        a = (q, codes, sz, DV, table, lengths)
+                        out, sts, plain = pair(
+                            lambda: K.etap_decode_mla_paged_quant(*a, **kw),
+                            lambda n: K.etap_paged_partial_quant(
+                                *a, n_splits=n, **kw),
+                            lambda: K.etap_decode_mla_paged_quant_plain(
+                                *a, **kw),
+                            lambda n: K.etap_paged_partial_quant_plain(
+                                *a, n_splits=n, **kw),
+                            n_list, tag, keys, mode=mode, qdt=qdt,
+                            comb_dtype=qdt)
+                        s = (q, codes, sz, vc, vs, table, lengths)
+                        so = K.etap_decode_paged_quant(*s, **kw)
+                        ss = {n: K.etap_paged_partial_sepv_quant(
+                            *s, n_splits=n, **kw) for n in sts}
+                        same(so, out, ss, sts, tag + ", separate V vs fused")
+                        for key, k in zip(skeys, keys, strict=True):
+                            note(key, errs.get(k, 0.0))
+                        if qdt == f32:
+                            gate(out, sts, plain,
+                                 lambda n: K.etap_paged_partial_quant_plain(
+                                     *a, n_splits=n, **kw),
+                                 n_list, oracle, kvd, mode, tag)
+                log(f"[quant decode edges] {tag}: K3q, K1q n="
+                    f"{','.join(map(str, n_list))}, separate V ok over "
+                    f"{kvd} with bf16 and fp32 q in both modes; bitwise: "
+                    "n=1 + K2 == single pass, separate V == fused; fp32 q "
+                    "within the RMSE gates")
+        # ---- the GQA widths: dense code caches in place, Granite's pools
+        for hd in (128, 64):
+            for G, Kv in DECODE_GQA:
+                if what == "many units" and G not in (4, 32, 48):
+                    continue
+                S = DECODE_DENSE_S[what]
+                lens_b = decode_edge_lengths(what, gen, dev, cap=S)
+                Bo = len(lens_b)
+                lengths = torch.tensor(lens_b, dtype=torch.int32,
+                                       device=dev).repeat_interleave(Kv)
+                BG = Bo * Kv
+                kf, vf = randn(Bo, S, Kv, hd), randn(Bo, S, Kv, hd)
+                qf = randn(BG, G, hd)
+                oracle = etap_decode_ref(
+                    qf.double(), splitkv.grouped(kf).double(),
+                    splitkv.grouped(vf).double(), lengths, scale=hd ** -0.5,
+                    dtype=torch.float64)
+                plans = {n: dense_split_plan(S, PAGE, n)
+                         for n in set(n_list) | {1}}
+                npg = -(-S // PAGE)                # a multiple of every n
+                npg = -(-npg // max(n_list)) * max(n_list)
+                tab = table_of(BG, npg, lengths.tolist(), ())
+                live = tab > 0
+                for kvd in ("int8", "fp8"):
+                    kc, ks = paged_cache.quantize_rows(kf, kvd)
+                    vc, vs = paged_cache.quantize_rows(vf, kvd)
+                    grp = [splitkv.grouped(x) for x in (kc, vc, ks, vs)]
+                    keys = (f"etap_decode_dense_quant[{hd},{kvd}]",
+                            f"etap_partial_dense_quant[{hd},{kvd}]")
+                    if hd == 128:
+                        # Granite's pools over the grouped rows, and the
+                        # dense rows gathered back from their pages
+                        pools = []
+                        for x, fill in zip(grp, (0, 0, 1, 1), strict=True):
+                            w = x.shape[-1]
+                            pad = torch.zeros(BG, npg * PAGE, w, device=dev,
+                                              dtype=raw(x).dtype)
+                            if fill:               # pairs past S: (1, 0)
+                                pad[..., 0] = 1
+                            pad[:, :S] = raw(x)
+                            pool = torch.zeros(1 + BG * npg, PAGE, w,
+                                               device=dev, dtype=pad.dtype)
+                            if fill:
+                                pool[..., 0] = 1
+                            pool[tab[live].long()] = pad.reshape(
+                                BG, npg, PAGE, w)[live]
+                            pools.append(pool.view(x.dtype))
+                        gath = [gather_blocks(raw(p), tab).view(p.dtype)
+                                for p in pools]
+                    for qdt in (bf16, f32):
+                        q = qf.to(qdt)
+                        for mode in ("amla", "mul"):
+                            kw = dict(scale=hd ** -0.5, rescale=mode)
+                            insts = (f"dense ({hd}, {hd})",) + (
+                                ("paged Granite (128, 128)",) if hd == 128
+                                else ())
+                            tag = ran(insts, hd, BG, n_list, G,
+                                      f"K5q/K6q [{hd}] {what} B={Bo} K={Kv} "
+                                      f"G={G} S={S} {kvd} q "
+                                      f"{str(qdt)[6:]} {mode}", qdt == f32)
+
+                            def dense(kx, vx, kz, vz, plan_of=plans):
+                                args = (q, kx, vx, lengths)
+                                qkw = dict(k_sz=kz, v_sz=vz, **kw)
+                                return (
+                                    lambda: K.etap_decode_dense_quant(
+                                        *args, **qkw),
+                                    lambda n: K.etap_partial_dense_quant(
+                                        *args, plan=plan_of[n], **qkw),
+                                    lambda: K.etap_decode_dense_quant_plain(
+                                        *args, **qkw),
+                                    lambda n:
+                                        K.etap_partial_dense_quant_plain(
+                                            *args, plan=plan_of[n], **qkw))
+                            out, sts, plain = pair(
+                                *dense(*grp), n_list, tag + ", grouped copy",
+                                keys, mode=mode, qdt=qdt, comb_dtype=f32)
+                            io, ist, _ = pair(
+                                *dense(kc, vc, ks, vs), n_list,
+                                tag + ", in place", keys, mode=mode, qdt=qdt,
+                                comb_dtype=f32)
+                            same(io, out, ist, sts,
+                                 tag + ", in place vs grouped copy")
+                            if qdt == f32:
+                                gate(out, sts, plain, dense(*grp)[3],
+                                     n_list, oracle, kvd, mode, tag)
+                            if hd != 128:
+                                continue
+                            gplans = {n: dense_split_plan(npg * PAGE, PAGE, n)
+                                      for n in plans}
+                            do, ds, _ = pair(
+                                *dense(*gath, plan_of=gplans), n_list,
+                                tag + ", gathered pages", keys, mode=mode,
+                                qdt=qdt, comb_dtype=f32)
+                            s = (q, pools[0], pools[2], pools[1], pools[3],
+                                 tab, lengths)
+                            po, ps, _ = pair(
+                                lambda: K.etap_decode_paged_quant(*s, **kw),
+                                lambda n: K.etap_paged_partial_sepv_quant(
+                                    *s, n_splits=n, **kw),
+                                lambda: K.etap_decode_paged_quant_plain(
+                                    *s, **kw),
+                                lambda n:
+                                    K.etap_paged_partial_sepv_quant_plain(
+                                        *s, n_splits=n, **kw),
+                                n_list, tag + ", Granite's paged pools",
+                                (f"etap_decode_paged_quant[128,128,{kvd}]",
+                                 f"etap_paged_partial_sepv_quant[128,128,"
+                                 f"{kvd}]"), mode=mode, qdt=qdt,
+                                comb_dtype=qdt)
+                            same(po, do.to(po.dtype), ps, ds,
+                                 tag + ", Granite's paged pools vs dense")
+                log(f"[quant decode edges] {tag}: K5q, K6q n="
+                    f"{','.join(map(str, n_list))} ok over int8 and fp8 with "
+                    "bf16 and fp32 q in both modes; bitwise: n=1 + K2 == "
+                    "single pass, in place == the grouped copy"
+                    + (", Granite's paged pools == dense" if hd == 128
+                       else "") + "; fp32 q within the RMSE gates")
+    for inst, got in widths.items():
+        want = {16, 32}
+        log(f"[quant decode edges] {inst}: units of {sorted(got)} columns "
+            "ran")
+        if got != want:
+            raise AssertionError(f"quant decode edges {inst}: units of "
+                                 f"{sorted(got)}; {sorted(want)} must run")
+    return errs
+
+
+def quant_decode_unit_width_bits(gen, dev) -> None:
+    """Whether a column's bits depend on the unit width over codes (logged,
+    not gated): K3q over an int8 latent pool at H 128 with bf16 q (with
+    fp32 q the latent takes units of 16 only), and K5q [128] at G 48 over
+    e4m3 rows with fp32 q, row 0 of a batch of 60 rows (units of 32)
+    against row 0 alone (units of 16)."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.runtime import paged_cache
+    lens = [4000] + [int(x) for x in torch.randint(
+        1, 4097, (59,), generator=gen, device=dev)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    codes, sz, table = make_quant_pool(60, 64, lens, "int8", gen, dev)
+    q = torch.randn(60, 128, DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kw = dict(scale=SCALE, rescale="mul")
+    unit_width_bits(
+        "K3q int8 latent H=128 q bfloat16",
+        K.etap_decode_mla_paged_quant(q, codes, sz, DV, table, lengths,
+                                      **kw),
+        lambda: K.etap_decode_mla_paged_quant(
+            q[:1], codes, sz, DV, table[:1], lengths[:1], **kw),
+        wide=decode_unit_cols(DK, 60, 128, quant=True),
+        narrow=decode_unit_cols(DK, 1, 128, quant=True))
+    del codes, sz
+    kc, ks = paged_cache.quantize_rows(torch.randn(
+        60, 2048, 1, 128, generator=gen, device=dev), "fp8")
+    vc, vs = paged_cache.quantize_rows(torch.randn(
+        60, 2048, 1, 128, generator=gen, device=dev), "fp8")
+    q = torch.randn(60, 48, 128, generator=gen, device=dev)
+    lengths = lengths.clamp(max=2048)
+    kw = dict(scale=128 ** -0.5, rescale="mul")
+    unit_width_bits(
+        "K5q fp8 [128] G=48 q float32",
+        K.etap_decode_dense_quant(q, kc, vc, lengths, k_sz=ks, v_sz=vs, **kw),
+        lambda: K.etap_decode_dense_quant(
+            q[:1], kc[:1], vc[:1], lengths[:1], k_sz=ks[:1], v_sz=vs[:1],
+            **kw),
+        wide=decode_unit_cols(128, 60, 48, quant=True, fp32_q=True),
+        narrow=decode_unit_cols(128, 1, 48, quant=True, fp32_q=True))
 
 
 def phase_kernels(quick: bool, report: dict) -> None:
@@ -1264,6 +1653,12 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
                 errs[f"{wrapper}[{kvd}]"] = max(errs[f"{wrapper}[{kvd}]"], e)
     report["combine_splits"]["max_abs_err"] = max(
         report["combine_splits"]["max_abs_err"], k2_err)
+    # every decode instance over codes at the edges of its tiling (their
+    # errors join the separate-V and dense phases' entries too)
+    QUANT_EDGE_ERRS.update(quant_decode_edge_checks(gen, dev))
+    for key in errs:
+        errs[key] = max(errs[key], QUANT_EDGE_ERRS.get(key, 0.0))
+    quant_decode_unit_width_bits(gen, dev)
 
     # ---- timing at the main path's widths: H = 128, ~4K ragged context
     iters, piters = (1, 1) if quick else (20, 3)
@@ -1997,7 +2392,7 @@ def phase_quant_dense_kernels(quick: bool, report: dict) -> None:
     from repro_torch.kernels.flash_decode import flash_decode as FD
 
     dev = torch.device("cuda")
-    errs = {k: 0.0 for k in QDENSE_KERNELS}
+    errs = {k: QUANT_EDGE_ERRS.get(k, 0.0) for k in QDENSE_KERNELS}
     k2_err = {"combine_splits[128]": 0.0, "combine_splits_std[128]": 0.0,
               "combine_splits[64]": 0.0, "combine_splits_std[64]": 0.0,
               "combine_splits_std": 0.0}
@@ -2919,7 +3314,7 @@ def phase_sepv_kernels(quick: bool, report: dict, launches: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
-    errs = {k: 0.0 for k in SEPV_KERNELS}
+    errs = {k: QUANT_EDGE_ERRS.get(k, 0.0) for k in SEPV_KERNELS}
     codes = ("fp", "int8", "fp8")
 
     def keyf(dk, dv, kvd):

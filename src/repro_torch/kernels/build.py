@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP decode
-kernels over bf16 rows (paged and dense, on wgmma and TMA), their
-quantized twins (fused and over separate K and V pools), the chunked
-paged prefill over bf16 and code pools, the untransposed baseline, the
-split combine, the causal prefill and the selective scan) on first use.
+kernels over bf16 rows and over int8 / e4m3 code rows (paged, fused and
+over separate K and V pools, and dense; one wgmma / TMA kernel), the
+chunked paged prefill over bf16 and code pools, the untransposed baseline,
+the split combine, the causal prefill and the selective scan) on first
+use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -91,10 +92,11 @@ SIGNATURES = {
     "etap_paged_partial_sepv_quant": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _I,
                                                              _P],
     "etap_prefill_paged_quant": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _P],
-    # the bf16 decode kernels K1 / K3 / K5 / K6 (etap_decode.cuh): (dense,
-    # dk, dv, sepv, stats, cols, out[3]) attrs at units of 16, 32 or 64
-    # columns, and the unit width for (dk, B n_splits, C)
-    "etap_decode_attrs": [_I, _I, _I, _I, _I, _I, _P],
+    # the decode kernels K1 / K3 / K5 / K6 and their twins over codes
+    # (etap_decode.cuh): (dense, dk, dv, sepv, stats, cols, q, out[3])
+    # attrs at units of 16, 32 or 64 columns (q -1: bf16 rows; 0 / 1:
+    # codes with bf16 / fp32 q), and the unit width for (dk, B n_splits, C)
+    "etap_decode_attrs": [_I, _I, _I, _I, _I, _I, _I, _P],
     "etap_decode_unit_cols": [_I, _L, _I],
     # K4 over bf16 pools (etap_prefill.cu): (dk, dv, sepv, cols, out[3])
     # attrs at units of 64 or 32 columns; K4q's with qf32 before out

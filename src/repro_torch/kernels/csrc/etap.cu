@@ -13,8 +13,8 @@
 // V rows of its own, and the GQA heads (128, 128), (64, 64) and (256, 256)
 // with V rows of their own (a V that is K itself is read through a second
 // map over K's rows).  The paged K1 / K3 are etap_decode.cu's instances
-// (a separate source, so the two compile in parallel), the quantized K5q /
-// K6q etap_quant.cu's.
+// (a separate source, so the two compile in parallel), the instances over
+// code rows, K5q / K6q, etap_quant.cu's.
 #include "etap_decode.cuh"
 
 namespace {

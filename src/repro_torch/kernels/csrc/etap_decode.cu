@@ -13,9 +13,9 @@
 //       (etap_paged_partial_pallas :646, bodies _etap_partial_body :506
 //        and _paged_partial_body :619)
 //
-// The dense K5 / K6 are etap.cu's instances of the same kernel; the
-// quantized twins (K3q, K1q over code pools) stay on etap_body.cuh's
-// mma.sync body (etap_quant.cu, etap_sepv.cu).
+// The dense K5 / K6 are etap.cu's instances of the same kernel; its
+// instances over code pools, K3q and K1q, etap_quant.cu's (fused) and
+// etap_sepv.cu's (separate V).
 #include "etap_decode.cuh"
 
 namespace {
@@ -68,9 +68,15 @@ int attrs_paged(int dk, int dv, int sepv, int cols, int* out) {
 
 extern "C" {
 
-// The dense instances' attributes (etap.cu).
+// The dense instances' attributes (etap.cu), and the instances' over
+// codes (etap_quant.cu: the fused paged and the dense ones; etap_sepv.cu:
+// the paged ones over separate pools).
 int etap_dense_cols_attrs(int dk, int dv, int sepv, int stats, int cols,
                           int* out);
+int etap_quant_cols_attrs(int dense, int dk, int dv, int stats, int qf32,
+                          int cols, int* out);
+int etap_sepv_cols_attrs(int dk, int dv, int stats, int qf32, int cols,
+                         int* out);
 
 // K3: q [B,H,DK]; pool [N,PAGE,DK]; table [B,nbt]; lengths [B];
 // out [B,H,DV] — all bf16 / int32, contiguous, 16-byte aligned.
@@ -125,8 +131,9 @@ int etap_paged_partial_sepv(const void* q, const void* k_pool,
 }
 
 // The unit width (16, 32 or 64 columns) the bf16 decode kernels take on
-// this device for `rows` = B n_splits row splits of C columns at Dk = dk,
-// or a negative cudaError_t.
+// this device for `rows` = B n_splits row splits of C columns at Dk = dk
+// (over codes: the smaller of it and the instance's unit_cap), or a
+// negative cudaError_t.
 int etap_decode_unit_cols(int dk, long long rows, int C) {
   const int dev = current_device();
   const int sms = dev < 0 ? 0 : sm_count(dev);
@@ -135,15 +142,26 @@ int etap_decode_unit_cols(int dk, long long rows, int C) {
 }
 
 // The registers, dynamic shared memory and local memory (spills) of a
-// bf16 decode instance into out[0..2]: paged (dense 0: the fused latent
-// with sepv 0, PagedSepWidths with sepv 1) or dense (dense 1: the latent
-// fused with sepv 0, every DenseWidths pair with V of its own with sepv
-// 1), the single pass (stats 0) or the split partial (stats 1), at units
-// of `cols` columns (16 or 32, and 64 where dk < 256).  The registers
-// are the launch's (168 a thread for 384 threads); setmaxnreg moves them
-// to 40 in the producer and 232 in the consumers.
+// decode instance into out[0..2]: over bf16 rows (q -1) paged (dense 0:
+// the fused latent with sepv 0, PagedSepWidths with sepv 1) or dense
+// (dense 1: the latent fused with sepv 0, every DenseWidths pair with V
+// of its own with sepv 1); over int8 / e4m3 codes (q 0 with bf16 q, 1
+// with fp32 q; one instance for both code types) paged (the fused latent
+// with sepv 0, PagedSepWidths with sepv 1) or dense (EtapQuantDenseWidths,
+// sepv 1); the single pass (stats 0) or the split partial (stats 1), at
+// units of `cols` columns (16 up to the instance's unit_cap: 16, 32 or
+// 64).  The
+// registers are the launch's (168 a thread for 384 threads); setmaxnreg
+// moves them to 40 in the producer and 232 in the consumers.
 int etap_decode_attrs(int dense, int dk, int dv, int sepv, int stats,
-                      int cols, int* out) {
+                      int cols, int q, int* out) {
+  if (q >= 0) {
+    if (q > 1 || (dense && !sepv))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dense || !sepv)
+      return etap_quant_cols_attrs(dense, dk, dv, stats, q, cols, out);
+    return etap_sepv_cols_attrs(dk, dv, stats, q, cols, out);
+  }
   if (dense) return etap_dense_cols_attrs(dk, dv, sepv, stats, cols, out);
   return stats ? attrs_paged<true>(dk, dv, sepv, cols, out)
                : attrs_paged<false>(dk, dv, sepv, cols, out);

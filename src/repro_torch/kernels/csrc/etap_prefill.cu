@@ -54,7 +54,7 @@
 // dequantizes each row to fp32 (codes scale + zp) and forms both products
 // in fp32.  Every int8 code and every e4m3 code is exact in bf16, so the
 // codes feed the bf16 wgmma as they are and the affine goes around the
-// products (etap_body.cuh's numerics of the quantized bodies):
+// products (as in etap_decode.cuh's "Over codes"):
 //     S_r  = scale_r (codes_r . q) + zp_r sum(q)
 //     O^T += V^T (scale P)^T + (sum_r zp_r p_r) on every Dv row
 // sum(q) is one fp32 sum per column of q as given.  scale_r p_r enters P V
@@ -85,9 +85,9 @@
 // first warpgroup's other three warps (the converters) widen them in
 // place, box m by warp m % 3 (the ring a multiple of 3 slots, so that a
 // slot is always the same warp's), into the slot's swizzled bf16 box on
-// the integer and fp32 / bf16 pipes (widen4), and arrive on the slot's
-// ready barrier: from there on the consumers run the bf16 kernel's
-// products on the widened boxes.  Each consumer warpgroup
+// the integer and fp32 / bf16 pipes (hopper.cuh: widen_box), and arrive
+// on the slot's ready barrier: from there on the consumers run the bf16
+// kernel's products on the widened boxes.  Each consumer warpgroup
 // (setmaxnreg 232) owns CW = NC / 2 of the unit's columns outright and
 // takes PP pages a step (2 at Granite's 128, whose ring holds several
 // steps; 1 at the latent):
@@ -281,94 +281,6 @@ __device__ __forceinline__ void mma(float (&d)[CW / 2], uint64_t da,
     wgmma_ss_m64n16k16<FIRST, TA>(d, da, db);
 }
 
-// Four codes (byte i of w is code i) as two bf16x2 words (codes 0, 1 and
-// 2, 3), exactly, on the integer and fp32 / bf16 pipes: the SM's
-// conversion units (I2F, F2F, cvt from e4m3) take 16 operations a clock,
-// too few for the 36,864 codes of a latent page a unit (PERF.md).
-//   int8 x: the fp32 number 2^23 + (x + 128) (its byte under an exponent),
-//     minus 2^23 + 128, is x exactly; |x| <= 128 has at most 8
-//     significant bits, so its top 16 bits are bf16(x).
-//   e4m3 s.eeee.mmm: s << 15 | eeeemmm << 4 read as bf16 is the code times
-//     2^-120 (a bf16 subnormal for e = 0, as the code is an e4m3 one), so
-//     one bf16 product with 2^120 gives the code exactly.  The NaN codes
-//     (0x7f, 0xff) are never written (quantize_rows clamps).
-template <int CODE>
-__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
-                                       uint32_t& hi) {
-  if constexpr (CODE == kInt8) {
-    const uint32_t u = w ^ 0x80808080u;    // x + 128, byte by byte
-    uint32_t f[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      f[i] = __float_as_uint(
-          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
-          8388736.f);                      // 2^23 + 128
-    lo = __byte_perm(f[0], f[1], 0x7632);
-    hi = __byte_perm(f[2], f[3], 0x7632);
-  } else {
-    const __nv_bfloat162 two120 = __floats2bfloat162_rn(0x1p120f, 0x1p120f);
-    auto half2 = [&](uint32_t v) {         // bytes in halves' low bytes
-      uint32_t bits = ((v << 8) & 0x80008000u) | ((v << 4) & 0x07f007f0u);
-      __nv_bfloat162 x = __hmul2(
-          *reinterpret_cast<const __nv_bfloat162*>(&bits), two120);
-      return *reinterpret_cast<uint32_t*>(&x);
-    };
-    lo = half2(__byte_perm(w, 0, 0x4140));
-    hi = half2(__byte_perm(w, 0, 0x4342));
-  }
-}
-
-// Widen a ring slot's code box in place, one warp: the slot's upper 4 KB
-// hold its codes [64][64] (dense bytes, as TMA landed them) and become the
-// slot's 128-byte-swizzled bf16 box [64][64] (the layout a TMA box of bf16
-// rows has).  Lane l takes 16 codes (one 16-byte load, two 16-byte
-// stores) of rows 8 k + l / 4, k = 0..7.  Rows 0-31 land below the codes;
-// rows 32-47 over code rows 0-31, rows 48-55 over code rows 32-47 and rows
-// 56-63 over code rows 48-63, each once the whole warp has read the codes
-// it covers (one 16-byte load in flight a lane: the converters have 40
-// registers).
-template <int CODE>
-__device__ __forceinline__ void widen_box(bf16* box, int lane) {
-  const uint8_t* src = reinterpret_cast<const uint8_t*>(box) + CODE_BOX_BYTES;
-  const int h = lane & 3;
-  auto load = [&](int k) {
-    return *reinterpret_cast<const uint4*>(src + (8 * k + (lane >> 2)) * BOX +
-                                           h * 16);
-  };
-  auto store = [&](int k, uint4 v) {
-    const int r = 8 * k + (lane >> 2);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t o[8];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) widen4<CODE>(w[x], o[2 * x], o[2 * x + 1]);
-    char* row = reinterpret_cast<char*>(box) + r * 128;
-    *reinterpret_cast<uint4*>(row + (((2 * h) ^ (r & 7)) << 4)) =
-        make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(row + (((2 * h + 1) ^ (r & 7)) << 4)) =
-        make_uint4(o[4], o[5], o[6], o[7]);
-  };
-  // not unrolled: the addresses of 8 rows at once would not fit
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) store(k, load(k));
-  __syncwarp();                            // code rows 0-31 read
-#pragma unroll 1
-  for (int k = 4; k < 6; ++k) store(k, load(k));
-#pragma unroll 1
-  for (int k = 6; k < 8; ++k) {
-    const uint4 v = load(k);
-    __syncwarp();                          // code rows up to 8 k + 7 read
-    store(k, v);
-  }
-}
-
-// Element d of row r of a K-major Q term (NBK boxes of rows x 64 bf16,
-// 128-byte swizzled): its offset in elements.
-template <int ROWS>
-__device__ __forceinline__ int q_at(int r, int d) {
-  return (d >> 6) * ROWS * BOX + r * BOX +
-         ((((d & 63) >> 3) ^ (r & 7)) << 3) + (d & 7);
-}
-
 // The (scale, zp) pairs of rows r and r + 8 of pool block blk.
 __device__ __forceinline__ void pairs_of(const float* sz, int blk, int r,
                                          float2 (&z)[2]) {
@@ -484,9 +396,9 @@ __global__ void __launch_bounds__(NTHREAD, 1) etap_prefill_kernel(
           const uint32_t slot = box % RING;
           mbar_wait(&full[slot], (box / RING) & 1);
           if (P.code)
-            widen_box<kE4m3>(ring + slot * BOX_ELEMS, lane);
+            widen_box<true>(ring + slot * BOX_ELEMS, lane);
           else
-            widen_box<kInt8>(ring + slot * BOX_ELEMS, lane);
+            widen_box<false>(ring + slot * BOX_ELEMS, lane);
           fence_proxy_async();             // for the consumers' wgmma
           __syncwarp();
           if (lane == 0) mbar_arrive(&full[READY + slot]);

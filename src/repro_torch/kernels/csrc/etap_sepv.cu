@@ -1,9 +1,10 @@
-// Paged ETAP attention over separate K and V code pools for Hopper
-// (sm_90a): the quantized separate-V instantiations of etap_body.cuh's
-// body, which says what they compute and how (its "Address modes").  K and
-// V each sit in their own paged pool [N, 64, D*] of int8 / e4m3 codes,
-// read through one block table, each with its own (scale, zp) pool
-// [N, 64, 2].
+// Paged ETAP decode over separate K and V code pools for Hopper (sm_90a):
+// etap_decode.cuh's kernel (wgmma on the page's 64 rows, a TMA ring,
+// warp-specialised; code boxes widened in place to bf16 by the producer
+// warpgroup's converters), which says what they compute and how (its
+// "Over codes").  K and V each sit in their own paged pool [N, 64, D*] of
+// int8 / e4m3 codes, read through one block table, each with its own
+// (scale, zp) pool [N, 64, 2].
 //
 //   K3q single-pass paged decode   replaces repro/kernels/etap/etap.py:237
 //       (_paged_call :185, body _paged_body_quant :110, reached from
@@ -13,77 +14,62 @@
 //        :631)
 //
 // The bf16 K3 / K1 over separate pools (bodies _paged_body :98 and
-// _paged_partial_body :619) are etap_decode.cu's, and K4 / K4q, the
-// chunked prefill and verify over bf16 and code pools (bodies
-// _etap_prefill_body :271, _verify_body :348, _prefill_body_quant :334 and
-// _verify_body_quant :360), etap_prefill.cu's, both on wgmma and TMA.
+// _paged_partial_body :619) are etap_decode.cu's instances of the same
+// kernel, and K4 / K4q, the chunked prefill and verify over bf16 and code
+// pools, etap_prefill.cu's.
 //
 // Built at mma_tile.cuh's PagedSepWidths: DeepSeek's latent (576, 512)
-// with V in its own pool, and Granite-20B's MQA head (128, 128), as the
-// body's SEPV instances (the fused ones in etap_quant.cu carry none of the
-// separate-V code).  The V tile replaces the K tile's first Dv columns
-// after the score product, so a separate V adds no shared memory, and at
-// the latent, over a V pool that holds the fused pool's first 512 columns
-// and pairs, the kernels give the fused ones' bits.
+// with V in its own pool, and Granite-20B's MQA head (128, 128).  The
+// fused and separate-V instances differ only in where V's boxes and pairs
+// come from, so at the latent, over a V pool that holds the fused pool's
+// first 512 columns and pairs, they give the fused kernels' bits.  The
+// code type is a run-time argument, fp32 q a template one.
 //
-// What bounds them on the H100: the K and V code bytes with both pairs,
-// each read once per head tile, over 3.35 TB/s: 1104 B a latent row, 272 B
-// at 128.
-#include "etap_body.cuh"
+// What bounds them on the H100: the K and V code bytes with both pairs
+// over 3.35 TB/s: 1104 B a latent row, 272 B at 128.
+#include "etap_decode.cuh"
 
 namespace {
 
-// The instance of list PagedSepWidths at (dk, dv) for STATS, CODE and
-// fp32 q: f(launch or attrs of that instance).
-template <bool STATS, int CODE, bool QF32, class F>
-int with_instance(int dk, int dv, F&& f) {
+// The separate-V instance at (dk, dv) of PagedSepWidths, with fp32 q when
+// qf32 is set.
+template <bool STATS>
+int launch_sepv(const Operands& a, const Params& p, int dk, int dv, int qf32,
+                int B, void* stream) {
   return with_widths<PagedSepWidths>(dk, dv, [&](auto DK, auto DV) {
-    return f(std::integral_constant<int, decltype(DK)::value>{},
-             std::integral_constant<int, decltype(DV)::value>{},
-             std::bool_constant<STATS>{}, std::integral_constant<int, CODE>{},
-             std::bool_constant<QF32>{});
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    return qf32 ? launch_decode<STATS, false, K, V, true, true, true>(
+                      a, p, B, stream)
+                : launch_decode<STATS, false, K, V, true, true, false>(
+                      a, p, B, stream);
   });
 }
 
-// Launch the paged instance for (dk, dv), STATS, the pools' code type
-// (0 int8, 1 e4m3) and whether q is fp32.
 template <bool STATS>
-int launch(const Params& p, int dk, int dv, int code, int B, int n_splits,
-           void* stream) {
-  auto go = [&](auto DK, auto DV, auto ST, auto CD, auto QF) {
-    return launch_mode<decltype(ST)::value, false, decltype(CD)::value,
-                       decltype(QF)::value, decltype(DK)::value,
-                       decltype(DV)::value, true>(p, B, n_splits, stream);
-  };
-  if (code == 0)
-    return p.qf32 ? with_instance<STATS, kInt8, true>(dk, dv, go)
-                  : with_instance<STATS, kInt8, false>(dk, dv, go);
-  if (code == 1)
-    return p.qf32 ? with_instance<STATS, kE4m3, true>(dk, dv, go)
-                  : with_instance<STATS, kE4m3, false>(dk, dv, go);
-  return static_cast<int>(cudaErrorInvalidValue);
+int attrs_sepv(int dk, int dv, int qf32, int cols, int* out) {
+  return with_widths<PagedSepWidths>(dk, dv, [&](auto DK, auto DV) {
+    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
+    return qf32 ? attrs_decode<STATS, false, K, V, true, true, true>(cols,
+                                                                     out)
+                : attrs_decode<STATS, false, K, V, true, true, false>(cols,
+                                                                      out);
+  });
 }
 
-// The separate-V paged parameters: K's and V's pools (and, over codes,
-// their (scale, zp) pools) read through one table.
-Params sepv_params(const void* q, const void* k_pool, const float* k_sz,
-                   const void* v_pool, const float* v_sz, const int* table,
-                   int C, int nbt, float scale, int amla, int qf32) {
-  Params p = make_params(q, k_pool, table, C, nbt, scale, amla);
-  p.sz = k_sz;
-  p.v = v_pool;
-  p.vsz = v_sz;
-  p.qf32 = qf32;
+// The separate-V paged parameters: K's and V's code pools and their
+// (scale, zp) pools, read through one table.
+Params sepv_params(Operands& a, const void* q, const void* k_pool,
+                   const float* k_sz, const void* v_pool, const float* v_sz,
+                   const int* table, const int* lengths, int C, int nbt,
+                   int n_splits, float scale, int amla, int code) {
+  a = Operands{};
+  a.q = q;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.kvh = 1;
+  Params p = decode_params(table, lengths, C, nbt, n_splits, scale, amla);
+  quant_params(p, code, k_sz, 0, 0, 0, v_sz, 0, 0, 0);
   return p;
-}
-
-template <bool STATS>
-int decode(const Params& base, const int* lengths, int dk, int dv, int code,
-           int B, int n_splits, void* stream) {
-  Params p = base;
-  p.npb = p.nbt / n_splits;
-  p.base = lengths;
-  return launch<STATS>(p, dk, dv, code, B, n_splits, stream);
 }
 
 }  // namespace
@@ -96,35 +82,32 @@ int etap_paged_sepv_widths(int* out, int cap) {
   return write_widths<PagedSepWidths>(out, cap);
 }
 
-// The bf16 decode instances' attributes (etap_decode.cu).
+// The decode instances' attributes (etap_decode.cu).
 int etap_decode_attrs(int dense, int dk, int dv, int sepv, int stats,
-                      int cols, int* out);
+                      int cols, int q, int* out);
 
 // The registers, dynamic shared memory and local memory of the separate-V
-// K3 (stats 0) or K1 (stats 1) instance at (dk, dv) over bf16 pools (code
-// -1: etap_decode.cu's kernel at its widest units, 32 columns at the
-// latent, 64 at 128) or int8 (0) / e4m3 (1) codes, with fp32 q when qf32
-// is set, into out[0..2].
+// K3q / K1q instance at (dk, dv) of PagedSepWidths, single pass (stats 0)
+// or split (stats 1), with fp32 q when qf32 is set, at units of `cols`
+// columns, into out[0..2]; etap_decode_attrs (etap_decode.cu) forwards
+// here.
+int etap_sepv_cols_attrs(int dk, int dv, int stats, int qf32, int cols,
+                         int* out) {
+  return stats ? attrs_sepv<true>(dk, dv, qf32, cols, out)
+               : attrs_sepv<false>(dk, dv, qf32, cols, out);
+}
+
+// The same for the separate-V K3 (stats 0) or K1 (stats 1) instance at
+// (dk, dv) over bf16 pools (code -1) or int8 (0) / e4m3 (1) codes (one
+// instance: the code type is a run-time argument), with fp32 q when qf32
+// is set (codes only), at its widest units (unit_cap).
 int etap_paged_sepv_attrs(int dk, int dv, int stats, int code, int qf32,
                           int* out) {
-  if (code < 0)
-    return etap_decode_attrs(0, dk, dv, 1, stats, dk >= 256 ? 32 : 64, out);
-  auto get = [&](auto DK, auto DV, auto ST, auto CD, auto QF) {
-    return attrs_of<decltype(ST)::value, false, decltype(CD)::value,
-                    decltype(QF)::value, decltype(DK)::value,
-                    decltype(DV)::value, true>(out);
-  };
-  auto pick = [&](auto ST) {
-    constexpr bool S = decltype(ST)::value;
-    if (code == 0)
-      return qf32 ? with_instance<S, kInt8, true>(dk, dv, get)
-                  : with_instance<S, kInt8, false>(dk, dv, get);
-    if (code == 1)
-      return qf32 ? with_instance<S, kE4m3, true>(dk, dv, get)
-                  : with_instance<S, kE4m3, false>(dk, dv, get);
+  if (code < -1 || code > 1 || (code < 0 && qf32))
     return static_cast<int>(cudaErrorInvalidValue);
-  };
-  return stats ? pick(std::true_type{}) : pick(std::false_type{});
+  return etap_decode_attrs(0, dk, dv, 1, stats,
+                           unit_cap(dk, code >= 0, qf32 != 0),
+                           code < 0 ? -1 : qf32, out);
 }
 
 // K3q / K1q, separate V: as K3 / K1 over int8 (code 0) or e4m3
@@ -136,10 +119,11 @@ int etap_decode_paged_quant(const void* q, const void* k_pool,
                             const int* lengths, void* out, int B, int H,
                             int nbt, int dk, int dv, float scale, int amla,
                             int code, int qf32, void* stream) {
-  Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, H, nbt, scale,
-                         amla, qf32);
+  Operands a;
+  Params p = sepv_params(a, q, k_pool, k_sz, v_pool, v_sz, table, lengths,
+                         H, nbt, 1, scale, amla, code);
   p.out = out;
-  return decode<false>(p, lengths, dk, dv, code, B, 1, stream);
+  return launch_sepv<false>(a, p, dk, dv, qf32, B, stream);
 }
 
 int etap_paged_partial_sepv_quant(const void* q, const void* k_pool,
@@ -150,12 +134,15 @@ int etap_paged_partial_sepv_quant(const void* q, const void* k_pool,
                                   int nbt, int n_splits, int dk, int dv,
                                   float scale, int amla, int code, int qf32,
                                   void* stream) {
-  Params p = sepv_params(q, k_pool, k_sz, v_pool, v_sz, table, H, nbt, scale,
-                         amla, qf32);
+  if (n_splits <= 0 || nbt % n_splits != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Operands a;
+  Params p = sepv_params(a, q, k_pool, k_sz, v_pool, v_sz, table, lengths,
+                         H, nbt, n_splits, scale, amla, code);
   p.m_out = m_out;
   p.l_out = l_out;
   p.acc_out = acc_out;
-  return decode<true>(p, lengths, dk, dv, code, B, n_splits, stream);
+  return launch_sepv<true>(a, p, dk, dv, qf32, B, stream);
 }
 
 }  // extern "C"

@@ -39,9 +39,9 @@
 // the same body, so K8(n_splits=1) + combine is bitwise K7; so are K8q and
 // K7q.
 //
-// The quantized kernels take the ETAP body's code address and numerics
-// (etap_body.cuh, "Numerics of the quantized bodies"): the codes widen to
-// exact bf16 in the tile buffer, S = scale_r * (q . codes_r) + zp_r *
+// The quantized kernels take the ETAP decode kernels' code numerics
+// (etap_decode.cuh, "Over codes") on mma.sync: the codes widen to exact
+// bf16 in the tile buffer (mma_tile.cuh: load_code_tile), S = scale_r * (q . codes_r) + zp_r *
 // sum(q) per row, scale_r folds into P before its split into three bf16
 // terms (hi, mid, lo) and
 // sum_r zp_r p_r joins each head's O row; fp32 q (the GQA path) enters the

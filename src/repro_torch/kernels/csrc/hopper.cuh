@@ -2,7 +2,8 @@
 // (flash_prefill.cu, etap_prefill.cu, etap_decode.cuh): shared-memory
 // mbarriers, TMA tile loads through a tensor map, the wgmma shared-memory
 // descriptor of a 128-byte-swizzled tile, wgmma products with their
-// fences, stmatrix, named barriers and setmaxnreg.
+// fences, stmatrix, named barriers, setmaxnreg, and the widening of a box
+// of int8 / e4m3 codes in place to a bf16 box.
 //
 // Tiles.  A TMA box is 64 bf16 columns (128 bytes) by `rows` rows, laid
 // out row after row with the 128-byte swizzle; a wider operand is several
@@ -25,6 +26,7 @@
 #include <cstdint>
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hopper {
@@ -91,6 +93,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p,
                                                uint32_t lbo_bytes,
                                                uint32_t sbo_bytes) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo_bytes >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>((sbo_bytes >> 4) & 0x3fff) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// The same for a tile at shared-memory address addr (smem_u32).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
          static_cast<uint64_t>((lbo_bytes >> 4) & 0x3fff) << 16 |
          static_cast<uint64_t>((sbo_bytes >> 4) & 0x3fff) << 32 |
          static_cast<uint64_t>(1) << 62;
@@ -385,6 +397,96 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- codes: a TMA box of 1-byte codes widened in place to a bf16 box
+// Four codes (byte i of w is code i) as two bf16x2 words (codes 0, 1 and
+// 2, 3), exactly, on the integer and fp32 / bf16 pipes: the SM's
+// conversion units (I2F, F2F, cvt from e4m3) take 16 operations a clock,
+// too few for the 36,864 codes of a latent page a unit (PERF.md).
+//   int8 x: the fp32 number 2^23 + (x + 128) (its byte under an exponent),
+//     minus 2^23 + 128, is x exactly; |x| <= 128 has at most 8
+//     significant bits, so its top 16 bits are bf16(x).
+//   e4m3 s.eeee.mmm: s << 15 | eeeemmm << 4 read as bf16 is the code times
+//     2^-120 (a bf16 subnormal for e = 0, as the code is an e4m3 one), so
+//     one bf16 product with 2^120 gives the code exactly.  The NaN codes
+//     (0x7f, 0xff) are never written (quantize_rows clamps).
+template <bool E4M3>
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  if constexpr (!E4M3) {
+    const uint32_t u = w ^ 0x80808080u;    // x + 128, byte by byte
+    uint32_t f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __float_as_uint(
+          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+          8388736.f);                      // 2^23 + 128
+    lo = __byte_perm(f[0], f[1], 0x7632);
+    hi = __byte_perm(f[2], f[3], 0x7632);
+  } else {
+    const __nv_bfloat162 two120 = __floats2bfloat162_rn(0x1p120f, 0x1p120f);
+    auto half2 = [&](uint32_t v) {         // bytes in halves' low bytes
+      uint32_t bits = ((v << 8) & 0x80008000u) | ((v << 4) & 0x07f007f0u);
+      __nv_bfloat162 x = __hmul2(
+          *reinterpret_cast<const __nv_bfloat162*>(&bits), two120);
+      return *reinterpret_cast<uint32_t*>(&x);
+    };
+    lo = half2(__byte_perm(w, 0, 0x4140));
+    hi = half2(__byte_perm(w, 0, 0x4342));
+  }
+}
+
+// Widen a ring slot's code box in place, one warp: the slot's upper 4 KB
+// hold its codes [64][64] (dense bytes, as TMA landed them through a
+// code_rows_map) and become the slot's 128-byte-swizzled bf16 box [64][64]
+// (the layout a TMA box of bf16 rows has).  Lane l takes 16 codes (one
+// 16-byte load, two 16-byte stores) of rows 8 k + l / 4, k = 0..7.  Rows
+// 0-31 land below the codes; rows 32-47 over code rows 0-31, rows 48-55
+// over code rows 32-47 and rows 56-63 over code rows 48-63, each once the
+// whole warp has read the codes it covers (one 16-byte load in flight a
+// lane: the converters have 40 registers).
+template <bool E4M3>
+__device__ __forceinline__ void widen_box(void* box, int lane) {
+  constexpr int ROW = 64;                  // codes a row (bytes)
+  const uint8_t* src = static_cast<const uint8_t*>(box) + 64 * ROW;
+  const int h = lane & 3;
+  auto load = [&](int k) {
+    return *reinterpret_cast<const uint4*>(src + (8 * k + (lane >> 2)) * ROW +
+                                           h * 16);
+  };
+  auto store = [&](int k, uint4 v) {
+    const int r = 8 * k + (lane >> 2);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) widen4<E4M3>(w[x], o[2 * x], o[2 * x + 1]);
+    char* row = static_cast<char*>(box) + r * 128;
+    *reinterpret_cast<uint4*>(row + (((2 * h) ^ (r & 7)) << 4)) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(row + (((2 * h + 1) ^ (r & 7)) << 4)) =
+        make_uint4(o[4], o[5], o[6], o[7]);
+  };
+  // not unrolled: the addresses of 8 rows at once would not fit
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) store(k, load(k));
+  __syncwarp();                            // code rows 0-31 read
+#pragma unroll 1
+  for (int k = 4; k < 6; ++k) store(k, load(k));
+#pragma unroll 1
+  for (int k = 6; k < 8; ++k) {
+    const uint4 v = load(k);
+    __syncwarp();                          // code rows up to 8 k + 7 read
+    store(k, v);
+  }
+}
+
+// Element d of row r of a K-major tile of ROWS rows (one box of ROWS x 64
+// bf16 per 64 of the width, 128-byte swizzled): its offset in elements.
+template <int ROWS>
+__device__ __forceinline__ int q_at(int r, int d) {
+  return (d >> 6) * ROWS * 64 + r * 64 + ((((d & 63) >> 3) ^ (r & 7)) << 3) +
+         (d & 7);
 }
 
 // ---- host: the device and its SM count

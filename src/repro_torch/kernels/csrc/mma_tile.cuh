@@ -1,12 +1,10 @@
-// Building blocks shared by the hand-written kernels (etap_body.cuh,
-// flash_decode.cu; flash_prefill.cu takes the width lists): bf16 fragment
+// Building blocks of the mma.sync kernels (flash_decode.cu; the Hopper
+// kernels take the width lists, the Code enum and PAGE): bf16 fragment
 // loads, the m16n8k16 tensor-core product, cp.async tile copies, the
 // loads of int8 / e4m3 code tiles (widened to exact bf16) with their rows'
 // (scale, zp), the query tile (bf16, or fp32 as three bf16 terms), the
 // online-softmax update of one 64-row KV tile, and the (Dk, Dv) widths the
-// dense, prefill and separate-V paged kernels are built for.  Both decode orientations run
-// the SAME update code, so the ETAP and the untransposed kernels differ
-// only in which operand rides the M side.
+// dense, prefill and separate-V paged kernels are built for.
 #pragma once
 
 #include <cstdint>
@@ -66,15 +64,6 @@ using PrefillWidths = Widths<192, 128, 128, 128, 64, 64>;
 // cache has the reference's separate-V layout.  The fused paged bodies
 // take the latent only.
 using PagedSepWidths = Widths<LATENT_DK, LATENT_DV, 128, 128>;
-
-// Whether (dk, dv) is a pair of list L (for static checks, evaluated on
-// the host side: see etap_body.cuh's kPagedWidths).
-template <class L>
-constexpr bool has_widths(int dk, int dv) {
-  for (int i = 0; i < L::N; ++i)
-    if (L::W[2 * i] == dk && L::W[2 * i + 1] == dv) return true;
-  return false;
-}
 
 // f(integral_constant<DK>, integral_constant<DV>) for the pair (dk, dv) of
 // list L, searched from entry I on; cudaErrorInvalidValue for any other
@@ -280,7 +269,7 @@ __device__ __forceinline__ void load_q_tile(bf16* q_hi, bf16* q_mid,
   }
 }
 
-// Online-softmax update of one query column (ETAP) or head row (standard)
+// Online-softmax update of one head row (the baseline, flash_decode.cu)
 // over a 64-row tile, run by a half-warp: lane r (0..15) holds the scaled,
 // masked scores of tile rows r, r+16, r+32, r+48 in sv.  Writes the
 // probabilities as bf16 hi + lo terms to p_hi/p_lo[r + 16 i], and advances

@@ -4,17 +4,16 @@ The port of ``repro/kernels/etap/etap.py``: the paged kernels at the MLA
 latent's widths (Dk 576, Dv 512), over separate K and V pools also at
 Granite-20B's MQA head (128, 128), the dense ones also at the GQA heads
 (Dk = Dv = 128, 64 and 256; ``kernels/csrc/mma_tile.cuh`` lists the pairs
-each kernel is built for).  Sixteen kernels, three CUDA designs, each
-source's header saying what bounds it on the H100 and how the design
-answers it: K4 and K4q, the chunked prefill and verify over bf16 and int8
-/ fp8 pools, fused and with a separate V, are
-``kernels/csrc/etap_prefill.cu`` (wgmma and TMA for Hopper); the bf16
-decode kernels K1, K3, K5 and K6 are ``kernels/csrc/etap_decode.cuh``'s
-kernel on the same design (``etap_decode.cu`` builds the paged ones,
-fused and over separate pools, ``etap.cu`` the dense ones); their
-quantized twins are one mma.sync body (``kernels/csrc/etap_body.cuh``;
-``etap_quant.cu`` builds the fused paged and the dense ones,
-``etap_sepv.cu`` the paged ones over separate pools):
+each kernel is built for).  Sixteen kernels, two CUDA kernels on one
+design (wgmma and TMA for Hopper), each source's header saying what
+bounds it on the H100 and how the design answers it: K4 and K4q, the
+chunked prefill and verify over bf16 and int8 / fp8 pools, fused and with
+a separate V, are ``kernels/csrc/etap_prefill.cu``; the decode kernels
+K1, K3, K5 and K6 and their twins over int8 / fp8 codes K1q, K3q, K5q
+and K6q are ``kernels/csrc/etap_decode.cuh``'s kernel (``etap_decode.cu``
+builds the paged bf16 ones, fused and over separate pools, ``etap.cu``
+the dense bf16 ones, ``etap_quant.cu`` the fused paged and the dense ones
+over codes, ``etap_sepv.cu`` the paged ones over separate code pools):
 
   K3 :func:`etap_decode_mla_paged`   single-pass paged decode
      (replaces ``repro/kernels/etap/etap.py:237``, ``_paged_call``)

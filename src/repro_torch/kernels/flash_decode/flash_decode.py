@@ -30,8 +30,8 @@ latent and the 128- and 64-wide heads (``QuantDenseWidths``):
      and pairs the callers gather (the reference gathers them dequantized
      to fp32 and hands K7 / K8 the fp32 rows; the same two ``pallas_call``
      sites).  The codes enter the tensor cores as exact bf16 values and the
-     affine is applied around the products in fp32
-     (``kernels/csrc/etap_body.cuh``, "Numerics of the quantized bodies");
+     affine is applied around the products in fp32 (the ETAP decode
+     kernels' numerics, ``kernels/csrc/etap_decode.cuh``, "Over codes");
      q bf16 or fp32; the output is fp32, as the reference's.
 
 CPU tensors run the ``*_plain`` versions, which walk ``block``-row blocks

@@ -610,7 +610,8 @@ def test_bf16_chunk_kernel_is_the_hopper_source():
     """K4 over bf16 pools and K4q over code pools, fused and separate-V,
     are defined in etap_prefill.cu alone (wgmma over TMA-loaded boxes: no
     mma.sync, no cp.async page loads), under their unchanged C signatures;
-    the shared mma.sync body keeps no prefill / verify address."""
+    the mma.sync ETAP body is gone, and the decode kernel keeps no prefill
+    / verify address."""
     src = (CSRC / "etap_prefill.cu").read_text()
     for name in ("etap_prefill_mla_paged", "etap_prefill_paged",
                  "etap_prefill_mla_paged_quant", "etap_prefill_paged_quant"):
@@ -626,6 +627,7 @@ def test_bf16_chunk_kernel_is_the_hopper_source():
     assert "wgmma" in src and "tma_load_4d" in src
     for banned in ("mma16816(", "cp_async", '#include "etap_body.cuh"'):
         assert banned not in src
-    body = (CSRC / "etap_body.cuh").read_text()
+    assert not (CSRC / "etap_body.cuh").exists()
+    body = (CSRC / "etap_decode.cuh").read_text()
     for gone in ("qpos", "hz_off"):
         assert gone not in body
