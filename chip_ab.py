@@ -21,19 +21,19 @@ over 50 launches each; then K3 over Granite's separate bf16 pools (B 8 x
 K1 there under its auto plan, over 200 launches each; then K5 and K6 at a
 128-, 64- and 256-wide GQA head at chip_smoke.GQA_TIMED's shapes
 (qwen-dense / qwen-long, stablelm-dense / smol-long, rgemma-short /
-rgemma-long; at 128 the baseline K7 / K8 at the same shapes), over 200
+rgemma-long) with the baseline K7 / K8 at the same shapes, over 200
 launches each, the host time of one K5 [128] call (µs), and the paper's
-geometry (B 16, H 16, context 65,536) through the paged entry's K1 + K2,
-over 20. Then K5q and K6q over the quantized GQA serve phases' code rows
+geometry (B 16, H 16, context 65,536) through the paged entry's K1 + K2
+and, over the same rows dense, the baseline entry's K8 + K2, over 20. Then K5q and K6q over the quantized GQA serve phases' code rows
 with fp32 q (chip_smoke.quant_dense_cases: qwen-short's int8 rows and
 qwen-long's fp8 rows at 128, smol-short's and smol-long's at 64), over 200
 launches each. A launch that the wrapper's host time outpaces reads as
 that host time under CUDA events, so the decode kernels (bf16 and over
 codes) also get a ``-dev`` column: their kernels' device time under
 torch.profiler. Each checkout also hands back a digest of the outputs of
-the bf16 decode kernels (K3, K1, K5, K6 at the timing shapes), whose bits
-must not move when their kernel's template gains its code instances, and
-of the baseline over codes (K7q / K8q at a 128-wide head,
+the bf16 decode kernels (K3, K1, K5, K6 at the timing shapes), of the
+baseline over bf16 rows (K7 / K8 at the latent's timing shapes and at
+qwen-dense / qwen-long) and over codes (K7q / K8q at a 128-wide head,
 flash_decode.cu), and the run says whether they are bitwise equal across
 the checkouts. With ``--prefill`` it runs ``model.prefill`` on DeepSeek-R1
 at full width cut to its 3 dense layers (random bf16 weights, seed 0) at
@@ -79,11 +79,15 @@ KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K3q-fp8-dev", "K1q-fp8-dev", "K5q[128]-int8", "K6q[128]-fp8",
            "K5q[64]-int8", "K6q[64]-fp8", "K5q[128]-int8-dev",
            "K6q[128]-fp8-dev", "K5q[64]-int8-dev", "K6q[64]-fp8-dev",
-           "K7[128]", "K8[128]", "K7[128]-dev", "K8[128]-dev")
+           "K7[128]", "K8[128]", "K7[128]-dev", "K8[128]-dev", "K7-dev",
+           "K8-dev", "K7[64]", "K8[64]", "K7[64]-dev", "K8[64]-dev",
+           "K7[256]", "K8[256]", "K7[256]-dev", "K8[256]-dev", "paper-K8+K2",
+           "paper-K8+K2-dev")
 # the kernels whose outputs must keep their bits from one checkout to the
-# next (the bf16 decode kernels, and the baseline over codes), each a
-# digest of its output
-BITS = ("K3", "K1", "K5", "K6", "K7q[128]-int8", "K8q[128]-fp8")
+# next (the bf16 decode kernels, the baseline over bf16 rows at the latent
+# and at 128, and the baseline over codes), each a digest of its output
+BITS = ("K3", "K1", "K5", "K6", "K7", "K8", "K7[128]", "K8[128]",
+        "K7q[128]-int8", "K8q[128]-fp8")
 PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "paged-long-ms",
            "paged-short-ms", "K9[192,128]-ms", "K9[128,128]-ms",
            "K9[64,64]-ms")
@@ -137,8 +141,8 @@ def time_one(root: str) -> dict:
                                        n_splits=4)
     out = {n: cs.cuda_time_ms(f, 200, warmup=5) for n, f in fns.items()}
     out.update({f"{n}-dev": device_ms(fns[n]) for n in (
-        "K3", "K1", "K5", "K6", "K3q-int8", "K1q-int8", "K3q-fp8",
-        "K1q-fp8")})
+        "K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
+        "K3q-fp8", "K1q-fp8")})
     out["bits"] = bits_of(cs, FD, gen, dev, {n: fns[n] for n in BITS
                                              if n in fns})
     del k, v, pool, table, quant
@@ -202,7 +206,9 @@ def time_one(root: str) -> dict:
     out["K3sep[128]-dev"] = device_ms(lambda: K.etap_decode_paged(
         gq3, *gargs, gtable, glens, scale=128 ** -0.5))
     out["SDPA-K3sep[128]-dev"] = device_ms(sdpa)
-    out.update(gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens))
+    gqa = gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens)
+    out["bits"].update(gqa.pop("bits"))
+    out.update(gqa)
     out.update(quant_dense_times(cs, K, dev))
     return out
 
@@ -228,12 +234,15 @@ def device_ms(fn, iters: int = 50) -> float:
 
 def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
     """K5 and K6 at chip_smoke.GQA_TIMED's shapes (each width's single
-    pass and split shape, the split one under its auto plan; at 128 K7
-    and K8, the baseline, beside them) and K1 over
-    Granite's separate pools under its auto plan, over 200 launches each;
-    the paper's geometry (B 16, H 16, context 65,536: K1 + K2 through the
-    paged entry's auto plan) over 20; and the host time a K5 [128] launch
-    takes (the wrapper's call, µs, the mean of 200 unsynchronised calls)."""
+    pass and split shape, the split one under its auto plan), K7 and K8,
+    the baseline, beside them, and K1 over Granite's separate pools under
+    its auto plan, over 200 launches each, with their device times; the
+    paper's geometry (B 16, H 16, context 65,536: K1 + K2 through the
+    paged entry's auto plan, and K8 + K2 over the same rows dense through
+    the baseline's entry and its auto plan) over 20; the host time a K5
+    [128] launch takes (the wrapper's call, µs, the mean of 200
+    unsynchronised calls); and, under "bits", the digests of K7 / K8
+    [128]'s outputs."""
     import time
 
     import torch
@@ -252,14 +261,13 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
         fns[f"K6[{hd}]"] = lambda q=q, k=k, v=v, lens=lens, plan=plan, \
             s=hd ** -0.5: K.etap_partial_dense(q, k, v, lens, plan=plan,
                                                scale=s)
-        if hd == 128:                      # the baseline at the same shapes
-            fns["K8[128]"] = lambda q=q, k=k, v=v, lens=lens, plan=plan, \
-                s=hd ** -0.5: FD.flash_decode_partial(q, k, v, lens,
-                                                      plan=plan, scale=s)
-            _, _, q, k, v, lens, blk = by_tag[single]
-            fns["K7[128]"] = lambda q=q, k=k, v=v, lens=lens, blk=blk, \
-                s=hd ** -0.5: FD.flash_decode(q, k, v, lens, block=blk,
-                                              scale=s)
+        # the baseline at the same shapes
+        fns[f"K8[{hd}]"] = lambda q=q, k=k, v=v, lens=lens, plan=plan, \
+            s=hd ** -0.5: FD.flash_decode_partial(q, k, v, lens, plan=plan,
+                                                  scale=s)
+        _, _, q, k, v, lens, blk = by_tag[single]
+        fns[f"K7[{hd}]"] = lambda q=q, k=k, v=v, lens=lens, blk=blk, \
+            s=hd ** -0.5: FD.flash_decode(q, k, v, lens, block=blk, scale=s)
     spec = AttnSpec(scale=128 ** -0.5)
     n = ops._paged_n_splits(gq3, gtable, cs.PAGE, 128, spec)
     gpad = ops._pad_table(gtable, ops.paged_split_geometry(
@@ -268,6 +276,7 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
         gq3, *gargs, gpad, glens, n_splits=n, scale=128 ** -0.5)
     out = {name: cs.cuda_time_ms(f, 200, warmup=5) for name, f in fns.items()}
     out.update({f"{name}-dev": device_ms(f) for name, f in fns.items()})
+    out["bits"] = {n: digest(fns[n]()) for n in ("K7[128]", "K8[128]")}
     f = fns["K5[128]"]
     for _ in range(5):
         f()
@@ -292,6 +301,19 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
         lambda: ops.etap_decode_mla_paged_splitkv(q, pool, cs.DV, table,
                                                   lens, spec=spec), 10)
     del pool
+    torch.cuda.empty_cache()
+    # the baseline there: the same geometry over dense rows, K8 + K2 under
+    # the baseline entry's auto plan
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    k = torch.randn(Bp, ctx, cs.DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def paper_std():
+        return fd_ops.flash_decode_splitkv(q, k, k[..., :cs.DV], lens,
+                                           spec=spec)
+    out["paper-K8+K2"] = cs.cuda_time_ms(paper_std, 20, warmup=2)
+    out["paper-K8+K2-dev"] = device_ms(paper_std, 10)
+    del k
     torch.cuda.empty_cache()
     return out
 
@@ -330,23 +352,26 @@ def quant_dense_times(cs, K, dev) -> dict:
     return out
 
 
-def bits_of(cs, FD, gen, dev, fns: dict) -> dict:
-    """A digest of each output of ``fns`` (the bf16 latent decode kernels
-    at time_one's inputs) and of K7q / K8q at a 128-wide GQA head (B 16
-    rows of G 4 heads over int8 / e4m3 code rows, fp32 q), so that
-    checkouts can be held bitwise against each other."""
+def digest(x) -> str:
+    """A digest of the bits of a tensor or a tuple of tensors."""
     import hashlib
 
+    import torch
+    h = hashlib.sha256()
+    for t in x if isinstance(x, tuple) else (x,):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def bits_of(cs, FD, gen, dev, fns: dict) -> dict:
+    """A digest of each output of ``fns`` (the bf16 latent decode kernels,
+    ETAP's and the baseline's, at time_one's inputs) and of K7q / K8q at a 128-wide GQA head (B 16
+    rows of G 4 heads over int8 / e4m3 code rows, fp32 q), so that
+    checkouts can be held bitwise against each other."""
     import torch
     from repro_torch.kernels.etap.schedule import dense_split_plan
     from repro_torch.runtime import paged_cache
 
-    def digest(x):
-        h = hashlib.sha256()
-        for t in x if isinstance(x, tuple) else (x,):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes())
-        return h.hexdigest()[:16]
     out = {n: digest(f()) for n, f in fns.items()}
     BG, S, hd = 16, 1024, 128
     q = torch.randn(BG, 4, hd, generator=gen, device=dev)

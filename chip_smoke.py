@@ -12,7 +12,10 @@ Phases, each of which fails the run when it fails:
              H = 128 and 16, both rescale modes): the paged ETAP kernels
              K1-K4 (page 64, prefill Cq = 32 with and without a
              tree-shaped qpos), the dense ETAP kernels K5/K6, the
-             untransposed baseline K7/K8 and both orientations of the
+             untransposed baseline K7/K8 (also at the decode kernels'
+             edges, DECODE_EDGES: baseline_edge_checks, with a row alone
+             bitwise its rows of a 60-row batch, and its [attrs] lines)
+             and both orientations of the
              combine K2, also at the serve phases' own dense shapes and
              split plans (S 544; S 4128 in 3 splits; 65 gathered pages in
              blocks of 64); the bitwise contracts (split(n=1) + combine ==
@@ -292,10 +295,10 @@ KERNELS = {
     "etap_partial_dense": ("src/repro/kernels/etap/etap.py:603",
                            _CSRC + "etap.cu"),
     "flash_decode": ("src/repro/kernels/flash_decode/flash_decode.py:83",
-                     _CSRC + "flash_decode.cu"),
+                     _CSRC + "flash_decode_wgmma.cu"),
     "flash_decode_partial": (
         "src/repro/kernels/flash_decode/flash_decode.py:168",
-        _CSRC + "flash_decode.cu"),
+        _CSRC + "flash_decode_wgmma.cu"),
     "combine_splits_std": ("src/repro/kernels/etap/combine.py:60",
                            _CSRC + "combine.cu"),
     "selective_scan": ("src/repro/kernels/selective_scan/scan.py:64",
@@ -810,6 +813,166 @@ def decode_edge_checks(gen, dev) -> dict:
         if got != want:
             raise AssertionError(f"decode edges {inst}: units of "
                                  f"{sorted(got)}; {sorted(want)} must run")
+    return errs
+
+
+# ------------------------ phase 2: the baseline K7 / K8 at the same edges
+# K7 / K8 over bf16 rows (flash_decode_wgmma.cu: the heads on wgmma's M, a
+# TMA ring, warp-specialised) at DECODE_EDGES: the latent at H 16 and 128,
+# fused and with V rows of its own, and GQA caches in place at 128, 64 and
+# 256 with DECODE_GQA's G, over dense rows of S 300 / 600
+# (DECODE_DENSE_S).  Their errors, by kernels-line key, for the phases
+# that report them.
+BASELINE_EDGE_ERRS: dict = {}
+# the baseline's instances: (what, Dk, Dv, V of its own)
+BASELINE_INSTANCES = (
+    ("latent, fused", DK, DV, 0),
+    ("latent, own V", DK, DV, 1),
+    ("(128, 128)", 128, 128, 1),
+    ("(64, 64)", 64, 64, 1),
+    ("(256, 256)", 256, 256, 1))
+
+
+def baseline_attrs() -> None:
+    """An [attrs] line for each baseline instance over bf16 rows, single
+    pass and split partial; fails on local memory (spills)."""
+    for what, dk, dv, sepv in BASELINE_INSTANCES:
+        got = [attr_values("flash_decode_sepv_attrs", dk, dv, sepv, stats)
+               for stats in (0, 1)]
+        log(f"[attrs] baseline K7 / K8 {what}: " + "; ".join(
+            f"{x} {r} registers, {sm} B shared memory, {loc} B local"
+            for x, (r, sm, loc) in zip(("K7", "K8"), got, strict=True)))
+        if any(loc for _, _, loc in got):
+            raise AssertionError(f"baseline {what}: local memory")
+
+
+def check_baseline_pair(q, k, v, lengths, S, n_list, tag, errs, key, *,
+                        mode, scale, same=None):
+    """K7 against its plain version at the bf16 tolerance; K8 under each
+    split count of ``n_list`` (splits of whole pages over S rows) after
+    finalizing; K8(n=1) + K2 == K7 bitwise; and, with ``same`` = (out,
+    partials) of another call over the same rows, the outputs bitwise
+    those.  Returns (K7's output, the partials by split count)."""
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    kw = dict(scale=scale, rescale=mode)
+    out = FD.flash_decode(q, k, v, lengths, block=PAGE, **kw)
+    errs[key[0]] = max(errs.get(key[0], 0.0), bf16_close(
+        out, FD.flash_decode_plain(q, k, v, lengths, block=PAGE, **kw),
+        f"{tag} K7"))
+    sts = {}
+    for n in sorted(set(n_list) | {1}):
+        plan = dense_split_plan(S, PAGE, n)
+        sts[n] = FD.flash_decode_partial(q, k, v, lengths, plan=plan, **kw)
+        if n > 1:
+            errs[key[1]] = max(errs.get(key[1], 0.0), finalized_close(
+                sts[n], FD.flash_decode_partial_plain(q, k, v, lengths,
+                                                      plan=plan, **kw),
+                f"{tag} K8 n={n}", transposed=False))
+    bitwise(C.combine_splits_std(*sts[1], out_dtype=torch.bfloat16,
+                                 rescale=mode), out,
+            f"{tag}: K8(n=1)+K2 vs K7")
+    if same is not None:
+        bitwise(out, same[0], f"{tag}: K7")
+        for n, st in sts.items():
+            for a, b in zip(st, same[1][n], strict=True):
+                bitwise(a, b, f"{tag}: K8 n={n}")
+    return out, sts
+
+
+def baseline_alone(q, k, v, lengths, S, n_list, out, sts, rows, tag, *,
+                   mode, scale):
+    """The batch's first ``rows`` rows of q (its first cache row) run
+    alone: K7 and each K8 bitwise their rows of the whole batch's call."""
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    kw = dict(scale=scale, rescale=mode)
+    one = (q[:rows], k[:1] if k.dim() == 4 else k[:rows],
+           v[:1] if v.dim() == 4 else v[:rows], lengths[:rows])
+    bitwise(FD.flash_decode(*one, block=PAGE, **kw), out[:rows],
+            f"{tag}: K7 alone vs in the batch")
+    for n, st in sts.items():
+        for a, b in zip(FD.flash_decode_partial(
+                *one, plan=dense_split_plan(S, PAGE, n), **kw), st,
+                strict=True):
+            bitwise(a, b[:rows], f"{tag}: K8 n={n} alone vs in the batch")
+
+
+def baseline_edge_checks(gen, dev) -> dict:
+    """K7 / K8 over bf16 rows at DECODE_EDGES in both rescale modes
+    against their plain versions: the latent (H 16 and 128) over dense rows
+    of DECODE_DENSE_S (a length of 1, horizons mid-page and on a page's
+    last row, splits past a row's length; 60 rows in 5 splits), fused and
+    with V rows of its own (bitwise the fused kernel); GQA caches [B, S, K,
+    hd] in place at 128, 64 and 256 with DECODE_GQA's G, bitwise the
+    kernel on gqa_to_grouped's copy; K8(n=1) + K2 == K7 bitwise
+    everywhere; and, in the 60-row batches, the first cache row's rows run
+    alone bitwise their rows of the batch.  Returns {kernels-line key: max
+    abs err}."""
+    import torch
+    from repro_torch.core.etap import gqa_to_grouped
+    errs: dict = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    keys = ("flash_decode", "flash_decode_partial")
+    for what, _, _, n_list, _ in DECODE_EDGES:
+        S = DECODE_DENSE_S[what]
+        alone = what == "many units"
+        for H in DECODE_LATENT_H:
+            lens = decode_edge_lengths(what, gen, dev, cap=S)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            k = rand(len(lens), S, DK)
+            q = rand(len(lens), H, DK)
+            for mode in ("amla", "mul"):
+                tag = f"K7/K8 latent {what} B={len(lens)} H={H} S={S} {mode}"
+                kw = dict(mode=mode, scale=SCALE)
+                fused = check_baseline_pair(q, k, k[..., :DV], lengths, S,
+                                            n_list, tag, errs, keys, **kw)
+                check_baseline_pair(q, k, k[..., :DV].contiguous(), lengths,
+                                    S, n_list, tag + ", own V", errs, keys,
+                                    same=fused, **kw)
+                if alone:
+                    baseline_alone(q, k, k[..., :DV], lengths, S, n_list,
+                                   *fused, 1, tag, **kw)
+            log(f"[decode edges] {tag}: K7, K8 n="
+                f"{','.join(map(str, n_list))}, fused and own V ok in both "
+                "modes; bitwise: n=1 + K2 == K7, own V == fused"
+                + (", a row alone == in the batch" if alone else ""))
+        for hd in (HD, 64, 256):
+            gkeys = tuple(f"{x}[{hd}]" for x in keys)
+            for G, Kv in DECODE_GQA:
+                if alone and G not in (4, 32, 48):
+                    continue
+                lens_b = decode_edge_lengths(what, gen, dev, cap=S)
+                Bo = len(lens_b)
+                lengths = torch.tensor(lens_b, dtype=torch.int32,
+                                       device=dev).repeat_interleave(Kv)
+                k, v = rand(Bo, S, Kv, hd), rand(Bo, S, Kv, hd)
+                q = rand(Bo * Kv, G, hd)
+                _, kg, vg, _ = gqa_to_grouped(q.reshape(Bo, -1, hd), k, v)
+                for mode in ("amla", "mul"):
+                    tag = (f"K7/K8 [{hd}] {what} B={Bo} K={Kv} G={G} S={S} "
+                           f"{mode}")
+                    kw = dict(mode=mode, scale=hd ** -0.5)
+                    grouped = check_baseline_pair(
+                        q, kg, vg, lengths, S, n_list, tag + ", grouped copy",
+                        errs, gkeys, **kw)
+                    placed = check_baseline_pair(
+                        q, k, v, lengths, S, n_list, tag + ", in place", errs,
+                        gkeys, same=grouped, **kw)
+                    if alone:
+                        baseline_alone(q, k, v, lengths, S, n_list, *placed,
+                                       Kv, tag, **kw)
+                log(f"[decode edges] {tag}: K7, K8 n="
+                    f"{','.join(map(str, n_list))} ok in both modes; "
+                    "bitwise: n=1 + K2 == K7, in place == gqa_to_grouped's "
+                    "copy" + (", a row alone == in the batch" if alone
+                              else ""))
     return errs
 
 
@@ -1911,6 +2074,10 @@ def phase_dense_kernels(quick: bool, report: dict) -> None:
             + " ok in both modes; split(n=1)+K2 == single pass bitwise")
     report["combine_splits"]["max_abs_err"] = max(
         report["combine_splits"]["max_abs_err"], errs.pop("combine_splits"))
+    baseline_attrs()
+    BASELINE_EDGE_ERRS.update(baseline_edge_checks(gen, dev))
+    for name in ("flash_decode", "flash_decode_partial"):
+        errs[name] = max(errs[name], BASELINE_EDGE_ERRS[name])
 
     # ---- timing, and ETAP beside the baseline at the same shapes
     iters, piters = (1, 1) if quick else (20, 3)
@@ -2226,7 +2393,8 @@ def phase_gqa_kernels(quick: bool, report: dict) -> None:
                     f"{tp:.4f} ms, bound {tb:.4f} ms ({by}), library {libs} "
                     "ms")
                 report[f"{name}[{hd}]"] = {
-                    "max_abs_err": errs[hd][name], "ms": t, "plain_ms": tp,
+                    "max_abs_err": max(errs[hd][name], BASELINE_EDGE_ERRS.get(
+                        f"{name}[{hd}]", 0.0)), "ms": t, "plain_ms": tp,
                     "bound_ms": tb, "bound_by": by, "library_ms": tl}
 
     # ---- ETAP beside the baseline, single pass, in turns

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``: the ETAP decode
 kernels over bf16 rows and over int8 / e4m3 code rows (paged, fused and
 over separate K and V pools, and dense; one wgmma / TMA kernel), the
-chunked paged prefill over bf16 and code pools, the untransposed baseline,
-the split combine, the causal prefill and the selective scan) on first
+chunked paged prefill over bf16 and code pools, the untransposed baseline
+(over bf16 rows a wgmma / TMA kernel, over code rows mma.sync), the split
+combine, the causal prefill and the selective scan) on first
 use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
@@ -74,6 +75,9 @@ SIGNATURES = {
     "etap_dense_attrs": [_I, _I, _I, _P],
     "etap_dense_quant_attrs": [_I, _I, _I, _I, _I, _P],
     "flash_decode_attrs": [_I, _I, _I, _P],
+    # (dk, dv, sepv, stats, out[3]): K7 / K8 fused (sepv 0, the latent) or
+    # with V rows of their own (flash_decode_wgmma.cu)
+    "flash_decode_sepv_attrs": [_I, _I, _I, _I, _P],
     "flash_decode_quant_attrs": [_I, _I, _I, _I, _I, _P],
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

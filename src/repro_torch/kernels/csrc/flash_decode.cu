@@ -1,18 +1,22 @@
-// The untransposed decode baseline for Hopper (sm_90a): FlashMLA without
-// ETAP.  One body serving two kernels of the JAX package, over bf16 rows
-// and over int8 / e4m3 codes:
+// The untransposed decode baseline over int8 / e4m3 code rows for Hopper
+// (sm_90a), on mma.sync: FlashMLA without ETAP over a quantized cache.
 //
-//   K7  single-pass decode         replaces repro/kernels/flash_decode/
-//       (flash_decode_pallas :58)  flash_decode.py:83
-//   K8  split-KV phase 1           replaces repro/kernels/flash_decode/
-//       (flash_decode_partial_pallas :136)  flash_decode.py:168
 //   K7q, K8q  K7 and K8 over dense code rows with per-row (scale, zp): the
 //       reference gathers a quantized pool, dequantizes it to fp32 and
 //       runs K7 / K8 on the fp32 rows (repro/core/etap.py:311-327, :391-394
 //       for DeepSeek's latent in --mode standard; repro/models/
-//       attention.py:249-260 for a GQA pool).  Built at mma_tile.cuh's
-//       QuantDenseWidths: the latent with V its first 512 columns, and the
-//       128- and 64-wide GQA heads with V in their own rows.
+//       attention.py:249-260 for a GQA pool), the same pallas_call sites:
+//         K7  repro/kernels/flash_decode/flash_decode.py:83
+//             (flash_decode_pallas :58)
+//         K8  repro/kernels/flash_decode/flash_decode.py:168
+//             (flash_decode_partial_pallas :136)
+//       Built at mma_tile.cuh's QuantDenseWidths: the latent with V its
+//       first 512 columns, and the 128- and 64-wide GQA heads with V in
+//       their own rows.
+//
+// K7 / K8 over bf16 rows are flash_decode_wgmma.cu's Hopper kernel (wgmma,
+// TMA, warp-specialised); this body is the mma.sync one they ran on before,
+// kept for the code rows until they follow onto that kernel.
 //
 // What they compute.  A CTA owns NH = 16 heads of one batch row and walks
 // that row's dense KV rows in 64-row tiles.  Per tile:
@@ -23,41 +27,35 @@
 // This is the orientation the paper measures ETAP against: the thin head
 // axis rides the M side of both products (a GQA group of G = 4 heads
 // leaves 12 of the 16 M rows empty).  (Dk, Dv) is a template parameter,
-// one instantiation per pair of mma_tile.cuh's DenseWidths: the MLA latent
-// (576, 512) and the GQA heads (128, 128), (64, 64) and (256, 256): Acc
-// [16, Dv] gives each of the 8 warps Dv / 64 n-tiles of 8 columns (1 at
-// Dv 64, 4 at 256), and every load loop steps over its width in 16-byte
-// pieces, so no width needs code of its own.  Everything else is the
-// ETAP body's K5 — the same 64-row tiles, address modes (dense rows with a
-// zero-filled tail, a GQA cache [B, S, K, hd] read in place through its
-// kv-head stride; V the first Dv K columns or its own strided rows),
-// horizon mask, tile skipping past the horizon, online-softmax update
-// (mma_tile.cuh: tile_update), exact AMLA and P as bf16 hi + lo — so the
-// orientation of the products is the only difference.  K7 ends with
-// O = Acc / l in bf16; K8 writes the raw fp32 (m, l, Acc) of its split in
-// the [n, H, Dv] orientation for combine.cu's second entry.  K7 and K8 are
-// the same body, so K8(n_splits=1) + combine is bitwise K7; so are K8q and
-// K7q.
+// one instantiation per pair of QuantDenseWidths: Acc [16, Dv] gives each
+// of the 8 warps Dv / 64 n-tiles of 8 columns (1 at Dv 64), and every load
+// loop steps over its width in 16-byte pieces, so no width needs code of
+// its own.  The address modes (dense rows with a zero-filled tail, a GQA
+// cache [B, S, K, hd] read in place through its kv-head stride; V the first
+// Dv K columns or its own strided rows), horizon mask, tile skipping past
+// the horizon, online-softmax update (mma_tile.cuh: tile_update) and exact
+// AMLA are the ETAP kernels'.  K7q ends with O = Acc / l in fp32; K8q
+// writes the raw fp32 (m, l, Acc) of its split in the [n, H, Dv]
+// orientation for combine.cu's second entry.  K7q and K8q are the same
+// body, so K8q(n_splits=1) + combine is bitwise K7q.
 //
-// The quantized kernels take the ETAP decode kernels' code numerics
-// (etap_decode.cuh, "Over codes") on mma.sync: the codes widen to exact
-// bf16 in the tile buffer (mma_tile.cuh: load_code_tile), S = scale_r * (q . codes_r) + zp_r *
+// The code numerics are the ETAP decode kernels' (etap_decode.cuh, "Over
+// codes") on mma.sync: the codes widen to exact bf16 in the tile buffer
+// (mma_tile.cuh: load_code_tile), S = scale_r * (q . codes_r) + zp_r *
 // sum(q) per row, scale_r folds into P before its split into three bf16
-// terms (hi, mid, lo) and
-// sum_r zp_r p_r joins each head's O row; fp32 q (the GQA path) enters the
-// score product as three bf16 tiles hi + mid + lo.  They write fp32 O, as the
-// reference's K7 / K8 write V's fp32 type after its dequantization.
+// terms (hi, mid, lo) and sum_r zp_r p_r joins each head's O row; fp32 q
+// (the GQA path) enters the score product as three bf16 tiles hi + mid +
+// lo.  They write fp32 O, as the reference's K7 / K8 write V's fp32 type
+// after its dequantization.
 //
-// What bounds it on the H100: like K3/K5, the KV bytes (the codes' bytes
-// plus 8 per row and granule for K7q / K8q) over 3.35 TB/s (the
-// multiply-adds are 2 * H * (Dk + Dv) per row).  Acc [16, Dv] fp32 is
-// spread over the 8 warps, Dv / 8 columns each (Dv / 16 registers per
-// thread: 32 at the latent, 4 at Dv 64); an MHA head (G = 1) leaves 15 of
-// the 16 M rows empty (horizon INT_MIN: all masked);
-// 128 heads take 8 CTAs, each re-reading the row's tiles (the re-reads
-// mostly hit L2), as K3 does for its column tiles.  First version: the
-// fragments come from shared memory with 32/16-bit loads and one tile is in
-// flight.
+// What bounds it on the H100: the codes' bytes plus 8 per row and granule
+// (the (scale, zp) pairs) over 3.35 TB/s (the multiply-adds are 2 * H *
+// (Dk + Dv) per row).  Acc [16, Dv] fp32 is spread over the 8 warps, Dv / 8
+// columns each (Dv / 16 registers per thread: 32 at the latent, 4 at Dv
+// 64); an MHA head (G = 1) leaves 15 of the 16 M rows empty (horizon
+// INT_MIN: all masked); 128 heads take 8 CTAs, each re-reading the row's
+// tiles (the re-reads mostly hit L2).  The fragments come from shared
+// memory with 32/16-bit loads and one tile is in flight.
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -92,9 +90,9 @@ struct Smem {
   int hz[NH];                  // per-head horizon (length - 1)
 };
 
-// The quantized kernels' shared memory: the bf16 kernels' plus the tile's
-// (scale, zp) rows (K's, and a separate V's) and, for fp32 q (QLO), the mid
-// and lo tiles of q.
+// The shared memory over code rows: the tile buffers of Smem (the widened
+// tile, q, the scores and P) plus the tile's (scale, zp) rows (K's, and a
+// separate V's) and, for fp32 q (QLO), the mid and lo tiles of q.
 template <int DK, bool QLO>
 struct SmemQuant : Smem<DK> {
   alignas(16) bf16 p_mid[NH * PSTR];  // P * scale: hi, mid (here), lo
@@ -105,10 +103,6 @@ struct SmemQuant : Smem<DK> {
   alignas(16) bf16 q_mid[QLO ? NH * Smem<DK>::KSTR : 8];
   alignas(16) bf16 q_lo[QLO ? NH * Smem<DK>::KSTR : 8];
 };
-
-template <int CODE, bool QF32, int DK>
-using SmemOf = typename std::conditional<CODE != kBf16, SmemQuant<DK, QF32>,
-                                         Smem<DK>>::type;
 
 struct Params {
   const void* q;      // [B, H, DK] bf16, or fp32 (quantized kernels)
@@ -151,20 +145,18 @@ __device__ __forceinline__ size_t row_base(int b, int kvh, long long sb,
   return (size_t)(b / kvh) * sb + (size_t)(b % kvh) * sh;
 }
 
-// CODE: the element type of K and V (bf16, or int8 / e4m3 codes); QF32
-// (quantized kernels only): q is fp32.
+// CODE: the element type of K and V (int8 or e4m3 codes); QF32: q is fp32.
 template <bool STATS, int CODE, bool QF32, int DK, int DV>
 __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
-  constexpr bool QUANT = CODE != kBf16;
-  static_assert(QUANT || !QF32, "fp32 q is taken by the quantized kernels");
+  static_assert(CODE != kBf16, "bf16 rows: flash_decode_wgmma.cu");
   static_assert(DK % 16 == 0 && DV % (8 * NWARP) == 0 && DV <= DK,
                 "DK a multiple of 16; DV of 64, within the K tile");
   constexpr int KSTR = Smem<DK>::KSTR;
   constexpr int NI = DV / (8 * NWARP);         // O n-tiles per warp
   constexpr int WCOLS = DV / NWARP;            // O columns per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemOf<CODE, QF32, DK>& sm =
-      *reinterpret_cast<SmemOf<CODE, QF32, DK>*>(smem_raw);
+  SmemQuant<DK, QF32>& sm =
+      *reinterpret_cast<SmemQuant<DK, QF32>*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
@@ -179,12 +171,8 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }
-  if constexpr (QUANT)
-    load_q_tile<QF32, true, NH, NTHREAD, DK>(sm.q, sm.q_mid, sm.q_lo, KSTR,
-                                             sm.qsum, P.q, b, P.H, h0);
-  else
-    load_q_tile<false, false, NH, NTHREAD, DK>(sm.q, nullptr, nullptr, KSTR,
-                                               nullptr, P.q, b, P.H, h0);
+  load_q_tile<QF32, NH, NTHREAD, DK>(sm.q, sm.q_mid, sm.q_lo, KSTR, sm.qsum,
+                                     P.q, b, P.H, h0);
   __syncthreads();
 
   // the split's tile range, cut after the last tile holding a live position
@@ -203,29 +191,20 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
 
   for (int j = j0; j < j_end; ++j) {
     const int rows = min(PAGE, P.S - j * PAGE);
-    if constexpr (QUANT) {
-      load_code_tile<CODE, NTHREAD>(
-          sm.k, KSTR,
-          static_cast<const uint8_t*>(P.k) + row_base(b, P.kvh, P.kb, P.kh) +
-              (size_t)j * PAGE * P.ldk,
-          P.ldk, rows, DK);
-      load_sz_tile(sm.sz,
-                   P.sz + row_base(b, P.kvh, P.zb, P.zh) +
-                       (size_t)j * PAGE * P.ldz,
-                   P.ldz, rows);
-      if (P.v)
-        load_sz_tile(sm.szv,
-                     P.vsz + row_base(b, P.kvh, P.vzb, P.vzh) +
-                         (size_t)j * PAGE * P.ldvz,
-                     P.ldvz, rows);
-    } else {
-      load_tile<NTHREAD>(sm.k, KSTR,
-                         static_cast<const bf16*>(P.k) +
-                             row_base(b, P.kvh, P.kb, P.kh) +
-                             (size_t)j * PAGE * P.ldk,
-                         P.ldk, rows, DK, true);
-      cp_async_wait_all();
-    }
+    load_code_tile<CODE, NTHREAD>(
+        sm.k, KSTR,
+        static_cast<const uint8_t*>(P.k) + row_base(b, P.kvh, P.kb, P.kh) +
+            (size_t)j * PAGE * P.ldk,
+        P.ldk, rows, DK);
+    load_sz_tile(sm.sz,
+                 P.sz + row_base(b, P.kvh, P.zb, P.zh) +
+                     (size_t)j * PAGE * P.ldz,
+                 P.ldz, rows);
+    if (P.v)
+      load_sz_tile(sm.szv,
+                   P.vsz + row_base(b, P.kvh, P.vzb, P.vzh) +
+                       (size_t)j * PAGE * P.ldvz,
+                   P.ldvz, rows);
     __syncthreads();
 
     // ---- S = Q K^T: warp tile heads [0, 16), rows [8 warp, +8)
@@ -255,7 +234,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
         }
       }
       const int ca = 8 * warp + 2 * t;          // tile row of sacc[0]
-      if constexpr (QUANT) {                    // the affine of each row
+      {                                         // the affine of each row
         const float2 z0 = sm.sz[ca], z1 = sm.sz[ca + 1];
         const float qs0 = sm.qsum[g], qs8 = sm.qsum[g + 8];
         sacc[0] = z0.x * sacc[0] + z0.y * qs0;
@@ -275,20 +254,12 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
     __syncthreads();
 
     // ---- a separate V replaces the K tile's first DV columns
-    if (P.v) {
-      if constexpr (QUANT)
-        load_code_tile<CODE, NTHREAD>(
-            sm.k, KSTR,
-            static_cast<const uint8_t*>(P.v) +
-                row_base(b, P.kvh, P.vb, P.vh) + (size_t)j * PAGE * P.ldv,
-            P.ldv, rows, DV);
-      else
-        load_tile<NTHREAD>(sm.k, KSTR,
-                           static_cast<const bf16*>(P.v) +
-                               row_base(b, P.kvh, P.vb, P.vh) +
-                               (size_t)j * PAGE * P.ldv,
-                           P.ldv, rows, DV, false);
-    }
+    if (P.v)
+      load_code_tile<CODE, NTHREAD>(
+          sm.k, KSTR,
+          static_cast<const uint8_t*>(P.v) +
+              row_base(b, P.kvh, P.vb, P.vh) + (size_t)j * PAGE * P.ldv,
+          P.ldv, rows, DV);
 
     // ---- online-softmax update: 16 lanes per head row, 4 rows per lane
     {
@@ -296,39 +267,27 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       float sv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = sm.s[h * SSTR + r + 16 * i];
-      if constexpr (QUANT)
-        tile_update<true>(sv, r, amla, &sm.p_hi[h * PSTR], &sm.p_lo[h * PSTR],
-                          &sm.m[h], &sm.l[h], &sm.corr[h],
-                          P.v ? sm.szv : sm.sz, &sm.zc[h],
-                          &sm.p_mid[h * PSTR]);
-      else
-        tile_update(sv, r, amla, &sm.p_hi[h * PSTR], &sm.p_lo[h * PSTR],
-                    &sm.m[h], &sm.l[h], &sm.corr[h]);
+      tile_update(sv, r, amla, &sm.p_hi[h * PSTR], &sm.p_lo[h * PSTR],
+                  &sm.m[h], &sm.l[h], &sm.corr[h], P.v ? sm.szv : sm.sz,
+                  &sm.zc[h], &sm.p_mid[h * PSTR]);
     }
-    if constexpr (!QUANT) cp_async_wait_all();
     __syncthreads();
 
     // ---- O = O * corr + P V: warp owns Dv columns [WCOLS warp, +WCOLS); a
     //      code tile adds sum_r zp_r p_r to every column of its head's row
     {
       const float c_lo = sm.corr[g], c_hi = sm.corr[g + 8];
-      float z_lo = 0.f, z_hi = 0.f;
-      if constexpr (QUANT) {
-        z_lo = sm.zc[g];
-        z_hi = sm.zc[g + 8];
-      }
+      const float z_lo = sm.zc[g], z_hi = sm.zc[g + 8];
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         acc[ni][0] *= c_lo;
         acc[ni][1] *= c_lo;
         acc[ni][2] *= c_hi;
         acc[ni][3] *= c_hi;
-        if constexpr (QUANT) {
-          acc[ni][0] += z_lo;
-          acc[ni][1] += z_lo;
-          acc[ni][2] += z_hi;
-          acc[ni][3] += z_hi;
-        }
+        acc[ni][0] += z_lo;
+        acc[ni][1] += z_lo;
+        acc[ni][2] += z_hi;
+        acc[ni][3] += z_hi;
       }
     }
 #pragma unroll
@@ -340,14 +299,9 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
       const uint32_t ah2 = ld32(&hi[pa + 8]), ah3 = ld32(&hi[pb + 8]);
       const uint32_t al0 = ld32(&lo[pa]), al1 = ld32(&lo[pb]);
       const uint32_t al2 = ld32(&lo[pa + 8]), al3 = ld32(&lo[pb + 8]);
-      uint32_t am0 = 0, am1 = 0, am2 = 0, am3 = 0;
-      if constexpr (QUANT) {
-        const bf16* mid = sm.p_mid;
-        am0 = ld32(&mid[pa]);
-        am1 = ld32(&mid[pb]);
-        am2 = ld32(&mid[pa + 8]);
-        am3 = ld32(&mid[pb + 8]);
-      }
+      const bf16* mid = sm.p_mid;
+      const uint32_t am0 = ld32(&mid[pa]), am1 = ld32(&mid[pb]);
+      const uint32_t am2 = ld32(&mid[pa + 8]), am3 = ld32(&mid[pb + 8]);
       const bf16* r0 = &sm.k[(k0 + 2 * t) * KSTR];    // V rows k0+2t, +1
       const bf16* r1 = r0 + KSTR;
       const bf16* r8 = r0 + 8 * KSTR;                 // V rows k0+2t+8, +9
@@ -358,8 +312,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
         const uint32_t b0 = pack(r0[dv], r1[dv]);
         const uint32_t b1 = pack(r8[dv], r9[dv]);
         mma16816(acc[ni], ah0, ah1, ah2, ah3, b0, b1);
-        if constexpr (QUANT)
-          mma16816(acc[ni], am0, am1, am2, am3, b0, b1);
+        mma16816(acc[ni], am0, am1, am2, am3, b0, b1);
         mma16816(acc[ni], al0, al1, al2, al3, b0, b1);
       }
     }
@@ -386,7 +339,7 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
         *reinterpret_cast<float2*>(&a[dv]) =
             make_float2(acc[ni][2 * half], acc[ni][2 * half + 1]);
       }
-    } else if constexpr (QUANT) {
+    } else {
       const float l = sm.l[row];
       float* o = static_cast<float*>(P.out) + ((size_t)b * P.H + h) * DV;
 #pragma unroll
@@ -395,23 +348,13 @@ __global__ void __launch_bounds__(NTHREAD, 2) flash_decode_kernel(Params P) {
         *reinterpret_cast<float2*>(&o[dv]) = make_float2(
             acc[ni][2 * half] / l, acc[ni][2 * half + 1] / l);
       }
-    } else {
-      const float l = sm.l[row];
-      bf16* o = static_cast<bf16*>(P.out) + ((size_t)b * P.H + h) * DV;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int dv = WCOLS * warp + 8 * ni + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(&o[dv]) = __halves2bfloat162(
-            __float2bfloat16_rn(acc[ni][2 * half] / l),
-            __float2bfloat16_rn(acc[ni][2 * half + 1] / l));
-      }
     }
   }
 }
 
 template <bool STATS, int CODE, bool QF32, int DK, int DV>
 int launch_widths(const Params& p, int B, int n_splits, void* stream) {
-  const int smem = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
+  const int smem = static_cast<int>(sizeof(SmemQuant<DK, QF32>));
   cudaError_t err = cudaFuncSetAttribute(
       flash_decode_kernel<STATS, CODE, QF32, DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -420,15 +363,6 @@ int launch_widths(const Params& p, int B, int n_splits, void* stream) {
   flash_decode_kernel<STATS, CODE, QF32, DK, DV><<<
       grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool STATS>
-int launch(const Params& p, int dk, int dv, int B, int n_splits,
-           void* stream) {
-  return with_widths<DenseWidths>(dk, dv, [&](auto DK, auto DV) {
-    return launch_widths<STATS, kBf16, false, decltype(DK)::value,
-                         decltype(DV)::value>(p, B, n_splits, stream);
-  });
 }
 
 template <bool STATS, int CODE, int DK, int DV>
@@ -458,7 +392,7 @@ int attrs_of(int* out) {
       &a, flash_decode_kernel<STATS, CODE, QF32, DK, DV>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
-  out[1] = static_cast<int>(sizeof(SmemOf<CODE, QF32, DK>));
+  out[1] = static_cast<int>(sizeof(SmemQuant<DK, QF32>));
   out[2] = static_cast<int>(a.localSizeBytes);
   return 0;
 }
@@ -507,27 +441,15 @@ void set_pairs(Params& p, const float* kz, long long zb, long long zh,
 
 extern "C" {
 
-// The (Dk, Dv) pairs K7 / K8 and K7q / K8q take (written to out as dk, dv,
-// ...; returns their number).
-int flash_decode_widths(int* out, int cap) {
-  return write_widths<DenseWidths>(out, cap);
-}
-
+// The (Dk, Dv) pairs K7q / K8q take (written to out as dk, dv, ...; returns
+// their number).
 int flash_decode_quant_widths(int* out, int cap) {
   return write_widths<QuantDenseWidths>(out, cap);
 }
 
-// The registers, dynamic shared memory and local memory of K7 (stats 0)
-// or K8 (stats 1) at (dk, dv), into out[0..2]; the _quant twin: K7q / K8q
-// over int8 (code 0) or e4m3 (code 1) rows, with fp32 q when qf32 is set.
-int flash_decode_attrs(int dk, int dv, int stats, int* out) {
-  return with_widths<DenseWidths>(dk, dv, [&](auto DK, auto DV) {
-    constexpr int K = decltype(DK)::value, V = decltype(DV)::value;
-    return stats ? attrs_of<true, kBf16, false, K, V>(out)
-                 : attrs_of<false, kBf16, false, K, V>(out);
-  });
-}
-
+// The registers, dynamic shared memory and local memory of K7q (stats 0)
+// or K8q (stats 1) at (dk, dv) over int8 (code 0) or e4m3 (code 1) rows,
+// with fp32 q when qf32 is set, into out[0..2].
 int flash_decode_quant_attrs(int dk, int dv, int stats, int code, int qf32,
                              int* out) {
   return with_widths<QuantDenseWidths>(dk, dv, [&](auto DK, auto DV) {
@@ -547,44 +469,12 @@ int flash_decode_quant_attrs(int dk, int dv, int stats, int code, int qf32,
   });
 }
 
-// K7: q [B,H,dk]; K rows k + (b / kvh)*kb + (b % kvh)*kh + s*ldk for s < S
-// (dk wide); V null (the first dv columns of K) or rows at v with strides
-// vb, vh, ldv (dv wide); lengths [B]; out [B,H,dv] bf16.  Strides in
-// elements; (dk, dv) one of flash_decode_widths.
-int flash_decode(const void* q, const void* k, long long kb, int ldk,
-                 const void* v, long long vb, int ldv, int S,
-                 const int* lengths, int kvh, long long kh, long long vh,
-                 int dk, int dv, void* out, int B, int H, float scale,
-                 int amla, void* stream) {
-  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
-                         H, (S + PAGE - 1) / PAGE, scale, amla);
-  p.out = out;
-  return launch<false>(p, dk, dv, B, 1, stream);
-}
-
-// K8: as K7, cut into n_splits splits of tps 64-row tiles (rows past S read
-// as zero); writes fp32 m, l [B,n,H] and acc [B,n,H,dv].
-int flash_decode_partial(const void* q, const void* k, long long kb, int ldk,
-                         const void* v, long long vb, int ldv, int S,
-                         const int* lengths, int kvh, long long kh,
-                         long long vh, int dk, int dv, float* m_out,
-                         float* l_out, float* acc_out, int B, int H,
-                         int n_splits, int tps, float scale, int amla,
-                         void* stream) {
-  Params p = make_params(q, k, kb, ldk, v, vb, ldv, S, lengths, kvh, kh, vh,
-                         H, n_splits * tps, scale, amla);
-  p.npb = tps;
-  p.m_out = m_out;
-  p.l_out = l_out;
-  p.acc_out = acc_out;
-  return launch<true>(p, dk, dv, B, n_splits, stream);
-}
-
-// K7q: K7 over int8 (code 0) or e4m3 (code 1) rows addressed as K7's
-// (strides in bytes), K's (scale, zp) pairs at kz + (b / kvh)*zb +
-// (b % kvh)*zh + s*ldz (floats); V null (its codes and pairs are K's) or
-// codes at v with pairs at vz.  q bf16, or fp32 with qf32 set; out
-// [B,H,dv] fp32; (dk, dv) one of flash_decode_quant_widths.
+// K7q: K7 (flash_decode_wgmma.cu: flash_decode) over int8 (code 0) or
+// e4m3 (code 1) rows addressed as K7's (strides in bytes), K's (scale, zp)
+// pairs at kz + (b / kvh)*zb + (b % kvh)*zh + s*ldz (floats); V null (its
+// codes and pairs are K's) or codes at v with pairs at vz.  q bf16, or
+// fp32 with qf32 set; out [B,H,dv] fp32; (dk, dv) one of
+// flash_decode_quant_widths.
 int flash_decode_quant(const void* q, const void* k, long long kb, int ldk,
                        const void* v, long long vb, int ldv, int S,
                        const int* lengths, int kvh, long long kh,

@@ -1,9 +1,9 @@
-// Building blocks of the mma.sync kernels (flash_decode.cu; the Hopper
-// kernels take the width lists, the Code enum and PAGE): bf16 fragment
-// loads, the m16n8k16 tensor-core product, cp.async tile copies, the
-// loads of int8 / e4m3 code tiles (widened to exact bf16) with their rows'
-// (scale, zp), the query tile (bf16, or fp32 as three bf16 terms), the
-// online-softmax update of one 64-row KV tile, and the (Dk, Dv) widths the
+// Building blocks of the mma.sync kernel (flash_decode.cu, over code rows;
+// the Hopper kernels take the width lists, the Code enum and PAGE): bf16
+// fragment loads, the m16n8k16 tensor-core product, the loads of int8 /
+// e4m3 code tiles (widened to exact bf16) with their rows' (scale, zp),
+// the query tile (bf16, or fp32 as three bf16 terms), the online-softmax
+// update of one 64-row tile of code rows, and the (Dk, Dv) widths the
 // dense, prefill and separate-V paged kernels are built for.
 #pragma once
 
@@ -112,34 +112,6 @@ __device__ __forceinline__ void mma16816(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Copy `rows` rows of `width` bf16 (a multiple of 8) from src (row stride
-// ld elements) into smem (row stride sstr) with cp.async; rows in
-// [rows, PAGE) are zero-filled when `zero` is set.  All threads take part.
-template <int NTHREAD>
-__device__ __forceinline__ void load_tile(bf16* smem, int sstr,
-                                          const bf16* src, size_t ld,
-                                          int rows, int width, bool zero) {
-  const int chunks = width / 8;
-  for (int i = threadIdx.x; i < PAGE * chunks; i += NTHREAD) {
-    const int r = i / chunks, cc = i % chunks;
-    if (r < rows)
-      cp_async16(&smem[r * sstr + cc * 8], src + (size_t)r * ld + cc * 8);
-    else if (zero)
-      *reinterpret_cast<uint4*>(&smem[r * sstr + cc * 8]) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // The element type of a KV operand: bf16 rows, or 1-byte codes (int8, or
 // e4m3) with one fp32 (scale, zp) pair per row.
 enum Code { kBf16, kInt8, kE4m3 };
@@ -213,10 +185,10 @@ __device__ __forceinline__ void load_sz_tile(float2* dst, const float* sz,
 // bf16(x - hi) and lo = bf16(x - hi - mid), into q_hi, q_mid and q_lo:
 // together they carry the 24 bits of x, so products with exact bf16 codes
 // summed in fp32 are the fp32 product's (two terms, 16 bits, leave a score
-// 2^-18 sum|q k| off it).  With QSUM, qsum[i] = the fp32 sum of row c0 + i
-// as given (the zp term of a code row's score).  All threads take part;
-// the caller synchronises.
-template <bool QF32, bool QSUM, int NT, int NTHREAD, int DK>
+// 2^-18 sum|q k| off it).  qsum[i] = the fp32 sum of row c0 + i as given
+// (the zp term of a code row's score).  All threads take part; the caller
+// synchronises.
+template <bool QF32, int NT, int NTHREAD, int DK>
 __device__ __forceinline__ void load_q_tile(bf16* q_hi, bf16* q_mid,
                                             bf16* q_lo, int sstr,
                                             float* qsum, const void* q, int b,
@@ -254,44 +226,39 @@ __device__ __forceinline__ void load_q_tile(bf16* q_hi, bf16* q_mid,
       *reinterpret_cast<uint4*>(&q_hi[r * sstr + cc * 8]) = v;
     }
   }
-  if constexpr (QSUM) {                        // one warp per row, in fp32
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int col = warp; col < NT; col += NTHREAD / 32) {
-      float acc = 0.f;
-      if (c0 + col < C)
-        for (int d = lane; d < DK; d += 32)
-          acc += static_cast<float>(qg[(size_t)col * DK + d]);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int col = warp; col < NT; col += NTHREAD / 32) {  // a warp a row
+    float acc = 0.f;
+    if (c0 + col < C)
+      for (int d = lane; d < DK; d += 32)
+        acc += static_cast<float>(qg[(size_t)col * DK + d]);
 #pragma unroll
-      for (int off = 16; off; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) qsum[col] = acc;
-    }
+    for (int off = 16; off; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) qsum[col] = acc;
   }
 }
 
-// Online-softmax update of one head row (the baseline, flash_decode.cu)
-// over a 64-row tile, run by a half-warp: lane r (0..15) holds the scaled,
-// masked scores of tile rows r, r+16, r+32, r+48 in sv.  Writes the
-// probabilities as bf16 hi + lo terms to p_hi/p_lo[r + 16 i], and advances
-// the column's (m, l) in shared memory, leaving its rescale factor in corr.
-// The recurrence is softmax_state.update: amla keeps m an integer log2 bias
-// and rescales by an exact power of two.
+// Online-softmax update of one head row (the baseline over code rows,
+// flash_decode.cu) over a 64-row tile, run by a half-warp: lane r (0..15)
+// holds the scaled, masked scores of tile rows r, r+16, r+32, r+48 in sv,
+// and advances the row's (m, l) in shared memory, leaving its rescale
+// factor in corr.  The recurrence is softmax_state.update: amla keeps m an
+// integer log2 bias and rescales by an exact power of two.
 //
-// QUANT: the tile's V rows are codes with a per-row (scale, zp) in rsz, so
+// The tile's V rows are codes with a per-row (scale, zp) in rsz, so
 // V^T P^T = sum_r codes_r (scale_r p_r) + (sum_r zp_r p_r) on every Dv row.
-// w_r = scale_r * p_r is then written as three bf16 terms, hi, mid and lo
-// (to p_hi, p_mid, p_lo), which carry its 24 bits: an output near 0 is
-// the difference of sum_r codes_r w_r and sum_r zp_r p_r, which cancel,
-// so two terms (2^-18 of each w) leave it off the fp32 product by more
-// than the fp32 tolerance (1.2e-5 on a Qwen3-8B layer, on an H100).  The
-// column's sum_r zp_r p_r goes to *zsum; l still sums the plain p.
-template <bool QUANT = false>
+// w_r = scale_r * p_r is written as three bf16 terms, hi, mid and lo (to
+// p_hi[r + 16 i], p_mid, p_lo), which carry its 24 bits: an output near 0
+// is the difference of sum_r codes_r w_r and sum_r zp_r p_r, which
+// cancel, so two terms (2^-18 of each w) leave it off the fp32 product by
+// more than the fp32 tolerance (1.2e-5 on a Qwen3-8B layer, on an H100).
+// The row's sum_r zp_r p_r goes to *zsum; l still sums the plain p.
 __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
                                             bf16* p_hi, bf16* p_lo, float* m,
                                             float* l, float* corr,
-                                            const float2* rsz = nullptr,
-                                            float* zsum = nullptr,
-                                            bf16* p_mid = nullptr) {
+                                            const float2* rsz, float* zsum,
+                                            bf16* p_mid) {
   float mx = NEG_INF * LOG2E;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -309,27 +276,20 @@ __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
   for (int i = 0; i < 4; ++i) {
     const float p = prob_exp(sv[i] - m_new, amla);
     sum += p;
-    float w = p;
-    if constexpr (QUANT) {
-      const float2 sz = rsz[r + 16 * i];
-      w = p * sz.x;
-      zs += p * sz.y;
-    }
+    const float2 sz = rsz[r + 16 * i];
+    const float w = p * sz.x;
+    zs += p * sz.y;
     const bf16 hi = __float2bfloat16_rn(w);
     p_hi[r + 16 * i] = hi;
     const float rem = w - __bfloat162float(hi);          // exact
-    if constexpr (QUANT) {
-      const bf16 mid = __float2bfloat16_rn(rem);
-      p_mid[r + 16 * i] = mid;
-      p_lo[r + 16 * i] = __float2bfloat16_rn(rem - __bfloat162float(mid));
-    } else {
-      p_lo[r + 16 * i] = __float2bfloat16_rn(rem);
-    }
+    const bf16 mid = __float2bfloat16_rn(rem);
+    p_mid[r + 16 * i] = mid;
+    p_lo[r + 16 * i] = __float2bfloat16_rn(rem - __bfloat162float(mid));
   }
 #pragma unroll
   for (int off = 8; off; off >>= 1) {
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if constexpr (QUANT) zs += __shfl_xor_sync(0xffffffffu, zs, off);
+    zs += __shfl_xor_sync(0xffffffffu, zs, off);
   }
   __syncwarp();
   if (r == 0) {
@@ -337,7 +297,7 @@ __device__ __forceinline__ void tile_update(float sv[4], int r, bool amla,
     *corr = c;
     *l = *l * c + sum;
     *m = m_new;
-    if constexpr (QUANT) *zsum = zs;
+    *zsum = zs;
   }
 }
 
