@@ -26,16 +26,24 @@ launches each, the host time of one K5 [128] call (µs), and the paper's
 geometry (B 16, H 16, context 65,536) through the paged entry's K1 + K2
 and, over the same rows dense, the baseline entry's K8 + K2, over 20. Then K5q and K6q over the quantized GQA serve phases' code rows
 with fp32 q (chip_smoke.quant_dense_cases: qwen-short's int8 rows and
-qwen-long's fp8 rows at 128, smol-short's and smol-long's at 64), over 200
-launches each. A launch that the wrapper's host time outpaces reads as
-that host time under CUDA events, so the decode kernels (bf16 and over
-codes) also get a ``-dev`` column: their kernels' device time under
-torch.profiler. Each checkout also hands back a digest of the outputs of
-the bf16 decode kernels (K3, K1, K5, K6 at the timing shapes), of the
-baseline over bf16 rows (K7 / K8 at the latent's timing shapes and at
-qwen-dense / qwen-long) and over codes (K7q / K8q at a 128-wide head,
-flash_decode.cu), and the run says whether they are bitwise equal across
-the checkouts. With ``--prefill`` it runs ``model.prefill`` on DeepSeek-R1
+qwen-long's fp8 rows at 128, smol-short's and smol-long's at 64), and the
+baseline over codes, K7q and K8q, at the quantized serve phases' shapes
+(serve-short-std-int8's latent, B 15 x H 128, bf16 q; serve-long-std-fp8's,
+B 7, 4 splits; qwen-short-std-fp8 / qwen-long-std-int8 at 128 and
+smol-short / smol-long at 64, fp32 q), over 200 launches each; then K2 in
+both orientations (``K2`` ETAP's [B, n, Dv, H], ``K2std`` the baseline's
+[B, n, H, Dv], bf16 out) at Dv 512 (serve-long-std's B 7 x 4 splits x H
+128), 128 (qwen-long's 8 grouped rows x 22 splits x G 4), 64 (smol-long's 5
+x 22 x G 3) and 256 (rgemma-long's 1 x 2 x G 16), device time only. A
+launch that the wrapper's host time outpaces reads as that host time under
+CUDA events, so the decode kernels (bf16 and over codes) also get a
+``-dev`` column: their kernels' device time under torch.profiler. Each
+checkout also hands back a digest of the outputs of the bf16 decode
+kernels (K3, K1, K5, K6 at the timing shapes), of the ETAP decode kernels
+over codes (K3q, K1q, K5q, K6q at their timing shapes), of the baseline
+over bf16 rows (K7 / K8 at the latent's timing shapes and at qwen-dense /
+qwen-long) and over codes (K7q / K8q at a 128-wide head), and the run says
+whether they are bitwise equal across the checkouts. With ``--prefill`` it runs ``model.prefill`` on DeepSeek-R1
 at full width cut to its 3 dense layers (random bf16 weights, seed 0) at
 dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts: the median
 wall of 5 synchronised runs (ms) and the peak device memory of those runs
@@ -82,12 +90,19 @@ KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K7[128]", "K8[128]", "K7[128]-dev", "K8[128]-dev", "K7-dev",
            "K8-dev", "K7[64]", "K8[64]", "K7[64]-dev", "K8[64]-dev",
            "K7[256]", "K8[256]", "K7[256]-dev", "K8[256]-dev", "paper-K8+K2",
-           "paper-K8+K2-dev")
-# the kernels whose outputs must keep their bits from one checkout to the
-# next (the bf16 decode kernels, the baseline over bf16 rows at the latent
-# and at 128, and the baseline over codes), each a digest of its output
-BITS = ("K3", "K1", "K5", "K6", "K7", "K8", "K7[128]", "K8[128]",
-        "K7q[128]-int8", "K8q[128]-fp8")
+           "paper-K8+K2-dev", "K7q[576]-int8", "K8q[576]-fp8", "K7q[128]-fp8",
+           "K8q[128]-int8", "K7q[64]-fp8", "K8q[64]-int8",
+           "K7q[576]-int8-dev", "K8q[576]-fp8-dev", "K7q[128]-fp8-dev",
+           "K8q[128]-int8-dev", "K7q[64]-fp8-dev", "K8q[64]-int8-dev",
+           "K2[512]-dev", "K2std[512]-dev", "K2[128]-dev", "K2std[128]-dev",
+           "K2[64]-dev", "K2std[64]-dev", "K2[256]-dev", "K2std[256]-dev")
+# the kernels whose outputs are held bitwise from one checkout to the next
+# (the bf16 decode kernels, the ETAP decode kernels over codes, the
+# baseline over bf16 rows at the latent and at 128, and the baseline over
+# codes), each a digest of its output
+BITS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
+        "K3q-fp8", "K1q-fp8", "K7[128]", "K8[128]", "K7q[128]-int8",
+        "K8q[128]-fp8")
 PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "paged-long-ms",
            "paged-short-ms", "K9[192,128]-ms", "K9[128,128]-ms",
            "K9[64,64]-ms")
@@ -209,7 +224,10 @@ def time_one(root: str) -> dict:
     gqa = gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens)
     out["bits"].update(gqa.pop("bits"))
     out.update(gqa)
-    out.update(quant_dense_times(cs, K, dev))
+    qd = quant_dense_times(cs, K, dev)
+    out["bits"].update(qd.pop("bits"))
+    out.update(qd)
+    out.update(combine_times(dev, gen))
     return out
 
 
@@ -319,36 +337,78 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
 
 
 def quant_dense_times(cs, K, dev) -> dict:
-    """K5q / K6q with fp32 q over the quantized GQA serve phases' code
-    rows and serve lengths (chip_smoke.quant_dense_cases: qwen-short int8
-    and qwen-long fp8 at 128, smol-short int8 and smol-long fp8 at 64; the
-    split ones under the phase's plan), over 200 launches each, and their
-    device times."""
+    """K5q / K6q (ETAP) and K7q / K8q (the baseline) over the quantized
+    serve phases' code rows and serve lengths (chip_smoke.quant_dense_cases;
+    the split ones under the phase's plan), over 200 launches each, and
+    their device times: K5q / K6q with fp32 q at qwen-short int8 and
+    qwen-long fp8 (128), smol-short int8 and smol-long fp8 (64); K7q / K8q
+    at serve-short-std int8 and serve-long-std fp8 (the latent, bf16 q),
+    qwen-short fp8 and qwen-long int8 (128), smol-short fp8 and smol-long
+    int8 (64).  Under "bits", the digests of K5q / K6q's outputs."""
     import numpy as np
     import torch
     from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
     cases = {c[0]: c for c in cs.quant_dense_cases()}
-    out = {}
+    out, fns = {}, {}
     for name, tag, kvd in (("K5q[128]-int8", "qwen-short", "int8"),
                            ("K6q[128]-fp8", "qwen-long", "fp8"),
                            ("K5q[64]-int8", "smol-short", "int8"),
-                           ("K6q[64]-fp8", "smol-long", "fp8")):
+                           ("K6q[64]-fp8", "smol-long", "fp8"),
+                           ("K7q[576]-int8", "serve-short-std", "int8"),
+                           ("K8q[576]-fp8", "serve-long-std", "fp8"),
+                           ("K7q[128]-fp8", "qwen-short", "fp8"),
+                           ("K8q[128]-int8", "qwen-long", "int8"),
+                           ("K7q[64]-fp8", "smol-short", "fp8"),
+                           ("K8q[64]-int8", "smol-long", "int8")):
         _, B, S, Kv, G, Dk, Dv, fused, qdt, n, _, serve = cases[tag]
         q, _, _, kc, ks, vc, vs = cs.quant_dense_inputs(
             B, S, Kv, G, Dk, Dv, fused, qdt, kvd, np.random.default_rng(11))
         lengths = torch.tensor(serve, dtype=torch.int32,
                                device=dev).repeat_interleave(Kv)
         kw = dict(k_sz=ks, v_sz=vs, scale=Dk ** -0.5)
+        single, split = ((K.etap_decode_dense_quant,
+                          K.etap_partial_dense_quant)
+                         if name.startswith(("K5q", "K6q")) else
+                         (FD.flash_decode_quant,
+                          FD.flash_decode_partial_quant))
         if n == 1:
-            def f(q=q, kc=kc, vc=vc, lengths=lengths, kw=kw):
-                return K.etap_decode_dense_quant(q, kc, vc, lengths, **kw)
+            def f(q=q, kc=kc, vc=vc, lengths=lengths, kw=kw, fn=single):
+                return fn(q, kc, vc, lengths, **kw)
         else:
-            def f(q=q, kc=kc, vc=vc, lengths=lengths, kw=kw,
+            def f(q=q, kc=kc, vc=vc, lengths=lengths, kw=kw, fn=split,
                   plan=dense_split_plan(S, cs.PAGE, n)):
-                return K.etap_partial_dense_quant(q, kc, vc, lengths,
-                                                  plan=plan, **kw)
+                return fn(q, kc, vc, lengths, plan=plan, **kw)
+        fns[name] = f
         out[name] = cs.cuda_time_ms(f, 200, warmup=5)
         out[name + "-dev"] = device_ms(f)
+    out["bits"] = {n: digest(f()) for n, f in fns.items()
+                   if n.startswith(("K5q", "K6q"))}
+    return out
+
+
+def combine_times(dev, gen) -> dict:
+    """K2's device time in both orientations (``K2``: ETAP's acc [B, n, Dv,
+    H]; ``K2std``: the baseline's [B, n, H, Dv]; bf16 out) at the split
+    shapes the serve phases give it: Dv 512 at serve-long-std's B 7 x 4
+    splits x H 128, 128 at qwen-long's 8 grouped rows x 22 splits x G 4, 64
+    at smol-long's 5 x 22 x G 3 and 256 at rgemma-long's 1 x 2 x G 16, over
+    random finite stats."""
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    out = {}
+    for Dv, B, n, H in ((512, 7, 4, 128), (128, 8, 22, 4), (64, 5, 22, 3),
+                        (256, 1, 2, 16)):
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        m = rand(B, n, H)
+        l = rand(B, n, H).abs() + 1
+        for name, fn, acc in (
+                ("K2", C.combine_splits, rand(B, n, Dv, H)),
+                ("K2std", C.combine_splits_std, rand(B, n, H, Dv))):
+            out[f"{name}[{Dv}]-dev"] = device_ms(
+                lambda fn=fn, acc=acc, m=m, l=l: fn(
+                    m, l, acc, out_dtype=torch.bfloat16))
     return out
 
 

@@ -126,7 +126,16 @@ Phases, each of which fails the run when it fails:
              against their plain versions, the same bitwise contracts,
              fp32 q's RMSE against the fp64 oracle (the reference's gate,
              or 1% of the reference's route where that misses it), every
-             unit width run, [attrs] and [unit width] lines;
+             unit width run, [attrs] and [unit width] lines; and the
+             baseline over codes on K7 / K8's kernel (K7q / K8q,
+             flash_decode_wgmma.cu: the latent fused and with V code rows
+             of its own, GQA code caches at 128 and 64) at DECODE_EDGES
+             over int8 and e4m3 codes with bf16 and fp32 q in both modes
+             (baseline_quant_edge_checks): against their plain versions,
+             K8q(n=1) + K2 == K7q, own V == fused, in place == the grouped
+             copy and a row alone == in the batch bitwise, fp32 q's RMSE
+             against the fp64 oracle, an [attrs] line per instance, code
+             and q type (local memory fails the run);
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -976,6 +985,211 @@ def baseline_edge_checks(gen, dev) -> dict:
     return errs
 
 
+# K7q / K8q over int8 / e4m3 code rows (flash_decode_wgmma.cu's kernel over
+# codes): (what, Dk, Dv, V of its own); each with bf16 and with fp32 q, one
+# instance for both code types (the converters read the code type)
+BASELINE_QUANT_INSTANCES = (
+    ("latent, fused", DK, DV, 0),
+    ("latent, own V", DK, DV, 1),
+    ("(128, 128)", 128, 128, 1),
+    ("(64, 64)", 64, 64, 1))
+
+
+def baseline_quant_attrs() -> None:
+    """An [attrs] line for each baseline instance over codes, with bf16
+    and with fp32 q, over int8 and e4m3 codes, single pass and split
+    partial; fails on local memory (spills)."""
+    for what, dk, dv, sepv in BASELINE_QUANT_INSTANCES:
+        for qf32 in (0, 1):
+            for code, kvd in enumerate(("int8", "fp8")):
+                got = [attr_values("flash_decode_quant_sepv_attrs", dk, dv,
+                                   sepv, stats, code, qf32)
+                       for stats in (0, 1)]
+                log(f"[attrs] baseline K7q / K8q {what} {kvd}, "
+                    f"{'fp32' if qf32 else 'bf16'} q: " + "; ".join(
+                        f"{x} {r} registers, {sm} B shared memory, {loc} B "
+                        "local" for x, (r, sm, loc) in zip(
+                            ("K7q", "K8q"), got, strict=True)))
+                if any(loc for _, _, loc in got):
+                    raise AssertionError(f"baseline over codes {what} {kvd} "
+                                         f"qf32={qf32}: local memory")
+
+
+def baseline_quant_edge_checks(gen, dev) -> dict:
+    """K7q / K8q over int8 and e4m3 code rows at DECODE_EDGES, with bf16
+    and with fp32 q, in both rescale modes, against their plain versions
+    (f32_close; K8q's splits finalized, f32_finalized_close): the latent
+    (H 16 and 128) over dense code rows of DECODE_DENSE_S (a length of 1,
+    horizons mid-page and on a page's last row, splits past a row's
+    length; 60 rows in 5 splits), fused (V the first 512 code columns with
+    K's pairs) and with V code rows of their own (bitwise the fused
+    kernel); GQA code caches [B, S, K, hd] and their pairs [B, S, K, 2] in
+    place at 128 and 64 with DECODE_GQA's G, bitwise the kernel on the
+    grouped copies; K8q(n=1) + K2 == K7q bitwise everywhere; in the 60-row
+    batches the first cache row's rows run alone bitwise their rows of the
+    batch; with fp32 q, K7q's and K8q + K2's RMSE against the fp64 oracle
+    on the unquantized rows (rmse_within).  Returns {kernels-line key: max
+    abs err}."""
+    import torch
+    from repro_torch.kernels import splitkv
+    from repro_torch.kernels.etap import combine as C
+    from repro_torch.kernels.etap.ref import etap_decode_ref
+    from repro_torch.kernels.etap.schedule import dense_split_plan
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.runtime import paged_cache
+    errs: dict = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def run(a, S, n_list, tag, keys, kw, same=None):
+        """K7q and K8q under n_list over a = (q, k, v, k_sz, v_sz,
+        lengths) against their plain versions; K8q(n=1) + K2 == K7q
+        bitwise; with ``same`` = (out, partials) of another call over the
+        same rows, the outputs bitwise those.  Returns (K7q's output, the
+        partials by split count)."""
+        q, k, v, ks, vs, lengths = a
+        qkw = dict(k_sz=ks, v_sz=vs, **kw)
+        out = FD.flash_decode_quant(q, k, v, lengths, block=PAGE, **qkw)
+        note(keys[0], f32_close(out, FD.flash_decode_quant_plain(
+            q, k, v, lengths, block=PAGE, **qkw), f"{tag} K7q"))
+        sts = {}
+        for n in sorted(set(n_list) | {1}):
+            plan = dense_split_plan(S, PAGE, n)
+            sts[n] = FD.flash_decode_partial_quant(q, k, v, lengths,
+                                                   plan=plan, **qkw)
+            if n > 1:
+                note(keys[1], f32_finalized_close(
+                    sts[n], FD.flash_decode_partial_quant_plain(
+                        q, k, v, lengths, plan=plan, **qkw),
+                    f"{tag} K8q n={n}", transposed=False))
+        bitwise(C.combine_splits_std(*sts[1], out_dtype=f32,
+                                     rescale=kw["rescale"]), out,
+                f"{tag}: K8q(n=1)+K2 vs K7q")
+        if same is not None:
+            bitwise(out, same[0], f"{tag}: K7q")
+            for n, st in sts.items():
+                for x, y in zip(st, same[1][n], strict=True):
+                    bitwise(x, y, f"{tag}: K8q n={n}")
+        return out, sts
+
+    def alone(a, S, out, sts, rows, tag, kw):
+        """The batch's first ``rows`` rows of q (its first cache row) run
+        alone: K7q and each K8q bitwise their rows of the batch's call."""
+        q, k, v, ks, vs, lengths = a
+
+        def head(x):
+            return x[:1] if x.dim() == 4 else x[:rows]
+        one = (q[:rows], head(k), head(v), lengths[:rows])
+        qkw = dict(k_sz=head(ks), v_sz=head(vs), **kw)
+        bitwise(FD.flash_decode_quant(*one, block=PAGE, **qkw), out[:rows],
+                f"{tag}: K7q alone vs in the batch")
+        for n, st in sts.items():
+            for x, y in zip(FD.flash_decode_partial_quant(
+                    *one, plan=dense_split_plan(S, PAGE, n), **qkw), st,
+                    strict=True):
+                bitwise(x, y[:rows], f"{tag}: K8q n={n} alone vs in the "
+                        "batch")
+
+    def gate(a, S, out, sts, oracle, kvd, tag, kw):
+        """fp32 q: K7q and K8q + K2 at the largest split count within
+        rmse_within of the oracle."""
+        q, k, v, ks, vs, lengths = a
+        qkw = dict(k_sz=ks, v_sz=vs, **kw)
+        f = dict(out_dtype=f32, rescale=kw["rescale"])
+        rmse_within(out, FD.flash_decode_quant_plain(
+            q, k, v, lengths, block=PAGE, **qkw), oracle, kvd, f"{tag} K7q")
+        n = max(sts)
+        rmse_within(
+            C.combine_splits_std(*sts[n], **f),
+            C.combine_splits_std_plain(*FD.flash_decode_partial_quant_plain(
+                q, k, v, lengths, plan=dense_split_plan(S, PAGE, n), **qkw),
+                **f), oracle, kvd, f"{tag} K8q n={n} + K2")
+
+    for what, _, _, n_list, _ in DECODE_EDGES:
+        S = DECODE_DENSE_S[what]
+        many = what == "many units"
+        for H in DECODE_LATENT_H:
+            lens = decode_edge_lengths(what, gen, dev, cap=S)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kf, qf = randn(len(lens), S, DK), randn(len(lens), H, DK)
+            oracle = etap_decode_ref(qf.double(), kf.double(),
+                                     kf[..., :DV].double(), lengths,
+                                     scale=SCALE, dtype=torch.float64)
+            for kvd in ("int8", "fp8"):
+                kc, ks = paged_cache.quantize_rows(kf, kvd)
+                keys = (f"flash_decode_quant[{DK},{kvd}]",
+                        f"flash_decode_partial_quant[{DK},{kvd}]")
+                for qdt in (bf16, f32):
+                    for mode in ("amla", "mul"):
+                        tag = (f"K7q/K8q latent {what} B={len(lens)} H={H} "
+                               f"S={S} {kvd} q {str(qdt)[6:]} {mode}")
+                        kw = dict(scale=SCALE, rescale=mode)
+                        a = (qf.to(qdt), kc, kc[..., :DV], ks, ks, lengths)
+                        fused = run(a, S, n_list, tag, keys, kw)
+                        run((*a[:2], kc[..., :DV].contiguous(), *a[3:]), S,
+                            n_list, tag + ", own V", keys, kw, same=fused)
+                        if many:
+                            alone(a, S, *fused, 1, tag, kw)
+                        if qdt == f32:
+                            gate(a, S, *fused, oracle, kvd, tag, kw)
+                log(f"[decode edges] K7q/K8q latent {what} B={len(lens)} "
+                    f"H={H} S={S} {kvd}: K7q, K8q n="
+                    f"{','.join(map(str, n_list))}, fused and own V ok with "
+                    "bf16 and fp32 q in both modes; bitwise: n=1 + K2 == "
+                    "K7q, own V == fused"
+                    + (", a row alone == in the batch" if many else "")
+                    + "; fp32 q within the RMSE gates")
+        for hd in (HD, 64):
+            for G, Kv in DECODE_GQA:
+                if many and G not in (4, 32, 48):
+                    continue
+                lens_b = decode_edge_lengths(what, gen, dev, cap=S)
+                Bo = len(lens_b)
+                lengths = torch.tensor(lens_b, dtype=torch.int32,
+                                       device=dev).repeat_interleave(Kv)
+                kf, vf = randn(Bo, S, Kv, hd), randn(Bo, S, Kv, hd)
+                qf = randn(Bo * Kv, G, hd)
+                oracle = etap_decode_ref(
+                    qf.double(), splitkv.grouped(kf).double(),
+                    splitkv.grouped(vf).double(), lengths, scale=hd ** -0.5,
+                    dtype=torch.float64)
+                for kvd in ("int8", "fp8"):
+                    kc, ks = paged_cache.quantize_rows(kf, kvd)
+                    vc, vs = paged_cache.quantize_rows(vf, kvd)
+                    grp = [splitkv.grouped(x) for x in (kc, vc, ks, vs)]
+                    keys = (f"flash_decode_quant[{hd},{kvd}]",
+                            f"flash_decode_partial_quant[{hd},{kvd}]")
+                    for qdt in (bf16, f32):
+                        q = qf.to(qdt)
+                        for mode in ("amla", "mul"):
+                            tag = (f"K7q/K8q [{hd}] {what} B={Bo} K={Kv} "
+                                   f"G={G} S={S} {kvd} q {str(qdt)[6:]} "
+                                   f"{mode}")
+                            kw = dict(scale=hd ** -0.5, rescale=mode)
+                            grouped = run((q, *grp, lengths), S, n_list,
+                                          tag + ", grouped copy", keys, kw)
+                            a = (q, kc, vc, ks, vs, lengths)
+                            placed = run(a, S, n_list, tag + ", in place",
+                                         keys, kw, same=grouped)
+                            if many:
+                                alone(a, S, *placed, Kv, tag, kw)
+                            if qdt == f32:
+                                gate(a, S, *placed, oracle, kvd, tag, kw)
+                log(f"[decode edges] K7q/K8q [{hd}] {what} B={Bo} K={Kv} "
+                    f"G={G} S={S}: K7q, K8q n={','.join(map(str, n_list))} "
+                    "ok over int8 and fp8 with bf16 and fp32 q in both "
+                    "modes; bitwise: n=1 + K2 == K7q, in place == the "
+                    "grouped copy" + (", a row alone == in the batch"
+                                      if many else "")
+                    + "; fp32 q within the RMSE gates")
+    return errs
+
+
 # the bf16 decode instances: (what, dense, Dk, Dv, V of its own)
 DECODE_INSTANCES = (
     ("paged latent, fused", 0, DK, DV, 0),
@@ -1819,6 +2033,10 @@ def phase_quant_kernels(quick: bool, report: dict) -> None:
     # every decode instance over codes at the edges of its tiling (their
     # errors join the separate-V and dense phases' entries too)
     QUANT_EDGE_ERRS.update(quant_decode_edge_checks(gen, dev))
+    # and the baseline over codes (K7q / K8q: the kernels line's
+    # flash_decode[_partial]_quant entries)
+    baseline_quant_attrs()
+    QUANT_EDGE_ERRS.update(baseline_quant_edge_checks(gen, dev))
     for key in errs:
         errs[key] = max(errs[key], QUANT_EDGE_ERRS.get(key, 0.0))
     quant_decode_unit_width_bits(gen, dev)
@@ -2430,10 +2648,10 @@ QDENSE_KERNELS = {
          "etap_quant.cu", (128, 64)),
         ("flash_decode_quant",
          "src/repro/kernels/flash_decode/flash_decode.py:83",
-         "flash_decode.cu", (128, DK, 64)),
+         "flash_decode_wgmma.cu", (128, DK, 64)),
         ("flash_decode_partial_quant",
          "src/repro/kernels/flash_decode/flash_decode.py:168",
-         "flash_decode.cu", (128, DK, 64)))
+         "flash_decode_wgmma.cu", (128, DK, 64)))
     for w in widths for kvd in ("int8", "fp8")}
 # the quantized phases that pin one split (--kv-splits 1)
 QDENSE_PINNED = ("qwen-short", "smol-short")

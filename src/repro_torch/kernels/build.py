@@ -2,9 +2,8 @@
 kernels over bf16 rows and over int8 / e4m3 code rows (paged, fused and
 over separate K and V pools, and dense; one wgmma / TMA kernel), the
 chunked paged prefill over bf16 and code pools, the untransposed baseline
-(over bf16 rows a wgmma / TMA kernel, over code rows mma.sync), the split
-combine, the causal prefill and the selective scan) on first
-use.
+over bf16 and code rows (one wgmma / TMA kernel), the split combine, the
+causal prefill and the selective scan) on first use.
 
 Each source compiles to an object with its own ``nvcc`` process, all started
 together; the objects link into one shared library with a plain C interface,
@@ -79,6 +78,9 @@ SIGNATURES = {
     # with V rows of their own (flash_decode_wgmma.cu)
     "flash_decode_sepv_attrs": [_I, _I, _I, _I, _P],
     "flash_decode_quant_attrs": [_I, _I, _I, _I, _I, _P],
+    # (dk, dv, sepv, stats, code, qf32, out[3]): K7q / K8q fused (sepv 0,
+    # the latent) or with V code rows of their own
+    "flash_decode_quant_sepv_attrs": [_I, _I, _I, _I, _I, _I, _P],
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P],

@@ -9,9 +9,9 @@ changed — the comparison target of the paper's Figure-1 claim:
     m, ℓ : per-ROW stats   [H]
     Acc += P·V  [H, Dv]
 
-Two kernels over bf16 rows, one Hopper kernel
-(``kernels/csrc/flash_decode_wgmma.cu``: the heads on wgmma's M, a TMA
-ring, warp-specialised; its header note says what bounds it on the H100):
+One Hopper kernel (``kernels/csrc/flash_decode_wgmma.cu``: the heads on
+wgmma's M, a TMA ring, warp-specialised; its header note says what bounds
+it on the H100) runs all four:
 
   K7 :func:`flash_decode`           single-pass decode
      (replaces ``repro/kernels/flash_decode/flash_decode.py:83``)
@@ -22,8 +22,7 @@ Both at the MLA latent's widths (Dk 576, Dv 512) and at the GQA heads
 (Dk = Dv = 128, 64 and 256: ``kernels/csrc/mma_tile.cuh:DenseWidths``),
 whose cache [B, S, K, hd] they read in place as its grouped form [B·K, S,
 hd] (:mod:`repro_torch.kernels.splitkv`).  Their quantized twins, at the
-latent and the 128- and 64-wide heads (``QuantDenseWidths``), run the
-mma.sync body of ``kernels/csrc/flash_decode.cu``:
+latent and the 128- and 64-wide heads (``QuantDenseWidths``):
 
   K7q :func:`flash_decode_quant`, K8q :func:`flash_decode_partial_quant`
      K7 and K8 over int8 / fp8 code rows with their (scale, zp) rows

@@ -236,22 +236,27 @@ def test_fp32_operands_raise(fake_cuda, name):
 
 
 def test_entries_live_in_the_wgmma_source():
-    """K7 / K8 over bf16 rows and their queries are defined in
-    flash_decode_wgmma.cu alone; flash_decode.cu keeps the code rows'
-    entries (K7q / K8q) only."""
+    """K7 / K8 over bf16 rows, K7q / K8q over code rows and their queries
+    are defined in flash_decode_wgmma.cu alone, under their unchanged
+    bindings; the mma.sync body (flash_decode.cu) is gone, and no source
+    keeps an mma.sync product."""
     for name in ("flash_decode", "flash_decode_partial",
                  "flash_decode_widths", "flash_decode_attrs",
-                 "flash_decode_sepv_attrs"):
+                 "flash_decode_sepv_attrs", "flash_decode_quant",
+                 "flash_decode_partial_quant", "flash_decode_quant_widths",
+                 "flash_decode_quant_attrs",
+                 "flash_decode_quant_sepv_attrs"):
         defs = [f.name for f in sorted(CSRC.glob("*.cu"))
                 if re.search(rf"\bint {name}\(", f.read_text())]
         assert defs == ["flash_decode_wgmma.cu"], (name, defs)
         assert name in build.SIGNATURES
     assert len(build.SIGNATURES["flash_decode"]) == 20
     assert len(build.SIGNATURES["flash_decode_partial"]) == 24
-    body = (CSRC / "flash_decode.cu").read_text()
-    assert "mma16816" in body and "kBf16 != " not in body
-    for name in ("flash_decode_quant", "flash_decode_partial_quant",
-                 "flash_decode_quant_widths", "flash_decode_quant_attrs"):
-        assert re.search(rf"\bint {name}\(", body), name
+    assert len(build.SIGNATURES["flash_decode_quant"]) == 30
+    assert len(build.SIGNATURES["flash_decode_partial_quant"]) == 34
+    assert len(build.SIGNATURES["flash_decode_quant_attrs"]) == 6
+    assert not (CSRC / "flash_decode.cu").exists()
+    assert [f.name for f in sorted(CSRC.iterdir())
+            if "mma16816" in f.read_text()] == []
     wg = (CSRC / "flash_decode_wgmma.cu").read_text()
-    assert "mma16816" not in wg and "wgmma_rs_m64n64k16" in wg
+    assert "wgmma_rs_m64n64k16" in wg and "widen_box" in wg

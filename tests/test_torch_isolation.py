@@ -23,8 +23,8 @@ def _imports(path: Path):
 
 def test_port_has_files():
     assert len(FILES) > 20
-    for src in ("etap.cu", "etap_quant.cu", "flash_decode.cu", "combine.cu",
-                "selective_scan.cu"):
+    for src in ("etap.cu", "etap_quant.cu", "flash_decode_wgmma.cu",
+                "combine.cu", "selective_scan.cu"):
         assert (ROOT / "src/repro_torch/kernels/csrc" / src).exists()
 
 
