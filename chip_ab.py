@@ -34,7 +34,9 @@ smol-short / smol-long at 64, fp32 q), over 200 launches each; then K2 in
 both orientations (``K2`` ETAP's [B, n, Dv, H], ``K2std`` the baseline's
 [B, n, H, Dv], bf16 out) at Dv 512 (serve-long-std's B 7 x 4 splits x H
 128), 128 (qwen-long's 8 grouped rows x 22 splits x G 4), 64 (smol-long's 5
-x 22 x G 3) and 256 (rgemma-long's 1 x 2 x G 16), device time only. A
+x 22 x G 3), 256 (rgemma-long's 1 x 2 x G 16) and 512 at the paper's
+geometry (``512p``: B 16 x 16 splits x H 16), device time only, and the
+host time of one K2 call at Dv 128 (``host-us-K2[128]``). A
 launch that the wrapper's host time outpaces reads as that host time under
 CUDA events, so the decode kernels (bf16 and over codes) also get a
 ``-dev`` column: their kernels' device time under torch.profiler. Each
@@ -42,8 +44,10 @@ checkout also hands back a digest of the outputs of the bf16 decode
 kernels (K3, K1, K5, K6 at the timing shapes), of the ETAP decode kernels
 over codes (K3q, K1q, K5q, K6q at their timing shapes), of the baseline
 over bf16 rows (K7 / K8 at the latent's timing shapes and at qwen-dense /
-qwen-long) and over codes (K7q / K8q at a 128-wide head), and the run says
-whether they are bitwise equal across the checkouts. With ``--prefill`` it runs ``model.prefill`` on DeepSeek-R1
+qwen-long) and over codes (K7q / K8q at a 128-wide head), and of K2's in
+both orientations at each of its shapes (both rescale modes, bf16 and fp32
+out, a masked split), and the run says whether they are bitwise equal
+across the checkouts. With ``--prefill`` it runs ``model.prefill`` on DeepSeek-R1
 at full width cut to its 3 dense layers (random bf16 weights, seed 0) at
 dense-short's B 8 x 512 and dense-long's B 4 x 4096 prompts: the median
 wall of 5 synchronised runs (ms) and the peak device memory of those runs
@@ -95,7 +99,8 @@ KERNELS = ("K3", "K1", "K5", "K6", "K7", "K8", "K3q-int8", "K1q-int8",
            "K7q[576]-int8-dev", "K8q[576]-fp8-dev", "K7q[128]-fp8-dev",
            "K8q[128]-int8-dev", "K7q[64]-fp8-dev", "K8q[64]-int8-dev",
            "K2[512]-dev", "K2std[512]-dev", "K2[128]-dev", "K2std[128]-dev",
-           "K2[64]-dev", "K2std[64]-dev", "K2[256]-dev", "K2std[256]-dev")
+           "K2[64]-dev", "K2std[64]-dev", "K2[256]-dev", "K2std[256]-dev",
+           "K2[512p]-dev", "K2std[512p]-dev", "host-us-K2[128]")
 # the kernels whose outputs are held bitwise from one checkout to the next
 # (the bf16 decode kernels, the ETAP decode kernels over codes, the
 # baseline over bf16 rows at the latent and at 128, and the baseline over
@@ -227,7 +232,9 @@ def time_one(root: str) -> dict:
     qd = quant_dense_times(cs, K, dev)
     out["bits"].update(qd.pop("bits"))
     out.update(qd)
-    out.update(combine_times(dev, gen))
+    k2 = combine_times(dev, gen)
+    out["bits"].update(k2.pop("bits"))
+    out.update(k2)
     return out
 
 
@@ -235,19 +242,42 @@ def device_ms(fn, iters: int = 50) -> float:
     """The device time of one call of ``fn`` (ms): its kernels' durations
     summed over ``iters`` calls under torch.profiler, over ``iters``.  A
     launch that the wrappers' host time (tens of µs a call) outpaces reads
-    as that host time in cuda_time_ms; this reads the kernel alone."""
+    as that host time in cuda_time_ms; this reads the kernel alone.  The
+    profiler now and then hands back no device events: such a window is
+    taken again, up to twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.name.startswith(("Memset", "Memcpy")))
+    us = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memset", "Memcpy")))
+        if us:
+            break
     return us / iters / 1e3
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host time of one call of ``fn`` (µs): the mean of ``calls``
+    unsynchronised calls after 5 to warm up."""
+    import time
+
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
@@ -261,8 +291,6 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
     [128] launch takes (the wrapper's call, µs, the mean of 200
     unsynchronised calls); and, under "bits", the digests of K7 / K8
     [128]'s outputs."""
-    import time
-
     import torch
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.kernels import splitkv
@@ -295,15 +323,7 @@ def gqa_times(cs, K, gen, dev, gq3, gargs, gtable, glens) -> dict:
     out = {name: cs.cuda_time_ms(f, 200, warmup=5) for name, f in fns.items()}
     out.update({f"{name}-dev": device_ms(f) for name, f in fns.items()})
     out["bits"] = {n: digest(fns[n]()) for n in ("K7[128]", "K8[128]")}
-    f = fns["K5[128]"]
-    for _ in range(5):
-        f()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        f()
-    out["host-us-K5[128]"] = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
+    out["host-us-K5[128]"] = host_us(fns["K5[128]"])
     del by_tag, fns
     Bp, Hp, ctx = cs.PAPER
     pool, table = cs.make_pool(Bp, ctx // cs.PAGE, [ctx] * Bp, gen, dev)
@@ -387,18 +407,48 @@ def quant_dense_times(cs, K, dev) -> dict:
     return out
 
 
+# K2's shapes: (column tag, Dv, B, n, H): the split shapes the serve
+# phases give it and the paper's geometry
+K2_SHAPES = (("512", 512, 7, 4, 128), ("128", 128, 8, 22, 4),
+             ("64", 64, 5, 22, 3), ("256", 256, 1, 2, 16),
+             ("512p", 512, 16, 16, 16))
+
+
+def k2_stats(B, n, H, Dv, mode, g, dev):
+    """Split stats for K2's digests (m, l [B, n, H], Acc [B, n, H, Dv]):
+    integer-valued m in amla mode, split 0 far below the others (weights
+    around 2^-140 or e^-95: subnormal, or 0), split n // 2 fully masked
+    (m = -1e30, l = 0, a finite garbage Acc)."""
+    import torch
+    m = torch.randn(B, n, H, generator=g, device=dev) * 4
+    if mode == "amla":
+        m = m.round()
+    m[:, 0] -= 140 if mode == "amla" else 95
+    l = torch.rand(B, n, H, generator=g, device=dev) + 1
+    acc = torch.randn(B, n, H, Dv, generator=g, device=dev)
+    if n > 1:
+        m[:, n // 2], l[:, n // 2] = -1e30, 0.0
+        acc[:, n // 2] *= 1e3
+    return m, l, acc
+
+
 def combine_times(dev, gen) -> dict:
     """K2's device time in both orientations (``K2``: ETAP's acc [B, n, Dv,
-    H]; ``K2std``: the baseline's [B, n, H, Dv]; bf16 out) at the split
-    shapes the serve phases give it: Dv 512 at serve-long-std's B 7 x 4
-    splits x H 128, 128 at qwen-long's 8 grouped rows x 22 splits x G 4, 64
-    at smol-long's 5 x 22 x G 3 and 256 at rgemma-long's 1 x 2 x G 16, over
-    random finite stats."""
+    H]; ``K2std``: the baseline's [B, n, H, Dv]; bf16 out) at K2_SHAPES:
+    Dv 512 at serve-long-std's B 7 x 4 splits x H 128, 128 at qwen-long's 8
+    grouped rows x 22 splits x G 4, 64 at smol-long's 5 x 22 x G 3, 256 at
+    rgemma-long's 1 x 2 x G 16 and the paper's geometry ``512p`` (B 16 x 16
+    splits x H 16), over random finite stats; the host time of one K2 call
+    at Dv 128 (µs, the mean of 200 unsynchronised calls); and, under
+    "bits", a digest of each orientation's outputs at each shape in both
+    rescale modes with bf16 and fp32 out (k2_stats, a generator of its
+    own)."""
     import torch
     from repro_torch.kernels.etap import combine as C
-    out = {}
-    for Dv, B, n, H in ((512, 7, 4, 128), (128, 8, 22, 4), (64, 5, 22, 3),
-                        (256, 1, 2, 16)):
+    out, bits = {}, {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    for tag, Dv, B, n, H in K2_SHAPES:
         def rand(*shape):
             return torch.randn(*shape, generator=gen, device=dev)
         m = rand(B, n, H)
@@ -406,9 +456,22 @@ def combine_times(dev, gen) -> dict:
         for name, fn, acc in (
                 ("K2", C.combine_splits, rand(B, n, Dv, H)),
                 ("K2std", C.combine_splits_std, rand(B, n, H, Dv))):
-            out[f"{name}[{Dv}]-dev"] = device_ms(
-                lambda fn=fn, acc=acc, m=m, l=l: fn(
-                    m, l, acc, out_dtype=torch.bfloat16))
+            def call(fn=fn, acc=acc, m=m, l=l):
+                return fn(m, l, acc, out_dtype=torch.bfloat16)
+            out[f"{name}[{tag}]-dev"] = device_ms(call)
+            if (tag, name) == ("128", "K2"):
+                out["host-us-K2[128]"] = host_us(call)
+        outs = {"K2": [], "K2std": []}
+        for mode in ("amla", "mul"):
+            m, l, acc = k2_stats(B, n, H, Dv, mode, g, dev)
+            acc_t = acc.transpose(2, 3).contiguous()
+            for dt in (torch.bfloat16, torch.float32):
+                kw = dict(out_dtype=dt, rescale=mode)
+                outs["K2"].append(C.combine_splits(m, l, acc_t, **kw))
+                outs["K2std"].append(C.combine_splits_std(m, l, acc, **kw))
+        for name, o in outs.items():
+            bits[f"{name}[{tag}]"] = digest(tuple(o))
+    out["bits"] = bits
     return out
 
 
@@ -590,7 +653,10 @@ def main(argv: list) -> int:
     bits: dict = {}
     for root in argv:
         out = subprocess.run([sys.executable, __file__, one, root],
-                             capture_output=True, text=True, check=True)
+                             capture_output=True, text=True)
+        if out.returncode:
+            print(out.stderr[-4000:], file=sys.stderr)
+            out.check_returncode()
         ms = json.loads(out.stdout.strip().splitlines()[-1])
         runs.setdefault(root, []).append(ms)
         for n, d in ms.get("bits", {}).items():

@@ -135,7 +135,16 @@ Phases, each of which fails the run when it fails:
              K8q(n=1) + K2 == K7q, own V == fused, in place == the grouped
              copy and a row alone == in the batch bitwise, fp32 q's RMSE
              against the fp64 oracle, an [attrs] line per instance, code
-             and q type (local memory fails the run);
+             and q type (local memory fails the run); and K2, the split
+             merge (combine.cu: one kernel templated over the
+             orientation), at its edges (combine_edge_checks: every n in
+             COMBINE_EDGE_N x H in COMBINE_EDGE_H x Dv in
+             COMBINE_EDGE_DV over 7 rows, both orientations and rescale
+             modes, bf16 and fp32 out, a fully masked split, a row masked
+             but one split, subnormal weights) against its plain
+             versions, with transposed == [n,H,Dv], a row alone == in
+             the batch and n = 1 == acc / l bitwise, and an [attrs] line
+             per instance (local memory fails the run);
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -2206,6 +2215,117 @@ def check_dense(q, k, v, lengths, *, block, plan, mode, tag, errs,
     return o5
 
 
+# K2's instances (combine.cu: one kernel templated over the orientation):
+# ([n, H, Dv] orientation, floats a thread (8: two vectors of 4), splits
+# loaded at once, fp32 out)
+COMBINE_INSTANCES = tuple((rows, vec, nb, f32) for rows in (0, 1)
+                          for vec, nb in ((1, 4), (1, 8), (1, 16), (1, 24),
+                                          (1, 32), (4, 8), (8, 4))
+                          for f32 in (0, 1))
+# K2's edges: every (n, H, Dv), B 7 rows, both orientations and modes, bf16
+# and fp32 out (n 5 and 16: the batches of 8 and 16 splits)
+COMBINE_EDGE_N = (1, 2, 3, 5, 16, 22, 64, 256)
+COMBINE_EDGE_H = (1, 3, 4, 16, 128)
+COMBINE_EDGE_DV = (64, 128, 256, 512)
+COMBINE_EDGE_B = 7
+
+
+def combine_attrs() -> None:
+    """An [attrs] line for each K2 instance; fails on local memory."""
+    for rows, vec, nb, f32 in COMBINE_INSTANCES:
+        regs, smem, loc = attr_values("etap_combine_attrs", rows, vec, nb,
+                                      f32)
+        log(f"[attrs] K2 {'[n,H,Dv]' if rows else 'transposed'}, "
+            f"{'2 x 4' if vec == 8 else vec} float{'s' if vec > 1 else ''} "
+            f"a thread, {nb} splits at once, {'fp32' if f32 else 'bf16'} "
+            f"out: {regs} registers, {smem} B shared memory, {loc} B local")
+        if loc:
+            raise AssertionError(f"K2 rows={rows} vec={vec} nb={nb} "
+                                 f"f32={f32}: local memory")
+
+
+def combine_stats(B, n, H, Dv, mode, gen, dev):
+    """Seeded split stats (m, l [B, n, H], Acc [B, n, H, Dv] fp32): in amla
+    mode integer-valued m; split 0 far below the others (weights around
+    2^-140 or e^-95: subnormal, or 0); with n > 1, split n // 2 of every
+    row fully masked (m = -1e30, l = 0, a finite garbage Acc) and row 3's
+    splits all masked but the first."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    m = randn(B, n, H) * 4
+    if mode == "amla":
+        m = m.round()
+    m[:, 0] -= 140 if mode == "amla" else 95
+    l = torch.rand(B, n, H, generator=gen, device=dev) + 1
+    acc = randn(B, n, H, Dv)
+    if n > 1:
+        for idx in ((slice(None), n // 2), (3, slice(1, n))):
+            m[idx], l[idx] = -1e30, 0.0
+            acc[idx] = 1e3 * randn(*acc[idx].shape)
+    return m, l, acc
+
+
+def combine_edge_checks(gen, dev) -> dict:
+    """K2 at its edges: every (n, H, Dv) of COMBINE_EDGE_N x COMBINE_EDGE_H
+    x COMBINE_EDGE_DV over COMBINE_EDGE_B rows of combine_stats, both
+    orientations, both rescale modes, bf16 and fp32 out (so every
+    instance of COMBINE_INSTANCES runs, the row alone on another instance
+    than its batch at the larger shapes): each against its plain version
+    (bf16_close / f32_close);
+    the two orientations bitwise equal; n = 1 bitwise the acc / l cast; row 3
+    alone bitwise its row of the batch.  Returns {kernels-line key: max abs
+    err}."""
+    import torch
+    from repro_torch.kernels.etap import combine as C
+    errs = {"combine_splits": 0.0, "combine_splits_std": 0.0}
+    B = COMBINE_EDGE_B
+    for n in COMBINE_EDGE_N:
+        for H in COMBINE_EDGE_H:
+            for Dv in COMBINE_EDGE_DV:
+                for mode in ("amla", "mul"):
+                    m, l, acc = combine_stats(B, n, H, Dv, mode, gen, dev)
+                    acc_t = acc.transpose(2, 3).contiguous()
+                    for dt in (torch.bfloat16, torch.float32):
+                        tag = (f"K2 edges n={n} H={H} Dv={Dv} {mode} "
+                               f"{str(dt)[6:]}")
+                        kw = dict(out_dtype=dt, rescale=mode)
+                        close = bf16_close if dt == torch.bfloat16 else \
+                            f32_close
+                        o_t = C.combine_splits(m, l, acc_t, **kw)
+                        o_r = C.combine_splits_std(m, l, acc, **kw)
+                        for name, o, ref in (
+                                ("combine_splits", o_t,
+                                 C.combine_splits_plain(m, l, acc_t, **kw)),
+                                ("combine_splits_std", o_r,
+                                 C.combine_splits_std_plain(m, l, acc,
+                                                            **kw))):
+                            errs[name] = max(errs[name], close(
+                                o, ref, f"{tag} {name}"))
+                        bitwise(o_t, o_r, f"{tag}: transposed vs [n,H,Dv]")
+                        if n == 1:
+                            bitwise(o_r, (acc[:, 0] / l[:, 0, :, None]).to(
+                                dt), f"{tag}: n=1 vs acc / l")
+                        one = slice(3, 4)
+                        bitwise(C.combine_splits(m[one], l[one], acc_t[one],
+                                                 **kw), o_t[one],
+                                f"{tag}: transposed, a row alone")
+                        bitwise(C.combine_splits_std(m[one], l[one],
+                                                     acc[one], **kw),
+                                o_r[one], f"{tag}: [n,H,Dv], a row alone")
+                    del m, l, acc, acc_t
+        log(f"[K2 edges] n={n}: H {', '.join(map(str, COMBINE_EDGE_H))} x "
+            f"Dv {', '.join(map(str, COMBINE_EDGE_DV))} over {B} rows ok "
+            "in both orientations and modes, bf16 and fp32 out (a masked "
+            "split, a row masked but one split); bitwise: transposed == "
+            "[n,H,Dv], a row alone == in the batch"
+            + (", == acc / l" if n == 1 else ""))
+        torch.cuda.empty_cache()
+    return errs
+
+
 def main_path_cases(gen, dev):
     """The dense decode shapes the serve phases run, at H = 128, with
     ragged lengths that reach the last row: (tag, q, k, v, lengths, block).
@@ -2296,6 +2416,12 @@ def phase_dense_kernels(quick: bool, report: dict) -> None:
     BASELINE_EDGE_ERRS.update(baseline_edge_checks(gen, dev))
     for name in ("flash_decode", "flash_decode_partial"):
         errs[name] = max(errs[name], BASELINE_EDGE_ERRS[name])
+    combine_attrs()
+    k2 = combine_edge_checks(gen, dev)
+    report["combine_splits"]["max_abs_err"] = max(
+        report["combine_splits"]["max_abs_err"], k2["combine_splits"])
+    errs["combine_splits_std"] = max(errs["combine_splits_std"],
+                                     k2["combine_splits_std"])
 
     # ---- timing, and ETAP beside the baseline at the same shapes
     iters, piters = (1, 1) if quick else (20, 3)

@@ -84,6 +84,10 @@ SIGNATURES = {
     "etap_combine_splits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "etap_combine_splits_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P],
+    # (rows, vec, nb, out_f32, out[3]): K2's instance in the [n, H, Dv]
+    # (rows 1) or transposed orientation, 1, 4 or 2 x 4 (vec 8) floats a
+    # thread, nb splits loaded at once
+    "etap_combine_attrs": [_I, _I, _I, _I, _P],
     # dA, dBx, c, y, h, B, L, D, N, stream
     "selective_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the separate-V paged kernels: widths, (dk, dv, stats, code, qf32,

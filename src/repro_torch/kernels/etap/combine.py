@@ -4,12 +4,15 @@ The port of ``repro/kernels/etap/combine.py`` in both of the reference's
 orientations: :func:`combine_splits` takes the ETAP partials' transposed
 Accᵀ [B,n,Dv,H] (K1, K6), :func:`combine_splits_std` the untransposed
 baseline's Acc [B,n,H,Dv] (K8) — the reference's ``transposed=True`` and
-``transposed=False``.  Their CUDA kernels (``kernels/csrc/combine.cu``)
-replace the Pallas kernel at ``repro/kernels/etap/combine.py:60``; its
-header note says what bounds them on the H100.  The merge math is
+``transposed=False``.  Their CUDA kernel (``kernels/csrc/combine.cu``,
+one template over the orientation) replaces the Pallas kernel at
+``repro/kernels/etap/combine.py:60``; its header note says what bounds it
+on the H100.  The merge math is
 :func:`repro_torch.kernels.softmax_state.merge_splits`; ``rescale`` must be
 the mode the partials were produced in.  With one split the merge is bitwise
-the single-pass epilogue.
+the single-pass epilogue; on the card each output is one thread's
+in-order sum, so a row's bits depend neither on its batch nor on the
+orientation.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from repro_torch.kernels import softmax_state
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import amla_flag, stream
+from repro_torch.kernels.launch import amla_flag, device_of, stream
 
 
 def combine_splits_plain(m, l, acc, *, out_dtype, rescale=None):
@@ -42,7 +45,7 @@ def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
             what, f32_out=False):
     """Launch ``fn``; ``f32_out``: the kernel also writes fp32 (it then
     takes the output type as an argument)."""
-    dev = m.device
+    dev = device_of(m, l, acc)
     if dev.type != "cuda":
         raise NotImplementedError(f"no combine path for device {dev}")
     dtypes = (torch.bfloat16, torch.float32) if f32_out else (torch.bfloat16,)
@@ -65,7 +68,7 @@ def _launch(wrapper, fn, m, l, acc, Dv, *, out_dtype, rescale, acc_shape,
 def combine_splits(m, l, acc, *, out_dtype, rescale=None):
     """K2, transposed: CPU tensors take the plain version; CUDA tensors
     launch the kernel (bf16 or fp32 output)."""
-    if m.device.type == "cpu":
+    if device_of(m, l, acc).type == "cpu":
         return combine_splits_plain(m, l, acc, out_dtype=out_dtype,
                                     rescale=rescale)
     B, n, H = m.shape
@@ -80,7 +83,7 @@ def combine_splits_std(m, l, acc, *, out_dtype, rescale=None):
     """K2, [n,H,Dv] orientation (the untransposed baseline's partials):
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 or fp32 output)."""
-    if m.device.type == "cpu":
+    if device_of(m, l, acc).type == "cpu":
         return combine_splits_std_plain(m, l, acc, out_dtype=out_dtype,
                                         rescale=rescale)
     B, n, H = m.shape
