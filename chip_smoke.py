@@ -144,7 +144,17 @@ Phases, each of which fails the run when it fails:
              but one split, subnormal weights) against its plain
              versions, with transposed == [n,H,Dv], a row alone == in
              the batch and n = 1 == acc / l bitwise, and an [attrs] line
-             per instance (local memory fails the run);
+             per instance (local memory fails the run); and K4 / K4q at
+             the spec serve phases' verify shapes (phase_spec_verify,
+             SPEC_VERIFY_CASES: Cq 4 x H 128; B 8 bf16, 15 int8, 7 e4m3
+             slots at starts ragged over 480-600, two rows idle on the
+             null block; B 4 bf16 and 7 e4m3 slots at starts ragged over
+             4096-4160, one and two rows idle): linear and tree
+             verify against their plain versions in both modes, linear
+             verify == prefill and a row alone == in its batch bitwise,
+             over codes fp32 q too and its RMSE against the fp64 oracle,
+             and each one's time, device time, plain time, bound and SDPA's
+             (sdpa_chunk's horizon mask);
   3. serve   ``run_paged`` on DeepSeek-R1 at full width cut to its 3 dense
              layers (bf16, random weights from a seed), short and long
              context, in both attention modes and over int8 and fp8 pools
@@ -153,6 +163,19 @@ Phases, each of which fails the run when it fails:
              fp8 (long) pools, cut the same way: short runs one split (K3 /
              K7 / K3q / K7q), long picks n >= 2 (K1 + K2, K8 + K2 [n,H,Dv],
              K1q + K2, K8q + K2 [n,H,Dv]); K4 or K4q runs every prefill;
+             then the spec phases (SPEC_PHASES, --spec-tokens 4):
+             serve-short-spec, serve-long-std-spec, and, cut,
+             serve-short-int8-spec-head (the head drafter; the seconds its
+             table took) and serve-long-fp8-spec, each verifying through K4
+             / K4q once a layer a verify step (counted on the
+             etap_verify_mla_paged wrappers) with K3, K8 + K2, K3q or K1q +
+             K2 for the slots with fewer than 4 tokens left, printing k,
+             verify steps, drafts proposed and accepted and the acceptance
+             rate, beside its spec-off run (an earlier phase, or one made
+             beside it); then the head drafter's table at the full
+             vocabulary, built on the card, against an fp64 argmax on
+             4096 of its rows, the last (padded) block's among them
+             (head_table_check);
   4. serve   ``run_dense`` on the same model: B 8 x 512 (K5), B 4 x 4096
              (K6 + K2), and B 4 x 4096 in the standard mode (K8 + K2
              [n,H,Dv]), each prefill launching K9 once a layer;
@@ -166,7 +189,17 @@ Phases, each of which fails the run when it fails:
              same weights and cache: logits agree, greedy tokens agree;
              then one paged step under torch.profiler: its wall time,
              the device's busy and idle share of it, device time by kernel;
-             then dense-long's B 4 x 4096 prefill through K9 and through
+             then verify steps (phase_verify_steps: k 4, B 8, ctx <=
+             2047) over bf16, int8 and fp8 pools through K4 / K4q and
+             through the plain versions (check_step's gate; over bf16 with
+             a floor from the kernels' P precision), linear verify_step ==
+             prefill_chunk bitwise (logits, every pool: codes and pairs),
+             and verify at k 1 against the decode step, both through the
+             kernels, per pool and mode, whose largest logit difference
+             rules the spec phases' streams: each equals its spec-off
+             run's, or parts first where the spec-off decode step (replayed
+             alone: replay_logits) has a top-two logit gap below it; then
+             dense-long's B 4 x 4096 prefill through K9 and through
              its plain version (check_step's floor-based gate on the last
              position's logits), and one such prefill under torch.profiler
              (wall, busy, K9's share);
@@ -192,7 +225,11 @@ Phases, each of which fails the run when it fails:
              and over int8 / fp8 pools sized to the fp pool's bytes:
              qwen-short-int8 (15 slots: K5q), qwen-long-fp8 (K6q + K2),
              and, cut to a few requests and tokens, qwen-short-std-fp8
-             (K7q) and qwen-long-std-int8 (K8q + K2 [n,H,Dv]);
+             (K7q) and qwen-long-std-int8 (K8q + K2 [n,H,Dv]); then
+             qwen-short-spec (4 requests of 16 tokens, --spec-tokens 4: the
+             GQA verify is the reference's masked product, no kernel; K5
+             for the other slots) beside its spec-off run, its streams
+             ruled by Qwen's verify-vs-decode difference as DeepSeek's are;
   9. decode  full-width Qwen3-8B decode steps through the kernels, the
              plain versions and two perturbed plain paths, the reordered
              plain versions and one-ulp noise (check_step's floor): paged
@@ -256,8 +293,11 @@ llava-dense, [64,64] on stablelm-dense.  The separate-V paged kernels
 (``<wrapper>[Dk,Dv]`` and ``<wrapper>_quant[Dk,Dv,code]`` entries) are
 counted on their own path, the paged attention entries with a v_pool
 (phase 2's sepv_entry_path), zeroed just before each (width, code type)
-group and read just after; no serve loop reaches them.  The line before the last is the
-``kernels`` JSON; the last line is the device JSON.
+group and read just after; no serve loop reaches them.  A verify launch
+of K4 / K4q counts on ``etap_verify_mla_paged`` (``_quant[code]``) and on
+K4's own entry; the spec phases must launch it (its entries' times are
+phase 2's first case of each pool type).  The line before the last is
+the ``kernels`` JSON; the last line is the device JSON.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # phases 1-2 (K10, K9 too), one iteration
@@ -308,6 +348,10 @@ KERNELS = {
                               _CSRC + "etap_decode.cu"),
     "etap_prefill_mla_paged": ("src/repro/kernels/etap/etap.py:430",
                                _CSRC + "etap_prefill.cu"),
+    # K4's verify launches (explicit per-row horizons), at the spec serve
+    # phases' shape; each is also one of K4's own launches
+    "etap_verify_mla_paged": ("src/repro/kernels/etap/etap.py:430",
+                              _CSRC + "etap_prefill.cu"),
     "etap_decode_dense": ("src/repro/kernels/etap/etap.py:154",
                           _CSRC + "etap.cu"),
     "etap_partial_dense": ("src/repro/kernels/etap/etap.py:603",
@@ -335,6 +379,8 @@ QUANT_KERNELS = {
         ("etap_paged_partial_quant", "src/repro/kernels/etap/etap.py:713",
          "etap_quant.cu"),
         ("etap_prefill_mla_paged_quant",
+         "src/repro/kernels/etap/etap.py:430", "etap_prefill.cu"),
+        ("etap_verify_mla_paged_quant",
          "src/repro/kernels/etap/etap.py:430", "etap_prefill.cu"))}
 # RMSE gates of the quantized decode against the fp64 oracle on the
 # unquantized rows (the reference's tests/test_softmax_state.py:258-280)
@@ -413,12 +459,15 @@ def finalized_close(state, ref, what: str, transposed: bool = True) -> float:
 
 
 def bitwise(a, b, what: str) -> None:
-    """Raise unless a and b hold the same bits."""
+    """Raise unless a and b hold the same bits (of any dtype: fp8 codes
+    through their bytes)."""
     import torch
+    from repro_torch.runtime.paged_cache import raw
 
     def bits(x):
-        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
-    if a.dtype != b.dtype or not torch.equal(bits(a), bits(b)):
+        return raw(x).contiguous().view(torch.uint8)
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            not torch.equal(bits(a), bits(b)):
         raise AssertionError(f"{what}: not bitwise equal")
 
 
@@ -4314,6 +4363,203 @@ def phase_prefill_kernels(quick: bool, report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------- phase 2: K4 / K4q at the spec serve phases' verify shape
+# A spec serve phase's verify launch: Cq = SPEC_K rows (the window) of H
+# 128 for every batch slot, the live rows' starts ragged over the phase's
+# contexts, the last rows idle on the null block (a masked slot: table row
+# 0, start 0).  B x ceil(Cq H / 64) units of 64 columns leave SMs idle at
+# each, so K4 runs units of 32.
+SPEC_K = 4
+# (pool, batch slots, live starts lo-hi, idle rows, the phase it stands
+# for): the short cases at serve-short's contexts (8 bf16 slots, 15 int8 at
+# serve-short-int8's pool bytes, 7 e4m3), the long ones at serve-long's
+# (4 bf16 slots, 7 e4m3 at serve-long-fp8's pool bytes).  The first case of
+# each pool type gives its kernels-line entry.
+SPEC_VERIFY_CASES = (
+    ("fp", 8, (480, 600), 2, "serve-short-spec"),
+    ("int8", 15, (480, 600), 2, "serve-short-int8-spec-head"),
+    ("fp8", 7, (480, 600), 2, "serve-short's contexts over e4m3"),
+    ("fp", 4, (4096, 4160), 1, "serve-long-std-spec"),
+    ("fp8", 7, (4096, 4160), 2, "serve-long-fp8-spec"),
+)
+SPEC_TREE = (0, 1, 1, 2)          # two siblings after the committed token
+
+
+def device_ms(fn, name_part: str, iters: int):
+    """Device time of one call of ``fn`` (ms) from torch.profiler: the
+    device time of the kernels whose name holds ``name_part``, over
+    ``iters`` calls; None when the profiler saw no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name_part in e.key)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def spec_verify_case(spec_case, gen, dev) -> dict:
+    """The operands of one verify launch of ``spec_case`` (an entry of
+    SPEC_VERIFY_CASES): q bf16 [B, SPEC_K, 128, 576], the pool (codes and
+    pairs over int8 / e4m3, with the fp32 rows they code), the table,
+    starts and the linear and tree horizons."""
+    import torch
+    from repro_torch.runtime import paged_cache
+    kvd, B, (lo, hi), idle, _ = spec_case
+    Cq = SPEC_K
+    start = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    start[-idle:] = 0                    # idle slots: table row 0, start 0
+    lengths = (start + Cq).tolist()
+    nb = pages(lengths)
+    pool, table = make_pool(B, nb, lengths, gen, dev)
+    table[-idle:] = 0
+    case = {"B": B, "start": start, "table": table, "nb": nb,
+            "pool": pool, "extra": (), "rows": None, "idle": idle,
+            "tag": f"B={B} Cq={Cq} H=128 starts {lo}-{hi} ({idle} idle)"}
+    if kvd != "fp":
+        rows = torch.randn(pool.shape, generator=gen, device=dev)
+        codes, sz = paged_cache.quantize_pool(rows, kvd)
+        case.update(pool=codes, extra=(sz,), rows=rows)
+    case["q"] = torch.randn(B, Cq, 128, DK, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ar = torch.arange(Cq, dtype=torch.int32, device=dev)
+    case["linear"] = start[:, None] + ar[None, :]
+    case["tree"] = start[:, None] + torch.tensor(
+        SPEC_TREE, dtype=torch.int32, device=dev)[None, :]
+    return case
+
+
+def spec_verify_checks(spec_case, gen, dev) -> float:
+    """K4 (pool "fp") or K4q at the verify shape of ``spec_case``
+    (spec_verify_case), in both rescale modes: the linear and the tree
+    verify against their plain versions at the bf16 tolerance (bf16 q);
+    linear verify == prefill, and
+    a row alone == the same row in its batch, bitwise; over codes also
+    fp32 q against the plain version (f32_close) and its RMSE against the
+    fp64 oracle on the rows the codes stand for (k4q_rmse: the reference's
+    gate, or within 1% of the reference's route).  Returns the max abs
+    error against the plain versions."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    kvd = spec_case[0]
+    c = spec_verify_case(spec_case, gen, dev)
+    sfx = "" if kvd == "fp" else "_quant"
+    verify = getattr(K, f"etap_verify_mla_paged{sfx}")
+    plain = getattr(K, f"etap_verify_mla_paged{sfx}_plain")
+    prefill = getattr(K, f"etap_prefill_mla_paged{sfx}")
+    ops_ = (c["pool"], *c["extra"], DV)
+    B, tbl, start = c["B"], c["table"], c["start"]
+    err = 0.0
+    qs = (c["q"],) if kvd == "fp" else (c["q"], c["q"].float())
+    for q in qs:
+        fp32_q = q.dtype == torch.float32
+        qt = "fp32 q" if fp32_q else "bf16 q"
+        for mode in ("amla", "mul"):
+            kw = dict(scale=SCALE, rescale=mode)
+            tag = f"{'K4' if kvd == 'fp' else 'K4q'} verify {kvd} {qt} " \
+                  f"{c['tag']} {mode}"
+            out = verify(q, *ops_, tbl, start, c["linear"], **kw)
+            for qpos, what in ((c["linear"], "linear"), (c["tree"], "tree")):
+                o = out if what == "linear" else \
+                    verify(q, *ops_, tbl, start, qpos, **kw)
+                err = max(err, sepv_out_close(
+                    o, plain(q, *ops_, tbl, start, qpos, **kw),
+                    f"{tag} ({what})"))
+            bitwise(out, prefill(q, *ops_, tbl, start, **kw),
+                    f"{tag}: linear verify vs prefill")
+            alone = (0, B - c["idle"] - 1, B - 1)   # live rows, an idle one
+            for b in alone:
+                bitwise(verify(q[b:b + 1], *ops_, tbl[b:b + 1],
+                               start[b:b + 1], c["linear"][b:b + 1], **kw),
+                        out[b:b + 1], f"{tag}: row {b} alone vs in batch")
+            log(f"[spec-verify] {tag}: linear and tree verify within "
+                "tolerance of the plain version; bitwise: linear verify == "
+                f"prefill, rows {alone} alone == in the batch")
+        if fp32_q:
+            k4q_rmse(q, (c["pool"], c["extra"][0],
+                         *latent_v(c["pool"], c["extra"][0])), tbl, start,
+                     (c["rows"], c["rows"][..., :DV]), kvd,
+                     f"verify shape {c['tag']}",
+                     fused=(c["pool"], c["extra"][0]))
+    return err
+
+
+def spec_verify_timing(spec_case, gen, dev, iters: int, piters: int):
+    """The verify launch at ``spec_case``'s shape: CUDA-event time,
+    torch.profiler device time, the plain version's time, the bound (q,
+    each pool row under a live horizon read once, the output written once;
+    the products those horizons need) and, over bf16 rows, SDPA's time
+    with the horizon mask on the gathered rows (sdpa_chunk); over codes
+    SDPA on the dequantized bf16 rows is logged as a yardstick (it reads
+    other inputs).  Returns (ms, plain ms, bound ms, bound by, library ms,
+    device ms)."""
+    import torch
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.runtime import paged_cache
+    kvd = spec_case[0]
+    c = spec_verify_case(spec_case, gen, dev)
+    sfx = "" if kvd == "fp" else "_quant"
+    B, tbl, start, nb = c["B"], c["table"], c["start"], c["nb"]
+    args = (c["q"], c["pool"], *c["extra"], DV, tbl, start, c["linear"])
+    verify = getattr(K, f"etap_verify_mla_paged{sfx}")
+    plain = getattr(K, f"etap_verify_mla_paged{sfx}_plain")
+    keys = sum(int(s) + j + 1 for s in start.tolist() for j in range(SPEC_K))
+    rows = sum(int(s) + SPEC_K for s in start.tolist())
+    row_b = DK * 2 if kvd == "fp" else DK + 8
+    nbytes = (c["q"].numel() * 2 + rows * row_b
+              + B * SPEC_K * 128 * DV * 2)
+    flops = 2 * keys * 128 * (DK + DV)
+    tb, by = bound_ms(nbytes, flops)
+    t = cuda_time_ms(lambda: verify(*args, scale=SCALE), iters)
+    td = device_ms(lambda: verify(*args, scale=SCALE), "etap_prefill_kernel",
+                   iters)
+    tp = cuda_time_ms(lambda: plain(*args, scale=SCALE), piters, warmup=1)
+    kd = c["pool"] if kvd == "fp" else paged_cache.dequantize_rows(
+        c["pool"], c["extra"][0]).to(torch.bfloat16)
+    kd = kd[tbl.long()].reshape(B, nb * PAGE, DK)
+    tl = cuda_time_ms(sdpa_chunk(c["q"], kd, kd[..., :DV], start, SCALE),
+                      iters)
+    del kd
+    name = "K4" if kvd == "fp" else f"K4q {kvd}"
+    dev_s = "not measured" if td is None else f"{td:.4f} ms"
+    log(f"[timing] {name} verify {c['tag']} ({spec_case[4]}): {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s), device "
+        f"{dev_s}, plain {tp:.4f} ms, bound {tb:.4f} ms ({by}), SDPA "
+        f"{tl:.4f} ms" + ("" if kvd == "fp" else
+                          " (on the dequantized bf16 rows: a yardstick)"))
+    return t, tp, tb, by, (tl if kvd == "fp" else None), td
+
+
+def phase_spec_verify(quick: bool, report: dict) -> None:
+    """K4 / K4q at the spec serve phases' verify shapes
+    (SPEC_VERIFY_CASES): the checks of spec_verify_checks over bf16, int8
+    and e4m3 pools at the short and the long contexts, then their times
+    (the first case of each pool type gives the kernels line's
+    etap_verify_mla_paged entry)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    iters, piters = (1, 1) if quick else (20, 3)
+    for spec_case in SPEC_VERIFY_CASES:
+        kvd = spec_case[0]
+        err = spec_verify_checks(spec_case, gen, dev)
+        t, tp, tb, by, tl, td = spec_verify_timing(spec_case, gen, dev,
+                                                   iters, piters)
+        key = "etap_verify_mla_paged" if kvd == "fp" else \
+            f"etap_verify_mla_paged_quant[{kvd}]"
+        log(f"[spec-verify] {key} ({spec_case[4]}): max abs err {err:.4e}, "
+            "device ms " + ("not measured" if td is None else f"{td:.4f}"))
+        report.setdefault(key, {"max_abs_err": err, "ms": t, "plain_ms": tp,
+                                "bound_ms": tb, "bound_by": by,
+                                "library_ms": tl})
+
+
 # ------------------------------------------------------- phases 3 - 5
 SHORT = ["--batch", "8", "--requests", "16", "--prompt", "512", "--gen", "32"]
 LONG = ["--batch", "4", "--requests", "4", "--prompt", "4096", "--gen", "32",
@@ -4367,6 +4613,109 @@ SERVE_PHASES = [
 ]
 
 
+# The spec serve phases (--spec-tokens 4): every decoding slot with 4 or
+# more tokens left is verified through K4 / K4q (Cq 4 a slot, the others
+# masked to the null block), the rest take the one-token step (K3, K8 + K2,
+# K3q, K1q + K2).  (phase, serve flags, kernels that must launch in it,
+# its spec-off run: an earlier phase, or a run of the same flags without
+# --spec-tokens made beside it under that name).  The cut quantized phases
+# are cut as serve-short-fp8 and serve-long-int8 are.
+SPEC = ["--spec-tokens", str(SPEC_K)]
+SPEC_PHASES = [
+    ("serve-short-spec", SHORT + SPEC,
+     ("etap_verify_mla_paged", "etap_decode_mla_paged"), "serve-short"),
+    ("serve-long-std-spec", LONG + ["--mode", "standard"] + SPEC,
+     ("etap_verify_mla_paged", "flash_decode_partial", "combine_splits_std"),
+     "serve-long-std"),
+    ("serve-short-int8-spec-head", SHORT_CUT + ["--kv-dtype", "int8"] + SPEC
+     + ["--spec-draft", "head"],
+     ("etap_verify_mla_paged_quant", "etap_decode_mla_paged_quant"),
+     "serve-short-int8-cut"),
+    ("serve-long-fp8-spec", LONG_CUT + ["--kv-dtype", "fp8"] + SPEC,
+     ("etap_verify_mla_paged_quant", "etap_paged_partial_quant",
+      "combine_splits"), "serve-long-fp8-cut"),
+]
+
+
+def head_table_check(params) -> None:
+    """The head drafter's table at DeepSeek-R1's full vocabulary, built on
+    the card as serve-short-int8-spec-head builds it (spec_decode.HeadDraft
+    over the same embedding: fp32 products with TF32 off, blocks of 2048
+    rows, the last one padded), against an fp64 argmax over the same
+    embedding on the card (DGEMM, another route than the fp32 product):
+    4096 rows, those of the first and of the last (padded) block and
+    the rest drawn from a seed.  A row passes where the table holds the
+    fp64 argmax (ties to the lowest index), or where the fp64 similarity of
+    the table's token is within 64 u |E[t]| max |E[t']| (u = 2^-24) of the
+    best: a near tie that fp32 rounding may break either way.  Anything
+    else fails."""
+    import torch
+    from repro_torch.runtime import spec_decode
+    emb = params.get("embed_f32", params["embed"])
+    V = emb.shape[0]
+    t0 = time.perf_counter()
+    table = torch.as_tensor(spec_decode.HeadDraft(emb).table)
+    t_build = time.perf_counter() - t0
+    block, rows = 2048, 4096
+    last = (V - 1) // block * block
+    gen = torch.Generator().manual_seed(28)
+    pick = torch.unique(torch.cat([
+        torch.arange(block), torch.arange(last, V),
+        torch.randint(block, last, (rows - block - (V - last),),
+                      generator=gen)]))
+    dev = emb.device
+    idx = pick.to(dev)
+    x = emb[idx].double()                               # [R, D]
+    best_v = torch.full((len(idx),), float("-inf"), dtype=torch.float64,
+                        device=dev)
+    best_i = torch.zeros(len(idx), dtype=torch.int64, device=dev)
+    norm_max = 0.0
+    step = 8192
+    for lo in range(0, V, step):
+        y = emb[lo:lo + step].double()
+        norm_max = max(norm_max, float(y.norm(dim=1).max()))
+        sim = x @ y.T
+        own = (idx >= lo) & (idx < lo + y.shape[0])
+        sim[own.nonzero()[:, 0], idx[own] - lo] = float("-inf")
+        v, i = sim.max(dim=1)                 # first of equal maxima
+        better = v > best_v                   # an earlier block wins ties
+        best_v = torch.where(better, v, best_v)
+        best_i = torch.where(better, i + lo, best_i)
+        del y, sim
+    got = table[pick].to(dev)
+    got_v = (x * emb[got].double()).sum(dim=1)
+    tol = 64 * 2.0 ** -24 * x.norm(dim=1) * norm_max
+    gap = best_v - got_v
+    exact = got == best_i
+    near = ~exact & (gap <= tol)
+    bad = ~exact & ~near
+    log(f"[head-table] V={V}: built on the card in {t_build:.2f} s; "
+        f"{len(pick)} rows (first block, last block {last}-{V - 1} padded "
+        f"to {block}, the rest drawn) against an fp64 argmax: "
+        f"{int(exact.sum())} equal, {int(near.sum())} near ties (fp64 gap "
+        f"<= 64 u |E[t]| max|E|), {int(bad.sum())} wrong; largest gap "
+        f"relative to its tolerance {float((gap / tol).max()):.3e}")
+    if bool(bad.any()):
+        b = int(bad.nonzero()[0, 0])
+        raise AssertionError(
+            f"head table row {int(pick[b])}: {int(got[b])}, fp64 argmax "
+            f"{int(best_i[b])} (gap {float(gap[b]):.4e} > "
+            f"{float(tol[b]):.4e})")
+
+
+def spec_off_flags(flags) -> list:
+    """A spec phase's flags without --spec-tokens and --spec-draft."""
+    out, skip = [], False
+    for f in flags:
+        if skip:
+            skip = False
+        elif f in ("--spec-tokens", "--spec-draft"):
+            skip = True
+        else:
+            out.append(f)
+    return out
+
+
 # Falcon-Mamba-7B at full width and full depth (64 layers), dense cache:
 # each prefill runs K10 once a layer
 MAMBA = ["--arch", "falcon_mamba_7b", "--cache-layout", "dense"]
@@ -4418,6 +4767,14 @@ QWEN_PHASES = [
     ("qwen-long-std-int8", QWEN_LONG_CUT + ["--mode", "standard",
                                             "--kv-dtype", "int8"],
      ("flash_decode_partial_quant", "combine_splits_std")),
+]
+# Qwen3-8B's spec phase, cut to 4 requests of 16 tokens: the GQA verify is
+# the reference's masked product on the gathered rows (no kernel), the
+# fallback slots run K5 (one split); its spec-off run is made beside it
+QWEN_SPEC_PHASES = [
+    ("qwen-short-spec", QWEN + ["--batch", "8", "--requests", "4", "--prompt",
+                                "512", "--gen", "16", "--kv-splits", "1"]
+     + SPEC, ("etap_decode_dense",), "qwen-short-cut"),
 ]
 
 
@@ -4556,12 +4913,14 @@ def counters():
             for name in wrapper_names()}
 
 
-def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
+def phase_serve(name: str, flags: list, params, expect: tuple,
+                runs: dict | None = None) -> dict:
     """One serve run through the entry points a user calls (``run_paged``
     or ``run_dense`` as ``--cache-layout`` says), with every launch count
     zeroed just before it and read just after; each kernel in ``expect``
-    must have launched.  Peak memory is this phase's own.  Returns the
-    run's launch counts."""
+    must have launched.  Peak memory is this phase's own.  ``runs``: keeps
+    the run's flags, outputs, launches and spec counters under ``name``.
+    Returns the run's launch counts."""
     import torch
     from repro_torch.launch import serve
     t_wall = time.perf_counter()
@@ -4606,7 +4965,49 @@ def phase_serve(name: str, flags: list, params, expect: tuple) -> dict:
     for k in expect:
         if launched[k] == 0:
             raise AssertionError(f"{name}: {k} did not launch")
+    if runs is not None:
+        runs[name] = {"flags": flags, "outputs": outputs,
+                      "launched": launched, "tok_s": tps,
+                      **{k: res.get(k) for k in ("spec", "t_drafter",
+                                                 "prefill_chunks",
+                                                 "batch_slots")}}
     return launched
+
+
+def phase_spec_serve(name, flags, params, expect, off, runs) -> tuple:
+    """A spec serve phase (phase_serve), then its spec-off run ``off`` when
+    no earlier phase of that name ran: prints k, the verify steps, the
+    drafts proposed and accepted and the acceptance rate (with the head
+    drafter, the seconds its table took), and fails unless verify steps
+    ran and, through K4 / K4q, each of them (and the warm-up verify)
+    launched the verify kernel once a layer.  Returns the spec run's
+    launch counts and, when it was made here, the spec-off run's (a
+    tuple)."""
+    from repro_torch.launch import serve
+    got = phase_serve(name, flags, params, expect, runs)
+    cfg = serve.config_for(serve.parse_args(flags))
+    sp, run = runs[name]["spec"], runs[name]
+    log(f"[{name}] spec: k {sp['k']}, draft {sp['draft']}, verify steps "
+        f"{sp['steps']}, proposed {sp['proposed']}, accepted "
+        f"{sp['accepted']}, acceptance rate {sp['acceptance_rate']:.2%}, "
+        f"{run['tok_s']:.1f} tok/s"
+        + (f"; head table built in {run['t_drafter']:.2f} s"
+           if sp["draft"] == "head" else ""))
+    if sp["steps"] == 0:
+        raise AssertionError(f"{name}: no verify step ran")
+    if cfg.attention_kind == "mla":
+        wrapper = "etap_verify_mla_paged" + (
+            "" if kv_dtype_of(flags) == "fp" else "_quant")
+        want = cfg.num_layers * (sp["steps"] + 1)
+        if got[wrapper] != want:
+            raise AssertionError(f"{name}: {wrapper} launched {got[wrapper]} "
+                                 f"times, not {want} (once a layer a verify "
+                                 "step and the warm-up)")
+    if off in runs:
+        return (got,)
+    return got, phase_serve(off, spec_off_flags(flags), params,
+                            tuple(k for k in expect
+                                  if not k.startswith("etap_verify")), runs)
 
 
 @contextlib.contextmanager
@@ -5212,6 +5613,218 @@ def phase_decode_step(params, launches: dict) -> None:
                        f"width, B={B} S={dctx} pos={pos}")
 
 
+# ------------------------------------------- phase 5: the verify step
+def clone_cache(cache):
+    return [{k: v.clone() for k, v in layer.items()} for layer in cache]
+
+
+def verify_setup(cfg, kvd: str, gen):
+    """A full-width paged cache for the verify-step checks: 8 slots of
+    phase_decode_step's ragged lengths (up to 2047 tokens) with room for
+    SPEC_K more, the pools random rows (bf16, or the codes and pairs of
+    fp32 rows).  Returns (cache, table, lengths)."""
+    from repro_torch.models import model
+    from repro_torch.runtime.paged_cache import BlockPool, layout_for
+    dev = gen.device
+    B, ctx = 8, 2048 + SPEC_K
+    layout = layout_for(B, ctx, block_size=PAGE)
+    bp = BlockPool(layout, B)
+    for n in [2047, 1500, 1, 700, 2000, 64, 1999, 1024]:
+        bp.extend(bp.admit(0, ctx), n)
+    cache = model.init_paged_cache(cfg, layout, kv_dtype=kvd, device=dev)
+    cache = fill_random(cache, gen) if kvd == "fp" else \
+        quant_pools(cache, kvd, gen)
+    table, lengths = bp.device_views(dev)
+    return cache, table, lengths
+
+
+def verify_vs_decode(params, cfg, kvd: str, spec, gen, tag: str,
+                     floor: bool = False) -> float:
+    """verify_step at k 1 against decode_step on the same cache and token,
+    both through the kernels (K4 / K4q against the decode kernels the
+    spec picks; a GQA model: the plain masked product against K5-K8):
+    check_step's gate with decode as the reference, greedy tokens equal on
+    decided rows; with ``floor``, the gate of the GQA decode-step checks
+    (phase_gqa_decode_steps: the larger of the decode step's reordered
+    plain path and one-ulp noise, each against its plain path: a deep
+    stack of random layers carries one-ulp differences past 2%).  Returns
+    the largest logit difference."""
+    import torch
+    from repro_torch.models import model
+    cache, table, lengths = verify_setup(cfg, kvd, gen)
+    toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+    def decode():
+        return model.decode_step(params, cfg, clone_cache(cache), toks,
+                                 spec=spec, cache_layout="paged",
+                                 block_table=table, lengths=lengths)[0]
+
+    ld = decode()
+    lv = model.verify_step(params, cfg, clone_cache(cache), toks[:, None],
+                           table, lengths, spec=spec)[0][:, 0]
+    gate_floor = None
+    if floor:
+        with plain_kernels():
+            lp = decode()
+        with reordered_plain():
+            gate_floor = float((decode() - lp).abs().max())
+        with ulp_noise():
+            gate_floor = max(gate_floor, float((decode() - lp).abs().max()))
+    check_step(lv, ld, f"{tag}: verify (k 1) vs decode step, {kvd} pool, "
+               f"mode {spec.mode}, full width, B=8 ctx<=2047",
+               tag="verify-step", floor=gate_floor)
+    return float((lv - ld).abs().max())
+
+
+def phase_verify_steps(params, cfg, diffs: dict) -> None:
+    """Full-width DeepSeek verify steps (k = SPEC_K, linear) over bf16, int8
+    and fp8 pools: through the kernels (K4 / K4q, once a layer) against
+    the plain versions, under check_step's gate (over bf16 with the floor
+    of a plain path with the kernels' P precision); linear verify_step ==
+    prefill_chunk bitwise, logits and every pool (codes and pairs); then
+    verify at k 1 against the decode step (verify_vs_decode) per pool and
+    mode, whose largest logit difference goes to ``diffs[(kvd, mode)]``:
+    the spec serve phases' streams may part only where the spec-off step's
+    top-two gap is below it."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.models import model
+    gen = torch.Generator(device=params["embed"].device)
+    gen.manual_seed(5)
+    V = cfg.vocab_size
+    for kvd in ("fp", "int8", "fp8"):
+        cache, table, lengths = verify_setup(cfg, kvd, gen)
+        toks = torch.randint(0, V, (8, SPEC_K), generator=gen,
+                             device=gen.device, dtype=torch.int32)
+        wrapper = getattr(K, "etap_verify_mla_paged" + (
+            "" if kvd == "fp" else "_quant"))
+
+        def verify(c=cache, t=toks, tb=table, ln=lengths):
+            return model.verify_step(params, cfg, clone_cache(c), t, tb,
+                                     ln)[0].reshape(-1, V)
+
+        before = wrapper.launches
+        lk = verify()
+        if wrapper.launches - before != cfg.num_layers:
+            raise AssertionError(f"verify step {kvd}: the verify kernel did "
+                                 "not launch once a layer")
+        with plain_kernels():
+            lp = verify()
+            floor = None
+            if kvd == "fp":
+                with kernel_p_precision():
+                    floor = float((verify() - lp).abs().max())
+        check_step(lk, lp, f"verify step k={SPEC_K} {kvd}, full width, "
+                   f"B=8 ctx<=2047, kernels vs plain", tag="verify-step",
+                   floor=floor)
+        ca, cb = clone_cache(cache), clone_cache(cache)
+        lpf, ca = model.prefill_chunk(params, cfg, ca, toks, table, lengths)
+        lv, cb = model.verify_step(params, cfg, cb, toks, table, lengths)
+        bitwise(lv, lpf, f"verify step {kvd}: linear verify logits vs "
+                "prefill_chunk's")
+        for i, (a, b) in enumerate(zip(ca, cb, strict=True)):
+            for key in a:
+                bitwise(b[key], a[key], f"verify step {kvd}: layer {i} "
+                        f"{key} vs prefill_chunk's")
+        log(f"[verify-step] {kvd}: linear verify_step == prefill_chunk "
+            f"bitwise (logits and every pool: {sorted(cache[0])})")
+        del cache, ca, cb
+    for kvd, mode in (("fp", "etap"), ("fp", "standard"), ("int8", "etap"),
+                      ("fp8", "etap")):
+        diffs[(kvd, mode)] = verify_vs_decode(params, cfg, kvd,
+                                              AttnSpec(mode=mode), gen,
+                                              "deepseek")
+    log(f"[verify-step] decode-vs-verify differences: {diffs}")
+
+
+def replay_logits(params, flags, rid: int, stream: list, p: int):
+    """The logits of the spec-off decode step that chose ``stream[p]`` of
+    request ``rid`` of a run of ``flags``: the request alone in a pool of
+    the run's layout and batch slots (the others masked to the null block,
+    as a serve step leaves idle slots), its prompt prefilled in the run's
+    chunks, then ``stream[:p]`` fed one step at a time."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.runtime.paged_cache import BlockPool
+    dev = params["embed"].device
+    args = serve.parse_args(flags)
+    cfg = serve.config_for(args)
+    req = serve._make_requests(args, cfg.vocab_size)[rid]
+    layout, B = serve.paged_layout(args, cfg)
+    spec = AttnSpec(mode=args.mode, kv_splits=args.kv_splits,
+                    kv_dtype=args.kv_dtype)
+    cache = model.init_paged_cache(cfg, layout, kv_dtype=args.kv_dtype,
+                                   device=dev)
+    bp = BlockPool(layout, B)
+    prompt = torch.as_tensor(req["prompt"], device=dev)
+    slot = bp.admit(0, len(prompt) + req["gen"])
+    pos, chunk = 0, args.prefill_chunk
+    while pos < len(prompt):
+        c = min(chunk - pos % chunk, len(prompt) - pos)
+        logits, cache = model.prefill_chunk(
+            params, cfg, cache, prompt[None, pos:pos + c],
+            torch.tensor(bp.table[slot:slot + 1], device=dev),
+            torch.tensor(bp.lengths[slot:slot + 1], device=dev), spec=spec)
+        bp.extend(slot, c)
+        pos += c
+    last = logits[0, -1]
+    for i in range(p):
+        toks = torch.zeros(B, dtype=torch.int32, device=dev)
+        toks[slot] = stream[i]
+        table = torch.zeros_like(torch.as_tensor(bp.table), device=dev)
+        table[slot] = torch.as_tensor(bp.table[slot], device=dev)
+        lens = torch.zeros(B, dtype=torch.int32, device=dev)
+        lens[slot] = int(bp.lengths[slot])
+        logits, cache = model.decode_step(params, cfg, cache, toks, spec=spec,
+                                          cache_layout="paged",
+                                          block_table=table, lengths=lens)
+        last = logits[slot]
+        bp.append(slot)
+    return last.float()
+
+
+def spec_stream_check(name: str, off: str, runs: dict, params,
+                      diff: float) -> None:
+    """Phase ``name``'s streams against its spec-off run ``off``, request by
+    request: equal, or parting first at a position where the spec-off
+    decode step's top-two logit gap (replay_logits) is below ``diff``, the
+    decode-vs-verify difference verify_vs_decode measured.  Anything else
+    fails."""
+    on, ref = runs[name]["outputs"], runs[off]["outputs"]
+    if sorted(on) != sorted(ref):
+        raise AssertionError(f"{name}: requests {sorted(on)} against "
+                             f"{off}'s {sorted(ref)}")
+    parted = []
+    for rid in sorted(on):
+        a, b = on[rid], ref[rid]
+        if a == b:
+            continue
+        if len(a) != len(b):
+            raise AssertionError(f"{name}: request {rid} delivered {len(a)} "
+                                 f"tokens, {off} {len(b)}")
+        p = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = replay_logits(params, runs[off]["flags"], rid, b, p)
+        top2 = lg.topk(2).values
+        gap = float(top2[0] - top2[1])
+        same = int(lg.argmax()) == b[p]
+        log(f"[{name}] request {rid} parts from {off} at token {p} of "
+            f"{len(b)} ({a[p]} against {b[p]}): the spec-off step's top-two "
+            f"gap {gap:.4e}, the decode-vs-verify difference {diff:.4e}; "
+            f"the replayed step picks {off}'s token: {same}")
+        if not gap < diff:
+            raise AssertionError(f"{name}: request {rid} parts from {off} at "
+                                 f"a decided position (gap {gap:.4e} >= "
+                                 f"{diff:.4e})")
+        parted.append(rid)
+    log(f"[{name}] streams against {off}: {len(on) - len(parted)} of "
+        f"{len(on)} equal, {len(parted)} part at an undecided position "
+        f"{parted}")
+
+
 # ------------------------------------------------ the GQA models' checks
 # the single-pass and split phase-1 wrappers of the dense decode (bf16 rows
 # and code rows): one of them runs once an attention layer a decode step
@@ -5670,6 +6283,7 @@ def main(argv=None) -> int:
     timed("selective scan", phase_scan, args.quick, report)
     timed("causal prefill kernel (K9)", phase_prefill_kernels, args.quick,
           report)
+    timed("spec verify kernels", phase_spec_verify, args.quick, report)
     if args.quick:
         log(json.dumps({"kernels": [
             dict(name=k, **v, **({"launches": sepv_launches[k]}
@@ -5677,6 +6291,7 @@ def main(argv=None) -> int:
             for k, v in report.items()]}))
         return 0
 
+    from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.models import model
     cfg = full_config()
     t0 = time.perf_counter()
@@ -5690,20 +6305,45 @@ def main(argv=None) -> int:
                                *QDENSE_KERNELS, *PREFILL_KERNELS]}
     launches.update(sepv_launches)          # the paged entries' own path
     served = {k: 0 for k in QDENSE_KERNELS}      # on the serve phases only
-    t_serve = time.perf_counter()
-    for name, flags, expect in SERVE_PHASES:
-        got = phase_serve(name, flags + ["--layers", "3"], params, expect)
+    runs: dict = {}                   # the serve runs' outputs, by phase
+
+    def credit_deepseek(got, flags):
         kvd = kv_dtype_of(flags)
         for k in KERNELS:
-            launches[k] += got[k]
+            launches[k] += got.get(k, 0)
         for k, (_, _, wrapper, code) in QUANT_KERNELS.items():
             if code == kvd:
-                launches[k] += got[wrapper]
+                launches[k] += got.get(wrapper, 0)
         add_qdense(launches, got, DK, kvd)
         add_qdense(served, got, DK, kvd)
         credit_prefill(launches, got, cfg)
+
+    t_serve = time.perf_counter()
+    for name, flags, expect in SERVE_PHASES:
+        got = phase_serve(name, flags + ["--layers", "3"], params, expect,
+                          runs)
+        credit_deepseek(got, flags)
     log(f"[time] serve phases: {time.perf_counter() - t_serve:.1f} s")
+    t_serve = time.perf_counter()
+    for name, flags, expect, off in SPEC_PHASES:
+        for got in phase_spec_serve(name, flags + ["--layers", "3"], params,
+                                    expect, off, runs):
+            credit_deepseek(got, flags)
+    log(f"[time] spec serve phases: {time.perf_counter() - t_serve:.1f} s")
+    timed("head table check", head_table_check, params)
     timed("decode steps", phase_decode_step, params, launches)
+    diffs: dict = {}
+    timed("verify steps", phase_verify_steps, params, cfg, diffs)
+
+    def spec_streams(phases, weights, diff_of):
+        for name, flags, _, off in phases:
+            mode = flags[flags.index("--mode") + 1] if "--mode" in flags \
+                else "etap"
+            spec_stream_check(name, off, runs, weights,
+                              diff_of(kv_dtype_of(flags), mode))
+
+    timed("spec streams", spec_streams, SPEC_PHASES, params,
+          lambda kvd, mode: diffs[(kvd, mode)])
     timed("deepseek prefill check", phase_prefill_check, params, cfg, 4,
           4096)
     timed("deepseek prefill profile", profile_prefill, params, cfg, 4, 4096,
@@ -5749,7 +6389,17 @@ def main(argv=None) -> int:
         credit(launches, got, HD, kv_dtype_of(flags))
         add_qdense(served, got, HD, kv_dtype_of(flags))
         credit_prefill(launches, got, cfg)
+    for name, flags, expect, off in QWEN_SPEC_PHASES:
+        for got in phase_spec_serve(name, flags, params, expect, off, runs):
+            credit(launches, got, HD, kv_dtype_of(flags))
+            add_qdense(served, got, HD, kv_dtype_of(flags))
+            credit_prefill(launches, got, cfg)
     log(f"[time] qwen serve phases: {time.perf_counter() - t_serve:.1f} s")
+    qwen_diff = verify_vs_decode(
+        params, cfg, "fp", AttnSpec(kv_splits=1),
+        torch.Generator(device="cuda").manual_seed(6), "qwen", floor=True)
+    timed("qwen spec streams", spec_streams, QWEN_SPEC_PHASES, params,
+          lambda kvd, mode: qwen_diff)
     timed("qwen prefill check", phase_prefill_check, params, cfg, 8, 512)
     timed("qwen per-layer prefill check", phase_prefill_layer_check, params,
           cfg, 8, 512)

@@ -1,13 +1,15 @@
 """Multi-head Latent Attention (DeepSeek) — the port of
 ``repro/core/mla.py``: the naive (decompressed) form for a whole prompt,
-and the absorbed-form decode over the dense or paged latent cache and
-chunked paged prefill.
+and the absorbed-form decode over the dense or paged latent cache, chunked
+paged prefill and draft verification.
 
 In the absorbed form the per-head up-projections W_uk / W_uv are folded
 into the query and the output, so attention runs over the shared 576-wide
 latent cache c = [rmsnorm(c_kv) ; rope(k_r)], one stream serving K and V
 (V = its first kv_lora_rank columns).  The attention itself is the decode
-kernels' (ETAP, or the untransposed baseline).
+kernels' (ETAP, or the untransposed baseline); a chunk (prefill, or the k
+rows of a draft verification) runs the chunked prefill kernel K4 (K4q over
+code pools).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.core.etap import (decode_attention, decode_attention_paged,
-                                   prefill_attention_paged)
+                                   prefill_attention_paged,
+                                   verify_attention_paged)
 from repro_torch.models import layers
 from repro_torch.models.attention import causal_attention
 from repro_torch.runtime import paged_cache
@@ -161,9 +164,13 @@ def mla_decode_paged(params, cfg, x, cache, table, lengths, *,
     return _absorbed_out(params, cfg, o_lat, x.dtype), _pools(pool, sz)
 
 
-def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec):
+def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec,
+               qpos=None):
     """Append the chunk's latent rows through the table, then run absorbed
-    attention over pool positions <= each query row's own position."""
+    attention over pool positions <= each query row's horizon.
+    ``positions`` [B,C] drives rope; ``qpos`` None is the prefill entry
+    (horizon start + row index, implied by the kernel), else the verify
+    entry with the explicit per-row horizon ``qpos``."""
     m, H = cfg.mla, cfg.num_heads
     B, C, _ = x.shape
     q_nope, q_rope = _queries(params, cfg, x, positions)      # [B,C,H,*]
@@ -178,10 +185,13 @@ def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec):
     else:
         pool, sz = paged_cache.append_chunk_quant(cache["c"], sz, table,
                                                   lengths, c_rows)
-    o_lat = prefill_attention_paged(
-        q, pool, None, table, lengths,
-        spec=spec.replace(scale=m.qk_head_dim ** -0.5), dv=m.kv_lora_rank,
-        k_sz=sz)
+    kw = dict(spec=spec.replace(scale=m.qk_head_dim ** -0.5),
+              dv=m.kv_lora_rank, k_sz=sz)
+    if qpos is None:
+        o_lat = prefill_attention_paged(q, pool, None, table, lengths, **kw)
+    else:
+        o_lat = verify_attention_paged(q, pool, None, table, lengths, qpos,
+                                       **kw)                  # [B,C,H,kv]
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bchk,khd->bchd", o_lat.float(),
                      w_uv.float()).to(x.dtype)
@@ -203,6 +213,24 @@ def mla_prefill_chunk(params, cfg, x, cache, table, lengths, *,
         C, dtype=torch.int32, device=x.device)[None, :]
     return _mla_chunk(params, cfg, x, cache, table, lengths, positions,
                       spec=spec)
+
+
+def mla_verify_chunk(params, cfg, x, cache, table, lengths, qpos, *,
+                     spec: AttnSpec | None = None):
+    """Absorbed-form draft verification against the paged latent cache:
+    score k draft rows in one chunked-prefill-shaped pass (K4, or K4q over
+    an int8 / fp8 cache).
+
+    x: [B,k,D] — the draft tokens' embeddings; qpos: [B,k] each row's
+    absolute position, for rope and for its causal horizon (a linear chain
+    lengths[:, None] + arange(k) makes this bitwise
+    :func:`mla_prefill_chunk`).  The rows are appended at lengths; the
+    scheduler rewinds rejected ones with ``BlockPool.truncate``, never a
+    pool rewrite.  Returns (out [B,k,D], cache)."""
+    spec = spec or AttnSpec()
+    qpos = qpos.to(torch.int32)
+    return _mla_chunk(params, cfg, x, cache, table, lengths, qpos,
+                      spec=spec, qpos=qpos)
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, *, device="cuda"):

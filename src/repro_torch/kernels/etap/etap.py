@@ -66,7 +66,10 @@ walk the KV tiles (pool pages through the block table, dequantized to fp32
 rows for a code pool, or ``block``-row blocks of the dense cache as the
 reference does) with :func:`repro_torch.kernels.softmax_state.update`, the
 recurrence the kernel runs.  Each wrapper's ``launches`` attribute counts
-its kernel launches.
+its kernel launches; a K4 / K4q verify launch (``etap_verify_mla_paged``,
+``etap_verify_mla_paged_quant``) is counted on its own wrapper and, as the
+K4 / K4q launch it is, on ``etap_prefill_mla_paged`` /
+``etap_prefill_mla_paged_quant``.
 
 Column convention: a query tile is [B, C, Dk] with C columns; column c is
 live for key position kpos iff ``kpos <= horizon[b, c]`` — decode uses
@@ -222,6 +225,12 @@ def etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start, *, scale,
                           scale=scale, rescale=rescale)
 
 
+def etap_verify_mla_paged_plain(q, kv_pool, dv, table, start, qpos, **kw):
+    """Plain K4 with the explicit per-row horizon qpos [B,Cq]."""
+    return etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start,
+                                        qpos=qpos, **kw)
+
+
 def etap_decode_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, lengths,
                                       *, scale, rescale=None):
     """Plain K3q: K3 over an int8 / fp8 code pool [N,page,Dk] with its
@@ -245,6 +254,13 @@ def etap_prefill_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, start,
     pool.  Returns [B,Cq,H,dv] in q's dtype."""
     return _prefill_plain(q, kv_pool, kv_sz, dv, table, start, qpos,
                           scale=scale, rescale=rescale)
+
+
+def etap_verify_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table, start,
+                                      qpos, **kw):
+    """Plain K4q with the explicit per-row horizon qpos [B,Cq]."""
+    return etap_prefill_mla_paged_quant_plain(q, kv_pool, kv_sz, dv, table,
+                                              start, qpos=qpos, **kw)
 
 
 def etap_decode_paged_plain(q, k_pool, v_pool, table, lengths, *, scale,
@@ -437,6 +453,8 @@ def _prefill(q, kv_pool, dv, table, start, qpos, *, scale, rescale, what):
         if qpos is not None else None
     out = torch.empty(B, C, dv, dtype=kv_pool.dtype, device=dev)
     etap_prefill_mla_paged.launches += 1
+    if qpos is not None:
+        etap_verify_mla_paged.launches += 1
     build.check(lib.etap_prefill_mla_paged(
         ptr(q), ptr(pool), table.data_ptr(), start.data_ptr(),
         cols.data_ptr() if cols is not None else None, ptr(out),
@@ -459,7 +477,8 @@ def etap_verify_mla_paged(q, kv_pool, dv, table, start, qpos, *, scale,
                           rescale=None):
     """K4 with an explicit per-row horizon: row c attends to positions
     <= qpos[b, c].  A linear qpos (start + arange(Cq)) is bitwise
-    :func:`etap_prefill_mla_paged`.  Counts as a K4 launch."""
+    :func:`etap_prefill_mla_paged`.  Counts as a K4 launch and as a verify
+    launch."""
     return _prefill(q, kv_pool, dv, table, start, qpos, scale=scale,
                     rescale=rescale, what="etap_verify_mla_paged")
 
@@ -565,6 +584,8 @@ def _prefill_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *, scale,
         if qpos is not None else None
     out = torch.empty(B, C, dv, dtype=q.dtype, device=dev)
     etap_prefill_mla_paged_quant.launches += 1
+    if qpos is not None:
+        etap_verify_mla_paged_quant.launches += 1
     build.check(lib.etap_prefill_mla_paged_quant(
         ptr(q), ptr(pool), ptr(sz), table.data_ptr(), start.data_ptr(),
         cols.data_ptr() if cols is not None else None, ptr(out),
@@ -585,8 +606,8 @@ def etap_prefill_mla_paged_quant(q, kv_pool, kv_sz, dv, table, start, *,
 def etap_verify_mla_paged_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *,
                                 scale, rescale=None):
     """K4q with an explicit per-row horizon qpos [B,Cq]; a linear qpos is
-    bitwise :func:`etap_prefill_mla_paged_quant`.  Counts as a K4q
-    launch."""
+    bitwise :func:`etap_prefill_mla_paged_quant`.  Counts as a K4q launch
+    and as a verify launch."""
     return _prefill_quant(q, kv_pool, kv_sz, dv, table, start, qpos,
                           scale=scale, rescale=rescale,
                           what="etap_verify_mla_paged_quant")
@@ -911,11 +932,13 @@ def etap_partial_dense_quant(q, k, v, length, *, k_sz, v_sz, scale, plan,
 etap_decode_mla_paged.launches = 0
 etap_paged_partial.launches = 0
 etap_prefill_mla_paged.launches = 0
+etap_verify_mla_paged.launches = 0
 etap_decode_dense.launches = 0
 etap_partial_dense.launches = 0
 etap_decode_mla_paged_quant.launches = 0
 etap_paged_partial_quant.launches = 0
 etap_prefill_mla_paged_quant.launches = 0
+etap_verify_mla_paged_quant.launches = 0
 etap_decode_dense_quant.launches = 0
 etap_partial_dense_quant.launches = 0
 etap_decode_paged.launches = 0

@@ -42,6 +42,16 @@ dense kernels K5q-K8q; chunked prefill runs K4q (DeepSeek) or the plain
 product on the dequantized rows (GQA).  The dense layout takes the flag and
 ignores it, as the reference's ``run_dense`` does.
 
+``--spec-tokens k`` turns on speculative decoding on the paged layout: a
+host-side drafter (``--spec-draft ngram``, the longest-suffix match over
+the committed stream, or ``head``, an embedding-similarity chain) proposes
+k-1 tokens for every decoding slot with k or more tokens left, one
+``model.verify_step`` scores [cur, d_1, .., d_{k-1}] for those slots in
+one launch a layer (DeepSeek: K4, or K4q over codes; a GQA model: the
+reference's masked product), and greedy acceptance keeps the delivered
+streams those of one-at-a-time greedy decode; the other decoding slots take
+the one-token step.
+
 ``--arch falcon_mamba_7b`` serves Falcon-Mamba-7B on the dense layout (its
 prefill runs the selective-scan kernel in every layer); its state is per
 sequence, so the paged layout raises the reference's ``ValueError``, and
@@ -62,6 +72,11 @@ and the reference's ``ValueError`` on the paged one.
         --reduced --device cpu --batch 2 --prompt 24 --gen 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \\
         --batch 8 --requests 16 --prompt 512 --gen 32 --kv-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 \\
+        --requests 16 --prompt 512 --gen 32 --layers 3 --spec-tokens 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --layers 1 \\
+        --device cpu --batch 2 --prompt 24 --gen 8 --spec-tokens 4 \\
+        --spec-draft head
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma_9b --cache-layout dense --batch 1 \\
         --prompt 4096 --gen 32
@@ -84,7 +99,7 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.kernels import softmax_state
 from repro_torch.models import model
-from repro_torch.runtime import scheduler, telemetry
+from repro_torch.runtime import scheduler, spec_decode, telemetry
 from repro_torch.runtime.paged_cache import (BlockPool, layout_for,
                                              layout_for_bytes)
 from repro_torch.runtime.prefix_cache import PrefixCache
@@ -197,9 +212,28 @@ def run_dense(args, cfg, *, params=None, tokens=None, device="cuda") -> dict:
             "steps": args.gen}
 
 
+def paged_layout(args, cfg):
+    """The paged pool's layout and batch slots for ``args``: ``--batch``
+    slots of ``--prompt + --gen`` rows over bf16 rows; over int8 / fp8 rows
+    the pool keeps the bf16 layout's bytes and the cheaper rows buy more
+    blocks, and with them more batch slots (about 2x at int8).  Returns
+    ``(layout, batch_slots)``."""
+    max_total = args.prompt + args.gen
+    layout = layout_for(args.batch, max_total, block_size=args.page_size,
+                        spare_blocks=args.spare_blocks)
+    if args.kv_dtype == "fp":
+        return layout, args.batch
+    budget_bytes = ((layout.num_blocks - 1) * layout.block_size
+                    * model.paged_row_bytes(cfg, "fp"))
+    return layout_for_bytes(budget_bytes,
+                            model.paged_row_bytes(cfg, args.kv_dtype),
+                            max_total, block_size=args.page_size,
+                            spare_blocks=args.spare_blocks)
+
+
 def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     """Continuous-batching serve loop (the reference's ``run_paged`` minus
-    speculative decoding, fault drills and telemetry export).
+    fault drills and telemetry export).
 
     Per tick: (0) arrivals join the scheduler queue (``--paranoia N`` runs
     the pool audit); (1) the scheduler admits, restores and preempts; (2)
@@ -210,6 +244,16 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     slots (the other slots' table rows masked to the null block), then
     finished sequences retire.
 
+    With ``--spec-tokens k`` every decoding slot that is not replaying a
+    restore and has k or more tokens left is a spec slot: the drafter
+    proposes k-1 tokens from its committed stream, and one
+    :func:`model.verify_step` over the spec slots (the others masked)
+    scores [cur, d_1, .., d_{k-1}]; the slot's budget is extended by k,
+    :func:`spec_decode.accept_greedy` keeps the longest matching draft
+    prefix, and the rejected tail is rewound in place
+    (``BlockPool.truncate(..., free_blocks=False)``).  The one-token step
+    runs over the other decoding slots only.
+
     ``params`` hands in weights (e.g. converted from the reference's with
     :func:`repro_torch.models.convert.params_from_jax`); None draws them
     from the port's own seeded init.  Returns the outputs per request id
@@ -218,20 +262,7 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     reg = telemetry.MetricsRegistry()
     if params is None:
         params = model.init(cfg, seed=args.seed, device=device)
-    B = args.batch
-    max_total = args.prompt + args.gen
-    layout = layout_for(B, max_total, block_size=args.page_size,
-                        spare_blocks=args.spare_blocks)
-    if args.kv_dtype != "fp":
-        # hold the pool's byte budget at what the fp layout spends for
-        # --batch slots and let the cheaper quantized rows buy more blocks,
-        # and with them more batch slots (about 2x at int8 for bf16)
-        budget_bytes = ((layout.num_blocks - 1) * layout.block_size
-                        * model.paged_row_bytes(cfg, "fp"))
-        layout, B = layout_for_bytes(
-            budget_bytes, model.paged_row_bytes(cfg, args.kv_dtype),
-            max_total, block_size=args.page_size,
-            spare_blocks=args.spare_blocks)
+    layout, B = paged_layout(args, cfg)
     host_blocks = args.host_blocks
     if args.preemption == "swap" and host_blocks == 0:
         host_blocks = layout.num_blocks - 1   # host tier mirrors the pool
@@ -276,17 +307,47 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
         return model.prefill_chunk(params, cfg, cache, toks, table, lengths,
                                    spec=spec)
 
+    def verify_fn(cache, toks, table, lengths):
+        return model.verify_step(params, cfg, cache, toks, table, lengths,
+                                 spec=spec)
+
+    def masked(slots):
+        """The table and lengths with every slot outside ``slots`` on the
+        null block, so that a launch's rows for it land there."""
+        table_m = bp.table.copy()
+        lens_m = bp.lengths.copy()
+        for b in range(B):
+            if b not in slots:
+                table_m[b] = 0
+                lens_m[b] = 0
+        return (torch.tensor(table_m, device=device),
+                torch.tensor(lens_m, device=device))
+
     # warm-up outside the timed region (on the card this builds the kernels):
     # all slots inactive, so the dummy rows land in the null block
     table0, lengths0 = bp.device_views(device)
     logits0, holder["cache"] = step_fn(
         holder["cache"], torch.zeros(B, dtype=torch.int32, device=device),
         table0, lengths0)
+    k_max = args.spec_tokens
+    drafter, t_drafter = None, 0.0
+    if k_max > 0:
+        t_drafter = time.perf_counter()
+        drafter = spec_decode.make_drafter(args.spec_draft, params,
+                                           metrics=reg)
+        t_drafter = time.perf_counter() - t_drafter
+        logits0, holder["cache"] = verify_fn(
+            holder["cache"],
+            torch.zeros(B, k_max, dtype=torch.int32, device=device),
+            table0, lengths0)
     _sync(device)
     del logits0
 
     c_tokens = reg.counter("serve/decode_tokens")
     c_steps = reg.counter("serve/decode_steps")
+    c_spec_steps = reg.counter("serve/spec_verify_steps")
+    c_spec_prop = reg.counter("serve/spec_proposed")
+    c_spec_acc = reg.counter("serve/spec_accepted")
     c_chunks = reg.counter("serve/prefill_chunks")
     c_inter = reg.counter("serve/interleaved_steps")
     c_pf = reg.counter("serve/prefill_tokens")
@@ -313,7 +374,14 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
         sched.admit(tick, now)
         running = sched.running()
         dec = [r for r in running if r.decoding]
-        spent = len(dec)
+        # speculation takes slots with k_max or more deliveries left (start
+        # + k_max then stays inside the slot's reserved budget) that are not
+        # teacher-forcing a restore replay; the rest take the one-token step
+        spec_dec = [r for r in dec
+                    if k_max > 0 and not r.replay and r.remaining >= k_max]
+        spec_slots = {r.slot for r in spec_dec}
+        # decode tokens this step (each spec slot runs k_max verify rows)
+        spent = len(dec) + max(0, k_max - 1) * len(spec_dec)
         budget_eff = spent + sched.prefill_quota(max(0, budget - spent))
 
         # ---- (2) prefill chunks from cold slots under the budget
@@ -352,28 +420,21 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
                 if prefix is not None:
                     prefix.insert(np.asarray(r.prompt), bp.block_ids(b), bp)
 
-        # ---- (3) one ragged decode step over the decoding slots
-        if dec:
-            slots = {r.slot for r in dec}
-            table_m = bp.table.copy()
-            lens_m = bp.lengths.copy()
+        # ---- (3) one ragged decode step over the plain decoding slots
+        plain = [r for r in dec if r.slot not in spec_slots]
+        if plain:
             cur_arr = np.zeros((B,), np.int32)
-            for b in range(B):
-                if b not in slots:
-                    table_m[b] = 0
-                    lens_m[b] = 0
-            for r in dec:
+            for r in plain:
                 cur_arr[r.slot] = r.replay[0] if r.replay else r.cur
             logits, holder["cache"] = step_fn(
                 holder["cache"], torch.tensor(cur_arr, device=device),
-                torch.tensor(table_m, device=device),
-                torch.tensor(lens_m, device=device))
+                *masked({r.slot for r in plain}))
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             c_steps.inc()
             if pf_tokens:
                 c_inter.inc()
             now = time.perf_counter()
-            for r in dec:
+            for r in plain:
                 b = r.slot
                 if r.replay:
                     # teacher-forced replay of a restored recompute victim:
@@ -392,6 +453,48 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
                     r.cur = int(nxt[b])
                     if r.remaining == 0:
                         sched.finish(r)
+
+        # ---- (3') one verify launch over the spec slots: draft k-1 tokens
+        # a slot from its committed stream, score [cur, d_1, .., d_{k-1}],
+        # keep the longest draft prefix the model's argmax chain agrees with
+        if spec_dec:
+            tok_arr = np.zeros((B, k_max), np.int32)
+            drafts = {}
+            for r in spec_dec:
+                history = np.concatenate([np.asarray(r.prompt, np.int64),
+                                          np.asarray(r.out + [r.cur],
+                                                     np.int64)])
+                drafts[r.slot] = (list(drafter(history, k_max - 1))
+                                  if k_max > 1 else [])
+                tok_arr[r.slot] = [r.cur] + drafts[r.slot]
+            logits, holder["cache"] = verify_fn(
+                holder["cache"], torch.tensor(tok_arr, device=device),
+                *masked(spec_slots))
+            preds = torch.argmax(logits, dim=-1).cpu().numpy()   # [B, k]
+            c_steps.inc()
+            c_spec_steps.inc()
+            if pf_tokens:
+                c_inter.inc()
+            now = time.perf_counter()
+            for r in spec_dec:
+                b = r.slot
+                start = int(bp.lengths[b])
+                # the verify pass appended k_max rows; commit them, then
+                # rewind the rejected tail in place (the slot keeps its
+                # reservation; the stale rows past its length are never
+                # read before the next launch overwrites them)
+                bp.extend(b, k_max)
+                accepted, nxt_tok = spec_decode.accept_greedy(drafts[b],
+                                                              preds[b])
+                bp.truncate(b, start + 1 + accepted, free_blocks=False)
+                for t in [r.cur] + drafts[b][:accepted]:
+                    sched.deliver(r, int(t), now)
+                    c_tokens.inc()
+                c_spec_prop.inc(len(drafts[b]))
+                c_spec_acc.inc(accepted)
+                r.cur = int(nxt_tok)
+                if r.remaining == 0:
+                    sched.finish(r)
         c_ticks.inc()
         bp.observe(reg)
         g_queued.set(len(sched.queue))
@@ -404,12 +507,25 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     outputs = {rid: r.out for rid, r in sorted(sched.done.items())}
     pstats = prefix.stats() if prefix is not None else None
     tokens_served = c_tokens.value
+    spec_stats = None
+    if k_max > 0:
+        spec_stats = {"k": k_max, "draft": args.spec_draft,
+                      "steps": c_spec_steps.value,
+                      "proposed": c_spec_prop.value,
+                      "accepted": c_spec_acc.value,
+                      "acceptance_rate":
+                          c_spec_acc.value / max(c_spec_prop.value, 1)}
+    spec_note = "" if spec_stats is None else (
+        f"spec k={k_max} draft={args.spec_draft} "
+        f"verify_steps={spec_stats['steps']} "
+        f"accepted={spec_stats['accepted']}/{spec_stats['proposed']} "
+        f"({spec_stats['acceptance_rate']:.1%}) ")
     print(f"[serve] {args.arch} layers={cfg.num_layers} "
           f"device={_device_name(device)} mode={args.mode} "
           f"kv_dtype={args.kv_dtype} slots={B} requests={n_requests} "
           f"page={layout.block_size} "
           f"chunk={chunk} rescale={softmax_state.default_mode()} "
-          f"tokens={tokens_served} steps={c_steps.value} "
+          f"{spec_note}tokens={tokens_served} steps={c_steps.value} "
           f"prefill_chunks={c_chunks.value} t_prefill={t_prefill:.3f}s "
           f"t_decode={t_decode:.3f}s "
           f"tok/s={tokens_served / max(t_total, 1e-9):.1f}")
@@ -424,8 +540,9 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
             "prefill_tokens_saved": sched.prefill_tokens_saved,
             "replayed_tokens": c_replay.value, "prefix": pstats,
             "sched": sched.stats(), "classes": sched.class_stats(),
-            "metrics": reg.snapshot(), "t_prefill": t_prefill,
-            "t_decode": t_decode, "t_total": t_total}
+            "spec": spec_stats, "t_drafter": t_drafter,
+            "metrics": reg.snapshot(),
+            "t_prefill": t_prefill, "t_decode": t_decode, "t_total": t_total}
 
 
 def config_for(args):
@@ -449,7 +566,6 @@ def run(args) -> dict:
 
 # flag -> (value that is served, why another value is refused)
 _NOT_PORTED = {
-    "spec_tokens": (0, "speculative decoding (ROADMAP A2)"),
     "fault_rate": (0.0, "fault drills (ROADMAP A6)"),
     "trace_out": (None, "trace export (ROADMAP A6)"),
     "metrics_out": (None, "metrics export (ROADMAP A6)"),
@@ -518,7 +634,18 @@ def parse_args(argv=None):
                     help="arrival trace shape under --arrival-rate")
     ap.add_argument("--burst-size", type=int, default=4,
                     help="requests per burst for --trace burst")
-    ap.add_argument("--spec-tokens", type=int, default=0)
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="speculative decode window k: draft k-1 tokens per "
+                         "eligible decode slot and score all k in one "
+                         "verify pass; greedy acceptance keeps the outputs "
+                         "those of one-at-a-time decode (0 = off; paged "
+                         "layout only)")
+    ap.add_argument("--spec-draft", default="ngram",
+                    choices=list(spec_decode.DRAFT_KINDS),
+                    help="draft proposer for --spec-tokens: ngram = "
+                         "longest-suffix match over the committed stream; "
+                         "head = embedding-similarity chain (not with "
+                         "--kv-dtype fp8)")
     ap.add_argument("--trace-out", default=None, metavar="PATH")
     ap.add_argument("--metrics-out", default=None, metavar="PATH")
     ap.add_argument("--profile-kernels", type=int, default=0, metavar="N")
@@ -535,11 +662,17 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true")
     args = ap.parse_args(argv)
-    # the reference's refusals of paged-only flags come first: with the
-    # dense layout these flags are wrong, not merely unported
+    # the reference's refusals come first: with the dense layout the
+    # paged-only flags are wrong, not merely unported
+    if args.spec_tokens < 0:
+        ap.error("--spec-tokens must be >= 0")
     if args.spec_tokens > 0 and args.cache_layout == "dense":
         ap.error("--spec-tokens requires --cache-layout paged: the dense "
                  "loop has no block pool to rewind rejected drafts in")
+    if args.spec_tokens > 0 and args.spec_draft == "head" \
+            and args.kv_dtype == "fp8":
+        ap.error("--spec-draft head is not supported with --kv-dtype fp8; "
+                 "use --spec-draft ngram")
     if args.cache_layout == "dense" and (args.trace_out
                                          or args.profile_kernels):
         ap.error("--trace-out/--profile-kernels require --cache-layout "

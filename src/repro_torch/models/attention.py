@@ -37,7 +37,12 @@ prefill kernel (:mod:`repro_torch.kernels.flash_prefill`), on CUDA
 operands: the reference names that kernel the accelerator route of its
 masked product, which computes the upper triangle the kernel skips.  On
 CPU operands it stays the reference's masked product.  Local attention
-never takes K9.  Draft verification is not ported yet (ROADMAP A2).
+never takes K9.
+
+Draft verification (:func:`attention_verify_chunk`, the serve loop's
+``--spec-tokens``) is the chunked prefill's masked product with an explicit
+per-row horizon, over the gathered pools, with no kernel: the reference's
+route.
 """
 from __future__ import annotations
 
@@ -315,6 +320,21 @@ def attention_prefill_chunk(params, cfg, x, cache, table, lengths, *,
     positions = lengths[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=x.device)[None, :]
     return _attention_chunk(params, cfg, x, cache, table, lengths, positions)
+
+
+def attention_verify_chunk(params, cfg, x, cache, table, lengths, qpos, *,
+                           spec: AttnSpec | None = None):
+    """Draft verification over the paged cache: score k draft rows in one
+    chunked-prefill-shaped pass.  x [B,k,D]; qpos [B,k] each row's absolute
+    position, for rope and for its horizon (key position p is live for row
+    c iff p <= qpos[b, c]); a linear chain lengths[:, None] + arange(k)
+    makes this bitwise :func:`attention_prefill_chunk`.  The rows are
+    appended at lengths; the scheduler rewinds rejected ones with
+    ``BlockPool.truncate``.  The spec is taken for parity with the MLA
+    entry.  Returns (out [B,k,D], cache)."""
+    _check_paged(cfg)
+    return _attention_chunk(params, cfg, x, cache, table, lengths,
+                            qpos.to(torch.int32))
 
 
 def init_attention_cache(cfg, batch: int, max_len: int, dtype, *,

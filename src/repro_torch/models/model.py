@@ -14,8 +14,10 @@ converted.  A layer's cache is {"c"} (the MLA latent), {"k", "v"} (GQA;
 local attention's holds the last ``window`` rows as a ring) or {"h",
 "conv"} (Mamba, RG-LRU).  A frontend (audio, vision) projects a batch's
 precomputed embeddings (``{"embeds"}``) into the model's width; serving
-decodes in token space.  MoE blocks, training (``loss_fn``) and
-``verify_step`` are not ported yet (ROADMAP) and raise
+decodes in token space.  :func:`verify_step` scores k draft tokens a
+sequence in one chunked-prefill-shaped pass over the paged cache (the
+serve loop's speculative decoding).  MoE blocks and training
+(``loss_fn``) are not ported yet (ROADMAP) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -311,11 +313,22 @@ def write_paged_blocks(cache, ids, rows):
     return cache
 
 
-def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec):
+def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec,
+                         qpos=None):
+    """One block over a chunk against the paged cache; ``qpos`` [B,C]
+    switches its attention to the verify entry (explicit per-row
+    horizons)."""
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    fn = (mla_mod.mla_prefill_chunk if cfg.attention_kind == "mla"
-          else attention.attention_prefill_chunk)
-    mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec)
+    mla = cfg.attention_kind == "mla"
+    if qpos is None:
+        fn = mla_mod.mla_prefill_chunk if mla else \
+            attention.attention_prefill_chunk
+        mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec)
+    else:
+        fn = mla_mod.mla_verify_chunk if mla else \
+            attention.attention_verify_chunk
+        mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, qpos,
+                          spec=spec)
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     return x + layers.mlp(lp["ffn"], h2), cache
@@ -349,15 +362,45 @@ def prefill_chunk(params, cfg, cache, tokens, block_table, lengths, *,
     block_table: [B,max_blocks]; lengths: [B] tokens already written.  Each
     layer appends its chunk rows into its pool and attends causally over
     chunk + earlier context.  Returns (logits [B,C,V] fp32, cache)."""
-    spec = spec or AttnSpec()
+    return _chunk_forward(params, cfg, cache, tokens, block_table, lengths,
+                          spec or AttnSpec())
+
+
+def _chunk_forward(params, cfg, cache, tokens, block_table, lengths, spec,
+                   qpos=None):
+    """The chunk-shaped forward of :func:`prefill_chunk` and
+    :func:`verify_step`."""
     x = layers.embed(params["embed"], tokens)
     new_cache = []
     for lp, lc in zip(params["layers"], cache, strict=True):
         x, nc = _block_prefill_chunk(lp, cfg, x, lc, block_table, lengths,
-                                     spec)
+                                     spec, qpos)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["embed_f32"], x), new_cache
+
+
+def verify_step(params, cfg, cache, tokens, block_table, lengths, *,
+                spec: AttnSpec | None = None, qpos=None):
+    """Score k draft tokens per sequence in one chunked-prefill-shaped pass
+    — the verification half of draft-then-verify decoding.
+
+    tokens: [B,k] — column 0 is each sequence's last committed token,
+    columns 1..k-1 the draft; their rows are appended into the paged pools
+    at ``lengths`` (the accepted prefix's rows are then where decode needs
+    them) and logits come back for every draft position.  qpos: [B,k] each
+    row's absolute position; None is the linear chain lengths[:, None] +
+    arange(k), under which this is bitwise :func:`prefill_chunk` on the
+    same tokens.  The caller extends the block budget first
+    (``BlockPool.extend``) and rewinds the rejected tail after
+    (``BlockPool.truncate(..., free_blocks=False)``).  Returns (logits
+    [B,k,V] fp32, cache)."""
+    if qpos is None:
+        k = tokens.shape[1]
+        qpos = lengths[:, None].to(torch.int32) + torch.arange(
+            k, dtype=torch.int32, device=lengths.device)[None, :]
+    return _chunk_forward(params, cfg, cache, tokens, block_table, lengths,
+                          spec or AttnSpec(), qpos.to(torch.int32))
 
 
 def decode_step(params, cfg, cache, tokens, pos=None, *,

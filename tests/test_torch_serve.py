@@ -112,18 +112,33 @@ def test_preemption_swap_and_recompute_match_uncontended(setup):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mode", "standard", "--kv-dtype", "int8", "--spec-tokens", "2"],
     ["--arch", "qwen3_8b", "--kv-dtype", "fp8", "--metrics-out", "m.json"],
-    ["--spec-tokens", "2"],
     ["--fault-rate", "0.1"], ["--trace-out", "t.json"],
     ["--metrics-out", "m.json"], ["--profile-kernels", "2"]])
 def test_unported_flags_refused(flag, capsys):
-    """Flags of paths not ported yet are refused, also beside the flag
-    pairs that serve now (--mode standard and a GQA arch over a quantized
-    pool, which were the first two cases until they were ported)."""
+    """Flags of paths not ported yet are refused, also beside flag pairs
+    that serve now (a GQA arch over a quantized pool)."""
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cpu"] + flag)
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--mode", "standard", "--kv-dtype", "int8", "--spec-tokens", "2"],
+    ["--spec-tokens", "2"]])
+def test_spec_flags_served(setup, flag):
+    """--spec-tokens, refused until speculative decoding was ported (the
+    two flag sets were cases of test_unported_flags_refused), parses and
+    serves: the outputs and token count are the spec-off run's."""
+    _, cfg, params = setup
+    args = serve.parse_args(["--device", "cpu"] + flag)
+    assert args.spec_tokens == 2
+    off = [f for f in flag if f not in ("--spec-tokens", "2")]
+    want = _port(cfg, params, FLAGS + off)
+    got = _port(cfg, params, FLAGS + flag)
+    assert got["outputs"] == want["outputs"]
+    assert got["tokens_served"] == want["tokens_served"]
+    assert got["spec"]["k"] == 2 and got["spec"]["steps"] > 0
 
 
 @pytest.mark.parametrize("flag", [
