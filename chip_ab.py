@@ -60,14 +60,18 @@ serve-long-fp8's, and an int8 pool, serve-short-int8's: K4q in every
 layer); then K9 alone at each width, at chip_smoke.PREFILL_TIMED's shapes
 (dense-long MLA, qwen-dense G 4, stablelm-dense G 1; random bf16 q, k, v),
 with CUDA events over 50 launches. With ``--paged`` it runs only the paged
-chunked prefills, so that many alternating pairs fit one call. The medians
-per checkout close the output, with the quartiles where a checkout ran 4
+chunked prefills, so that many alternating pairs fit one call. With
+``--serve`` it serves chip_smoke.py's serve-short and dense-short phases
+on that 3-layer model through the checkout's own ``run_paged`` and
+``run_dense`` (tok/s as the serve phases count it). The medians per
+checkout close the output, with the quartiles where a checkout ran 4
 times or more.
 
     git archive <parent> | tar -x -C .proof/parent     # .proof/: gitignored
     python3 chip_ab.py .proof/parent . . .proof/parent .proof/parent .
     python3 chip_ab.py --prefill .proof/parent . . .proof/parent
     python3 chip_ab.py --paged .proof/parent . . .proof/parent ...
+    python3 chip_ab.py --serve .proof/parent . . .proof/parent ...
 """
 from __future__ import annotations
 
@@ -113,6 +117,7 @@ PREFILL = ("short-ms", "short-GiB", "long-ms", "long-GiB", "paged-long-ms",
            "K9[64,64]-ms")
 PAGED = ("paged-long-ms", "paged-short-ms", "paged-long-fp8-ms",
          "paged-short-int8-ms")
+SERVE = ("serve-short-tok/s", "dense-short-tok/s")
 
 
 def time_one(root: str) -> dict:
@@ -622,10 +627,32 @@ def prefill_one(root: str) -> dict:
     return out
 
 
+def serve_one(root: str) -> dict:
+    """serve-short's and dense-short's tok/s on root's 3-layer DeepSeek-R1,
+    through root's serve loops."""
+    model, cfg, params, _ = deepseek(root)
+    import chip_smoke as cs
+    from repro_torch.launch import serve
+    out = {}
+    for tag, flags in (("serve-short", cs.SHORT),
+                       ("dense-short", cs.DENSE + ["--batch", "8",
+                                                   "--prompt", "512"])):
+        args = serve.parse_args(flags + ["--layers", str(cfg.num_layers)])
+        if args.cache_layout == "dense":
+            res = serve.run_dense(args, cfg, params=params, device="cuda")
+            t = res["t_prefill"] + res["t_decode"]
+        else:
+            res = serve.run_paged(args, cfg, params=params, device="cuda")
+            t = res["t_total"]
+        out[f"{tag}-tok/s"] = res["tokens_served"] / t
+    return out
+
+
 ONE = {"--one": time_one, "--one-prefill": prefill_one,
-       "--one-paged": paged_one}
+       "--one-paged": paged_one, "--one-serve": serve_one}
 MODES = {"--prefill": ("--one-prefill", PREFILL),
-         "--paged": ("--one-paged", PAGED)}
+         "--paged": ("--one-paged", PAGED),
+         "--serve": ("--one-serve", SERVE)}
 
 
 def spread(xs: list) -> str:

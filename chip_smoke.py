@@ -203,8 +203,28 @@ Phases, each of which fails the run when it fails:
              its plain version (check_step's floor-based gate on the last
              position's logits), and one such prefill under torch.profiler
              (wall, busy, K9's share);
+ 5b. moe     DeepSeek-R1 at full width cut to 5 layers, its 3 dense layers
+             and its first 2 MoE layers (256 experts of 3 x 7168 x 2048,
+             top-8, a shared expert; the 3-layer model's parameters freed
+             first): the MoE unit check (phase_moe_unit: moe_ffn on the
+             card at MOE_UNIT_CASES, decode's one group of 8 tokens, a
+             prompt chunk's 8 x 32 with a skewed router so that pairs are
+             dropped, and the capacity rule at 2 x 512: routes against an
+             fp64 top-k, slots bitwise numpy's, the output against the
+             reference test's per-token loop, the aux losses);
+             serve-short-moe, serve-long-moe and dense-short-moe (the
+             3-layer phases' flags at 5 layers: K3 / K1 + K2 / K5, K4 or
+             K9); a paged decode step kernel vs plain
+             (phase_moe_decode_step: per layer on teacher-forced inputs,
+             and the whole step under the routing rule, route_flips: a
+             token whose experts differ between the paths must be one
+             where the router is undecided), then the step under
+             torch.profiler and the MoE share of its device time; then
+             DBRX-132B at full width cut to 4 of its 40 layers (GQA, G =
+             6, every layer MoE: 16 experts, top-4), dbrx-short (paged,
+             B 8 x 512: K5 [128] over the gathered pools);
   6. serve   ``run_dense`` on Falcon-Mamba-7B at full width and all 64
-             layers (bf16, random weights from a seed; DeepSeek's
+             layers (bf16, random weights from a seed; DBRX's
              parameters freed first): mamba-short (B 8 x 512, 32 tokens)
              and mamba-long (B 1 x 6144, left-padded to 8192: two scan
              chunks; 16 tokens), each prefill launching K10 once a layer;
@@ -279,7 +299,8 @@ Each phase's seconds are printed as ``[time]`` lines.
 The launch counters are zeroed just before each serve phase and read just
 after it; each of K1-K8, both K2 orientations, each quantized body on each
 code type and K10 must have launched on a serve path, and K5-K8 and both
-K2 orientations at 128 (the ``[128]`` entries) on a Qwen or LLaVA phase,
+K2 orientations at 128 (the ``[128]`` entries) on a Qwen, DBRX or LLaVA
+phase,
 at 64 and 256 (``[64]``, ``[256]``) on a main-path call of a 64- or
 256-wide model (a serve phase or a decode-step check).  Each
 quantized dense kernel (K5q-K8q, ``[width,code]`` entries) must launch on a
@@ -2579,7 +2600,8 @@ def gqa_cases(gen, dev):
     64: the auto plan cuts them into 3 splits); qwen-long's 65 gathered
     pages at B 1 (BG 8, block 64); granite-20b's MQA (48 heads over one kv
     head: three column tiles) at B 8 x S 2048; llava-dense's B 4 x S 528
-    (56 heads over 8 kv heads: G = 7, one split).  At 64: smol-short's
+    (56 heads over 8 kv heads: G = 7, one split); dbrx-short's gathered
+    paged rows (48 heads over 8 kv heads: G = 6, 9 pages).  At 64: smol-short's
     gathered pages (B 8 x 9 pages, K 5, G 3: 3 splits), smol-long's (B 1 x
     65 pages: 22 splits), stablelm-dense's B 8 x S 544 (K 32, G 1: one
     split), musicgen-short's gathered pages (B 8 x 9 pages, G 1: 2 splits).
@@ -2606,6 +2628,7 @@ def gqa_cases(gen, dev):
              [2048, 2047, 1, 64, 65, 1500, 999, 1234], 512),
             ("llava-dense G=7 S=528", HD, 4, 528, 8, 7, [528, 527, 1, 300],
              512),
+            ("dbrx-short paged G=6 S=576", HD, 8, 576, 8, 6, short, PAGE),
             ("smol-short paged S=576", 64, 8, 576, 5, 3, short, PAGE),
             ("smol-long paged S=4160", 64, 1, 4160, 5, 3, [4128], PAGE),
             ("stablelm-dense S=544", 64, 8, 544, 32, 1, dense, 512),
@@ -4869,6 +4892,44 @@ WIDTH_PHASES = {
 }
 
 
+# DeepSeek-R1 at 5 layers: its 3 dense layers and its first 2 MoE layers
+# (256 experts of 3 x 7168 x 2048, top-8, a shared expert), served with
+# serve-short's, serve-long's and dense-short's flags
+MOE_LAYERS = 5
+MOE_SERVE_PHASES = [
+    ("serve-short-moe", SHORT, ("etap_decode_mla_paged",
+                                "etap_prefill_mla_paged")),
+    ("serve-long-moe", LONG, ("etap_paged_partial", "combine_splits",
+                              "etap_prefill_mla_paged")),
+    ("dense-short-moe", DENSE + ["--batch", "8", "--prompt", "512"],
+     ("etap_decode_dense", "flash_prefill")),
+]
+# DBRX-132B (GQA, 48 heads over 8 kv heads: G = 6; every layer MoE, 16
+# experts of 3 x 6144 x 10752, top-4, no shared expert) at full width, cut
+# to 4 of its 40 layers: qwen-short-spec's flags without the spec ones,
+# K5 [128] over the gathered pools
+DBRX_LAYERS = 4
+DBRX_PHASES = [
+    ("dbrx-short", ["--arch", "dbrx_132b", "--layers", str(DBRX_LAYERS),
+                    "--batch", "8", "--requests", "4", "--prompt", "512",
+                    "--gen", "16", "--kv-splits", "1"],
+     ("etap_decode_dense",)),
+]
+# the MoE unit check at DeepSeek's full width: (case, G, S, dropless,
+# router skewed); decode's one group of 8 tokens (C = 8 = S), a prompt
+# chunk's 8 rows of 32 (C = 8 < S: with the skew, pairs are dropped), the
+# capacity rule of a dense prefill (C = 20)
+MOE_UNIT_CASES = (("decode", 1, 8, True, False),
+                  ("prefill-chunk", 8, 32, True, True),
+                  ("capacity", 2, 512, False, False))
+# the skew: this much added to these experts' router columns, which moves
+# a token's logits for them by 0.1 x sum(x) (sum(x) ~ N(0, 7168))
+MOE_SKEWED, MOE_SKEW = (3, 200), 0.1
+# a card route may differ from the fp64 top-k only where the fp64 gates at
+# the first differing choice and the next are this close (relative)
+ROUTE_RTOL = 1e-6
+
+
 def full_config(layers: int = 3):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("deepseek_r1_671b"),
@@ -5224,7 +5285,7 @@ def profile_decode_step(params, cfg, cache, toks, *, spec=None,
     bound (its weights, the fp32 unembedding table, the live cache rows of
     its attention layers and the recurrent states of the others, read
     once).  ``layout``: decode_step's cache keywords (paged: block_table
-    and lengths; dense: pos)."""
+    and lengths; dense: pos).  Returns the device's busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5290,6 +5351,7 @@ def profile_decode_step(params, cfg, cache, toks, *, spec=None,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+    return busy
 
 
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
@@ -6238,6 +6300,366 @@ def phase_prefill_layer_check(params, cfg, B: int, S: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the DeepSeek-MoE block
+def np_assign_slots(idx, E: int, C: int):
+    """numpy's slot assignment of choices idx [G, S, k]: per group a stable
+    argsort of the flat expert ids, a pair's place within its expert's run
+    (its index less the run's first, np.searchsorted), dropped at C or
+    more.  Returns (slot [G, S*k] in [0, E*C], token_of_slot [G, E*C] in
+    [0, S]), int64."""
+    import numpy as np
+    G, S, k = idx.shape
+    T = S * k
+    flat = idx.reshape(G, T).astype(np.int64)
+    slot = np.empty((G, T), np.int64)
+    tos = np.full((G, E * C), S, np.int64)
+    for g in range(G):
+        order = np.argsort(flat[g], kind="stable")
+        run = flat[g][order]
+        pos = np.empty(T, np.int64)
+        pos[order] = np.arange(T) - np.searchsorted(run, run, side="left")
+        keep = pos < C
+        slot[g] = np.where(keep, flat[g] * C + np.minimum(pos, C - 1), E * C)
+        tos[g, slot[g][keep]] = np.arange(T)[keep] // k
+    return slot, tos
+
+
+def moe_loop_reference(p, cfg, x, gate_k, slot, C: int, dtype):
+    """The reference test's ``_dense_reference`` on given routes: every
+    kept (token, choice) runs its expert on its own, its products in
+    ``dtype`` (fp32 upcasts x and the weights; the model's dtype is
+    ``_dense_reference`` on a bf16 model), weighted by its gate in an fp32
+    sum (a dropped pair adds nothing), the shared expert added in the same
+    dtype.  Returns fp32 [G, S, D]."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    G, S, D = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    out = torch.zeros(G, S, D, dtype=torch.float32, device=x.device)
+    s = slot.long()
+    g_idx, t_idx = (s < E * C).nonzero(as_tuple=True)
+    e_idx = s[g_idx, t_idx] // C
+    tok, choice = t_idx // k, t_idx % k
+    for e in torch.unique(e_idx).tolist():
+        sel = e_idx == e
+        g, t, c = g_idx[sel], tok[sel], choice[sel]
+        xs = x[g, t].to(dtype)
+        h = F.silu(xs @ p["w_gate"][e].to(dtype)) * \
+            (xs @ p["w_up"][e].to(dtype))
+        y = h @ p["w_down"][e].to(dtype)
+        out.index_put_((g, t), y.float() * gate_k[g, t, c][:, None],
+                       accumulate=True)
+    if "shared" in p:
+        shared = {k_: w.to(dtype) for k_, w in p["shared"].items()}
+        out += layers.mlp(shared, x.to(dtype)).float()
+    return out
+
+
+def moe_close(out, ref32, ref16, what: str) -> tuple[float, float]:
+    """``out`` against the fp32 loop ``ref32``: each element within the
+    bf16 tolerance (bf16_close's) or within twice the floor, the largest
+    gap between the loop in the model's dtype ``ref16`` and ``ref32`` (an
+    independent bf16 computation of the same function: its roundings of
+    the products, the expert outputs and the sum), as check_step's floor
+    does for logits.  Returns (max abs err, floor)."""
+    import torch
+    o = out.float()
+    d = (o - ref32).abs()
+    floor = float((ref16 - ref32).abs().max())
+    ok = bool((d <= torch.clamp(BF16_RTOL * ref32.abs() + BF16_ATOL,
+                                min=2 * floor)).all()) and \
+        bool(torch.isfinite(o).all())
+    err = float(d.max())
+    if not ok:
+        raise AssertionError(f"{what}: max abs err {err:.3e} against the "
+                             f"fp32 loop, beyond the bf16 tolerance and "
+                             f"twice the floor {floor:.3e}")
+    return err, floor
+
+
+def phase_moe_unit(params, cfg) -> None:
+    """moe_ffn at DeepSeek-R1's full width (E 256, k 8, D 7168, F 2048, a
+    shared expert) on the card, over the first MoE layer's weights, at
+    MOE_UNIT_CASES: the card's routes (fp32 router, TF32 off) against an
+    fp64 top-k on the CPU from the same inputs (where they differ, the
+    fp64 gates at the first differing choice and the next must be within
+    ROUTE_RTOL, and the token is printed); _assign_slots on the card,
+    given those routes, bitwise numpy's stable-argsort version; the output
+    against moe_loop_reference in fp32 on the same routes and drops, within
+    moe_close's gate (the bf16 tolerance, or twice the gap of the same loop
+    in bf16);
+    the aux losses finite with load_balance >= 1 - 1e-3.  Prints each
+    case's capacity and dropped pairs."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model, moe
+    dev = torch.device("cuda")
+    layer = next(i for i, (_, m) in enumerate(model.signatures(cfg)) if m)
+    p = params["layers"][layer]["ffn"]
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for name, G, S, dropless, skewed in MOE_UNIT_CASES:
+        pc = p
+        if skewed:
+            router = p["router"].clone()
+            router[:, list(MOE_SKEWED)] += MOE_SKEW
+            pc = dict(p, router=router)
+        x = torch.randn(G, S, cfg.d_model, generator=gen, device=dev).to(
+            cfg.torch_dtype)
+        C = moe.capacity(cfg, S, dropless)
+        _, _, gate_k, idx_k = moe.route(pc, cfg, x)
+        g64, i64 = torch.sort(torch.softmax(
+            x.cpu().double() @ pc["router"].cpu().double(), dim=-1),
+            dim=-1, descending=True, stable=True)
+        card = idx_k.cpu()
+        for g, t in (card != i64[..., :k]).any(-1).nonzero().tolist():
+            j = int((card[g, t] != i64[g, t, :k]).nonzero()[0])
+            gap = float((g64[g, t, j] - g64[g, t, j + 1]) / g64[g, t, j])
+            log(f"[moe-unit] {name}: token ({g}, {t}) is routed "
+                f"{card[g, t].tolist()} on the card, "
+                f"{i64[g, t, :k].tolist()} by the fp64 top-k; the fp64 "
+                f"gates at choice {j} and the next differ by {gap:.3e} "
+                "(relative)")
+            if not gap < ROUTE_RTOL:
+                raise AssertionError(f"moe unit {name}: the card's routes "
+                                     "differ from the fp64 top-k at a "
+                                     "decided token")
+        flips = int((card != i64[..., :k]).any(-1).sum())
+        slot, tos = moe._assign_slots(idx_k, E, C)
+        nslot, ntos = np_assign_slots(card.numpy(), E, C)
+        if not (np.array_equal(slot.cpu().numpy(), nslot)
+                and np.array_equal(tos.cpu().numpy(), ntos)):
+            raise AssertionError(f"moe unit {name}: _assign_slots on the "
+                                 "card differs from numpy's")
+        drops = int((slot == E * C).sum())
+        if skewed and drops == 0:
+            raise AssertionError(f"moe unit {name}: the skewed router "
+                                 "dropped no pair")
+        out, aux = moe.moe_ffn(pc, cfg, x, dropless=dropless)
+        ref16 = moe_loop_reference(pc, cfg, x, gate_k, slot, C, x.dtype)
+        err, floor = moe_close(
+            out, moe_loop_reference(pc, cfg, x, gate_k, slot, C,
+                                    torch.float32), ref16,
+            f"moe unit {name}: moe_ffn against the per-token loop")
+        err16 = float((out.float() - ref16).abs().max())
+        lb, rz = float(aux["load_balance"]), float(aux["router_z"])
+        if not (np.isfinite(lb) and np.isfinite(rz) and lb >= 1 - 1e-3):
+            raise AssertionError(f"moe unit {name}: aux {lb}, {rz}")
+        log(f"[moe-unit] {name}: G {G} x S {S}, "
+            f"{'dropless' if dropless else 'capacity'} C {C}"
+            + (f", router skewed toward experts {list(MOE_SKEWED)}"
+               if skewed else "")
+            + f": routes equal the fp64 top-k at {G * S - flips} of "
+            f"{G * S} tokens ({flips} at near-ties); slots bitwise "
+            f"numpy's; {drops} of {G * S * k} pairs dropped; output against "
+            f"the per-token loop in fp32: max abs err {err:.3e}, floor (the "
+            f"loop in {str(x.dtype).split('.')[-1]} against it) "
+            f"{floor:.3e}; against the loop in "
+            f"{str(x.dtype).split('.')[-1]}, not gated: {err16:.3e}; "
+            f"load_balance {lb:.4f}, router_z {rz:.4f}")
+
+
+@contextlib.contextmanager
+def moe_recording(rec: dict):
+    """Record, for the decode steps run inside, each block's input (x),
+    each MLA layer's attention output before W_uv (o) and each MoE FFN's
+    input (h2), in call order."""
+    from repro_torch.core import mla
+    from repro_torch.models import model, moe
+    block, attn, ffn = (model._block_decode, mla.decode_attention_paged,
+                        moe.moe_ffn)
+
+    def rec_block(lp, cfg, sig, x, *a, **kw):
+        rec["x"].append(x.clone())
+        return block(lp, cfg, sig, x, *a, **kw)
+
+    def rec_attn(*a, **kw):
+        o = attn(*a, **kw)
+        rec["o"].append(o.clone())
+        return o
+
+    def rec_ffn(p, cfg, h, **kw):
+        rec["h2"].append(h.clone())
+        return ffn(p, cfg, h, **kw)
+
+    model._block_decode, mla.decode_attention_paged, moe.moe_ffn = \
+        rec_block, rec_attn, rec_ffn
+    try:
+        yield rec
+    finally:
+        model._block_decode, mla.decode_attention_paged, moe.moe_ffn = \
+            block, attn, ffn
+
+
+def route_flips(params, cfg, moe_layers, h_kernel, h_plain,
+                what: str) -> set:
+    """The routing rule: the rows (tokens) whose routes differ between two
+    paths' FFN inputs (h_kernel, h_plain: [1, B, D] each, one dropless
+    group), MoE layer by layer.  Routes differ where the chosen experts
+    differ, or, where the capacity C is under B (so a pair can be dropped
+    and the choices' order decides which), where their order differs.  At
+    the first layer where a row's routes differ, the plain path's
+    router-logit gap between its k-th and (k+1)-th expert (with C < B: at
+    the first differing choice and the next; the gate order is the logit
+    order) must be under twice the largest difference between the two
+    paths' router logits at that row: two experts each moving by at most
+    that much, an undecided router.  The gap and the difference are
+    printed.  A row's later layers follow from its flip and are not
+    compared.  Returns the rows that flipped."""
+    import torch
+    from repro_torch.models import moe
+    k = cfg.moe.top_k
+    ordered = moe.capacity(cfg, h_kernel[0].shape[1], True) < \
+        h_kernel[0].shape[1]
+    flipped = set()
+    for li, hk, hp in zip(moe_layers, h_kernel, h_plain, strict=True):
+        p = params["layers"][li]["ffn"]
+        lk, _, _, ik = moe.route(p, cfg, hk)
+        lp, _, _, ip = moe.route(p, cfg, hp)
+        lk, lp = lk.reshape(-1, lk.shape[-1]), lp.reshape(-1, lp.shape[-1])
+        ik, ip = ik.reshape(-1, k), ip.reshape(-1, k)
+        if ordered:
+            differ = (ik != ip).any(-1)
+        else:
+            differ = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        for row in differ.nonzero().flatten().tolist():
+            if row in flipped:
+                continue
+            j = int((ik[row] != ip[row]).nonzero()[0]) if ordered else k - 1
+            ranked = torch.sort(lp[row], descending=True, stable=True).values
+            gap = float(ranked[j] - ranked[j + 1])
+            diff = float((lk[row] - lp[row]).abs().max())
+            log(f"[moe-route] {what}: layer {li} token {row} routes "
+                f"{ik[row].tolist()} (kernel path) against "
+                f"{ip[row].tolist()} (plain): the plain router-logit gap "
+                f"between choice {j} and the next {gap:.4e}, the largest "
+                f"router-logit difference {diff:.4e}")
+            if not gap < 2 * diff:
+                raise AssertionError(f"{what}: layer {li} token {row} routes "
+                                     "differ at a decided router")
+            flipped.add(row)
+    return flipped
+
+
+def phase_moe_decode_step(params, cfg) -> None:
+    """A paged decode step of DeepSeek-R1 at 5 layers (3 dense, 2 MoE) at
+    full width, B 8 over ctx <= 2048 (phase_decode_step's rows, one
+    split: K3), through the kernels and through the plain versions on the
+    same weights and cache.  Per layer, teacher-forced: every layer is fed
+    the kernel path's input to it on the plain path, and its attention
+    output (before W_uv) is held to the kernel path's at bf16_close; at a
+    MoE layer the FFN then sees the same input on both paths, so its
+    routes and output are the same by construction, which is checked
+    bitwise, and the routes of the two paths' own FFN inputs are held to
+    the routing rule (route_flips).  Whole step: the rows whose routes
+    agree at every MoE layer have logits within check_step's gate
+    (LOGIT_RTOL of the largest logit); a row whose routes differ passes
+    only under the routing rule.  Then one step under torch.profiler
+    (profile_decode_step) and the two MoE layers' FFN alone on the kernel
+    path's inputs: the MoE share of the step's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.models import model, moe
+    from repro_torch.runtime.paged_cache import BlockPool, layout_for
+    dev = torch.device("cuda")
+    B, ctx = 8, 2048
+    layout = layout_for(B, ctx, block_size=PAGE)
+    bp = BlockPool(layout, B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cache = model.init_paged_cache(cfg, layout, device=dev)
+    for layer in cache:                  # latent rows of a realistic scale
+        layer["c"].copy_(torch.randn(layer["c"].shape, generator=gen,
+                                     device=dev).to(torch.bfloat16))
+    for n in [2047, 1500, 1, 700, 2000, 64, 1999, 1024]:
+        bp.extend(bp.admit(0, ctx), n)
+    table, lengths = bp.device_views(dev)
+    toks = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+    sigs = model.signatures(cfg)
+    moe_layers = [i for i, (_, m) in enumerate(sigs) if m]
+    spec = AttnSpec(kv_splits=1)
+
+    def fresh():
+        return {"x": [], "o": [], "h2": []}
+
+    def step(rec):
+        with moe_recording(rec):
+            return model.decode_step(params, cfg, clone_cache(cache), toks,
+                                     spec=spec, cache_layout="paged",
+                                     block_table=table, lengths=lengths)[0]
+
+    rk = fresh()
+    lk = step(rk)
+    with plain_kernels():
+        rp = fresh()
+        lp = step(rp)
+    worst, forced_flips = 0.0, set()
+    for i, sig in enumerate(sigs):
+        rec = fresh()
+        with plain_kernels(), moe_recording(rec):
+            model._block_decode(params["layers"][i], cfg, sig, rk["x"][i],
+                                {k: v.clone() for k, v in cache[i].items()},
+                                None, spec, "paged", table, lengths)
+        worst = max(worst, bf16_close(
+            rk["o"][i], rec["o"][0], f"moe decode step, layer {i} attention "
+            "output on the kernel path's input"))
+        if sig[1]:
+            j = moe_layers.index(i)
+            h = rk["h2"][j]
+            f = moe.moe_ffn(params["layers"][i]["ffn"], cfg, h,
+                            dropless=True)[0]
+            with plain_kernels():
+                fp = moe.moe_ffn(params["layers"][i]["ffn"], cfg, h,
+                                 dropless=True)[0]
+            bitwise(f, fp, f"moe decode step, layer {i}: the FFN on one "
+                    "input, kernel and plain paths")
+            forced_flips |= route_flips(
+                params, cfg, [i], [h], rec["h2"],
+                f"moe decode step (teacher-forced, layer {i})")
+    log(f"[moe-decode-step] per layer, teacher-forced: {len(sigs)} layers' "
+        f"attention output (K3, one split) within bf16 of the plain path "
+        f"on the kernel path's input, worst max abs err {worst:.3e}; the "
+        f"{len(moe_layers)} MoE layers' FFN bitwise on one input on both "
+        f"paths; {len(forced_flips)} tokens route differently from the "
+        "plain attention output, each at an undecided router")
+    flips = route_flips(params, cfg, moe_layers, rk["h2"], rp["h2"],
+                        "moe decode step (whole step)")
+    agree = [b for b in range(B) if b not in flips]
+    log(f"[moe-decode-step] whole step: routes agree at every MoE layer "
+        f"for {len(agree)} of {B} tokens; {sorted(flips)} flip at an "
+        "undecided router")
+    if agree:
+        check_step(lk[agree], lp[agree], f"paged, 5 layers (3 dense, 2 MoE), "
+                   f"full width, tokens {agree} of B={B}, ctx<={ctx}",
+                   tag="moe-decode-step")
+    busy = profile_decode_step(params, cfg, cache, toks, spec=spec,
+                               tag="moe-decode-step", block_table=table,
+                               lengths=lengths)
+
+    def ffn_only():
+        for i, h in zip(moe_layers, rk["h2"], strict=True):
+            moe.moe_ffn(params["layers"][i]["ffn"], cfg, h, dropless=True)
+        torch.cuda.synchronize()
+
+    ffn_only()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ffn_only()
+    moe_busy, _, n = device_busy(prof)
+    nbytes = sum(t.numel() * t.element_size() for i in moe_layers
+                 for t in _leaves(params["layers"][i]["ffn"]))
+    log(f"[moe-decode-step] MoE FFN alone ({len(moe_layers)} layers, the "
+        f"{B} tokens one dropless group, every expert over C "
+        f"{moe.capacity(cfg, B, True)} slots): device busy {moe_busy:.3f} ms "
+        f"({n} kernels and copies), {100 * moe_busy / busy:.1f}% of the "
+        f"step's {busy:.3f} ms; its byte bound {nbytes / 1e9:.2f} GB of "
+        f"weights read once, {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -6291,6 +6713,7 @@ def main(argv=None) -> int:
             for k, v in report.items()]}))
         return 0
 
+    from repro_torch.configs import get_config
     from repro_torch.core.attn_spec import AttnSpec
     from repro_torch.models import model
     cfg = full_config()
@@ -6352,7 +6775,46 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    from repro_torch.configs import get_config
+    # DeepSeek-R1 with its first two MoE layers
+    cfg = full_config(MOE_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] DeepSeek-R1 full width, {cfg.num_layers} layers (3 dense, "
+        f"{cfg.num_layers - 3} MoE): {model.param_count(params) / 1e9:.3f} "
+        f"B params bf16 in {time.perf_counter() - t0:.1f} s, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    timed("moe unit check", phase_moe_unit, params, cfg)
+    t_serve = time.perf_counter()
+    for name, flags, expect in MOE_SERVE_PHASES:
+        got = phase_serve(name, flags + ["--layers", str(MOE_LAYERS)],
+                          params, expect, runs)
+        credit_deepseek(got, flags)
+    log(f"[time] moe serve phases: {time.perf_counter() - t_serve:.1f} s")
+    timed("moe decode steps", phase_moe_decode_step, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("dbrx_132b"), num_layers=DBRX_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[init] DBRX-132B full width, {cfg.num_layers} of "
+        f"{get_config('dbrx_132b').num_layers} layers (every one MoE): "
+        f"{model.param_count(params) / 1e9:.3f} B params bf16 in "
+        f"{time.perf_counter() - t0:.1f} s, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    t_serve = time.perf_counter()
+    for name, flags, expect in DBRX_PHASES:
+        got = phase_serve(name, flags, params, expect)
+        credit(launches, got, HD, kv_dtype_of(flags))
+        credit_prefill(launches, got, cfg)
+    log(f"[time] dbrx serve phases: {time.perf_counter() - t_serve:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
     cfg = get_config("falcon_mamba_7b")
     t0 = time.perf_counter()
     params = model.init(cfg, seed=0, device="cuda")

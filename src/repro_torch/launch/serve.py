@@ -21,15 +21,21 @@ layouts:
 ``--mode etap`` (default) runs the paper's transposed decode kernels;
 ``--mode standard`` the untransposed baseline, on either layout.
 
-``--arch`` picks the model: DeepSeek-R1 (MLA, the default; cut its depth
-to the dense layers with ``--layers 3``), a full-attention GQA model
-without MoE (``qwen3_8b``, ``granite_20b`` and ``llava_next_34b`` at
-head_dim 128; ``smollm_360m``, ``stablelm_1_6b`` and ``musicgen_large`` at
-64), RecurrentGemma-9B (RG-LRU and local attention at head_dim 256, dense
-layout only), or Falcon-Mamba-7B.  A GQA model decodes through the dense
-kernels K5-K8 over its cache's grouped rows (the paged layout gathers its
-pools first, as the reference does); on the card they are built at
-head_dim 64, 128 and 256 (``kernels/csrc/mma_tile.cuh``).  MusicGen's and
+``--arch`` picks the model: DeepSeek-R1 (MLA and MoE, the default; on
+one card cut its depth with ``--layers``: 3 is its dense layers, 5 adds
+its first two MoE layers of 256 experts), a full-attention GQA model
+(``qwen3_8b``, ``granite_20b`` and ``llava_next_34b`` at head_dim 128;
+``smollm_360m``, ``stablelm_1_6b`` and ``musicgen_large`` at 64; the MoE
+models ``dbrx_132b`` and ``llama4_maverick_400b`` at 128),
+RecurrentGemma-9B (RG-LRU and local attention at head_dim 256, dense
+layout only), or Falcon-Mamba-7B.  A MoE layer routes a decode step's B
+tokens as one group and each prompt chunk's rows as groups, dropless
+(``models/moe.py``), on both layouts; the dense layout's single-shot
+prefill routes with capacity, as the reference's does.  A GQA model
+decodes through the dense kernels K5-K8 over its cache's grouped rows (the
+paged layout gathers its pools first, as the reference does); on the card
+they are built at head_dim 64, 128 and 256
+(``kernels/csrc/mma_tile.cuh``).  MusicGen's and
 LLaVA-NeXT's frontends project precomputed embeddings; serving runs in
 token space, as the reference's does.
 
@@ -64,6 +70,10 @@ and the reference's ``ValueError`` on the paged one.
         --requests 16 --prompt 512 --gen 32 --layers 3
     PYTHONPATH=src python -m repro_torch.launch.serve --cache-layout dense \\
         --mode standard --batch 4 --prompt 4096 --gen 32 --layers 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 \\
+        --requests 16 --prompt 512 --gen 32 --layers 5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b \\
+        --layers 4 --batch 8 --requests 4 --prompt 512 --gen 16 --kv-splits 1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
         --cache-layout dense --batch 8 --prompt 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
@@ -581,7 +591,8 @@ def parse_args(argv=None):
                          "kernels' plain versions)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to its first N layers (0 = all); "
-                         "DeepSeek-R1's first 3 are its dense layers")
+                         "DeepSeek-R1's first 3 are its dense layers, the "
+                         "rest MoE")
     ap.add_argument("--batch", type=int, default=4, help="batch slots")
     ap.add_argument("--prompt", type=int, default=64,
                     help="max prompt length (requests draw ragged lengths)")

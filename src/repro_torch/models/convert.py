@@ -8,10 +8,12 @@ holds block j of every repeat of group g.  The port keeps one dict per
 layer, so the stacked axis is unstacked here in the reference's layer order
 (repeat i of a group runs its blocks b0, b1, ... in turn: RecurrentGemma's
 rglru, rglru, attn superblock, then its remainder).  A frontend's
-projection (``params["frontend"]``) is carried as it is.  Every leaf keeps
-the reference's dtype: a bf16 model's weights stay bf16 and its fp32
+projection (``params["frontend"]``) is carried as it is, and a MoE
+block's FFN (``router``, ``w_gate``, ``w_up``, ``w_down`` and, with a
+shared expert, ``shared``) is unstacked like every other leaf.  Every leaf
+keeps the reference's dtype: a bf16 model's weights stay bf16 and its fp32
 leaves (Mamba's ``dt_bias``, ``log_neg_A`` and ``D``; RG-LRU's
-``log_lambda``) stay fp32.
+``log_lambda``; a MoE router) stay fp32.
 """
 from __future__ import annotations
 

@@ -3,6 +3,8 @@ rope, the GLU MLP, embedding.  Plain functions over parameter dicts; the
 ``init_*`` functions draw from an explicit ``torch.Generator``."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -12,6 +14,18 @@ def rms_norm(x, scale, eps: float = 1e-6):
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 products without TF32 inside (the reference's fp32 products are
+    full fp32)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def init_dense(gen, d_in: int, d_out: int, dtype, device):

@@ -1,10 +1,11 @@
 """Config-driven LM — the port of ``repro/models/model.py`` for stacks of
-attention blocks with a dense (GLU MLP) FFN, the attention either MLA
+attention blocks with a dense (GLU MLP) or MoE FFN (DeepSeek-R1 past its
+first 3 layers, DBRX, Llama-4-Maverick), the attention either MLA
 (DeepSeek), full-causal GQA (Qwen3, Granite, SmolLM, StableLM, MusicGen,
-LLaVA-NeXT) or local GQA, for the hybrid RG-LRU / local-attention stack
-(RecurrentGemma's rglru, rglru, attn cycle) and for all-Mamba stacks
-(falcon-mamba): frontend or embedding → layers → head, served over the
-dense cache or (attention-only stacks) the paged one.
+LLaVA-NeXT, DBRX, Llama-4) or local GQA, for the hybrid RG-LRU /
+local-attention stack (RecurrentGemma's rglru, rglru, attn cycle) and for
+all-Mamba stacks (falcon-mamba): frontend or embedding → layers → head,
+served over the dense cache or (attention-only stacks) the paged one.
 
 The reference stacks each layer group on a leading axis and scans it with
 ``lax.scan``; the port keeps one parameter dict per layer (and one cache
@@ -16,9 +17,11 @@ local attention's holds the last ``window`` rows as a ring) or {"h",
 precomputed embeddings (``{"embeds"}``) into the model's width; serving
 decodes in token space.  :func:`verify_step` scores k draft tokens a
 sequence in one chunked-prefill-shaped pass over the paged cache (the
-serve loop's speculative decoding).  MoE blocks and training
-(``loss_fn``) are not ported yet (ROADMAP) and raise
-``NotImplementedError``.
+serve loop's speculative decoding).  A MoE block routes as the
+reference's does: :func:`forward` (and so single-shot :func:`prefill`)
+with capacity routing, returning the layer's aux losses; a decode step
+(the B tokens one group) and a prompt chunk dropless.  Training
+(``loss_fn``) is not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import torch
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
-from repro_torch.models import attention, frontend, layers, mamba, rglru
+from repro_torch.models import attention, frontend, layers, mamba, moe, rglru
 from repro_torch.runtime import paged_cache
+
+AUX_KEYS = ("load_balance", "router_z")
 
 
 # ------------------------------------------------------------- layer groups
@@ -62,20 +67,24 @@ def layer_groups(cfg) -> list:
     return [{"sigs": [s], "n": 1} for s in sigs]       # fallback: unrolled
 
 
+_BLOCK_KINDS = ("attn", "rglru", "ssm")
+
+
 def check_ported(cfg) -> None:
     """Raise unless the stack is one the port serves: attention blocks (MLA,
-    full or local GQA) and RG-LRU blocks with a dense MLP, or Mamba blocks,
-    behind the embedding or a frontend.  MoE layers are not ported."""
-    for i, (_, is_moe) in enumerate(signatures(cfg)):
-        if is_moe:
+    full or local GQA) with a dense MLP or a MoE FFN, RG-LRU blocks with a
+    dense MLP, or Mamba blocks, behind the embedding or a frontend (the
+    reference's ``_init_block`` raises on any other block kind)."""
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind not in _BLOCK_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: layer {i} is a MoE layer; models/moe.py is not "
-                "ported yet (ROADMAP A3) — cut the depth to the dense layers "
-                "or set moe=None")
+                f"{cfg.name}: layer {i} is a {kind!r} block, which has no "
+                "port")
 
 
 # ------------------------------------------------------------------- init
-def _init_block(gen, cfg, kind, dtype, device):
+def _init_block(gen, cfg, sig, dtype, device):
+    kind, is_moe = sig
     D = cfg.d_model
     if kind == "ssm":                  # a Mamba block has no FFN
         return {"norm1": torch.zeros(D, dtype=dtype, device=device),
@@ -89,7 +98,8 @@ def _init_block(gen, cfg, kind, dtype, device):
         "norm1": torch.zeros(D, dtype=dtype, device=device),
         "mix": mix(gen, cfg, dtype, device),
         "norm2": torch.zeros(D, dtype=dtype, device=device),
-        "ffn": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        "ffn": (moe.init_moe(gen, cfg, dtype, device) if is_moe else
+                layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)),
     }
 
 
@@ -112,16 +122,24 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
     fe = frontend.init_frontend(gen, cfg, dtype, device)
     if fe is not None:
         params["frontend"] = fe
-    params["layers"] = [_init_block(gen, cfg, kind, dtype, device)
-                        for kind in cfg.layer_kinds()]
+    params["layers"] = [_init_block(gen, cfg, sig, dtype, device)
+                        for sig in signatures(cfg)]
     params["embed_f32"] = layers.unembed_table(params["embed"])
     return params
 
 
 # ---------------------------------------------------------- full sequence
-def _block_seq(lp, cfg, kind, x, positions, collect_cache: bool):
-    """One block over a full sequence.  Returns (x, cache rows or {}).  The
-    reference's MoE aux losses are zero here: MoE is not ported."""
+def _zero_aux(device):
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
+def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool):
+    """One block over a full sequence.  Returns (x, aux, cache rows or {});
+    a MoE block routes with capacity (the training route, which single-shot
+    prefill reuses) and returns its aux losses, any other block zeros."""
+    kind, is_moe = sig
+    aux = _zero_aux(x.device)
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind in ("ssm", "rglru"):
         fn = mamba.mamba_seq if kind == "ssm" else rglru.rglru_seq
@@ -139,9 +157,13 @@ def _block_seq(lp, cfg, kind, x, positions, collect_cache: bool):
             mixed, cache = fn(lp["mix"], cfg, h, positions), {}
     x = x + mixed
     if kind == "ssm":                  # a Mamba block has no FFN
-        return x, cache
+        return x, aux, cache
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(lp["ffn"], h2), cache
+    if is_moe:
+        f, aux = moe.moe_ffn(lp["ffn"], cfg, h2)
+    else:
+        f = layers.mlp(lp["ffn"], h2)
+    return x + f, aux, cache
 
 
 def _embed_inputs(params, batch):
@@ -156,26 +178,30 @@ def _embed_inputs(params, batch):
 
 def _hidden(params, cfg, batch, collect_cache: bool):
     """The final-normed hidden states [B,S,D] of a full sequence (a batch
-    as :func:`_embed_inputs` takes it) and the per-layer cache rows."""
+    as :func:`_embed_inputs` takes it), the per-layer cache rows and the
+    aux losses summed over the layers."""
     check_ported(cfg)
     x = _embed_inputs(params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
-    caches = []
-    for lp, kind in zip(params["layers"], cfg.layer_kinds(), strict=True):
-        x, c = _block_seq(lp, cfg, kind, x, positions, collect_cache)
+    caches, aux_total = [], _zero_aux(x.device)
+    for lp, sig in zip(params["layers"], signatures(cfg), strict=True):
+        x, a, c = _block_seq(lp, cfg, sig, x, positions, collect_cache)
+        aux_total = {k: aux_total[k] + a[k] for k in AUX_KEYS}
         caches.append(c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, caches
+    return x, caches, aux_total
 
 
-def forward(params, cfg, batch):
+def forward(params, cfg, batch, *, collect_cache: bool = False):
     """Full-sequence forward.  batch: tokens [B,S], {"tokens": [B,S]} or
-    {"embeds": [B,S,d_frontend]}.  Returns logits [B,S,V] fp32 (the
-    reference's ``forward`` without its aux losses and cache)."""
-    x, _ = _hidden(params, cfg, batch, collect_cache=False)
-    return layers.unembed(params["embed_f32"], x)
+    {"embeds": [B,S,d_frontend]}.  Returns (logits [B,S,V] fp32, aux
+    {"load_balance", "router_z"} summed over the layers, the per-layer
+    cache rows when ``collect_cache`` else None)."""
+    x, caches, aux = _hidden(params, cfg, batch, collect_cache)
+    logits = layers.unembed(params["embed_f32"], x)
+    return logits, aux, (caches if collect_cache else None)
 
 
 # ----------------------------------------------------------------- serving
@@ -223,7 +249,7 @@ def prefill(params, cfg, batch, max_len: int):
     [B,S] (or a batch as :func:`forward` takes it).  Returns (last_logits
     [B,V] fp32, cache, pos = S).  Only the last row is unembedded: the full
     [B,S,V] logits are never made."""
-    x, caches = _hidden(params, cfg, batch, collect_cache=True)
+    x, caches, _ = _hidden(params, cfg, batch, collect_cache=True)
     logits = layers.unembed(params["embed_f32"], x[:, -1])
     return (logits, [_pad_cache_rows(cfg, kind, c, max_len)
                      for c, kind in zip(caches, cfg.layer_kinds(),
@@ -313,11 +339,15 @@ def write_paged_blocks(cache, ids, rows):
     return cache
 
 
-def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec,
+def _block_prefill_chunk(lp, cfg, sig, x, cache, table, lengths, spec,
                          qpos=None):
     """One block over a chunk against the paged cache; ``qpos`` [B,C]
     switches its attention to the verify entry (explicit per-row
-    horizons)."""
+    horizons).  A MoE block routes dropless, the B rows its groups of C
+    tokens, as a prompt token is never dropped at inference (so chunked
+    equals single-shot prefill only where single-shot's capacity drops
+    nothing)."""
+    _, is_moe = sig
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
     mla = cfg.attention_kind == "mla"
     if qpos is None:
@@ -331,11 +361,16 @@ def _block_prefill_chunk(lp, cfg, x, cache, table, lengths, spec,
                           spec=spec)
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    if is_moe:
+        return x + moe.moe_ffn(lp["ffn"], cfg, h2, dropless=True)[0], cache
     return x + layers.mlp(lp["ffn"], h2), cache
 
 
-def _block_decode(lp, cfg, kind, x, cache, pos, spec, cache_layout, table,
+def _block_decode(lp, cfg, sig, x, cache, pos, spec, cache_layout, table,
                   lengths):
+    """One block, one token a row (x [B,D]); a MoE block routes the B
+    tokens as one dropless group."""
+    kind, is_moe = sig
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind == "ssm":
         mixed, cache = mamba.mamba_decode(lp["mix"], cfg, h, cache)
@@ -352,6 +387,9 @@ def _block_decode(lp, cfg, kind, x, cache, pos, spec, cache_layout, table,
         mixed, cache = fn(lp["mix"], cfg, h, cache, pos, spec=spec)
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    if is_moe:                         # the B tokens: one group
+        return x + moe.moe_ffn(lp["ffn"], cfg, h2[None],
+                               dropless=True)[0][0], cache
     return x + layers.mlp(lp["ffn"], h2), cache
 
 
@@ -372,9 +410,10 @@ def _chunk_forward(params, cfg, cache, tokens, block_table, lengths, spec,
     :func:`verify_step`."""
     x = layers.embed(params["embed"], tokens)
     new_cache = []
-    for lp, lc in zip(params["layers"], cache, strict=True):
-        x, nc = _block_prefill_chunk(lp, cfg, x, lc, block_table, lengths,
-                                     spec, qpos)
+    for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),
+                           strict=True):
+        x, nc = _block_prefill_chunk(lp, cfg, sig, x, lc, block_table,
+                                     lengths, spec, qpos)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["embed_f32"], x), new_cache
@@ -422,9 +461,9 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
         raise ValueError("dense decode_step needs pos")
     x = layers.embed(params["embed"], tokens)
     new_cache = []
-    for lp, lc, kind in zip(params["layers"], cache, cfg.layer_kinds(),
-                            strict=True):
-        x, nc = _block_decode(lp, cfg, kind, x, lc, pos, spec, cache_layout,
+    for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),
+                           strict=True):
+        x, nc = _block_decode(lp, cfg, sig, x, lc, pos, spec, cache_layout,
                               block_table, lengths)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -432,7 +471,8 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
 
 
 def param_count(params) -> int:
-    """Parameters of the model (the derived fp32 unembedding not counted)."""
+    """Parameters of the model, every expert counted (the derived fp32
+    unembedding not counted)."""
     def count(tree):
         if isinstance(tree, dict):
             return sum(count(v) for k, v in tree.items() if k != "embed_f32")

@@ -1,0 +1,157 @@
+"""Mixture-of-Experts FFN with sort-based top-k dispatch — the port of
+``repro/models/moe.py``.
+
+Token → slot assignment is a stable argsort over the flat expert ids (no
+one-hot [G,S,E,C] dispatch tensor); each expert then takes its C slots
+through a gather, runs the GLU on all E × C slots as three batched
+products, and the (token, choice) pairs gather their slots' outputs back
+and sum them weighted by their gates.  Capacity follows GShard: per group
+each expert keeps at most C tokens, earlier (token, choice) pairs win, and
+the overflow is dropped.
+
+The reference pins the expert layout for expert parallelism with
+``constrain``; the port runs on one device, so there is no sharding here
+(multi-GPU is ROADMAP A10).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+# experts drawn at once by init_moe: 16 x 7168 x 2048 fp32 is 0.94 GB
+_INIT_BLOCK = 16
+
+
+def _experts(gen, E: int, d_in: int, d_out: int, dtype, device):
+    """[E, d_in, d_out] unit normals × d_in ** -0.5 in ``dtype``, drawn in
+    blocks of experts so that the fp32 draw stays small beside the model."""
+    w = torch.empty(E, d_in, d_out, dtype=dtype, device=device)
+    for e in range(0, E, _INIT_BLOCK):
+        n = min(_INIT_BLOCK, E - e)
+        block = torch.randn(n, d_in, d_out, generator=gen,
+                            dtype=torch.float32, device=device)
+        w[e:e + n] = (block * d_in ** -0.5).to(dtype)
+    return w
+
+
+def init_moe(gen, cfg, dtype, device):
+    """The router [D, E] in fp32 whatever ``dtype``; the experts' GLU
+    weights w_gate, w_up [E, D, F] and w_down [E, F, D] in ``dtype``; a
+    shared expert (a GLU MLP of width F) when the config has one."""
+    m = cfg.moe
+    D = cfg.d_model
+    Fe = m.d_ff_expert or cfg.d_ff
+    E = m.num_experts
+    router = torch.randn(D, E, generator=gen, dtype=torch.float32,
+                         device=device) * D ** -0.5
+    p = {
+        "router": router,
+        "w_gate": _experts(gen, E, D, Fe, dtype, device),
+        "w_up": _experts(gen, E, D, Fe, dtype, device),
+        "w_down": _experts(gen, E, Fe, D, dtype, device),
+    }
+    if m.shared_expert:
+        p["shared"] = layers.init_mlp(gen, D, Fe, dtype, device)
+    return p
+
+
+def _capacity(tokens_per_group: int, cfg) -> int:
+    m = cfg.moe
+    c = int(m.top_k * tokens_per_group * m.capacity_factor / m.num_experts)
+    return max(4, -(-c // 4) * 4)   # >= 4, rounded up to a multiple of 4
+
+
+def _assign_slots(idx_k, E: int, C: int):
+    """idx_k: [G, S, k] expert choices.  Returns slot_of_choice [G, S*k] in
+    [0, E*C] (E*C = dropped) and token_of_slot [G, E*C] in [0, S] (S = an
+    empty slot), both int32."""
+    G, S, k = idx_k.shape
+    T = S * k
+    flat_e = idx_k.reshape(G, T).long()
+    order = torch.argsort(flat_e, dim=-1, stable=True)            # [G,T]
+    sorted_e = torch.gather(flat_e, -1, order)
+    # position within expert, in sorted order: i - first index of this expert
+    ar = torch.arange(T, device=idx_k.device)
+    change = torch.cat([torch.ones(G, 1, dtype=torch.bool,
+                                   device=idx_k.device),
+                        sorted_e[:, 1:] != sorted_e[:, :-1]], dim=-1)
+    first = torch.cummax(torch.where(change, ar[None, :], 0), dim=-1).values
+    pos_sorted = ar[None, :] - first                              # [G,T]
+    # back to (token, choice) order
+    pos = torch.empty_like(pos_sorted).scatter_(-1, order, pos_sorted)
+    dropped = pos >= C
+    slot = torch.where(dropped, E * C, flat_e * C + torch.clamp(pos, max=C - 1))
+    # invert: the token feeding each expert slot (S = empty); dropped pairs
+    # all write into bucket E*C, sliced off below
+    token_of_slot = torch.full((G, E * C + 1), S, dtype=torch.long,
+                               device=idx_k.device)
+    token_of_slot.scatter_(-1, slot, (ar // k)[None, :].expand(G, T))
+    return slot.int(), token_of_slot[:, : E * C].int()
+
+
+def route(params, cfg, x):
+    """The router: fp32 logits [G,S,E] (TF32 off), their softmax gates, and
+    the top-k gates and experts [G,S,k], sorted by gate, ties to the lower
+    expert (``jax.lax.top_k``'s order; a stable sort keeps it)."""
+    with layers.no_tf32():
+        logits = torch.matmul(x.float(), params["router"])
+    gates = torch.softmax(logits, dim=-1)
+    gate_s, idx_s = torch.sort(gates, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    return logits, gates, gate_s[..., :k], idx_s[..., :k]
+
+
+def capacity(cfg, S: int, dropless: bool) -> int:
+    """Slots an expert takes in a group of S tokens: dropless (serving) 4x
+    the balanced load, at most S; otherwise the capacity-factor rule."""
+    m = cfg.moe
+    if dropless:
+        # C = S would be truly dropless but runs every expert over every
+        # token (E / k times the products) and an E*C*D combine gather
+        return min(S, max(m.top_k, 4 * -(-m.top_k * S // m.num_experts)))
+    return min(_capacity(S, cfg), max(4, S))
+
+
+def moe_ffn(params, cfg, x, *, dropless: bool = False):
+    """x: [G,S,D] -> (out [G,S,D], aux losses {"load_balance",
+    "router_z"}).  ``dropless=True`` (serving): the bounded-overflow
+    capacity of :func:`capacity`.  Every expert runs over all of its C
+    slots, the empty ones on a zero row, as the reference's einsums do."""
+    m = cfg.moe
+    G, S, D = x.shape
+    E, k = m.num_experts, m.top_k
+    C = capacity(cfg, S, dropless)
+
+    logits, gates, gate_k, idx_k = route(params, cfg, x)
+    slot, token_of_slot = _assign_slots(idx_k, E, C)              # [G,T],[G,E*C]
+    # gather expert inputs expert-major, [E, G*C, D] (token S -> zero row)
+    xpad = torch.cat([x, x.new_zeros(G, 1, D)], dim=1).reshape(G * (S + 1), D)
+    g_off = torch.arange(G, device=x.device)[:, None]
+    src = (token_of_slot.long() + g_off * (S + 1)).view(G, E, C)
+    xe = xpad[src.transpose(0, 1).reshape(E, G * C)]
+
+    h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
+    ye = torch.bmm(h, params["w_down"])                           # [E,G*C,D]
+
+    # combine: per (token, choice) gather its slot's output, weight by gate
+    ypad = torch.cat([ye.reshape(E * G * C, D), ye.new_zeros(1, D)])
+    s = slot.long()
+    row = torch.where(s < E * C, (s // C) * (G * C) + g_off * C + s % C,
+                      E * G * C)
+    yk = ypad[row].view(G, S, k, D)
+    out = (yk.float() * gate_k[..., None]).sum(dim=2).to(x.dtype)
+
+    if m.shared_expert:
+        out = out + layers.mlp(params["shared"], x)
+
+    # load-balance and router-z losses (Switch / ST-MoE)
+    me = gates.mean(dim=(0, 1))                                   # [E]
+    assign = torch.bincount(idx_k.reshape(-1), minlength=E).float() \
+        / (G * S * k)
+    aux = {
+        "load_balance": E * torch.sum(me * assign),
+        "router_z": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
+    }
+    return out, aux

@@ -22,10 +22,10 @@ in row blocks (the reference forms E·Eᵀ whole, which at a vocabulary of
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
+
+from repro_torch.models.layers import no_tf32
 
 DRAFT_KINDS = ("ngram", "head")
 
@@ -55,18 +55,6 @@ def ngram_propose(history, k: int, max_n: int = 4) -> list:
     return [int(h[-1])] * k
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """fp32 products without TF32 inside (the reference's numpy product is
-    full fp32)."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def head_table(embed, block: int = 2048):
     """The head drafter's next-token table, ``table[t] = argmax_{t' != t}
     E[t] · E[t']``, computed on ``embed``'s device in fp32 (TF32 off), in
@@ -79,7 +67,7 @@ def head_table(embed, block: int = 2048):
     e = embed.float()
     V = e.shape[0]
     out = torch.empty(V, dtype=torch.int64, device=e.device)
-    with _no_tf32():
+    with no_tf32():
         for lo in range(0, V, block):
             hi = min(lo + block, V)
             rows = e[lo:hi]

@@ -160,7 +160,7 @@ def test_forward_last_row_is_prefill_logits(weights):
     _, cfg, _, params = weights
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, size=(2, 6)).astype(np.int32))
-    full = model.forward(params, cfg, toks)
+    full, _, _ = model.forward(params, cfg, toks)
     last, _, _ = model.prefill(params, cfg, toks, 6)
     assert full.shape == (2, 6, cfg.vocab_size)
     _close(full[:, -1], last)

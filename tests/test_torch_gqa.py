@@ -272,7 +272,7 @@ def test_forward_and_prefill_match_jax(weights):
                                              size=(2, 10)).astype(np.int32)
     jlogits, _, _ = jmodel.forward(jparams, jcfg,
                                    {"tokens": jnp.asarray(toks)})
-    _close(model.forward(params, cfg, torch.from_numpy(toks)), jlogits)
+    _close(model.forward(params, cfg, torch.from_numpy(toks))[0], jlogits)
     jlast, jcache, jpos = jmodel.prefill(jparams, jcfg,
                                          {"tokens": jnp.asarray(toks)}, 14)
     last, cache, pos = model.prefill(params, cfg, torch.from_numpy(toks), 14)

@@ -195,7 +195,7 @@ def test_hybrid_forward_matches_jax(rgemma):
                                              size=(2, 64)).astype(np.int32)
     jlogits, _, _ = jmodel.forward(jparams, jcfg,
                                    {"tokens": jnp.asarray(toks)})
-    _close(model.forward(params, cfg, torch.from_numpy(toks)), jlogits)
+    _close(model.forward(params, cfg, torch.from_numpy(toks))[0], jlogits)
 
 
 # -------------------------------------------------------------- frontends
@@ -213,12 +213,12 @@ def test_frontend_forward_matches_jax(arch):
     emb = rng.normal(size=(2, 9, d_in)).astype(np.float32)
     jlogits, _, _ = jmodel.forward(jparams, jcfg,
                                    {"embeds": jnp.asarray(emb)})
-    _close(model.forward(params, cfg, {"embeds": torch.from_numpy(emb)}),
+    _close(model.forward(params, cfg, {"embeds": torch.from_numpy(emb)})[0],
            jlogits)
     toks = rng.integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
     jlogits, _, _ = jmodel.forward(jparams, jcfg,
                                    {"tokens": jnp.asarray(toks)})
-    _close(model.forward(params, cfg, {"tokens": torch.from_numpy(toks)}),
+    _close(model.forward(params, cfg, {"tokens": torch.from_numpy(toks)})[0],
            jlogits)
     own = model.init(cfg, seed=0, device="cpu")
     assert model.param_count(own) == model.param_count(params)

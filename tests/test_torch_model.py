@@ -287,9 +287,10 @@ def test_unported_paths_raise(weights):
     from repro_torch.core.attn_spec import AttnSpec
     jcfg, cfg, _, _, params = weights
     full = get_config("deepseek_r1_671b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model.check_ported(dataclasses.replace(full, num_layers=4))
+    model.check_ported(dataclasses.replace(full, num_layers=4))  # MoE (A3)
     model.check_ported(dataclasses.replace(full, num_layers=3))
+    with pytest.raises(NotImplementedError, match="no port"):
+        model.check_ported(dataclasses.replace(full, block_pattern=("conv",)))
     qwen = reduced(get_config("qwen3_8b"))
     model.check_ported(qwen)                 # the GQA path is ported (A5)
     assert model.paged_row_bytes(qwen, "int8") == jmodel.paged_row_bytes(
