@@ -163,6 +163,25 @@ Phases, each of which fails the run when it fails:
              fp8 (long) pools, cut the same way: short runs one split (K3 /
              K7 / K3q / K7q), long picks n >= 2 (K1 + K2, K8 + K2 [n,H,Dv],
              K1q + K2, K8q + K2 [n,H,Dv]); K4 or K4q runs every prefill;
+             then the telemetry and fault-drill twins of three of them:
+             serve-short-obs (serve-short with --trace-out, --metrics-out
+             and --profile-kernels 1: outputs and every wrapper's launch
+             count bitwise serve-short's, the trace parsed with its
+             prefill / decode spans and lifecycle instants, the metrics
+             file's snapshot equal to the returned one, the kernel report's
+             launches 3 a decode step and 3 a prefill chunk, its [serve]
+             kernel profile lines printed) and serve-short-fault,
+             serve-long-fault (replays through K1 + K2) and
+             serve-short-int8-fault (restores re-quantize rows), each at
+             --fault-rate 0.02: faults injected, every one a scheduler
+             failure and a worker restart, tokens replayed (the serve
+             loop asserts the kernels re-derive each delivered token),
+             one heartbeat a tick, every request finished with its
+             drill-free twin's outputs (FAULT_PHASES); and a chunk
+             resumed at 1984 of a 2048-token prompt from its grid point
+             (prefill_chunk's n_cached) bitwise the uncached chunk in
+             every layer, with the 64-row chunk's gap and layer 0's GEMMs'
+             row-count dependence logged (phase_resume_chunk);
              then the spec phases (SPEC_PHASES, --spec-tokens 4):
              serve-short-spec, serve-long-std-spec, and, cut,
              serve-short-int8-spec-head (the head drafter; the seconds its
@@ -331,14 +350,17 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+from repro_torch.launch import roofline  # noqa: E402
+
+HBM_BYTES_PER_S = roofline.HBM_BW     # H100 SXM HBM3 (the data sheet's)
+BF16_FLOP_PER_S = roofline.PEAK_FLOPS  # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 DK, DV, PAGE = 576, 512, 64
 SCALE = 192 ** -0.5            # DeepSeek's qk_head_dim ** -0.5
@@ -4660,6 +4682,177 @@ SPEC_PHASES = [
 ]
 
 
+# The fault-drill phases: (phase, serve flags, its drill-free twin, an
+# earlier phase of the same call).  At 0.02 a fault falls every 50 ticks,
+# longer than a serve-long victim's re-prefill (16 chunks) and replay (at
+# most 31 tokens), so no victim is failed again before it is restored.
+FAULT = ["--fault-rate", "0.02"]
+FAULT_PHASES = [
+    ("serve-short-fault", SHORT + FAULT, "serve-short"),
+    ("serve-long-fault", LONG + FAULT, "serve-long"),
+    ("serve-short-int8-fault", SHORT + ["--kv-dtype", "int8"] + FAULT,
+     "serve-short-int8"),
+]
+
+
+def serve_expect(name: str) -> tuple:
+    """The kernels SERVE_PHASES says must launch in phase ``name``."""
+    return next(e for n, _, e in SERVE_PHASES if n == name)
+
+
+def phase_serve_obs(params, runs: dict) -> dict:
+    """serve-short again with every telemetry export on (--trace-out,
+    --metrics-out, --profile-kernels 1), beside serve-short's run in
+    ``runs``: the outputs and every wrapper's launch count must equal
+    serve-short's, the trace must parse and hold the prefill and decode
+    spans and the lifecycle instants, the metrics file's snapshot must
+    equal the returned one, and the kernel report must hold one launch of
+    the paged decode entry a layer a decode step and one of the prefill
+    entry a layer a prefill chunk (the serve loop prints its [serve]
+    kernel profile lines).  Returns the run's launch counts."""
+    from repro_torch.launch import serve
+    name, twin = "serve-short-obs", runs["serve-short"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = Path(tmp) / "trace.json", Path(tmp) / "metrics.json"
+        flags = twin["flags"] + ["--trace-out", str(trace), "--metrics-out",
+                                 str(metrics), "--profile-kernels", "1"]
+        got = phase_serve(name, flags, params, serve_expect("serve-short"),
+                          runs)
+        events = json.loads(trace.read_text())["traceEvents"]
+        doc = json.loads(metrics.read_text())
+    run = runs[name]
+    if run["outputs"] != twin["outputs"]:
+        raise AssertionError(f"{name}: outputs differ from serve-short's")
+    if run["launched"] != twin["launched"]:
+        diff = {k: (v, twin["launched"][k]) for k, v in run["launched"].items()
+                if v != twin["launched"][k]}
+        raise AssertionError(f"{name}: launches differ from serve-short's "
+                             f"(this run, serve-short): {diff}")
+    names = {e["name"] for e in events}
+    need = {"prefill_chunk", "decode_step", "enqueued", "admitted",
+            "finished"}
+    if not need <= names:
+        raise AssertionError(f"{name}: trace lacks {sorted(need - names)}")
+    if doc["metrics"] != run["metrics"]:
+        raise AssertionError(f"{name}: the metrics file's snapshot is not "
+                             "the returned one")
+    layers = serve.config_for(serve.parse_args(flags)).num_layers
+    rows = run["kernel_report"] or []
+    for entry, want in (("etap_decode_mla_paged_splitkv",
+                         layers * run["steps"]),
+                        ("etap_prefill_mla_paged",
+                         layers * run["prefill_chunks"])):
+        n = sum(r["launches"] for r in rows if r["entry"] == entry)
+        if n != want:
+            raise AssertionError(f"{name}: kernel report has {n} launches "
+                                 f"of {entry}, not {want}")
+    log(f"[{name}] bitwise serve-short's outputs and launches; trace "
+        f"{len(events)} events ({sorted(need)} present), metrics file == "
+        f"snapshot, kernel report {len(rows)} rows; {gpu_line()}")
+    return got
+
+
+def phase_fault_serve(name, flags, params, twin, runs) -> dict:
+    """One fault-drill serve phase (phase_serve) beside its drill-free twin
+    in ``runs``: every injected fault must be one scheduler failure and
+    one worker restart (and there must be one), tokens must have been
+    replayed through the recompute restore (the serve loop asserts that
+    the kernels re-derive each delivered token), every tick must have
+    beaten its heartbeat, and the outputs must equal the twin's.  Returns
+    the run's launch counts."""
+    got = phase_serve(name, flags, params, serve_expect(twin), runs)
+    c = runs[name]["metrics"]["counters"]
+    faults = c.get("ft/injected_faults", 0)
+    if not faults or not (faults == c.get("sched/failures")
+                          == c.get("serve/worker_restarts")):
+        raise AssertionError(
+            f"{name}: faults {faults}, scheduler failures "
+            f"{c.get('sched/failures')}, worker restarts "
+            f"{c.get('serve/worker_restarts')}")
+    if c.get("serve/replayed_tokens", 0) <= 0:
+        raise AssertionError(f"{name}: no token was replayed")
+    if c.get("ft/heartbeats") != c.get("serve/ticks"):
+        raise AssertionError(f"{name}: {c.get('ft/heartbeats')} heartbeats "
+                             f"in {c.get('serve/ticks')} ticks")
+    out, ref = runs[name]["outputs"], runs[twin]["outputs"]
+    if out != ref:
+        first = next(((rid, i) for rid in ref for i, (a, b) in enumerate(
+            zip(out.get(rid, []), ref[rid])) if a != b), "a length")
+        raise AssertionError(f"{name}: outputs differ from {twin}'s "
+                             f"(first at (request, token) {first})")
+    log(f"[{name}] drill: {faults} faults injected = scheduler failures = "
+        f"worker restarts, {c['serve/replayed_tokens']} tokens replayed, "
+        f"{c['serve/ticks']} ticks = heartbeats, outputs == {twin}'s; "
+        f"{runs[name]['tok_s']:.1f} tok/s against {runs[twin]['tok_s']:.1f}")
+    return got
+
+
+RESUME_S, RESUME_CHUNK, RESUME_AT = 2048, 256, 1984
+
+
+def phase_resume_chunk(params, cfg) -> None:
+    """Why a chunk after a prefix-cache hit or restore runs from its chunk
+    grid point (``prefill_chunk(n_cached=...)``): a 2048-token prompt
+    prefilled in chunks of 256, then its last chunk again from 1984, where
+    serve-long's restore resumes.  Run from the grid point with the 192
+    rows the pool holds recomputed (the serve loop's route), every layer's
+    latent rows and the logits must be bitwise the uncached chunk's; run as
+    a 64-row chunk (the reference's route), whether they are is logged
+    ([resume] lines), with whether layer 0's GEMMs give a row other bits
+    in a product of 256 rows than of 64 ([gemm rows] lines)."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.models import model
+    from repro_torch.runtime import paged_cache
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(11)
+    layout = paged_cache.layout_for(1, RESUME_S, PAGE)
+    table = torch.arange(1, layout.max_blocks + 1, dtype=torch.int32,
+                         device=dev)[None]
+    toks = torch.randint(0, cfg.vocab_size, (1, RESUME_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+    cache = model.init_paged_cache(cfg, layout, device=dev)
+    spec = AttnSpec()
+
+    def chunk(start, stop, n_cached=0):
+        nonlocal cache
+        lg, cache = model.prefill_chunk(
+            params, cfg, cache, toks[:, start:stop], table,
+            torch.tensor([start], dtype=torch.int32, device=dev), spec=spec,
+            n_cached=n_cached)
+        rows = [paged_cache.gather_blocks(lc["c"], table)[0, RESUME_AT:]
+                .clone() for lc in cache]
+        return lg[:, -(RESUME_S - RESUME_AT):], rows
+
+    for s in range(0, RESUME_S, RESUME_CHUNK):
+        want, want_rows = chunk(s, s + RESUME_CHUNK)
+    grid = RESUME_S - RESUME_CHUNK
+    got, got_rows = chunk(grid, RESUME_S, n_cached=RESUME_AT - grid)
+    for i, (a, b) in enumerate(zip(got_rows, want_rows, strict=True)):
+        bitwise(a, b, f"resume: layer {i} latent rows, grid chunk")
+    bitwise(got, want, "resume: logits, grid chunk")
+    short, short_rows = chunk(RESUME_AT, RESUME_S)
+    diffs = [(a.float() - b.float()).abs().max().item()
+             for a, b in zip(short_rows, want_rows, strict=True)]
+    log(f"[resume] rows {RESUME_AT}..{RESUME_S - 1} from the grid chunk "
+        f"(n_cached {RESUME_AT - grid}): bitwise the uncached chunk's in "
+        f"every layer and the logits; as a {RESUME_S - RESUME_AT}-row chunk: "
+        f"latent max |diff| by layer {[f'{d:.3e}' for d in diffs]}, logits "
+        f"{(short - want).abs().max().item():.3e}")
+    lp = params["layers"][0]
+    rows = RESUME_S - RESUME_AT
+    for name, w in (("w_dq", lp["mix"]["w_dq"]), ("w_dkv", lp["mix"]["w_dkv"]),
+                    ("w_o", lp["mix"]["w_o"]),
+                    ("w_down", lp["ffn"]["w_down"])):
+        x = torch.randn(RESUME_CHUNK, w.shape[0], generator=gen,
+                        device=dev).to(w.dtype)
+        a, b = (x @ w)[-rows:], x[-rows:] @ w
+        log(f"[gemm rows] layer 0 {name} {tuple(w.shape)}: the last {rows} "
+            f"rows of a {RESUME_CHUNK}-row product "
+            f"{'==' if torch.equal(a, b) else '!='} a {rows}-row product "
+            f"(max |diff| {(a.float() - b.float()).abs().max().item():.3e})")
+
+
 def head_table_check(params) -> None:
     """The head drafter's table at DeepSeek-R1's full vocabulary, built on
     the card as serve-short-int8-spec-head builds it (spec_decode.HeadDraft
@@ -5031,7 +5224,9 @@ def phase_serve(name: str, flags: list, params, expect: tuple,
                       "launched": launched, "tok_s": tps,
                       **{k: res.get(k) for k in ("spec", "t_drafter",
                                                  "prefill_chunks",
-                                                 "batch_slots")}}
+                                                 "batch_slots", "steps",
+                                                 "metrics",
+                                                 "kernel_report")}}
     return launched
 
 
@@ -6747,6 +6942,14 @@ def main(argv=None) -> int:
                           runs)
         credit_deepseek(got, flags)
     log(f"[time] serve phases: {time.perf_counter() - t_serve:.1f} s")
+    t_serve = time.perf_counter()
+    credit_deepseek(phase_serve_obs(params, runs), SHORT)
+    for name, flags, twin in FAULT_PHASES:
+        credit_deepseek(phase_fault_serve(name, flags + ["--layers", "3"],
+                                          params, twin, runs), flags)
+    log(f"[time] telemetry and fault-drill phases: "
+        f"{time.perf_counter() - t_serve:.1f} s")
+    timed("resumed chunk", phase_resume_chunk, params, cfg)
     t_serve = time.perf_counter()
     for name, flags, expect, off in SPEC_PHASES:
         for got in phase_spec_serve(name, flags + ["--layers", "3"], params,

@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (ARCH_IDS, MLAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, get_config,
-                                      reduced)
+                                      MoEConfig, ShapeCell, SSMConfig,
+                                      get_config, reduced)

@@ -108,6 +108,21 @@ class ModelConfig:
         return ((i - m.first_dense_layers) % m.every_k_layers) == 0
 
 
+@dataclass(frozen=True)
+class ShapeCell:
+    """One input-shape cell: a batch of sequences of one length and one
+    kind of step (train | prefill | decode) — what
+    :func:`repro_torch.launch.roofline.model_flops` counts tokens over."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
 ARCH_IDS = [
     "recurrentgemma_9b",
     "dbrx_132b",

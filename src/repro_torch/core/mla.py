@@ -165,8 +165,9 @@ def mla_decode_paged(params, cfg, x, cache, table, lengths, *,
 
 
 def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec,
-               qpos=None):
-    """Append the chunk's latent rows through the table, then run absorbed
+               qpos=None, n_cached: int = 0):
+    """Append the chunk's latent rows through the table (all but the first
+    ``n_cached``, which the pool holds already), then run absorbed
     attention over pool positions <= each query row's horizon.
     ``positions`` [B,C] drives rope; ``qpos`` None is the prefill entry
     (horizon start + row index, implied by the kernel), else the verify
@@ -178,13 +179,14 @@ def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec,
     q_c = torch.einsum("bchd,khd->bchk", q_nope.float(),
                        w_uk.float()).to(x.dtype)
     q = torch.cat([q_c, q_rope], dim=-1)                      # [B,C,H,latent]
-    c_rows = _latent(params, cfg, x, positions)               # [B,C,latent]
+    c_rows = _latent(params, cfg, x, positions)[:, n_cached:]
+    at = lengths + n_cached
     sz = cache.get("c_sz")     # quantized layout: the (scale, zp) pool
     if sz is None:
-        pool = paged_cache.append_chunk(cache["c"], table, lengths, c_rows)
+        pool = paged_cache.append_chunk(cache["c"], table, at, c_rows)
     else:
-        pool, sz = paged_cache.append_chunk_quant(cache["c"], sz, table,
-                                                  lengths, c_rows)
+        pool, sz = paged_cache.append_chunk_quant(cache["c"], sz, table, at,
+                                                  c_rows)
     kw = dict(spec=spec.replace(scale=m.qk_head_dim ** -0.5),
               dv=m.kv_lora_rank, k_sz=sz)
     if qpos is None:
@@ -200,19 +202,20 @@ def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec,
 
 
 def mla_prefill_chunk(params, cfg, x, cache, table, lengths, *,
-                      spec: AttnSpec | None = None):
+                      spec: AttnSpec | None = None, n_cached: int = 0):
     """Absorbed-form chunked prefill against the paged latent cache.
 
     x: [B,C,D] — C prompt tokens at positions lengths[b] + c; lengths: [B]
     tokens already written (the chunk start).  The chunk's rows are appended
-    first (quantized on write for an int8 / fp8 cache), then attention runs
+    first (quantized on write for an int8 / fp8 cache; the first
+    ``n_cached``, already in the pool, are not), then attention runs
     causally over chunk + earlier context.  Returns (out [B,C,D], cache)."""
     spec = spec or AttnSpec()
     C = x.shape[1]
     positions = lengths[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=x.device)[None, :]
     return _mla_chunk(params, cfg, x, cache, table, lengths, positions,
-                      spec=spec)
+                      spec=spec, n_cached=n_cached)
 
 
 def mla_verify_chunk(params, cfg, x, cache, table, lengths, qpos, *,

@@ -2,8 +2,10 @@
 ``repro/kernels/etap/ops.py``: default lengths, the split-KV scheduling and
 the two-phase split path over the dense cache, and table padding over the
 paged pools (the MLA-fused latent pool, or separate K and V pools).  Every
-entry takes one :class:`repro_torch.core.attn_spec.AttnSpec`.  The kernels are called
-through the ``etap`` and ``combine`` modules' attributes, never bound here.
+entry takes one :class:`repro_torch.core.attn_spec.AttnSpec` and goes
+through :func:`repro_torch.core.attn_spec.attn_entry`, the kernel profiler's
+choke point.  The kernels are called through the ``etap`` and ``combine``
+modules' attributes, never bound here.
 
 The reference pads a dense cache to its block and split multiples here
 (``_pad_seq``); in the port the kernel wrappers take the unpadded cache and
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from repro_torch.core.attn_spec import attn_entry
 from repro_torch.kernels import splitkv
 from repro_torch.kernels.etap import combine as combine_mod
 from repro_torch.kernels.etap import etap as K
@@ -23,6 +26,7 @@ from repro_torch.kernels.etap.schedule import (dense_split_plan, num_cores,
 
 
 # ------------------------------------------------------------------- dense
+@attn_entry(uses=("block", "rescale"))
 def etap_decode(q, k, v, length=None, *, spec):
     """ETAP decode attention (K5). q [BG,H,Dk]; k [BG,S,Dk]; v [BG,S,Dv];
     length [BG] valid-prefix lengths (None = all S).  Returns [BG,H,Dv]."""
@@ -32,6 +36,7 @@ def etap_decode(q, k, v, length=None, *, spec):
                                block=spec.block, rescale=spec.rescale)
 
 
+@attn_entry(uses=("block", "kv_splits", "rescale"))
 def etap_partial(q, k, v, length=None, *, spec):
     """Phase-1 split-KV stats (m, l, accT): [BG,n,H], [BG,n,H],
     [BG,n,Dv,H] fp32, n the effective count of spec.kv_splits (None -> 2)."""
@@ -43,6 +48,7 @@ def etap_partial(q, k, v, length=None, *, spec):
         plan=dense_split_plan(k.shape[1], spec.block, n_splits))
 
 
+@attn_entry(uses=("block", "kv_splits", "rescale"))
 def etap_decode_splitkv(q, k, v, length=None, *, spec, k_sz=None,
                         v_sz=None):
     """Two-phase split-KV ETAP decode over the dense cache.  spec.kv_splits
@@ -101,6 +107,7 @@ def _paged_n_splits(q, table, page: int, dv: int, spec) -> int:
     return paged_split_geometry(table.shape[1], n_splits)[0]
 
 
+@attn_entry(uses=("kv_splits", "rescale"))
 def etap_decode_mla_paged_splitkv(q, kv_pool, dv: int, table, lengths, *,
                                   spec, kv_sz=None):
     """Two-phase split-KV decode over a paged MLA latent pool (V = the first
@@ -124,6 +131,7 @@ def etap_decode_mla_paged_splitkv(q, kv_pool, dv: int, table, lengths, *,
                                       rescale=spec.rescale)
 
 
+@attn_entry(uses=("rescale",))
 def etap_prefill_mla_paged(q, kv_pool, dv: int, table, start, *, spec,
                            kv_sz=None):
     """Chunked paged MLA-fused prefill (K4, or K4q over a quantized pool
@@ -135,6 +143,7 @@ def etap_prefill_mla_paged(q, kv_pool, dv: int, table, start, *, spec,
     return K.etap_prefill_mla_paged(q, kv_pool, dv, table, start, **kw)
 
 
+@attn_entry(uses=("rescale",))
 def etap_verify_mla_paged(q, kv_pool, dv: int, table, start, qpos, *, spec,
                           kv_sz=None):
     """Paged MLA-fused draft verify (K4 / K4q with explicit qpos [B,Cq])."""
@@ -146,6 +155,7 @@ def etap_verify_mla_paged(q, kv_pool, dv: int, table, start, qpos, *, spec,
 
 
 # ------------------------------------------------- paged, separate V pool
+@attn_entry(uses=("rescale",))
 def etap_decode_paged(q, k_pool, v_pool, table, lengths, *, spec, k_sz=None,
                       v_sz=None):
     """Paged ETAP decode over separate pools (K3, or K3q over code pools
@@ -160,6 +170,7 @@ def etap_decode_paged(q, k_pool, v_pool, table, lengths, *, spec, k_sz=None,
     return K.etap_decode_paged(q, k_pool, v_pool, table, lengths, **kw)
 
 
+@attn_entry(uses=("rescale",))
 def etap_prefill_paged(q, k_pool, v_pool, table, start, *, spec, k_sz=None,
                        v_sz=None):
     """Chunked paged prefill over separate pools (K4, or K4q over code
@@ -172,6 +183,7 @@ def etap_prefill_paged(q, k_pool, v_pool, table, start, *, spec, k_sz=None,
     return K.etap_prefill_paged(q, k_pool, v_pool, table, start, **kw)
 
 
+@attn_entry(uses=("rescale",))
 def etap_verify_paged(q, k_pool, v_pool, table, start, qpos, *, spec,
                       k_sz=None, v_sz=None):
     """Draft verify over separate pools: K4 / K4q with the explicit
@@ -183,6 +195,7 @@ def etap_verify_paged(q, k_pool, v_pool, table, start, qpos, *, spec,
     return K.etap_verify_paged(q, k_pool, v_pool, table, start, qpos, **kw)
 
 
+@attn_entry(uses=("kv_splits", "rescale"))
 def etap_decode_paged_splitkv(q, k_pool, v_pool, table, lengths, *, spec,
                               k_sz=None, v_sz=None):
     """Two-phase split-KV decode over separate pools: the split count

@@ -2,15 +2,18 @@
 ``repro/kernels/flash_decode/ops.py``: single-pass and split-KV two-phase
 entry points, with the ETAP path's scheduler and split geometry
 (:mod:`repro_torch.kernels.splitkv`).  Entries take one
-:class:`repro_torch.core.attn_spec.AttnSpec`; the kernels are called
+:class:`repro_torch.core.attn_spec.AttnSpec` through ``attn_entry`` (the
+profiler's choke point); the kernels are called
 through the modules' attributes, never bound here."""
 from __future__ import annotations
 
+from repro_torch.core.attn_spec import attn_entry
 from repro_torch.kernels import splitkv
 from repro_torch.kernels.etap import combine as combine_mod
 from repro_torch.kernels.flash_decode import flash_decode as FD
 
 
+@attn_entry(uses=("block", "rescale"))
 def flash_decode(q, k, v, length=None, *, spec):
     """Baseline decode attention (K7). q [BG,H,Dk]; k [BG,S,Dk];
     v [BG,S,Dv]; length [BG] (None = all S).  Returns [BG,H,Dv]."""
@@ -20,6 +23,7 @@ def flash_decode(q, k, v, length=None, *, spec):
                            block=spec.block, rescale=spec.rescale)
 
 
+@attn_entry(uses=("block", "kv_splits", "rescale"))
 def flash_decode_splitkv(q, k, v, length=None, *, spec, k_sz=None,
                          v_sz=None):
     """Two-phase split-KV baseline decode (the ETAP path's scheduler;

@@ -90,9 +90,23 @@ and the reference's ``ValueError`` on the paged one.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma_9b --cache-layout dense --batch 1 \\
         --prompt 4096 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --layers 1 \\
+        --device cpu --batch 2 --prompt 24 --gen 8 --requests 4 \\
+        --page-size 8 --prefill-chunk 8 --fault-rate 0.2 \\
+        --trace-out t.json --metrics-out m.json --profile-kernels 1
 
-Flags of the reference that this port does not serve yet are refused with
-a "not yet ported" error, never ignored.
+Fault drills and telemetry export, as the reference's: ``--fault-rate r``
+fails the decode worker every round(1/r) ticks and requeues its victim
+through the recompute path (the outputs stay those of the run without);
+every stat lands in one metrics registry, rendered into the ``[serve]``
+lines (``launch/obs.py``) and written by ``--metrics-out`` (also on the
+dense layout); ``--trace-out`` writes the request lifecycle and the
+prefill / decode / verify spans as Chrome trace-event JSON, in a ring of
+``--trace-buffer`` events; ``--profile-kernels N`` times every N-th
+attention entry launch between two device syncs and sets it against the
+card's HBM rate (``launch/roofline.py``).  On the card the profile is
+wall time a launch, so a small decode entry's row shows its wrapper's
+host time too.
 """
 from __future__ import annotations
 
@@ -108,8 +122,12 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.kernels import softmax_state
+from repro_torch.launch import obs
 from repro_torch.models import model
 from repro_torch.runtime import scheduler, spec_decode, telemetry
+from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                 HeartbeatRegistry,
+                                                 WorkerFailure)
 from repro_torch.runtime.paged_cache import (BlockPool, layout_for,
                                              layout_for_bytes)
 from repro_torch.runtime.prefix_cache import PrefixCache
@@ -165,11 +183,6 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _device_name(device) -> str:
-    return (torch.cuda.get_device_name(torch.device(device))
-            if torch.device(device).type == "cuda" else "cpu")
-
-
 def run_dense(args, cfg, *, params=None, tokens=None, device="cuda") -> dict:
     """Fixed-batch serving over the dense cache (the reference's
     ``run_dense``): prefill B prompts of ``--prompt`` tokens, then
@@ -180,8 +193,10 @@ def run_dense(args, cfg, *, params=None, tokens=None, device="cuda") -> dict:
     ``params`` hands in weights (None: the port's seeded init); ``tokens``
     [B, prompt] the prompts (None: drawn from ``--seed`` with numpy; the
     reference draws them with ``jax.random``, so a test hands its prompts
-    in).  Returns the generated tokens [B, gen] (each step's input token,
-    as the reference's scan emits them) and the timings."""
+    in).  ``--metrics-out`` writes the run's registry snapshot.  Returns the
+    generated tokens [B, gen] (each step's input token, as the reference's
+    scan emits them), the timings and the snapshot."""
+    reg = telemetry.MetricsRegistry()
     if params is None:
         params = model.init(cfg, seed=args.seed, device=device)
     B, S = args.batch, args.prompt
@@ -210,16 +225,23 @@ def run_dense(args, cfg, *, params=None, tokens=None, device="cuda") -> dict:
     gen = torch.stack(gen, dim=1).cpu()                       # syncs
     t_decode = time.perf_counter() - t0
     tokens_served = int(gen.numel())
-    print(f"[serve] {args.arch} layers={cfg.num_layers} "
-          f"device={_device_name(device)} layout=dense mode={args.mode} "
-          f"rescale={softmax_state.default_mode()} B={B} prompt={S} "
-          f"gen={args.gen} t_prefill={t_prefill:.3f}s "
-          f"t_decode={t_decode:.3f}s "
-          f"decode tok/s={tokens_served / max(t_decode, 1e-9):.1f} "
-          f"sample={gen[0][:16].tolist()}")
+    reg.counter("serve/decode_tokens").inc(tokens_served)
+    reg.counter("serve/decode_steps").inc(int(args.gen))
+    snap = reg.snapshot()
+    if args.metrics_out:
+        obs.write_metrics(args.metrics_out, snap,
+                          config=f"serve:{args.arch}:dense", device=device)
+    for line in obs.summarize_dense(snap, {
+            "arch": args.arch, "device": obs.device_name(device),
+            "mode": args.mode, "rescale": softmax_state.default_mode(),
+            "batch": B, "prompt": S, "gen": args.gen,
+            "t_prefill": t_prefill, "t_decode": t_decode,
+            "metrics_path": args.metrics_out,
+            "sample": gen[0][:16].tolist()}):
+        obs.emit(line)
     return {"tokens": gen.numpy(), "t_prefill": t_prefill,
             "t_decode": t_decode, "tokens_served": tokens_served,
-            "steps": args.gen}
+            "steps": args.gen, "metrics": snap}
 
 
 def paged_layout(args, cfg):
@@ -242,17 +264,36 @@ def paged_layout(args, cfg):
 
 
 def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
-    """Continuous-batching serve loop (the reference's ``run_paged`` minus
-    fault drills and telemetry export).
+    """Continuous-batching serve loop (the reference's ``run_paged``).
 
     Per tick: (0) arrivals join the scheduler queue (``--paranoia N`` runs
-    the pool audit); (1) the scheduler admits, restores and preempts; (2)
-    prefill chunks of ``--prefill-chunk`` tokens run from cold slots while
-    they fit the step's token budget, the first chunk after a cache hit or
-    restore trimmed onto the global chunk grid so every later chunk has the
-    uncached run's shape; (3) one paged decode step runs over the decoding
+    the pool audit; a missed heartbeat counts a worker restart); (1) the
+    scheduler admits, restores and preempts; (2) prefill chunks of
+    ``--prefill-chunk`` tokens run from cold slots while they fit the
+    step's token budget, the first chunk after a cache hit or restore
+    ending on the global chunk grid so every later chunk has the uncached
+    run's shape, and itself run from the grid point with the rows the pool
+    holds recomputed, not written (``prefill_chunk(n_cached=...)``), so it
+    has that shape too; (3) one paged decode step runs over the decoding
     slots (the other slots' table rows masked to the null block), then
     finished sequences retire.
+
+    ``--fault-rate r`` injects a decode-worker failure every round(1/r)
+    ticks (``FailureInjector.from_rate``) at a tick with decoding slots:
+    the step is skipped, the highest decoding slot is requeued through the
+    recompute path (``Scheduler.fail_running``), and the heartbeat the tick
+    does not beat shows as one worker restart on the next.  A restored
+    victim re-prefills its prompt and teacher-forces its delivered tokens,
+    and the loop asserts that the kernels re-derive each of them exactly.
+
+    Telemetry: one ``MetricsRegistry`` for the run (``--metrics-out``
+    writes its snapshot); ``--trace-out`` records the request lifecycle
+    (scheduler instants) and ``prefill_chunk`` / ``decode_step`` /
+    ``verify_step`` spans, each closed after the device sync that reading
+    its tokens forces, into a ring of ``--trace-buffer`` events;
+    ``--profile-kernels N`` times every N-th attention entry launch
+    (``core/attn_spec.attn_entry``), installed after the warm-up.  None of
+    them changes the served tokens.
 
     With ``--spec-tokens k`` every decoding slot that is not replaying a
     restore and has k or more tokens left is a spec slot: the drafter
@@ -267,9 +308,11 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     ``params`` hands in weights (e.g. converted from the reference's with
     :func:`repro_torch.models.convert.params_from_jax`); None draws them
     from the port's own seeded init.  Returns the outputs per request id
-    and the run's counters and timings."""
+    and the run's counters, timings, metrics snapshot and kernel report."""
     model.check_pageable(cfg)            # before any weights are made
     reg = telemetry.MetricsRegistry()
+    tracer = (telemetry.Tracer(capacity=args.trace_buffer)
+              if args.trace_out else None)
     if params is None:
         params = model.init(cfg, seed=args.seed, device=device)
     layout, B = paged_layout(args, cfg)
@@ -304,7 +347,16 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
             preemption=args.preemption, slo_ttft_ms=args.slo_ttft,
             slo_itl_ms=args.slo_itl,
             backoff_cap=max(1, args.retry_backoff)),
-        metrics=reg)
+        metrics=reg, tracer=tracer)
+    injector = (FailureInjector.from_rate(args.fault_rate, metrics=reg)
+                if args.fault_rate > 0 else None)
+    tick = 0
+    # heartbeats on the tick clock (the lambda reads ``tick`` when called):
+    # a beat every tick is alive (gap 1 <= 1.5); the beat a failure tick
+    # skips (gap 2) trips dead()
+    hb = HeartbeatRegistry(timeout_s=1.5, clock=lambda: float(tick),
+                           metrics=reg)
+    worker = "decode-worker-0"
     spec = AttnSpec(mode=args.mode, kv_splits=args.kv_splits,
                     kv_dtype=args.kv_dtype)
 
@@ -313,9 +365,9 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
                                  cache_layout="paged", block_table=table,
                                  lengths=lengths)
 
-    def prefill_fn(cache, toks, table, lengths):
+    def prefill_fn(cache, toks, table, lengths, n_cached):
         return model.prefill_chunk(params, cfg, cache, toks, table, lengths,
-                                   spec=spec)
+                                   spec=spec, n_cached=n_cached)
 
     def verify_fn(cache, toks, table, lengths):
         return model.verify_step(params, cfg, cache, toks, table, lengths,
@@ -362,161 +414,245 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
     c_inter = reg.counter("serve/interleaved_steps")
     c_pf = reg.counter("serve/prefill_tokens")
     c_replay = reg.counter("serve/replayed_tokens")
+    c_restarts = reg.counter("serve/worker_restarts")
     c_ticks = reg.counter("serve/ticks")
     g_queued = reg.gauge("sched/queued")
     g_running = reg.gauge("sched/running")
     t_prefill = 0.0
-    tick = 0
 
+    # the profiler goes in after the warm-up, so no warm-up launch is
+    # recorded, and comes out in the finally, so no run leaks it
+    prof = None
+    if args.profile_kernels:
+        prof = telemetry.KernelProfiler(args.profile_kernels)
+        telemetry.set_profiler(prof)
     t0 = time.perf_counter()
-    while pending or sched.queue or sched.by_slot:
-        now = time.perf_counter()
-        # ---- (0) arrivals + paranoia sweep
-        while pending and pending[0]["arrival"] <= tick:
-            req = pending.popleft()
-            sched.add(scheduler.Request(
-                id=req["id"], prompt=req["prompt"], gen=req["gen"],
-                priority=req["priority"], arrival=req["arrival"]), now)
-        if args.paranoia and tick % args.paranoia == 0:
-            bp.audit()
-
-        # ---- (1) admission / restore / preemption (scheduler policy)
-        sched.admit(tick, now)
-        running = sched.running()
-        dec = [r for r in running if r.decoding]
-        # speculation takes slots with k_max or more deliveries left (start
-        # + k_max then stays inside the slot's reserved budget) that are not
-        # teacher-forcing a restore replay; the rest take the one-token step
-        spec_dec = [r for r in dec
-                    if k_max > 0 and not r.replay and r.remaining >= k_max]
-        spec_slots = {r.slot for r in spec_dec}
-        # decode tokens this step (each spec slot runs k_max verify rows)
-        spent = len(dec) + max(0, k_max - 1) * len(spec_dec)
-        budget_eff = spent + sched.prefill_quota(max(0, budget - spent))
-
-        # ---- (2) prefill chunks from cold slots under the budget
-        pf_tokens = 0
-        cold = sorted((r for r in running if not r.decoding),
-                      key=lambda r: r.admit_seq)
-        for r in cold:
-            b = r.slot
-            plen = r.plen
-            c = min(chunk - r.pf_pos % chunk, plen - r.pf_pos)
-            if spent + c > budget_eff and spent > 0:
-                break                         # budget spent — defer chunk
-            tp = time.perf_counter()
-            toks_c = torch.as_tensor(r.prompt[None, r.pf_pos:r.pf_pos + c],
-                                     device=device)
-            trow = torch.tensor(bp.table[b:b + 1], device=device)
-            lrow = torch.tensor(bp.lengths[b:b + 1], device=device)
-            logits, holder["cache"] = prefill_fn(holder["cache"], toks_c,
-                                                 trow, lrow)
-            seed_tok = int(torch.argmax(logits[0, -1]))   # syncs the device
-            t_prefill += time.perf_counter() - tp
-            bp.extend(b, c)
-            r.pf_pos += c
-            spent += c
-            pf_tokens += c
-            c_pf.inc(c)
-            c_chunks.inc()
-            if r.pf_pos == plen:              # prompt done -> start decoding
-                if r.replay:
-                    assert seed_tok == r.replay[0], \
-                        f"request {r.id}: restore diverged at prefill " \
-                        f"(got {seed_tok}, delivered {r.replay[0]})"
-                else:
-                    r.cur = seed_tok
-                r.decoding = True
-                if prefix is not None:
-                    prefix.insert(np.asarray(r.prompt), bp.block_ids(b), bp)
-
-        # ---- (3) one ragged decode step over the plain decoding slots
-        plain = [r for r in dec if r.slot not in spec_slots]
-        if plain:
-            cur_arr = np.zeros((B,), np.int32)
-            for r in plain:
-                cur_arr[r.slot] = r.replay[0] if r.replay else r.cur
-            logits, holder["cache"] = step_fn(
-                holder["cache"], torch.tensor(cur_arr, device=device),
-                *masked({r.slot for r in plain}))
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-            c_steps.inc()
-            if pf_tokens:
-                c_inter.inc()
+    try:
+        while pending or sched.queue or sched.by_slot:
             now = time.perf_counter()
-            for r in plain:
+            # ---- (0) arrivals + paranoia sweep + heartbeat bookkeeping
+            while pending and pending[0]["arrival"] <= tick:
+                req = pending.popleft()
+                sched.add(scheduler.Request(
+                    id=req["id"], prompt=req["prompt"], gen=req["gen"],
+                    priority=req["priority"], arrival=req["arrival"]), now)
+            if args.paranoia and tick % args.paranoia == 0:
+                bp.audit()
+            if hb.dead():                 # missed beat = failure tick
+                c_restarts.inc()          # ...the worker comes back below
+                if tracer is not None:
+                    tracer.instant("worker_restart", args={"tick": tick})
+
+            # ---- (1) admission / restore / preemption (scheduler policy)
+            sched.admit(tick, now)
+            running = sched.running()
+            dec = [r for r in running if r.decoding]
+            # speculation takes slots with k_max or more deliveries left
+            # (start + k_max then stays inside the slot's reserved budget)
+            # that are not teacher-forcing a restore replay; the rest take
+            # the one-token step
+            spec_dec = [r for r in dec
+                        if k_max > 0 and not r.replay and r.remaining >= k_max]
+            spec_slots = {r.slot for r in spec_dec}
+            # decode tokens this step (each spec slot runs k_max verify rows)
+            spent = len(dec) + max(0, k_max - 1) * len(spec_dec)
+            budget_eff = spent + sched.prefill_quota(max(0, budget - spent))
+
+            # ---- (2) prefill chunks from cold slots under the budget
+            pf_tokens = 0
+            cold = sorted((r for r in running if not r.decoding),
+                          key=lambda r: r.admit_seq)
+            for r in cold:
                 b = r.slot
-                if r.replay:
-                    # teacher-forced replay of a restored recompute victim:
-                    # the decode path must re-derive the next token exactly
-                    fed = r.replay.popleft()
-                    bp.append(b)
-                    expect = r.replay[0] if r.replay else r.cur
-                    assert int(nxt[b]) == int(expect), \
-                        f"request {r.id}: replay diverged after token " \
-                        f"{fed} (got {int(nxt[b])}, expected {int(expect)})"
-                    c_replay.inc()
-                else:
-                    sched.deliver(r, r.cur, now)
-                    c_tokens.inc()
-                    bp.append(b)
-                    r.cur = int(nxt[b])
+                plen = r.plen
+                c = min(chunk - r.pf_pos % chunk, plen - r.pf_pos)
+                if spent + c > budget_eff and spent > 0:
+                    break                     # budget spent — defer chunk
+                # after a prefix-cache hit or a restore at a position off
+                # the chunk grid, the chunk runs from the grid point with
+                # the rows the pool holds recomputed, not written: every
+                # row then comes from the chunk the uncached run gives it
+                # (on the card a GEMM's row bits depend on its row count)
+                n_cached = r.pf_pos % chunk
+                tp = time.perf_counter()
+                ts = tracer.now_us() if tracer is not None else 0.0
+                toks_c = torch.as_tensor(
+                    r.prompt[None, r.pf_pos - n_cached:r.pf_pos + c],
+                    device=device)
+                trow = torch.tensor(bp.table[b:b + 1], device=device)
+                lrow = torch.tensor(bp.lengths[b:b + 1] - n_cached,
+                                    device=device)
+                logits, holder["cache"] = prefill_fn(holder["cache"], toks_c,
+                                                     trow, lrow, n_cached)
+                seed_tok = int(torch.argmax(logits[0, -1]))   # syncs
+                t_prefill += time.perf_counter() - tp
+                if tracer is not None:
+                    tracer.complete("prefill_chunk", ts,
+                                    args={"req": r.id, "tokens": c,
+                                          "pf_pos": r.pf_pos})
+                bp.extend(b, c)
+                r.pf_pos += c
+                spent += c
+                pf_tokens += c
+                c_pf.inc(c)
+                c_chunks.inc()
+                if r.pf_pos == plen:          # prompt done -> start decoding
+                    if r.replay:
+                        assert seed_tok == r.replay[0], \
+                            f"request {r.id}: restore diverged at prefill " \
+                            f"(got {seed_tok}, delivered {r.replay[0]})"
+                    else:
+                        r.cur = seed_tok
+                    r.decoding = True
+                    if prefix is not None:
+                        prefix.insert(np.asarray(r.prompt), bp.block_ids(b),
+                                      bp)
+
+            # ---- fault drill: a failed decode worker's step never
+            # lands; its victim is requeued through the recompute path and
+            # the tick skips its heartbeat
+            if dec and injector is not None:
+                try:
+                    injector.check(tick)
+                except WorkerFailure:
+                    victim = max(dec, key=lambda r: r.slot)
+                    sched.fail_running(victim.slot, tick)
+                    tick += 1
+                    continue
+            # ---- (3) one ragged decode step over the plain decoding slots
+            plain = [r for r in dec if r.slot not in spec_slots]
+            if plain:
+                cur_arr = np.zeros((B,), np.int32)
+                for r in plain:
+                    cur_arr[r.slot] = r.replay[0] if r.replay else r.cur
+                ts = tracer.now_us() if tracer is not None else 0.0
+                logits, holder["cache"] = step_fn(
+                    holder["cache"], torch.tensor(cur_arr, device=device),
+                    *masked({r.slot for r in plain}))
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                if tracer is not None:
+                    tracer.complete("decode_step", ts,
+                                    args={"slots": len(plain)})
+                c_steps.inc()
+                if pf_tokens:
+                    c_inter.inc()
+                now = time.perf_counter()
+                for r in plain:
+                    b = r.slot
+                    if r.replay:
+                        # teacher-forced replay of a restored recompute victim:
+                        # the decode path must re-derive the next token exactly
+                        fed = r.replay.popleft()
+                        bp.append(b)
+                        expect = r.replay[0] if r.replay else r.cur
+                        assert int(nxt[b]) == int(expect), \
+                            f"request {r.id}: replay diverged after token " \
+                            f"{fed} (got {int(nxt[b])}, expected " \
+                            f"{int(expect)})"
+                        c_replay.inc()
+                    else:
+                        sched.deliver(r, r.cur, now)
+                        c_tokens.inc()
+                        bp.append(b)
+                        r.cur = int(nxt[b])
+                        if r.remaining == 0:
+                            sched.finish(r)
+
+            # ---- (3') one verify launch over the spec slots: draft k-1 tokens
+            # a slot from its committed stream, score [cur, d_1, .., d_{k-1}],
+            # keep the longest draft prefix the model's argmax chain agrees
+            # with
+            if spec_dec:
+                tok_arr = np.zeros((B, k_max), np.int32)
+                drafts = {}
+                for r in spec_dec:
+                    history = np.concatenate([np.asarray(r.prompt, np.int64),
+                                              np.asarray(r.out + [r.cur],
+                                                         np.int64)])
+                    drafts[r.slot] = (list(drafter(history, k_max - 1))
+                                      if k_max > 1 else [])
+                    tok_arr[r.slot] = [r.cur] + drafts[r.slot]
+                ts = tracer.now_us() if tracer is not None else 0.0
+                logits, holder["cache"] = verify_fn(
+                    holder["cache"], torch.tensor(tok_arr, device=device),
+                    *masked(spec_slots))
+                preds = torch.argmax(logits, dim=-1).cpu().numpy()   # [B, k]
+                if tracer is not None:
+                    tracer.complete("verify_step", ts,
+                                    args={"slots": len(spec_dec),
+                                          "k": k_max})
+                c_steps.inc()
+                c_spec_steps.inc()
+                if pf_tokens:
+                    c_inter.inc()
+                now = time.perf_counter()
+                for r in spec_dec:
+                    b = r.slot
+                    start = int(bp.lengths[b])
+                    # the verify pass appended k_max rows; commit them, then
+                    # rewind the rejected tail in place (the slot keeps its
+                    # reservation; the stale rows past its length are never
+                    # read before the next launch overwrites them)
+                    bp.extend(b, k_max)
+                    accepted, nxt_tok = spec_decode.accept_greedy(drafts[b],
+                                                                  preds[b])
+                    bp.truncate(b, start + 1 + accepted, free_blocks=False)
+                    for t in [r.cur] + drafts[b][:accepted]:
+                        sched.deliver(r, int(t), now)
+                        c_tokens.inc()
+                    c_spec_prop.inc(len(drafts[b]))
+                    c_spec_acc.inc(accepted)
+                    r.cur = int(nxt_tok)
                     if r.remaining == 0:
                         sched.finish(r)
-
-        # ---- (3') one verify launch over the spec slots: draft k-1 tokens
-        # a slot from its committed stream, score [cur, d_1, .., d_{k-1}],
-        # keep the longest draft prefix the model's argmax chain agrees with
-        if spec_dec:
-            tok_arr = np.zeros((B, k_max), np.int32)
-            drafts = {}
-            for r in spec_dec:
-                history = np.concatenate([np.asarray(r.prompt, np.int64),
-                                          np.asarray(r.out + [r.cur],
-                                                     np.int64)])
-                drafts[r.slot] = (list(drafter(history, k_max - 1))
-                                  if k_max > 1 else [])
-                tok_arr[r.slot] = [r.cur] + drafts[r.slot]
-            logits, holder["cache"] = verify_fn(
-                holder["cache"], torch.tensor(tok_arr, device=device),
-                *masked(spec_slots))
-            preds = torch.argmax(logits, dim=-1).cpu().numpy()   # [B, k]
-            c_steps.inc()
-            c_spec_steps.inc()
-            if pf_tokens:
-                c_inter.inc()
-            now = time.perf_counter()
-            for r in spec_dec:
-                b = r.slot
-                start = int(bp.lengths[b])
-                # the verify pass appended k_max rows; commit them, then
-                # rewind the rejected tail in place (the slot keeps its
-                # reservation; the stale rows past its length are never
-                # read before the next launch overwrites them)
-                bp.extend(b, k_max)
-                accepted, nxt_tok = spec_decode.accept_greedy(drafts[b],
-                                                              preds[b])
-                bp.truncate(b, start + 1 + accepted, free_blocks=False)
-                for t in [r.cur] + drafts[b][:accepted]:
-                    sched.deliver(r, int(t), now)
-                    c_tokens.inc()
-                c_spec_prop.inc(len(drafts[b]))
-                c_spec_acc.inc(accepted)
-                r.cur = int(nxt_tok)
-                if r.remaining == 0:
-                    sched.finish(r)
-        c_ticks.inc()
-        bp.observe(reg)
-        g_queued.set(len(sched.queue))
-        g_running.set(len(sched.by_slot))
-        tick += 1
+            c_ticks.inc()
+            bp.observe(reg)
+            g_queued.set(len(sched.queue))
+            g_running.set(len(sched.by_slot))
+            hb.beat(worker)
+            tick += 1
+    finally:
+        if prof is not None:
+            telemetry.set_profiler(None)
     _sync(device)
     t_total = time.perf_counter() - t0
     t_decode = t_total - t_prefill
 
     outputs = {rid: r.out for rid, r in sorted(sched.done.items())}
     pstats = prefix.stats() if prefix is not None else None
+    sstats = sched.stats()
+    classes = sched.class_stats()
     tokens_served = c_tokens.value
+    snap = reg.snapshot()
+    krep = (obs.kernel_report(prof)
+            if prof is not None and prof.records else None)
+    trace_stats = (obs.write_trace(tracer, args.trace_out)
+                   if tracer is not None else None)
+    if args.metrics_out:
+        obs.write_metrics(args.metrics_out, snap,
+                          config=f"serve:{args.arch}:paged:{args.kv_dtype}",
+                          device=device)
+    first = outputs[0][:16] if outputs.get(0) else []
+    for line in obs.summarize_paged(snap, {
+            "arch": args.arch, "device": obs.device_name(device),
+            "mode": args.mode, "batch_slots": B, "n_requests": n_requests,
+            "page_size": layout.block_size,
+            "pool_blocks": layout.num_blocks - 1,
+            "host_blocks": host_blocks, "chunk": chunk, "budget": budget,
+            "kv_dtype": args.kv_dtype,
+            "rescale": softmax_state.default_mode(),
+            "prefix": pstats, "preemption": args.preemption,
+            "spec_tokens": k_max, "spec_draft": args.spec_draft,
+            "t_prefill": t_prefill, "t_decode": t_decode,
+            "refusals": len(sched.refused_ids),
+            "prefill_tokens_saved": sched.prefill_tokens_saved,
+            "sched": sstats, "classes": classes,
+            "kernel_report": krep,
+            "profile_sampled": prof.sampled if prof is not None else 0,
+            "profile_every": args.profile_kernels,
+            "trace_stats": trace_stats, "metrics_path": args.metrics_out,
+            "sample": first}):
+        obs.emit(line)
     spec_stats = None
     if k_max > 0:
         spec_stats = {"k": k_max, "draft": args.spec_draft,
@@ -525,20 +661,6 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
                       "accepted": c_spec_acc.value,
                       "acceptance_rate":
                           c_spec_acc.value / max(c_spec_prop.value, 1)}
-    spec_note = "" if spec_stats is None else (
-        f"spec k={k_max} draft={args.spec_draft} "
-        f"verify_steps={spec_stats['steps']} "
-        f"accepted={spec_stats['accepted']}/{spec_stats['proposed']} "
-        f"({spec_stats['acceptance_rate']:.1%}) ")
-    print(f"[serve] {args.arch} layers={cfg.num_layers} "
-          f"device={_device_name(device)} mode={args.mode} "
-          f"kv_dtype={args.kv_dtype} slots={B} requests={n_requests} "
-          f"page={layout.block_size} "
-          f"chunk={chunk} rescale={softmax_state.default_mode()} "
-          f"{spec_note}tokens={tokens_served} steps={c_steps.value} "
-          f"prefill_chunks={c_chunks.value} t_prefill={t_prefill:.3f}s "
-          f"t_decode={t_decode:.3f}s "
-          f"tok/s={tokens_served / max(t_total, 1e-9):.1f}")
     return {"outputs": outputs, "tokens_served": tokens_served,
             "batch_slots": B, "kv_dtype": args.kv_dtype,
             "pool_blocks": layout.num_blocks - 1,
@@ -548,10 +670,11 @@ def run_paged(args, cfg, *, params=None, device="cuda") -> dict:
             "interleaved_steps": c_inter.value,
             "prefill_tokens": c_pf.value, "decode_tokens": tokens_served,
             "prefill_tokens_saved": sched.prefill_tokens_saved,
-            "replayed_tokens": c_replay.value, "prefix": pstats,
-            "sched": sched.stats(), "classes": sched.class_stats(),
+            "replayed_tokens": c_replay.value,
+            "worker_restarts": c_restarts.value, "prefix": pstats,
+            "sched": sstats, "classes": classes,
             "spec": spec_stats, "t_drafter": t_drafter,
-            "metrics": reg.snapshot(),
+            "metrics": snap, "kernel_report": krep,
             "t_prefill": t_prefill, "t_decode": t_decode, "t_total": t_total}
 
 
@@ -572,15 +695,6 @@ def run(args) -> dict:
     if args.cache_layout == "dense":
         return run_dense(args, cfg, device=args.device)
     return run_paged(args, cfg, device=args.device)
-
-
-# flag -> (value that is served, why another value is refused)
-_NOT_PORTED = {
-    "fault_rate": (0.0, "fault drills (ROADMAP A6)"),
-    "trace_out": (None, "trace export (ROADMAP A6)"),
-    "metrics_out": (None, "metrics export (ROADMAP A6)"),
-    "profile_kernels": (0, "the kernel profiler (ROADMAP A6)"),
-}
 
 
 def parse_args(argv=None):
@@ -634,7 +748,12 @@ def parse_args(argv=None):
                          "swap mirrors the device pool)")
     ap.add_argument("--retry-backoff", type=int, default=1,
                     help="max backoff in ticks between admission retries")
-    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="injected decode-worker failures per tick (a "
+                         "periodic schedule, FailureInjector.from_rate; "
+                         "victims requeue through the recompute path and "
+                         "the outputs stay those of the run without; 0 = "
+                         "off)")
     ap.add_argument("--paranoia", type=int, default=0,
                     help="run the BlockPool audit every N ticks (0 = off)")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
@@ -657,9 +776,22 @@ def parse_args(argv=None):
                          "longest-suffix match over the committed stream; "
                          "head = embedding-similarity chain (not with "
                          "--kv-dtype fp8)")
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
-    ap.add_argument("--metrics-out", default=None, metavar="PATH")
-    ap.add_argument("--profile-kernels", type=int, default=0, metavar="N")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the request-lifecycle and engine-span trace "
+                         "as Chrome trace-event JSON (ui.perfetto.dev or "
+                         "chrome://tracing; paged layout only)")
+    ap.add_argument("--trace-buffer", type=int, default=65536,
+                    help="trace ring-buffer capacity in events: overflow "
+                         "drops the oldest events (counted in the export)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the run's metrics-registry snapshot as "
+                         "schema-versioned JSON (git sha, torch version and "
+                         "device name beside it)")
+    ap.add_argument("--profile-kernels", type=int, default=0, metavar="N",
+                    help="time every N-th attention entry launch between "
+                         "two device syncs, tagged with its spec and "
+                         "argument geometry and set against the card's HBM "
+                         "rate in the summary (0 = off; paged layout only)")
     ap.add_argument("--kv-splits", type=int, default=None,
                     help="split-KV count for decode attention "
                          "(default: auto-scheduled)")
@@ -673,8 +805,6 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true")
     args = ap.parse_args(argv)
-    # the reference's refusals come first: with the dense layout the
-    # paged-only flags are wrong, not merely unported
     if args.spec_tokens < 0:
         ap.error("--spec-tokens must be >= 0")
     if args.spec_tokens > 0 and args.cache_layout == "dense":
@@ -684,15 +814,17 @@ def parse_args(argv=None):
             and args.kv_dtype == "fp8":
         ap.error("--spec-draft head is not supported with --kv-dtype fp8; "
                  "use --spec-draft ngram")
+    if args.trace_buffer < 1:
+        ap.error("--trace-buffer must be >= 1")
+    if args.profile_kernels < 0:
+        ap.error("--profile-kernels must be >= 0")
+    if not 0.0 <= args.fault_rate <= 1.0:
+        ap.error("--fault-rate must be in [0, 1]")
     if args.cache_layout == "dense" and (args.trace_out
                                          or args.profile_kernels):
         ap.error("--trace-out/--profile-kernels require --cache-layout "
                  "paged: the dense loop has no per-request lifecycle or "
                  "per-launch entries to record")
-    for flag, (served, what) in _NOT_PORTED.items():
-        if getattr(args, flag) != served:
-            ap.error(f"--{flag.replace('_', '-')}: {what} is not yet ported "
-                     "to repro_torch")
     if args.layers < 0:
         ap.error("--layers must be >= 0")
     if args.shared_prefix >= args.prompt:

@@ -279,8 +279,10 @@ def attention_decode_paged(params, cfg, x, cache, table, lengths, *,
     return layers.dense(o.reshape(B, -1).to(x.dtype), params["w_o"]), cache
 
 
-def _attention_chunk(params, cfg, x, cache, table, lengths, positions):
-    """Append the chunk's K/V rows through the table, gather the pools, and
+def _attention_chunk(params, cfg, x, cache, table, lengths, positions,
+                     n_cached: int = 0):
+    """Append the chunk's K/V rows through the table (all but the first
+    ``n_cached``, which the pools hold already), gather the pools, and
     run the masked chunk-against-context product: key position p is live
     for chunk row c iff p <= positions[b, c].  The G query heads of a kv
     head attend to its rows directly (no [B,S,H,hd] expansion).  A code
@@ -290,7 +292,8 @@ def _attention_chunk(params, cfg, x, cache, table, lengths, positions):
     B, C, _ = x.shape
     H, K = cfg.num_heads, cfg.num_kv_heads
     q, k, v = _project_qkv(params, cfg, x, positions)  # [B,C,H,hd],[B,C,K,hd]
-    cache = _append_paged_kv(cache, table, lengths, k, v)
+    cache = _append_paged_kv(cache, table, lengths + n_cached,
+                             k[:, n_cached:], v[:, n_cached:])
     rows = _gather_paged_kv(cache, table)                     # [B,S,K,*]
     kd, vd = rows["k"], rows["v"]
     if "k_sz" in rows:
@@ -309,17 +312,19 @@ def _attention_chunk(params, cfg, x, cache, table, lengths, positions):
 
 
 def attention_prefill_chunk(params, cfg, x, cache, table, lengths, *,
-                            spec: AttnSpec | None = None):
+                            spec: AttnSpec | None = None, n_cached: int = 0):
     """Chunked prefill of C prompt tokens against the paged cache.  x
-    [B,C,D] at positions lengths[b] + c; lengths [B] tokens already written
-    (the chunk start).  The spec is taken for parity with the MLA entry;
+    [B,C,D] at positions lengths[b] + c; lengths [B] the chunk start; the
+    first ``n_cached`` rows are in the pools already and are not appended.
+    The spec is taken for parity with the MLA entry;
     this masked product has no knobs (the reference's chunk route is no
     kernel either).  Returns (out [B,C,D], cache)."""
     _check_paged(cfg)
     C = x.shape[1]
     positions = lengths[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=x.device)[None, :]
-    return _attention_chunk(params, cfg, x, cache, table, lengths, positions)
+    return _attention_chunk(params, cfg, x, cache, table, lengths, positions,
+                            n_cached)
 
 
 def attention_verify_chunk(params, cfg, x, cache, table, lengths, qpos, *,

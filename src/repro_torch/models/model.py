@@ -340,20 +340,22 @@ def write_paged_blocks(cache, ids, rows):
 
 
 def _block_prefill_chunk(lp, cfg, sig, x, cache, table, lengths, spec,
-                         qpos=None):
+                         qpos=None, n_cached: int = 0):
     """One block over a chunk against the paged cache; ``qpos`` [B,C]
     switches its attention to the verify entry (explicit per-row
-    horizons).  A MoE block routes dropless, the B rows its groups of C
-    tokens, as a prompt token is never dropped at inference (so chunked
-    equals single-shot prefill only where single-shot's capacity drops
-    nothing)."""
+    horizons); the first ``n_cached`` rows of a prefill chunk are in the
+    pools already and are not appended.  A MoE block routes dropless, the
+    B rows its groups of C tokens, as a prompt token is never dropped at
+    inference (so chunked equals single-shot prefill only where
+    single-shot's capacity drops nothing)."""
     _, is_moe = sig
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
     mla = cfg.attention_kind == "mla"
     if qpos is None:
         fn = mla_mod.mla_prefill_chunk if mla else \
             attention.attention_prefill_chunk
-        mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec)
+        mixed, cache = fn(lp["mix"], cfg, h, cache, table, lengths, spec=spec,
+                          n_cached=n_cached)
     else:
         fn = mla_mod.mla_verify_chunk if mla else \
             attention.attention_verify_chunk
@@ -394,18 +396,24 @@ def _block_decode(lp, cfg, sig, x, cache, pos, spec, cache_layout, table,
 
 
 def prefill_chunk(params, cfg, cache, tokens, block_table, lengths, *,
-                  spec: AttnSpec | None = None):
+                  spec: AttnSpec | None = None, n_cached: int = 0):
     """Chunked paged prefill: C prompt tokens per sequence against the
     block-pool cache.  tokens: [B,C] (token c at position lengths[b] + c);
-    block_table: [B,max_blocks]; lengths: [B] tokens already written.  Each
+    block_table: [B,max_blocks]; lengths: [B] the chunk's start.  Each
     layer appends its chunk rows into its pool and attends causally over
-    chunk + earlier context.  Returns (logits [B,C,V] fp32, cache)."""
+    chunk + earlier context.  ``n_cached``: the chunk's first rows (a
+    prefix-cache hit or a restore inside it) are in the pools already;
+    they are computed as the rest, and only the rows after them are
+    appended, so a chunk resumed after a hit has the shape, and on the card
+    the bits, of the chunk an uncached run gives those rows (a GEMM's row
+    bits depend on its row count there).  Returns (logits [B,C,V] fp32,
+    cache)."""
     return _chunk_forward(params, cfg, cache, tokens, block_table, lengths,
-                          spec or AttnSpec())
+                          spec or AttnSpec(), n_cached=n_cached)
 
 
 def _chunk_forward(params, cfg, cache, tokens, block_table, lengths, spec,
-                   qpos=None):
+                   qpos=None, n_cached: int = 0):
     """The chunk-shaped forward of :func:`prefill_chunk` and
     :func:`verify_step`."""
     x = layers.embed(params["embed"], tokens)
@@ -413,7 +421,7 @@ def _chunk_forward(params, cfg, cache, tokens, block_table, lengths, spec,
     for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),
                            strict=True):
         x, nc = _block_prefill_chunk(lp, cfg, sig, x, lc, block_table,
-                                     lengths, spec, qpos)
+                                     lengths, spec, qpos, n_cached)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["embed_f32"], x), new_cache

@@ -547,3 +547,42 @@ def append_chunk_quant(pool, sz_pool, table, lengths, rows):
     append_chunk(raw(pool), table, lengths, raw(codes))
     append_chunk(sz_pool, table, lengths, sz)
     return pool, sz_pool
+
+
+# ------------------------------------------------- packing and stacked trees
+def dense_to_paged(dense, lengths, layout: PagedLayout):
+    """Pack a dense [B, S, *F] cache into (pool, BlockPool) — the test and
+    benchmark helper and the dense→paged migration path.  Allocation order
+    follows slot order, so tables are NOT identity maps of logical order
+    across sequences (which is exactly what the kernels must be robust
+    to).  The pool [num_blocks, block_size, *F] lies on ``dense``'s device
+    in its dtype; rows past a sequence's length, and every block no
+    sequence holds, are zero."""
+    B = dense.shape[0]
+    feat = tuple(dense.shape[2:])
+    pool = torch.zeros((layout.num_blocks, layout.block_size) + feat,
+                       dtype=dense.dtype, device=dense.device)
+    bp = BlockPool(layout, B)
+    bs = layout.block_size
+    for b in range(B):
+        n = int(lengths[b])
+        slot = bp.admit(n, n)
+        assert slot == b, "fresh pool admits in slot order"
+        ids = torch.as_tensor(bp.block_ids(b), dtype=torch.long,
+                              device=dense.device)
+        pos = torch.arange(n, device=dense.device)
+        raw(pool)[ids[pos // bs], pos % bs] = raw(dense[b, :n])
+    return pool, bp
+
+
+def tree_append_rows(cache, table, lengths, rows):
+    """:func:`append_rows` over matching (pool, rows) dicts whose tensors
+    carry a leading stacked-layer axis [n, ...]: layer i's rows [B, *F]
+    land in layer i's pool [N, bs, *F] at each sequence's length, in place
+    (a quantized layout's codes and (scale, zp) rows alike, as given).
+    Returns ``cache``."""
+    for key, pool in cache.items():
+        for i in range(pool.shape[0]):
+            append_rows(raw(pool[i]), table, lengths,
+                        raw(rows[key][i].to(pool.dtype)))
+    return cache

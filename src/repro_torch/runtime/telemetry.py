@@ -19,9 +19,9 @@ in the runtime — kernels, scheduler, pool, serve loop:
 
   KernelProfiler    opt-in per-launch attention-kernel timing hook.
                     ``core.attn_spec.attn_entry`` — the single choke
-                    point every jitted attention entry goes through —
+                    point every public attention entry goes through —
                     consults :func:`profiler` and, when one is installed,
-                    times the launch with ``block_until_ready`` and tags
+                    times the launch between two device syncs and tags
                     it with the AttnSpec + argument geometry.  The
                     roofline join lives in ``launch/obs.py``.
 
@@ -369,7 +369,7 @@ class KernelProfiler:
 
     ``attn_entry`` calls :meth:`want` once per entry invocation; every
     ``sample_every``-th launch is run to completion under
-    ``block_until_ready`` and recorded as (entry name, spec tag, argument
+    device syncs and recorded as (entry name, spec tag, argument
     geometry) -> (launch count, total seconds).  Aggregation happens at
     record time, so memory is bounded by the number of DISTINCT
     geometries (a handful per serve run), not the launch count.

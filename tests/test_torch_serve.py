@@ -7,6 +7,7 @@ the greedy outputs must be EQUAL, token for token.  Inside the port, the
 prefix cache on and off give bitwise-equal outputs.
 """
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -43,18 +44,29 @@ def _port(cfg, params, flags):
 @pytest.mark.parametrize("extra", [
     [], ["--kv-splits", "2"], ["--mode", "standard"],
     ["--mode", "standard", "--kv-splits", "2"], ["--kv-dtype", "int8"],
-    ["--kv-dtype", "fp8"], ["--kv-dtype", "int8", "--kv-splits", "2"]],
+    ["--kv-dtype", "fp8"], ["--kv-dtype", "int8", "--kv-splits", "2"],
+    ["--page-size", "4", "--shared-prefix", "14"],
+    ["--batch", "1", "--page-size", "4", "--shared-prefix", "14",
+     "--kv-dtype", "int8"]],
     ids=["auto-splits", "kv-splits-2", "standard", "standard-kv-splits-2",
-         "int8", "fp8", "int8-kv-splits-2"])
+         "int8", "fp8", "int8-kv-splits-2", "prefix-off-grid",
+         "prefix-off-grid-int8"])
 def test_outputs_equal_jax_serve(setup, extra):
     """Same weights, same flags: the port's greedy outputs equal the JAX
     loop's (default XLA path).  ``--kv-splits 2`` runs the split path;
     ``--mode standard`` the untransposed baseline on the gathered pool;
     ``--kv-dtype`` the quantized pools, sized to the fp pool's bytes (the
-    same batch slots as the reference's)."""
+    same batch slots as the reference's); a shared prefix of 14 tokens
+    over pages of 4 puts prefix-cache hits off the chunk grid (the port
+    resumes from the grid point, recomputing the cached rows; the
+    reference runs a shorter chunk): the same tokens and counters."""
     jcfg, cfg, params = setup
     want = jserve.run_paged(jserve.parse_args(FLAGS + extra), jcfg)
     got = _port(cfg, params, FLAGS + extra)
+    if "--shared-prefix" in extra:
+        assert got["prefix"]["hits"] > 0
+        per_hit = got["prefill_tokens_saved"] // got["prefix"]["hits"]
+        assert per_hit % 8, "hits on the chunk grid"
     assert got["outputs"] == want["outputs"]
     assert len(got["outputs"]) == 4
     for key in ("tokens_served", "prefill_tokens", "prefill_tokens_saved",
@@ -111,16 +123,59 @@ def test_preemption_swap_and_recompute_match_uncontended(setup):
         assert busy["outputs"] == calm["outputs"], mode
 
 
+A6_BASE = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt", "24",
+           "--gen", "4", "--requests", "4", "--page-size", "8",
+           "--prefill-chunk", "8"]
+A6_FLAGS = ("--fault-rate", "--trace-out", "--metrics-out",
+            "--profile-kernels")
+
+
 @pytest.mark.parametrize("flag", [
     ["--arch", "qwen3_8b", "--kv-dtype", "fp8", "--metrics-out", "m.json"],
     ["--fault-rate", "0.1"], ["--trace-out", "t.json"],
     ["--metrics-out", "m.json"], ["--profile-kernels", "2"]])
-def test_unported_flags_refused(flag, capsys):
-    """Flags of paths not ported yet are refused, also beside flag pairs
-    that serve now (a GQA arch over a quantized pool)."""
+def test_a6_flags_served(flag, tmp_path):
+    """The flags of fault drills and telemetry export, refused until they
+    were ported (these five flag sets were the cases of
+    test_unported_flags_refused), parse and serve on the paged layout: the
+    outputs are those of the same run without them, and every file asked
+    for is written."""
+    flag = [str(tmp_path / f) if f.endswith(".json") else f for f in flag]
+    args = serve.parse_args(A6_BASE + flag)
+    assert args.cache_layout == "paged"
+    off = []
+    for f, v in zip(flag[::2], flag[1::2], strict=True):
+        if f not in A6_FLAGS:
+            off += [f, v]
+    want = serve.run(serve.parse_args(A6_BASE + off))
+    got = serve.run(args)
+    assert got["outputs"] == want["outputs"]
+    assert len(got["outputs"]) == 4
+    for path in (f for f in flag if f.endswith(".json")):
+        assert json.load(open(path))
+
+
+@pytest.mark.parametrize("flag,words", [
+    (["--trace-buffer", "0"], "--trace-buffer must be >= 1"),
+    (["--profile-kernels", "-1"], "--profile-kernels must be >= 0")])
+def test_a6_value_refusals_match_reference(flag, words, capsys):
+    """A trace ring of no events and a negative sampling period are refused
+    with the reference's words."""
+    with pytest.raises(SystemExit):
+        jserve.parse_args(flag)
+    assert words in capsys.readouterr().err
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cpu"] + flag)
-    assert "not yet ported" in capsys.readouterr().err
+    assert words in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("rate", ["-0.1", "1.5"])
+def test_fault_rate_outside_unit_interval_refused(rate, capsys):
+    """A fault rate is a probability a tick: outside [0, 1] is refused
+    (the reference's ``FailureInjector.from_rate`` asserts (0, 1])."""
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--device", "cpu", "--fault-rate", rate])
+    assert "--fault-rate must be in [0, 1]" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", [
@@ -128,7 +183,7 @@ def test_unported_flags_refused(flag, capsys):
     ["--spec-tokens", "2"]])
 def test_spec_flags_served(setup, flag):
     """--spec-tokens, refused until speculative decoding was ported (the
-    two flag sets were cases of test_unported_flags_refused), parses and
+    two flag sets were cases of the refusal test of unported flags), parses and
     serves: the outputs and token count are the spec-off run's."""
     _, cfg, params = setup
     args = serve.parse_args(["--device", "cpu"] + flag)
