@@ -313,6 +313,45 @@ Phases, each of which fails the run when it fails:
              each instance's registers and shared memory, and times ETAP
              beside the baseline at G = 1, 3, 7 and 16.
 
+After DeepSeek's 3-layer phases come the two card checks owed under
+ROADMAP section C and training:
+
+  C1         the prefix cache on against ``--no-prefix-cache`` on the
+             paged layout, bf16 and int8 pools, every prompt starting with
+             the same 200 tokens (hits of 192 tokens, off the 256-token
+             chunk grid; the ragged prompts end off it too):
+             outputs bitwise equal, hits > 0, prefill tokens on + saved ==
+             off;
+  row bits   C2's repair: layer 0's decode products, the absorptions and
+             the unembedding keep a row's bits at every row count up to
+             ``layers.ROW_TILE`` (a bare product's are logged);
+  C2         the reference's contended trace (three priority classes,
+             bursts of 3 arrivals, batch 2) with ``--preemption swap`` and
+             with ``recompute``: both preempt, and their outputs, and those
+             of the unpreempted run at batch 2, equal bitwise those of the
+             reference's calm run at batch 8;
+  train-deepseek  DeepSeek-R1 at full width cut to its 3 dense layers,
+             trained by ``launch.steps.make_train_step`` (AdamW, bf16
+             moments, remat) on ``make_batch``'s B 2 x S 2048 batches for 6
+             steps: every loss and grad norm finite, K9 launched on the
+             steps (its autograd Function: the forward is the serve path's
+             launch); before that, the Function's dQ / dK / dV on layer 0's
+             q, k, v of the first batch against autograd through the plain
+             route (``models.attention.masked_attention``) within
+             ``K9_GRAD_RTOL`` of each gradient's largest value, its output
+             bitwise the wrapper's, and the backward timed beside that
+             route's and SDPA's; each step's wall time, tok/s and peak
+             memory, a profiled step's device-busy share, and the share of
+             a step the fp32 unembedding (with the cross-entropy) takes,
+             timed alone on the step's shapes;
+  train-smollm  SmolLM-360M at full width and depth through
+             ``launch.train.run`` (B 8 x S 512): the restart drill of the
+             reference's tests/test_runtime.py (12 steps with a checkpoint
+             every 4; again with a failure injected at step 7, then
+             ``--restart``), the state restored at step 4 bitwise the state
+             saved there, the final losses within rtol 1e-5 (whether they
+             are bitwise is logged), K9 launched on the steps.
+
 Each phase's seconds are printed as ``[time]`` lines.
 
 The launch counters are zeroed just before each serve phase and read just
@@ -348,6 +387,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -5226,7 +5266,10 @@ def phase_serve(name: str, flags: list, params, expect: tuple,
                                                  "prefill_chunks",
                                                  "batch_slots", "steps",
                                                  "metrics",
-                                                 "kernel_report")}}
+                                                 "kernel_report", "prefix",
+                                                 "prefill_tokens",
+                                                 "prefill_tokens_saved",
+                                                 "sched")}}
     return launched
 
 
@@ -6855,6 +6898,468 @@ def phase_moe_decode_step(params, cfg) -> None:
         f"weights read once, {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
 
 
+# ------------------------------------------- owed card checks (C1, C2)
+# C1: every prompt starts with the same 200 tokens, so a prefix-cache hit
+# covers its 3 whole pages, 192 tokens, off the 256-token chunk grid; the
+# ragged prompts (300, 450, 600) end off it too.  More requests than slots
+# (int8 pools hold about twice the fp slots), so that later ones hit.
+C1 = ["--batch", "2", "--requests", "12", "--prompt", "600", "--gen", "16",
+      "--prefill-chunk", "256", "--shared-prefix", "200", "--layers", "3"]
+C1_CHUNK = 256
+# C2: the reference's contended trace (benchmarks/run.py:476-503) at the
+# card's page of 64: 6 requests in bursts of 3, three priority classes
+C2 = ["--prompt", "256", "--gen", "16", "--requests", "6", "--prefill-chunk",
+      "64", "--arrival-rate", "0.25", "--trace", "burst", "--burst-size",
+      "3", "--retry-backoff", "4", "--paranoia", "4", "--layers", "3"]
+C2_RUNS = (
+    ("c2-calm", ["--batch", "8", "--priority-classes", "3"]),
+    ("c2-calm-b2", ["--batch", "2"]),
+    ("c2-swap", ["--batch", "2", "--priority-classes", "3", "--preemption",
+                 "swap"]),
+    ("c2-recompute", ["--batch", "2", "--priority-classes", "3",
+                      "--preemption", "recompute"]))
+
+
+def first_diff(out: dict, ref: dict):
+    """The first (request, token) at which two runs' outputs part."""
+    for rid in ref:
+        got = out.get(rid, [])
+        for i, (a, b) in enumerate(zip(got, ref[rid])):
+            if a != b:
+                return rid, i
+        if len(got) != len(ref[rid]):
+            return rid, min(len(got), len(ref[rid]))
+    return "a request set"
+
+
+def phase_prefix_check(params, credit) -> None:
+    """C1 (ROADMAP section C): the prefix cache on against
+    ``--no-prefix-cache`` at the same requests, bf16 and int8 pools."""
+    for kvd in ("fp", "int8"):
+        flags = C1 + ([] if kvd == "fp" else ["--kv-dtype", kvd])
+        expect = ("etap_prefill_mla_paged" + ("" if kvd == "fp"
+                                              else "_quant"),)
+        runs: dict = {}
+        on, off = f"c1-{kvd}-prefix-on", f"c1-{kvd}-prefix-off"
+        credit(phase_serve(on, flags, params, expect, runs), flags)
+        credit(phase_serve(off, flags + ["--no-prefix-cache"], params,
+                           expect, runs), flags)
+        r_on, r_off = runs[on], runs[off]
+        hits, saved = r_on["prefix"]["hits"], r_on["prefill_tokens_saved"]
+        if not hits or not saved:
+            raise AssertionError(f"{on}: no prefix-cache hit")
+        if r_on["prefill_tokens"] + saved != r_off["prefill_tokens"]:
+            raise AssertionError(f"{on}: prefill tokens "
+                                 f"{r_on['prefill_tokens']} + saved {saved} "
+                                 f"!= {r_off['prefill_tokens']}")
+        if (saved // hits) % C1_CHUNK == 0:
+            raise AssertionError(f"{on}: hits of {saved // hits} tokens, on "
+                                 "the chunk grid")
+        if r_on["outputs"] != r_off["outputs"]:
+            raise AssertionError(
+                f"C1 {kvd}: prefix cache on parts from off at (request, "
+                f"token) {first_diff(r_on['outputs'], r_off['outputs'])}")
+        log(f"[C1 {kvd}] prefix cache on == off bitwise over "
+            f"{len(r_on['outputs'])} requests; {hits} hits saving {saved} "
+            f"prompt tokens ({saved // hits} a hit, off the {C1_CHUNK}-token "
+            f"chunk grid); "
+            f"{r_on['tok_s']:.1f} tok/s on, {r_off['tok_s']:.1f} off; "
+            f"{gpu_line()}")
+
+
+ROW_COUNTS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def phase_row_bits(params, cfg) -> None:
+    """C2's repair (ROADMAP section C): a decode step's products keep a
+    row's bits at every batch.  For layer 0's decode products, the W_uk /
+    W_uv absorptions and the unembedding, row 0 of a product over M rows
+    (M in ROW_COUNTS) against a product over ``layers.ROW_TILE`` rows: a
+    bare product's are logged (where cuBLAS's kernel changes with M), the
+    port's (``layers.dense`` / ``unembed`` / ``fixed_rows``) gated
+    bitwise, with the row placed last too."""
+    import torch
+    from repro_torch.models import layers
+    lp, m, H = params["layers"][0], cfg.mla, cfg.num_heads
+    mix, ffn, table = lp["mix"], lp["ffn"], params["embed_f32"]
+    w_uk = mix["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim).float()
+    w_uv = mix["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim).float()
+
+    def uk(a):
+        return torch.einsum("bhd,chd->bhc", a, w_uk)
+
+    def uv(a):
+        return torch.einsum("bhc,chd->bhd", a, w_uv)
+
+    cases = [(f"{name} {tuple(w.shape)}", (w.shape[0],), w.dtype,
+              lambda a, w=w: a @ w, lambda a, w=w: layers.dense(a, w))
+             for name, w in (("w_dq", mix["w_dq"]), ("w_uq", mix["w_uq"]),
+                             ("w_dkv", mix["w_dkv"]), ("w_o", mix["w_o"]),
+                             ("w_gate", ffn["w_gate"]), ("w_up", ffn["w_up"]),
+                             ("w_down", ffn["w_down"]))]
+    cases += [
+        (f"unembed fp32 {tuple(table.shape)}", (cfg.d_model,),
+         cfg.torch_dtype, lambda a: a.float() @ table.T,
+         lambda a: layers.unembed(table, a)),
+        ("W_uk absorption fp32", (H, m.qk_nope_head_dim), torch.float32, uk,
+         lambda a: layers.fixed_rows(a, uk)),
+        ("W_uv absorption fp32", (H, m.kv_lora_rank), torch.float32, uv,
+         lambda a: layers.fixed_rows(a, uv))]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for name, shape, dtype, bare, port in cases:
+        x = torch.randn(layers.ROW_TILE, *shape, generator=gen,
+                        device="cuda").to(dtype)
+        want_bare, want = bare(x)[0], port(x)[0]
+        parts = [n for n in ROW_COUNTS
+                 if not torch.equal(bare(x[:n])[0], want_bare)]
+        for n in ROW_COUNTS:
+            bitwise(port(x[:n])[0], want, f"row bits {name}: row 0 of {n}")
+            bitwise(port(torch.cat([x[1:n], x[:1]]))[-1], want,
+                    f"row bits {name}: row {n - 1} of {n}")
+        log(f"[row bits] layer 0 {name}: a bare product's row 0 has other "
+            f"bits than at {layers.ROW_TILE} rows at M {parts or 'none'} of "
+            f"{list(ROW_COUNTS)}; the port's keeps them at every M, first "
+            f"row or last")
+
+
+def phase_preemption_check(params, credit) -> None:
+    """C2 (ROADMAP section C): swap and recompute restores under the
+    contended trace, and the unpreempted run at their batch, against the
+    reference's calm run at batch 8, bitwise."""
+    runs: dict = {}
+    for name, extra in C2_RUNS:
+        flags = C2 + extra
+        credit(phase_serve(name, flags, params, ("etap_prefill_mla_paged",),
+                           runs), flags)
+        pre = runs[name]["sched"]["preemptions"]
+        busy = "--preemption" in extra
+        if bool(pre) != busy:
+            raise AssertionError(f"{name}: {pre} preemptions")
+    calm = runs["c2-calm"]["outputs"]
+    for name in ("c2-calm-b2", "c2-swap", "c2-recompute"):
+        if runs[name]["outputs"] != calm:
+            raise AssertionError(
+                f"C2: {name} parts from the calm batch-8 run at (request, "
+                f"token) {first_diff(runs[name]['outputs'], calm)}")
+    log(f"[C2] swap ({runs['c2-swap']['sched']['preemptions']} preemptions)"
+        f", recompute ({runs['c2-recompute']['sched']['preemptions']}) and "
+        f"the unpreempted batch-2 run == the calm batch-8 run bitwise over "
+        f"{len(calm)} requests; {gpu_line()}")
+
+
+# ------------------------------------------------------------- training
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 6
+# K9's autograd Function against autograd through the plain route
+# (masked_attention), on one layer's q, k, v: both backwards are fp32
+# products of the same bf16 inputs summed in other orders, each gradient
+# rounded to bf16 once, so an element may sit a bf16 ulp or two (2^-7 of
+# its magnitude each) off; allowed: 2^-6 of each gradient's max |value|
+K9_GRAD_RTOL = 2 ** -6
+SMOL_TRAIN = ["--arch", "smollm_360m", "--steps", "12", "--batch", "8",
+              "--seq", "512", "--ckpt-every", "4", "--log-every", "0",
+              "--device", "cuda"]
+
+
+def k9_backward_bytes_ops(B, S, H, K, D, Dv) -> tuple[float, float]:
+    """Bytes the causal-attention backward must move (q, k, v and dO read
+    once, dq, dk, dv written once, bf16) and its operations: five products
+    (S recomputed, dV, dP, dQ, dK) over the S (S + 1) / 2 live pairs."""
+    nbytes = 2 * B * S * (2 * H * D + 2 * K * D + 2 * K * Dv + H * Dv)
+    flops = 2 * B * H * (S * (S + 1) / 2) * (3 * D + 2 * Dv)
+    return nbytes, flops
+
+
+def record_attention(params, cfg, batch) -> tuple:
+    """Layer 0's q, k, v at ``causal_attention`` on ``batch`` (no grad)."""
+    import torch
+    from repro_torch.core import mla
+    from repro_torch.models import model
+    got = []
+    real = mla.causal_attention
+
+    def rec(q, k, v, **kw):
+        if not got:
+            got.append((q.detach().clone(), k.detach().clone(),
+                        v.detach().clone()))
+        return real(q, k, v, **kw)
+    mla.causal_attention = rec
+    try:
+        with torch.no_grad():
+            model.loss_fn(params, cfg, batch)
+    finally:
+        mla.causal_attention = real
+    return got[0]
+
+
+def k9_grad_check(params, cfg, batch) -> None:
+    """K9's autograd Function on layer 0's q, k, v: output bitwise the
+    wrapper's, dQ / dK / dV within K9_GRAD_RTOL of autograd through the
+    plain route, and the backward's time beside that route's, SDPA's and
+    its bound."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.models.attention import masked_attention
+    q, k, v = record_attention(params, cfg, batch)
+    scale = cfg.mla.qk_head_dim ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dout = (torch.randn(q.shape[:3] + v.shape[-1:], generator=gen,
+                        device="cuda") * 1e-3).to(v.dtype)
+    with torch.no_grad():
+        want = FP.flash_prefill(q, k, v, scale=scale)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = FP.flash_prefill_grad(*qkv, scale=scale)
+    bitwise(out.detach(), want, "K9 Function forward vs the wrapper")
+    got = torch.autograd.grad(out, qkv, dout)
+    ref_out = masked_attention(*qkv, scale=scale)
+    ref = torch.autograd.grad(ref_out, qkv, dout, retain_graph=True)
+    errs = []
+    for name, a, b in zip(("dQ", "dK", "dV"), got, ref, strict=True):
+        a, b = a.float(), b.float()
+        scale_b = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel_rmse = float((a - b).square().mean().sqrt()
+                         / b.square().mean().sqrt())
+        if not torch.isfinite(a).all() or err > K9_GRAD_RTOL * scale_b:
+            raise AssertionError(
+                f"K9 backward {name}: max abs err {err:.3e} beyond "
+                f"{K9_GRAD_RTOL:.3e} x max |ref| {scale_b:.3e}")
+        errs.append(f"{name} max abs {err:.3e} ({err / scale_b:.2e} of max "
+                    f"|ref| {scale_b:.3e}), rel RMSE {rel_rmse:.2e}")
+    B, S, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    log(f"[k9-grad] B {B} x S {S} x H {H}, (D, Dv) ({D}, {Dv}), layer 0's "
+        f"q, k, v: Function forward bitwise K9's; against the plain route "
+        f"(gate {K9_GRAD_RTOL:.3e} of max |ref|): " + "; ".join(errs))
+    nbytes, flops = k9_backward_bytes_ops(B, S, H, K, D, Dv)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    bound, by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    plain_q = [x.detach() for x in qkv]
+    t_bwd = cuda_time_ms(lambda: FP.flash_prefill_backward(
+        *plain_q, dout, scale=scale), 3, warmup=1)
+    t_ref = cuda_time_ms(lambda: torch.autograd.grad(
+        ref_out, qkv, dout, retain_graph=True), 3, warmup=1)
+    del ref_out, ref
+    sd = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    sd_out = torch.nn.functional.scaled_dot_product_attention(
+        *sd, is_causal=True, scale=scale)
+    dsd = dout.transpose(1, 2)
+    t_sdpa = cuda_time_ms(lambda: torch.autograd.grad(
+        sd_out, sd, dsd, retain_graph=True), 3, warmup=1)
+    log(f"[timing] K9 backward (plain PyTorch, fp32 without TF32) B {B} x "
+        f"S {S} x H {H} ({D}, {Dv}): {t_bwd:.3f} ms; the plain route's "
+        f"autograd backward {t_ref:.3f} ms; SDPA's backward (bf16) "
+        f"{t_sdpa:.3f} ms; bound {bound:.3f} ms ({by}: fp32 products at "
+        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {flops / 1e12:.3f} TFLOP); "
+        f"{gpu_line()}")
+
+
+def unembed_ms(params, cfg, B: int, S: int) -> float:
+    """The fp32 unembedding with the cross-entropy, forward and backward
+    (the gradients of the hidden states and of the table), on the train
+    step's shapes, timed alone: CUDA events over 3 calls."""
+    import torch
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda").to(
+        cfg.torch_dtype).requires_grad_()
+    emb = params["embed"].detach().clone().requires_grad_()
+    tgt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                        device="cuda")
+
+    def step():
+        logits = layers.unembed(layers.unembed_table(emb), x)
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(lp, -1, tgt[:, 1:, None])[..., 0].mean()
+        torch.autograd.grad(nll, (x, emb))
+    t = cuda_time_ms(step, 3, warmup=1)
+    del x, emb
+    torch.cuda.empty_cache()
+    return t
+
+
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm")
+CE_OPS = ("aten::_log_softmax", "aten::_log_softmax_backward_data",
+          "aten::gather", "aten::gather_backward")
+
+
+def unembed_device_ms(prof, vocab: int) -> float:
+    """From a train step profiled with its shapes, the device ms of the
+    kernels that the unembedding and its cross-entropy launch, forward and
+    backward: those of a product with an operand ``vocab`` wide (the
+    logits, their gradient, the table's gradient) and those under a
+    log-softmax or a gather (the ops that launch them, or one of their
+    callers)."""
+    import torch
+
+    def ours(e):
+        while e is not None:
+            if e.name in CE_OPS or (e.name in GEMM_OPS and any(
+                    vocab in shape for shape in e.input_shapes
+                    if isinstance(shape, list))):
+                return True
+            e = e.cpu_parent
+        return False
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.self_device_time_total > 0 and ours(e)) / 1e3
+
+
+def phase_train_deepseek(cfg, launches: dict) -> None:
+    """train-deepseek: DeepSeek-R1 at full width, 3 dense layers, trained
+    for TRAIN_STEPS steps of B TRAIN_B x S TRAIN_S through make_train_step
+    (AdamW with bf16 moments, remat on)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch, to_device
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainConfig, make_train_step
+    from repro_torch.optim import optimizers as opt
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
+        warmup_steps=2, total_steps=TRAIN_STEPS + 1))
+    params, state = train.build_state(cfg, tcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in opt.tree_leaves(params))
+    log(f"[train-deepseek] {cfg.num_layers} dense layers, "
+        f"{n_params / 1e9:.3f} B {cfg.dtype} params, AdamW with "
+        f"{tcfg.optimizer.m_dtype} moments, remat {cfg.remat}: built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data = DataConfig(seed=17, global_batch=TRAIN_B, seq_len=TRAIN_S)
+    batch = to_device(cfg, make_batch(cfg, data, 0), "cuda")
+    k9_grad_check(params, cfg, batch)
+    step_fn = make_train_step(cfg, tcfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FP.flash_prefill.launches = FP.flash_prefill_grad.backwards = 0
+    walls = []
+    for step in range(TRAIN_STEPS):
+        batch = to_device(cfg, make_batch(cfg, data, step), "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, step)
+        nll, gn = float(m["nll"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if not (math.isfinite(nll) and math.isfinite(gn)):
+            raise AssertionError(f"train-deepseek step {step}: nll {nll}, "
+                                 f"grad norm {gn}")
+        log(f"[train-deepseek] step {step}: nll {nll:.4f}, grad norm "
+            f"{gn:.4f}, {walls[-1] * 1e3:.1f} ms, "
+            f"{TRAIN_B * TRAIN_S / walls[-1]:.1f} tok/s")
+    k9, k9_bwd = FP.flash_prefill.launches, FP.flash_prefill_grad.backwards
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not k9 or not k9_bwd:
+        raise AssertionError(f"train-deepseek: K9 launched {k9} times, its "
+                             f"Function's backward ran {k9_bwd} times")
+    credit_prefill(launches, {"flash_prefill": k9}, cfg)
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    batch = to_device(cfg, make_batch(cfg, data, TRAIN_STEPS), "cuda")
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, TRAIN_STEPS)
+        float(m["nll"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy, span, n = device_busy(prof)
+    in_step = unembed_device_ms(prof, cfg.vocab_size)
+    if not in_step:
+        raise AssertionError("train-deepseek: no unembedding kernel in the "
+                             "profiled step")
+    t_unembed = unembed_ms(params, cfg, TRAIN_B, TRAIN_S)
+    log(f"[train-deepseek] {TRAIN_STEPS} steps of B {TRAIN_B} x S "
+        f"{TRAIN_S}: K9 launched {k9} times ({cfg.num_layers} layers x 2 "
+        f"with remat x {TRAIN_STEPS} steps), its Function's backward ran "
+        f"{k9_bwd} times; median step after the first "
+        f"{steady * 1e3:.1f} ms = {TRAIN_B * TRAIN_S / steady:.1f} tok/s "
+        f"(first {walls[0] * 1e3:.1f} ms); peak mem {peak:.1f} GiB; "
+        f"{timeline_line(wall, busy, span, n, steady * 1e3)}; busy "
+        f"{100 * busy / wall:.1f}% of the profiled step; fp32 unembedding "
+        f"+ cross-entropy fwd+bwd in the profiled step: device "
+        f"{in_step:.1f} ms = {100 * in_step / busy:.1f}% of its busy time; "
+        f"timed alone on the step's shapes {t_unembed:.1f} ms = "
+        f"{100 * t_unembed / (steady * 1e3):.1f}% of the median step; "
+        f"{gpu_line()}")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def phase_train_smollm(launches: dict) -> None:
+    """train-smollm: the reference's restart drill through
+    ``launch.train.run`` on SmolLM-360M at full width and depth."""
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.runtime.fault_tolerance import WorkerFailure
+    cfg = get_config("smollm_360m")
+    saved: dict = {}
+    save = ckpt.save
+
+    def keep(path, step, tree, **kw):
+        """``checkpoint.save`` for the drill: a host copy of the state
+        the trainer hands it at step 4, then the save itself."""
+        if step == 4:
+            saved[4] = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                tree)
+        return save(path, step, tree, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        FP.flash_prefill.launches = 0
+        t = time.perf_counter()
+        a = train.run(train.parse_args(SMOL_TRAIN + ["--ckpt-dir",
+                                                     f"{tmp}/a"]))
+        t_a = time.perf_counter() - t
+        k9 = FP.flash_prefill.launches
+        if not k9:
+            raise AssertionError("train-smollm: K9 never launched")
+        credit_prefill(launches, {"flash_prefill": k9}, cfg)
+        b = SMOL_TRAIN + ["--ckpt-dir", f"{tmp}/b"]
+        ckpt.save = keep
+        try:
+            train.run(train.parse_args(b + ["--fail-at", "7"]))
+        except WorkerFailure:
+            pass
+        else:
+            raise AssertionError("train-smollm: no failure at step 7")
+        finally:
+            ckpt.save = save
+        if ckpt.latest_step(f"{tmp}/b") != 4:
+            raise AssertionError("train-smollm: the drill's last checkpoint "
+                                 "is not step 4")
+        template = tree_map(lambda x: x.to("cuda"), saved[4])
+        restored, step = ckpt.restore(f"{tmp}/b", 4, template)
+        for x, y in zip(tree_leaves(restored), tree_leaves(saved[4]),
+                        strict=True):
+            bitwise(x.cpu().reshape(-1), y.reshape(-1),
+                    "train-smollm: restored step-4 state")
+        n_leaves = len(tree_leaves(restored))
+        del restored, template
+        r = train.run(train.parse_args(b + ["--restart"]))
+        if r["start_step"] != 4 or ckpt.latest_step(f"{tmp}/b") != 12:
+            raise AssertionError(f"train-smollm: restart from "
+                                 f"{r['start_step']}, last checkpoint "
+                                 f"{ckpt.latest_step(f'{tmp}/b')}")
+    la, lb = a["losses"][-1], r["losses"][-1]
+    if not math.isfinite(la) or abs(la - lb) > 1e-5 * abs(la):
+        raise AssertionError(f"train-smollm: final loss {lb} after the "
+                             f"restart against {la} uninterrupted")
+    tail = a["losses"][4:] == r["losses"]
+    log(f"[train-smollm] {cfg.num_layers} layers, B 8 x S 512, 12 steps "
+        f"({t_a:.1f} s, K9 launched {k9} times); failure at step 7, "
+        f"restored step 4 ({n_leaves} leaves bitwise the saved state), "
+        f"final loss {lb!r} against {la!r} uninterrupted: "
+        + ("bitwise, steps 4-11 too" if tail and la == lb else
+           f"within rtol 1e-5 (diff {abs(la - lb):.3e}), not bitwise")
+        + f"; {gpu_line()}")
+    del saved
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -6950,6 +7455,11 @@ def main(argv=None) -> int:
     log(f"[time] telemetry and fault-drill phases: "
         f"{time.perf_counter() - t_serve:.1f} s")
     timed("resumed chunk", phase_resume_chunk, params, cfg)
+    timed("C1 prefix cache on / off", phase_prefix_check, params,
+          credit_deepseek)
+    timed("row bits", phase_row_bits, params, cfg)
+    timed("C2 preemption restores", phase_preemption_check, params,
+          credit_deepseek)
     t_serve = time.perf_counter()
     for name, flags, expect, off in SPEC_PHASES:
         for got in phase_spec_serve(name, flags + ["--layers", "3"], params,
@@ -6977,6 +7487,8 @@ def main(argv=None) -> int:
           kernel=("flash_prefill (K9)", "flash_prefill_kernel"))
     del params
     torch.cuda.empty_cache()
+    timed("train-deepseek", phase_train_deepseek, cfg, launches)
+    timed("train-smollm", phase_train_smollm, launches)
 
     # DeepSeek-R1 with its first two MoE layers
     cfg = full_config(MOE_LAYERS)

@@ -93,8 +93,8 @@ def _absorbed_query(params, cfg, x, positions):
     q_nope, q_rope = _queries(params, cfg, x[:, None, :], positions)
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]               # [B,H,*]
     w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
-    q_c = torch.einsum("bhd,chd->bhc", q_nope.float(),
-                       w_uk.float()).to(x.dtype)
+    q_c = layers.fixed_rows(q_nope.float(), lambda a: torch.einsum(
+        "bhd,chd->bhc", a, w_uk.float())).to(x.dtype)
     return torch.cat([q_c, q_rope], dim=-1)
 
 
@@ -102,7 +102,8 @@ def _absorbed_out(params, cfg, o_lat, dtype):
     """o[b,h] = o_latent[b,h] · W_uvᵀ → W_o. o_lat: [B,H,kv].  Returns [B,D]."""
     m, H = cfg.mla, cfg.num_heads
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
-    o = torch.einsum("bhc,chd->bhd", o_lat.float(), w_uv.float()).to(dtype)
+    o = layers.fixed_rows(o_lat.float(), lambda a: torch.einsum(
+        "bhc,chd->bhd", a, w_uv.float())).to(dtype)
     return layers.dense(o.reshape(o.shape[0], -1), params["w_o"])
 
 

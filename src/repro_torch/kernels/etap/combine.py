@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels import softmax_state
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import amla_flag, device_of, stream
+from repro_torch.kernels.launch import (amla_flag, device_of, refuse_grad,
+                                        stream)
 
 
 def combine_splits_plain(m, l, acc, *, out_dtype, rescale=None):
@@ -71,6 +72,7 @@ def combine_splits(m, l, acc, *, out_dtype, rescale=None):
     if device_of(m, l, acc).type == "cpu":
         return combine_splits_plain(m, l, acc, out_dtype=out_dtype,
                                     rescale=rescale)
+    refuse_grad(m, l, acc, what="etap_combine_splits")
     B, n, H = m.shape
     Dv = acc.shape[2]
     return _launch(combine_splits, build.library().etap_combine_splits,
@@ -86,6 +88,7 @@ def combine_splits_std(m, l, acc, *, out_dtype, rescale=None):
     if device_of(m, l, acc).type == "cpu":
         return combine_splits_std_plain(m, l, acc, out_dtype=out_dtype,
                                         rescale=rescale)
+    refuse_grad(m, l, acc, what="etap_combine_splits_rows")
     B, n, H = m.shape
     Dv = acc.shape[3]
     return _launch(combine_splits_std,

@@ -84,7 +84,7 @@ from repro_torch.kernels.etap.schedule import dense_split_plan
 from repro_torch.kernels.launch import (CODES, amla_flag, check_widths,
                                         dense_partial, dense_single,
                                         dense_widths, device_of, i32, ptr,
-                                        stream)
+                                        refuse_grad, stream)
 from repro_torch.kernels.splitkv import split_walks_plain
 from repro_torch.runtime.paged_cache import dequantize_rows, raw
 
@@ -396,6 +396,7 @@ def etap_decode_mla_paged(q, kv_pool, dv, table, lengths, *, scale,
     if dev.type == "cpu":
         return etap_decode_mla_paged_plain(q, kv_pool, dv, table, lengths,
                                            scale=scale, rescale=rescale)
+    refuse_grad(q, kv_pool, what="etap_decode_mla_paged")
     lib = _check_cuda(q, kv_pool, dv, what="etap_decode_mla_paged")
     B, H, _ = q.shape
     q, pool, table, lengths = (q.contiguous(), kv_pool.contiguous(),
@@ -419,6 +420,7 @@ def etap_paged_partial(q, kv_pool, dv, table, lengths, *, scale, n_splits,
         return etap_paged_partial_plain(q, kv_pool, dv, table, lengths,
                                         scale=scale, n_splits=n_splits,
                                         rescale=rescale)
+    refuse_grad(q, kv_pool, what="etap_paged_partial")
     lib = _check_cuda(q, kv_pool, dv, what="etap_paged_partial")
     B, H, _ = q.shape
     nb = table.shape[1]
@@ -444,6 +446,7 @@ def _prefill(q, kv_pool, dv, table, start, qpos, *, scale, rescale, what):
         return etap_prefill_mla_paged_plain(q, kv_pool, dv, table, start,
                                             scale=scale, rescale=rescale,
                                             qpos=qpos)
+    refuse_grad(q, kv_pool, what=what)
     lib = _check_cuda(q, kv_pool, dv, what=what)
     B, Cq, H, Dk = q.shape
     C = Cq * H
@@ -520,6 +523,7 @@ def etap_decode_mla_paged_quant(q, kv_pool, kv_sz, dv, table, lengths, *,
         return etap_decode_mla_paged_quant_plain(
             q, kv_pool, kv_sz, dv, table, lengths, scale=scale,
             rescale=rescale)
+    refuse_grad(q, kv_pool, kv_sz, what="etap_decode_mla_paged_quant")
     lib, code, qf32 = _check_quant(q, kv_pool, kv_sz, dv,
                                    what="etap_decode_mla_paged_quant")
     B, H, _ = q.shape
@@ -545,6 +549,7 @@ def etap_paged_partial_quant(q, kv_pool, kv_sz, dv, table, lengths, *,
         return etap_paged_partial_quant_plain(
             q, kv_pool, kv_sz, dv, table, lengths, scale=scale,
             n_splits=n_splits, rescale=rescale)
+    refuse_grad(q, kv_pool, kv_sz, what="etap_paged_partial_quant")
     lib, code, qf32 = _check_quant(q, kv_pool, kv_sz, dv,
                                    what="etap_paged_partial_quant")
     B, H, _ = q.shape
@@ -574,6 +579,7 @@ def _prefill_quant(q, kv_pool, kv_sz, dv, table, start, qpos, *, scale,
         return etap_prefill_mla_paged_quant_plain(
             q, kv_pool, kv_sz, dv, table, start, scale=scale,
             rescale=rescale, qpos=qpos)
+    refuse_grad(q, kv_pool, kv_sz, what=what)
     lib, code, qf32 = _check_quant(q, kv_pool, kv_sz, dv, what=what)
     B, Cq, H, Dk = q.shape
     C = Cq * H
@@ -682,6 +688,7 @@ def _decode_sepv(wrapper, fn, q, k_pool, v_pool, k_sz, v_sz, table, lengths,
                  *, scale, rescale, n_splits=None):
     """Launch the separate-V decode kernel ``fn`` (K3 / K3q, or with
     ``n_splits`` K1 / K1q), counting it on ``wrapper.launches``."""
+    refuse_grad(q, k_pool, v_pool, k_sz, v_sz, what=fn)
     lib, ptrs, tail, keep = _sepv_operands(q, k_pool, v_pool, k_sz, v_sz,
                                            table, what=fn)
     B, H, dk = q.shape
@@ -712,6 +719,7 @@ def _prefill_sepv(wrapper, fn, q, k_pool, v_pool, k_sz, v_sz, table, start,
                   qpos, *, scale, rescale, what):
     """Launch the separate-V chunk kernel ``fn`` (K4 / K4q: prefill, or
     verify with ``qpos``), counting it on ``wrapper.launches``."""
+    refuse_grad(q, k_pool, v_pool, k_sz, v_sz, what=what)
     B, Cq, H, Dk = q.shape
     C, dv, dev = Cq * H, v_pool.shape[-1], q.device
     lib, ptrs, tail, keep = _sepv_operands(q.reshape(B, C, Dk), k_pool,

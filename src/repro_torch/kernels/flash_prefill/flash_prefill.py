@@ -15,9 +15,17 @@ tensors launch the kernel (``kernels/csrc/flash_prefill.cu``, whose header
 says what bounds it on the H100) at the (D, Dv) pairs the library is built
 for (``csrc/mma_tile.cuh:PrefillWidths``), or raise: there is no fallback.
 The kernel reads q, k and v in place through their strides and handles any
-S; its launches are counted on ``flash_prefill.launches``.  The reference
-kernel has no backward, so inputs that require grad are refused
-(training is ROADMAP A7).
+S; its launches are counted on ``flash_prefill.launches``.
+
+The reference kernel has no backward, and neither has this one: the
+wrapper refuses inputs that require grad.  Training takes
+:func:`flash_prefill_grad`, an autograd Function whose forward is the same
+launch (same bits, same count) and whose backward,
+:func:`flash_prefill_backward`, is the gradient of the reference's
+training route (``repro/models/attention.py:causal_attention``: XLA's
+masked product, one ``jax.checkpoint`` per 512-row query block) in plain
+PyTorch: S and P recomputed a query block at a time in fp32 without TF32.
+A hand-written backward kernel is a speed item on ROADMAP.
 """
 from __future__ import annotations
 
@@ -26,16 +34,10 @@ import torch
 from repro_torch.kernels import build, softmax_state
 from repro_torch.kernels.launch import (amla_flag, check_widths,
                                         dense_strides, dense_widths,
-                                        device_of, ptr, stream)
+                                        device_of, ptr, refuse_grad, stream)
+from repro_torch.models.layers import no_tf32
 
 NEG_INF = softmax_state.NEG_INF
-
-
-def _check_no_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "flash_prefill: K9 has no backward (the reference's has none "
-            "either); training is ROADMAP A7")
 
 
 def _check_shapes(q, k, v) -> None:
@@ -99,8 +101,11 @@ def flash_prefill(q, k, v, *, scale, rescale=None, bq: int = 256,
     (``bq`` / ``bkv`` are its block sizes); CUDA tensors launch the kernel,
     which tiles at 128 rows whatever ``bq`` / ``bkv`` say and takes bf16 q,
     k, v at the library's (D, Dv) pairs with unit column strides and other
-    strides on 16 bytes, and raises otherwise."""
-    _check_no_grad(q, k, v)
+    strides on 16 bytes, and raises otherwise.  Inputs that require grad
+    are refused on either device (:func:`flash_prefill_grad` trains)."""
+    refuse_grad(q, k, v, what="flash_prefill",
+                item="train through flash_prefill_grad, K9's autograd "
+                     "Function (ROADMAP A7)")
     if device_of(q, k, v).type == "cpu":
         return flash_prefill_plain(q, k, v, scale=scale, rescale=rescale,
                                    bq=bq, bkv=bkv)
@@ -129,3 +134,86 @@ def flash_prefill(q, k, v, *, scale, rescale=None, bq: int = 256,
 
 
 flash_prefill.launches = 0
+
+
+def flash_prefill_backward(q, k, v, dout, *, scale, q_block: int = 512):
+    """The gradient of causal attention, (dq, dk, dv) in q's, k's and v's
+    dtypes, in plain PyTorch.  For each ``q_block``-row query block the
+    scores against the keys up to its last row are recomputed in fp32
+    (TF32 off), P = softmax(S), and dS = P ∘ (dP − rowsum(dO ∘ O)) with
+    dP = dO Vᵀ and O = P V of the same block; the keys past the block's
+    last row have P = 0 and so no gradient, as in the reference's masked
+    product.  dK and dV sum over each kv head's G query heads.  One
+    block's fp32 P and dP are the memory peak; the sums run in a fixed
+    order, so the result is deterministic.  q [B,S,H,D]; k [B,S,K,D];
+    v [B,S,K,Dv]; dout [B,S,H,Dv]."""
+    _check_shapes(q, k, v)
+    B, S, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[-1]
+    G = H // K
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    kf = k.float().transpose(1, 2)                      # [B,K,S,D]
+    vf = v.float().transpose(1, 2)                      # [B,K,S,Dv]
+    dq = torch.empty(B, S, H, D, **f32)
+    dk = torch.zeros(B, K, S, D, **f32)
+    dv = torch.zeros(B, K, S, Dv, **f32)
+    kpos = torch.arange(S, device=dev)
+
+    def rows(x, i0, n, w):                  # [B,n,H,w] -> [B,K,G*n,w]
+        return x[:, i0:i0 + n].float().reshape(B, n, K, G, w).permute(
+            0, 2, 3, 1, 4).reshape(B, K, G * n, w)
+
+    with no_tf32():
+        for i0 in range(0, S, q_block):
+            i1 = min(i0 + q_block, S)
+            n = i1 - i0
+            qi, doi = rows(q, i0, n, D), rows(dout, i0, n, Dv)
+            kj, vj = kf[:, :, :i1], vf[:, :, :i1]
+            s = torch.matmul(qi, kj.transpose(-1, -2)).mul_(scale)
+            qpos = i0 + torch.arange(G * n, device=dev) % n
+            s.masked_fill_(qpos[:, None] < kpos[None, :i1], NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            del s
+            delta = (doi * torch.matmul(p, vj)).sum(-1, keepdim=True)
+            dv[:, :, :i1] += torch.matmul(p.transpose(-1, -2), doi)
+            ds = torch.matmul(doi, vj.transpose(-1, -2)).sub_(delta).mul_(p)
+            del p
+            dq[:, i0:i1] = (torch.matmul(ds, kj) * scale).reshape(
+                B, K, G, n, D).permute(0, 3, 1, 2, 4).reshape(B, n, H, D)
+            dk[:, :, :i1] += torch.matmul(ds.transpose(-1, -2), qi) * scale
+            del ds
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class _FlashPrefillFn(torch.autograd.Function):
+    """K9 with a gradient: the forward is :func:`flash_prefill` (grad mode
+    is off inside it), the backward :func:`flash_prefill_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, rescale, bq, bkv):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_prefill(q, k, v, scale=scale, rescale=rescale, bq=bq,
+                             bkv=bkv)
+
+    @staticmethod
+    def backward(ctx, dout):
+        flash_prefill_grad.backwards += 1
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_backward(q, k, v, dout, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_prefill_grad(q, k, v, *, scale, rescale=None, bq: int = 256,
+                       bkv: int = 256):
+    """K9 that autograd can differentiate: the output of
+    :func:`flash_prefill` (the same launch and count on CUDA tensors, the
+    plain version on CPU ones), its gradient from
+    :func:`flash_prefill_backward`; the backwards run are counted on
+    ``flash_prefill_grad.backwards``."""
+    return _FlashPrefillFn.apply(q, k, v, scale, rescale, bq, bkv)
+
+
+flash_prefill_grad.backwards = 0

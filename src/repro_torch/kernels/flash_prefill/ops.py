@@ -16,3 +16,11 @@ def flash_prefill(q, k, v, *, spec, bq: int = 256, bkv: int = 256):
     [B,S,H,Dv] in v's dtype."""
     return FP.flash_prefill(q, k, v, scale=spec.scale, rescale=spec.rescale,
                             bq=bq, bkv=bkv)
+
+
+@attn_entry(uses=("rescale",))
+def flash_prefill_grad(q, k, v, *, spec, bq: int = 256, bkv: int = 256):
+    """K9 with a gradient (training): the forward of :func:`flash_prefill`,
+    the backward of the reference's masked product in plain PyTorch."""
+    return FP.flash_prefill_grad(q, k, v, scale=spec.scale,
+                                 rescale=spec.rescale, bq=bq, bkv=bkv)

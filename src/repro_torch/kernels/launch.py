@@ -1,6 +1,7 @@
 """Operand checks and launch plumbing shared by the CUDA kernel wrappers
-(``etap``, ``combine``, ``flash_decode`` and ``flash_prefill`` modules):
-device dispatch, pointers, the current stream, the widths each kernel
+(``etap``, ``combine``, ``flash_decode``, ``flash_prefill`` and
+``selective_scan`` modules): device dispatch, the refusal of operands that
+require grad, pointers, the current stream, the widths each kernel
 library is built for, and the dense KV operand layout the dense kernels
 take (row and kv-head strides, no copies), for bf16 rows and for int8 /
 e4m3 code rows with their fp32 (scale, zp) rows."""
@@ -23,6 +24,21 @@ def device_of(*tensors) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no kernel path for device {dev}")
     return dev
+
+
+def refuse_grad(*tensors, what: str,
+                item: str = "training through it is ROADMAP A7") -> None:
+    """Raise ``NotImplementedError`` when an operand of a CUDA launch
+    requires grad under grad mode.  A kernel called through ``ctypes``
+    writes tensors outside the autograd graph, so a gradient through it
+    would be dropped without a word.  Every CUDA kernel wrapper calls this
+    on its CUDA branch (K9's autograd Function launches under no_grad)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward and an operand "
+            f"requires grad; {item}")
 
 
 def ptr(t) -> int:
@@ -181,6 +197,7 @@ def dense_single(wrapper, what: str, widths: str, q, k, v, length, *,
     point: K5, K7, or over code rows K5q, K7q) on operands
     :func:`dense_operands` checks, counting it on ``wrapper.launches``.
     Returns O [BG,H,Dv] in v's dtype, fp32 over codes."""
+    refuse_grad(q, k, v, k_sz, v_sz, what=what)
     lib, args, keep = dense_operands(q, k, v, length, widths=widths,
                                      what=what, k_sz=k_sz, v_sz=v_sz)
     B, H, _ = q.shape
@@ -201,6 +218,7 @@ def dense_partial(wrapper, what: str, widths: str, q, k, v, length, *,
     code rows K6q, K8q) under ``plan``, counting it on
     ``wrapper.launches``.  Returns fp32 (m [BG,n,H], l [BG,n,H], acc
     [BG,n,Dv,H] when ``transposed`` (ETAP), else [BG,n,H,Dv])."""
+    refuse_grad(q, k, v, k_sz, v_sz, what=what)
     lib, args, keep = dense_operands(q, k, v, length, widths=widths,
                                      what=what, k_sz=k_sz, v_sz=v_sz)
     tps = dense_split_tiles(k.shape[1], plan, what=what)

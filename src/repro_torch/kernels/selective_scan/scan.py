@@ -7,14 +7,15 @@ the whole of L and D: the CUDA kernel (``kernels/csrc/selective_scan.cu``,
 whose header says what bounds it on the H100) takes any L and a ragged D,
 so nothing is padded.  It replaces the Pallas kernel at
 ``repro/kernels/selective_scan/scan.py:64``.  CPU tensors take the plain
-version, :func:`selective_scan_plain`.
+version, :func:`selective_scan_plain`; the kernel has no backward, so
+CUDA inputs that require grad are refused (ROADMAP A7).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launch import device_of, stream
+from repro_torch.kernels.launch import device_of, refuse_grad, stream
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 
@@ -31,6 +32,9 @@ def selective_scan(dA, dBx, c):
     dev = device_of(dA, dBx, c)
     if dev.type == "cpu":
         return selective_scan_plain(dA, dBx, c)
+    refuse_grad(dA, dBx, c, what="selective_scan",
+                item="the K10 backward, which Falcon-Mamba training on the "
+                     "card needs, is ROADMAP A7")
     B, L, D, N = dA.shape
     if tuple(dBx.shape) != (B, L, D, N) or tuple(c.shape) != (B, L, N):
         raise ValueError(f"selective_scan: dA {tuple(dA.shape)}, dBx "

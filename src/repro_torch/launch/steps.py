@@ -1,0 +1,104 @@
+"""train_step / serve_step factories — the port of
+``repro/launch/steps.py``.  Gradient accumulation walks ``n_micro``
+microbatches and sums their gradients in bf16, as the reference's scan
+does; the metrics are summed in fp32.  Remat is per block
+(``models.model``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.models import model
+from repro_torch.optim import optimizers as opt
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: opt.OptimizerConfig = field(
+        default_factory=opt.OptimizerConfig)
+    n_micro: int = 1              # gradient-accumulation microbatches
+    compress_grads: bool = False  # int8 round trip of every gradient
+
+
+def grads_of(params, cfg, batch):
+    """(grads, metrics) of ``model.loss_fn``: the gradient of every leaf
+    of ``params`` in its dtype (zeros where the loss does not reach it, as
+    ``jax.grad`` gives), the metrics as detached fp32 scalars."""
+    leaves = opt.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = model.loss_fn(params, cfg, batch)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    it = iter(g if g is not None else torch.zeros_like(p)
+              for g, p in zip(gs, leaves, strict=True))
+    grads = opt.tree_map(lambda _: next(it), params)
+    return grads, {k: v.detach().float() for k, v in metrics.items()}
+
+
+def make_train_step(cfg, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics), updating params and opt_state in place (the
+    reference donates them).  Microbatching splits the batch's leading dim
+    into ``n_micro`` chunks.  ``metrics`` holds "nll", the aux losses and
+    "grad_norm" (before clipping).  ``params`` are the trainer's: without
+    the serving copy ``embed_f32``."""
+    stacks = model.layer_stacks(cfg)
+
+    def train_step(params, opt_state, batch, step):
+        del step                                  # the optimizer counts
+        if "embed_f32" in params:
+            raise ValueError("train_step: params hold the serving copy "
+                             "embed_f32, which the update would leave "
+                             "stale; train without it (train.build_state)")
+        if tcfg.n_micro > 1:
+            n = tcfg.n_micro
+            micro = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                      for k, v in batch.items()} for i in range(n)]
+            grads = opt.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.bfloat16, device=p.device), params)
+            metrics = None
+            for mb in micro:
+                g, m = grads_of(params, cfg, mb)
+                grads = opt.tree_map(
+                    lambda a, b: a + b.to(a.dtype) / n, grads, g)
+                del g
+                metrics = {k: (metrics[k] if metrics else
+                               torch.zeros_like(v)) + v / n
+                           for k, v in m.items()}
+        else:
+            grads, metrics = grads_of(params, cfg, batch)
+
+        if tcfg.compress_grads:
+            from repro_torch.optim.compress import \
+                compress_tree_for_pod_reduce
+            grads = compress_tree_for_pod_reduce(grads, stacks)
+
+        grads, gnorm = opt.clip_by_global_norm(grads,
+                                               tcfg.optimizer.clip_norm)
+        params, opt_state = opt.opt_update(tcfg.optimizer, grads, opt_state,
+                                           params, stacks=stacks)
+        return params, opt_state, dict(metrics, grad_norm=gnorm)
+
+    return train_step
+
+
+def make_serve_step(cfg, *, mode: str = "etap"):
+    """serve_step(params, cache, tokens, pos) -> (logits, cache): one
+    decode token against the dense cache (the paper's workload)."""
+    spec = AttnSpec(mode=mode)
+
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cfg, cache, tokens, pos, spec=spec)
+    return serve_step
+
+
+def make_prefill_step(cfg, max_len: int):
+    def prefill_step(params, batch):
+        return model.prefill(params, cfg, batch, max_len=max_len)
+    return prefill_step

@@ -70,8 +70,10 @@ def causal_attention(q, k, v, *, scale: float, q_block: int = 512):
     """Causal attention over a whole sequence.  q [B,S,H,D]; k, v
     [B,S,K,D*] with H = K·G.  Returns [B,S,H,Dv] in v's dtype.  CUDA
     operands run K9 (``flash_prefill.ops.flash_prefill``: no scores in
-    device memory, the blocks above the diagonal skipped); CPU operands the
-    reference's route, walked over ``q_block`` query rows, each block
+    device memory, the blocks above the diagonal skipped; under grad,
+    ``flash_prefill_grad``: the same launch with the reference's gradient
+    as its backward); CPU operands the reference's route
+    (:func:`masked_attention`), walked over ``q_block`` query rows, each block
     against the whole masked context (one block's fp32 scores are the
     peak).  Both refuse an S that is not a multiple of ``q_block`` (capped
     at S), as the reference does."""
@@ -80,7 +82,21 @@ def causal_attention(q, k, v, *, scale: float, q_block: int = 512):
     if S % q_block:
         raise ValueError(f"S={S} not a multiple of q_block={q_block}")
     if q.device.type == "cuda":
-        return prefill_ops.flash_prefill(q, k, v, spec=AttnSpec(scale=scale))
+        spec = AttnSpec(scale=scale)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return prefill_ops.flash_prefill_grad(q, k, v, spec=spec)
+        return prefill_ops.flash_prefill(q, k, v, spec=spec)
+    return masked_attention(q, k, v, scale=scale, q_block=q_block)
+
+
+def masked_attention(q, k, v, *, scale: float, q_block: int = 512):
+    """The reference's route of :func:`causal_attention` on any device: for
+    each ``q_block``-row query block (S a multiple of it), the fp32 scores
+    against the whole context under the causal mask (-1e30), softmax, and
+    the product with V.  Autograd differentiates it as it stands."""
+    B, S, H, _ = q.shape
+    q_block = min(q_block, S)
     kf = _expand_kv(k, H).float().permute(0, 2, 3, 1).contiguous()  # [B,H,D,S]
     vf = _expand_kv(v, H).float().transpose(1, 2).contiguous()  # [B,H,S,Dv]
     kpos = torch.arange(S, device=q.device)

@@ -1,4 +1,4 @@
-"""Carry the reference's weights into the port.
+"""Carry the reference's weights (and optimizer state) into the port.
 
 :func:`params_from_jax` takes the JAX package's parameter tree as nested
 dicts/lists of numpy arrays (``jax.tree.map(np.asarray, params)``) and
@@ -13,7 +13,9 @@ block's FFN (``router``, ``w_gate``, ``w_up``, ``w_down`` and, with a
 shared expert, ``shared``) is unstacked like every other leaf.  Every leaf
 keeps the reference's dtype: a bf16 model's weights stay bf16 and its fp32
 leaves (Mamba's ``dt_bias``, ``log_neg_A`` and ``D``; RG-LRU's
-``log_lambda``; a MoE router) stay fp32.
+``log_lambda``; a MoE router) stay fp32.  :func:`tree_from_jax` does the
+same for any tree shaped like the params (gradients), and
+:func:`opt_state_from_jax` for the optimizers' state.
 """
 from __future__ import annotations
 
@@ -44,9 +46,12 @@ def _first_leaf(tree):
     return tree
 
 
-def params_from_jax(tree, device="cuda") -> dict:
-    """The reference's params → the port's, on ``device``, each array in its
-    own dtype."""
+def tree_from_jax(tree, device="cuda") -> dict:
+    """A tree shaped like the reference's params (the params, their
+    gradients, an optimizer's per-leaf state) → the port's layout: the
+    stacked layer groups unstacked into one dict a layer, every array in
+    its own dtype on ``device``.  A leaf may itself be a dict of arrays
+    (Adafactor's {"vr", "vc"}), each unstacked alike."""
     out_layers = []
     for gp in tree["groups"]:
         n = np.asarray(_first_leaf(gp)).shape[0]
@@ -54,13 +59,32 @@ def params_from_jax(tree, device="cuda") -> dict:
             for j in range(len(gp)):
                 out_layers.append(_map(gp[f"b{j}"],
                                        lambda a, i=i: _tensor(a[i], device)))
-    params = {
-        "embed": _tensor(tree["embed"], device),
-        "final_norm": _tensor(tree["final_norm"], device),
+    out = {
+        "embed": _map(tree["embed"], lambda a: _tensor(a, device)),
+        "final_norm": _map(tree["final_norm"],
+                           lambda a: _tensor(a, device)),
         "layers": out_layers,
     }
     if "frontend" in tree:
-        params["frontend"] = _map(tree["frontend"],
-                                  lambda a: _tensor(a, device))
+        out["frontend"] = _map(tree["frontend"],
+                               lambda a: _tensor(a, device))
+    return out
+
+
+def params_from_jax(tree, device="cuda") -> dict:
+    """The reference's params → the port's, on ``device``, each array in its
+    own dtype, with the serving copy ``embed_f32``."""
+    params = tree_from_jax(tree, device)
     params["embed_f32"] = layers.unembed_table(params["embed"])
     return params
+
+
+def opt_state_from_jax(state, device="cuda") -> dict:
+    """The reference's optimizer state → the port's: AdamW's {"m", "v",
+    "count"} or Adafactor's {"v", "count"} (each leaf of "v" a {"vr",
+    "vc"} or {"v"} dict), the trees unstacked as :func:`tree_from_jax`
+    does, ``count`` an int32 scalar."""
+    out = {k: tree_from_jax(v, device) for k, v in state.items()
+           if k != "count"}
+    out["count"] = _tensor(state["count"], device)
+    return out

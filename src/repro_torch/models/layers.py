@@ -4,6 +4,7 @@ rope, the GLU MLP, embedding.  Plain functions over parameter dicts; the
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +36,49 @@ def init_dense(gen, d_in: int, d_out: int, dtype, device):
     return (w * std).to(dtype)
 
 
+# cuBLAS picks a product's kernel (its tiles, its split of K) by the row
+# count, and a row's bits follow the kernel: a decode step's row would get
+# other bits in a batch of 2 than in one of 8.  So on CUDA a product of
+# fewer than ROW_TILE rows runs over ROW_TILE rows (ROADMAP section C, C2).
+ROW_TILE = 16
+
+
+def _pads(x) -> bool:
+    """Whether a product over x's rows runs at ROW_TILE rows: on CUDA
+    only, where cuBLAS picks the kernel; CPU products run as they are."""
+    return x.is_cuda
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_rows(shape: tuple, dtype, device):
+    """ROW_TILE zero rows of one shape, made once (the padding's source,
+    so padding is one copy: ``torch.cat``)."""
+    return torch.zeros((ROW_TILE, *shape), dtype=dtype, device=device)
+
+
+def fixed_rows(x, f):
+    """f(x) for an f that maps x [n, ...] row by row along dim 0.  An x
+    of fewer than ROW_TILE rows is zero-padded to ROW_TILE rows first and
+    f's result cut back to n, so each row's bits do not depend on n."""
+    n = x.shape[0]
+    if n >= ROW_TILE or not _pads(x):
+        return f(x)
+    zeros = _zero_rows(tuple(x.shape[1:]), x.dtype, x.device)
+    return f(torch.cat((x, zeros[n:])))[:n]
+
+
+def _rows_product(x, f):
+    """f(x) for x [..., K] and a product f over its rows, the rows taken
+    together as :func:`fixed_rows` takes them."""
+    n = x.numel() // x.shape[-1]
+    if n >= ROW_TILE or not _pads(x):
+        return f(x)
+    y = fixed_rows(x.reshape(n, x.shape[-1]), f)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def dense(x, w):
-    return x @ w
+    return _rows_product(x, lambda a: a @ w)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -96,4 +138,4 @@ def unembed_table(table):
 def unembed(table_f32, x):
     """Tied unembedding with fp32 logits; ``table_f32`` from
     :func:`unembed_table`."""
-    return x.float() @ table_f32.T
+    return _rows_product(x, lambda a: a.float() @ table_f32.T)

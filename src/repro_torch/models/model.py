@@ -20,12 +20,21 @@ sequence in one chunked-prefill-shaped pass over the paged cache (the
 serve loop's speculative decoding).  A MoE block routes as the
 reference's does: :func:`forward` (and so single-shot :func:`prefill`)
 with capacity routing, returning the layer's aux losses; a decode step
-(the B tokens one group) and a prompt chunk dropless.  Training
-(``loss_fn``) is not ported yet (ROADMAP A7).
+(the B tokens one group) and a prompt chunk dropless.
+
+Training: :func:`loss_fn` is the reference's next-token cross-entropy plus
+the MoE aux losses.  It unembeds through ``params["embed"]`` upcast inside
+the autograd graph, as the reference's ``layers.unembed`` does, so the
+tied table gets the logits' gradient; ``embed_f32``, the copy serving
+upcasts once, is never read there.  With ``cfg.remat`` each block that
+autograd records (grad on, and its input or a parameter requiring grad)
+runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``);
+serving, whose parameters require no grad, never reaches it.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
@@ -65,6 +74,23 @@ def layer_groups(cfg) -> list:
             groups += [{"sigs": [s], "n": 1} for s in sigs[n * p:]]
             return groups
     return [{"sigs": [s], "n": 1} for s in sigs]       # fallback: unrolled
+
+
+def layer_stacks(cfg) -> list:
+    """The layers the reference stacks into one leaf: for each group of
+    :func:`layer_groups` and each block j of it, the indices of the
+    port's layers that hold its n repeats (repeat i of a group with p
+    blocks runs as layer offset + i·p + j, the order
+    :func:`repro_torch.models.convert.params_from_jax` unstacks in).  A
+    statistic the reference takes over a whole stacked leaf (Adafactor's
+    update clipping) is taken over these layers."""
+    stacks, off = [], 0
+    for g in layer_groups(cfg):
+        p = len(g["sigs"])
+        stacks += [[off + i * p + j for i in range(g["n"])]
+                   for j in range(p)]
+        off += p * g["n"]
+    return stacks
 
 
 _BLOCK_KINDS = ("attn", "rglru", "ssm")
@@ -176,6 +202,17 @@ def _embed_inputs(params, batch):
     return layers.embed(params["embed"], tokens)
 
 
+def _requires_grad(tree) -> bool:
+    """Whether a tensor of a parameter tree requires grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return False
+    return any(_requires_grad(t) for t in tree)
+
+
 def _hidden(params, cfg, batch, collect_cache: bool):
     """The final-normed hidden states [B,S,D] of a full sequence (a batch
     as :func:`_embed_inputs` takes it), the per-layer cache rows and the
@@ -186,8 +223,13 @@ def _hidden(params, cfg, batch, collect_cache: bool):
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
     caches, aux_total = [], _zero_aux(x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, sig in zip(params["layers"], signatures(cfg), strict=True):
-        x, a, c = _block_seq(lp, cfg, sig, x, positions, collect_cache)
+        if remat and (x.requires_grad or _requires_grad(lp)):
+            x, a, c = checkpoint(_block_seq, lp, cfg, sig, x, positions,
+                                 collect_cache, use_reentrant=False)
+        else:
+            x, a, c = _block_seq(lp, cfg, sig, x, positions, collect_cache)
         aux_total = {k: aux_total[k] + a[k] for k in AUX_KEYS}
         caches.append(c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -202,6 +244,23 @@ def forward(params, cfg, batch, *, collect_cache: bool = False):
     x, caches, aux = _hidden(params, cfg, batch, collect_cache)
     logits = layers.unembed(params["embed_f32"], x)
     return logits, aux, (caches if collect_cache else None)
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token cross-entropy plus the MoE aux losses (0.01 ·
+    load_balance + 0.001 · router_z), the reference's.  batch: {"tokens":
+    [B,S]} or {"embeds": [B,S,d_frontend], "targets": [B,S]}.  The logits
+    are fp32 from ``params["embed"]`` upcast in the graph (the unembedding
+    is an fp32 product: TF32 stays off, PyTorch's default).  Returns
+    (loss, {"nll", "load_balance", "router_z"})."""
+    x, _, aux = _hidden(params, cfg, batch, collect_cache=False)
+    logits = layers.unembed(layers.unembed_table(params["embed"]), x)
+    targets = batch["targets"] if "targets" in batch else batch["tokens"]
+    lp = torch.log_softmax(logits[:, :-1, :], dim=-1)
+    nll = -torch.gather(lp, -1, targets[:, 1:, None].long())[..., 0]
+    loss = nll.mean()
+    total = loss + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+    return total, {"nll": loss, **aux}
 
 
 # ----------------------------------------------------------------- serving

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``."""
+``chip_smoke.py`` imports ``jax``, the reference package ``repro`` or
+``ml_dtypes`` (the card's machine has none; bf16 goes through bit
+patterns)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imports(path: Path):
