@@ -352,6 +352,37 @@ ROADMAP section C and training:
              saved there, the final losses within rtol 1e-5 (whether they
              are bitwise is logged), K9 launched on the steps.
 
+Last, sequence-sharded decode (ROADMAP A10a), ``phase_seq_sharded``:
+
+  reference  DeepSeek-R1 at full width cut to its 3 dense layers (B 4 x
+             prompt 8192, 16 greedy steps over S 8208) and Qwen3-8B cut to
+             4 of 36 layers (B 2 x 8192, 8 steps over S 8200), seed-0
+             weights, in this process with the card to itself:
+             ``model.prefill`` (K9), ``decode_step`` on the dense layout
+             (K6 + K2); its tokens, logits, prefill cache and written rows
+             kept on the host, and the floor (step 0 at the auto plan
+             against one split, K5); the card then freed;
+  ranks      4 processes (``launch.mesh.spawn``, a wall limit; the group
+             through a FileStore, a collective timeout): gloo with every
+             rank on cuda:0 on a one-card machine (the ranks share the
+             card: the sharded step's wall is no multi-GPU speedup), nccl
+             with a card a rank where there are 4; the same weights on
+             each (digests equal, and equal to the reference's); on the
+             meshes (1, 4) and (2, 2): K6 on the rank's slice against its
+             plain version (an empty slice among them: stats (NEG_INF, 0,
+             0), merge weight 0), then ``make_serve_step`` under
+             ``use_mesh`` over ``shard_cache`` of the reference's cache,
+             teacher-forced: each step's gathered logits within
+             check_step's gate of the reference's (floor its floor), the
+             layer-0 row the owner writes bitwise the reference's; a
+             free-running greedy run equal to the reference's or parting
+             first where its top-two gap is below the teacher-forced
+             difference; K6 launched on every rank; the unsharded branch
+             under (2, 2) (DeepSeek B 4 x 512: K9, K5) against the
+             whole-batch run.  ``[seq-sharded]`` lines give the launches by
+             rank, the bytes a step all-reduces, and the step's wall ms
+             sharded beside unsharded.
+
 Each phase's seconds are printed as ``[time]`` lines.
 
 The launch counters are zeroed just before each serve phase and read just
@@ -388,6 +419,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -7360,6 +7392,443 @@ def phase_train_smollm(launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------- sequence-sharded decode (ROADMAP A10a)
+# phase_seq_sharded: a single-process reference first, then SHARD_RANKS
+# ranks (gloo with every rank on cuda:0 on a one-card machine, nccl with a
+# card a rank where there are 4) on each mesh of SHARD_MESHES
+SHARD_RANKS = 4
+SHARD_MESHES = ((1, 4), (2, 2))               # (data, model)
+# name -> (arch, layers kept, batch, prompt, generated tokens): the cache
+# holds prompt + generated rows, >= SEQ_SHARD_MIN_S and a multiple of 4
+SHARD_MODELS = {"deepseek": ("deepseek_r1_671b", 3, 4, 8192, 16),
+                "qwen": ("qwen3_8b", 4, 2, 8192, 8)}
+# the unsharded branch under the (2, 2) mesh (S < SEQ_SHARD_MIN_S: K5):
+# DeepSeek, batch, prompt, steps
+SHARD_SHORT = (4, 512, 4)
+SHARD_EMPTY_POS = 100          # a position only the first slice holds
+SHARD_SPAWN_S = 600            # the ranks' wall limit
+SHARD_COLLECTIVE_S = 300       # init_process_group's timeout
+
+
+def shard_config(name: str):
+    from repro_torch.configs import get_config
+    arch, layers, *_ = SHARD_MODELS[name]
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def weights_digest(params) -> int:
+    """A checksum of every bit of a parameter tree: the sum of each leaf's
+    16-bit words (fp32 leaves as two words each), in int64."""
+    import torch
+    total = 0
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, list):
+            stack.extend(t)
+        else:
+            words = t.contiguous().view(torch.int16).reshape(-1)
+            for chunk in words.split(1 << 26):
+                total += int(chunk.to(torch.int64).sum())
+    return total
+
+
+def shard_reference(name: str, work: Path, launches: dict,
+                    dev="cuda") -> dict:
+    """The single-process reference of one SHARD_MODELS entry, on the card
+    alone: seed-0 weights, a seeded prompt through ``model.prefill`` (K9),
+    then greedy ``decode_step`` over the whole cache (K6 + K2 at the auto
+    plan).  Saves to ``work/<name>.pt`` the tokens, each step's logits,
+    the prefill cache and the rows the steps wrote (host copies), the
+    weights' digest, the floor (the largest logit difference between step
+    0 at the auto plan and at one split, K5) and the step's wall ms; frees
+    the card.  Credits the launches to ``launches``."""
+    import torch
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.models import model
+    cfg = shard_config(name)
+    _, _, B, P, G = SHARD_MODELS[name]
+    params = model.init(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           dtype=torch.int32).to(dev)
+    for fn in counters().values():
+        fn.launches = 0
+    logits, cache, pos = model.prefill(params, cfg, prompt, P + G)
+    torch.cuda.synchronize()
+    host = [{k: v.cpu() for k, v in layer.items()} for layer in cache]
+    tokens, steps, walls = [logits.argmax(-1).to(torch.int32)], [], []
+    for i in range(G):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cfg, cache, tokens[-1],
+                                          pos + i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append(logits.cpu())
+        tokens.append(logits.argmax(-1).to(torch.int32))
+    got = {k: fn.launches for k, fn in counters().items()}
+    rows = [{k: v[:, P:P + G].cpu() for k, v in layer.items()}
+            for layer in cache]
+    del cache
+    one, _ = model.decode_step(params, cfg, _on(host, dev), tokens[0], pos,
+                               spec=AttnSpec(kv_splits=1))
+    floor = float((one.cpu() - steps[0]).abs().max())
+    ref = {"tokens": torch.stack(tokens, 1).cpu(),
+           "logits": torch.stack(steps), "cache": host, "rows": rows,
+           "digest": weights_digest(params), "floor": floor,
+           "step_ms": sorted(walls[1:])[(G - 1) // 2]}
+    torch.save(ref, work / f"{name}.pt")
+    log(f"[seq-sharded] {name} reference (one process, the card alone): "
+        f"{cfg.num_layers} layers, B {B} x prompt {P} + {G} greedy steps "
+        f"over S {P + G}: step {ref['step_ms']:.3f} ms (median), floor "
+        f"(auto plan vs one split) {floor:.4e}, launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    credit_shard(launches, got, cfg)
+    del params, logits, one
+    torch.cuda.empty_cache()
+    return ref
+
+
+def credit_shard(launches: dict, got: dict, cfg) -> None:
+    """Credit one model's launches (wrapper -> count) to the kernels
+    line: DeepSeek's to the latent entries, Qwen3's to the [128] ones, K9
+    to the prefill width."""
+    if cfg.attention_kind == "mla":
+        for k in KERNELS:
+            launches[k] += got.get(k, 0)
+    else:
+        credit(launches, got, HD, "fp")
+    credit_prefill(launches, got, cfg)
+
+
+def k6_slice_check(cache, q, dv: int, start: int, pos: int, mesh,
+                   spec) -> dict:
+    """K6 on this rank's slice against its plain version at the main
+    path's plan: q [BG, G, Dk] and the slice (the latent [B, S/n, 576], V
+    its first ``dv`` columns, or a GQA slice {"k", "v"} [B, S/n, K, hd]) at
+    the length ``pos`` gives the slice.  A slice that holds no position
+    yet must give m <= NEG_INF, l = 0 and accᵀ = 0 on both, and weight 0
+    once merged with the other ranks' (the all-reduce MAX over `model`;
+    every rank calls this).  Returns {"err", "empty"}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import softmax_state
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.kernels.splitkv import split_plan
+    from repro_torch.launch import mesh as M
+    k = cache["c"] if "c" in cache else cache["k"]
+    v = k[..., :dv] if "c" in cache else cache["v"]
+    n = k.shape[1]
+    length = torch.full((q.shape[0],), min(max(pos + 1 - start, 0), n),
+                        dtype=torch.int32, device=q.device)
+    plan = split_plan(q, k, v, spec=spec)
+    kw = dict(scale=spec.scale, plan=plan)
+    st = K.etap_partial_dense(q, k, v, length, **kw)
+    rs = K.etap_partial_dense_plain(q, k, v, length, **kw)
+    empty = int(length[0]) == 0
+    if empty:
+        for what, (m, l, acc) in (("K6", st), ("its plain version", rs)):
+            if not (bool((m <= softmax_state.NEG_INF).all())
+                    and not l.any() and not acc.any()):
+                raise AssertionError(f"{what} on an empty slice: stats not "
+                                     "(m <= NEG_INF, 0, 0)")
+        err = 0.0
+    else:
+        err = finalized_close(st, rs, f"K6 on slice [{start}, {start + n})")
+    m = softmax_state.merge_splits(*st, axis=1, mode=softmax_state.resolve(),
+                                   expand=lambda w: w[:, :, None, :])[0]
+    m_g = M.all_reduce(m.clone(), dist.ReduceOp.MAX, mesh, "model")
+    w = softmax_state.merge_weights(m, m_g, mode=softmax_state.resolve())
+    if empty and w.any():
+        raise AssertionError("an empty slice's merge weight is not 0")
+    return {"err": err, "empty": empty}
+
+
+def _on(cache, dev):
+    return [{k: v.to(dev) if hasattr(v, "to") else v for k, v in
+             layer.items()} for layer in cache]
+
+
+def shard_run(name: str, params, cfg, ref: dict, mesh) -> dict:
+    """One model on one mesh, on this rank: K6 on the rank's slice against
+    its plain version (the main path's length and a length-0 slice), then
+    the main path (``make_serve_step`` under ``use_mesh`` over the rank's
+    piece of the reference's prefill cache, ``shard_cache``), teacher-forced
+    with the reference's tokens, every launch count zeroed just before it
+    and read just after: each step's gathered logits within check_step's
+    gate of the reference's (floor: the reference's), the layer-0 row the
+    owner writes bitwise the reference's; then a free-running greedy run
+    whose tokens equal the reference's or part first where the
+    reference's top-two gap is below the teacher-forced run's largest
+    logit difference."""
+    import torch
+
+    from repro_torch.core import etap
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model
+    _, _, B, P, G = SHARD_MODELS[name]
+    dev = mesh.device
+    tag = f"{name} {mesh.shape['data']}x{mesh.shape['model']}"
+    tokens = ref["tokens"].to(dev)
+    with M.use_mesh(mesh):
+        piece = _on(model.shard_cache(ref["cache"]), dev)
+        if any("seq_rows" not in layer for layer in piece):
+            raise AssertionError(f"{tag}: the cache is not sequence-sharded")
+        n = next(iter(piece[0].values())).shape[1]
+        start = mesh.coord("model") * n
+        b0 = mesh.coord("data") * (B // mesh.shape["data"])
+        rows = slice(b0, b0 + B // mesh.shape["data"])
+        gen = torch.Generator(device=dev).manual_seed(5)
+        if cfg.attention_kind == "mla":
+            m = cfg.mla
+            shape = (B // mesh.shape["data"], cfg.num_heads, m.latent_dim)
+            dv, scale = m.kv_lora_rank, m.qk_head_dim ** -0.5
+        else:
+            Kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+            shape = (B // mesh.shape["data"] * Kh, cfg.num_heads // Kh, hd)
+            dv, scale = hd, hd ** -0.5
+        q = torch.randn(shape, generator=gen, device=dev).to(cfg.torch_dtype)
+        spec = AttnSpec(scale=scale)
+        k6 = [k6_slice_check(piece[0], q, dv, start, p, mesh, spec)
+              for p in (P, SHARD_EMPTY_POS)]
+
+        step = S.make_serve_step(cfg)
+        for fn in counters().values():
+            fn.launches = 0
+        etap.seq_sharded_decode.reduced_bytes = 0
+        diffs, walls = [], []
+        for i in range(G):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, piece = step(params, piece, tokens[:, i], P + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            full = S.gather_rows(logits, mesh, B)
+            lr = ref["logits"][i].to(dev)
+            diffs.append(float((full - lr).abs().max()))
+            check_step(full, lr, f"{tag} step {i}", tag="seq-sharded",
+                       floor=ref["floor"])
+            if start <= P + i < start + n:
+                for key, want in ref["rows"][0].items():
+                    bitwise(piece[0][key][:, P + i - start],
+                            want[rows, i].to(dev),
+                            f"{tag} step {i}: layer 0 {key!r} row written")
+        got = {k: fn.launches for k, fn in counters().items()}
+        reduced = etap.seq_sharded_decode.reduced_bytes
+        deep = max((float((piece[li][key][:, P + i - start].float()
+                           - ref["rows"][li][key][rows, i].to(dev).float())
+                          .abs().max())
+                    for li in range(1, len(piece)) for key in ref["rows"][li]
+                    for i in range(G) if start <= P + i < start + n),
+                   default=0.0)
+
+        piece = _on(model.shard_cache(ref["cache"]), dev)
+        tok, run = tokens[:, 0], []
+        for i in range(G):
+            logits, piece = step(params, piece, tok, P + i)
+            tok = S.gather_rows(logits, mesh, B).argmax(-1).to(torch.int32)
+            run.append(tok.cpu())
+    run = torch.stack(run, 1)
+    diff = max(diffs)
+    parted = []
+    for b in range(B):
+        want = ref["tokens"][b, 1:]
+        p = next((i for i in range(G) if run[b, i] != want[i]), None)
+        if p is None:
+            continue
+        top2 = ref["logits"][p][b].topk(2).values
+        gap = float(top2[0] - top2[1])
+        if not gap < diff:
+            raise AssertionError(f"{tag}: free-running row {b} parts from "
+                                 f"the reference at token {p} (gap {gap:.4e}"
+                                 f" >= {diff:.4e})")
+        parted.append((b, p, gap))
+    return {"launches": got, "diffs": diffs, "step_ms": walls,
+            "bytes_per_step": reduced / G, "k6": k6, "parted": parted,
+            "deep_row_diff": deep, "free_equal": B - len(parted)}
+
+
+def shard_short_check(params, cfg, mesh) -> dict:
+    """The unsharded branch under the (2, 2) mesh: a SHARD_SHORT prompt
+    through ``model.prefill`` (K9) on the whole batch, the rank's batch
+    rows of its cache (S below SEQ_SHARD_MIN_S stays whole: K5), a few
+    greedy steps under the mesh, every launch count zeroed just before
+    and read just after, against the same steps on the whole batch
+    outside the mesh (check_step's gate; whether bitwise is logged)."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model
+    B, P, G = SHARD_SHORT
+    dev = mesh.device
+    gen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           dtype=torch.int32).to(dev)
+    step = S.make_serve_step(cfg)
+    for fn in counters().values():
+        fn.launches = 0
+    logits, cache, pos = model.prefill(params, cfg, prompt, P + G)
+    whole = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    tok = logits.argmax(-1).to(torch.int32)
+    with M.use_mesh(mesh):
+        piece = model.shard_cache(cache)
+        if any("seq_rows" in layer for layer in piece):
+            raise AssertionError("a short cache was sequence-sharded")
+        outs = []
+        for i in range(G):
+            lg, piece = step(params, piece, tok, pos + i)
+            outs.append(S.gather_rows(lg, mesh, B))
+            tok = outs[-1].argmax(-1).to(torch.int32)
+    got = {k: fn.launches for k, fn in counters().items()}
+    tok, same = logits.argmax(-1).to(torch.int32), True
+    for i in range(G):
+        lg, whole = step(params, whole, tok, pos + i)
+        check_step(outs[i], lg, f"short {B}x{P} step {i}",
+                   tag="seq-sharded-unsharded-branch")
+        same = same and torch.equal(outs[i], lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    return {"launches": got, "bitwise": same}
+
+
+def shard_rank_main(rank: int, world: int, work: str, backend: str,
+                    device: str) -> None:
+    """One rank of phase_seq_sharded: join the group (FileStore in
+    ``work``), build the meshes, then per model: the seed-0 weights (their
+    digest the same on every rank and equal to the reference's), and
+    shard_run on each mesh; DeepSeek also runs shard_short_check.  Writes
+    its report to ``work/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    # rank 0 prints; every rank checks (and raises)
+    with (open(os.devnull, "w") if rank else
+          contextlib.nullcontext(sys.stdout)) as out, \
+            contextlib.redirect_stdout(out):
+        dev = M.init_ranks(rank, world, backend=backend,
+                           init_method=f"file://{work / 'store'}",
+                           device=device, timeout_s=SHARD_COLLECTIVE_S)
+        try:
+            meshes = [M.make_host_mesh(dev, shape)
+                      for shape in SHARD_MESHES]
+            report = {}
+            for name in SHARD_MODELS:
+                ref = torch.load(work / f"{name}.pt", weights_only=False)
+                cfg = shard_config(name)
+                params = model.init(cfg, seed=0, device=dev)
+                torch.cuda.empty_cache()   # init's temporaries: 4 ranks, 1 card
+                digest = weights_digest(params)
+                every = [None] * world
+                dist.all_gather_object(every, digest)
+                if len(set(every)) != 1 or digest != ref["digest"]:
+                    raise AssertionError(f"{name}: weight digests {every}, "
+                                         f"the reference's {ref['digest']}")
+                for mesh in meshes:
+                    key = (name, mesh.shape["data"], mesh.shape["model"])
+                    report[key] = shard_run(name, params, cfg, ref, mesh)
+                if name == "deepseek":
+                    report["short"] = shard_short_check(params, cfg,
+                                                        meshes[1])
+                del params, ref
+                torch.cuda.empty_cache()
+            torch.save(report, work / f"rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
+
+
+def shard_backend() -> tuple[str, str, str]:
+    """(backend, device, what to print): nccl with a card a rank where the
+    machine has SHARD_RANKS cards, else gloo with every rank on cuda:0."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= SHARD_RANKS:
+        return "nccl", "cuda", f"nccl, one card a rank ({n} cards)"
+    return "gloo", "cuda:0", (
+        "gloo, every rank on cuda:0: the ranks share one card, so the "
+        "sharded step's wall measures no multi-GPU speedup")
+
+
+def phase_seq_sharded(launches: dict) -> None:
+    """Sequence-sharded decode across SHARD_RANKS ranks (ROADMAP A10a):
+    each model's single-process reference (shard_reference), the card
+    then freed; then the ranks (shard_rank_main), on one card over gloo
+    (every rank on cuda:0) or, with 4 cards, over nccl with a card a rank.
+    Prints each rank's K6 launches (summed into ``launches``), the bytes a
+    step all-reduces, the sharded step's wall ms beside the unsharded
+    one's, and the free-running streams."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    backend, device, where = shard_backend()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        refs = {name: shard_reference(name, work, launches)
+                for name in SHARD_MODELS}
+        torch.cuda.empty_cache()
+        log(f"[seq-sharded] {SHARD_RANKS} ranks, backend {where}; meshes "
+            f"(data, model) {list(SHARD_MESHES)}")
+        t0 = time.perf_counter()
+        M.spawn(shard_rank_main, SHARD_RANKS, (str(work), backend, device),
+                timeout_s=SHARD_SPAWN_S)
+        reports = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                   for r in range(SHARD_RANKS)]
+    log(f"[seq-sharded] ranks done in {time.perf_counter() - t0:.1f} s "
+        "(their start, weights and both models)")
+    for name in SHARD_MODELS:
+        cfg = shard_config(name)
+        ref = refs[name]
+        for data, mdl in SHARD_MESHES:
+            key = (name, data, mdl)
+            per = [rep[key] for rep in reports]
+            k6 = [rep["launches"]["etap_partial_dense"] for rep in per]
+            if not all(k6):
+                raise AssertionError(f"{key}: K6 launches by rank {k6}")
+            for rep in per:
+                credit_shard(launches, rep["launches"], cfg)
+            ms = sorted(per[0]["step_ms"][1:])[(len(per[0]["step_ms"]) - 1)
+                                              // 2]
+            log(f"[seq-sharded] {name} ({data}, {mdl}): K6 "
+                f"launches by rank {k6} (sum {sum(k6)}), K5 "
+                f"{[rep['launches']['etap_decode_dense'] for rep in per]}, "
+                f"K2 {[rep['launches']['combine_splits'] for rep in per]}; "
+                f"max |dlogit| over the steps {max(per[0]['diffs']):.4e} "
+                f"(floor {ref['floor']:.4e}); K6 vs plain on each slice, max "
+                f"err {max(c['err'] for rep in per for c in rep['k6']):.3e},"
+                f" empty slices checked on ranks "
+                f"{[r for r, rep in enumerate(per) if rep['k6'][1]['empty']]}"
+                f"; deeper layers' written rows max diff "
+                f"{max(rep['deep_row_diff'] for rep in per):.3e} (layer 0 "
+                f"bitwise); all-reduced {per[0]['bytes_per_step']:.0f} bytes "
+                f"a step a rank; step {ms:.3f} ms sharded (rank 0, median) "
+                f"against {ref['step_ms']:.3f} ms unsharded (one process, "
+                f"the card alone); free-running rows equal "
+                f"{per[0]['free_equal']}/{SHARD_MODELS[name][2]}, parted "
+                f"{per[0]['parted']}")
+    short = [rep["short"] for rep in reports]
+    k5 = [s["launches"]["etap_decode_dense"] for s in short]
+    if not all(k5):
+        raise AssertionError(f"unsharded branch under the mesh: K5 by rank "
+                             f"{k5}")
+    for s in short:
+        credit_shard(launches, s["launches"], shard_config("deepseek"))
+    log(f"[seq-sharded] unsharded branch under the (2, 2) mesh (DeepSeek B "
+        f"{SHARD_SHORT[0]} x {SHARD_SHORT[1]}): K5 launches by rank {k5}, K9 "
+        f"{[s['launches']['flash_prefill'] for s in short]}; bitwise the "
+        f"whole-batch run on every rank: {all(s['bitwise'] for s in short)}")
+    log(f"[seq-sharded] {where}; {gpu_line()}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -7630,6 +8099,8 @@ def main(argv=None) -> int:
                   layout="dense")
         del params
         torch.cuda.empty_cache()
+
+    timed("sequence-sharded decode", phase_seq_sharded, launches)
 
     for wrapper, w in {v[2:4] for v in QDENSE_KERNELS.values()}:
         if not any(n for k, n in served.items()

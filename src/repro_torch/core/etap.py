@@ -30,13 +30,25 @@ or K3q / K1q / K4q over codes, which dequantize in registers); the
 the reference no serve loop reaches the separate-V pools (the GQA paged
 path gathers its pools to the dense layout): they are reached through
 these entries and ``kernels/etap/ops.py``.
+
+Under a mesh whose ``model`` axis sequence-shards a long dense cache
+(:func:`repro_torch.sharding.rules.seq_shardable`), decode runs
+:func:`seq_sharded_decode` (the MLA latent) or
+:func:`seq_sharded_gqa_decode` (a GQA cache): each rank holds S/n rows of
+the cache, runs K6 over them and exchanges only the softmax statistics.
 """
 from __future__ import annotations
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.kernels import softmax_state
+from repro_torch.kernels.etap import etap as etap_kernels
 from repro_torch.kernels.etap import ops as etap_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
-from repro_torch.kernels.splitkv import grouped
+from repro_torch.kernels.splitkv import grouped, split_plan
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.runtime.paged_cache import gather_blocks
 
 
@@ -154,3 +166,100 @@ def verify_attention_paged(q, k_pool, v_pool, table, start, qpos, *,
                                               qpos, spec=spec, kv_sz=k_sz)
     return etap_ops.etap_verify_paged(q, k_pool, v_pool, table, start, qpos,
                                       spec=spec, k_sz=k_sz, v_sz=v_sz)
+
+
+# ------------------------------------------------- sequence-sharded decode
+def _write_owned(cache, row, pos: int, start: int) -> None:
+    """Write ``row`` [B, ...] at global position ``pos`` of a rank's slice
+    of S/n rows starting at global row ``start``, if the slice holds it."""
+    if start <= pos < start + cache.shape[1]:
+        cache[:, pos - start] = row
+
+
+def _shard_partial(q, k, v, pos: int, start: int, *, scale, block, mode):
+    """The rank's local partial: K6 (its plain version on CPU operands)
+    over the slice's valid rows, ``clamp(pos + 1 - start, 0, S/n)`` of
+    them, under the slice's own (auto) split plan, and the plan's splits
+    merged here.  q [BG, G, Dk]; k, v [BG, S/n, D*] or a GQA slice [B, S/n, K,
+    D*].  Returns fp32 (m [BG, G], l [BG, G], accT [BG, Dv, G])."""
+    n_local = k.shape[1]
+    length = torch.full((q.shape[0],), min(max(pos + 1 - start, 0), n_local),
+                        dtype=torch.int32, device=q.device)
+    plan = split_plan(q, k, v, spec=AttnSpec(block=block))
+    m, l, acc = etap_kernels.etap_partial_dense(q, k, v, length, scale=scale,
+                                                plan=plan, rescale=mode)
+    return softmax_state.merge_splits(m, l, acc, axis=1, mode=mode,
+                                      expand=lambda w: w[:, :, None, :])
+
+
+def _combine_shards(m, l, acc, *, axis: str, mode: str):
+    """The cross-rank combine over ``axis`` of the current mesh: an
+    all-reduce MAX of m, then one all-reduce SUM of l·w and accᵀ·w packed
+    in one buffer, w = :func:`softmax_state.merge_weights` (m, m*).
+    Returns Oᵀ = acc* / l* [BG, Dv, G] fp32."""
+    mesh = mesh_mod.get_mesh()
+    m_g = mesh_mod.all_reduce(m.clone(), dist.ReduceOp.MAX, mesh, axis)
+    w = softmax_state.merge_weights(m, m_g, mode=mode)
+    buf = torch.cat([(l * w).reshape(-1),
+                     (acc * w[:, None, :]).reshape(-1)])
+    mesh_mod.all_reduce(buf, dist.ReduceOp.SUM, mesh, axis)
+    seq_sharded_decode.reduced_bytes += (m_g.numel() + buf.numel()) * 4
+    l_g = buf[:l.numel()].view_as(l)
+    acc_g = buf[l.numel():].view_as(acc)
+    return acc_g / l_g[:, None, :]
+
+
+def _slice_start(cache, axis: str) -> int:
+    mesh = mesh_mod.get_mesh()
+    if mesh is None:
+        raise ValueError("sequence-sharded decode needs a mesh (use_mesh)")
+    return mesh.coord(axis) * cache.shape[1]
+
+
+def seq_sharded_decode(q, cache, new_row, pos: int, *, dv: int, scale: float,
+                       axis: str = "model", block: int = 512,
+                       rescale: str | None = None):
+    """Sequence-sharded MLA decode over ``axis`` of the current mesh.
+
+    The MLA latent cache [B, S, L] has NO head dimension, so tensor
+    parallelism cannot shard it — instead S is sharded over the model
+    axis: each rank holds rows [start, start + S/n), start = its index ·
+    S/n, and (1) writes the new latent row if it owns position ``pos`` (a
+    host int), (2) runs the ETAP partial K6 over its slice (whatever the
+    spec's mode, as the reference does), merging the slice's own splits,
+    and (3) the ranks exchange the (m, l, accᵀ) stats (flash-decode-style
+    cross-device softmax combine).  q [B, H, L] whole on every rank; cache
+    the rank's slice [B, S/n, L], written in place; new_row [B, L].
+    Returns (O [B, H, dv] in the cache's dtype, cache)."""
+    mode = softmax_state.resolve(rescale)
+    start = _slice_start(cache, axis)
+    _write_owned(cache, new_row, pos, start)
+    m, l, acc = _shard_partial(q, cache, cache[..., :dv], pos, start,
+                               scale=scale, block=block, mode=mode)
+    oT = _combine_shards(m, l, acc, axis=axis, mode=mode)
+    return oT.transpose(1, 2).to(cache.dtype), cache
+
+
+def seq_sharded_gqa_decode(q, k_cache, v_cache, new_k, new_v, pos: int, *,
+                           scale: float, axis: str = "model",
+                           block: int = 512, rescale: str | None = None):
+    """Sequence-sharded GQA decode — the generic-attention analogue of
+    :func:`seq_sharded_decode`: each rank holds an S/n slice of the [B, S,
+    K, hd] caches, writes the new K/V rows if ``pos`` falls in it, runs K6
+    over the slice in its grouped form (B·K rows of G = H/K columns, read
+    in place: :func:`gqa_grouped_view`), and the ranks exchange only the
+    (m, l, accᵀ) stats.  q [B, H, hd] (head h = kv head h // G, column h
+    % G); new_k, new_v [B, K, hd].  Returns (O [B, H, Dv], k_cache,
+    v_cache)."""
+    mode = softmax_state.resolve(rescale)
+    start = _slice_start(k_cache, axis)
+    _write_owned(k_cache, new_k, pos, start)
+    _write_owned(v_cache, new_v, pos, start)
+    qg, k, v, restore = gqa_grouped_view(q.contiguous(), k_cache, v_cache)
+    m, l, acc = _shard_partial(qg, k, v, pos, start, scale=scale,
+                               block=block, mode=mode)
+    oT = _combine_shards(m, l, acc, axis=axis, mode=mode)
+    return restore(oT.transpose(1, 2)).to(v_cache.dtype), k_cache, v_cache
+
+
+seq_sharded_decode.reduced_bytes = 0

@@ -18,10 +18,12 @@ import torch
 from repro_torch.core.attn_spec import AttnSpec
 from repro_torch.core.etap import (decode_attention, decode_attention_paged,
                                    prefill_attention_paged,
-                                   verify_attention_paged)
+                                   seq_sharded_decode, verify_attention_paged)
+from repro_torch.launch.mesh import get_mesh
 from repro_torch.models import layers
 from repro_torch.models.attention import causal_attention
 from repro_torch.runtime import paged_cache
+from repro_torch.sharding.rules import seq_sharded
 
 
 def init_mla(gen, cfg, dtype, device):
@@ -115,7 +117,11 @@ def mla_decode(params, cfg, x, cache, pos: int, *,
     shared by every row.  The new latent row is written at ``pos`` in place;
     attention runs over positions <= pos with K = the whole latent and V =
     its first kv_lora_rank columns (a view: the cache is read in place).
-    Returns (out [B,D], {"c": cache})."""
+    Under a mesh that sequence-shards the cache (S >= SEQ_SHARD_MIN_S, S a
+    multiple of the ``model`` extent), ``cache`` is this rank's slice with
+    the whole cache's row count under "seq_rows", and decode runs
+    :func:`repro_torch.core.etap.seq_sharded_decode` (the latent has no
+    head dim to shard).  Returns (out [B,D], the cache dict)."""
     spec = spec or AttnSpec()
     m = cfg.mla
     B = x.shape[0]
@@ -123,11 +129,18 @@ def mla_decode(params, cfg, x, cache, pos: int, *,
     q = _absorbed_query(params, cfg, x, positions)
     c_t = _latent(params, cfg, x[:, None, :], positions)[:, 0]  # [B,latent]
     cache_c = cache["c"]
+    scale = m.qk_head_dim ** -0.5
+    if seq_sharded(cache, "c", get_mesh()):
+        o_lat, cache_c = seq_sharded_decode(
+            q, cache_c, c_t, pos, dv=m.kv_lora_rank, scale=scale,
+            block=spec.block, rescale=spec.rescale)
+        return (_absorbed_out(params, cfg, o_lat, x.dtype),
+                {"c": cache_c, "seq_rows": cache["seq_rows"]})
     cache_c[:, pos] = c_t
     length = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     o_lat = decode_attention(
         q, cache_c, cache_c[..., :m.kv_lora_rank], length,
-        spec=spec.replace(scale=m.qk_head_dim ** -0.5))       # [B,H,kv]
+        spec=spec.replace(scale=scale))                       # [B,H,kv]
     return _absorbed_out(params, cfg, o_lat, x.dtype), {"c": cache_c}
 
 

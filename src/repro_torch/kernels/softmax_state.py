@@ -137,3 +137,30 @@ def merge(a, b, *, mode: str, expand=_identity):
     wa = exp_fn(ma - m)
     wb = exp_fn(mb - m)
     return (m, la * wa + lb * wb, acca * expand(wa) + accb * expand(wb))
+
+
+def _pow2(d):
+    """2^d for integer-valued fp32 d <= 0 (or NEG_INF differences), exact,
+    built from the exponent as ``csrc/softmax_state.cuh:stat_weight``
+    builds it: d below -200 gives 0, subnormal results are kept."""
+    e = torch.clamp(d, min=-200.0).to(torch.int32)
+    normal = (e + 127) << 23
+    sub = torch.bitwise_left_shift(torch.ones_like(e),
+                                   torch.clamp(e + 149, min=0))
+    bits = torch.where(e >= -126, normal,
+                       torch.where(e >= -149, sub, torch.zeros_like(e)))
+    return bits.view(torch.float32)
+
+
+def merge_weights(m, m_global, *, mode: str):
+    """Per-shard combine weight ``w = expΔ(m − m*)`` for the cross-rank
+    (all-reduce MAX, then SUM) combine — the distributed twin of
+    :func:`merge_splits`, where the Σ is an all-reduce the caller owns.
+    fp32 on entry, like every merge.  In amla mode both stats are
+    integer-valued (or NEG_INF), and 2^Δ is built from the exponent
+    (:func:`_pow2`), exact; a shard whose slice holds no position (m =
+    NEG_INF) gets weight 0 in both modes."""
+    d = m.float() - m_global.float()
+    if _check(mode) == "amla":
+        return _pow2(d)
+    return torch.exp(d)

@@ -1,0 +1,196 @@
+"""Meshes over ``torch.distributed`` — the port of ``repro/launch/mesh.py``
+and of the two ``repro/compat.py`` helpers the mesh branches read
+(``set_mesh``, here :func:`use_mesh`, and :func:`get_mesh`).
+
+A :class:`Mesh` names its axes and their extents as the reference's
+``jax.sharding.Mesh`` does (``axis_names``, ``shape[name]``), which is all
+the sharding rules (:mod:`repro_torch.sharding.rules`) read.
+:func:`make_production_mesh` returns only that description (it never
+builds 256 ranks); :func:`make_host_mesh` also builds a
+``torch.distributed.device_mesh.DeviceMesh`` over the initialised process
+group, whose per-axis groups the collectives below run on.  Each rank holds
+its own piece of every sharded tensor, so where the reference's shard_map
+hands a function its block, the port's tensors are those blocks already.
+
+Backends, chosen by the caller of :func:`init_ranks` (nothing here swaps
+one for another): ``"nccl"`` with rank r on ``cuda:r``; ``"gloo"`` on the
+CPU; ``"gloo"`` with every rank on one card (``cuda:0``), the ranks then
+sharing that card.  On gloo the collectives run on host copies of CUDA
+tensors, on every call: gloo's CUDA support does not cover every
+collective, so the helpers stage through the host whatever the op.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import datetime
+import math
+import multiprocessing
+import time
+
+import torch
+import torch.distributed as dist
+
+DEFAULT_TIMEOUT_S = 300
+
+
+class Mesh:
+    """Axis names and extents (``shape[name]``), and for a mesh over live
+    ranks its ``DeviceMesh``, backend and this rank's device."""
+
+    def __init__(self, axis_names, extents, *, device_mesh=None,
+                 backend: str | None = None, device=None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, extents, strict=True))
+        self.device_mesh = device_mesh
+        self.backend = backend
+        self.device = None if device is None else torch.device(device)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        if self.device_mesh is None:
+            raise ValueError("a mesh description has no ranks")
+        return self.device_mesh.get_local_rank(axis)
+
+    def index(self, axes) -> int:
+        """This rank's index over ``axes`` taken together, the first axis
+        the slowest (the order a spec entry's tuple names them in)."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.coord(a)
+        return idx
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, backend={self.backend}, "
+                f"device={self.device})")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production shapes, as a description: one pod is 256
+    chips as (data=16, model=16); two pods are (pod=2, data=16, model=16),
+    the pod axis composing with data for the batch."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(device="cuda", shape=None) -> Mesh:
+    """A ("data", "model") mesh over the initialised process group, of
+    ``shape`` (default the reference's (world, 1)); rank r sits at
+    (r // model, r % model).  ``device`` is this rank's device (a card, or
+    "cpu"), set by :func:`init_ranks`."""
+    n = dist.get_world_size()
+    shape = tuple(shape or (n, 1))
+    if math.prod(shape) != n:
+        raise ValueError(f"mesh {shape} over {n} ranks")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    from torch.distributed.device_mesh import DeviceMesh
+    dm = DeviceMesh(device.type, torch.arange(n).reshape(shape),
+                    mesh_dim_names=("data", "model"))
+    return Mesh(("data", "model"), shape, device_mesh=dm,
+                backend=dist.get_backend(), device=device)
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Make ``mesh`` the current mesh for the block (``jax.set_mesh``)."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def get_mesh() -> Mesh | None:
+    """The current mesh, or None outside :func:`use_mesh`."""
+    return _MESH.get()
+
+
+# ------------------------------------------------------------- collectives
+def _staged(t, mesh: Mesh):
+    """The tensor a collective runs on: a host copy of a CUDA tensor on
+    gloo (every call), else ``t`` itself."""
+    return t.cpu() if mesh.backend == "gloo" and t.is_cuda else t
+
+
+def all_reduce(t, op, mesh: Mesh, axis: str):
+    """In-place all-reduce of ``t`` over ``axis`` (``op`` a
+    ``dist.ReduceOp``).  Returns ``t``."""
+    s = _staged(t, mesh)
+    dist.all_reduce(s, op=op, group=mesh.group(axis))
+    if s is not t:
+        t.copy_(s)
+    return t
+
+
+def all_gather(t, mesh: Mesh, axis: str):
+    """The pieces of ``t`` over ``axis`` concatenated along dim 0 in axis
+    order."""
+    s = _staged(t.contiguous(), mesh)
+    parts = [torch.empty_like(s) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, s, group=mesh.group(axis))
+    return torch.cat(parts).to(t.device)
+
+
+# ------------------------------------------------------------------ ranks
+def init_ranks(rank: int, world: int, *, backend: str, init_method: str,
+               device: str = "cuda",
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Join the process group as ``rank`` of ``world`` on ``backend``
+    through ``init_method`` (``"file://<path>"``, a FileStore, or
+    ``"tcp://localhost:<port>"``), collectives timing out after
+    ``timeout_s``.  ``device``: "cpu"; "cuda" puts rank r on ``cuda:r``
+    (one card a rank, nccl); "cuda:0" puts every rank on that card.
+    Returns this rank's device, made current."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if dev.index is None else dev.index)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return dev
+
+
+def spawn(fn, world: int, args=(), *, timeout_s: float):
+    """Run ``fn(rank, world, *args)`` in ``world`` fresh processes (the
+    spawn start method) and wait for all of them at most ``timeout_s``
+    seconds.  Raises if a rank exits with another code than 0 or is still
+    running at the limit; every process is gone when this returns."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world, *args), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    failed = {r: p.exitcode for r, p in enumerate(procs)
+              if r not in late and p.exitcode != 0}
+    if failed:
+        raise RuntimeError(f"ranks exited with codes {failed}; ranks {late} "
+                           "were killed while still running")
+    if late:
+        raise TimeoutError(f"ranks {late} still running after {timeout_s} s")

@@ -11,8 +11,10 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model
 from repro_torch.optim import optimizers as opt
+from repro_torch.sharding import rules
 
 
 @dataclass(frozen=True)
@@ -90,12 +92,25 @@ def make_train_step(cfg, tcfg: TrainConfig):
 
 def make_serve_step(cfg, *, mode: str = "etap"):
     """serve_step(params, cache, tokens, pos) -> (logits, cache): one
-    decode token against the dense cache (the paper's workload)."""
+    decode token against the dense cache (the paper's workload).  Under
+    ``launch.mesh.use_mesh`` the cache is the rank's piece and the logits
+    are the rank's batch rows (:func:`gather_rows` gathers them)."""
     spec = AttnSpec(mode=mode)
 
     def serve_step(params, cache, tokens, pos):
         return model.decode_step(params, cfg, cache, tokens, pos, spec=spec)
     return serve_step
+
+
+def gather_rows(logits, mesh, batch: int):
+    """The whole batch's rows (``batch`` of them) of a rank's result under
+    ``mesh``, gathered over the batch axis in rank order: ``logits``
+    itself where ``rules.cache_specs`` leaves the batch whole (``batch``
+    does not divide, or one data rank)."""
+    axes = rules._fit(rules.batch_axes(mesh), batch, mesh)
+    if axes is None or mesh.shape[axes] == 1:
+        return logits
+    return mesh_mod.all_gather(logits, mesh, axes)
 
 
 def make_prefill_step(cfg, max_len: int):

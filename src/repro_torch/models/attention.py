@@ -49,10 +49,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.attn_spec import AttnSpec
-from repro_torch.core.etap import decode_attention, gqa_grouped_view
+from repro_torch.core.etap import (decode_attention, gqa_grouped_view,
+                                   seq_sharded_gqa_decode)
 from repro_torch.kernels.flash_prefill import ops as prefill_ops
+from repro_torch.launch.mesh import get_mesh
 from repro_torch.models import layers
 from repro_torch.runtime import paged_cache
+from repro_torch.sharding.rules import seq_sharded
 
 NEG_INF = -1e30
 
@@ -223,20 +226,37 @@ def attention_decode(params, cfg, x, cache, pos: int, *,
     [B,Smax,K,hd]}; pos the new token's position, shared by every row.  The
     new K/V rows are written in place at row ``pos`` (full attention) or
     ``pos % Smax`` (local attention's ring buffer), and attention runs over
-    the first ``min(pos + 1, Smax)`` rows.  Returns (out [B,D], cache)."""
+    the first ``min(pos + 1, Smax)`` rows.  Under a mesh that
+    sequence-shards a full-attention cache (``seq_shardable`` of the whole
+    S, recorded under "seq_rows" beside this rank's slice) decode runs
+    :func:`repro_torch.core.etap.seq_sharded_gqa_decode`.  The reference's
+    condition is ``attention_kind == "full" and not cfg.use_kernels and
+    seq_shardable(...)``; the port's config has no ``use_kernels`` (the
+    reference's default is False), so the port's condition is
+    ``attention_kind == "full"`` and the cache sharded.  A local ring never
+    shards.  Returns (out [B,D], the cache dict)."""
     spec = spec or AttnSpec()
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
     kc, vc = cache["k"], cache["v"]
+    scale = cfg.resolved_head_dim ** -0.5
+    if seq_sharded(cache, "k", get_mesh()):
+        if cfg.attention_kind != "full":
+            raise ValueError("a local attention ring is never "
+                             "sequence-sharded")
+        o, kc, vc = seq_sharded_gqa_decode(
+            q[:, 0], kc, vc, k[:, 0], v[:, 0], pos, scale=scale,
+            block=spec.block, rescale=spec.rescale)
+        return (layers.dense(o.reshape(B, -1), params["w_o"]),
+                {"k": kc, "v": vc, "seq_rows": cache["seq_rows"]})
     Smax = kc.shape[1]
     slot = pos % Smax if cfg.attention_kind == "local" else pos
     kc[:, slot] = k[:, 0]
     vc[:, slot] = v[:, 0]
     length = torch.full((B,), min(pos + 1, Smax), dtype=torch.int32,
                         device=x.device)
-    o = gqa_decode(q[:, 0], kc, vc, length,
-                   spec=spec.replace(scale=cfg.resolved_head_dim ** -0.5))
+    o = gqa_decode(q[:, 0], kc, vc, length, spec=spec.replace(scale=scale))
     return layers.dense(o.reshape(B, -1), params["w_o"]), {"k": kc, "v": vc}
 
 

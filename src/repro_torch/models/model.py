@@ -33,13 +33,17 @@ serving, whose parameters require no grad, never reaches it.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.launch.mesh import get_mesh
 from repro_torch.models import attention, frontend, layers, mamba, moe, rglru
 from repro_torch.runtime import paged_cache
+from repro_torch.sharding import rules
 
 AUX_KEYS = ("load_balance", "router_z")
 
@@ -264,12 +268,7 @@ def loss_fn(params, cfg, batch):
 
 
 # ----------------------------------------------------------------- serving
-def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
-    """Dense serving cache, one dict per layer: {"c": [batch, max_len,
-    latent]} for an MLA layer, {"k", "v": [batch, max_len, K, hd]} for a
-    GQA layer (local attention: min(max_len, window) rows, a ring), the
-    recurrent state {"h", "conv"} for an ssm or RG-LRU layer."""
-    check_ported(cfg)
+def _whole_cache(cfg, batch: int, max_len: int, device):
     dtype = cfg.torch_dtype
 
     def one(kind):
@@ -283,6 +282,72 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
         return attention.init_attention_cache(cfg, batch, max_len, dtype,
                                               device=device)
     return [one(kind) for kind in cfg.layer_kinds()]
+
+
+_SEQ_KEYS = ("c", "k", "v")           # the attention caches [B, S, ...]
+
+
+def _rank_specs(cache, mesh):
+    """``rules.cache_specs`` of a whole dense cache, checked against what
+    this slice applies: the batch entry, and the S entry of an attention
+    cache.  Any other entry that splits a dim (a Mamba state over `model`,
+    an RG-LRU state) raises."""
+    specs = rules.cache_specs(cache, mesh)
+    for i, (layer, lspec) in enumerate(zip(cache, specs, strict=True)):
+        for key, spec in lspec.items():
+            for dim, entry in enumerate(spec or ()):
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                split = math.prod(mesh.shape[a] for a in axes if a)
+                if split > 1 and dim > 0 and not (
+                        dim == 1 and key in _SEQ_KEYS):
+                    raise NotImplementedError(
+                        f"layer {i} {key!r} {tuple(layer[key].shape)}: "
+                        f"cache_specs splits dim {dim} over {entry} on "
+                        f"{mesh}; not yet ported (ROADMAP A10b)")
+    return specs
+
+
+def _rank_layer(layer, lspec, rows_of):
+    """One layer's rank cache: each tensor from ``rows_of(t, spec)``, and
+    the whole S under "seq_rows" where the spec shards S."""
+    out = {key: rows_of(t, lspec[key]) for key, t in layer.items()}
+    for key in _SEQ_KEYS:
+        if key in layer and lspec[key][1] is not None:
+            out["seq_rows"] = layer[key].shape[1]
+            break
+    return out
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device="cuda"):
+    """Dense serving cache, one dict per layer: {"c": [batch, max_len,
+    latent]} for an MLA layer, {"k", "v": [batch, max_len, K, hd]} for a
+    GQA layer (local attention: min(max_len, window) rows, a ring), the
+    recurrent state {"h", "conv"} for an ssm or RG-LRU layer.  Under a
+    mesh (``launch.mesh.use_mesh``) each rank gets its piece by
+    ``rules.cache_specs``: batch / n_data rows, and S / n_model rows of an
+    attention cache where ``seq_shardable`` (the whole S then under
+    "seq_rows")."""
+    check_ported(cfg)
+    mesh = get_mesh()
+    if mesh is None:
+        return _whole_cache(cfg, batch, max_len, device)
+    whole = _whole_cache(cfg, batch, max_len, "meta")
+    specs = _rank_specs(whole, mesh)
+    return [_rank_layer(layer, lspec, lambda t, spec: torch.zeros(
+        rules.local_shape(t.shape, spec, mesh), dtype=t.dtype,
+        device=device)) for layer, lspec in zip(whole, specs, strict=True)]
+
+
+def shard_cache(cache, mesh=None):
+    """This rank's piece of a whole dense cache (:func:`prefill`'s, or
+    :func:`init_cache`'s outside a mesh) by ``rules.cache_specs`` on
+    ``mesh`` (default the current one), as :func:`init_cache` places it
+    under the mesh: each piece a contiguous copy."""
+    mesh = mesh or get_mesh()
+    specs = _rank_specs(cache, mesh)
+    return [_rank_layer(layer, lspec, lambda t, spec: rules.local_rows(
+        t, spec, mesh).clone(memory_format=torch.contiguous_format))
+        for layer, lspec in zip(cache, specs, strict=True)]
 
 
 def _pad_cache_rows(cfg, kind, cache_rows, max_len):
@@ -338,6 +403,10 @@ def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     nothing to page (the reference's ``ValueError``)."""
     check_pageable(cfg)
     check_ported(cfg)
+    mesh = get_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"a paged cache on {mesh}: not yet ported (ROADMAP A10b)")
     init = (mla_mod.init_mla_cache_paged if cfg.attention_kind == "mla"
             else attention.init_attention_cache_paged)
     return [init(cfg, layout, cfg.torch_dtype, kv_dtype, device=device)
@@ -518,7 +587,12 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
     :func:`init_paged_cache`'s, and block_table [B,max_blocks] plus
     per-sequence lengths [B] place each new token.  An MLA layer's cache is
     updated in place; a Mamba layer's state is replaced by the new one.
-    Returns (logits [B,V] fp32, cache)."""
+    Under a mesh (dense layout): ``tokens`` is the whole batch, ``cache``
+    this rank's piece (:func:`init_cache` / :func:`shard_cache` under the
+    mesh), and the step runs the rank's batch rows (``rules.cache_specs``'
+    batch entry), each rank over its sequence slice where the cache is
+    sequence-sharded.  Returns (logits [B,V] fp32, under a mesh the rank's
+    rows (``launch.steps.gather_rows`` gathers them), cache)."""
     spec = spec or AttnSpec()
     if cache_layout not in ("dense", "paged"):
         raise ValueError(f"cache_layout {cache_layout!r}")
@@ -526,6 +600,13 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
         raise ValueError("paged decode_step needs block_table and lengths")
     if cache_layout == "dense" and pos is None:
         raise ValueError("dense decode_step needs pos")
+    mesh = get_mesh()
+    if mesh is not None:
+        if cache_layout == "paged" and mesh.size > 1:
+            raise NotImplementedError(
+                f"paged decode on {mesh}: not yet ported (ROADMAP A10b)")
+        tokens = rules.local_rows(tokens, rules.P(rules._fit(
+            rules.batch_axes(mesh), tokens.shape[0], mesh)), mesh)
     x = layers.embed(params["embed"], tokens)
     new_cache = []
     for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),

@@ -1,0 +1,285 @@
+"""Sharding rules: parameter path -> spec, plus input and cache specs — the
+port of ``repro/sharding/rules.py``.
+
+Policy (DESIGN.md §5):
+ - batch dims ride ("pod", "data") (pod only on the multi-pod mesh);
+ - TP: head / ff / expert / vocab dims ride "model";
+ - FSDP: the complementary big dim of each weight rides "data";
+ - an axis is applied only if the dim divides by its mesh extent
+   (best-effort: e.g. smollm's 15 heads stay unsharded on a 16-way TP).
+
+The specs key off the port's trees, whose leaves carry no stacked layer
+dim: one dict a layer (``params["layers"][i]``), one cache dict a layer
+with [B, S, latent] / [B, S, K, hd] attention caches.  Each spec equals the
+reference's for the same leaf with the reference's leading layer entry
+dropped (paths map through ``models/convert.py``'s unstacking).  A
+:class:`P` is a tuple of entries (None, an axis name, or a tuple of axis
+names), as ``jax.sharding.PartitionSpec`` is.  :func:`local_rows` cuts a
+rank's piece of a tensor by a spec; the reference's ``constrain`` has no
+counterpart, since the port holds rank-local tensors.
+"""
+from __future__ import annotations
+
+import re
+
+import torch
+
+
+class P(tuple):
+    """A partition spec: one entry a dim (None = whole); a one-axis tuple
+    entry is kept as the axis name, as PartitionSpec keeps it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def batch_axes(mesh):
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+BATCH = ("pod", "data")   # generic batch-dim axes (pod dropped on one pod)
+
+# decode caches with S >= this are sequence-sharded over `model` (the
+# partial-softmax decode of core.etap.seq_sharded_decode); smaller caches
+# (local windows, tests) stay batch-sharded.  cache_specs and the decode
+# branches both read it through seq_shardable, so they never disagree.
+SEQ_SHARD_MIN_S = 8192
+
+
+def seq_shardable(S: int, mesh) -> bool:
+    """Whether a cache of S rows (the whole sequence, not a rank's piece)
+    is sequence-sharded over ``model`` on ``mesh``."""
+    names = getattr(mesh, "axis_names", ()) if mesh is not None else ()
+    return ("model" in names and S % mesh.shape["model"] == 0
+            and S >= SEQ_SHARD_MIN_S)
+
+
+def _fit(spec_entry, dim: int, mesh):
+    """Drop mesh axes that don't divide ``dim``."""
+    if spec_entry is None:
+        return None
+    axes = spec_entry if isinstance(spec_entry, tuple) else (spec_entry,)
+    kept = []
+    size = 1
+    for a in axes:
+        if a not in mesh.axis_names:
+            continue
+        ext = mesh.shape[a]
+        if dim % (size * ext) == 0:
+            kept.append(a)
+            size *= ext
+    if not kept:
+        return None
+    return tuple(kept) if len(kept) > 1 else kept[0]
+
+
+# path regex -> raw spec (per trailing dims)
+_RULES = [
+    (r"embed$",                    ("model", None)),            # [V, D]
+    (r"frontend/proj$",            ("data", "model")),
+    (r"(w_q|w_uq)$",               ("data", "model")),
+    (r"(w_k|w_v)$",                ("data", "model")),
+    (r"w_o$",                      ("model", "data")),
+    (r"(w_dq|w_dkv)$",             ("data", "model")),
+    (r"(w_uk|w_uv)$",              (None, "model")),            # [kv_lora, H*hd]
+    (r"(w_gate|w_up|w_in|w_x)$",   ("data", "model")),          # [D, F]
+    (r"(w_down|w_out)$",           ("model", "data")),          # [F, D]
+    (r"router$",                   ("data", None)),
+    (r"ffn/w_gate$",               ("model", "data", None)),    # MoE [E, D, F] (EP)
+    (r"ffn/w_up$",                 ("model", "data", None)),
+    (r"ffn/w_down$",               ("model", None, "data")),
+    (r"w_bcdt$",                   ("model", None)),            # [d_inner, ...]
+    (r"w_dt$",                     (None, "model")),
+    (r"(conv_w|conv_b|dt_bias|D)$", (None,)),
+    (r"log_neg_A$",                ("model", None)),
+    (r"(w_a|w_i)$",                ("model", None)),            # lru [W, W]
+    (r"(norm|scale|bias|log_lambda|q_norm|k_norm|kv_norm)", (None,)),
+]
+# NOTE: order matters — first match wins; MoE expert weights are matched by
+# the `ffn/...` entries *before* the generic w_gate/w_down rules because the
+# generic rules assume 2-D weights; see _spec_for.
+
+
+def _spec_for(path: str, ndim: int, mesh, shape) -> P:
+    raw: tuple | None = None
+    # 3-D (stacked-expert) weights need the MoE rules; check those first.
+    for pat, spec in _RULES:
+        if pat.startswith("ffn/") and re.search(pat, path) and ndim == 3:
+            raw = spec
+            break
+    if raw is None:
+        for pat, spec in _RULES:
+            if re.search(pat, path):
+                raw = spec
+                break
+    if raw is None:
+        raw = (None,) * ndim
+    lead = ndim - len(raw)
+    if lead < 0:          # param has fewer dims than rule (e.g. reduced cfg)
+        raw = raw[-ndim:] if ndim else ()
+        lead = 0
+    entries = [None] * lead + [
+        _fit(s, shape[lead + i], mesh) for i, s in enumerate(raw)]
+    return P(*entries)
+
+
+def _tree_map_with_path(fn, tree, path=()):
+    """``fn("a/b/0/c", leaf)`` over the tensors of a tree of dicts and
+    lists; a new tree of the same structure (None for a leaf that is no
+    tensor)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    if not isinstance(tree, torch.Tensor):
+        return None
+    return fn("/".join(path), tree)
+
+
+def param_specs(params, mesh, *, profile: str = "train"):
+    """Spec tree matching ``params`` (the serving copy ``embed_f32`` takes
+    ``embed``'s spec).
+
+    profile="train": TP over `model` + FSDP over `data` (weights gathered
+    per layer, reduce-scattered grads) — the memory-optimal training layout.
+    profile="serve": TP/EP only — weights replicated across `data`; decoding
+    must NOT re-gather FSDP shards every token (§Perf iteration S1)."""
+    def one(path, leaf):
+        if path == "embed_f32":
+            path = "embed"
+        nd, shape = leaf.dim(), tuple(leaf.shape)
+        if profile == "serve" and nd == 3 and \
+                re.search(r"ffn/(w_gate|w_up|w_down)$", path):
+            # serving MoE layout: EP over `data`, intra-expert TP over
+            # `model` — every expert shard lives on exactly one device row,
+            # nothing is re-gathered per decode step.
+            if path.endswith("w_down"):       # [E, F, D]
+                return P(_fit("data", shape[0], mesh),
+                         _fit("model", shape[1], mesh), None)
+            return P(_fit("data", shape[0], mesh), None,
+                     _fit("model", shape[2], mesh))
+        spec = _spec_for(path, nd, mesh, shape)
+        if profile == "serve":
+            spec = P(*[_strip_data(e) for e in spec])
+        return spec
+    return _tree_map_with_path(one, params)
+
+
+def _strip_data(entry):
+    if entry is None:
+        return None
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    kept = tuple(a for a in axes if a not in ("data", "pod"))
+    if not kept:
+        return None
+    return kept if len(kept) > 1 else kept[0]
+
+
+def opt_state_specs(opt_state, mesh):
+    """Optimizer-state specs: moments shard like their params (path-based
+    rules still match since state paths embed the param name); Adafactor's
+    factored stats drop the reduced dim's entry; `count` is replicated."""
+    def one(path, leaf):
+        nd, shape = leaf.dim(), tuple(leaf.shape)
+        if path.endswith("count"):
+            return P()
+        if path.endswith("/vr"):          # mean over last dim of the param
+            s = _spec_for(path[:-3], nd + 1, mesh, shape + (10 ** 9,))
+            return P(*s[:-1])
+        if path.endswith("/vc"):          # mean over second-to-last dim
+            fake = shape[:-1] + (10 ** 9,) + shape[-1:]
+            s = _spec_for(path[:-3], nd + 1, mesh, fake)
+            return P(*(s[:-2] + s[-1:]))
+        return _spec_for(path, nd, mesh, shape)
+    return _tree_map_with_path(one, opt_state)
+
+
+# ----------------------------------------------------------- activations/io
+def data_spec(mesh, ndim: int) -> P:
+    """[B, ...] batch-sharded."""
+    return P(batch_axes(mesh), *([None] * (ndim - 1)))
+
+
+def cache_specs(cache, mesh):
+    """Dense serving caches (one dict a layer): the batch dim sharded over
+    (pod, data) — best-effort (B = 1 falls back toward replication); a
+    full-attention KV cache [B, S, K, hd] and the MLA latent [B, S, latent]
+    (no head dim — the paper's scenario) sequence-sharded over `model`
+    where :func:`seq_shardable`; a Mamba state [B, d_inner, N] over
+    `model` on d_inner, an RG-LRU state [B, W] on W; a conv window [B,
+    k-1, W] batch-only."""
+    b = batch_axes(mesh)
+
+    def one(path, leaf):
+        nd, shape = leaf.dim(), tuple(leaf.shape)
+        bfit = _fit(b, shape[0], mesh) if nd >= 1 else None
+        if nd == 4:       # [B, S, K, hd]
+            s = "model" if seq_shardable(shape[1], mesh) else None
+            return P(bfit, s, None, None)
+        if nd == 3:       # [B, S, latent] or [B, d_inner, N]
+            if path.endswith("h"):           # mamba state [B, d_inner, N]
+                return P(bfit, _fit("model", shape[1], mesh), None)
+            s = "model" if seq_shardable(shape[1], mesh) else None
+            return P(bfit, s, None)
+        if nd == 2:       # [B, W]
+            return P(bfit, _fit("model", shape[1], mesh))
+        return P(*([None] * nd))
+    return _tree_map_with_path(one, cache)
+
+
+def seq_sharded(layer_cache, key: str, mesh) -> bool:
+    """Whether a dense layer cache holds this rank's sequence slice of
+    ``layer_cache[key]``: the whole cache's row count S (``"seq_rows"``,
+    which ``models.model.init_cache`` / ``shard_cache`` record beside a
+    sharded slice; else the tensor's own rows) is :func:`seq_shardable`
+    on ``mesh``.  A rank's tensor holds only S/n rows, so the decision
+    reads S, never its shape alone.  A slice outside its mesh, or a whole
+    cache where the mesh shards it, raises."""
+    rows = layer_cache.get("seq_rows", layer_cache[key].shape[1])
+    sharded = seq_shardable(rows, mesh)
+    if sharded != ("seq_rows" in layer_cache):
+        raise ValueError(
+            f"a cache of {rows} rows is {'' if sharded else 'not '}"
+            f"sequence-sharded on {mesh}, but this one is "
+            f"{'a slice' if 'seq_rows' in layer_cache else 'whole'}: build "
+            "it with model.init_cache / shard_cache under the mesh")
+    return sharded
+
+
+def local_rows(t, spec, mesh):
+    """This rank's piece of ``t`` under ``spec``: each dim that an entry
+    names is cut into the entry's axes' total extent of equal parts, and
+    the part at this rank's index over those axes is kept (a view).  A
+    dim the parts do not divide raises."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"{n} ways over {axes}")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, mesh.index(axes) * size, size)
+    return t
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's piece of a tensor of ``shape`` under
+    ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            for a in axes:
+                out[dim] //= mesh.shape[a]
+    return tuple(out)
