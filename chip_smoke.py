@@ -352,7 +352,7 @@ ROADMAP section C and training:
              saved there, the final losses within rtol 1e-5 (whether they
              are bitwise is logged), K9 launched on the steps.
 
-Last, sequence-sharded decode (ROADMAP A10a), ``phase_seq_sharded``:
+Then sequence-sharded decode (ROADMAP A10a), ``phase_seq_sharded``:
 
   reference  DeepSeek-R1 at full width cut to its 3 dense layers (B 4 x
              prompt 8192, 16 greedy steps over S 8208) and Qwen3-8B cut to
@@ -361,27 +361,62 @@ Last, sequence-sharded decode (ROADMAP A10a), ``phase_seq_sharded``:
              ``model.prefill`` (K9), ``decode_step`` on the dense layout
              (K6 + K2); its tokens, logits, prefill cache and written rows
              kept on the host, and the floor (step 0 at the auto plan
-             against one split, K5); the card then freed;
+             against one split, K5); DeepSeek also a B 4 x 512 prompt and
+             4 greedy steps (``greedy_reference``); the card then freed;
   ranks      4 processes (``launch.mesh.spawn``, a wall limit; the group
              through a FileStore, a collective timeout): gloo with every
              rank on cuda:0 on a one-card machine (the ranks share the
              card: the sharded step's wall is no multi-GPU speedup), nccl
-             with a card a rank where there are 4; the same weights on
-             each (digests equal, and equal to the reference's); on the
-             meshes (1, 4) and (2, 2): K6 on the rank's slice against its
-             plain version (an empty slice among them: stats (NEG_INF, 0,
-             0), merge weight 0), then ``make_serve_step`` under
-             ``use_mesh`` over ``shard_cache`` of the reference's cache,
-             teacher-forced: each step's gathered logits within
-             check_step's gate of the reference's (floor its floor), the
-             layer-0 row the owner writes bitwise the reference's; a
+             with a card a rank where there are 4; on each of the meshes
+             (1, 4) and (2, 2) every rank draws its pieces of the seed-0
+             weights (``model.init`` under the mesh; over each data row
+             the pieces' digests sum to the reference's), runs K6 on its
+             slice against the plain version (an empty slice among them:
+             stats (NEG_INF, 0, 0), merge weight 0), then
+             ``make_serve_step`` under ``use_mesh`` over ``shard_cache``
+             of the reference's cache, teacher-forced: each step's
+             gathered logits within check_step's gate of the reference's
+             (floor its floor), the layer-0 row the owner writes within
+             LAYER0_ROW_RTOL of the reference's (from the rank's column
+             pieces of W_dkv, W_k, W_v; whether bitwise is logged); a
              free-running greedy run equal to the reference's or parting
              first where its top-two gap is below the teacher-forced
              difference; K6 launched on every rank; the unsharded branch
-             under (2, 2) (DeepSeek B 4 x 512: K9, K5) against the
-             whole-batch run.  ``[seq-sharded]`` lines give the launches by
-             rank, the bytes a step all-reduces, and the step's wall ms
-             sharded beside unsharded.
+             under (2, 2) (the B 4 x 512 prompt prefilled under the mesh:
+             K9, K5) within the gate of its reference.  ``[seq-sharded]``
+             lines give the launches by rank, the bytes a step
+             all-reduces, and the step's wall ms sharded beside
+             unsharded.
+
+Last, tensor-parallel serving (ROADMAP A10b.1),
+``phase_tensor_parallel``:
+
+  reference  whole seed-0 weights in this process with the card to
+             itself: DeepSeek-R1 at full width, 3 dense layers, B 16 x
+             prompt 512 and 16 greedy steps (tp-short), and B 16 x 8192
+             (prefilled 4 rows at a time) and 16 greedy steps over S
+             8208 (tp-long); Qwen3-8B at full width cut to 12 of 36
+             layers, B 8 x 512 and 8 steps; each with its floor (step 0 at the auto plan
+             against one split); the card then freed;
+  ranks      8 processes, gloo with every rank on cuda:0 on a one-card
+             machine (nccl with a card a rank where there are 8); on the
+             meshes (1, 8) and (2, 4) each rank draws only its pieces of
+             the weights as ``param_specs(profile="serve")`` places them
+             (``model.init`` under the mesh; the pieces' digests sum to
+             the reference's), their bytes counted and allocated;
+             tp-short: the prompt through ``make_prefill_step`` under the
+             mesh (K9 on the rank's 16 / 32 heads, Qwen's 4 / 8 with G
+             4), then ``make_serve_step`` teacher-forced with the
+             reference's tokens (K5, or K6 + K2, on the rank's heads):
+             the prefill's and each step's gathered logits within
+             check_step's gate of the reference's; tp-long (DeepSeek on
+             (1, 8)): ``shard_cache`` of the reference's cache (1026 rows
+             a rank), q gathered over its heads for K6 on the slice; each
+             leg also free-running (the streams equal to the reference's
+             are reported, not gated).  ``[tp]`` lines give the launches
+             by rank with the q shapes the attention entries received,
+             the bytes each collective returned a step a rank, the step's
+             wall beside the reference's, and the weight bytes a rank.
 
 Each phase's seconds are printed as ``[time]`` lines.
 
@@ -5022,10 +5057,14 @@ MAMBA_PHASES = [
 # rows in page-sized blocks, so qwen-short's 64 grouped rows x 9 pages get
 # 3 splits and qwen-long's 8 x 65 pages 22; qwen-short and its standard
 # twin pin one split (--kv-splits 1) so that the single-pass K5 and K7 run
-# on a serve path, qwen-dense's auto plan (block 512) picks one split too
+# on a serve path, qwen-dense's auto plan (block 512) picks one split too.
+# qwen-short's prompts run in chunks of 128: a GQA chunk is the plain
+# masked product (no kernel), so the chunk moves nothing the kernels see,
+# and it keeps the eager chunk loop (36 layers a chunk) short
 QWEN = ["--arch", "qwen3_8b"]
 QWEN_SHORT = QWEN + ["--batch", "8", "--requests", "16", "--prompt", "512",
-                     "--gen", "32", "--kv-splits", "1"]
+                     "--gen", "32", "--kv-splits", "1", "--prefill-chunk",
+                     "128"]
 QWEN_LONG = QWEN + ["--batch", "1", "--requests", "2", "--prompt", "4096",
                     "--gen", "32", "--prefill-chunk", "256"]
 # the quantized pools' standard twins are cut to a few requests and tokens,
@@ -7407,6 +7446,12 @@ SHARD_MODELS = {"deepseek": ("deepseek_r1_671b", 3, 4, 8192, 16),
 SHARD_SHORT = (4, 512, 4)
 SHARD_EMPTY_POS = 100          # a position only the first slice holds
 SHARD_SPAWN_S = 600            # the ranks' wall limit
+# the layer-0 row the owner writes against the reference's, relative to
+# the row's largest value: the ranks compute it from their column pieces
+# of W_dkv (W_k, W_v), the reference from the whole product, so it may
+# differ by a bf16 ulp; a row written at the wrong position is off by
+# the row's own scale
+LAYER0_ROW_RTOL = 2 ** -6
 SHARD_COLLECTIVE_S = 300       # init_process_group's timeout
 
 
@@ -7480,6 +7525,9 @@ def shard_reference(name: str, work: Path, launches: dict,
            "logits": torch.stack(steps), "cache": host, "rows": rows,
            "digest": weights_digest(params), "floor": floor,
            "step_ms": sorted(walls[1:])[(G - 1) // 2]}
+    if name == "deepseek":
+        ref["short"] = greedy_reference(params, cfg, *SHARD_SHORT, seed=9)
+        del ref["short"]["launches"]
     torch.save(ref, work / f"{name}.pt")
     log(f"[seq-sharded] {name} reference (one process, the card alone): "
         f"{cfg.num_layers} layers, B {B} x prompt {P} + {G} greedy steps "
@@ -7561,7 +7609,9 @@ def shard_run(name: str, params, cfg, ref: dict, mesh) -> dict:
     with the reference's tokens, every launch count zeroed just before it
     and read just after: each step's gathered logits within check_step's
     gate of the reference's (floor: the reference's), the layer-0 row the
-    owner writes bitwise the reference's; then a free-running greedy run
+    owner writes within LAYER0_ROW_RTOL of the reference's (``params``
+    are this rank's pieces; whether bitwise is returned); then a
+    free-running greedy run
     whose tokens equal the reference's or part first where the
     reference's top-two gap is below the teacher-forced run's largest
     logit difference."""
@@ -7602,7 +7652,7 @@ def shard_run(name: str, params, cfg, ref: dict, mesh) -> dict:
         for fn in counters().values():
             fn.launches = 0
         etap.seq_sharded_decode.reduced_bytes = 0
-        diffs, walls = [], []
+        diffs, walls, row0, same0 = [], [], 0.0, True
         for i in range(G):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -7616,9 +7666,17 @@ def shard_run(name: str, params, cfg, ref: dict, mesh) -> dict:
                        floor=ref["floor"])
             if start <= P + i < start + n:
                 for key, want in ref["rows"][0].items():
-                    bitwise(piece[0][key][:, P + i - start],
-                            want[rows, i].to(dev),
-                            f"{tag} step {i}: layer 0 {key!r} row written")
+                    got_row = piece[0][key][:, P + i - start]
+                    want_row = want[rows, i].to(dev)
+                    d = float((got_row.float() - want_row.float()).abs()
+                              .max())
+                    row0 = max(row0, d)
+                    same0 = same0 and torch.equal(got_row, want_row)
+                    if d > LAYER0_ROW_RTOL * float(want_row.float().abs()
+                                                   .max()):
+                        raise AssertionError(
+                            f"{tag} step {i}: layer 0 {key!r} row written "
+                            f"{d:.3e} from the reference's")
         got = {k: fn.launches for k, fn in counters().items()}
         reduced = etap.seq_sharded_decode.reduced_bytes
         deep = max((float((piece[li][key][:, P + i - start].float()
@@ -7651,59 +7709,133 @@ def shard_run(name: str, params, cfg, ref: dict, mesh) -> dict:
         parted.append((b, p, gap))
     return {"launches": got, "diffs": diffs, "step_ms": walls,
             "bytes_per_step": reduced / G, "k6": k6, "parted": parted,
+            "row0_diff": row0, "row0_bitwise": same0,
             "deep_row_diff": deep, "free_equal": B - len(parted)}
 
 
-def shard_short_check(params, cfg, mesh) -> dict:
-    """The unsharded branch under the (2, 2) mesh: a SHARD_SHORT prompt
-    through ``model.prefill`` (K9) on the whole batch, the rank's batch
-    rows of its cache (S below SEQ_SHARD_MIN_S stays whole: K5), a few
-    greedy steps under the mesh, every launch count zeroed just before
-    and read just after, against the same steps on the whole batch
-    outside the mesh (check_step's gate; whether bitwise is logged)."""
+def greedy_reference(params, cfg, B: int, P: int, G: int, *,
+                     seed: int) -> dict:
+    """A seeded B x P prompt through ``model.prefill`` and G greedy
+    ``decode_step`` calls (each timed) in this process over whole
+    weights, every launch count zeroed just before and read just after:
+    host copies of the prompt, the tokens [B, G + 1] (the prefill's
+    first), the prefill's logits and each step's; the launches; the
+    step's median wall ms; and the floor (``tp_floor``, from a copy of
+    the prefill's cache, after the counts are read)."""
+    import torch
+    from repro_torch.models import model
+    dev = params["embed"].device
+    gen = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           dtype=torch.int32)
+    for fn in counters().values():
+        fn.launches = 0
+    logits, cache, pos = model.prefill(params, cfg, prompt.to(dev), P + G)
+    first = logits.cpu()
+    start = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+    tokens, steps, walls = [logits.argmax(-1).to(torch.int32)], [], []
+    for i in range(G):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cfg, cache, tokens[-1],
+                                          pos + i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append(logits.cpu())
+        tokens.append(logits.argmax(-1).to(torch.int32))
+    got = {k: fn.launches for k, fn in counters().items()}
+    del cache
+    floor = tp_floor(params, cfg, start, tokens[0], pos, steps[0])
+    return {"prompt": prompt, "tokens": torch.stack(tokens, 1).cpu(),
+            "prefill": first, "logits": torch.stack(steps), "launches": got,
+            "step_ms": _median(walls), "floor": floor}
+
+
+def shard_short_check(params, cfg, mesh, ref: dict, floor: float) -> dict:
+    """The unsharded branch under the (2, 2) mesh: the reference's
+    SHARD_SHORT prompt through ``make_prefill_step`` under the mesh on the
+    weights placed for it (K9 on the rank's heads and batch rows; S below
+    SEQ_SHARD_MIN_S stays whole), then ``make_serve_step`` teacher-forced
+    with the reference's tokens (K5), every launch count zeroed just
+    before and read just after: the prefill's and each step's gathered
+    logits within check_step's gate of the single-process reference's
+    (``greedy_reference``; floor: the long reference's)."""
     import torch
 
     from repro_torch.launch import mesh as M
     from repro_torch.launch import steps as S
-    from repro_torch.models import model
     B, P, G = SHARD_SHORT
     dev = mesh.device
-    gen = torch.Generator().manual_seed(9)
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
-                           dtype=torch.int32).to(dev)
+    tokens = ref["tokens"].to(dev)
     step = S.make_serve_step(cfg)
     for fn in counters().values():
         fn.launches = 0
-    logits, cache, pos = model.prefill(params, cfg, prompt, P + G)
-    whole = [{k: v.clone() for k, v in layer.items()} for layer in cache]
-    tok = logits.argmax(-1).to(torch.int32)
     with M.use_mesh(mesh):
-        piece = model.shard_cache(cache)
+        logits, piece, pos = S.make_prefill_step(cfg, P + G)(
+            params, ref["prompt"].to(dev))
         if any("seq_rows" in layer for layer in piece):
             raise AssertionError("a short cache was sequence-sharded")
-        outs = []
+        outs = [S.gather_rows(logits, mesh, B)]
         for i in range(G):
-            lg, piece = step(params, piece, tok, pos + i)
+            lg, piece = step(params, piece, tokens[:, i], pos + i)
             outs.append(S.gather_rows(lg, mesh, B))
-            tok = outs[-1].argmax(-1).to(torch.int32)
     got = {k: fn.launches for k, fn in counters().items()}
-    tok, same = logits.argmax(-1).to(torch.int32), True
-    for i in range(G):
-        lg, whole = step(params, whole, tok, pos + i)
-        check_step(outs[i], lg, f"short {B}x{P} step {i}",
-                   tag="seq-sharded-unsharded-branch")
-        same = same and torch.equal(outs[i], lg)
-        tok = lg.argmax(-1).to(torch.int32)
-    return {"launches": got, "bitwise": same}
+    for i, (lk, lp) in enumerate(zip(outs, [ref["prefill"],
+                                             *ref["logits"]])):
+        check_step(lk, lp.to(dev), f"short {B}x{P} "
+                   + ("prefill" if i == 0 else f"step {i - 1}"),
+                   tag="seq-sharded-unsharded-branch", floor=floor)
+    return {"launches": got, "bitwise": all(
+        torch.equal(lk.cpu(), lp) for lk, lp in zip(
+            outs, [ref["prefill"], *ref["logits"]]))}
+
+
+def piece_digests(params, mesh) -> tuple[int, int]:
+    """(the weights_digest of the leaves the placement cut, of those it
+    kept whole) of a tree placed for ``mesh`` (``rules.Placed``, whose
+    ``specs`` say which).  Over one data row's `model` ranks the cut
+    digests and one rank's whole digest sum to the whole tree's."""
+    from repro_torch.sharding import rules
+    cut = whole = 0
+    for path, t in rules._leaves_with_path(params):
+        spec = params.specs
+        for k in path.split("/"):
+            spec = spec[int(k)] if isinstance(spec, list) else spec[k]
+        if rules.cuts(spec, mesh):
+            cut += weights_digest(t)
+        else:
+            whole += weights_digest(t)
+    return cut, whole
+
+
+def check_piece_digests(params, mesh, want: int, what: str) -> None:
+    """Every rank's piece digests (a collective over the world): for each
+    data row, the `model` ranks' cut digests plus the whole leaves'
+    (equal on every rank) sum to ``want``, the whole tree's."""
+    import torch.distributed as dist
+    mine = (mesh.coord("data"), *piece_digests(params, mesh))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    rows = {}
+    for d, cut, whole in every:
+        rows.setdefault(d, [0, set()])
+        rows[d][0] += cut
+        rows[d][1].add(whole)
+    for d, (cut, whole) in rows.items():
+        if len(whole) != 1 or cut + whole.pop() != want:
+            raise AssertionError(f"{what}: data row {d}'s piece digests "
+                                 f"{every} do not sum to the whole "
+                                 f"weights' {want}")
 
 
 def shard_rank_main(rank: int, world: int, work: str, backend: str,
                     device: str) -> None:
     """One rank of phase_seq_sharded: join the group (FileStore in
-    ``work``), build the meshes, then per model: the seed-0 weights (their
-    digest the same on every rank and equal to the reference's), and
-    shard_run on each mesh; DeepSeek also runs shard_short_check.  Writes
-    its report to ``work/rank<r>.pt``."""
+    ``work``), build the meshes, then per model and mesh: the seed-0
+    weights placed for the mesh by ``model.init`` under it (the pieces'
+    digests summing to the reference's whole digest), and shard_run;
+    DeepSeek on (2, 2) also runs shard_short_check.  Writes its report to
+    ``work/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
 
@@ -7726,37 +7858,35 @@ def shard_rank_main(rank: int, world: int, work: str, backend: str,
             for name in SHARD_MODELS:
                 ref = torch.load(work / f"{name}.pt", weights_only=False)
                 cfg = shard_config(name)
-                params = model.init(cfg, seed=0, device=dev)
-                torch.cuda.empty_cache()   # init's temporaries: 4 ranks, 1 card
-                digest = weights_digest(params)
-                every = [None] * world
-                dist.all_gather_object(every, digest)
-                if len(set(every)) != 1 or digest != ref["digest"]:
-                    raise AssertionError(f"{name}: weight digests {every}, "
-                                         f"the reference's {ref['digest']}")
                 for mesh in meshes:
+                    # this rank's pieces, placed as they are drawn
+                    with M.use_mesh(mesh):
+                        params = model.init(cfg, seed=0, device=dev)
+                    torch.cuda.empty_cache()   # init's temporaries
+                    check_piece_digests(params, mesh, ref["digest"], name)
                     key = (name, mesh.shape["data"], mesh.shape["model"])
                     report[key] = shard_run(name, params, cfg, ref, mesh)
-                if name == "deepseek":
-                    report["short"] = shard_short_check(params, cfg,
-                                                        meshes[1])
-                del params, ref
-                torch.cuda.empty_cache()
+                    if name == "deepseek" and mesh is meshes[1]:
+                        report["short"] = shard_short_check(
+                            params, cfg, mesh, ref["short"], ref["floor"])
+                    del params
+                    torch.cuda.empty_cache()
+                del ref
             torch.save(report, work / f"rank{rank}.pt")
         finally:
             dist.destroy_process_group()
 
 
-def shard_backend() -> tuple[str, str, str]:
+def shard_backend(ranks: int = SHARD_RANKS) -> tuple[str, str, str]:
     """(backend, device, what to print): nccl with a card a rank where the
-    machine has SHARD_RANKS cards, else gloo with every rank on cuda:0."""
+    machine has ``ranks`` cards, else gloo with every rank on cuda:0."""
     import torch
     n = torch.cuda.device_count()
-    if n >= SHARD_RANKS:
+    if n >= ranks:
         return "nccl", "cuda", f"nccl, one card a rank ({n} cards)"
     return "gloo", "cuda:0", (
         "gloo, every rank on cuda:0: the ranks share one card, so the "
-        "sharded step's wall measures no multi-GPU speedup")
+        "multi-rank step's wall measures no multi-GPU speedup")
 
 
 def phase_seq_sharded(launches: dict) -> None:
@@ -7807,9 +7937,11 @@ def phase_seq_sharded(launches: dict) -> None:
                 f"err {max(c['err'] for rep in per for c in rep['k6']):.3e},"
                 f" empty slices checked on ranks "
                 f"{[r for r, rep in enumerate(per) if rep['k6'][1]['empty']]}"
-                f"; deeper layers' written rows max diff "
-                f"{max(rep['deep_row_diff'] for rep in per):.3e} (layer 0 "
-                f"bitwise); all-reduced {per[0]['bytes_per_step']:.0f} bytes "
+                f"; written rows max diff: layer 0 "
+                f"{max(rep['row0_diff'] for rep in per):.3e} (bitwise on "
+                f"every owner: {all(rep['row0_bitwise'] for rep in per)}), "
+                f"deeper {max(rep['deep_row_diff'] for rep in per):.3e}; "
+                f"all-reduced {per[0]['bytes_per_step']:.0f} bytes "
                 f"a step a rank; step {ms:.3f} ms sharded (rank 0, median) "
                 f"against {ref['step_ms']:.3f} ms unsharded (one process, "
                 f"the card alone); free-running rows equal "
@@ -7823,10 +7955,506 @@ def phase_seq_sharded(launches: dict) -> None:
     for s in short:
         credit_shard(launches, s["launches"], shard_config("deepseek"))
     log(f"[seq-sharded] unsharded branch under the (2, 2) mesh (DeepSeek B "
-        f"{SHARD_SHORT[0]} x {SHARD_SHORT[1]}): K5 launches by rank {k5}, K9 "
+        f"{SHARD_SHORT[0]} x {SHARD_SHORT[1]}, prefilled under the mesh): K5 "
+        f"launches by rank {k5}, K9 "
         f"{[s['launches']['flash_prefill'] for s in short]}; bitwise the "
-        f"whole-batch run on every rank: {all(s['bitwise'] for s in short)}")
+        "single-process reference on every rank: "
+        f"{all(s['bitwise'] for s in short)}")
     log(f"[seq-sharded] {where}; {gpu_line()}")
+
+
+# ---------------------------- tensor-parallel serving (ROADMAP A10b.1)
+# phase_tensor_parallel: single-process references with whole weights
+# first, then TP_RANKS ranks, each holding only its pieces of the weights
+# as param_specs(profile="serve") places them (gloo with every rank on
+# cuda:0 on a one-card machine, nccl with a card a rank where there are 8)
+TP_RANKS = 8
+TP_MESHES = ((1, 8), (2, 4))                  # (data, model)
+# name -> (arch, layers kept, batch, prompt, greedy steps): tp-short.
+# Qwen3-8B is cut to 12 of its 36 layers: each of its TP steps makes 2
+# collectives a layer through the host, and at full depth the phase took
+# 179-205 s of the script's 1200 s
+TP_MODELS = {"deepseek": ("deepseek_r1_671b", 3, 16, 512, 16),
+             "qwen": ("qwen3_8b", 12, 8, 512, 8)}
+# tp-long, DeepSeek on (1, 8): batch, prompt, steps; S = 8208 rows is
+# sequence-sharded (S/8 = 1026 a rank), the paper's batch of 16
+TP_LONG = (16, 8192, 16)
+TP_LONG_CHUNK = 4              # the reference prefills 4 rows at a time
+TP_SPAWN_S = 900               # the ranks' wall limit
+
+
+def tp_config(name: str):
+    from repro_torch.configs import get_config
+    arch, layers, *_ = TP_MODELS[name]
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def tp_floor(params, cfg, cache, token, pos: int, step0) -> float:
+    """The reference's floor: the largest logit difference between its
+    step 0 at the auto split plan (``step0``) and the same step at one
+    split (K5) and at two (K6 + K2), each from a copy of the same cache:
+    the plans sum the same attention in other orders (at a short cache
+    the auto plan is one split, so two splits are its perturbation)."""
+    from repro_torch.core.attn_spec import AttnSpec
+    from repro_torch.models import model
+    diffs = []
+    for n in (1, 2):
+        copy = [{k: v.clone() for k, v in layer.items()} for layer in cache]
+        other, _ = model.decode_step(params, cfg, copy, token, pos,
+                                     spec=AttnSpec(kv_splits=n))
+        diffs.append(float((other.cpu() - step0).abs().max()))
+    return max(diffs)
+
+
+def tp_reference(name: str, work: Path, launches: dict) -> dict:
+    """The single-process references of one TP_MODELS entry, whole seed-0
+    weights on the card alone: tp-short (``greedy_reference``: a seeded
+    prompt through ``model.prefill``, K9, and greedy ``decode_step``s,
+    timed) and for DeepSeek tp-long (TP_LONG: the prompt prefilled
+    TP_LONG_CHUNK rows at a time, the cache kept on the host, greedy
+    steps over the whole cache: K6 + K2).  Each with its floor
+    (``tp_floor``).  Saves them with the weights' digest to
+    ``work/tp-<name>.pt``, frees the card; credits the launches."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.sharding import rules
+    cfg = tp_config(name)
+    _, _, B, P, G = TP_MODELS[name]
+    params = model.init(cfg, seed=0, device="cuda")
+    ref = {"digest": weights_digest(params)}
+    short = greedy_reference(params, cfg, B, P, G, seed=11)
+    got = short.pop("launches")
+    ref["short"] = short
+    log(f"[tp] {name} reference tp-short (one process, whole weights, the "
+        f"card alone): {cfg.num_layers} layers, B {B} x prompt {P} + {G} "
+        f"greedy steps: step {short['step_ms']:.3f} ms (median), floor "
+        f"{short['floor']:.4e}, launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    credit_shard(launches, got, cfg)
+    if name == "deepseek":
+        ref["long"] = tp_long_reference(params, cfg, launches)
+    ref["params_bytes"] = sum(t.numel() * t.element_size()
+                              for _, t in rules._leaves_with_path(params))
+    torch.save(ref, work / f"tp-{name}.pt")
+    del params
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_long_reference(params, cfg, launches: dict) -> dict:
+    """TP_LONG's reference: the prompt prefilled TP_LONG_CHUNK rows at a
+    time (the batch's activations at 8192 rows would crowd the card), the
+    padded caches joined on the host, then greedy steps over the whole
+    cache on the card.  Host copies of the cache, tokens, logits."""
+    import torch
+    from repro_torch.models import model
+    B, P, G = TP_LONG
+    gen = torch.Generator().manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           dtype=torch.int32)
+    for fn in counters().values():
+        fn.launches = 0
+    first, parts = [], []
+    for r in range(0, B, TP_LONG_CHUNK):
+        lg, cache, pos = model.prefill(
+            params, cfg, prompt[r:r + TP_LONG_CHUNK].cuda(), P + G)
+        first.append(lg)
+        parts.append([{k: v.cpu() for k, v in layer.items()}
+                      for layer in cache])
+        del cache
+    host = [{k: torch.cat([p[li][k] for p in parts]) for k in parts[0][li]}
+            for li in range(len(parts[0]))]
+    del parts
+    cache = _on(host, "cuda")
+    tokens = [torch.cat(first).argmax(-1).to(torch.int32)]
+    steps, walls = [], []
+    for i in range(G):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cfg, cache, tokens[-1], pos + i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        steps.append(lg.cpu())
+        tokens.append(lg.argmax(-1).to(torch.int32))
+    got = {k: fn.launches for k, fn in counters().items()}
+    del cache
+    floor = tp_floor(params, cfg, _on(host, "cuda"), tokens[0], pos,
+                     steps[0])
+    torch.cuda.empty_cache()
+    log(f"[tp] deepseek reference tp-long: B {B} x prompt {P} + {G} greedy "
+        f"steps over S {P + G}: step {sorted(walls[1:])[(G - 1) // 2]:.3f} "
+        f"ms (median), floor {floor:.4e}, launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    credit_shard(launches, got, cfg)
+    return {"cache": host, "tokens": torch.stack(tokens, 1).cpu(),
+            "logits": torch.stack(steps), "floor": floor,
+            "step_ms": sorted(walls[1:])[(G - 1) // 2]}
+
+
+@contextlib.contextmanager
+def recorded_heads(seen: dict):
+    """Record the shapes of q that the attention entries of the serve
+    path receive (``seen``: entry -> set of shapes): the dense decode
+    entry (K5 / K6 + K2; a GQA q is [B·K, G, hd]), the sequence-sharded
+    ones (K6 on the slice) and the prefill's causal attention (K9, q [B,
+    S, H, D])."""
+    from repro_torch.core import mla
+    from repro_torch.models import attention
+    slots = [(mla, "decode_attention"), (attention, "decode_attention"),
+             (mla, "seq_sharded_decode"),
+             (attention, "seq_sharded_gqa_decode"),
+             (mla, "causal_attention"), (attention, "causal_attention")]
+    saved = [getattr(m, n) for m, n in slots]
+
+    def wrap(name, fn):
+        def rec(q, *a, **kw):
+            seen.setdefault(name, set()).add(tuple(q.shape))
+            return fn(q, *a, **kw)
+        return rec
+    for (m, n), fn in zip(slots, saved):
+        setattr(m, n, wrap(n, fn))
+    try:
+        yield seen
+    finally:
+        for (m, n), fn in zip(slots, saved):
+            setattr(m, n, fn)
+
+
+def tp_teacher_forced(params, cfg, piece, pos: int, tokens, ref_logits,
+                      floor: float, mesh, tag: str) -> dict:
+    """``make_serve_step`` under the mesh from ``piece`` (this rank's
+    cache), fed the reference's tokens: each step's gathered logits
+    within check_step's gate of the reference's.  Returns the largest
+    difference and each step's wall ms."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    B = tokens.shape[0]
+    step = S.make_serve_step(cfg)
+    diffs, walls = [], []
+    with M.use_mesh(mesh):
+        for i in range(ref_logits.shape[0]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, piece = step(params, piece, tokens[:, i], pos + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            full = S.gather_rows(logits, mesh, B)
+            lr = ref_logits[i].to(full.device)
+            diffs.append(float((full - lr).abs().max()))
+            check_step(full, lr, f"{tag} step {i}", tag="tp", floor=floor)
+    return {"diffs": diffs, "step_ms": walls}
+
+
+def tp_free_running(params, cfg, piece, pos: int, first, ref: dict,
+                    diff: float, mesh) -> dict:
+    """Greedy steps under the mesh from ``first`` (the tokens the prefill
+    chose): the rows whose stream equals the reference's (``ref``'s
+    tokens [B, G + 1], the prefill's first), and where the others part
+    (position 0 the prefill's token, i > 0 step i - 1's), with the
+    reference's top-two gap there beside the teacher-forced run's largest
+    difference ``diff``.  Reported, not gated."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    ref_tokens = ref["tokens"]
+    B, G = ref_tokens.shape[0], ref["logits"].shape[0]
+    step = S.make_serve_step(cfg)
+    tok, run = first, [first.cpu()]
+    with M.use_mesh(mesh):
+        for i in range(G):
+            logits, piece = step(params, piece, tok, pos + i)
+            tok = S.gather_rows(logits, mesh, B).argmax(-1).to(torch.int32)
+            run.append(tok.cpu())
+    run = torch.stack(run, 1)
+    chosen = [ref.get("prefill"), *ref["logits"]]
+    parted = []
+    for b in range(B):
+        p = next((i for i in range(G + 1) if run[b, i] != ref_tokens[b, i]),
+                 None)
+        if p is not None:
+            top2 = chosen[p][b].topk(2).values
+            parted.append((b, p, round(float(top2[0] - top2[1]), 6),
+                           round(diff, 6)))
+    return {"free_equal": B - len(parted), "parted": parted}
+
+
+def kv_view_check(params, cfg, mesh, B: int, S: int) -> float:
+    """K5 on this rank's kv heads of a random [B, S, K, hd] cache, read in
+    place at their offset (the view ``attention_decode`` hands it under
+    tensor parallelism), against its plain version (bf16 tolerance) and
+    bitwise the kernel on a contiguous copy of those heads.  Returns the
+    max abs error."""
+    import torch
+
+    from repro_torch.core.etap import gqa_grouped_view
+    from repro_torch.kernels.etap import etap as K
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import attention, layers
+    dev = mesh.device
+    Hl, Kl = attention.local_heads(params["layers"][0]["mix"], cfg)
+    Kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            cfg.torch_dtype)
+    kc, vc, q = rand(B, S, Kv, hd), rand(B, S, Kv, hd), rand(B, Hl, hd)
+    with M.use_mesh(mesh):
+        k0 = layers.model_offset(Kl, Kv)
+    kv, vv = kc[:, :, k0:k0 + Kl], vc[:, :, k0:k0 + Kl]
+    qg = gqa_grouped_view(q, kv, vv)[0]
+    length = torch.full((B * Kl,), S, dtype=torch.int32, device=dev)
+    kw = dict(scale=hd ** -0.5)
+    out = K.etap_decode_dense(qg, kv, vv, length, **kw)
+    what = f"K5 [{hd}] on kv heads [{k0}, {k0 + Kl}) of {Kv} in place"
+    bitwise(out, K.etap_decode_dense(qg, kv.contiguous(), vv.contiguous(),
+                                     length, **kw), what + " vs a copy")
+    return bf16_close(out, K.etap_decode_dense_plain(qg, kv, vv, length,
+                                                     **kw), what)
+
+
+def tp_short(params, cfg, ref: dict, mesh, name: str) -> dict:
+    """tp-short on this rank: the reference's prompt through
+    ``make_prefill_step`` under the mesh (K9 on the rank's heads and
+    batch rows), its gathered last-row logits within check_step's gate of
+    the reference's, then the teacher-forced steps (``tp_teacher_forced``:
+    K5, or K6 + K2, on the rank's heads), every launch count, the
+    recorded head shapes and the collectives' bytes zeroed just before
+    the prefill and read after the steps; then a free-running run from a
+    copy of the prefill's cache."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    _, _, B, P, G = TP_MODELS[name]
+    tag = f"{name} {mesh.shape['data']}x{mesh.shape['model']}"
+    dev = mesh.device
+    view_err = None if cfg.attention_kind == "mla" else \
+        kv_view_check(params, cfg, mesh, B, P + G)
+    for fn in counters().values():
+        fn.launches = 0
+    seen: dict = {}
+    M.moved.clear()
+    with recorded_heads(seen), M.use_mesh(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, piece, pos = S.make_prefill_step(cfg, P + G)(
+            params, ref["prompt"].to(dev))
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        full = S.gather_rows(logits, mesh, B)
+        check_step(full, ref["prefill"].to(dev), f"{tag} prefill", tag="tp",
+                   floor=ref["floor"])
+        prefill_bytes = dict(M.moved)
+        M.moved.clear()
+        keep = [{k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in layer.items()} for layer in piece]
+        tf = tp_teacher_forced(params, cfg, piece, pos,
+                               ref["tokens"].to(dev), ref["logits"],
+                               ref["floor"], mesh, tag)
+    got = {k: fn.launches for k, fn in counters().items()}
+    step_bytes = {k: v / G for k, v in M.moved.items()}
+    free = tp_free_running(params, cfg, keep, pos,
+                           full.argmax(-1).to(torch.int32), ref,
+                           max(tf["diffs"]), mesh)
+    return {"launches": got, "heads": seen, "prefill_ms": prefill_ms,
+            "view_err": view_err,
+            "prefill_bytes": prefill_bytes, "step_bytes": step_bytes,
+            "sharded": any("seq_rows" in layer for layer in keep),
+            **tf, **free}
+
+
+def tp_long(params, cfg, ref: dict, mesh) -> dict:
+    """tp-long on this rank: ``shard_cache`` of the reference's B 16 x
+    8192 prefill cache under the mesh (S 8208 sequence-sharded: the
+    rank's 1026 rows), then the teacher-forced steps (q gathered over its
+    heads, K6 on the slice over every head, the stats combined, the
+    rank's heads kept), counted as tp_short counts; then a free-running
+    run from a fresh piece."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import model
+    dev = mesh.device
+    with M.use_mesh(mesh):
+        piece = _on(model.shard_cache(ref["cache"]), dev)
+    if any("seq_rows" not in layer for layer in piece):
+        raise AssertionError("tp-long: the cache is not sequence-sharded")
+    P = TP_LONG[1]
+    for fn in counters().values():
+        fn.launches = 0
+    seen: dict = {}
+    M.moved.clear()
+    with recorded_heads(seen):
+        tf = tp_teacher_forced(params, cfg, piece, P, ref["tokens"].to(dev),
+                               ref["logits"], ref["floor"], mesh,
+                               "deepseek long")
+    got = {k: fn.launches for k, fn in counters().items()}
+    step_bytes = {k: v / TP_LONG[2] for k, v in M.moved.items()}
+    del piece
+    with M.use_mesh(mesh):
+        piece = _on(model.shard_cache(ref["cache"]), dev)
+    free = tp_free_running(params, cfg, piece, P,
+                           ref["tokens"][:, 0].to(dev), ref,
+                           max(tf["diffs"]), mesh)
+    del piece
+    torch.cuda.empty_cache()
+    return {"launches": got, "heads": seen, "step_bytes": step_bytes,
+            "slice_rows": 8208 // mesh.shape["model"], **tf, **free}
+
+
+def tp_rank_main(rank: int, world: int, work: str, backend: str,
+                 device: str) -> None:
+    """One rank of phase_tensor_parallel: join the group (FileStore in
+    ``work``), then per model and mesh: the seed-0 weights placed for the
+    mesh as they are drawn (``model.init`` under it; the pieces' digests
+    summing to the reference's whole digest), their bytes counted and as
+    ``torch.cuda.memory_allocated`` shows them, tp-short, and for
+    DeepSeek on (1, 8) tp-long.  Writes its report to
+    ``work/tp-rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import mla
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import attention, model
+    from repro_torch.sharding import rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    with (open(os.devnull, "w") if rank else
+          contextlib.nullcontext(sys.stdout)) as out, \
+            contextlib.redirect_stdout(out):
+        dev = M.init_ranks(rank, world, backend=backend,
+                           init_method=f"file://{work / 'store'}",
+                           device=device, timeout_s=SHARD_COLLECTIVE_S)
+        try:
+            report = {}
+            for name in TP_MODELS:
+                ref = torch.load(work / f"tp-{name}.pt", weights_only=False)
+                cfg = tp_config(name)
+                for shape in TP_MESHES:
+                    mesh = M.make_host_mesh(dev, shape)
+                    base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    with M.use_mesh(mesh):
+                        params = model.init(cfg, seed=0, device=dev)
+                    torch.cuda.synchronize()
+                    init_s = time.perf_counter() - t0
+                    torch.cuda.empty_cache()
+                    check_piece_digests(params, mesh, ref["digest"], name)
+                    mix = params["layers"][0]["mix"]
+                    heads = (mla.local_heads(mix, cfg),) \
+                        if cfg.attention_kind == "mla" else \
+                        attention.local_heads(mix, cfg)
+                    del mix     # else it outlives params into the next base
+                    rep = {"heads": heads, "init_s": init_s,
+                           "bytes": sum(t.numel() * t.element_size()
+                                        for _, t in
+                                        rules._leaves_with_path(params)),
+                           "allocated": torch.cuda.memory_allocated() - base}
+                    rep["short"] = tp_short(params, cfg, ref["short"], mesh,
+                                            name)
+                    if name == "deepseek" and shape == TP_MESHES[0]:
+                        rep["long"] = tp_long(params, cfg, ref["long"], mesh)
+                    report[(name, shape)] = rep
+                    del params
+                    torch.cuda.empty_cache()
+                del ref
+            torch.save(report, work / f"tp-rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
+
+
+def _median(xs) -> float:
+    xs = sorted(xs[1:] or xs)
+    return xs[(len(xs) - 1) // 2]
+
+
+def phase_tensor_parallel(launches: dict) -> None:
+    """Tensor-parallel serving across TP_RANKS ranks (ROADMAP A10b.1):
+    each model's single-process references (tp_reference), the card then
+    freed; then the ranks (tp_rank_main), each holding only its pieces of
+    the weights.  Prints, per model and mesh: the weight bytes a rank
+    (counted, and allocated), the K5 / K6 / K9 launches by rank (summed
+    into ``launches``) with the q shapes the attention entries received,
+    the bytes the collectives returned a step a rank, the step's wall
+    beside the reference's, and the free-running streams."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    backend, device, where = shard_backend(TP_RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        refs = {}
+        for name in TP_MODELS:
+            ref = tp_reference(name, work, launches)
+            refs[name] = {"short": {k: ref["short"][k] for k in
+                                    ("floor", "step_ms")},
+                          "long": ref.get("long", {}).get("step_ms"),
+                          "params_bytes": ref["params_bytes"]}
+            del ref
+        torch.cuda.empty_cache()
+        log(f"[tp] {TP_RANKS} ranks, backend {where}; meshes (data, model) "
+            f"{list(TP_MESHES)}")
+        t0 = time.perf_counter()
+        M.spawn(tp_rank_main, TP_RANKS, (str(work), backend, device),
+                timeout_s=TP_SPAWN_S)
+        reports = [torch.load(work / f"tp-rank{r}.pt", weights_only=False)
+                   for r in range(TP_RANKS)]
+    log(f"[tp] ranks done in {time.perf_counter() - t0:.1f} s (their start, "
+        "placed inits and both models)")
+    for name in TP_MODELS:
+        cfg = tp_config(name)
+        for shape in TP_MESHES:
+            per = [rep[(name, shape)] for rep in reports]
+            legs = [("short", refs[name]["short"]["step_ms"])]
+            if "long" in per[0]:
+                legs.append(("long", refs[name]["long"]))
+            log(f"[tp] {name} {shape}: heads a rank {per[0]['heads']} (of "
+                f"{cfg.num_heads}"
+                + ("" if cfg.attention_kind == "mla" else
+                   f", {cfg.num_kv_heads} kv")
+                + f"); weight bytes a rank {per[0]['bytes']:,} counted, "
+                f"{[p['allocated'] for p in per]} allocated (whole "
+                f"{refs[name]['params_bytes']:,}); placed init "
+                f"{max(p['init_s'] for p in per):.1f} s")
+            for leg, ref_ms in legs:
+                runs = [p[leg] for p in per]
+                k9 = [r["launches"]["flash_prefill"] for r in runs]
+                k5 = [r["launches"]["etap_decode_dense"] for r in runs]
+                k6 = [r["launches"]["etap_partial_dense"] for r in runs]
+                k2 = [r["launches"]["combine_splits"] for r in runs]
+                if not all(a + b for a, b in zip(k5, k6)) or (
+                        leg == "short" and not all(k9)):
+                    raise AssertionError(f"{name} {shape} {leg}: launches by "
+                                         f"rank K9 {k9} K5 {k5} K6 {k6}")
+                for r in runs:
+                    credit_shard(launches, r["launches"], cfg)
+                r0 = runs[0]
+                log(f"[tp] {name} {shape} tp-{leg}: launches by rank K9 {k9}"
+                    f", K5 {k5}, K6 {k6}, K2 {k2}; q shapes at the entries "
+                    f"{ {k: sorted(v) for k, v in r0['heads'].items()} }; "
+                    f"max |dlogit| over the steps "
+                    f"{max(max(r['diffs']) for r in runs):.4e}; bytes a step "
+                    f"a rank {r0['step_bytes']}"
+                    + (f", prefill {r0['prefill_bytes']} in "
+                       f"{r0['prefill_ms']:.1f} ms" if leg == "short" else
+                       f"; S/n {r0['slice_rows']} rows a rank")
+                    + ("" if r0.get("view_err") is None else
+                       f"; K5 on each rank's kv-head view vs plain, max err "
+                       f"{max(r['view_err'] for r in runs):.3e} (bitwise "
+                       "the kernel on a copy)")
+                    + f"; step {_median(r0['step_ms']):.3f} ms (rank 0, "
+                    f"median) against {ref_ms:.3f} ms whole (one process, "
+                    f"the card alone); free-running rows equal "
+                    f"{r0['free_equal']}, parted (row, position: 0 the "
+                    "prefill's token, top-two gap, largest difference) "
+                    f"{r0['parted']}")
+    log(f"[tp] {where}; {gpu_line()}")
 
 
 def main(argv=None) -> int:
@@ -8101,6 +8729,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     timed("sequence-sharded decode", phase_seq_sharded, launches)
+    timed("tensor-parallel serving", phase_tensor_parallel, launches)
 
     for wrapper, w in {v[2:4] for v in QDENSE_KERNELS.values()}:
         if not any(n for k, n in served.items()

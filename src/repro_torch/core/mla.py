@@ -10,6 +10,11 @@ latent cache c = [rmsnorm(c_kv) ; rope(k_r)], one stream serving K and V
 kernels' (ETAP, or the untransposed baseline); a chunk (prefill, or the k
 rows of a draft verification) runs the chunked prefill kernel K4 (K4q over
 code pools).
+
+Under tensor parallelism a rank's W_uq, W_uk, W_uv hold its heads'
+columns and W_o their rows: every function reads the head count from
+the pieces (:func:`local_heads`); W_dq's and W_dkv's column pieces have
+their outputs gathered, so the latent cache is whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,25 +34,46 @@ from repro_torch.sharding.rules import seq_sharded
 def init_mla(gen, cfg, dtype, device):
     m = cfg.mla
     D, H = cfg.d_model, cfg.num_heads
-    dense = lambda i, o: layers.init_dense(gen, i, o, dtype, device)  # noqa: E731
+    leaf = layers.leaf
+
+    def dense(name, i, o):
+        return leaf(name, layers.init_dense(gen, i, o, dtype, device))
+
+    def zeros(name, n):
+        return leaf(name, torch.zeros(n, dtype=dtype, device=device))
     return {
-        "w_dq": dense(D, m.q_lora_rank),
-        "q_norm": torch.zeros(m.q_lora_rank, dtype=dtype, device=device),
-        "w_uq": dense(m.q_lora_rank, H * m.qk_head_dim),
+        "w_dq": dense("w_dq", D, m.q_lora_rank),
+        "q_norm": zeros("q_norm", m.q_lora_rank),
+        "w_uq": dense("w_uq", m.q_lora_rank, H * m.qk_head_dim),
         # fused down-projection: [kv_lora | rope] columns
-        "w_dkv": dense(D, m.kv_lora_rank + m.qk_rope_head_dim),
-        "kv_norm": torch.zeros(m.kv_lora_rank, dtype=dtype, device=device),
-        "w_uk": dense(m.kv_lora_rank, H * m.qk_nope_head_dim),
-        "w_uv": dense(m.kv_lora_rank, H * m.v_head_dim),
-        "w_o": dense(H * m.v_head_dim, D),
+        "w_dkv": dense("w_dkv", D, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_norm": zeros("kv_norm", m.kv_lora_rank),
+        "w_uk": dense("w_uk", m.kv_lora_rank, H * m.qk_nope_head_dim),
+        "w_uv": dense("w_uv", m.kv_lora_rank, H * m.v_head_dim),
+        "w_o": dense("w_o", H * m.v_head_dim, D),
     }
 
 
+def local_heads(params, cfg) -> int:
+    """The heads this rank's weights hold: all of them, or under tensor
+    parallelism its piece's (W_uk's columns over the nope width)."""
+    return params["w_uk"].shape[1] // cfg.mla.qk_nope_head_dim
+
+
+def _own_heads(o, params, cfg):
+    """This rank's heads of ``o`` [B, H, ...] over all heads."""
+    n = local_heads(params, cfg)
+    h0 = layers.model_offset(n, cfg.num_heads)
+    return o[:, h0:h0 + n]
+
+
 def _queries(params, cfg, x, positions):
-    """x: [..., D] -> (q_nope [..., H, nope], q_rope [..., H, rope])."""
-    m, H = cfg.mla, cfg.num_heads
-    cq = layers.rms_norm(layers.dense(x, params["w_dq"]), params["q_norm"],
-                         cfg.norm_eps)
+    """x: [..., D] -> (q_nope [..., H, nope], q_rope [..., H, rope]) for
+    this rank's H heads (:func:`local_heads`); a column piece of W_dq has
+    its outputs gathered before ``q_norm``."""
+    m, H = cfg.mla, local_heads(params, cfg)
+    cq = layers.rms_norm(layers.dense_col(x, params["w_dq"], m.q_lora_rank),
+                         params["q_norm"], cfg.norm_eps)
     q = layers.dense(cq, params["w_uq"]).reshape(*x.shape[:-1], H,
                                                  m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
@@ -56,9 +82,10 @@ def _queries(params, cfg, x, positions):
 
 
 def _latent(params, cfg, x, positions):
-    """x: [..., D] -> latent cache rows [..., kv_lora+rope]."""
+    """x: [..., D] -> latent cache rows [..., kv_lora+rope], whole on every
+    rank (a column piece of W_dkv has its outputs gathered)."""
     m = cfg.mla
-    dkv = layers.dense(x, params["w_dkv"])
+    dkv = layers.dense_col(x, params["w_dkv"], m.latent_dim)
     c_kv = layers.rms_norm(dkv[..., :m.kv_lora_rank], params["kv_norm"],
                            cfg.norm_eps)
     k_rope = layers.apply_rope(dkv[..., m.kv_lora_rank:], positions,
@@ -69,8 +96,10 @@ def _latent(params, cfg, x, positions):
 def mla_train(params, cfg, x, positions, *, return_cache: bool = False):
     """Naive (decompressed) MLA over a whole sequence, forward only.
     x: [B,S,D]; positions: [B,S].  Returns out [B,S,D], and with
-    ``return_cache`` also the latent cache rows {"c": [B,S,latent]}."""
-    m, H = cfg.mla, cfg.num_heads
+    ``return_cache`` also the latent cache rows {"c": [B,S,latent]}.  Under
+    tensor parallelism attention runs over the rank's heads and the row
+    piece of W_o's partial products are summed over `model`."""
+    m, H = cfg.mla, local_heads(params, cfg)
     B, S, _ = x.shape
     q_nope, q_rope = _queries(params, cfg, x, positions)
     c = _latent(params, cfg, x, positions)                    # [B,S,latent]
@@ -82,7 +111,8 @@ def mla_train(params, cfg, x, positions, *, return_cache: bool = False):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     o = causal_attention(q, k, v, scale=m.qk_head_dim ** -0.5)
-    out = layers.dense(o.reshape(B, S, H * m.v_head_dim), params["w_o"])
+    out = layers.dense_row(o.reshape(B, S, H * m.v_head_dim), params["w_o"],
+                           cfg.num_heads * m.v_head_dim)
     if return_cache:
         return out, {"c": c}
     return out
@@ -90,8 +120,9 @@ def mla_train(params, cfg, x, positions, *, return_cache: bool = False):
 
 def _absorbed_query(params, cfg, x, positions):
     """q_c[b,h] = q_nope[b,h] · W_uk[:,h] (kv_lora wide), q = [q_c ; q_rope].
-    x: [B,D]; positions: [B,1].  Returns q: [B,H,latent]."""
-    m, H = cfg.mla, cfg.num_heads
+    x: [B,D]; positions: [B,1].  Returns q: [B,H,latent] over the rank's
+    heads."""
+    m, H = cfg.mla, local_heads(params, cfg)
     q_nope, q_rope = _queries(params, cfg, x[:, None, :], positions)
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]               # [B,H,*]
     w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
@@ -101,12 +132,15 @@ def _absorbed_query(params, cfg, x, positions):
 
 
 def _absorbed_out(params, cfg, o_lat, dtype):
-    """o[b,h] = o_latent[b,h] · W_uvᵀ → W_o. o_lat: [B,H,kv].  Returns [B,D]."""
-    m, H = cfg.mla, cfg.num_heads
+    """o[b,h] = o_latent[b,h] · W_uvᵀ → W_o. o_lat: [B,H,kv] over the
+    rank's heads.  Returns [B,D] (a row piece of W_o summed over
+    `model`)."""
+    m, H = cfg.mla, local_heads(params, cfg)
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = layers.fixed_rows(o_lat.float(), lambda a: torch.einsum(
         "bhc,chd->bhd", a, w_uv.float())).to(dtype)
-    return layers.dense(o.reshape(o.shape[0], -1), params["w_o"])
+    return layers.dense_row(o.reshape(o.shape[0], -1), params["w_o"],
+                            cfg.num_heads * m.v_head_dim)
 
 
 def mla_decode(params, cfg, x, cache, pos: int, *,
@@ -121,7 +155,11 @@ def mla_decode(params, cfg, x, cache, pos: int, *,
     multiple of the ``model`` extent), ``cache`` is this rank's slice with
     the whole cache's row count under "seq_rows", and decode runs
     :func:`repro_torch.core.etap.seq_sharded_decode` (the latent has no
-    head dim to shard).  Returns (out [B,D], the cache dict)."""
+    head dim to shard).  Under tensor parallelism the rank's heads attend
+    over the whole latent (its batch rows), and in the sequence-sharded
+    branch q is gathered over its heads first (the slice's partial needs
+    every head, as the reference's takes q replicated) and the rank keeps
+    its heads of the output.  Returns (out [B,D], the cache dict)."""
     spec = spec or AttnSpec()
     m = cfg.mla
     B = x.shape[0]
@@ -132,9 +170,11 @@ def mla_decode(params, cfg, x, cache, pos: int, *,
     scale = m.qk_head_dim ** -0.5
     if seq_sharded(cache, "c", get_mesh()):
         o_lat, cache_c = seq_sharded_decode(
-            q, cache_c, c_t, pos, dv=m.kv_lora_rank, scale=scale,
-            block=spec.block, rescale=spec.rescale)
-        return (_absorbed_out(params, cfg, o_lat, x.dtype),
+            layers.gather_model(q, cfg.num_heads, dim=1), cache_c, c_t, pos,
+            dv=m.kv_lora_rank, scale=scale, block=spec.block,
+            rescale=spec.rescale)
+        return (_absorbed_out(params, cfg, _own_heads(o_lat, params, cfg),
+                              x.dtype),
                 {"c": cache_c, "seq_rows": cache["seq_rows"]})
     cache_c[:, pos] = c_t
     length = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
@@ -186,7 +226,7 @@ def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec,
     ``positions`` [B,C] drives rope; ``qpos`` None is the prefill entry
     (horizon start + row index, implied by the kernel), else the verify
     entry with the explicit per-row horizon ``qpos``."""
-    m, H = cfg.mla, cfg.num_heads
+    m, H = cfg.mla, local_heads(params, cfg)
     B, C, _ = x.shape
     q_nope, q_rope = _queries(params, cfg, x, positions)      # [B,C,H,*]
     w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
@@ -211,7 +251,8 @@ def _mla_chunk(params, cfg, x, cache, table, lengths, positions, *, spec,
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bchk,khd->bchd", o_lat.float(),
                      w_uv.float()).to(x.dtype)
-    out = layers.dense(o.reshape(B, C, H * m.v_head_dim), params["w_o"])
+    out = layers.dense_row(o.reshape(B, C, H * m.v_head_dim), params["w_o"],
+                           cfg.num_heads * m.v_head_dim)
     return out, _pools(pool, sz)
 
 

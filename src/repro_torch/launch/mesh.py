@@ -18,6 +18,8 @@ CPU; ``"gloo"`` with every rank on one card (``cuda:0``), the ranks then
 sharing that card.  On gloo the collectives run on host copies of CUDA
 tensors, on every call: gloo's CUDA support does not cover every
 collective, so the helpers stage through the host whatever the op.
+:data:`moved` counts the bytes each kind of collective returned to this
+rank, which the tensor-parallel serving phases report a step.
 """
 from __future__ import annotations
 
@@ -125,23 +127,48 @@ def _staged(t, mesh: Mesh):
     return t.cpu() if mesh.backend == "gloo" and t.is_cuda else t
 
 
+def _count(op: str, t) -> None:
+    """Add a collective's payload (bytes of the rank's result) to
+    :data:`moved`."""
+    moved[op] = moved.get(op, 0) + t.numel() * t.element_size()
+
+
+# bytes each collective moved on this rank since the caller last zeroed
+# it (the rank's result of each call: the reduced buffer, the gathered
+# tensor), keyed by "all_reduce" / "all_gather"
+moved: dict = {}
+
+
 def all_reduce(t, op, mesh: Mesh, axis: str):
     """In-place all-reduce of ``t`` over ``axis`` (``op`` a
     ``dist.ReduceOp``).  Returns ``t``."""
     s = _staged(t, mesh)
     dist.all_reduce(s, op=op, group=mesh.group(axis))
+    _count("all_reduce", s)
     if s is not t:
         t.copy_(s)
     return t
 
 
-def all_gather(t, mesh: Mesh, axis: str):
-    """The pieces of ``t`` over ``axis`` concatenated along dim 0 in axis
-    order."""
+def all_reduce_sum(t, mesh: Mesh, axis: str):
+    """The sum of the ranks' ``t`` over ``axis``, added in fp32 and
+    rounded once to ``t``'s dtype (a new tensor; fp32 partials are summed
+    as they are)."""
+    s = t.float()
+    if s is t:
+        s = t.clone()
+    return all_reduce(s, dist.ReduceOp.SUM, mesh, axis).to(t.dtype)
+
+
+def all_gather(t, mesh: Mesh, axis: str, dim: int = 0):
+    """The pieces of ``t`` over ``axis`` concatenated along ``dim`` in
+    axis order."""
     s = _staged(t.contiguous(), mesh)
     parts = [torch.empty_like(s) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, s, group=mesh.group(axis))
-    return torch.cat(parts).to(t.device)
+    out = torch.cat(parts, dim=dim)
+    _count("all_gather", out)
+    return out.to(t.device)
 
 
 # ------------------------------------------------------------------ ranks

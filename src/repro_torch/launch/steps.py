@@ -93,8 +93,10 @@ def make_train_step(cfg, tcfg: TrainConfig):
 def make_serve_step(cfg, *, mode: str = "etap"):
     """serve_step(params, cache, tokens, pos) -> (logits, cache): one
     decode token against the dense cache (the paper's workload).  Under
-    ``launch.mesh.use_mesh`` the cache is the rank's piece and the logits
-    are the rank's batch rows (:func:`gather_rows` gathers them)."""
+    ``launch.mesh.use_mesh`` the params are the rank's pieces
+    (``rules.place_params``, or ``model.init`` under the mesh), the cache
+    is the rank's piece and the logits are the rank's batch rows
+    (:func:`gather_rows` gathers them)."""
     spec = AttnSpec(mode=mode)
 
     def serve_step(params, cache, tokens, pos):
@@ -114,6 +116,10 @@ def gather_rows(logits, mesh, batch: int):
 
 
 def make_prefill_step(cfg, max_len: int):
+    """prefill_step(params, batch) -> (last logits, cache, pos): the
+    prompt through ``model.prefill``.  Under ``launch.mesh.use_mesh`` with
+    placed params, the rank's batch rows' logits and its piece of the
+    cache as ``model.init_cache`` places it."""
     def prefill_step(params, batch):
         return model.prefill(params, cfg, batch, max_len=max_len)
     return prefill_step

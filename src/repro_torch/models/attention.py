@@ -39,6 +39,10 @@ masked product, which computes the upper triangle the kernel skips.  On
 CPU operands it stays the reference's masked product.  Local attention
 never takes K9.
 
+Under tensor parallelism a rank's W_q, W_k, W_v hold its q and kv
+heads' columns (G = H/K kept) and W_o their rows (:func:`local_heads`);
+the dense cache keeps every kv head on every rank.
+
 Draft verification (:func:`attention_verify_chunk`, the serve loop's
 ``--spec-tokens``) is the chunked prefill's masked product with an explicit
 per-row horizon, over the gathered pools, with no kernel: the reference's
@@ -168,20 +172,48 @@ def gqa_decode(q, k_cache, v_cache, length, *, spec: AttnSpec, k_sz=None,
 def init_attention(gen, cfg, dtype, device):
     H, Kv, hd, D = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                     cfg.d_model)
-    dense = lambda i, o: layers.init_dense(gen, i, o, dtype, device)  # noqa: E731
-    p = {"w_q": dense(D, H * hd), "w_k": dense(D, Kv * hd),
-         "w_v": dense(D, Kv * hd), "w_o": dense(H * hd, D)}
+    leaf = layers.leaf
+
+    def dense(name, i, o):
+        return leaf(name, layers.init_dense(gen, i, o, dtype, device))
+    p = {"w_q": dense("w_q", D, H * hd), "w_k": dense("w_k", D, Kv * hd),
+         "w_v": dense("w_v", D, Kv * hd), "w_o": dense("w_o", H * hd, D)}
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros(hd, dtype=dtype, device=device)
-        p["k_norm"] = torch.zeros(hd, dtype=dtype, device=device)
+        p["q_norm"] = leaf("q_norm", torch.zeros(hd, dtype=dtype,
+                                                 device=device))
+        p["k_norm"] = leaf("k_norm", torch.zeros(hd, dtype=dtype,
+                                                 device=device))
     return p
+
+
+def local_heads(params, cfg) -> tuple[int, int]:
+    """(query heads, kv heads) this rank's weights hold: all of them, or
+    under tensor parallelism its pieces' (W_q's and W_k's columns over the
+    head width)."""
+    hd = cfg.resolved_head_dim
+    return params["w_q"].shape[1] // hd, params["w_k"].shape[1] // hd
+
+
+def _all_heads(t, whole: int):
+    """``t`` [..., n, hd] of this rank's n heads → all ``whole`` heads."""
+    return layers.gather_model(t, whole, dim=t.dim() - 2)
+
+
+def _all_kv(k, v, whole: int):
+    """:func:`_all_heads` of k and v in one collective."""
+    if k.shape[-2] == whole:
+        return k, v
+    k, v = _all_heads(torch.stack((k, v)), whole)
+    return k, v
 
 
 def _project_qkv(params, cfg, x, positions):
     """x [..., S, D], positions [..., S] → q [..., S, H, hd], k and v
     [..., S, K, hd]: projections, qk-norm (when the config has it), then
-    rope on q and k."""
-    H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rope on q and k.  H and K are this rank's heads
+    (:func:`local_heads`)."""
+    hd = cfg.resolved_head_dim
+    H, Kv = local_heads(params, cfg)
     lead = x.shape[:-1]
     q = layers.dense(x, params["w_q"]).reshape(*lead, H, hd)
     k = layers.dense(x, params["w_k"]).reshape(*lead, Kv, hd)
@@ -207,15 +239,21 @@ def attention_train(params, cfg, x, positions, *, return_cache: bool = False):
     """Full or local causal attention (per ``cfg.attention_kind``) over a
     whole sequence, forward only.  x [B,S,D]; positions [B,S].  Returns out
     [B,S,D], and with ``return_cache`` also the cache rows {"k", "v":
-    [B,S,K,hd]}."""
+    [B,S,K,hd]}.  Under tensor parallelism the rank's query heads attend
+    over its kv heads (G kept), W_o's partial products are summed over
+    `model`, and the cache rows are gathered to every kv head, as the
+    cache holds them."""
     q, k, v = _project_qkv(params, cfg, x, positions)
-    scale = cfg.resolved_head_dim ** -0.5
+    hd = cfg.resolved_head_dim
+    scale = hd ** -0.5
     if cfg.attention_kind == "local":
         o = local_attention(q, k, v, window=cfg.window_size, scale=scale)
     else:
         o = causal_attention(q, k, v, scale=scale)
-    out = layers.dense(o.reshape(*x.shape[:-1], -1), params["w_o"])
+    out = layers.dense_row(o.reshape(*x.shape[:-1], -1), params["w_o"],
+                           cfg.num_heads * hd)
     if return_cache:
+        k, v = _all_kv(k, v, cfg.num_kv_heads)
         return out, {"k": k, "v": v}
     return out
 
@@ -234,30 +272,45 @@ def attention_decode(params, cfg, x, cache, pos: int, *,
     seq_shardable(...)``; the port's config has no ``use_kernels`` (the
     reference's default is False), so the port's condition is
     ``attention_kind == "full"`` and the cache sharded.  A local ring never
-    shards.  Returns (out [B,D], the cache dict)."""
+    shards.  Under tensor parallelism the cache keeps every kv head on
+    every rank: the new K/V rows are gathered over `model` and written
+    whole, and the rank's query heads attend over its own kv heads of the
+    cache in place (a view, no copy); in the sequence-sharded branch q is
+    gathered over its heads and the rank keeps its heads of the output.
+    W_o's partial products are summed over `model`.  Returns (out [B,D],
+    the cache dict)."""
     spec = spec or AttnSpec()
     B = x.shape[0]
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x[:, None, :], positions)
+    Hl, Kl = q.shape[2], k.shape[2]
+    k, v = _all_kv(k[:, 0], v[:, 0], Kv)                      # [B,K,hd]
     kc, vc = cache["k"], cache["v"]
-    scale = cfg.resolved_head_dim ** -0.5
+    hd = cfg.resolved_head_dim
+    scale = hd ** -0.5
     if seq_sharded(cache, "k", get_mesh()):
         if cfg.attention_kind != "full":
             raise ValueError("a local attention ring is never "
                              "sequence-sharded")
         o, kc, vc = seq_sharded_gqa_decode(
-            q[:, 0], kc, vc, k[:, 0], v[:, 0], pos, scale=scale,
+            _all_heads(q[:, 0], H), kc, vc, k, v, pos, scale=scale,
             block=spec.block, rescale=spec.rescale)
-        return (layers.dense(o.reshape(B, -1), params["w_o"]),
+        h0 = layers.model_offset(Hl, H)
+        o = o[:, h0:h0 + Hl]
+        return (layers.dense_row(o.reshape(B, -1), params["w_o"], H * hd),
                 {"k": kc, "v": vc, "seq_rows": cache["seq_rows"]})
     Smax = kc.shape[1]
     slot = pos % Smax if cfg.attention_kind == "local" else pos
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
+    kc[:, slot] = k
+    vc[:, slot] = v
     length = torch.full((B,), min(pos + 1, Smax), dtype=torch.int32,
                         device=x.device)
-    o = gqa_decode(q[:, 0], kc, vc, length, spec=spec.replace(scale=scale))
-    return layers.dense(o.reshape(B, -1), params["w_o"]), {"k": kc, "v": vc}
+    k0 = layers.model_offset(Kl, Kv)
+    o = gqa_decode(q[:, 0], kc[:, :, k0:k0 + Kl], vc[:, :, k0:k0 + Kl],
+                   length, spec=spec.replace(scale=scale))
+    return (layers.dense_row(o.reshape(B, -1), params["w_o"], H * hd),
+            {"k": kc, "v": vc})
 
 
 def _append_paged_kv(cache, table, lengths, k, v):

@@ -17,9 +17,15 @@ def init_frontend(gen, cfg, dtype, device):
     if not cfg.frontend:
         return None
     d_in = FRONTEND_DIMS[cfg.frontend]
-    return {"proj": layers.init_dense(gen, d_in, cfg.d_model, dtype, device)}
+    with layers.leaf_scope("frontend"):
+        return {"proj": layers.leaf("proj", layers.init_dense(
+            gen, d_in, cfg.d_model, dtype, device))}
 
 
-def apply_frontend(params, embeds):
-    """embeds [B, S, d_frontend] → [B, S, d_model]."""
-    return layers.dense(embeds, params["proj"])
+def apply_frontend(params, embeds, d_model: int | None = None):
+    """embeds [B, S, d_frontend] → [B, S, d_model]; a column piece of the
+    projection (tensor parallelism) has its outputs gathered into all
+    ``d_model`` columns."""
+    if d_model is None:
+        return layers.dense(embeds, params["proj"])
+    return layers.dense_col(embeds, params["proj"], d_model)

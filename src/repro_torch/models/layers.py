@@ -1,13 +1,27 @@
 """Shared neural layers — the port of ``repro/models/layers.py``: norms,
 rope, the GLU MLP, embedding.  Plain functions over parameter dicts; the
-``init_*`` functions draw from an explicit ``torch.Generator``."""
+``init_*`` functions draw from an explicit ``torch.Generator``, each leaf
+through :func:`leaf` (under :func:`placing` a leaf is cut to this rank's
+piece as soon as it is drawn).
+
+Tensor parallelism: under a mesh a weight may be this rank's piece of the
+whole (``sharding.rules.place_params``).  :func:`dense_col` gathers a
+column piece's outputs over `model`, :func:`dense_row` sums a row piece's
+partial products over `model` (fp32, rounded once); :func:`embed` and
+:func:`unembed` take a vocab piece of the table.  Each compares the
+piece's width with the whole one its caller names and runs no collective
+when they agree, so outside a mesh the products are unchanged.
+"""
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch import mesh as mesh_mod
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -27,6 +41,44 @@ def no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# (fn, path) while a placed init draws: fn(path, leaf) -> the rank's piece
+_PLACER: contextvars.ContextVar = contextvars.ContextVar("placer",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def placing(fn):
+    """Within the block each leaf an ``init_*`` function draws is replaced
+    by ``fn(path, leaf)`` as soon as it is drawn (``path`` as
+    :func:`leaf_scope` builds it, e.g. "layers/0/mix/w_uq")."""
+    token = _PLACER.set((fn, ()))
+    try:
+        yield
+    finally:
+        _PLACER.reset(token)
+
+
+@contextlib.contextmanager
+def leaf_scope(name):
+    """Prefix the paths of the leaves drawn within the block with
+    ``name``."""
+    cur = _PLACER.get()
+    token = None if cur is None else _PLACER.set((cur[0],
+                                                  cur[1] + (str(name),)))
+    try:
+        yield
+    finally:
+        if token is not None:
+            _PLACER.reset(token)
+
+
+def leaf(name: str, t):
+    """A freshly drawn parameter leaf: ``t``, or under :func:`placing` the
+    placer's piece of it."""
+    cur = _PLACER.get()
+    return t if cur is None else cur[0]("/".join(cur[1] + (name,)), t)
 
 
 def init_dense(gen, d_in: int, d_out: int, dtype, device):
@@ -81,6 +133,42 @@ def dense(x, w):
     return _rows_product(x, lambda a: a @ w)
 
 
+def gather_model(t, whole: int, dim: int = -1):
+    """``t``, this rank's piece of ``whole`` entries along ``dim`` (columns,
+    heads): the pieces gathered over `model` in rank order (``t`` itself
+    when it holds them all)."""
+    if t.shape[dim] == whole:
+        return t
+    return mesh_mod.all_gather(t, mesh_mod.get_mesh(), "model", dim=dim)
+
+
+def model_offset(n: int, whole: int) -> int:
+    """The first of this rank's ``n`` of ``whole`` entries cut over
+    `model` (0 when it holds them all)."""
+    return 0 if n == whole else mesh_mod.get_mesh().coord("model") * n
+
+
+def dense_col(x, w, whole: int):
+    """x @ W for this rank's column piece ``w`` of W [K, whole]: the
+    product's columns gathered over `model`."""
+    return gather_model(dense(x, w), whole)
+
+
+def reduce_rows(y, w, whole: int):
+    """``y`` = a @ w for this rank's row piece ``w`` of W [whole, N] (a
+    the matching columns): the partial products summed over `model`, in
+    fp32 and rounded once (``y`` itself when ``w`` is whole)."""
+    if w.shape[0] == whole:
+        return y
+    return mesh_mod.all_reduce_sum(y, mesh_mod.get_mesh(), "model")
+
+
+def dense_row(x, w, whole: int):
+    """x @ W for this rank's row piece ``w`` of W [whole, N] and x the
+    matching columns: the partial products summed over `model`."""
+    return reduce_rows(dense(x, w), w, whole)
+
+
 # ---------------------------------------------------------------- RoPE
 def rope_frequencies(head_dim: int, positions, theta: float):
     """positions: [...]; returns (sin, cos) of shape positions.shape + (head_dim/2,)."""
@@ -107,26 +195,44 @@ def apply_rope(x, positions, theta: float = 10000.0):
 # ---------------------------------------------------------------- MLP (GLU)
 def init_mlp(gen, d_model: int, d_ff: int, dtype, device):
     return {
-        "w_gate": init_dense(gen, d_model, d_ff, dtype, device),
-        "w_up": init_dense(gen, d_model, d_ff, dtype, device),
-        "w_down": init_dense(gen, d_ff, d_model, dtype, device),
+        "w_gate": leaf("w_gate", init_dense(gen, d_model, d_ff, dtype,
+                                            device)),
+        "w_up": leaf("w_up", init_dense(gen, d_model, d_ff, dtype, device)),
+        "w_down": leaf("w_down", init_dense(gen, d_ff, d_model, dtype,
+                                            device)),
     }
 
 
-def mlp(params, x):
+def mlp(params, x, d_ff: int | None = None):
+    """The GLU MLP.  Under tensor parallelism w_gate / w_up are column
+    pieces and w_down the matching row piece of a ``d_ff``-wide MLP: the
+    partial outputs are summed over `model` (``d_ff`` None: the rank's
+    partial is returned as it is, for a caller that sums it later)."""
     h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
-    return dense(h, params["w_down"])
+    y = dense(h, params["w_down"])
+    return y if d_ff is None else reduce_rows(y, params["w_down"], d_ff)
 
 
 # ---------------------------------------------------------------- Embedding
 def init_embed(gen, vocab: int, d_model: int, dtype, device):
     w = torch.randn(vocab, d_model, generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)      # in place: one fp32 table at a time
 
 
-def embed(table, tokens):
-    return table[tokens.long()]
+def embed(table, tokens, vocab: int | None = None):
+    """Rows of ``table`` for ``tokens``.  A vocab piece (``table`` of fewer
+    than ``vocab`` rows: this rank's rows [r·n, (r+1)·n) over `model`)
+    looks up the tokens it holds, zeros elsewhere, and the pieces are
+    summed over `model`: one non-zero term a row, so the sum is exact."""
+    if vocab is None or table.shape[0] == vocab:
+        return table[tokens.long()]
+    mesh = mesh_mod.get_mesh()
+    n = table.shape[0]
+    local = tokens.long() - mesh.coord("model") * n
+    own = (local >= 0) & (local < n)
+    rows = torch.where(own[..., None], table[local.clamp(0, n - 1)], 0)
+    return mesh_mod.all_reduce_sum(rows, mesh, "model")
 
 
 def unembed_table(table):
@@ -135,7 +241,9 @@ def unembed_table(table):
     return table.float()
 
 
-def unembed(table_f32, x):
+def unembed(table_f32, x, vocab: int | None = None):
     """Tied unembedding with fp32 logits; ``table_f32`` from
-    :func:`unembed_table`."""
-    return _rows_product(x, lambda a: a.float() @ table_f32.T)
+    :func:`unembed_table`.  A vocab piece's logits (its columns) are
+    gathered over `model` into all ``vocab`` columns."""
+    y = _rows_product(x, lambda a: a.float() @ table_f32.T)
+    return y if vocab is None else gather_model(y, vocab)

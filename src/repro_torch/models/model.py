@@ -22,6 +22,13 @@ reference's does: :func:`forward` (and so single-shot :func:`prefill`)
 with capacity routing, returning the layer's aux losses; a decode step
 (the B tokens one group) and a prompt chunk dropless.
 
+Under a mesh (``launch.mesh.use_mesh``) the weights are each rank's
+pieces as ``param_specs(profile="serve")`` places them (tensor
+parallelism: :func:`init` under the mesh, or ``rules.place_params``);
+:func:`forward`, :func:`prefill` and :func:`decode_step` check the
+placement and run the rank's batch rows, each layer reading its head
+counts from its pieces and running the collectives the placement needs.
+
 Training: :func:`loss_fn` is the reference's next-token cross-entropy plus
 the MoE aux losses.  It unembeds through ``params["embed"]`` upcast inside
 the autograd graph, as the reference's ``layers.unembed`` does, so the
@@ -116,21 +123,53 @@ def check_ported(cfg) -> None:
 def _init_block(gen, cfg, sig, dtype, device):
     kind, is_moe = sig
     D = cfg.d_model
+
+    def norm(name):
+        return layers.leaf(name, torch.zeros(D, dtype=dtype, device=device))
+
+    def sub(name, fn, *a):
+        with layers.leaf_scope(name):
+            return fn(gen, *a, dtype, device)
     if kind == "ssm":                  # a Mamba block has no FFN
-        return {"norm1": torch.zeros(D, dtype=dtype, device=device),
-                "mix": mamba.init_mamba(gen, cfg, dtype, device)}
+        return {"norm1": norm("norm1"),
+                "mix": sub("mix", mamba.init_mamba, cfg)}
     if kind == "rglru":
         mix = rglru.init_rglru
     else:
         mix = (mla_mod.init_mla if cfg.attention_kind == "mla"
                else attention.init_attention)
     return {
-        "norm1": torch.zeros(D, dtype=dtype, device=device),
-        "mix": mix(gen, cfg, dtype, device),
-        "norm2": torch.zeros(D, dtype=dtype, device=device),
-        "ffn": (moe.init_moe(gen, cfg, dtype, device) if is_moe else
-                layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)),
+        "norm1": norm("norm1"),
+        "mix": sub("mix", mix, cfg),
+        "norm2": norm("norm2"),
+        "ffn": (sub("ffn", moe.init_moe, cfg) if is_moe else
+                sub("ffn", layers.init_mlp, cfg.d_model, cfg.d_ff)),
     }
+
+
+def _draw(cfg, seed: int, device) -> dict:
+    """:func:`init`'s draws, each leaf through ``layers.leaf`` as it is
+    drawn."""
+    dtype = cfg.torch_dtype
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {
+        "embed": layers.leaf("embed", layers.init_embed(
+            gen, cfg.vocab_size, cfg.d_model, dtype, device)),
+        "final_norm": layers.leaf("final_norm", torch.zeros(
+            cfg.d_model, dtype=dtype, device=device)),
+    }
+    fe = frontend.init_frontend(gen, cfg, dtype, device)
+    if fe is not None:
+        params["frontend"] = fe
+    layer_list = []
+    for i, sig in enumerate(signatures(cfg)):
+        with layers.leaf_scope("layers"), layers.leaf_scope(i):
+            layer_list.append(_init_block(gen, cfg, sig, dtype, device))
+    params["layers"] = layer_list
+    # the upcast of the (piece of the) table: the piece of the upcast
+    params["embed_f32"] = layers.unembed_table(params["embed"])
+    return params
 
 
 def init(cfg, *, seed: int = 0, device="cuda") -> dict:
@@ -139,23 +178,92 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
     ``jax.random`` draws — use :mod:`repro_torch.models.convert` for the
     reference's weights).  ``embed_f32`` is the unembedding table, upcast
     once here; a config with a frontend also gets its projection
-    ``frontend``."""
+    ``frontend``.
+
+    Under a mesh (``launch.mesh.use_mesh``) each leaf is drawn whole from
+    the same generator, cut to this rank's piece by its
+    ``param_specs(profile="serve")`` spec and freed before the next is
+    drawn: the result is bitwise ``rules.place_params(init(cfg),
+    mesh)``, without the whole tree ever on the device."""
     check_ported(cfg)
-    dtype = cfg.torch_dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    params = {
-        "embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
-                                   device),
-        "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-    }
-    fe = frontend.init_frontend(gen, cfg, dtype, device)
-    if fe is not None:
-        params["frontend"] = fe
-    params["layers"] = [_init_block(gen, cfg, sig, dtype, device)
-                        for sig in signatures(cfg)]
-    params["embed_f32"] = layers.unembed_table(params["embed"])
-    return params
+    mesh = get_mesh()
+    if mesh is None:
+        return _draw(cfg, seed, device)
+    check_tensor_parallel(cfg, mesh)
+    specs = {}
+
+    def put(path, t):
+        piece, specs[path] = rules.place_leaf(path, t, mesh)
+        return piece
+    with layers.placing(put):
+        params = _draw(cfg, seed, device)
+    specs["embed_f32"] = specs["embed"]
+
+    def spec_of(path, t):      # a leaf drawn outside layers.leaf: whole
+        if path not in specs:
+            t_placed, specs[path] = rules.place_leaf(path, t, mesh)
+            if t_placed is not t:
+                raise AssertionError(f"{path} was drawn whole and is cut")
+        return specs[path]
+    return rules.Placed(params, mesh.shape,
+                        rules._tree_map_with_path(spec_of, params))
+
+
+def check_tensor_parallel(cfg, mesh) -> None:
+    """Raise unless the port serves ``cfg`` with its weights placed by
+    ``param_specs(profile="serve")`` on ``mesh``: a Mamba or RG-LRU block
+    under a `model` axis of more than one rank (ROADMAP A10b.5), or a
+    head weight whose `model` piece cuts a head or whose heads the other
+    head weights do not cut alike (ROADMAP A10b) raises
+    ``NotImplementedError``.  Experts over `data` raise where they are
+    placed (``rules.check_leaf_spec``, A10b.3)."""
+    n = mesh.shape.get("model", 1)
+    if n == 1:
+        return
+    kinds = set(cfg.layer_kinds())
+    if kinds & {"ssm", "rglru"}:
+        raise NotImplementedError(
+            f"{cfg.name}: {sorted(kinds & {'ssm', 'rglru'})} blocks under "
+            f"a `model` axis of {n}: their placements are not yet ported "
+            "(ROADMAP A10b.5)")
+    if "attn" not in kinds:
+        return
+    if cfg.attention_kind == "mla":
+        m = cfg.mla
+        groups = {"heads": (cfg.num_heads, {
+            "w_uq": m.qk_head_dim, "w_uk": m.qk_nope_head_dim,
+            "w_uv": m.v_head_dim, "w_o": m.v_head_dim})}
+    else:
+        hd = cfg.resolved_head_dim
+        groups = {"heads": (cfg.num_heads, {"w_q": hd, "w_o": hd}),
+                  "kv heads": (cfg.num_kv_heads, {"w_k": hd, "w_v": hd})}
+    cut = {}
+    for what, (heads, widths) in groups.items():
+        for name, width in widths.items():
+            cut[name] = heads * width % n == 0     # _fit keeps `model`
+            if cut[name] and heads % n:
+                raise NotImplementedError(
+                    f"{cfg.name}: the serve spec cuts {name}'s {heads} "
+                    f"{what} of width {width} into {n} pieces of "
+                    f"{heads * width // n} columns, which cuts a head: not "
+                    "yet ported (ROADMAP A10b)")
+    if len(set(cut.values())) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: on a `model` axis of {n} the serve specs cut "
+            f"{sorted(k for k, c in cut.items() if c)} but not "
+            f"{sorted(k for k, c in cut.items() if not c)}: not yet ported "
+            "(ROADMAP A10b)")
+
+
+def _check_mesh(params, cfg):
+    """The current mesh (None outside one), after checking that
+    ``params`` were placed for it and that the port serves ``cfg`` so
+    placed."""
+    mesh = get_mesh()
+    if mesh is not None:
+        rules.check_placed(params, mesh)
+        check_tensor_parallel(cfg, mesh)
+    return mesh
 
 
 # ---------------------------------------------------------- full sequence
@@ -192,18 +300,33 @@ def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool):
     if is_moe:
         f, aux = moe.moe_ffn(lp["ffn"], cfg, h2)
     else:
-        f = layers.mlp(lp["ffn"], h2)
+        f = layers.mlp(lp["ffn"], h2, cfg.d_ff)
     return x + f, aux, cache
 
 
-def _embed_inputs(params, batch):
+def _embed_inputs(params, cfg, batch):
     """A batch {"tokens": [B,S]} (or the tokens themselves) through the
     embedding table, or {"embeds": [B,S,d_frontend]} through the frontend's
     projection."""
     if isinstance(batch, dict) and "embeds" in batch:
-        return frontend.apply_frontend(params["frontend"], batch["embeds"])
+        return frontend.apply_frontend(params["frontend"], batch["embeds"],
+                                       cfg.d_model)
     tokens = batch["tokens"] if isinstance(batch, dict) else batch
-    return layers.embed(params["embed"], tokens)
+    return layers.embed(params["embed"], tokens, cfg.vocab_size)
+
+
+def _rank_rows(t, mesh):
+    """This rank's batch rows of ``t`` [B, ...] (``rules.cache_specs``'
+    batch entry: all of them where B does not divide)."""
+    spec = rules.P(rules._fit(rules.batch_axes(mesh), t.shape[0], mesh))
+    return rules.local_rows(t, spec, mesh)
+
+
+def _rank_batch(batch, mesh):
+    """A batch as :func:`forward` takes it, cut to this rank's rows."""
+    if isinstance(batch, dict):
+        return {k: _rank_rows(v, mesh) for k, v in batch.items()}
+    return _rank_rows(batch, mesh)
 
 
 def _requires_grad(tree) -> bool:
@@ -222,7 +345,7 @@ def _hidden(params, cfg, batch, collect_cache: bool):
     as :func:`_embed_inputs` takes it), the per-layer cache rows and the
     aux losses summed over the layers."""
     check_ported(cfg)
-    x = _embed_inputs(params, batch)
+    x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
@@ -244,9 +367,16 @@ def forward(params, cfg, batch, *, collect_cache: bool = False):
     """Full-sequence forward.  batch: tokens [B,S], {"tokens": [B,S]} or
     {"embeds": [B,S,d_frontend]}.  Returns (logits [B,S,V] fp32, aux
     {"load_balance", "router_z"} summed over the layers, the per-layer
-    cache rows when ``collect_cache`` else None)."""
+    cache rows when ``collect_cache`` else None).  Under a mesh
+    (``params`` placed for it: ``rules.place_params`` or :func:`init`
+    under the mesh) the rank runs its batch rows of the whole batch, its
+    pieces of the weights with their collectives, and returns its rows'
+    logits over the whole vocabulary."""
+    mesh = _check_mesh(params, cfg)
+    if mesh is not None:
+        batch = _rank_batch(batch, mesh)
     x, caches, aux = _hidden(params, cfg, batch, collect_cache)
-    logits = layers.unembed(params["embed_f32"], x)
+    logits = layers.unembed(params["embed_f32"], x, cfg.vocab_size)
     return logits, aux, (caches if collect_cache else None)
 
 
@@ -256,7 +386,13 @@ def loss_fn(params, cfg, batch):
     [B,S]} or {"embeds": [B,S,d_frontend], "targets": [B,S]}.  The logits
     are fp32 from ``params["embed"]`` upcast in the graph (the unembedding
     is an fp32 product: TF32 stays off, PyTorch's default).  Returns
-    (loss, {"nll", "load_balance", "router_z"})."""
+    (loss, {"nll", "load_balance", "router_z"}).  The sharded train step
+    is not yet ported: under a mesh of more than one rank this raises."""
+    mesh = get_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"loss_fn on {mesh}: the sharded train step is not yet ported "
+            "(ROADMAP A10b.2)")
     x, _, aux = _hidden(params, cfg, batch, collect_cache=False)
     logits = layers.unembed(layers.unembed_table(params["embed"]), x)
     targets = batch["targets"] if "targets" in batch else batch["tokens"]
@@ -368,16 +504,47 @@ def _pad_cache_rows(cfg, kind, cache_rows, max_len):
         for key, rows in cache_rows.items()}
 
 
+def _place_rows(cache, batch: int, mesh):
+    """A cache of this rank's batch rows (of a whole batch of ``batch``)
+    cut as :func:`init_cache` places it under ``mesh``: the S slice of an
+    attention cache where ``rules.cache_specs`` of the whole cache
+    sequence-shards it (the whole S under "seq_rows"), each piece a
+    contiguous copy."""
+    whole = [{k: torch.empty((batch, *t.shape[1:]), dtype=t.dtype,
+                             device="meta") for k, t in layer.items()}
+             for layer in cache]
+    specs = _rank_specs(whole, mesh)
+
+    def rows_of(t, spec):
+        if all(e is None for e in spec[1:]):
+            return t
+        return rules.local_rows(t, rules.P(None, *spec[1:]), mesh).clone(
+            memory_format=torch.contiguous_format)
+    return [_rank_layer(layer, lspec, rows_of)
+            for layer, lspec in zip(cache, specs, strict=True)]
+
+
 def prefill(params, cfg, batch, max_len: int):
     """Run the prompt and build the dense serving cache.  batch: tokens
     [B,S] (or a batch as :func:`forward` takes it).  Returns (last_logits
     [B,V] fp32, cache, pos = S).  Only the last row is unembedded: the full
-    [B,S,V] logits are never made."""
-    x, caches, _ = _hidden(params, cfg, batch, collect_cache=True)
-    logits = layers.unembed(params["embed_f32"], x[:, -1])
-    return (logits, [_pad_cache_rows(cfg, kind, c, max_len)
-                     for c, kind in zip(caches, cfg.layer_kinds(),
-                                        strict=True)], x.shape[1])
+    [B,S,V] logits are never made.  Under a mesh (``params`` placed for
+    it) the rank prefills its batch rows with its pieces of the weights
+    and returns its rows' logits and its piece of the cache as
+    :func:`init_cache` places it under the mesh."""
+    mesh = _check_mesh(params, cfg)
+    rows = batch
+    if mesh is not None:
+        rows = _rank_batch(batch, mesh)
+    x, caches, _ = _hidden(params, cfg, rows, collect_cache=True)
+    logits = layers.unembed(params["embed_f32"], x[:, -1], cfg.vocab_size)
+    cache = [_pad_cache_rows(cfg, kind, c, max_len)
+             for c, kind in zip(caches, cfg.layer_kinds(), strict=True)]
+    if mesh is not None:
+        whole = batch if not isinstance(batch, dict) else next(
+            iter(batch.values()))
+        cache = _place_rows(cache, whole.shape[0], mesh)
+    return logits, cache, x.shape[1]
 
 
 def check_pageable(cfg) -> None:
@@ -493,7 +660,7 @@ def _block_prefill_chunk(lp, cfg, sig, x, cache, table, lengths, spec,
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     if is_moe:
         return x + moe.moe_ffn(lp["ffn"], cfg, h2, dropless=True)[0], cache
-    return x + layers.mlp(lp["ffn"], h2), cache
+    return x + layers.mlp(lp["ffn"], h2, cfg.d_ff), cache
 
 
 def _block_decode(lp, cfg, sig, x, cache, pos, spec, cache_layout, table,
@@ -520,7 +687,7 @@ def _block_decode(lp, cfg, sig, x, cache, pos, spec, cache_layout, table,
     if is_moe:                         # the B tokens: one group
         return x + moe.moe_ffn(lp["ffn"], cfg, h2[None],
                                dropless=True)[0][0], cache
-    return x + layers.mlp(lp["ffn"], h2), cache
+    return x + layers.mlp(lp["ffn"], h2, cfg.d_ff), cache
 
 
 def prefill_chunk(params, cfg, cache, tokens, block_table, lengths, *,
@@ -544,7 +711,7 @@ def _chunk_forward(params, cfg, cache, tokens, block_table, lengths, spec,
                    qpos=None, n_cached: int = 0):
     """The chunk-shaped forward of :func:`prefill_chunk` and
     :func:`verify_step`."""
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(params["embed"], tokens, cfg.vocab_size)
     new_cache = []
     for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),
                            strict=True):
@@ -552,7 +719,7 @@ def _chunk_forward(params, cfg, cache, tokens, block_table, lengths, spec,
                                      lengths, spec, qpos, n_cached)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(params["embed_f32"], x), new_cache
+    return layers.unembed(params["embed_f32"], x, cfg.vocab_size), new_cache
 
 
 def verify_step(params, cfg, cache, tokens, block_table, lengths, *,
@@ -591,8 +758,10 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
     this rank's piece (:func:`init_cache` / :func:`shard_cache` under the
     mesh), and the step runs the rank's batch rows (``rules.cache_specs``'
     batch entry), each rank over its sequence slice where the cache is
-    sequence-sharded.  Returns (logits [B,V] fp32, under a mesh the rank's
-    rows (``launch.steps.gather_rows`` gathers them), cache)."""
+    sequence-sharded, with its pieces of the weights (``params`` placed
+    for the mesh: ``rules.place_params`` or :func:`init` under it).
+    Returns (logits [B,V] fp32, under a mesh the rank's rows
+    (``launch.steps.gather_rows`` gathers them), cache)."""
     spec = spec or AttnSpec()
     if cache_layout not in ("dense", "paged"):
         raise ValueError(f"cache_layout {cache_layout!r}")
@@ -605,9 +774,9 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
         if cache_layout == "paged" and mesh.size > 1:
             raise NotImplementedError(
                 f"paged decode on {mesh}: not yet ported (ROADMAP A10b)")
-        tokens = rules.local_rows(tokens, rules.P(rules._fit(
-            rules.batch_axes(mesh), tokens.shape[0], mesh)), mesh)
-    x = layers.embed(params["embed"], tokens)
+        _check_mesh(params, cfg)
+        tokens = _rank_rows(tokens, mesh)
+    x = layers.embed(params["embed"], tokens, cfg.vocab_size)
     new_cache = []
     for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),
                            strict=True):
@@ -615,7 +784,7 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
                               block_table, lengths)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(params["embed_f32"], x), new_cache
+    return layers.unembed(params["embed_f32"], x, cfg.vocab_size), new_cache
 
 
 def param_count(params) -> int:

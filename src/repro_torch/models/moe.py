@@ -10,14 +10,19 @@ each expert keeps at most C tokens, earlier (token, choice) pairs win, and
 the overflow is dropped.
 
 The reference pins the expert layout for expert parallelism with
-``constrain``; the port runs on one device, so there is no sharding here
-(multi-GPU is ROADMAP A10).
+``constrain``.  The port serves the experts' intra-expert tensor
+parallelism (``param_specs(profile="serve")`` at `data` = 1: every expert
+on every rank, w_gate / w_up cut over F's columns and w_down over its
+rows): each rank combines its partial expert outputs with the shared
+expert's partial and one fp32 all-reduce over `model` sums them.  Experts
+spread over `data` (expert parallelism) are ROADMAP A10b.3.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers
 
 # experts drawn at once by init_moe: 16 x 7168 x 2048 fp32 is 0.94 GB
@@ -44,16 +49,18 @@ def init_moe(gen, cfg, dtype, device):
     D = cfg.d_model
     Fe = m.d_ff_expert or cfg.d_ff
     E = m.num_experts
+    leaf = layers.leaf
     router = torch.randn(D, E, generator=gen, dtype=torch.float32,
                          device=device) * D ** -0.5
     p = {
-        "router": router,
-        "w_gate": _experts(gen, E, D, Fe, dtype, device),
-        "w_up": _experts(gen, E, D, Fe, dtype, device),
-        "w_down": _experts(gen, E, Fe, D, dtype, device),
+        "router": leaf("router", router),
+        "w_gate": leaf("w_gate", _experts(gen, E, D, Fe, dtype, device)),
+        "w_up": leaf("w_up", _experts(gen, E, D, Fe, dtype, device)),
+        "w_down": leaf("w_down", _experts(gen, E, Fe, D, dtype, device)),
     }
     if m.shared_expert:
-        p["shared"] = layers.init_mlp(gen, D, Fe, dtype, device)
+        with layers.leaf_scope("shared"):
+            p["shared"] = layers.init_mlp(gen, D, Fe, dtype, device)
     return p
 
 
@@ -118,10 +125,18 @@ def moe_ffn(params, cfg, x, *, dropless: bool = False):
     """x: [G,S,D] -> (out [G,S,D], aux losses {"load_balance",
     "router_z"}).  ``dropless=True`` (serving): the bounded-overflow
     capacity of :func:`capacity`.  Every expert runs over all of its C
-    slots, the empty ones on a zero row, as the reference's einsums do."""
+    slots, the empty ones on a zero row, as the reference's einsums do.
+    Under tensor parallelism each expert's (and the shared expert's)
+    F is this rank's piece: the partial outputs are combined, added and
+    summed over `model` in fp32, rounded once."""
     m = cfg.moe
     G, S, D = x.shape
     E, k = m.num_experts, m.top_k
+    if params["w_gate"].shape[0] != E:
+        raise NotImplementedError(
+            f"{params['w_gate'].shape[0]} of {E} experts on this rank: "
+            "expert parallelism is not yet ported (ROADMAP A10b.3)")
+    cut = params["w_down"].shape[1] != (m.d_ff_expert or cfg.d_ff)
     C = capacity(cfg, S, dropless)
 
     logits, gates, gate_k, idx_k = route(params, cfg, x)
@@ -141,10 +156,16 @@ def moe_ffn(params, cfg, x, *, dropless: bool = False):
     row = torch.where(s < E * C, (s // C) * (G * C) + g_off * C + s % C,
                       E * G * C)
     yk = ypad[row].view(G, S, k, D)
-    out = (yk.float() * gate_k[..., None]).sum(dim=2).to(x.dtype)
-
-    if m.shared_expert:
-        out = out + layers.mlp(params["shared"], x)
+    out = (yk.float() * gate_k[..., None]).sum(dim=2)
+    if cut:                                       # partials over `model`
+        if m.shared_expert:
+            out = out + layers.mlp(params["shared"], x).float()
+        out = mesh_mod.all_reduce_sum(out, mesh_mod.get_mesh(),
+                                      "model").to(x.dtype)
+    else:
+        out = out.to(x.dtype)
+        if m.shared_expert:
+            out = out + layers.mlp(params["shared"], x)
 
     # load-balance and router-z losses (Switch / ST-MoE)
     me = gates.mean(dim=(0, 1))                                   # [E]

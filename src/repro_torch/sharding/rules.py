@@ -143,6 +143,28 @@ def _tree_map_with_path(fn, tree, path=()):
     return fn("/".join(path), tree)
 
 
+def leaf_spec(path: str, leaf, mesh, *, profile: str = "train") -> P:
+    """The spec of one parameter leaf at ``path`` ("layers/3/mix/w_uq")
+    under ``profile``, as :func:`param_specs` gives it."""
+    if path == "embed_f32":
+        path = "embed"
+    nd, shape = leaf.dim(), tuple(leaf.shape)
+    if profile == "serve" and nd == 3 and \
+            re.search(r"ffn/(w_gate|w_up|w_down)$", path):
+        # serving MoE layout: EP over `data`, intra-expert TP over
+        # `model` — every expert shard lives on exactly one device row,
+        # nothing is re-gathered per decode step.
+        if path.endswith("w_down"):       # [E, F, D]
+            return P(_fit("data", shape[0], mesh),
+                     _fit("model", shape[1], mesh), None)
+        return P(_fit("data", shape[0], mesh), None,
+                 _fit("model", shape[2], mesh))
+    spec = _spec_for(path, nd, mesh, shape)
+    if profile == "serve":
+        spec = P(*[_strip_data(e) for e in spec])
+    return spec
+
+
 def param_specs(params, mesh, *, profile: str = "train"):
     """Spec tree matching ``params`` (the serving copy ``embed_f32`` takes
     ``embed``'s spec).
@@ -151,25 +173,9 @@ def param_specs(params, mesh, *, profile: str = "train"):
     per layer, reduce-scattered grads) — the memory-optimal training layout.
     profile="serve": TP/EP only — weights replicated across `data`; decoding
     must NOT re-gather FSDP shards every token (§Perf iteration S1)."""
-    def one(path, leaf):
-        if path == "embed_f32":
-            path = "embed"
-        nd, shape = leaf.dim(), tuple(leaf.shape)
-        if profile == "serve" and nd == 3 and \
-                re.search(r"ffn/(w_gate|w_up|w_down)$", path):
-            # serving MoE layout: EP over `data`, intra-expert TP over
-            # `model` — every expert shard lives on exactly one device row,
-            # nothing is re-gathered per decode step.
-            if path.endswith("w_down"):       # [E, F, D]
-                return P(_fit("data", shape[0], mesh),
-                         _fit("model", shape[1], mesh), None)
-            return P(_fit("data", shape[0], mesh), None,
-                     _fit("model", shape[2], mesh))
-        spec = _spec_for(path, nd, mesh, shape)
-        if profile == "serve":
-            spec = P(*[_strip_data(e) for e in spec])
-        return spec
-    return _tree_map_with_path(one, params)
+    return _tree_map_with_path(
+        lambda path, leaf: leaf_spec(path, leaf, mesh, profile=profile),
+        params)
 
 
 def _strip_data(entry):
@@ -256,15 +262,13 @@ def seq_sharded(layer_cache, key: str, mesh) -> bool:
 def local_rows(t, spec, mesh):
     """This rank's piece of ``t`` under ``spec``: each dim that an entry
     names is cut into the entry's axes' total extent of equal parts, and
-    the part at this rank's index over those axes is kept (a view).  A
-    dim the parts do not divide raises."""
+    the part at this rank's index over those axes is kept (a view; ``t``
+    itself where no entry cuts).  A dim the parts do not divide raises."""
     for dim, entry in enumerate(spec):
-        if entry is None:
+        n = extent(entry, mesh)
+        if n == 1:
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
-        n = 1
-        for a in axes:
-            n *= mesh.shape[a]
         if t.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                              f"{n} ways over {axes}")
@@ -276,10 +280,108 @@ def local_rows(t, spec, mesh):
 def local_shape(shape, spec, mesh) -> tuple:
     """The shape of a rank's piece of a tensor of ``shape`` under
     ``spec``."""
-    out = list(shape)
-    for dim, entry in enumerate(spec):
-        if entry is not None:
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            for a in axes:
-                out[dim] //= mesh.shape[a]
-    return tuple(out)
+    return tuple(d // extent(e, mesh) for d, e in zip(
+        shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+# ------------------------------------------------------- placed parameters
+def extent(entry, mesh) -> int:
+    """How many pieces a spec entry cuts its dim into on ``mesh``."""
+    if entry is None:
+        return 1
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+class Placed(dict):
+    """A parameter tree holding this rank's pieces: ``mesh_shape`` is the
+    mesh's {axis: extent} it was cut for and ``specs`` the spec tree that
+    cut it (each leaf's spec on the whole tensor)."""
+
+    def __init__(self, tree, mesh_shape: dict, specs):
+        super().__init__(tree)
+        self.mesh_shape = dict(mesh_shape)
+        self.specs = specs
+
+
+def check_leaf_spec(path: str, spec, mesh) -> None:
+    """Refuse a serving placement the port does not run: a MoE expert
+    stack [E, ...] cut over `data` (expert parallelism)."""
+    if spec and re.search(r"ffn/(w_gate|w_up|w_down)$", path) and \
+            len(spec) == 3 and extent(spec[0], mesh) > 1:
+        raise NotImplementedError(
+            f"{path}: the serve spec {spec} puts the experts over "
+            f"{spec[0]} on {mesh.shape}; expert parallelism is not yet "
+            "ported (ROADMAP A10b.3)")
+
+
+def place_leaf(path: str, t, mesh, *, profile: str = "serve"):
+    """(this rank's piece of the leaf ``t`` at ``path`` under its
+    ``profile`` spec on ``mesh``, as a contiguous copy, the spec)."""
+    spec = leaf_spec(path, t, mesh, profile=profile)
+    check_leaf_spec(path, spec, mesh)
+    piece = local_rows(t, spec, mesh)
+    if piece is t:
+        return t, spec
+    return piece.clone(memory_format=torch.contiguous_format), spec
+
+
+def place_params(params, mesh, *, profile: str = "serve") -> Placed:
+    """This rank's pieces of a whole parameter tree, each leaf cut by its
+    ``param_specs(..., profile)`` spec on ``mesh`` (:func:`local_rows`, a
+    contiguous copy; a leaf the spec leaves whole is kept as it is), with
+    the mesh's shape and the specs recorded on the result.  Only
+    ``profile="serve"`` is ported; a MoE expert stack over `data` raises
+    (:func:`check_leaf_spec`)."""
+    if profile != "serve":
+        raise NotImplementedError(
+            f"placing weights by profile={profile!r} (FSDP over `data`): "
+            "not yet ported (ROADMAP A10b.2)")
+    specs = param_specs(params, mesh, profile=profile)
+    pieces = _tree_map_with_path(
+        lambda path, t: place_leaf(path, t, mesh, profile=profile)[0],
+        params)
+    return Placed(pieces, mesh.shape, specs)
+
+
+def _leaves_with_path(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_path(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_path(v, path + (str(i),))
+    elif isinstance(tree, torch.Tensor):
+        yield "/".join(path), tree
+
+
+def cuts(spec, mesh) -> bool:
+    """Whether ``spec`` cuts any dim on ``mesh``."""
+    return any(extent(e, mesh) > 1 for e in spec)
+
+
+def check_placed(params, mesh) -> None:
+    """Raise unless ``params`` fits ``mesh`` (None: no mesh): a tree
+    :func:`place_params` cut for another mesh shape, or a whole tree where
+    the serve specs on ``mesh`` would cut a leaf, raises ``ValueError``
+    (as :func:`seq_sharded` refuses a whole cache where the mesh shards
+    it)."""
+    placed = getattr(params, "mesh_shape", None)
+    want = getattr(mesh, "shape", None)
+    if placed is not None:
+        if placed != want:
+            raise ValueError(f"the weights were placed for mesh {placed}, "
+                             f"the current mesh is {want}")
+        return
+    if mesh is None:
+        return
+    for path, t in _leaves_with_path(params):
+        spec = leaf_spec(path, t, mesh, profile="serve")
+        if cuts(spec, mesh):
+            raise ValueError(
+                f"whole weights on mesh {mesh.shape}, whose serve spec "
+                f"{spec} cuts {path} {tuple(t.shape)}: place them with "
+                "rules.place_params or model.init under the mesh")

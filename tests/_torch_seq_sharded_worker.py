@@ -5,14 +5,33 @@ test's directory, reads the inputs the test wrote there (``inputs.pt``:
 the primitives' operands, the converted weights and the prompts), and for
 each mesh (1, 4) and (2, 2) runs the sequence-sharded primitives on its
 piece of the operands and the serve loops (whole prefill, ``shard_cache``,
-``make_serve_step`` greedy, ``gather_rows``), then writes what it got to
-``rank<r>.pt``.  The test compares those with the JAX package's results.
+``make_serve_step`` greedy over the weights placed for the mesh,
+``gather_rows``), then writes what it got to ``rank<r>.pt``.  A MoE model
+runs all-dense on a mesh with `data` > 1 (:func:`moe_dense`), where the
+serve placement puts its experts over `data`: expert parallelism, which
+the port refuses.  The test compares those with the JAX package's results.
 Imports no JAX: the ranks run the port only.
 """
 import pathlib
 
 MESHES = ((1, 4), (2, 2))
 MIN_S = 64                        # SEQ_SHARD_MIN_S at test scale
+
+
+def moe_dense(shape) -> bool:
+    """Whether a MoE model runs as its all-dense variant (every MoE layer
+    a dense MLP) on a mesh of ``shape`` (data, model): where `data` > 1
+    the serve placement puts the experts over `data` (ROADMAP A10b.3)."""
+    return shape[0] > 1
+
+
+def dense_variant(cfg):
+    """``cfg`` with every layer's FFN a dense MLP."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, first_dense_layers=cfg.num_layers))
 
 
 def _primitives(inp, mesh):
@@ -46,16 +65,22 @@ def _primitives(inp, mesh):
     return out
 
 
-def _serve(params, cfg, toks, prompt, max_len, steps, mesh):
+def _serve(params, cfg, toks, prompt, max_len, steps, mesh, dense=None):
     """Prefill the whole batch outside the mesh, take this rank's piece,
-    then ``steps`` greedy serve steps under the mesh."""
+    then ``steps`` greedy serve steps under the mesh over the weights
+    placed for it (``dense``: the all-dense variant's (params, cfg), run
+    where :func:`moe_dense`)."""
     import torch
 
     from repro_torch.launch import mesh as M
     from repro_torch.launch import steps as S
     from repro_torch.models import model
+    from repro_torch.sharding import rules
 
+    if dense is not None and moe_dense(tuple(mesh.shape.values())):
+        params, cfg = dense
     _, cache, pos = model.prefill(params, cfg, toks[:, :prompt], max_len)
+    params = rules.place_params(params, mesh)
     with M.use_mesh(mesh):
         cache = model.shard_cache(cache)
         step = S.make_serve_step(cfg)

@@ -14,8 +14,11 @@ model), the JAX side on 4 of its 8 devices.  Checked:
   ``seq_sharded_decode`` / ``seq_sharded_gqa_decode``, caches bitwise (at
   pos 77 on (1, 4) the last slice holds no position);
 - ``make_serve_step`` under the mesh for reduced DeepSeek-R1 (an MLA dense
-  layer and a MoE layer) and reduced Qwen3-8B (G 2) on the reference's
-  weights (``params_from_jax``): 4 greedy steps after a 40-token prompt
+  layer and a MoE layer; on (2, 2), where the serve placement would put
+  the experts over `data`, its all-dense variant) and reduced Qwen3-8B (8
+  heads, 4 kv heads: G 2, each kv head whole on a `model` rank of 4) on
+  the reference's weights (``params_from_jax``), placed for the
+  mesh (``rules.place_params``): 4 greedy steps after a 40-token prompt
   into a 128-row cache, logits within 2e-5 of the reference's
   ``decode_step`` under its mesh, tokens equal, each rank's cache rows
   within 2e-5 of the reference's rows;
@@ -56,14 +59,14 @@ PRIM_TOL = dict(atol=1e-5, rtol=0)
 PROMPT, MAX_LEN, STEPS = 40, 128, 4
 # name -> (arch, reduced() keywords, cache rows)
 SERVE = {"deepseek": ("deepseek_r1_671b", {}, MAX_LEN),
-         "qwen": ("qwen3_8b", {"kv_heads": 2}, MAX_LEN),
+         "qwen": ("qwen3_8b", {"heads": 8, "kv_heads": 4}, MAX_LEN),
          "deepseek-short": ("deepseek_r1_671b", {}, 48)}
 SPAWN_S = 120
 
 _JAX = textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import functools, json
+    import dataclasses, functools, json
     import numpy as np
     import jax, jax.numpy as jnp
     import repro.sharding.rules as rules
@@ -90,22 +93,28 @@ _JAX = textwrap.dedent("""
 
     weights, inits = {}, {}
     for name, (arch, kw, max_len) in serve.items():
-        cfg = reduced(get_config(arch), **kw)
-        key = json.dumps([arch, kw])
-        if key not in inits:
-            inits[key] = jax.jit(functools.partial(model.init, cfg=cfg))(
-                jax.random.PRNGKey(0))
-        params = inits[key]
-        toks = inp["toks/" + name]
-        _, cache, pos = jax.jit(
-            lambda p, t: model.prefill(p, cfg, {"tokens": t}, max_len))(
-            params, jnp.asarray(toks[:, :%(prompt)d]))
-        pos = int(pos)
-        weights[name] = (cfg, jax.tree.map(np.asarray, params),
-                         jax.tree.map(np.asarray, cache), pos, toks)
-        out["wsum/" + name] = np.array(sum(
-            float(np.abs(np.asarray(x, np.float64)).sum())
-            for x in jax.tree.leaves(params)))
+        base = reduced(get_config(arch), **kw)
+        variants = {"": base}
+        if base.moe is not None:          # its all-dense variant
+            variants["dense"] = dataclasses.replace(base, moe=dataclasses
+                .replace(base.moe, first_dense_layers=base.num_layers))
+        for var, cfg in variants.items():
+            key = json.dumps([arch, kw, var])
+            if key not in inits:
+                inits[key] = jax.jit(functools.partial(model.init, cfg=cfg))(
+                    jax.random.PRNGKey(0))
+            params = inits[key]
+            toks = inp["toks/" + name]
+            _, cache, pos = jax.jit(
+                lambda p, t: model.prefill(p, cfg, {"tokens": t}, max_len))(
+                params, jnp.asarray(toks[:, :%(prompt)d]))
+            pos = int(pos)
+            weights[(name, var)] = (cfg, jax.tree.map(np.asarray, params),
+                                    jax.tree.map(np.asarray, cache), pos,
+                                    toks)
+            out["wsum/" + name + var] = np.array(sum(
+                float(np.abs(np.asarray(x, np.float64)).sum())
+                for x in jax.tree.leaves(params)))
 
     for shape in ((1, 4), (2, 2)):
         tag = "%%dx%%d" %% shape
@@ -123,7 +132,11 @@ _JAX = textwrap.dedent("""
             for k, v in dict(mla_o=o, mla_cache=c, gqa_o=og, gqa_k=kc,
                              gqa_v=vc).items():
                 out[f"{tag}/prim/{k}"] = np.asarray(v)
-            for name, (cfg, params, cache, pos, toks) in weights.items():
+            for name in serve:
+                # a MoE model runs all-dense where data > 1
+                var = "dense" if shape[0] > 1 and \
+                    (name, "dense") in weights else ""
+                cfg, params, cache, pos, toks = weights[(name, var)]
                 step = jax.jit(make_serve_step(cfg))
                 tok = toks[:, %(prompt)d]
                 for i in range(%(steps)d):
@@ -171,17 +184,26 @@ def runs(tmp_path_factory):
     try:
         serve, wsum, trees = {}, {}, {}
         for name, (arch, kw, max_len) in SERVE.items():
-            key = json.dumps([arch, kw])
-            if key not in trees:
-                trees[key] = jax.tree.map(np.asarray, jax.jit(
-                    functools.partial(jmodel.init, cfg=jreduced(
-                        jget_config(arch), **kw)))(jax.random.PRNGKey(0)))
-            tree = trees[key]
-            wsum[name] = sum(float(np.abs(x.astype(np.float64)).sum())
-                             for x in jax.tree.leaves(tree))
+            jcfg = jreduced(jget_config(arch), **kw)
+            cfg = reduced(get_config(arch), **kw)
+            variants = {"": (jcfg, cfg)}
+            if cfg.moe is not None:
+                variants["dense"] = (worker.dense_variant(jcfg),
+                                     worker.dense_variant(cfg))
+            for var, (jc, c) in variants.items():
+                key = json.dumps([arch, kw, var])
+                if key not in trees:
+                    trees[key] = jax.tree.map(np.asarray, jax.jit(
+                        functools.partial(jmodel.init, cfg=jc))(
+                        jax.random.PRNGKey(0)))
+                wsum[name + var] = sum(
+                    float(np.abs(x.astype(np.float64)).sum())
+                    for x in jax.tree.leaves(trees[key]))
+                variants[var] = (params_from_jax(trees[key], device="cpu"),
+                                 c)
+            params, c = variants[""]
             serve[name] = dict(
-                params=params_from_jax(tree, device="cpu"),
-                cfg=reduced(get_config(arch), **kw),
+                params=params, cfg=c, dense=variants.get("dense"),
                 toks=torch.from_numpy(toks[name]), prompt=PROMPT,
                 max_len=max_len, steps=STEPS)
         torch.save(dict(prim={k: torch.from_numpy(v) if isinstance(
@@ -247,7 +269,9 @@ def test_serve_step_matches_reference(runs, shape, name):
     reference's rows (its batch rows and, where sequence-sharded, its S
     slice, recorded beside the slice as "seq_rows")."""
     ranks, ref, wsum = runs
-    assert float(ref[f"wsum/{name}"]) == wsum[name]      # the same weights
+    for var in ("", "dense"):                             # the same weights
+        if name + var in wsum:
+            assert float(ref[f"wsum/{name}{var}"]) == wsum[name + var]
     tag = "%dx%d" % shape
     sharded = SERVE[name][2] >= worker.MIN_S
     for out in ranks:
