@@ -258,8 +258,9 @@ Phases, each of which fails the run when it fails:
              in the GEMMs and in the elementwise passes;
   8. serve   Qwen3-8B at full width and all 36 layers (bf16, random
              weights from a seed; Falcon's parameters freed first):
-             qwen-short and qwen-short-std (paged, B 8 x 512, one split:
-             K5 / K7), qwen-long and qwen-long-std (paged, B 1 x 4096:
+             qwen-short and qwen-short-std (paged, B 8 x 512, 8 requests
+             since the sharded train step's phase joined the script, 16
+             before; one split: K5 / K7), qwen-long and qwen-long-std (paged, B 1 x 4096:
              K6 / K8 + K2), qwen-dense (B 8 x 512: K5 on the dense cache),
              and over int8 / fp8 pools sized to the fp pool's bytes:
              qwen-short-int8 (15 slots: K5q), qwen-long-fp8 (K6q + K2),
@@ -346,9 +347,9 @@ ROADMAP section C and training:
              timed alone on the step's shapes;
   train-smollm  SmolLM-360M at full width and depth through
              ``launch.train.run`` (B 8 x S 512): the restart drill of the
-             reference's tests/test_runtime.py (12 steps with a checkpoint
-             every 4; again with a failure injected at step 7, then
-             ``--restart``), the state restored at step 4 bitwise the state
+             reference's tests/test_runtime.py (cut to 8 steps with a
+             checkpoint every 4; again with a failure injected at step 6,
+             then ``--restart``), the state restored at step 4 bitwise the state
              saved there, the final losses within rtol 1e-5 (whether they
              are bitwise is logged), K9 launched on the steps.
 
@@ -395,7 +396,7 @@ Last, tensor-parallel serving (ROADMAP A10b.1),
              itself: DeepSeek-R1 at full width, 3 dense layers, B 16 x
              prompt 512 and 16 greedy steps (tp-short), and B 16 x 8192
              (prefilled 4 rows at a time) and 16 greedy steps over S
-             8208 (tp-long); Qwen3-8B at full width cut to 12 of 36
+             8208 (tp-long); Qwen3-8B at full width cut to 6 of 36
              layers, B 8 x 512 and 8 steps; each with its floor (step 0 at the auto plan
              against one split); the card then freed;
   ranks      8 processes, gloo with every rank on cuda:0 on a one-card
@@ -417,6 +418,39 @@ Last, tensor-parallel serving (ROADMAP A10b.1),
              by rank with the q shapes the attention entries received,
              the bytes each collective returned a step a rank, the step's
              wall beside the reference's, and the weight bytes a rank.
+
+Then the sharded train step (ROADMAP A10b.2), ``phase_sharded_train``:
+
+  reference  DeepSeek-R1 at full width, 3 dense layers, seed 0, AdamW
+             with bf16 moments, in this process with the card to itself:
+             one ``make_train_step`` step on B 2 x S 2048 (the
+             train-deepseek batch), its gradients (the tree the step
+             clips) and updated params saved to a host file; then the
+             same step at ``n_micro`` 2, and at ``n_micro`` 1 with each
+             row product computed as the 4 `model` ranks compute it
+             (``split_rows``: 4 K pieces' products summed in fp32), both
+             from the same state: two orders of summation the reference
+             allows, the second its sharded step's; the larger of their
+             distances from the first step is the floor (per leaf of the
+             gradients and of the update p' - p0, and of nll and the grad
+             norm); the card then freed;
+  ranks      8 processes on the (2, 4) mesh (gloo with every rank on
+             cuda:0 on a one-card machine): each builds its pieces of the
+             params and AdamW state as ``param_specs(profile="train")``
+             and ``opt_state_specs`` place them (``train.build_state``
+             under the mesh: no whole tree on the device), runs the same
+             step on its row (K9 on its 32 heads, forward and remat; the
+             `data` pieces gathered a block at a time), and compares its
+             pieces with the reference's: each leaf's gradient and its
+             update p' - p0 within max(1%, 2 x its floor) relative L2 over
+             the whole leaf, nll and the grad norm within max(0.1%, 2 x
+             their floors).
+             ``[sharded-train]`` lines give K9's launches by rank and its
+             q shapes, the param and state bytes a rank (counted,
+             allocated) against the whole, the bytes each collective
+             moved by phase (forward, remat, backward), the peak memory
+             and the step's wall beside the whole step's (the ranks share
+             one card through the host: no multi-GPU speedup).
 
 Each phase's seconds are printed as ``[time]`` lines.
 
@@ -5062,7 +5096,7 @@ MAMBA_PHASES = [
 # masked product (no kernel), so the chunk moves nothing the kernels see,
 # and it keeps the eager chunk loop (36 layers a chunk) short
 QWEN = ["--arch", "qwen3_8b"]
-QWEN_SHORT = QWEN + ["--batch", "8", "--requests", "16", "--prompt", "512",
+QWEN_SHORT = QWEN + ["--batch", "8", "--requests", "8", "--prompt", "512",
                      "--gen", "32", "--kv-splits", "1", "--prefill-chunk",
                      "128"]
 QWEN_LONG = QWEN + ["--batch", "1", "--requests", "2", "--prompt", "4096",
@@ -7126,7 +7160,10 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 6
 # rounded to bf16 once, so an element may sit a bf16 ulp or two (2^-7 of
 # its magnitude each) off; allowed: 2^-6 of each gradient's max |value|
 K9_GRAD_RTOL = 2 ** -6
-SMOL_TRAIN = ["--arch", "smollm_360m", "--steps", "12", "--batch", "8",
+# the reference's drill (tests/test_runtime.py) runs 12 steps and fails at
+# step 7; cut to 8 steps failing at 6 (the same checkpoint, step 4,
+# restored) since the sharded train step's phase joined the script
+SMOL_TRAIN = ["--arch", "smollm_360m", "--steps", "8", "--batch", "8",
               "--seq", "512", "--ckpt-every", "4", "--log-every", "0",
               "--device", "cuda"]
 
@@ -7392,11 +7429,11 @@ def phase_train_smollm(launches: dict) -> None:
         b = SMOL_TRAIN + ["--ckpt-dir", f"{tmp}/b"]
         ckpt.save = keep
         try:
-            train.run(train.parse_args(b + ["--fail-at", "7"]))
+            train.run(train.parse_args(b + ["--fail-at", "6"]))
         except WorkerFailure:
             pass
         else:
-            raise AssertionError("train-smollm: no failure at step 7")
+            raise AssertionError("train-smollm: no failure at step 6")
         finally:
             ckpt.save = save
         if ckpt.latest_step(f"{tmp}/b") != 4:
@@ -7411,7 +7448,7 @@ def phase_train_smollm(launches: dict) -> None:
         n_leaves = len(tree_leaves(restored))
         del restored, template
         r = train.run(train.parse_args(b + ["--restart"]))
-        if r["start_step"] != 4 or ckpt.latest_step(f"{tmp}/b") != 12:
+        if r["start_step"] != 4 or ckpt.latest_step(f"{tmp}/b") != 8:
             raise AssertionError(f"train-smollm: restart from "
                                  f"{r['start_step']}, last checkpoint "
                                  f"{ckpt.latest_step(f'{tmp}/b')}")
@@ -7420,11 +7457,11 @@ def phase_train_smollm(launches: dict) -> None:
         raise AssertionError(f"train-smollm: final loss {lb} after the "
                              f"restart against {la} uninterrupted")
     tail = a["losses"][4:] == r["losses"]
-    log(f"[train-smollm] {cfg.num_layers} layers, B 8 x S 512, 12 steps "
-        f"({t_a:.1f} s, K9 launched {k9} times); failure at step 7, "
+    log(f"[train-smollm] {cfg.num_layers} layers, B 8 x S 512, 8 steps "
+        f"({t_a:.1f} s, K9 launched {k9} times); failure at step 6, "
         f"restored step 4 ({n_leaves} leaves bitwise the saved state), "
         f"final loss {lb!r} against {la!r} uninterrupted: "
-        + ("bitwise, steps 4-11 too" if tail and la == lb else
+        + ("bitwise, steps 4-7 too" if tail and la == lb else
            f"within rtol 1e-5 (diff {abs(la - lb):.3e}), not bitwise")
         + f"; {gpu_line()}")
     del saved
@@ -7971,11 +8008,12 @@ def phase_seq_sharded(launches: dict) -> None:
 TP_RANKS = 8
 TP_MESHES = ((1, 8), (2, 4))                  # (data, model)
 # name -> (arch, layers kept, batch, prompt, greedy steps): tp-short.
-# Qwen3-8B is cut to 12 of its 36 layers: each of its TP steps makes 2
+# Qwen3-8B is cut to 6 of its 36 layers: each of its TP steps makes 2
 # collectives a layer through the host, and at full depth the phase took
-# 179-205 s of the script's 1200 s
+# 179-205 s of the script's 1200 s (12 layers until the sharded train
+# step's phase joined the script)
 TP_MODELS = {"deepseek": ("deepseek_r1_671b", 3, 16, 512, 16),
-             "qwen": ("qwen3_8b", 12, 8, 512, 8)}
+             "qwen": ("qwen3_8b", 6, 8, 512, 8)}
 # tp-long, DeepSeek on (1, 8): batch, prompt, steps; S = 8208 rows is
 # sequence-sharded (S/8 = 1026 a rank), the paper's batch of 16
 TP_LONG = (16, 8192, 16)
@@ -8457,6 +8495,404 @@ def phase_tensor_parallel(launches: dict) -> None:
     log(f"[tp] {where}; {gpu_line()}")
 
 
+# ------------------------------- the sharded train step (ROADMAP A10b.2)
+# phase_sharded_train: the whole step in this process, then ST_RANKS
+# ranks on ST_MESH, each its row of the batch and its pieces
+ST_RANKS = 8
+ST_MESH = (2, 4)                              # (data, model)
+ST_LAYERS = 3                                 # DeepSeek's dense layers
+ST_SPAWN_S = 420                              # the ranks' wall limit
+# the gates (PERF.md §6): a rank's gradient pieces and its update p' - p0
+# against the reference's, per leaf over the whole leaf, and the step's
+# metrics, each within the larger of its limit and twice its floor (the
+# larger distance from the whole step of the same step at n_micro 2 and
+# under split_rows: orders of summation the reference allows)
+ST_GRAD_REL = 1e-2
+ST_UPDATE_REL = 1e-2
+ST_METRIC_REL = 1e-3
+
+
+def st_tcfg(n_micro: int = 1):
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.optim import optimizers as opt
+    return TrainConfig(optimizer=opt.OptimizerConfig(
+        warmup_steps=2, total_steps=TRAIN_STEPS + 1), n_micro=n_micro)
+
+
+def st_batch(cfg, device, bs):
+    """The train-deepseek batch of step 0, B x S = ``bs``."""
+    from repro_torch.data.pipeline import DataConfig, make_batch, to_device
+    data = DataConfig(seed=17, global_batch=bs[0], seq_len=bs[1])
+    return to_device(cfg, make_batch(cfg, data, 0), device)
+
+
+@contextlib.contextmanager
+def clipped_grads(seen: list, host: bool = False):
+    """Record the gradient tree each train step clips (the step's
+    gradients, before clipping) in ``seen`` (``host``: as host copies,
+    the seconds the copies took appended to ``seen`` after the tree)."""
+    import torch
+    from repro_torch.optim import optimizers as opt
+    clip = opt.clip_by_global_norm
+
+    def rec(grads, *a, **kw):
+        if host:
+            t = time.perf_counter()
+            seen.append(opt.tree_map(lambda g: g.to("cpu"), grads))
+            torch.cuda.synchronize()
+            seen.append(time.perf_counter() - t)
+        else:
+            seen.append(grads)
+        return clip(grads, *a, **kw)
+    opt.clip_by_global_norm = rec
+    try:
+        yield seen
+    finally:
+        opt.clip_by_global_norm = clip
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.sharding import rules
+    return sum(t.numel() * t.element_size()
+               for _, t in rules._leaves_with_path(tree))
+
+
+def st_step(cfg, tcfg, device, bs, params=None, state=None,
+            host: bool = False):
+    """One make_train_step step from build_state's seed-0 state (or the
+    given one) on the st_batch of ``bs``: (params, state, metrics, grads
+    (``host``: host copies, whose copying the wall leaves out), wall s,
+    K9 launches)."""
+    import torch
+    from repro_torch.kernels.flash_prefill import flash_prefill as FP
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    if params is None:
+        params, state = train.build_state(cfg, tcfg, seed=0, device=device)
+    batch = st_batch(cfg, device, bs)
+    seen: list = []
+    FP.flash_prefill.launches = 0
+    with clipped_grads(seen, host):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = make_train_step(cfg, tcfg)(params, state, batch,
+                                                      0)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t - (seen[1] if host else 0.0)
+    return params, state, m, seen[0], wall, FP.flash_prefill.launches
+
+
+def rel_l2(a, b, base=None) -> float:
+    """|a - b| / |b - base| (``base`` None: |b|) in fp64, 16M elements at
+    a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    base = None if base is None else base.reshape(-1)
+    num = den = 0.0
+    for i in range(0, a.numel(), 1 << 24):
+        x, y = a[i:i + (1 << 24)].double(), b[i:i + (1 << 24)].double()
+        num += float((x - y).square().sum())
+        den += float((y if base is None else y - base[
+            i:i + (1 << 24)].double()).square().sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+@contextlib.contextmanager
+def split_rows(n: int):
+    """Within the block, each row product of a whole weight
+    (``layers.dense_row``) is computed as ``n`` `model` ranks compute it:
+    the products of n pieces of its K dim, each rounded to its dtype,
+    summed in fp32 and rounded once (``launch.mesh.all_reduce_sum``)."""
+    from repro_torch.models import layers
+    row = layers.dense_row
+
+    def parts(x, w, whole):
+        if w.shape[0] != whole or whole % n:
+            return row(x, w, whole)
+        k = whole // n
+        return sum(layers.dense(x[..., i * k:(i + 1) * k],
+                                w[i * k:(i + 1) * k]).float()
+                   for i in range(n)).to(x.dtype)
+    layers.dense_row = parts
+    try:
+        yield
+    finally:
+        layers.dense_row = row
+
+
+def st_reference(cfg, work: Path, device, bs) -> dict:
+    """The whole step from the seed-0 state, with the card to itself: at
+    n_micro 1 (its gradients and updated params saved to
+    ``work/st-ref.pt`` as {path: host tensor}), then at n_micro 2 and
+    under split_rows(model), whose larger distances from the first are
+    the floors: per leaf of the gradients and of the update p' - p0, and
+    of nll and the grad norm."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.sharding import rules
+    p0 = dict(rules._leaves_with_path(train.build_state(
+        cfg, st_tcfg(1), seed=0, device=device)[0]))
+    torch.cuda.empty_cache()
+    params, state, m1, g1, wall, k9 = st_step(cfg, st_tcfg(1), device, bs)
+    whole = {"params": tree_bytes(params), "state": tree_bytes(state)}
+    p1, g1 = dict(rules._leaves_with_path(params)), dict(
+        rules._leaves_with_path(g1))
+    del state
+    torch.save({"grads": {p: t.cpu() for p, t in g1.items()},
+                "params": {p: t.cpu() for p, t in p1.items()}},
+               work / "st-ref.pt")
+    torch.cuda.empty_cache()
+    floor = {"grads": dict.fromkeys(g1, 0.0),
+             "update": dict.fromkeys(p1, 0.0),
+             "metrics": {"nll": 0.0, "grad_norm": 0.0}}
+    walls = {}
+    for name, n_micro, ctx in (
+            ("n_micro 2", 2, contextlib.nullcontext()),
+            ("split rows", 1, split_rows(ST_MESH[1]))):
+        with ctx:
+            pv, sv, mv, gv, walls[name], _ = st_step(
+                cfg, st_tcfg(n_micro), device, bs)
+        del sv
+        gv = dict(rules._leaves_with_path(gv))
+        for path, g in g1.items():
+            floor["grads"][path] = max(floor["grads"][path],
+                                       rel_l2(gv[path], g))
+        del gv
+        for path, p in rules._leaves_with_path(pv):
+            floor["update"][path] = max(floor["update"][path], rel_l2(
+                p, p1[path], p0[path]))
+        del pv
+        for k in floor["metrics"]:
+            floor["metrics"][k] = max(floor["metrics"][k],
+                                      abs(mv[k] - m1[k]) / abs(m1[k]))
+        torch.cuda.empty_cache()
+    del p0, p1, g1
+    torch.cuda.empty_cache()
+    return {"metrics": m1, "wall": wall, "walls": walls, "k9": k9,
+            "floor": floor, "whole": whole}
+
+
+def st_compare(paths, got, want, spec_at, mesh, dev, base=None) -> dict:
+    """Per leaf, |got - want| over |want - base| (``base`` None: |want|)
+    for the whole leaf, summed from every rank's piece (a piece r ranks
+    hold alike weighs 1/r); ``got(path)``, ``want(path, spec)`` and
+    ``base(path)`` give this rank's pieces, on any device, taken to
+    ``dev`` 16M elements at a time: {path: relative L2}."""
+    import torch
+    from repro_torch.launch import mesh as M
+    from repro_torch.sharding import rules
+    chunk = 1 << 24
+    parts = []
+    for path in paths:
+        spec = spec_at(path)
+        ts = [got(path), want(path, spec)] + ([] if base is None else
+                                             [base(path)])
+        ts = [t.reshape(-1) for t in ts]
+        num = torch.zeros((), dtype=torch.float64, device=dev)
+        den = torch.zeros((), dtype=torch.float64, device=dev)
+        for i in range(0, ts[0].numel(), chunk):
+            a, b, *c = (t[i:i + chunk].to(dev).double() for t in ts)
+            num += (a - b).square().sum()
+            den += (b - c[0] if c else b).square().sum()
+            del a, b, c
+        rep = rules.replicas(spec, mesh)
+        parts += [num / rep, den / rep]
+    tot = M.all_reduce_world(torch.stack(parts), mesh).cpu()
+    return {p: math.sqrt(float(tot[2 * i]) / max(float(tot[2 * i + 1]),
+                                                 1e-300))
+            for i, p in enumerate(paths)}
+
+
+def st_rank_main(rank: int, world: int, work: str, backend: str,
+                 device: str, cfg, bs) -> None:
+    """One rank of phase_sharded_train: join the group (FileStore in
+    ``work``), build this rank's pieces of the seed-0 state under the
+    mesh, run one step on its row, and compare its gradient and param
+    pieces with the reference's (``work/st-ref.pt``, mapped, each rank
+    reading only its pieces).  Writes its report to
+    ``work/st-rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.sharding import rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    # 8 ranks share the card: let each allocator's segments grow in place
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    with (open(os.devnull, "w") if rank else
+          contextlib.nullcontext(sys.stdout)) as out, \
+            contextlib.redirect_stdout(out):
+        dev = M.init_ranks(rank, world, backend=backend,
+                           init_method=f"file://{work / 'store'}",
+                           device=device, timeout_s=SHARD_COLLECTIVE_S)
+        try:
+            mesh = M.make_host_mesh(dev, ST_MESH)
+            base = torch.cuda.memory_allocated()
+            tcfg = st_tcfg(1)
+            with M.use_mesh(mesh):
+                t0 = time.perf_counter()
+                params, state = train.build_state(cfg, tcfg, seed=0,
+                                                  device=dev)
+                torch.cuda.synchronize()
+                init_s = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                rep = {"bytes": {"params": tree_bytes(params),
+                                 "state": tree_bytes(state)},
+                       "allocated": torch.cuda.memory_allocated() - base,
+                       "init_s": init_s}
+                start = opt.tree_map(lambda t: t.to("cpu"), params)
+                spec_at = params.spec_at
+                seen: dict = {}
+                M.moved.clear()
+                with recorded_heads(seen):
+                    params, state, m, grads, wall, k9 = st_step(
+                        cfg, tcfg, dev, bs, params, state, host=True)
+                rep.update(metrics=m, wall=wall, k9=k9, heads=seen,
+                           moved=dict(M.moved),
+                           peak=torch.cuda.max_memory_allocated())
+                ref = torch.load(work / "st-ref.pt", mmap=True,
+                                 weights_only=True)
+
+                def cut(tree):
+                    return lambda path, spec: rules.local_rows(
+                        tree[path], spec, mesh)
+                del state
+                torch.cuda.empty_cache()
+                g = dict(rules._leaves_with_path(grads))
+                p1 = dict(rules._leaves_with_path(params))
+                p0 = dict(rules._leaves_with_path(start))
+                rep["grads"] = st_compare(list(g), g.get, cut(ref["grads"]),
+                                          spec_at, mesh, dev)
+                # the update p' - p0 against the reference's (p0: the
+                # rank's pieces before the step, bitwise the whole init's)
+                rep["update"] = st_compare(list(p1), p1.get,
+                                           cut(ref["params"]), spec_at, mesh,
+                                           dev, base=p0.get)
+                del ref, start, g, p0, p1
+            torch.save(rep, work / f"st-rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
+
+
+def st_moved(moved: dict) -> dict:
+    """A rank's collective bytes summed by phase: forward, remat,
+    backward, and the gradients' sums and norm ("grads")."""
+    out: dict = {}
+    for k, v in moved.items():
+        phase = k.split(":")[1] if ":" in k else "forward"
+        out[phase] = out.get(phase, 0) + v
+    return out
+
+
+def phase_sharded_train(launches: dict) -> None:
+    """The sharded train step across ST_RANKS ranks on ST_MESH (ROADMAP
+    A10b.2): the whole-weight reference and its floors (st_reference),
+    the card then freed; then the ranks (st_rank_main), each holding only
+    its pieces.  Fails unless every leaf's gradient and update and the
+    step's nll and grad norm meet their gates and K9 ran on every rank."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    cfg = full_config(ST_LAYERS)
+    bs = (TRAIN_B, TRAIN_S)
+    backend, rank_dev, where = shard_backend(ST_RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        ref = st_reference(cfg, work, "cuda", bs)
+        credit_prefill(launches, {"flash_prefill": ref["k9"]}, cfg)
+        floor = ref["floor"]
+        fg, fu, fm = floor["grads"], floor["update"], floor["metrics"]
+        log(f"[sharded-train] reference (one process, whole weights, the "
+            f"card alone): DeepSeek-R1 full width, {cfg.num_layers} dense "
+            f"layers, B {bs[0]} x S {bs[1]}, AdamW with bf16 moments, "
+            f"remat {cfg.remat}: step {ref['wall'] * 1e3:.1f} ms (n_micro "
+            f"1; "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                        ref["walls"].items())
+            + f"), nll {ref['metrics']['nll']!r}, grad norm "
+            f"{ref['metrics']['grad_norm']!r}, K9 launched {ref['k9']} "
+            f"times; floors (the larger of n_micro 2 and split rows "
+            f"against n_micro 1): gradients per leaf "
+            f"{min(fg.values()):.3e}-{max(fg.values()):.3e} relative L2, "
+            f"updates p' - p0 {min(fu.values()):.3e}-"
+            f"{max(fu.values()):.3e}, nll {fm['nll']:.3e}, grad norm "
+            f"{fm['grad_norm']:.3e}; weights {ref['whole']['params']:,} B, "
+            f"AdamW state {ref['whole']['state']:,} B; "
+            f"{time.perf_counter() - t0:.1f} s with the host file")
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        M.spawn(st_rank_main, ST_RANKS, (str(work), backend, rank_dev, cfg,
+                                         bs), timeout_s=ST_SPAWN_S)
+        reps = [torch.load(work / f"st-rank{r}.pt", weights_only=False)
+                for r in range(ST_RANKS)]
+    log(f"[sharded-train] {ST_RANKS} ranks on (data, model) {ST_MESH}, "
+        f"backend {where}: done in {time.perf_counter() - t1:.1f} s (their "
+        f"start, placed states, the step and the comparisons)")
+    k9 = [r["k9"] for r in reps]
+    if not all(k9):
+        raise AssertionError(f"sharded-train: K9 launches by rank {k9}")
+    for r in reps:
+        credit_prefill(launches, {"flash_prefill": r["k9"]}, cfg)
+    heads = sorted({q for r in reps for qs in r["heads"].values()
+                    for q in qs})
+    want_h = cfg.num_heads // ST_MESH[1]
+    if any(q[2] != want_h for q in heads):
+        raise AssertionError(f"sharded-train: q shapes at the causal "
+                             f"attention {heads}, not {want_h} heads")
+    r0 = reps[0]
+
+    def gated(reading: dict, fl: dict, limit: float):
+        """(the leaves over their gates, the leaf closest to its gate)."""
+        bad = {p: (v, fl[p]) for p, v in reading.items()
+               if not v <= max(limit, 2 * fl[p])}
+        return bad, max(reading, key=lambda p: reading[p] / max(
+            limit, 2 * fl[p]))
+    bad, worst = gated(r0["grads"], fg, ST_GRAD_REL)
+    ubad, uworst = gated(r0["update"], fu, ST_UPDATE_REL)
+    mdiff = {k: abs(r0["metrics"][k] - ref["metrics"][k])
+             / abs(ref["metrics"][k]) for k in ("nll", "grad_norm")}
+    mbad, _ = gated(mdiff, fm, ST_METRIC_REL)
+    same = all(r["metrics"] == r0["metrics"] for r in reps)
+    walls = [r["wall"] for r in reps]
+    log(f"[sharded-train] K9 launches by rank {k9} (q shapes at the entry "
+        f"{heads}); weights a rank {[r['bytes']['params'] for r in reps]} "
+        f"B counted (whole {ref['whole']['params']:,}), AdamW state "
+        f"{[r['bytes']['state'] for r in reps]} B (whole "
+        f"{ref['whole']['state']:,}), allocated by both "
+        f"{[r['allocated'] for r in reps]}; placed build "
+        f"{max(r['init_s'] for r in reps):.1f} s; peak memory a rank "
+        f"{[round(r['peak'] / 2**30, 2) for r in reps]} GiB")
+    log(f"[sharded-train] bytes the collectives moved in the step, rank 0 "
+        f"by kind {r0['moved']}, by phase {st_moved(r0['moved'])}; step "
+        f"wall by rank {[round(w * 1e3, 1) for w in walls]} ms against "
+        f"the whole step's {ref['wall'] * 1e3:.1f} ms: the ranks share one "
+        "card through the host, so this is no multi-GPU speedup")
+    log(f"[sharded-train] nll {r0['metrics']['nll']!r} (reference "
+        f"{ref['metrics']['nll']!r}: {mdiff['nll']:.3e} relative, gate "
+        f"{max(ST_METRIC_REL, 2 * fm['nll']):.3e}), grad "
+        f"norm {r0['metrics']['grad_norm']!r} (reference "
+        f"{ref['metrics']['grad_norm']!r}: {mdiff['grad_norm']:.3e}, gate "
+        f"{max(ST_METRIC_REL, 2 * fm['grad_norm']):.3e}); "
+        f"equal on every rank {same}; gradients per leaf "
+        f"{min(r0['grads'].values()):.3e}-{max(r0['grads'].values()):.3e} "
+        f"relative L2 (closest to its gate: {worst} "
+        f"{r0['grads'][worst]:.3e} against floor {fg[worst]:.3e}); "
+        f"updates p' - p0 {min(r0['update'].values()):.3e}-"
+        f"{max(r0['update'].values()):.3e} relative L2 (closest to its "
+        f"gate: {uworst} {r0['update'][uworst]:.3e} against floor "
+        f"{fu[uworst]:.3e}); {gpu_line()}")
+    if bad or ubad or mbad or not same:
+        raise AssertionError(f"sharded-train: gates failed: gradients "
+                             f"{bad}, updates {ubad}, metrics {mbad}, "
+                             f"ranks agree {same}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -8730,6 +9166,7 @@ def main(argv=None) -> int:
 
     timed("sequence-sharded decode", phase_seq_sharded, launches)
     timed("tensor-parallel serving", phase_tensor_parallel, launches)
+    timed("sharded train step", phase_sharded_train, launches)
 
     for wrapper, w in {v[2:4] for v in QDENSE_KERNELS.values()}:
         if not any(n for k, n in served.items()

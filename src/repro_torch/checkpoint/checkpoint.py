@@ -12,8 +12,15 @@ lists and tuples of tensors; its leaves are keyed by their path (dict keys,
 float8: those leaves are stored as their bit patterns (uint16, uint8) with
 the logical dtype in the manifest, as the reference stores them.
 :func:`restore` places each leaf on the template leaf's device in its dtype.
-The reference's reshard-on-load onto another mesh waits for multi-GPU
-(ROADMAP A10).
+
+Under a mesh (``launch.mesh.use_mesh``) the trees may hold this rank's
+pieces (``rules.Placed``: the sharded trainer's params and optimizer
+state).  :func:`save` gathers them whole first (``rules.gather_placed``,
+a collective every rank calls), so a checkpoint always holds whole
+leaves, and only global rank 0 writes, blocking, before a barrier.
+:func:`restore` reads the whole leaves and cuts each placed template's
+pieces by its specs on the current mesh, which may differ from the
+mesh that saved it (the reference's reshard-on-load).
 """
 from __future__ import annotations
 
@@ -25,6 +32,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.sharding import rules
 
 _SEP = "__"
 
@@ -65,9 +76,37 @@ def _flatten(tree, pre: str = "") -> dict:
     return {pre: tree}
 
 
+def _placed_mesh():
+    mesh = mesh_mod.get_mesh()
+    if mesh is None:
+        raise ValueError("a tree of placed pieces outside a mesh: save and "
+                         "restore it under launch.mesh.use_mesh")
+    return mesh
+
+
+def _whole(tree):
+    """``tree`` with each placed subtree gathered whole."""
+    if isinstance(tree, rules.Placed):
+        mesh = _placed_mesh()
+        if tree.mesh_shape != mesh.shape:
+            raise ValueError(f"pieces placed for {tree.mesh_shape} under "
+                             f"the mesh {mesh.shape}")
+        return rules.gather_placed(tree, mesh)
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_whole(v) for v in tree)
+    return tree
+
+
 def _unflatten_into(template, arrays: dict, pre: str = ""):
     def key(k):
         return pre + _SEP + k if pre else k
+    if isinstance(template, rules.Placed):
+        return rules.Placed(
+            _cut_into(dict(template), template.specs, arrays, pre,
+                      _placed_mesh()),
+            template.mesh_shape, template.specs, template.profile)
     if isinstance(template, dict):
         return {k: _unflatten_into(v, arrays, key(str(k)))
                 for k, v in template.items()}
@@ -79,15 +118,43 @@ def _unflatten_into(template, arrays: dict, pre: str = ""):
     return arrays[pre].to(device=template.device, dtype=template.dtype)
 
 
+def _cut_into(template, specs, arrays: dict, pre: str, mesh):
+    """A placed template's pieces from the whole ``arrays``: each leaf
+    cut by its spec on ``mesh``."""
+    def key(k):
+        return pre + _SEP + k if pre else k
+    if isinstance(template, dict):
+        return {k: _cut_into(v, specs[k], arrays, key(str(k)), mesh)
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_cut_into(v, specs[i], arrays, key(f"#{i}"),
+                                        mesh)
+                              for i, v in enumerate(template))
+    if pre not in arrays:
+        raise KeyError(f"checkpoint missing leaf {pre}")
+    whole = arrays[pre]
+    want = rules.local_shape(whole.shape, specs, mesh)
+    if want != tuple(template.shape):
+        raise ValueError(f"checkpoint leaf {pre} {tuple(whole.shape)} cut "
+                         f"by {specs} on {mesh.shape} is {want}, the "
+                         f"template's piece {tuple(template.shape)}")
+    return rules.local_rows(whole, specs, mesh).to(
+        device=template.device, dtype=template.dtype, copy=True)
+
+
 def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
     """Write the checkpoint of ``step``.  The leaves are copied to the host
     first (after a ``torch.cuda.synchronize()`` where any lives on the
     card), so the caller may update them at once; with ``blocking=False``
     the files are written on a background thread, which is returned:
     ``join()`` it before reading the checkpoint or exiting."""
-    flat = _flatten(tree)
+    ranked = mesh_mod.get_mesh() is not None and dist.is_initialized()
+    flat = _flatten(_whole(tree))
     if any(t.is_cuda for t in flat.values()):
         torch.cuda.synchronize()
+    if ranked and dist.get_rank() != 0:
+        dist.barrier()                 # rank 0 has written the checkpoint
+        return None
     host = {k: t.detach().to("cpu", copy=True) for k, t in flat.items()}
 
     def _write():
@@ -104,8 +171,10 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True):
         with open(os.path.join(final, "MANIFEST.json"), "w") as f:
             json.dump(manifest, f)               # ... manifest last: commit
 
-    if blocking:
+    if blocking or ranked:
         _write()
+        if ranked:
+            dist.barrier()
         return None
     t = threading.Thread(target=_write, daemon=False)
     t.start()

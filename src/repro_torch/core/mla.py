@@ -74,8 +74,8 @@ def _queries(params, cfg, x, positions):
     m, H = cfg.mla, local_heads(params, cfg)
     cq = layers.rms_norm(layers.dense_col(x, params["w_dq"], m.q_lora_rank),
                          params["q_norm"], cfg.norm_eps)
-    q = layers.dense(cq, params["w_uq"]).reshape(*x.shape[:-1], H,
-                                                 m.qk_head_dim)
+    q, = layers.tp_columns(cq, (params["w_uq"],), H != cfg.num_heads)
+    q = q.reshape(*x.shape[:-1], H, m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -94,22 +94,31 @@ def _latent(params, cfg, x, positions):
 
 
 def mla_train(params, cfg, x, positions, *, return_cache: bool = False):
-    """Naive (decompressed) MLA over a whole sequence, forward only.
-    x: [B,S,D]; positions: [B,S].  Returns out [B,S,D], and with
-    ``return_cache`` also the latent cache rows {"c": [B,S,latent]}.  Under
-    tensor parallelism attention runs over the rank's heads and the row
-    piece of W_o's partial products are summed over `model`."""
+    """Naive (decompressed) MLA over a whole sequence (the training and
+    dense-prefill form).  x: [B,S,D]; positions: [B,S].  Returns out
+    [B,S,D], and with ``return_cache`` also the latent cache rows {"c":
+    [B,S,latent]}.  Under tensor parallelism attention runs over the
+    rank's heads and the row piece of W_o's partial products are summed
+    over `model`; the latent, whole on every rank, enters the rank's
+    heads' work through ``layers.tp_columns`` and ``layers.tp_input``
+    (W_dkv's column pieces mix latent and rope columns, so its product is
+    gathered first)."""
     m, H = cfg.mla, local_heads(params, cfg)
     B, S, _ = x.shape
     q_nope, q_rope = _queries(params, cfg, x, positions)
     c = _latent(params, cfg, x, positions)                    # [B,S,latent]
+    cut = H != cfg.num_heads
     c_kv, k_rope = c[..., :m.kv_lora_rank], c[..., m.kv_lora_rank:]
-    k_nope = layers.dense(c_kv, params["w_uk"]).reshape(
-        B, S, H, m.qk_nope_head_dim)
-    v = layers.dense(c_kv, params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    k_nope, v = layers.tp_columns(c_kv, (params["w_uk"], params["w_uv"]),
+                                  cut)
+    k_nope = k_nope.reshape(B, S, H, m.qk_nope_head_dim)
+    v = v.reshape(B, S, H, m.v_head_dim)
+    # the shared rope key, expanded to the rank's heads (in fp32 while
+    # training, so its gradient is summed over the heads and ranks once)
+    k_rope = layers.tp_input(k_rope, cut)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        B, S, H, m.qk_rope_head_dim)], dim=-1)
+        B, S, H, m.qk_rope_head_dim).to(c.dtype)], dim=-1)
     o = causal_attention(q, k, v, scale=m.qk_head_dim ** -0.5)
     out = layers.dense_row(o.reshape(B, S, H * m.v_head_dim), params["w_o"],
                            cfg.num_heads * m.v_head_dim)

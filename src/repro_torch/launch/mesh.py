@@ -19,7 +19,28 @@ sharing that card.  On gloo the collectives run on host copies of CUDA
 tensors, on every call: gloo's CUDA support does not cover every
 collective, so the helpers stage through the host whatever the op.
 :data:`moved` counts the bytes each kind of collective returned to this
-rank, which the tensor-parallel serving phases report a step.
+rank, which the mesh phases report a step.
+
+Collectives with gradients (the sharded train step): :func:`gather`,
+:func:`reduce_sum`, :func:`scatter_sum` and :func:`enter` are autograd
+Functions over the staged helpers.  Their adjoints keep one convention,
+that of the step's loss: it is the sum of the data ranks' losses (each
+data rank holds its rows' share of the batch mean), and every `model`
+rank of a data row holds that row's loss once.  So over an axis of
+:data:`SUMMED_AXES` (`data`, `pod`) an adjoint sums what the ranks hold:
+a gather's backward reduce-scatters, an all-reduce's all-reduces.  Over
+`model` it does not: a gather's backward is the rank's slice, an
+all-reduce's the identity, since every rank holds the whole gradient of a
+value the ranks hold alike.  Where such a value feeds work that differs
+by rank (a column piece's product, the rank's heads, experts or
+channels), :func:`enter` marks it: the identity forward, an all-reduce of
+the partial gradients backward (Megatron's f; :func:`reduce_sum` over
+`model` is its g).  A reduce-scatter's backward is an all-gather under
+either convention.  Each call's bytes are counted in :data:`moved`, under
+"<op>" in the forward, "<op>:remat" in a checkpointed block's recompute
+(a forward run inside the backward pass), "<op>:backward", and
+"<op>:<phase>" within :func:`counted_as` (the train step's gradient
+sums and global norm: "grads").
 """
 from __future__ import annotations
 
@@ -129,14 +150,24 @@ def _staged(t, mesh: Mesh):
 
 def _count(op: str, t) -> None:
     """Add a collective's payload (bytes of the rank's result) to
-    :data:`moved`."""
+    :data:`moved`, keyed by its phase (the module doc)."""
+    phase = _PHASE.get()
+    if phase is None and torch._C._current_graph_task_id() != -1:
+        phase = "remat"                 # a forward inside the backward pass
+    if phase is not None:
+        op += ":" + phase
     moved[op] = moved.get(op, 0) + t.numel() * t.element_size()
 
 
 # bytes each collective moved on this rank since the caller last zeroed
 # it (the rank's result of each call: the reduced buffer, the gathered
-# tensor), keyed by "all_reduce" / "all_gather"
+# tensor, the scattered piece), keyed by "all_reduce" / "all_gather" /
+# "reduce_scatter" and the phase suffixes of the module doc
 moved: dict = {}
+# the phase a collective's bytes are counted under (None: the forward's,
+# or the remat's inside the backward pass)
+_PHASE: contextvars.ContextVar = contextvars.ContextVar("phase",
+                                                        default=None)
 
 
 def all_reduce(t, op, mesh: Mesh, axis: str):
@@ -150,11 +181,16 @@ def all_reduce(t, op, mesh: Mesh, axis: str):
     return t
 
 
+def _sum_dtype(t):
+    """fp32, or ``t``'s dtype where it is wider."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def all_reduce_sum(t, mesh: Mesh, axis: str):
-    """The sum of the ranks' ``t`` over ``axis``, added in fp32 and
-    rounded once to ``t``'s dtype (a new tensor; fp32 partials are summed
-    as they are)."""
-    s = t.float()
+    """The sum of the ranks' ``t`` over ``axis``, added in fp32 (or
+    ``t``'s wider dtype) and rounded once to ``t``'s dtype (a new tensor;
+    fp32 partials are summed as they are)."""
+    s = t.to(_sum_dtype(t))
     if s is t:
         s = t.clone()
     return all_reduce(s, dist.ReduceOp.SUM, mesh, axis).to(t.dtype)
@@ -169,6 +205,148 @@ def all_gather(t, mesh: Mesh, axis: str, dim: int = 0):
     out = torch.cat(parts, dim=dim)
     _count("all_gather", out)
     return out.to(t.device)
+
+
+def reduce_scatter(t, mesh: Mesh, axis: str, dim: int = 0):
+    """This rank's part along ``dim`` (the axis-order piece at its
+    coordinate) of the sum of the ranks' ``t`` over ``axis``, added in
+    fp32 (or ``t``'s wider dtype) and rounded once to ``t``'s dtype."""
+    n = mesh.shape[axis]
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split {n} "
+                         f"ways over {axis}")
+    s = _staged(t.to(_sum_dtype(t)).movedim(dim, 0).contiguous(), mesh)
+    out = s.new_empty((s.shape[0] // n, *s.shape[1:]))
+    # torch 2.13 names it reduce_scatter_single (reduce_scatter_tensor
+    # deprecated); earlier releases have only reduce_scatter_tensor
+    op = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    op(out, s, group=mesh.group(axis))
+    _count("reduce_scatter", out)
+    return out.movedim(0, dim).to(device=t.device,
+                                  dtype=t.dtype).contiguous()
+
+
+# ------------------------------------------------- collectives with grads
+SUMMED_AXES = ("data", "pod")
+
+
+def _grad_on(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+@contextlib.contextmanager
+def counted_as(phase: str):
+    """Count the collectives within the block under ``phase`` in
+    :data:`moved`."""
+    token = _PHASE.set(phase)
+    try:
+        yield
+    finally:
+        _PHASE.reset(token)
+
+
+def _slice(t, mesh: Mesh, axis: str, dim: int):
+    n = t.shape[dim] // mesh.shape[axis]
+    return t.narrow(dim, mesh.coord(axis) * n, n)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        with counted_as("backward"):
+            if axis in SUMMED_AXES:
+                g = reduce_scatter(g, mesh, axis, dim)
+            else:
+                g = _slice(g, mesh, axis, dim).contiguous()
+        return g, None, None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce_sum(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axis in SUMMED_AXES:
+            with counted_as("backward"):
+                g = all_reduce_sum(g, ctx.mesh, ctx.axis)
+        return g, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with counted_as("backward"):
+            g = all_gather(g, ctx.mesh, ctx.axis, ctx.dim)
+        return g, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        with counted_as("backward"):
+            return all_reduce_sum(g, ctx.mesh, ctx.axis), None, None
+
+
+def gather(t, mesh: Mesh, axis: str, dim: int = 0):
+    """:func:`all_gather` with a gradient: the rank's slice of it over
+    `model`, its reduce-scatter over a summed axis (the module doc)."""
+    if _grad_on(t):
+        return _Gather.apply(t, mesh, axis, dim)
+    return all_gather(t, mesh, axis, dim)
+
+
+def reduce_sum(t, mesh: Mesh, axis: str):
+    """:func:`all_reduce_sum` with a gradient: the identity over `model`,
+    an all-reduce over a summed axis (the module doc)."""
+    if _grad_on(t):
+        return _ReduceSum.apply(t, mesh, axis)
+    return all_reduce_sum(t, mesh, axis)
+
+
+def scatter_sum(t, mesh: Mesh, axis: str, dim: int):
+    """:func:`reduce_scatter` with a gradient: its all-gather."""
+    if _grad_on(t):
+        return _ScatterSum.apply(t, mesh, axis, dim)
+    return reduce_scatter(t, mesh, axis, dim)
+
+
+def enter(t, mesh: Mesh, axis: str = "model"):
+    """``t``, a value the ranks over ``axis`` hold alike, about to feed
+    work that differs by rank: the identity, whose backward sums the
+    ranks' partial gradients over ``axis`` (the module doc).  ``t``
+    itself where no gradient is recorded."""
+    if _grad_on(t):
+        return _Enter.apply(t, mesh, axis)
+    return t
+
+
+def all_reduce_world(t, mesh: Mesh):
+    """In-place sum of ``t`` over every axis of ``mesh`` (every rank; no
+    gradient).  Returns ``t``."""
+    for axis in mesh.axis_names:
+        if mesh.shape[axis] > 1:
+            all_reduce(t, dist.ReduceOp.SUM, mesh, axis)
+    return t
 
 
 # ------------------------------------------------------------------ ranks

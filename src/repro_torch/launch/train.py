@@ -47,9 +47,14 @@ def model_config(args):
 
 def build_state(cfg, tcfg, *, seed: int, device):
     """(params, opt_state): ``model.init``'s weights without the serving
-    copy ``embed_f32``, and the optimizer's initial state."""
-    params = model.init(cfg, seed=seed, device=device)
+    copy ``embed_f32``, and the optimizer's initial state.  Under a mesh
+    (``launch.mesh.use_mesh``) both are this rank's pieces, placed by
+    ``param_specs(profile="train")`` and ``opt_state_specs`` as they are
+    made (no whole tree on the device)."""
+    params = model.init(cfg, seed=seed, device=device, profile="train")
     del params["embed_f32"]
+    if hasattr(params, "specs"):
+        del params.specs["embed_f32"]
     return params, opt.opt_init(tcfg.optimizer, params)
 
 

@@ -214,13 +214,18 @@ def _project_qkv(params, cfg, x, positions):
     (:func:`local_heads`)."""
     hd = cfg.resolved_head_dim
     H, Kv = local_heads(params, cfg)
+    cut = H != cfg.num_heads
     lead = x.shape[:-1]
-    q = layers.dense(x, params["w_q"]).reshape(*lead, H, hd)
-    k = layers.dense(x, params["w_k"]).reshape(*lead, Kv, hd)
-    v = layers.dense(x, params["w_v"]).reshape(*lead, Kv, hd)
-    if cfg.qk_norm:
-        q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q, k, v = layers.tp_columns(
+        x, (params["w_q"], params["w_k"], params["w_v"]), cut)
+    q = q.reshape(*lead, H, hd)
+    k = k.reshape(*lead, Kv, hd)
+    v = v.reshape(*lead, Kv, hd)
+    if cfg.qk_norm:     # whole scales applied to the rank's heads
+        q = layers.rms_norm(q, layers.enter_model(params["q_norm"], cut),
+                            cfg.norm_eps)
+        k = layers.rms_norm(k, layers.enter_model(params["k_norm"], cut),
+                            cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -237,7 +242,7 @@ def _check_paged(cfg) -> None:
 
 def attention_train(params, cfg, x, positions, *, return_cache: bool = False):
     """Full or local causal attention (per ``cfg.attention_kind``) over a
-    whole sequence, forward only.  x [B,S,D]; positions [B,S].  Returns out
+    whole sequence (the training and dense-prefill form).  x [B,S,D]; positions [B,S].  Returns out
     [B,S,D], and with ``return_cache`` also the cache rows {"k", "v":
     [B,S,K,hd]}.  Under tensor parallelism the rank's query heads attend
     over its kv heads (G kept), W_o's partial products are summed over

@@ -11,6 +11,22 @@ partial products over `model` (fp32, rounded once); :func:`embed` and
 :func:`unembed` take a vocab piece of the table.  Each compares the
 piece's width with the whole one its caller names and runs no collective
 when they agree, so outside a mesh the products are unchanged.
+
+Training under a mesh (``place_params(profile="train")``): a weight
+whose spec names `data` is gathered over `data` where a block starts
+(:func:`unshard`), giving its serve-profile piece, so the products above
+run unchanged; the gather's backward reduce-scatters, which is the
+data-parallel sum of its gradient.  The collectives carry gradients by
+the convention of ``launch.mesh`` (its module doc): a value every `model`
+rank holds alike passes :func:`enter_model` where it feeds work that
+differs by rank (the rank's heads, experts or channels), whose backward
+sums the ranks' partial gradients; column pieces' products take their
+input through :func:`tp_columns`, which adds those partial gradients in
+fp32.  A row piece's product is summed over `model` (:func:`dense_row`)
+in training as in serving: Megatron's partial sums, as the reference's
+sharded step computes those contractions.  :func:`vocab_nll` is the
+cross-entropy over a vocab piece of the logits, which are never
+gathered.
 """
 from __future__ import annotations
 
@@ -136,10 +152,10 @@ def dense(x, w):
 def gather_model(t, whole: int, dim: int = -1):
     """``t``, this rank's piece of ``whole`` entries along ``dim`` (columns,
     heads): the pieces gathered over `model` in rank order (``t`` itself
-    when it holds them all)."""
+    when it holds them all).  Its gradient is the rank's slice."""
     if t.shape[dim] == whole:
         return t
-    return mesh_mod.all_gather(t, mesh_mod.get_mesh(), "model", dim=dim)
+    return mesh_mod.gather(t, mesh_mod.get_mesh(), "model", dim=dim % t.dim())
 
 
 def model_offset(n: int, whole: int) -> int:
@@ -148,10 +164,88 @@ def model_offset(n: int, whole: int) -> int:
     return 0 if n == whole else mesh_mod.get_mesh().coord("model") * n
 
 
+def enter_model(t, cut: bool):
+    """``t``, held alike by every `model` rank, as the input of work that
+    differs by rank (``cut``): ``launch.mesh.enter`` over `model`, whose
+    backward sums the partial gradients; ``t`` itself where nothing is
+    cut or no gradient is recorded."""
+    return mesh_mod.enter(t, mesh_mod.get_mesh(), "model") if cut else t
+
+
+def model_part(t, n: int, whole: int, dim: int = -1):
+    """This rank's ``n`` of the ``whole`` entries of ``t`` along ``dim``
+    (a vector or activation every `model` rank holds alike, read at the
+    rank's offset: Mamba's and RG-LRU's channels); ``t`` itself when
+    ``n == whole``.  The gradient of ``t`` comes back whole on every
+    rank."""
+    if n == whole:
+        return t
+    return enter_model(t, True).narrow(dim, model_offset(n, whole), n)
+
+
+def _training(x) -> bool:
+    """Whether autograd records a use of ``x``, of a narrower dtype than
+    fp32: a bf16 training step."""
+    return torch.is_grad_enabled() and x.dtype != torch.float32 and \
+        x.requires_grad
+
+
+def tp_input(x, cut: bool):
+    """``x``, held alike by every `model` rank, as the input of work that
+    differs by rank (``cut``): entered (:func:`enter_model`), upcast to
+    fp32 first in a bf16 training step (:func:`_training`), so the ranks'
+    partial gradients are added in fp32; ``x`` itself where nothing is
+    cut."""
+    if not cut:
+        return x
+    return enter_model(x.float() if _training(x) else x, True)
+
+
+class _Columns(torch.autograd.Function):
+    """x @ w for each column piece w of products whose input x every
+    `model` rank holds alike: the forward is :func:`dense`, the product
+    serving and the whole step compute for those columns; the backward
+    adds the input's partial gradients of every product in fp32 (TF32
+    off), sums them over `model` and rounds once, and gives each weight
+    autograd's x^T g in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, *ws):
+        ctx.mesh = mesh
+        ctx.save_for_backward(x, *ws)
+        return tuple(dense(x, w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        x2 = x.reshape(-1, x.shape[-1])
+        dx, dws = None, []
+        with no_tf32():
+            for g, w in zip(gs, ws, strict=True):
+                g2 = g.reshape(-1, g.shape[-1])
+                part = g2.float() @ w.float().T
+                dx = part if dx is None else dx + part
+                dws.append(x2.T @ g2.to(x.dtype))
+        with mesh_mod.counted_as("backward"):
+            dx = mesh_mod.all_reduce_sum(dx, ctx.mesh, "model")
+        return dx.to(x.dtype).reshape(x.shape), None, *dws
+
+
+def tp_columns(x, ws, cut: bool) -> tuple:
+    """x @ w for each of ``ws``, column pieces of products whose input
+    ``x`` every `model` rank holds alike (``cut``: the pieces differ by
+    rank): under a recorded gradient :class:`_Columns`, one all-reduce of
+    the input's gradient for all of them; else :func:`dense` each."""
+    if cut and torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in ws)):
+        return _Columns.apply(x, mesh_mod.get_mesh(), *ws)
+    return tuple(dense(x, w) for w in ws)
+
+
 def dense_col(x, w, whole: int):
     """x @ W for this rank's column piece ``w`` of W [K, whole]: the
     product's columns gathered over `model`."""
-    return gather_model(dense(x, w), whole)
+    return gather_model(tp_columns(x, (w,), w.shape[1] != whole)[0], whole)
 
 
 def reduce_rows(y, w, whole: int):
@@ -160,7 +254,7 @@ def reduce_rows(y, w, whole: int):
     fp32 and rounded once (``y`` itself when ``w`` is whole)."""
     if w.shape[0] == whole:
         return y
-    return mesh_mod.all_reduce_sum(y, mesh_mod.get_mesh(), "model")
+    return mesh_mod.reduce_sum(y, mesh_mod.get_mesh(), "model")
 
 
 def dense_row(x, w, whole: int):
@@ -207,10 +301,14 @@ def mlp(params, x, d_ff: int | None = None):
     """The GLU MLP.  Under tensor parallelism w_gate / w_up are column
     pieces and w_down the matching row piece of a ``d_ff``-wide MLP: the
     partial outputs are summed over `model` (``d_ff`` None: the rank's
-    partial is returned as it is, for a caller that sums it later)."""
-    h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
-    y = dense(h, params["w_down"])
-    return y if d_ff is None else reduce_rows(y, params["w_down"], d_ff)
+    partial is returned as it is, for a caller that sums it later and has
+    passed ``x`` through :func:`enter_model` itself)."""
+    if d_ff is None:
+        h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
+        return dense(h, params["w_down"])
+    g, u = tp_columns(x, (params["w_gate"], params["w_up"]),
+                      params["w_gate"].shape[1] != d_ff)
+    return dense_row(F.silu(g) * u, params["w_down"], d_ff)
 
 
 # ---------------------------------------------------------------- Embedding
@@ -232,7 +330,7 @@ def embed(table, tokens, vocab: int | None = None):
     local = tokens.long() - mesh.coord("model") * n
     own = (local >= 0) & (local < n)
     rows = torch.where(own[..., None], table[local.clamp(0, n - 1)], 0)
-    return mesh_mod.all_reduce_sum(rows, mesh, "model")
+    return mesh_mod.reduce_sum(rows, mesh, "model")
 
 
 def unembed_table(table):
@@ -247,3 +345,55 @@ def unembed(table_f32, x, vocab: int | None = None):
     gathered over `model` into all ``vocab`` columns."""
     y = _rows_product(x, lambda a: a.float() @ table_f32.T)
     return y if vocab is None else gather_model(y, vocab)
+
+
+def vocab_nll(table, x, targets, vocab: int):
+    """Per-token cross-entropy of the tied unembedding: -log softmax(x ·
+    tableᵀ)[target] for x [..., D] and targets [...], the logits fp32
+    (``table`` upcast in the graph).  A vocab piece of the table (this
+    rank's rows [r·n, (r+1)·n) over `model`) gives the rank's piece of
+    the logits, never gathered: their max and the sum of their exps are
+    reduced over `model`, and the rank that holds a target gives its
+    logit."""
+    n = table.shape[0]
+    cut = n != vocab
+    logits = _rows_product(enter_model(x.float(), cut),
+                           lambda a: a @ table.float().T)
+    if not cut:
+        lp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(lp, -1, targets[..., None].long())[..., 0]
+    mesh = mesh_mod.get_mesh()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    mesh_mod.all_reduce(m, torch.distributed.ReduceOp.MAX, mesh, "model")
+    se = mesh_mod.reduce_sum(torch.exp(logits - m).sum(dim=-1), mesh,
+                             "model")
+    local = targets.long() - mesh.coord("model") * n
+    own = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+    target = mesh_mod.reduce_sum(torch.where(own, picked[..., 0], 0.0), mesh,
+                                 "model")
+    return m[..., 0] + torch.log(se) - target
+
+
+def unshard(params, specs, mesh):
+    """A block's (or the top level's) weights as the serve-profile pieces
+    its products take: each leaf whose spec names `data` gathered over
+    `data` along that dim (``launch.mesh.gather``: its backward
+    reduce-scatters the gradient over `data`).  ``specs`` is the dict of
+    specs matching ``params`` (a ``rules.Placed``'s); ``params`` itself
+    where nothing names `data` or no specs are given."""
+    if specs is None or mesh is None or mesh.shape.get("data", 1) == 1:
+        return params
+    if isinstance(params, dict):
+        return {k: unshard(v, specs[k], mesh) for k, v in params.items()}
+    if isinstance(params, list):
+        return [unshard(v, s, mesh) for v, s in zip(params, specs,
+                                                    strict=True)]
+    for dim, entry in enumerate(specs):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if "data" in axes:
+            if axes != ("data",):
+                raise NotImplementedError(
+                    f"a spec entry {entry} naming `data` with other axes")
+            params = mesh_mod.gather(params, mesh, "data", dim)
+    return params

@@ -7,6 +7,15 @@ the selective-scan kernel (K10); decode is a single-step update.
 The reference runs its Pallas scan only under ``cfg.use_kernels`` and an
 associative scan over chunks otherwise; the port has one route: K10 on the
 card, its plain version on the CPU.
+
+Under a mesh whose `model` axis cuts d_inner (``param_specs``: w_in's
+columns, w_bcdt's and log_neg_A's rows, w_dt's columns, w_out's rows),
+the full-sequence forward runs the rank's d_inner channels: w_in's column
+pieces straddle x | z, so its product is gathered and the rank takes its
+channels of both halves; w_bcdt's product is a row piece's, summed over
+`model`; the vectors every rank holds whole (conv_w, conv_b, dt_bias, D)
+are read at the rank's offset (``layers.model_part``).  A decode state
+under such a mesh is ROADMAP A10b.5.
 """
 from __future__ import annotations
 
@@ -27,22 +36,29 @@ def _dims(cfg):
 def init_mamba(gen, cfg, dtype, device):
     d_inner, dt_rank, N, K = _dims(cfg)
     D = cfg.d_model
+    leaf = layers.leaf
     A = torch.arange(1, N + 1, dtype=torch.float32,
                      device=device).expand(d_inner, N)
     conv_w = torch.randn(K, d_inner, generator=gen, dtype=torch.float32,
                          device=device) * 0.1
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "w_in": layers.init_dense(gen, D, 2 * d_inner, dtype, device),
-        "conv_w": conv_w.to(dtype),
-        "conv_b": torch.zeros(d_inner, dtype=dtype, device=device),
-        "w_bcdt": layers.init_dense(gen, d_inner, dt_rank + 2 * N, dtype,
-                                    device),
-        "w_dt": layers.init_dense(gen, dt_rank, d_inner, dtype, device),
-        "dt_bias": torch.full((d_inner,), -4.0, **f32),  # softplus ~ small dt
-        "log_neg_A": torch.log(A),                       # A = -exp(log_neg_A)
-        "D": torch.ones(d_inner, **f32),
-        "w_out": layers.init_dense(gen, d_inner, D, dtype, device),
+        "w_in": leaf("w_in", layers.init_dense(gen, D, 2 * d_inner, dtype,
+                                               device)),
+        "conv_w": leaf("conv_w", conv_w.to(dtype)),
+        "conv_b": leaf("conv_b", torch.zeros(d_inner, dtype=dtype,
+                                             device=device)),
+        "w_bcdt": leaf("w_bcdt", layers.init_dense(
+            gen, d_inner, dt_rank + 2 * N, dtype, device)),
+        "w_dt": leaf("w_dt", layers.init_dense(gen, dt_rank, d_inner, dtype,
+                                               device)),
+        # softplus ~ small dt
+        "dt_bias": leaf("dt_bias", torch.full((d_inner,), -4.0, **f32)),
+        # A = -exp(log_neg_A)
+        "log_neg_A": leaf("log_neg_A", torch.log(A)),
+        "D": leaf("D", torch.ones(d_inner, **f32)),
+        "w_out": leaf("w_out", layers.init_dense(gen, d_inner, D, dtype,
+                                                 device)),
     }
 
 
@@ -53,15 +69,20 @@ def softplus(x):
 
 
 def _ssm_inputs(params, cfg, xc):
-    """xc: [..., d_inner] post-conv.  Returns the per-step (dA, dBx, C):
-    recurrence h = dA * h + dBx, output y = sum_n C*h + D*x.  dA and dBx
-    are formed in place on their first product (the same values, one
-    [..., d_inner, N] fp32 buffer fewer)."""
-    _, dt_rank, N, _ = _dims(cfg)
-    bcdt = layers.dense(xc, params["w_bcdt"]).float()
+    """xc: [..., d_inner] post-conv (the rank's channels under a mesh that
+    cuts them).  Returns the per-step (dA, dBx, C): recurrence h = dA * h
+    + dBx, output y = sum_n C*h + D*x.  dA and dBx are formed in place on
+    their first product (the same values, one [..., d_inner, N] fp32
+    buffer fewer)."""
+    d_inner, dt_rank, N, _ = _dims(cfg)
+    dl = xc.shape[-1]
+    cut = dl != d_inner
+    bcdt = layers.reduce_rows(layers.dense(xc, params["w_bcdt"]),
+                              params["w_bcdt"], d_inner)
+    bcdt = layers.enter_model(bcdt, cut).float()
     dt_in, B, C = torch.split(bcdt, [dt_rank, N, N], dim=-1)
     dt = softplus(layers.dense(dt_in.to(xc.dtype), params["w_dt"]).float()
-                  + params["dt_bias"])                          # [..., d_inner]
+                  + layers.model_part(params["dt_bias"], dl, d_inner))
     A = -torch.exp(params["log_neg_A"])                         # [d_inner, N]
     dA = (dt[..., None] * A).exp_()                             # [..., d_inner, N]
     dBx = (dt[..., None] * B[..., None, :]).mul_(xc.float()[..., None])
@@ -70,25 +91,29 @@ def _ssm_inputs(params, cfg, xc):
 
 def mamba_seq(params, cfg, x, *, return_state: bool = False):
     """x: [B,S,D] -> [B,S,D]; with ``return_state`` also the decode state
-    {"h": [B,d_inner,N] fp32, "conv": [B,K-1,d_inner]}."""
-    _, _, _, K = _dims(cfg)
+    {"h": [B,d_inner,N] fp32, "conv": [B,K-1,d_inner]}.  Under a mesh
+    that cuts d_inner over `model`, the rank's channels (module doc)."""
+    d_inner, _, _, K = _dims(cfg)
+    dl = params["log_neg_A"].shape[0]     # the rank's channels
     S_in = x.shape[1]
     chunk = min(cfg.ssm.chunk, S_in)
     pad = (-S_in) % chunk                 # left-pad to a chunk multiple: zero
     if pad:                               # inputs leave the zero state unchanged
         x = F.pad(x, (0, 0, pad, 0))
     S = S_in + pad
-    xz = layers.dense(x, params["w_in"])
-    xs, z = torch.chunk(xz, 2, dim=-1)
+    xz = layers.dense_col(x, params["w_in"], 2 * d_inner)
+    xs, z = (layers.model_part(t, dl, d_inner)
+             for t in torch.chunk(xz, 2, dim=-1))
+    conv_w = layers.model_part(params["conv_w"], dl, d_inner)
     xp = F.pad(xs, (0, 0, K - 1, 0))      # causal depthwise conv
-    xc = sum(xp[:, i: i + S, :] * params["conv_w"][i] for i in range(K))
-    xc = F.silu(xc + params["conv_b"])
+    xc = sum(xp[:, i: i + S, :] * conv_w[i] for i in range(K))
+    xc = F.silu(xc + layers.model_part(params["conv_b"], dl, d_inner))
     dA, dBx, C = _ssm_inputs(params, cfg, xc)
     y, h_last = scan_ops.selective_scan(dA, dBx, C, chunk=chunk)
     del dA, dBx
-    y = y + params["D"] * xc.float()
+    y = y + layers.model_part(params["D"], dl, d_inner) * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    out = layers.dense(y, params["w_out"])[:, pad:]
+    out = layers.dense_row(y, params["w_out"], d_inner)[:, pad:]
     if not return_state:
         return out
     tail = xs[:, -(K - 1):, :] if S >= K - 1 else F.pad(

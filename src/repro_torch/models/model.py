@@ -28,6 +28,10 @@ parallelism: :func:`init` under the mesh, or ``rules.place_params``);
 :func:`forward`, :func:`prefill` and :func:`decode_step` check the
 placement and run the rank's batch rows, each layer reading its head
 counts from its pieces and running the collectives the placement needs.
+:func:`loss_fn` under a mesh is the rank's part of the sharded train step
+(weights placed by ``profile="train"``: TP over `model`, FSDP over
+`data`, each block gathering its `data` pieces as it starts): its loss is
+the rank's share of the whole batch's, its metrics the whole batch's.
 
 Training: :func:`loss_fn` is the reference's next-token cross-entropy plus
 the MoE aux losses.  It unembeds through ``params["embed"]`` upcast inside
@@ -47,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mla as mla_mod
 from repro_torch.core.attn_spec import AttnSpec
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.mesh import get_mesh
 from repro_torch.models import attention, frontend, layers, mamba, moe, rglru
 from repro_torch.runtime import paged_cache
@@ -172,7 +177,8 @@ def _draw(cfg, seed: int, device) -> dict:
     return params
 
 
-def init(cfg, *, seed: int = 0, device="cuda") -> dict:
+def init(cfg, *, seed: int = 0, device="cuda",
+         profile: str = "serve") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (the port's own stream: it does not reproduce the reference's
     ``jax.random`` draws — use :mod:`repro_torch.models.convert` for the
@@ -182,9 +188,9 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
 
     Under a mesh (``launch.mesh.use_mesh``) each leaf is drawn whole from
     the same generator, cut to this rank's piece by its
-    ``param_specs(profile="serve")`` spec and freed before the next is
-    drawn: the result is bitwise ``rules.place_params(init(cfg),
-    mesh)``, without the whole tree ever on the device."""
+    ``param_specs(profile=profile)`` spec and freed before the next is
+    drawn: the result is bitwise ``rules.place_params(init(cfg), mesh,
+    profile=profile)``, without the whole tree ever on the device."""
     check_ported(cfg)
     mesh = get_mesh()
     if mesh is None:
@@ -193,7 +199,7 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
     specs = {}
 
     def put(path, t):
-        piece, specs[path] = rules.place_leaf(path, t, mesh)
+        piece, specs[path] = rules.place_leaf(path, t, mesh, profile=profile)
         return piece
     with layers.placing(put):
         params = _draw(cfg, seed, device)
@@ -201,31 +207,34 @@ def init(cfg, *, seed: int = 0, device="cuda") -> dict:
 
     def spec_of(path, t):      # a leaf drawn outside layers.leaf: whole
         if path not in specs:
-            t_placed, specs[path] = rules.place_leaf(path, t, mesh)
+            t_placed, specs[path] = rules.place_leaf(path, t, mesh,
+                                                     profile=profile)
             if t_placed is not t:
                 raise AssertionError(f"{path} was drawn whole and is cut")
         return specs[path]
     return rules.Placed(params, mesh.shape,
-                        rules._tree_map_with_path(spec_of, params))
+                        rules._tree_map_with_path(spec_of, params), profile)
 
 
-def check_tensor_parallel(cfg, mesh) -> None:
-    """Raise unless the port serves ``cfg`` with its weights placed by
-    ``param_specs(profile="serve")`` on ``mesh``: a Mamba or RG-LRU block
-    under a `model` axis of more than one rank (ROADMAP A10b.5), or a
-    head weight whose `model` piece cuts a head or whose heads the other
-    head weights do not cut alike (ROADMAP A10b) raises
-    ``NotImplementedError``.  Experts over `data` raise where they are
-    placed (``rules.check_leaf_spec``, A10b.3)."""
+def check_tensor_parallel(cfg, mesh, *, cache: bool = False) -> None:
+    """Raise unless the port runs ``cfg`` with its weights placed by
+    ``param_specs`` on ``mesh``: a head weight whose `model` piece cuts a
+    head or whose heads the other head weights do not cut alike (ROADMAP
+    A10b.1) raises ``NotImplementedError``, and so (``cache``: a path that
+    builds or reads a serving cache) does a Mamba or RG-LRU block under a
+    `model` axis of more than one rank, whose state's placement is not
+    ported (ROADMAP A10b.5); their full-sequence forward runs on the
+    rank's channels.  Experts over `data` raise where they are placed
+    (``rules.check_leaf_spec``, A10b.3)."""
     n = mesh.shape.get("model", 1)
     if n == 1:
         return
     kinds = set(cfg.layer_kinds())
-    if kinds & {"ssm", "rglru"}:
+    if cache and kinds & {"ssm", "rglru"}:
         raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds & {'ssm', 'rglru'})} blocks under "
-            f"a `model` axis of {n}: their placements are not yet ported "
-            "(ROADMAP A10b.5)")
+            f"{cfg.name}: a serving cache of {sorted(kinds & {'ssm', 'rglru'})}"
+            f" blocks under a `model` axis of {n}: their state's placement "
+            "is not yet ported (ROADMAP A10b.5)")
     if "attn" not in kinds:
         return
     if cfg.attention_kind == "mla":
@@ -246,23 +255,28 @@ def check_tensor_parallel(cfg, mesh) -> None:
                     f"{cfg.name}: the serve spec cuts {name}'s {heads} "
                     f"{what} of width {width} into {n} pieces of "
                     f"{heads * width // n} columns, which cuts a head: not "
-                    "yet ported (ROADMAP A10b)")
+                    "yet ported (ROADMAP A10b.1)")
     if len(set(cut.values())) > 1:
         raise NotImplementedError(
             f"{cfg.name}: on a `model` axis of {n} the serve specs cut "
             f"{sorted(k for k, c in cut.items() if c)} but not "
             f"{sorted(k for k, c in cut.items() if not c)}: not yet ported "
-            "(ROADMAP A10b)")
+            "(ROADMAP A10b.1)")
 
 
-def _check_mesh(params, cfg):
+def _check_mesh(params, cfg, *, cache: bool = True):
     """The current mesh (None outside one), after checking that
-    ``params`` were placed for it and that the port serves ``cfg`` so
-    placed."""
+    ``params`` were placed for it and that the port runs ``cfg`` so
+    placed (``cache``: on a path that builds or reads a serving cache,
+    which takes weights placed by the serve profile)."""
     mesh = get_mesh()
     if mesh is not None:
         rules.check_placed(params, mesh)
-        check_tensor_parallel(cfg, mesh)
+        check_tensor_parallel(cfg, mesh, cache=cache)
+        if cache and getattr(params, "profile", "serve") != "serve":
+            raise ValueError(
+                f"weights placed by profile {params.profile!r} on a serving "
+                "path: serve with weights placed by profile \"serve\"")
     return mesh
 
 
@@ -272,11 +286,17 @@ def _zero_aux(device):
             for k in AUX_KEYS}
 
 
-def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool):
+def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool,
+               lspec=None, batch_axes=()):
     """One block over a full sequence.  Returns (x, aux, cache rows or {});
     a MoE block routes with capacity (the training route, which single-shot
-    prefill reuses) and returns its aux losses, any other block zeros."""
+    prefill reuses) and returns its aux losses, any other block zeros.
+    ``lspec``: the block's specs where its weights are placed (its `data`
+    pieces are gathered first: ``layers.unshard``); ``batch_axes``: the
+    mesh axes the batch's rows are cut over, whose MoE aux losses are
+    this rank's shares of the whole batch's (``moe.moe_ffn``)."""
     kind, is_moe = sig
+    lp = layers.unshard(lp, lspec, get_mesh())
     aux = _zero_aux(x.device)
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind in ("ssm", "rglru"):
@@ -298,10 +318,21 @@ def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool):
         return x, aux, cache
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     if is_moe:
-        f, aux = moe.moe_ffn(lp["ffn"], cfg, h2)
+        f, aux = moe.moe_ffn(lp["ffn"], cfg, h2, batch_axes=batch_axes)
     else:
         f = layers.mlp(lp["ffn"], h2, cfg.d_ff)
     return x + f, aux, cache
+
+
+def _block_in(mesh, *args):
+    """:func:`_block_seq` under ``mesh`` (None: no mesh).  A checkpointed
+    block's recompute runs inside the backward pass, on the autograd
+    engine's thread for CUDA tensors, where the current mesh (a context
+    variable) is not set."""
+    if mesh is None:
+        return _block_seq(*args)
+    with mesh_mod.use_mesh(mesh):
+        return _block_seq(*args)
 
 
 def _embed_inputs(params, cfg, batch):
@@ -315,18 +346,24 @@ def _embed_inputs(params, cfg, batch):
     return layers.embed(params["embed"], tokens, cfg.vocab_size)
 
 
-def _rank_rows(t, mesh):
+def _rank_rows(t, mesh, *, exact: bool = False):
     """This rank's batch rows of ``t`` [B, ...] (``rules.cache_specs``'
-    batch entry: all of them where B does not divide)."""
+    batch entry: all of them where B does not divide; ``exact``: a B the
+    batch axes do not divide raises)."""
     spec = rules.P(rules._fit(rules.batch_axes(mesh), t.shape[0], mesh))
+    n = math.prod(mesh.shape[a] for a in rules.batch_axes(mesh))
+    if exact and rules.extent(spec[0], mesh) != n:
+        raise ValueError(f"a batch of {t.shape[0]} rows over {n} data "
+                         f"ranks of {mesh}: the rows must divide")
     return rules.local_rows(t, spec, mesh)
 
 
-def _rank_batch(batch, mesh):
+def rank_batch(batch, mesh, *, exact: bool = False):
     """A batch as :func:`forward` takes it, cut to this rank's rows."""
     if isinstance(batch, dict):
-        return {k: _rank_rows(v, mesh) for k, v in batch.items()}
-    return _rank_rows(batch, mesh)
+        return {k: _rank_rows(v, mesh, exact=exact) for k, v in batch.items()}
+    return _rank_rows(batch, mesh, exact=exact)
+
 
 
 def _requires_grad(tree) -> bool:
@@ -340,26 +377,37 @@ def _requires_grad(tree) -> bool:
     return any(_requires_grad(t) for t in tree)
 
 
-def _hidden(params, cfg, batch, collect_cache: bool):
+def _hidden(params, cfg, batch, collect_cache: bool, batch_axes=()):
     """The final-normed hidden states [B,S,D] of a full sequence (a batch
     as :func:`_embed_inputs` takes it), the per-layer cache rows and the
-    aux losses summed over the layers."""
+    aux losses summed over the layers.  Placed weights are gathered over
+    `data` where their spec names it, a block's as the block starts
+    (inside its checkpoint, so remat gathers them again)."""
     check_ported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    specs = getattr(params, "specs", None)
+    mesh = get_mesh()
+    top = layers.unshard({k: v for k, v in params.items() if k not in (
+        "layers", "embed_f32")}, specs, mesh)
+    x = _embed_inputs(top, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
     caches, aux_total = [], _zero_aux(x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp, sig in zip(params["layers"], signatures(cfg), strict=True):
+    lspecs = specs["layers"] if specs is not None else [None] * len(
+        params["layers"])
+    for lp, sig, lspec in zip(params["layers"], signatures(cfg), lspecs,
+                              strict=True):
         if remat and (x.requires_grad or _requires_grad(lp)):
-            x, a, c = checkpoint(_block_seq, lp, cfg, sig, x, positions,
-                                 collect_cache, use_reentrant=False)
+            x, a, c = checkpoint(_block_in, mesh, lp, cfg, sig, x, positions,
+                                 collect_cache, lspec, batch_axes,
+                                 use_reentrant=False)
         else:
-            x, a, c = _block_seq(lp, cfg, sig, x, positions, collect_cache)
+            x, a, c = _block_seq(lp, cfg, sig, x, positions, collect_cache,
+                                 lspec, batch_axes)
         aux_total = {k: aux_total[k] + a[k] for k in AUX_KEYS}
         caches.append(c)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = layers.rms_norm(x, top["final_norm"], cfg.norm_eps)
     return x, caches, aux_total
 
 
@@ -372,9 +420,9 @@ def forward(params, cfg, batch, *, collect_cache: bool = False):
     under the mesh) the rank runs its batch rows of the whole batch, its
     pieces of the weights with their collectives, and returns its rows'
     logits over the whole vocabulary."""
-    mesh = _check_mesh(params, cfg)
+    mesh = _check_mesh(params, cfg, cache=collect_cache)
     if mesh is not None:
-        batch = _rank_batch(batch, mesh)
+        batch = rank_batch(batch, mesh)
     x, caches, aux = _hidden(params, cfg, batch, collect_cache)
     logits = layers.unembed(params["embed_f32"], x, cfg.vocab_size)
     return logits, aux, (caches if collect_cache else None)
@@ -386,21 +434,45 @@ def loss_fn(params, cfg, batch):
     [B,S]} or {"embeds": [B,S,d_frontend], "targets": [B,S]}.  The logits
     are fp32 from ``params["embed"]`` upcast in the graph (the unembedding
     is an fp32 product: TF32 stays off, PyTorch's default).  Returns
-    (loss, {"nll", "load_balance", "router_z"}).  The sharded train step
-    is not yet ported: under a mesh of more than one rank this raises."""
+    (loss, {"nll", "load_balance", "router_z"}).
+
+    Under a mesh (``params`` placed for it, by either profile) ``batch``
+    is this rank's rows of the whole batch (:func:`rank_batch` with
+    ``exact``: the data ranks must divide the rows).  Its loss is its
+    share of the whole batch's: the step's loss is the sum of the data
+    ranks' (``launch.mesh``'s convention), so each term's mean is over
+    the whole batch, the vocab-parallel cross-entropy's
+    (``layers.vocab_nll``) and the MoE aux losses' alike.  The metrics
+    are the whole batch's (the shares summed over the batch axes, with no
+    gradient)."""
     mesh = get_mesh()
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"loss_fn on {mesh}: the sharded train step is not yet ported "
-            "(ROADMAP A10b.2)")
-    x, _, aux = _hidden(params, cfg, batch, collect_cache=False)
-    logits = layers.unembed(layers.unembed_table(params["embed"]), x)
+    if mesh is None:
+        x, _, aux = _hidden(params, cfg, batch, collect_cache=False)
+        logits = layers.unembed(layers.unembed_table(params["embed"]), x)
+        targets = batch["targets"] if "targets" in batch else batch["tokens"]
+        lp = torch.log_softmax(logits[:, :-1, :], dim=-1)
+        nll = -torch.gather(lp, -1, targets[:, 1:, None].long())[..., 0]
+        loss = nll.mean()
+        total = loss + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+        return total, {"nll": loss, **aux}
+    _check_mesh(params, cfg, cache=False)
+    axes = tuple(a for a in rules.batch_axes(mesh) if mesh.shape[a] > 1)
+    n_data = math.prod(mesh.shape[a] for a in axes)
+    x, _, aux = _hidden(params, cfg, batch, collect_cache=False,
+                        batch_axes=axes)
     targets = batch["targets"] if "targets" in batch else batch["tokens"]
-    lp = torch.log_softmax(logits[:, :-1, :], dim=-1)
-    nll = -torch.gather(lp, -1, targets[:, 1:, None].long())[..., 0]
-    loss = nll.mean()
-    total = loss + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
-    return total, {"nll": loss, **aux}
+    table = layers.unshard({"embed": params["embed"]}, getattr(
+        params, "specs", None), mesh)["embed"]
+    nll = layers.vocab_nll(table, x[:, :-1], targets[:, 1:], cfg.vocab_size)
+    share = nll.sum() / (nll.numel() * n_data)
+    total = share + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+    metrics = {"nll": share, **aux}
+    with torch.no_grad():
+        flat = torch.stack([metrics[k].detach().float()
+                            for k in ("nll", *AUX_KEYS)])
+        for a in axes:
+            mesh_mod.all_reduce(flat, torch.distributed.ReduceOp.SUM, mesh, a)
+    return total, dict(zip(("nll", *AUX_KEYS), flat.unbind(), strict=True))
 
 
 # ----------------------------------------------------------------- serving
@@ -439,7 +511,7 @@ def _rank_specs(cache, mesh):
                     raise NotImplementedError(
                         f"layer {i} {key!r} {tuple(layer[key].shape)}: "
                         f"cache_specs splits dim {dim} over {entry} on "
-                        f"{mesh}; not yet ported (ROADMAP A10b)")
+                        f"{mesh}; not yet ported (ROADMAP A10b.5)")
     return specs
 
 
@@ -535,7 +607,7 @@ def prefill(params, cfg, batch, max_len: int):
     mesh = _check_mesh(params, cfg)
     rows = batch
     if mesh is not None:
-        rows = _rank_batch(batch, mesh)
+        rows = rank_batch(batch, mesh)
     x, caches, _ = _hidden(params, cfg, rows, collect_cache=True)
     logits = layers.unembed(params["embed_f32"], x[:, -1], cfg.vocab_size)
     cache = [_pad_cache_rows(cfg, kind, c, max_len)
@@ -573,7 +645,7 @@ def init_paged_cache(cfg, layout, kv_dtype: str = "fp", *, device="cuda"):
     mesh = get_mesh()
     if mesh is not None and mesh.size > 1:
         raise NotImplementedError(
-            f"a paged cache on {mesh}: not yet ported (ROADMAP A10b)")
+            f"a paged cache on {mesh}: not yet ported (ROADMAP A10b.5)")
     init = (mla_mod.init_mla_cache_paged if cfg.attention_kind == "mla"
             else attention.init_attention_cache_paged)
     return [init(cfg, layout, cfg.torch_dtype, kv_dtype, device=device)
@@ -773,7 +845,7 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
     if mesh is not None:
         if cache_layout == "paged" and mesh.size > 1:
             raise NotImplementedError(
-                f"paged decode on {mesh}: not yet ported (ROADMAP A10b)")
+                f"paged decode on {mesh}: not yet ported (ROADMAP A10b.5)")
         _check_mesh(params, cfg)
         tokens = _rank_rows(tokens, mesh)
     x = layers.embed(params["embed"], tokens, cfg.vocab_size)

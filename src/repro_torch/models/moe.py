@@ -14,10 +14,24 @@ The reference pins the expert layout for expert parallelism with
 parallelism (``param_specs(profile="serve")`` at `data` = 1: every expert
 on every rank, w_gate / w_up cut over F's columns and w_down over its
 rows): each rank combines its partial expert outputs with the shared
-expert's partial and one fp32 all-reduce over `model` sums them.  Experts
-spread over `data` (expert parallelism) are ROADMAP A10b.3.
+expert's partial and one fp32 all-reduce over `model` sums them.  The
+train profile puts the experts over `model` (E/n a rank, F whole): the
+routing is the same on every `model` rank, each rank runs its experts'
+slots and combines their weighted outputs, and the partial combines are
+summed over `model` the same way.  Experts spread over `data` (the serve
+profile's expert parallelism) are ROADMAP A10b.3.
+
+Under a mesh whose batch axes (`data`, `pod`) cut the batch's rows
+(``batch_axes``), the aux losses are this rank's shares of the whole
+batch's: the load-balance statistic is the reference's global one (``me``
+and the assignment fractions are means over every group's tokens,
+all-reduced over the batch axes, ``me`` with a gradient that reaches
+every data rank's router), and a rank's share of it is 1/n of it; the
+router-z share is the rank's sum over the whole batch's count.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -121,58 +135,82 @@ def capacity(cfg, S: int, dropless: bool) -> int:
     return min(_capacity(S, cfg), max(4, S))
 
 
-def moe_ffn(params, cfg, x, *, dropless: bool = False):
+def moe_ffn(params, cfg, x, *, dropless: bool = False,
+            batch_axes: tuple = ()):
     """x: [G,S,D] -> (out [G,S,D], aux losses {"load_balance",
     "router_z"}).  ``dropless=True`` (serving): the bounded-overflow
     capacity of :func:`capacity`.  Every expert runs over all of its C
     slots, the empty ones on a zero row, as the reference's einsums do.
     Under tensor parallelism each expert's (and the shared expert's)
-    F is this rank's piece: the partial outputs are combined, added and
-    summed over `model` in fp32, rounded once."""
+    F is this rank's piece, or (the train profile) the rank holds E/n
+    whole experts: the partial outputs are combined, added and summed
+    over `model` in fp32, rounded once.  ``batch_axes``: the mesh axes
+    cutting the rows, whose aux losses are the rank's shares (module
+    doc)."""
     m = cfg.moe
     G, S, D = x.shape
     E, k = m.num_experts, m.top_k
-    if params["w_gate"].shape[0] != E:
+    Fe = m.d_ff_expert or cfg.d_ff
+    El = params["w_gate"].shape[0]
+    mesh = mesh_mod.get_mesh()
+    if El != E and (mesh is None or El * mesh.shape.get("model", 1) != E):
         raise NotImplementedError(
-            f"{params['w_gate'].shape[0]} of {E} experts on this rank: "
-            "expert parallelism is not yet ported (ROADMAP A10b.3)")
-    cut = params["w_down"].shape[1] != (m.d_ff_expert or cfg.d_ff)
+            f"{El} of {E} experts on this rank: expert parallelism over "
+            "`data` is not yet ported (ROADMAP A10b.3)")
+    e0 = layers.model_offset(El, E)
+    cut = El != E or params["w_down"].shape[1] != Fe
     C = capacity(cfg, S, dropless)
 
     logits, gates, gate_k, idx_k = route(params, cfg, x)
     slot, token_of_slot = _assign_slots(idx_k, E, C)              # [G,T],[G,E*C]
-    # gather expert inputs expert-major, [E, G*C, D] (token S -> zero row)
-    xpad = torch.cat([x, x.new_zeros(G, 1, D)], dim=1).reshape(G * (S + 1), D)
+    # the rank's experts' inputs, expert-major, [El, G*C, D] (token S ->
+    # zero row)
+    xin = layers.enter_model(x, cut)
+    xpad = torch.cat([xin, xin.new_zeros(G, 1, D)],
+                     dim=1).reshape(G * (S + 1), D)
     g_off = torch.arange(G, device=x.device)[:, None]
     src = (token_of_slot.long() + g_off * (S + 1)).view(G, E, C)
-    xe = xpad[src.transpose(0, 1).reshape(E, G * C)]
+    xe = xpad[src[:, e0:e0 + El].transpose(0, 1).reshape(El, G * C)]
 
     h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
-    ye = torch.bmm(h, params["w_down"])                           # [E,G*C,D]
+    ye = torch.bmm(h, params["w_down"])                           # [El,G*C,D]
 
     # combine: per (token, choice) gather its slot's output, weight by gate
-    ypad = torch.cat([ye.reshape(E * G * C, D), ye.new_zeros(1, D)])
+    # (a slot of another rank's expert, or dropped, reads the zero row)
+    ypad = torch.cat([ye.reshape(El * G * C, D), ye.new_zeros(1, D)])
     s = slot.long()
-    row = torch.where(s < E * C, (s // C) * (G * C) + g_off * C + s % C,
-                      E * G * C)
+    mine = (s >= e0 * C) & (s < (e0 + El) * C)
+    row = torch.where(mine, (s // C - e0) * (G * C) + g_off * C + s % C,
+                      El * G * C)
     yk = ypad[row].view(G, S, k, D)
-    out = (yk.float() * gate_k[..., None]).sum(dim=2)
+    out = (yk.float() * layers.enter_model(gate_k, cut)[..., None]).sum(dim=2)
     if cut:                                       # partials over `model`
-        if m.shared_expert:
-            out = out + layers.mlp(params["shared"], x).float()
-        out = mesh_mod.all_reduce_sum(out, mesh_mod.get_mesh(),
-                                      "model").to(x.dtype)
+        shared_cut = m.shared_expert and \
+            params["shared"]["w_gate"].shape[1] != Fe
+        if shared_cut:
+            out = out + layers.mlp(params["shared"], xin).float()
+        out = mesh_mod.reduce_sum(out, mesh, "model").to(x.dtype)
+        if m.shared_expert and not shared_cut:
+            out = out + layers.mlp(params["shared"], x)
     else:
         out = out.to(x.dtype)
         if m.shared_expert:
             out = out + layers.mlp(params["shared"], x)
 
     # load-balance and router-z losses (Switch / ST-MoE)
-    me = gates.mean(dim=(0, 1))                                   # [E]
-    assign = torch.bincount(idx_k.reshape(-1), minlength=E).float() \
-        / (G * S * k)
-    aux = {
-        "load_balance": E * torch.sum(me * assign),
-        "router_z": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
-    }
-    return out, aux
+    n = math.prod(mesh.shape[a] for a in batch_axes)
+    counts = torch.bincount(idx_k.reshape(-1), minlength=E).float()
+    if n == 1:
+        me = gates.mean(dim=(0, 1))                               # [E]
+        assign = counts / (G * S * k)
+        z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+        return out, {"load_balance": E * torch.sum(me * assign),
+                     "router_z": z}
+    me = gates.sum(dim=(0, 1)) / (G * S * n)
+    for a in batch_axes:
+        me = mesh_mod.reduce_sum(me, mesh, a)
+        counts = mesh_mod.all_reduce_sum(counts, mesh, a)
+    assign = counts / (G * S * k * n)
+    z = torch.square(torch.logsumexp(logits, dim=-1)).sum() / (G * S * n)
+    return out, {"load_balance": E * torch.sum(me * assign) / n,
+                 "router_z": z}

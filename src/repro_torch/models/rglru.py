@@ -17,12 +17,21 @@ The gate is ``jax.nn.gelu``'s default, the tanh approximation (torch's
 default is the exact erf form, 1e-3 away on the gate).  ``log_lambda`` and
 the state ``h`` are fp32, as in the reference, whatever the model's
 dtype.
+
+Under a mesh whose `model` axis cuts W (``param_specs``: w_x's and
+w_gate's columns, w_a's, w_i's and w_out's rows), the sequence form runs
+the rank's W channels: w_a and w_i are row pieces, so their products are
+partial sums over the rank's input channels, reduce-scattered over
+`model` to the rank's output channels; conv_w, conv_b and log_lambda,
+whole on every rank, are read at its offset (``layers.model_part``).  A
+decode state under such a mesh is ROADMAP A10b.5.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers
 from repro_torch.models.mamba import softplus
 
@@ -36,20 +45,23 @@ def _width(cfg) -> int:
 
 def init_rglru(gen, cfg, dtype, device):
     D, W = cfg.d_model, _width(cfg)
-    dense = lambda i, o: layers.init_dense(gen, i, o, dtype, device)  # noqa: E731
+    leaf = layers.leaf
+
+    def dense(name, i, o):
+        return leaf(name, layers.init_dense(gen, i, o, dtype, device))
     conv_w = torch.randn(CONV, W, generator=gen, dtype=torch.float32,
                          device=device) * 0.1
     return {
-        "w_x": dense(D, W),                       # recurrence branch
-        "w_gate": dense(D, W),                    # GeLU gate branch
-        "conv_w": conv_w.to(dtype),
-        "conv_b": torch.zeros(W, dtype=dtype, device=device),
-        "w_a": dense(W, W),                       # recurrence gate r_t
-        "w_i": dense(W, W),                       # input gate i_t
+        "w_x": dense("w_x", D, W),                # recurrence branch
+        "w_gate": dense("w_gate", D, W),          # GeLU gate branch
+        "conv_w": leaf("conv_w", conv_w.to(dtype)),
+        "conv_b": leaf("conv_b", torch.zeros(W, dtype=dtype, device=device)),
+        "w_a": dense("w_a", W, W),                # recurrence gate r_t
+        "w_i": dense("w_i", W, W),                # input gate i_t
         # a = exp(-c softplus(lambda) r) starts near 1
-        "log_lambda": torch.linspace(0.3, 0.9, W, dtype=torch.float32,
-                                     device=device),
-        "w_out": dense(W, D),
+        "log_lambda": leaf("log_lambda", torch.linspace(
+            0.3, 0.9, W, dtype=torch.float32, device=device)),
+        "w_out": dense("w_out", W, D),
     }
 
 
@@ -57,24 +69,39 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _gate_in(xw, w):
+    """xw @ w for the gate weights [W, W]: under a mesh that cuts W, the
+    rank's row piece's partial product reduce-scattered over `model` to
+    the rank's output channels."""
+    y = layers.dense(xw, w)
+    if w.shape[0] == w.shape[1]:
+        return y
+    mesh = mesh_mod.get_mesh()
+    return mesh_mod.scatter_sum(y, mesh, "model", y.dim() - 1)
+
+
 def _gates(params, xw):
     """xw [..., W] post-conv → (a, b·x) fp32 of h = a h_prev + b x, with
-    b = sqrt(1 - a^2) i."""
-    r = torch.sigmoid(layers.dense(xw, params["w_a"]).float())
-    i = torch.sigmoid(layers.dense(xw, params["w_i"]).float())
-    log_a = -_C * softplus(params["log_lambda"]) * r
+    b = sqrt(1 - a^2) i (the rank's channels under a mesh that cuts W)."""
+    r = torch.sigmoid(_gate_in(xw, params["w_a"]).float())
+    i = torch.sigmoid(_gate_in(xw, params["w_i"]).float())
+    lam = layers.model_part(params["log_lambda"], xw.shape[-1],
+                            params["log_lambda"].shape[0])
+    log_a = -_C * softplus(lam) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, b * i * xw.float()
 
 
 def _conv_seq(params, x):
-    """Causal depthwise conv1d (k = 4) over x [B, S, W], with its bias."""
-    k = params["conv_w"].shape[0]
+    """Causal depthwise conv1d (k = 4) over x [B, S, W], with its bias
+    (the rank's channels of both under a mesh that cuts W)."""
+    k, W = params["conv_w"].shape
+    conv_w = layers.model_part(params["conv_w"], x.shape[-1], W)
     xp = F.pad(x, (0, 0, k - 1, 0))
     S = x.shape[1]
-    return sum(xp[:, i: i + S, :] * params["conv_w"][i]
-               for i in range(k)) + params["conv_b"]
+    return sum(xp[:, i: i + S, :] * conv_w[i] for i in range(k)) + \
+        layers.model_part(params["conv_b"], x.shape[-1], W)
 
 
 def _scan(a, b):
@@ -95,12 +122,16 @@ def _scan(a, b):
 def rglru_seq(params, cfg, x, *, return_state: bool = False):
     """x [B, S, D] → [B, S, D]; with ``return_state`` also the decode state
     {"h": [B, W] fp32, "conv": [B, 3, W]} (the last 3 rows of the
-    recurrence branch's projection, zero-padded in front when S < 3)."""
-    gate = _gelu(layers.dense(x, params["w_gate"]))
-    xt = layers.dense(x, params["w_x"])
+    recurrence branch's projection, zero-padded in front when S < 3).
+    Under a mesh that cuts W over `model`, the rank's channels (module
+    doc)."""
+    W = _width(cfg)
+    xin = layers.enter_model(x, params["w_x"].shape[1] != W)
+    gate = _gelu(layers.dense(xin, params["w_gate"]))
+    xt = layers.dense(xin, params["w_x"])
     a, bx = _gates(params, _conv_seq(params, xt))              # [B,S,W] fp32
     h = _scan(a, bx)
-    out = layers.dense(h.to(x.dtype) * gate, params["w_out"])
+    out = layers.dense_row(h.to(x.dtype) * gate, params["w_out"], W)
     if not return_state:
         return out
     k = params["conv_w"].shape[0]

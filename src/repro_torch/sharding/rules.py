@@ -16,13 +16,18 @@ dropped (paths map through ``models/convert.py``'s unstacking).  A
 :class:`P` is a tuple of entries (None, an axis name, or a tuple of axis
 names), as ``jax.sharding.PartitionSpec`` is.  :func:`local_rows` cuts a
 rank's piece of a tensor by a spec; the reference's ``constrain`` has no
-counterpart, since the port holds rank-local tensors.
+counterpart, since the port holds rank-local tensors.  :func:`place_params`
+(either profile) and :func:`place_opt_state` cut whole trees into a
+rank's pieces (a :class:`Placed` tree recording its mesh, specs and
+profile), and :func:`gather_placed` gathers them whole again.
 """
 from __future__ import annotations
 
 import re
 
 import torch
+
+from repro_torch.launch import mesh as mesh_mod
 
 
 class P(tuple):
@@ -297,25 +302,44 @@ def extent(entry, mesh) -> int:
 
 
 class Placed(dict):
-    """A parameter tree holding this rank's pieces: ``mesh_shape`` is the
-    mesh's {axis: extent} it was cut for and ``specs`` the spec tree that
-    cut it (each leaf's spec on the whole tensor)."""
+    """A tree holding this rank's pieces (parameters, their gradients, or
+    optimizer state): ``mesh_shape`` is the mesh's {axis: extent} it was
+    cut for, ``specs`` the spec tree that cut it (each leaf's spec on the
+    whole tensor) and ``profile`` the ``param_specs`` profile ("serve",
+    "train"; "opt_state" for optimizer state placed by
+    :func:`opt_state_specs`)."""
 
-    def __init__(self, tree, mesh_shape: dict, specs):
+    def __init__(self, tree, mesh_shape: dict, specs, profile: str = "serve"):
         super().__init__(tree)
         self.mesh_shape = dict(mesh_shape)
         self.specs = specs
+        self.profile = profile
+
+    def spec_at(self, path: str):
+        """The spec of the leaf at ``path`` ("layers/0/mix/w_q")."""
+        t = self.specs
+        for k in path.split("/"):
+            t = t[int(k)] if isinstance(t, list) else t[k]
+        return t
 
 
 def check_leaf_spec(path: str, spec, mesh) -> None:
-    """Refuse a serving placement the port does not run: a MoE expert
-    stack [E, ...] cut over `data` (expert parallelism)."""
+    """Refuse a placement the port does not run: a MoE expert stack [E,
+    ...] cut over `data` (expert parallelism over `data`, the serve
+    profile's; the train profile's experts over `model` run)."""
     if spec and re.search(r"ffn/(w_gate|w_up|w_down)$", path) and \
-            len(spec) == 3 and extent(spec[0], mesh) > 1:
+            len(spec) == 3 and extent(spec[0], mesh) > 1 and \
+            "data" in _axes(spec[0]):
         raise NotImplementedError(
             f"{path}: the serve spec {spec} puts the experts over "
             f"{spec[0]} on {mesh.shape}; expert parallelism is not yet "
             "ported (ROADMAP A10b.3)")
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def place_leaf(path: str, t, mesh, *, profile: str = "serve"):
@@ -323,44 +347,89 @@ def place_leaf(path: str, t, mesh, *, profile: str = "serve"):
     ``profile`` spec on ``mesh``, as a contiguous copy, the spec)."""
     spec = leaf_spec(path, t, mesh, profile=profile)
     check_leaf_spec(path, spec, mesh)
+    return _cut(t, spec, mesh), spec
+
+
+def _cut(t, spec, mesh):
     piece = local_rows(t, spec, mesh)
     if piece is t:
-        return t, spec
-    return piece.clone(memory_format=torch.contiguous_format), spec
+        return t
+    return piece.clone(memory_format=torch.contiguous_format)
 
 
 def place_params(params, mesh, *, profile: str = "serve") -> Placed:
     """This rank's pieces of a whole parameter tree, each leaf cut by its
     ``param_specs(..., profile)`` spec on ``mesh`` (:func:`local_rows`, a
     contiguous copy; a leaf the spec leaves whole is kept as it is), with
-    the mesh's shape and the specs recorded on the result.  Only
-    ``profile="serve"`` is ported; a MoE expert stack over `data` raises
-    (:func:`check_leaf_spec`)."""
-    if profile != "serve":
-        raise NotImplementedError(
-            f"placing weights by profile={profile!r} (FSDP over `data`): "
-            "not yet ported (ROADMAP A10b.2)")
+    the mesh's shape, the specs and the profile recorded on the result.
+    ``profile="train"`` keeps the `data` entries (FSDP): a layer gathers
+    them over `data` where it uses them (``models.layers.unshard``).  A
+    MoE expert stack over `data` raises (:func:`check_leaf_spec`)."""
+    if profile not in ("serve", "train"):
+        raise ValueError(f"profile {profile!r}")
     specs = param_specs(params, mesh, profile=profile)
     pieces = _tree_map_with_path(
         lambda path, t: place_leaf(path, t, mesh, profile=profile)[0],
         params)
-    return Placed(pieces, mesh.shape, specs)
+    return Placed(pieces, mesh.shape, specs, profile)
 
 
-def _leaves_with_path(tree, path=()):
-    if isinstance(tree, dict):
+def place_opt_state(state, mesh) -> Placed:
+    """This rank's pieces of a whole optimizer state (AdamW's {"m", "v",
+    "count"}, Adafactor's {"v", "count"}), each leaf cut by its
+    :func:`opt_state_specs` spec on ``mesh``; ``count`` stays whole."""
+    specs = opt_state_specs(state, mesh)
+    flat = dict(_leaves_with_path(specs, leaf_type=P))
+    pieces = _tree_map_with_path(
+        lambda path, t: _cut(t, flat[path], mesh), state)
+    return Placed(pieces, mesh.shape, specs, "opt_state")
+
+
+def _leaves_with_path(tree, path=(), leaf_type=torch.Tensor):
+    if isinstance(tree, leaf_type):
+        yield "/".join(path), tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _leaves_with_path(v, path + (str(k),))
+            yield from _leaves_with_path(v, path + (str(k),), leaf_type)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves_with_path(v, path + (str(i),))
-    elif isinstance(tree, torch.Tensor):
-        yield "/".join(path), tree
+            yield from _leaves_with_path(v, path + (str(i),), leaf_type)
+
+
+def gather_leaf(t, spec, mesh):
+    """The whole tensor of which ``t`` is this rank's piece under ``spec``
+    (the inverse of :func:`local_rows`: each cut dim gathered over its
+    axes, the last-named first), with no gradient."""
+    for dim, entry in enumerate(spec):
+        for axis in reversed(_axes(entry)):
+            if mesh.shape[axis] > 1:
+                t = mesh_mod.all_gather(t, mesh, axis, dim)
+    return t
+
+
+def gather_placed(tree, mesh, specs=None) -> dict:
+    """The whole tree of a :class:`Placed` one (or of ``tree`` cut by
+    ``specs``): every leaf gathered by :func:`gather_leaf` on every rank,
+    in the tree's order (a collective: every rank calls it).  A plain
+    dict; a whole leaf is kept as it is."""
+    specs = specs if specs is not None else tree.specs
+    flat = dict(_leaves_with_path(specs, leaf_type=P))
+    with torch.no_grad():
+        return _tree_map_with_path(
+            lambda path, t: gather_leaf(t, flat[path], mesh), tree)
 
 
 def cuts(spec, mesh) -> bool:
     """Whether ``spec`` cuts any dim on ``mesh``."""
     return any(extent(e, mesh) > 1 for e in spec)
+
+
+def replicas(spec, mesh) -> int:
+    """How many ranks of ``mesh`` hold the same piece under ``spec``."""
+    n = mesh.size
+    for e in spec:
+        n //= extent(e, mesh)
+    return n
 
 
 def check_placed(params, mesh) -> None:

@@ -21,10 +21,11 @@ reduced Qwen3-8B (8 heads, 4 kv heads) on (1, 4) and (2, 2):
   vocab-parallel lookup is bitwise the whole table's;
 - in this process: the CUDA branch (``device_of`` / ``build.library``
   faked) reaches K5 and K9 once a call with the rank's H/n heads on a
-  one-rank stand-in for a rank of (1, 4); and the refusals (the train
-  profile, a tree placed for another mesh or a whole tree where the mesh
-  cuts, a rule that cuts a head, experts over `data`, Mamba / RG-LRU
-  under `model`).
+  one-rank stand-in for a rank of (1, 4); and the refusals (a tree placed
+  for another mesh or a whole tree where the mesh cuts, a rule that cuts
+  a head, experts over `data`, a Mamba / RG-LRU cache under `model`),
+  beside what the sharded train step lifted (the train profile, loss_fn
+  under a mesh, Mamba / RG-LRU weights under `model`).
 """
 import dataclasses
 import functools
@@ -352,21 +353,25 @@ def test_cuda_branch_at_local_heads(fake_card, one_rank, arch):
             kc.element_size()
 
 
-def test_refusals(monkeypatch):
+def test_refusals(monkeypatch, one_rank):
     """Not yet ported, each raising NotImplementedError naming its ROADMAP
-    item, with no fallback to whole weights: the train profile (A10b.2);
-    experts over `data` > 1 (A10b.3), in place_params, the placed init and
-    moe_ffn; a rule that cuts a head (A10b); Mamba / RG-LRU blocks under
-    `model` (A10b.5).  A tree placed for another mesh, and a whole tree
-    where the mesh cuts a leaf, raise ValueError."""
+    item, with no fallback to whole weights: experts over `data` > 1
+    (A10b.3), in place_params, the placed init and moe_ffn; a rule that
+    cuts a head (A10b.1); a Mamba / RG-LRU serving cache under `model`
+    (A10b.5).  A tree placed for another mesh, and a whole tree where the
+    mesh cuts a leaf, raise ValueError.  What the sharded train step
+    (A10b.2) lifted runs: place_params by the train profile, loss_fn under
+    a mesh (the one-rank stand-in's collectives), and Mamba / RG-LRU
+    weights placed under `model` (the placed init)."""
     mesh14 = M.Mesh(("data", "model"), (1, 4))
     mesh22 = M.Mesh(("data", "model"), (2, 2))
     for m in (mesh14, mesh22):
         m.coord = lambda axis: 0
     ds = reduced(get_config("deepseek_r1_671b"))
     whole = model.init(ds, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b.2"):
-        rules.place_params(whole, mesh14, profile="train")
+    train = rules.place_params(whole, mesh22, profile="train")
+    assert train.profile == "train" and \
+        train["layers"][0]["mix"]["w_uq"].shape == (16, 48)
     with pytest.raises(NotImplementedError, match="A10b.3"):
         rules.place_params(whole, mesh22)
     with M.use_mesh(mesh22), pytest.raises(NotImplementedError,
@@ -391,9 +396,11 @@ def test_refusals(monkeypatch):
                 fn()
     for arch in ("falcon_mamba_7b", "recurrentgemma_9b"):
         cfg = reduced(get_config(arch))
-        with M.use_mesh(mesh14), pytest.raises(NotImplementedError,
-                                               match="A10b.5"):
-            model.init(cfg, seed=0, device="cpu")
+        with M.use_mesh(mesh14):
+            pieces = model.init(cfg, seed=0, device="cpu")
+            with pytest.raises(NotImplementedError, match="A10b.5"):
+                model.prefill(pieces, cfg, torch.zeros(
+                    2, 8, dtype=torch.int32), 16)
     # a tree for another mesh; a whole tree where the mesh cuts
     placed = rules.place_params(whole, mesh14)
     other = M.Mesh(("data", "model"), (1, 2))
@@ -402,9 +409,12 @@ def test_refusals(monkeypatch):
         model.prefill(placed, ds, toks, 16)
     with M.use_mesh(mesh14), pytest.raises(ValueError, match="whole"):
         model.prefill(whole, ds, toks, 16)
-    with M.use_mesh(mesh14), pytest.raises(NotImplementedError,
-                                           match="A10b.2"):
-        model.loss_fn(placed, ds, {"tokens": toks})
+    monkeypatch.setattr(M, "all_reduce", lambda t, op, mesh, axis: t)
+    with M.use_mesh(one_rank):
+        loss, metrics = model.loss_fn(rules.place_params(
+            whole, one_rank, profile="train"), ds, {"tokens": toks})
+    assert loss.shape == () and bool(torch.isfinite(loss))
+    assert set(metrics) == {"nll", "load_balance", "router_z"}
 
 
 def test_whole_weights_where_nothing_is_cut():
