@@ -419,6 +419,40 @@ Last, tensor-parallel serving (ROADMAP A10b.1),
              the bytes each collective returned a step a rank, the step's
              wall beside the reference's, and the weight bytes a rank.
 
+Then expert parallelism over `data` in serving (ROADMAP A10b.3),
+``phase_expert_parallel``:
+
+  reference  DeepSeek-R1 at full width cut to 4 layers (its 3 dense
+             layers and its first MoE layer: 256 experts, top-8, F 2048,
+             the shared expert), whole seed-0 weights in this process
+             with the card to itself: B 16 x prompt 256 and 16 greedy
+             steps (``greedy_reference``, dense layout), the MoE layer's
+             routes recorded, its floor as tp-short's; the card then
+             freed;
+  ranks      8 processes on the (2, 4) mesh (gloo with every rank on
+             cuda:0 on a one-card machine): each draws only its pieces
+             of the weights as ``param_specs(profile="serve")`` places
+             them (``model.init`` under the mesh: 128 of the 256 experts
+             with 512 of each one's 2048 F columns, drawn 16 experts at
+             a time, and 32 of the 128 heads; the pieces' digests,
+             each leaf's summed over the ranks over its replicas, sum to
+             the reference's); tp-short's legs on the prompt
+             (``make_prefill_step`` under the mesh: the MoE layer's
+             experts' slots exchanged by two all-to-alls over `data`;
+             then ``make_serve_step`` teacher-forced and free-running:
+             the step's group of 16 tokens gathered over `data`, routed
+             whole on every rank, its combine reduce-scattered), gated as
+             there, the free-running rows equal the reference's or
+             parting where its top-two gap is below the teacher-forced
+             difference; the MoE layer's routes (the prefill's on the
+             rank's groups, each teacher-forced step's) equal the
+             reference's but at an undecided router (route_flips' rule); K9
+             and K5 launched on every rank with q at 32 heads.
+             ``[expert-parallel]`` lines give the launches by rank, the
+             bytes each collective moved a rank by op in the prefill and
+             a step, the weight bytes a rank (counted, allocated) against
+             the whole, and the step's wall beside the whole-weight one.
+
 Then the sharded train step (ROADMAP A10b.2), ``phase_sharded_train``:
 
   reference  DeepSeek-R1 at full width, 3 dense layers, seed 0, AdamW
@@ -8254,8 +8288,10 @@ def kv_view_check(params, cfg, mesh, B: int, S: int) -> float:
                                                      **kw), what)
 
 
-def tp_short(params, cfg, ref: dict, mesh, name: str) -> dict:
-    """tp-short on this rank: the reference's prompt through
+def tp_short(params, cfg, ref: dict, mesh, name: str,
+             bpg: tuple | None = None) -> dict:
+    """tp-short on this rank (``bpg``: its batch, prompt and steps,
+    default TP_MODELS[name]'s): the reference's prompt through
     ``make_prefill_step`` under the mesh (K9 on the rank's heads and
     batch rows), its gathered last-row logits within check_step's gate of
     the reference's, then the teacher-forced steps (``tp_teacher_forced``:
@@ -8267,7 +8303,7 @@ def tp_short(params, cfg, ref: dict, mesh, name: str) -> dict:
 
     from repro_torch.launch import mesh as M
     from repro_torch.launch import steps as S
-    _, _, B, P, G = TP_MODELS[name]
+    B, P, G = bpg or TP_MODELS[name][2:]
     tag = f"{name} {mesh.shape['data']}x{mesh.shape['model']}"
     dev = mesh.device
     view_err = None if cfg.attention_kind == "mla" else \
@@ -8494,6 +8530,292 @@ def phase_tensor_parallel(launches: dict) -> None:
                     f"{r0['parted']}")
     log(f"[tp] {where}; {gpu_line()}")
 
+
+# ---------------------- expert parallelism over `data` (ROADMAP A10b.3)
+# phase_expert_parallel: DeepSeek-R1 with its first MoE layer, whole
+# weights in this process first, then EP_RANKS ranks on EP_MESH, each
+# holding E/2 = 128 of the 256 experts with 512 of each one's 2048 F
+# columns and 32 of the 128 MLA heads (param_specs(profile="serve"))
+EP_RANKS = 8
+EP_MESH = (2, 4)                              # (data, model)
+# DeepSeek's 3 dense layers and its first MoE layer: 14.4 B parameters,
+# 29 GB in bf16 beside the 3.7 GB fp32 unembedding for the reference; the
+# ranks together hold the experts once (22.5 GB) and the rest cut over
+# `model` twice over `data` (about 19 GB): 5 layers would put them near
+# 68 GB of the card's 80
+EP_LAYERS = 4
+EP_SHORT = (16, 256, 16)                      # batch, prompt, greedy steps
+EP_SPAWN_S = 600                              # the ranks' wall limit
+
+
+@contextlib.contextmanager
+def recorded_routes(rec: list):
+    """Record each ``moe.route`` call's router logits and chosen experts
+    (host copies), in call order."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def wrap(params, cfg, x):
+        out = route(params, cfg, x)
+        rec.append((out[0].cpu(), out[3].cpu()))
+        return out
+    moe.route = wrap
+    try:
+        yield rec
+    finally:
+        moe.route = route
+
+
+def ep_route_flips(ref, got, ordered: bool, what: str) -> list:
+    """The routing rule of route_flips on recorded routes: ``ref`` and
+    ``got`` are (router logits [..., E], chosen experts [..., k]) of the
+    same tokens.  A token whose routes differ (the chosen experts, or
+    where ``ordered``, since the capacity C is under the group's tokens,
+    their order) needs the reference's router-logit gap between its
+    first differing choice (unordered: the k-th) and the next under twice
+    the largest router-logit difference at that token: an undecided
+    router.  Returns [(token, gap, difference)]."""
+    import torch
+    lr, ir = ref
+    lg, ig = got
+    E, k = lr.shape[-1], ir.shape[-1]
+    lr, lg = lr.reshape(-1, E), lg.reshape(-1, E)
+    ir, ig = ir.reshape(-1, k), ig.reshape(-1, k)
+    if ordered:
+        differ = (ir != ig).any(-1)
+    else:
+        differ = (ir.sort(-1).values != ig.sort(-1).values).any(-1)
+    flips = []
+    for row in differ.nonzero().flatten().tolist():
+        j = int((ir[row] != ig[row]).nonzero()[0]) if ordered else k - 1
+        ranked = torch.sort(lr[row], descending=True, stable=True).values
+        gap = float(ranked[j] - ranked[j + 1])
+        diff = float((lg[row] - lr[row]).abs().max())
+        if not gap < 2 * diff:
+            raise AssertionError(
+                f"{what}: token {row} routes {ig[row].tolist()} against the "
+                f"reference's {ir[row].tolist()} at a decided router (gap "
+                f"{gap:.4e}, router-logit difference {diff:.4e})")
+        flips.append((row, round(gap, 6), round(diff, 6)))
+    return flips
+
+
+def ep_reference(cfg, work: Path, launches: dict) -> dict:
+    """The whole-weight reference, seed-0 weights on the card alone:
+    EP_SHORT through ``greedy_reference`` (the prefill, K9, and greedy
+    ``decode_step``s, timed, with its floor), the MoE layer's routes
+    recorded, saved with the weights' digest to ``work/ep.pt``; the card
+    then freed.  Credits the launches."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.sharding import rules
+    B, P, G = EP_SHORT
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref = {"digest": weights_digest(params)}
+    routes: list = []
+    with recorded_routes(routes):
+        short = greedy_reference(params, cfg, B, P, G, seed=19)
+    got = short.pop("launches")
+    ref.update(short=short, routes=routes[:1 + G])
+    ref["params_bytes"] = sum(t.numel() * t.element_size()
+                              for _, t in rules._leaves_with_path(params))
+    log(f"[expert-parallel] reference (one process, whole weights, the card "
+        f"alone): DeepSeek-R1 full width, {cfg.num_layers} layers (3 dense, "
+        f"1 MoE: {cfg.moe.num_experts} experts, top-{cfg.moe.top_k}, F "
+        f"{cfg.moe.d_ff_expert}, a shared expert), "
+        f"{model.param_count(params) / 1e9:.3f} B params, "
+        f"{ref['params_bytes']:,} B with the fp32 unembedding, drawn in "
+        f"{init_s:.1f} s; B {B} x prompt {P} + {G} greedy steps: step "
+        f"{short['step_ms']:.3f} ms (median), floor {short['floor']:.4e}, "
+        f"launches { {k: v for k, v in got.items() if v} }")
+    credit_shard(launches, got, cfg)
+    torch.save(ref, work / "ep.pt")
+    del params
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_placed_digest(params, mesh, want: int, what: str) -> None:
+    """Every rank's leaf digests (a collective over the world): each
+    leaf's digests summed over the ranks and divided by the ranks that
+    hold the same piece (``rules.replicas`` of its spec), summed over the
+    leaves, equal ``want``, the whole tree's digest."""
+    import torch.distributed as dist
+    from repro_torch.sharding import rules
+    mine = {path: weights_digest(t)
+            for path, t in rules._leaves_with_path(params)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    total = 0
+    for path in mine:
+        s = sum(e[path] for e in every)
+        n = rules.replicas(params.spec_at(path), mesh)
+        if s % n:
+            raise AssertionError(f"{what}: {path}'s pieces differ between "
+                                 "the ranks that should hold them alike")
+        total += s // n
+    if total != want:
+        raise AssertionError(f"{what}: the pieces' digests sum to {total}, "
+                             f"the whole weights' to {want}")
+
+
+def ep_rank_main(rank: int, world: int, work: str, backend: str,
+                 device: str, cfg) -> None:
+    """One rank of phase_expert_parallel: join the group (FileStore in
+    ``work``), draw its pieces of the seed-0 weights on EP_MESH
+    (``model.init`` under the mesh: its 128 experts with 512 of their F
+    columns each, drawn 16 experts at a time), their digests summed over
+    the ranks against the reference's, their bytes counted and
+    allocated; then tp_short at EP_SHORT with the MoE layer's routes
+    recorded and held to the reference's (ep_route_flips: the prefill's
+    on the rank's groups, every teacher-forced step's).  Writes its report
+    to ``work/ep-rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import mla
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import model, moe
+    from repro_torch.sharding import rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    with (open(os.devnull, "w") if rank else
+          contextlib.nullcontext(sys.stdout)) as out, \
+            contextlib.redirect_stdout(out):
+        dev = M.init_ranks(rank, world, backend=backend,
+                           init_method=f"file://{work / 'store'}",
+                           device=device, timeout_s=SHARD_COLLECTIVE_S)
+        try:
+            ref = torch.load(work / "ep.pt", weights_only=False)
+            mesh = M.make_host_mesh(dev, EP_MESH)
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with M.use_mesh(mesh):
+                params = model.init(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            check_placed_digest(params, mesh, ref["digest"], "ep")
+            ffn = params["layers"][cfg.moe.first_dense_layers]["ffn"]
+            rep = {"init_s": init_s,
+                   "experts": tuple(ffn["w_gate"].shape),
+                   "heads": mla.local_heads(params["layers"][0]["mix"], cfg),
+                   "bytes": sum(t.numel() * t.element_size() for _, t in
+                                rules._leaves_with_path(params)),
+                   "allocated": torch.cuda.memory_allocated() - base}
+            del ffn
+            routes: list = []
+            B, P, G = EP_SHORT
+            with recorded_routes(routes):
+                rep["short"] = tp_short(params, cfg, ref["short"], mesh,
+                                        "deepseek", EP_SHORT)
+            rows = rules.local_slices((B,), rules.P("data"), mesh)[0]
+            prefill = ep_route_flips(
+                tuple(t[rows] for t in ref["routes"][0]), routes[0],
+                moe.capacity(cfg, P, False) < P, "ep prefill")
+            steps = [f for i in range(G) for f in ep_route_flips(
+                ref["routes"][1 + i], routes[1 + i],
+                moe.capacity(cfg, B, True) < B, f"ep step {i}")]
+            rep["flips"] = {
+                "prefill": (len(prefill), routes[0][1].shape[:-1].numel()),
+                "steps": (len(steps), G * B),
+                "closest": max((g / (2 * d) for _, g, d in prefill + steps),
+                               default=0.0)}
+            rep["peak"] = torch.cuda.max_memory_allocated()
+            del params
+            torch.cuda.empty_cache()
+            torch.save(rep, work / f"ep-rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_expert_parallel(launches: dict) -> None:
+    """Expert parallelism over `data` in serving (ROADMAP A10b.3) across
+    EP_RANKS ranks on EP_MESH: the whole-weight reference (ep_reference),
+    the card then freed; then the ranks (ep_rank_main), each holding only
+    its pieces.  Fails unless every gate of tp_short holds (the prefill's
+    and each teacher-forced step's gathered logits within check_step's
+    gate of the reference's), the free-running rows equal the reference's
+    or part where its top-two gap is below the teacher-forced difference,
+    every route that differs from the reference's is at an undecided
+    router, and K9 and K5 ran on every rank with q at 32 heads.  Prints
+    the ``[expert-parallel]`` lines: launches by rank, the bytes each
+    collective moved a rank by op in the prefill and a step, the weight
+    bytes a rank (counted and allocated), and the step's wall beside the
+    whole-weight one."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    cfg = full_config(EP_LAYERS)
+    backend, device, where = shard_backend(EP_RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        ref = ep_reference(cfg, work, launches)
+        short = ref["short"]
+        del ref["routes"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        M.spawn(ep_rank_main, EP_RANKS, (str(work), backend, device, cfg),
+                timeout_s=EP_SPAWN_S)
+        reps = [torch.load(work / f"ep-rank{r}.pt", weights_only=False)
+                for r in range(EP_RANKS)]
+    log(f"[expert-parallel] {EP_RANKS} ranks on (data, model) {EP_MESH}, "
+        f"backend {where}: done in {time.perf_counter() - t0:.1f} s (their "
+        "start, placed inits and the serve run)")
+    runs = [r["short"] for r in reps]
+    k9 = [r["launches"]["flash_prefill"] for r in runs]
+    k5 = [r["launches"]["etap_decode_dense"] for r in runs]
+    k6 = [r["launches"]["etap_partial_dense"] for r in runs]
+    want_h = cfg.num_heads // EP_MESH[1]
+    shapes = {q for r in runs for qs in r["heads"].values() for q in qs}
+    prefill_q = {q for r in runs for q in r["heads"].get(
+        "causal_attention", ())}
+    decode_q = {q for r in runs for q in r["heads"].get(
+        "decode_attention", ())}
+    if not (all(k9) and all(k5)) or any(
+            q[2] != want_h for q in prefill_q) or any(
+            q[1] != want_h for q in decode_q) or not (prefill_q and decode_q):
+        raise AssertionError(f"expert-parallel: launches by rank K9 {k9} K5 "
+                             f"{k5}, q shapes at the entries {shapes}")
+    for r in runs:
+        credit_shard(launches, r["launches"], cfg)
+    bad = [(r, p) for r, rep in enumerate(runs) for p in rep["parted"]
+           if not p[2] < p[3]]
+    r0 = runs[0]
+    B, P, G = EP_SHORT
+    log(f"[expert-parallel] DeepSeek-R1 {cfg.num_layers} layers on "
+        f"{EP_MESH}: experts a rank {reps[0]['experts']} (w_gate: E/2 "
+        f"experts x D x F/4), heads a rank {reps[0]['heads']} of "
+        f"{cfg.num_heads}; weight bytes a rank "
+        f"{[r['bytes'] for r in reps]} counted, "
+        f"{[r['allocated'] for r in reps]} allocated (whole "
+        f"{ref['params_bytes']:,}); placed init "
+        f"{max(r['init_s'] for r in reps):.1f} s; peak memory a rank "
+        f"{[round(r['peak'] / 2**30, 2) for r in reps]} GiB")
+    log(f"[expert-parallel] launches by rank K9 {k9}, K5 {k5}, K6 {k6}; q "
+        f"shapes at the entries "
+        f"{ {k: sorted(v) for k, v in r0['heads'].items()} }; max |dlogit| "
+        f"prefill and steps {max(max(r['diffs']) for r in runs):.4e} "
+        f"(floor {short['floor']:.4e}); bytes a rank, prefill "
+        f"{r0['prefill_bytes']} in {r0['prefill_ms']:.1f} ms, a step "
+        f"{r0['step_bytes']}; step {_median(r0['step_ms']):.3f} ms (rank 0, "
+        f"median) against {short['step_ms']:.3f} ms whole (one process, the "
+        f"card alone; the ranks share one card through the host, so this "
+        f"is no multi-GPU speedup); free-running rows equal "
+        f"{[r['free_equal'] for r in runs]} of {B}, parted (row, position, "
+        f"top-two gap, largest difference) {r0['parted']}; tokens whose "
+        f"routes differ from the reference's, of those routed, by rank: "
+        f"prefill {[r['flips']['prefill'] for r in reps]}, steps "
+        f"{[r['flips']['steps'] for r in reps]}, each at an undecided "
+        f"router (the largest gap / (2 x router-logit difference) "
+        f"{max(r['flips']['closest'] for r in reps):.3f}); {gpu_line()}")
+    if bad:
+        raise AssertionError(f"expert-parallel: free-running rows part from "
+                             f"the reference at a decided step: {bad}")
 
 # ------------------------------- the sharded train step (ROADMAP A10b.2)
 # phase_sharded_train: the whole step in this process, then ST_RANKS
@@ -9166,6 +9488,7 @@ def main(argv=None) -> int:
 
     timed("sequence-sharded decode", phase_seq_sharded, launches)
     timed("tensor-parallel serving", phase_tensor_parallel, launches)
+    timed("expert-parallel serving", phase_expert_parallel, launches)
     timed("sharded train step", phase_sharded_train, launches)
 
     for wrapper, w in {v[2:4] for v in QDENSE_KERNELS.values()}:

@@ -7,9 +7,11 @@ and the reference train on identical batches, and a restarted run
 regenerates exactly the batches it lost with no loader state beyond the
 step counter.  :func:`to_device` turns a batch into torch tensors (tokens
 int32, frontend embeddings in the model's dtype, rounded as numpy's
-bfloat16 rounds them).  A background thread (:class:`Prefetcher`) keeps
-``depth`` batches in flight.  The reference's ``device_batch`` places
-shards on a mesh, which waits for multi-GPU (ROADMAP A10).
+bfloat16 rounds them).  :func:`device_batch` is a rank's rows of a step's
+batch on a mesh (the reference's ``device_batch``, whose sharding
+materializes each device's rows of ``data_spec``), on the rank's device.
+A background thread (:class:`Prefetcher`) keeps ``depth`` batches in
+flight.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.frontend import FRONTEND_DIMS
+from repro_torch.sharding import rules
 
 
 @dataclass(frozen=True)
@@ -70,19 +73,35 @@ def to_device(cfg, batch: dict, device) -> dict:
     return out
 
 
+def device_batch(cfg, data: DataConfig, step: int, mesh=None,
+                 device="cpu") -> dict:
+    """The batch of ``step`` as :func:`to_device` gives it on ``device``:
+    under ``mesh`` only this rank's rows, its slice of ``rules.data_spec``
+    over the batch axes (made as :func:`make_batch`'s [lo, hi), which
+    draws the whole batch and keeps those rows); the whole batch without
+    a mesh.  Rows the batch axes do not divide raise."""
+    lo, hi = 0, data.global_batch
+    if mesh is not None:
+        rows = rules.local_slices((data.global_batch,),
+                                  rules.data_spec(mesh, 1), mesh)[0]
+        lo, hi = rows.start, rows.stop
+    return to_device(cfg, make_batch(cfg, data, step, lo=lo, hi=hi), device)
+
+
 class Prefetcher:
     """Background-thread batch prefetch (depth-bounded): yields (step,
-    batch on ``device``) from ``start_step`` on."""
+    :func:`device_batch`'s batch on ``device``, under ``mesh`` the rank's
+    rows) from ``start_step`` on."""
 
     def __init__(self, cfg, data: DataConfig, device="cpu",
-                 start_step: int = 0, depth: int = 2):
+                 start_step: int = 0, depth: int = 2, mesh=None):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
 
         def worker():
             step = start_step
             while not self._stop.is_set():
-                batch = to_device(cfg, make_batch(cfg, data, step), device)
+                batch = device_batch(cfg, data, step, mesh, device)
                 while not self._stop.is_set():
                     try:
                         self._q.put((step, batch), timeout=0.1)

@@ -19,7 +19,9 @@ sharing that card.  On gloo the collectives run on host copies of CUDA
 tensors, on every call: gloo's CUDA support does not cover every
 collective, so the helpers stage through the host whatever the op.
 :data:`moved` counts the bytes each kind of collective returned to this
-rank, which the mesh phases report a step.
+rank, which the mesh phases report a step.  :func:`all_to_all` exchanges
+a MoE layer's expert slots between the `data` ranks in serving and
+carries no gradient.
 
 Collectives with gradients (the sharded train step): :func:`gather`,
 :func:`reduce_sum`, :func:`scatter_sum` and :func:`enter` are autograd
@@ -161,8 +163,9 @@ def _count(op: str, t) -> None:
 
 # bytes each collective moved on this rank since the caller last zeroed
 # it (the rank's result of each call: the reduced buffer, the gathered
-# tensor, the scattered piece), keyed by "all_reduce" / "all_gather" /
-# "reduce_scatter" and the phase suffixes of the module doc
+# tensor, the scattered piece, the exchanged parts), keyed by "all_reduce"
+# / "all_gather" / "reduce_scatter" / "all_to_all" and the phase suffixes
+# of the module doc
 moved: dict = {}
 # the phase a collective's bytes are counted under (None: the forward's,
 # or the remat's inside the backward pass)
@@ -225,6 +228,30 @@ def reduce_scatter(t, mesh: Mesh, axis: str, dim: int = 0):
     _count("reduce_scatter", out)
     return out.movedim(0, dim).to(device=t.device,
                                   dtype=t.dtype).contiguous()
+
+
+def all_to_all(t, mesh: Mesh, axis: str, split_dim: int, concat_dim: int):
+    """The all-to-all over ``axis``: ``t`` cut into the axis' extent of
+    equal parts along ``split_dim``, part j sent to the rank at coordinate
+    j, and the parts this rank gets (one from each rank, in axis order)
+    concatenated along ``concat_dim``.  For serving only (a MoE layer's
+    experts over `data`, ``models.moe``): a tensor that requires grad
+    raises, since the train profile never puts experts over `data`."""
+    if t.requires_grad:
+        raise NotImplementedError(
+            "all_to_all carries no gradient: expert parallelism over `data` "
+            "is the serve profile's (ROADMAP A10b.3)")
+    n = mesh.shape[axis]
+    if t.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not "
+                         f"split {n} ways over {axis}")
+    s = _staged(t.movedim(split_dim, 0).contiguous(), mesh)
+    got = torch.empty_like(s)
+    dist.all_to_all_single(got, s, group=mesh.group(axis))
+    out = torch.cat([p.movedim(0, split_dim) for p in got.view(
+        n, s.shape[0] // n, *s.shape[1:]).unbind(0)], dim=concat_dim)
+    _count("all_to_all", out)
+    return out.to(t.device)
 
 
 # ------------------------------------------------- collectives with grads

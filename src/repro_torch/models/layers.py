@@ -59,17 +59,21 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-# (fn, path) while a placed init draws: fn(path, leaf) -> the rank's piece
+# (fn, part, path) while a placed init draws: fn(path, leaf, whole) -> the
+# rank's piece, part(path, shape) -> the slices of it (see placing)
 _PLACER: contextvars.ContextVar = contextvars.ContextVar("placer",
                                                          default=None)
 
 
 @contextlib.contextmanager
-def placing(fn):
+def placing(fn, part):
     """Within the block each leaf an ``init_*`` function draws is replaced
-    by ``fn(path, leaf)`` as soon as it is drawn (``path`` as
-    :func:`leaf_scope` builds it, e.g. "layers/0/mix/w_uq")."""
-    token = _PLACER.set((fn, ()))
+    by ``fn(path, leaf, None)`` as soon as it is drawn (``path`` as
+    :func:`leaf_scope` builds it, e.g. "layers/0/mix/w_uq").  A leaf
+    drawn in parts keeps only the slices ``part(path, shape)`` names
+    (:func:`leaf_part`) and is then passed as ``fn(path, piece, shape)``,
+    ``shape`` the whole leaf's."""
+    token = _PLACER.set((fn, part, ()))
     try:
         yield
     finally:
@@ -81,8 +85,8 @@ def leaf_scope(name):
     """Prefix the paths of the leaves drawn within the block with
     ``name``."""
     cur = _PLACER.get()
-    token = None if cur is None else _PLACER.set((cur[0],
-                                                  cur[1] + (str(name),)))
+    token = None if cur is None else _PLACER.set(
+        (*cur[:2], cur[2] + (str(name),)))
     try:
         yield
     finally:
@@ -90,11 +94,24 @@ def leaf_scope(name):
             _PLACER.reset(token)
 
 
-def leaf(name: str, t):
+def leaf(name: str, t, whole: tuple | None = None):
     """A freshly drawn parameter leaf: ``t``, or under :func:`placing` the
-    placer's piece of it."""
+    placer's piece of it.  ``whole``: ``t`` is already the piece
+    :func:`leaf_part` named of a leaf of that shape."""
     cur = _PLACER.get()
-    return t if cur is None else cur[0]("/".join(cur[1] + (name,)), t)
+    return t if cur is None else cur[0]("/".join(cur[2] + (name,)), t,
+                                        whole)
+
+
+def leaf_part(name: str, shape: tuple) -> tuple:
+    """The slices (one a dim) of the leaf ``name`` of ``shape`` that this
+    rank keeps: under :func:`placing` its piece, else the whole.  A leaf
+    drawn in parts keeps only these and passes them to :func:`leaf` with
+    ``whole=shape``."""
+    cur = _PLACER.get()
+    if cur is None:
+        return tuple(slice(0, d) for d in shape)
+    return cur[1]("/".join(cur[2] + (name,)), tuple(shape))
 
 
 def init_dense(gen, d_in: int, d_out: int, dtype, device):

@@ -189,8 +189,11 @@ def init(cfg, *, seed: int = 0, device="cuda",
     Under a mesh (``launch.mesh.use_mesh``) each leaf is drawn whole from
     the same generator, cut to this rank's piece by its
     ``param_specs(profile=profile)`` spec and freed before the next is
-    drawn: the result is bitwise ``rules.place_params(init(cfg), mesh,
-    profile=profile)``, without the whole tree ever on the device."""
+    drawn; a MoE expert stack is drawn in blocks of experts, of which the
+    rank keeps only its experts and its slices of them
+    (``layers.leaf_part``).  The result is bitwise
+    ``rules.place_params(init(cfg), mesh, profile=profile)``, without the
+    whole tree, or a whole expert stack, ever on the device."""
     check_ported(cfg)
     mesh = get_mesh()
     if mesh is None:
@@ -198,10 +201,24 @@ def init(cfg, *, seed: int = 0, device="cuda",
     check_tensor_parallel(cfg, mesh)
     specs = {}
 
-    def put(path, t):
-        piece, specs[path] = rules.place_leaf(path, t, mesh, profile=profile)
-        return piece
-    with layers.placing(put):
+    def spec(path, shape):
+        return rules.leaf_spec(path, torch.empty(shape, device="meta"), mesh,
+                               profile=profile)
+
+    def put(path, t, whole):
+        if whole is None:
+            piece, specs[path] = rules.place_leaf(path, t, mesh,
+                                                  profile=profile)
+            return piece
+        specs[path] = spec(path, whole)
+        if tuple(t.shape) != rules.local_shape(whole, specs[path], mesh):
+            raise AssertionError(f"{path}: a part of {tuple(t.shape)} for "
+                                 f"the spec {specs[path]} of {whole}")
+        return t
+
+    def part(path, shape):
+        return rules.local_slices(shape, spec(path, shape), mesh)
+    with layers.placing(put, part):
         params = _draw(cfg, seed, device)
     specs["embed_f32"] = specs["embed"]
 
@@ -224,8 +241,9 @@ def check_tensor_parallel(cfg, mesh, *, cache: bool = False) -> None:
     builds or reads a serving cache) does a Mamba or RG-LRU block under a
     `model` axis of more than one rank, whose state's placement is not
     ported (ROADMAP A10b.5); their full-sequence forward runs on the
-    rank's channels.  Experts over `data` raise where they are placed
-    (``rules.check_leaf_spec``, A10b.3)."""
+    rank's channels.  A MoE layer's experts run under either profile's
+    placement: over `data` (serving, ``moe.moe_ffn``'s expert
+    parallelism, F over `model`) or over `model` (training)."""
     n = mesh.shape.get("model", 1)
     if n == 1:
         return
@@ -287,14 +305,16 @@ def _zero_aux(device):
 
 
 def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool,
-               lspec=None, batch_axes=()):
+               lspec=None, batch_axes=(), moe_kw=None):
     """One block over a full sequence.  Returns (x, aux, cache rows or {});
     a MoE block routes with capacity (the training route, which single-shot
     prefill reuses) and returns its aux losses, any other block zeros.
-    ``lspec``: the block's specs where its weights are placed (its `data`
-    pieces are gathered first: ``layers.unshard``); ``batch_axes``: the
-    mesh axes the batch's rows are cut over, whose MoE aux losses are
-    this rank's shares of the whole batch's (``moe.moe_ffn``)."""
+    ``lspec``: the block's specs where its weights are placed by the train
+    profile (its `data` pieces are gathered first: ``layers.unshard``);
+    ``batch_axes``: the mesh axes the batch's rows are cut over, whose MoE
+    aux losses are this rank's shares of the whole batch's;
+    ``moe_kw``: ``moe.moe_ffn``'s placement keywords
+    (:func:`_moe_layout`)."""
     kind, is_moe = sig
     lp = layers.unshard(lp, lspec, get_mesh())
     aux = _zero_aux(x.device)
@@ -318,10 +338,34 @@ def _block_seq(lp, cfg, sig, x, positions, collect_cache: bool,
         return x, aux, cache
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     if is_moe:
-        f, aux = moe.moe_ffn(lp["ffn"], cfg, h2, batch_axes=batch_axes)
+        f, aux = moe.moe_ffn(lp["ffn"], cfg, h2, batch_axes=batch_axes,
+                             **(moe_kw or {}))
     else:
         f = layers.mlp(lp["ffn"], h2, cfg.d_ff)
     return x + f, aux, cache
+
+
+def _moe_layout(lspec, data_dim) -> dict:
+    """``moe.moe_ffn``'s placement keywords for a MoE block whose specs
+    are ``lspec`` (None: whole weights): the mesh axis its expert stacks
+    are cut over, and with experts over `data` the dim of its input that
+    `data` cuts (``data_dim``, None where every `data` rank holds it)."""
+    mesh = get_mesh()
+    if lspec is None or mesh is None:
+        return {}
+    entry = lspec["ffn"]["w_gate"][0]
+    if rules.extent(entry, mesh) == 1:
+        return {}
+    (axis,) = rules._axes(entry)
+    return {"expert_axis": axis,
+            **({"data_dim": data_dim} if axis == "data" else {})}
+
+
+def _data_rows(B: int, mesh) -> bool:
+    """Whether the serve path cuts a batch of B rows over `data` on
+    ``mesh`` (:func:`rank_batch`, ``rules.cache_specs``' batch entry)."""
+    return mesh is not None and mesh.shape.get("data", 1) > 1 and \
+        "data" in rules._axes(rules._fit(rules.batch_axes(mesh), B, mesh))
 
 
 def _block_in(mesh, *args):
@@ -358,6 +402,12 @@ def _rank_rows(t, mesh, *, exact: bool = False):
     return rules.local_rows(t, spec, mesh)
 
 
+def _batch_rows(batch) -> int:
+    """The rows of a batch as :func:`forward` takes it."""
+    return (next(iter(batch.values())) if isinstance(batch, dict)
+            else batch).shape[0]
+
+
 def rank_batch(batch, mesh, *, exact: bool = False):
     """A batch as :func:`forward` takes it, cut to this rank's rows."""
     if isinstance(batch, dict):
@@ -377,17 +427,21 @@ def _requires_grad(tree) -> bool:
     return any(_requires_grad(t) for t in tree)
 
 
-def _hidden(params, cfg, batch, collect_cache: bool, batch_axes=()):
+def _hidden(params, cfg, batch, collect_cache: bool, batch_axes=(),
+            data_rows: bool = False):
     """The final-normed hidden states [B,S,D] of a full sequence (a batch
     as :func:`_embed_inputs` takes it), the per-layer cache rows and the
     aux losses summed over the layers.  Placed weights are gathered over
     `data` where their spec names it, a block's as the block starts
-    (inside its checkpoint, so remat gathers them again)."""
+    (inside its checkpoint, so remat gathers them again).
+    ``data_rows``: the batch is this rank's rows over `data`
+    (:func:`_block_seq`)."""
     check_ported(cfg)
     specs = getattr(params, "specs", None)
     mesh = get_mesh()
+    fsdp = getattr(params, "profile", None) == "train"
     top = layers.unshard({k: v for k, v in params.items() if k not in (
-        "layers", "embed_f32")}, specs, mesh)
+        "layers", "embed_f32")}, specs if fsdp else None, mesh)
     x = _embed_inputs(top, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -398,13 +452,13 @@ def _hidden(params, cfg, batch, collect_cache: bool, batch_axes=()):
         params["layers"])
     for lp, sig, lspec in zip(params["layers"], signatures(cfg), lspecs,
                               strict=True):
+        kw = _moe_layout(lspec, 0 if data_rows else None) if sig[1] else {}
+        args = (lp, cfg, sig, x, positions, collect_cache,
+                lspec if fsdp else None, batch_axes, kw)
         if remat and (x.requires_grad or _requires_grad(lp)):
-            x, a, c = checkpoint(_block_in, mesh, lp, cfg, sig, x, positions,
-                                 collect_cache, lspec, batch_axes,
-                                 use_reentrant=False)
+            x, a, c = checkpoint(_block_in, mesh, *args, use_reentrant=False)
         else:
-            x, a, c = _block_seq(lp, cfg, sig, x, positions, collect_cache,
-                                 lspec, batch_axes)
+            x, a, c = _block_seq(*args)
         aux_total = {k: aux_total[k] + a[k] for k in AUX_KEYS}
         caches.append(c)
     x = layers.rms_norm(x, top["final_norm"], cfg.norm_eps)
@@ -421,9 +475,11 @@ def forward(params, cfg, batch, *, collect_cache: bool = False):
     pieces of the weights with their collectives, and returns its rows'
     logits over the whole vocabulary."""
     mesh = _check_mesh(params, cfg, cache=collect_cache)
+    rows = _data_rows(_batch_rows(batch), mesh)
     if mesh is not None:
         batch = rank_batch(batch, mesh)
-    x, caches, aux = _hidden(params, cfg, batch, collect_cache)
+    x, caches, aux = _hidden(params, cfg, batch, collect_cache,
+                             data_rows=rows)
     logits = layers.unembed(params["embed_f32"], x, cfg.vocab_size)
     return logits, aux, (caches if collect_cache else None)
 
@@ -608,14 +664,13 @@ def prefill(params, cfg, batch, max_len: int):
     rows = batch
     if mesh is not None:
         rows = rank_batch(batch, mesh)
-    x, caches, _ = _hidden(params, cfg, rows, collect_cache=True)
+    x, caches, _ = _hidden(params, cfg, rows, collect_cache=True,
+                           data_rows=_data_rows(_batch_rows(batch), mesh))
     logits = layers.unembed(params["embed_f32"], x[:, -1], cfg.vocab_size)
     cache = [_pad_cache_rows(cfg, kind, c, max_len)
              for c, kind in zip(caches, cfg.layer_kinds(), strict=True)]
     if mesh is not None:
-        whole = batch if not isinstance(batch, dict) else next(
-            iter(batch.values()))
-        cache = _place_rows(cache, whole.shape[0], mesh)
+        cache = _place_rows(cache, _batch_rows(batch), mesh)
     return logits, cache, x.shape[1]
 
 
@@ -736,9 +791,10 @@ def _block_prefill_chunk(lp, cfg, sig, x, cache, table, lengths, spec,
 
 
 def _block_decode(lp, cfg, sig, x, cache, pos, spec, cache_layout, table,
-                  lengths):
+                  lengths, lspec=None, data_rows: bool = False):
     """One block, one token a row (x [B,D]); a MoE block routes the B
-    tokens as one dropless group."""
+    tokens as one dropless group (``lspec``, ``data_rows``: as
+    :func:`_block_seq`'s, the group's tokens the rows)."""
     kind, is_moe = sig
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind == "ssm":
@@ -757,8 +813,9 @@ def _block_decode(lp, cfg, sig, x, cache, pos, spec, cache_layout, table,
     x = x + mixed
     h2 = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
     if is_moe:                         # the B tokens: one group
-        return x + moe.moe_ffn(lp["ffn"], cfg, h2[None],
-                               dropless=True)[0][0], cache
+        return x + moe.moe_ffn(
+            lp["ffn"], cfg, h2[None], dropless=True,
+            **_moe_layout(lspec, 1 if data_rows else None))[0][0], cache
     return x + layers.mlp(lp["ffn"], h2, cfg.d_ff), cache
 
 
@@ -842,18 +899,22 @@ def decode_step(params, cfg, cache, tokens, pos=None, *,
     if cache_layout == "dense" and pos is None:
         raise ValueError("dense decode_step needs pos")
     mesh = get_mesh()
+    rows = _data_rows(tokens.shape[0], mesh)
     if mesh is not None:
         if cache_layout == "paged" and mesh.size > 1:
             raise NotImplementedError(
                 f"paged decode on {mesh}: not yet ported (ROADMAP A10b.5)")
         _check_mesh(params, cfg)
         tokens = _rank_rows(tokens, mesh)
+    specs = getattr(params, "specs", None)
+    lspecs = specs["layers"] if specs is not None else [None] * len(
+        params["layers"])
     x = layers.embed(params["embed"], tokens, cfg.vocab_size)
     new_cache = []
-    for lp, lc, sig in zip(params["layers"], cache, signatures(cfg),
-                           strict=True):
+    for lp, lc, sig, lspec in zip(params["layers"], cache, signatures(cfg),
+                                  lspecs, strict=True):
         x, nc = _block_decode(lp, cfg, sig, x, lc, pos, spec, cache_layout,
-                              block_table, lengths)
+                              block_table, lengths, lspec, rows)
         new_cache.append(nc)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["embed_f32"], x, cfg.vocab_size), new_cache

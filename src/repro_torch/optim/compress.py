@@ -3,11 +3,15 @@
 
 int8 per-chunk-scaled quantization:
     q = round(g / s),  s = max|g_chunk| / 127 + 1e-30   (256-element chunks)
-The codes and scales are bitwise the reference's.  The error-feedback
-collectives (``compressed_psum``, ``pod_reduce_with_feedback``) reduce over
-a mesh axis, which waits for multi-GPU (ROADMAP A10); here are the
-quantizer, its round trip, the residual's initial state and the stateless
-tree round trip that ``TrainConfig.compress_grads`` applies.
+The codes and scales are bitwise the reference's.  Beside the quantizer,
+its round trip, the residual's initial state and the stateless tree round
+trip that ``TrainConfig.compress_grads`` applies, the collectives that
+carry the codes over a mesh axis: :func:`compressed_psum` and the
+error-feedback step :func:`pod_reduce_with_feedback`.  On the wire are
+what the reference's docstring names, int8 codes and fp32 scales: each
+rank all-gathers them over the axis, dequantizes every rank's and sums
+them in rank order, so every rank holds the same bits (``launch.mesh.
+moved`` counts the codes' and scales' bytes under "all_gather").
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.optim.optimizers import stack_plan, tree_at, tree_map
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.optim.optimizers import (stack_plan, tree_at, tree_leaves,
+                                          tree_map)
 
 CHUNK = 256
 
@@ -47,6 +53,56 @@ def compress_decompress(g):
     """The round trip the wire would carry."""
     q, s = quantize(g)
     return dequantize(q, s, tuple(g.shape))
+
+
+def _sum_codes(q, scale, shape, mesh, axis: str):
+    """The sum over ``axis`` of every rank's dequantized (q, scale): the
+    codes and scales all-gathered, dequantized and added in rank order
+    (fp32; the same bits on every rank)."""
+    qs = mesh_mod.all_gather(q[None], mesh, axis)
+    ss = mesh_mod.all_gather(scale[None], mesh, axis)
+    total = dequantize(qs[0], ss[0], shape)
+    for r in range(1, qs.shape[0]):
+        total = total + dequantize(qs[r], ss[r], shape)
+    return total
+
+
+def compressed_psum(x, mesh, axis: str):
+    """The all-reduce over ``axis`` of ``mesh`` carrying int8 codes and
+    fp32 scales: the sum over the ranks of dequant(quant(x_i)), fp32.
+    Without the axis (no mesh, or one rank on it) the rank's own
+    dequant(quant(x))."""
+    q, s = quantize(x)
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return dequantize(q, s, tuple(x.shape))
+    return _sum_codes(q, s, tuple(x.shape), mesh, axis)
+
+
+def pod_reduce_with_feedback(grads, residual, axis: str = "pod"):
+    """One error-feedback compression step for a gradient tree about to
+    cross ``axis``: each leaf plus its residual is quantized, the new
+    residual is what the codes miss, and the codes' mean over ``axis`` of
+    the current mesh (``launch.mesh.use_mesh``) is the reduced gradient,
+    in the leaf's dtype.  Without a mesh, or on a mesh without ``axis``,
+    the leaf's own dequantized codes (the reference's local-only
+    fallback).  Returns (reduced grads, new residual)."""
+    mesh = mesh_mod.get_mesh()
+
+    def one(g, r):
+        g32 = g.float() + r
+        q, s = quantize(g32)
+        deq = dequantize(q, s, tuple(g32.shape))
+        new_r = g32 - deq
+        if mesh is not None and axis in mesh.axis_names:
+            if mesh.shape[axis] > 1:
+                deq = _sum_codes(q, s, tuple(g32.shape), mesh, axis)
+            deq = deq / mesh.shape[axis]
+        return deq.to(g.dtype), new_r
+    pairs = iter([one(g, r) for g, r in zip(
+        tree_leaves(grads), tree_leaves(residual), strict=True)])
+    pairs = tree_map(lambda _: next(pairs), grads)
+    return (tree_map(lambda _, p: p[0], grads, pairs),
+            tree_map(lambda _, p: p[1], grads, pairs))
 
 
 def init_residual(grads_like):

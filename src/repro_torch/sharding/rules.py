@@ -15,7 +15,7 @@ reference's for the same leaf with the reference's leading layer entry
 dropped (paths map through ``models/convert.py``'s unstacking).  A
 :class:`P` is a tuple of entries (None, an axis name, or a tuple of axis
 names), as ``jax.sharding.PartitionSpec`` is.  :func:`local_rows` cuts a
-rank's piece of a tensor by a spec; the reference's ``constrain`` has no
+rank's piece of a tensor by a spec (:func:`local_slices` names it); the reference's ``constrain`` has no
 counterpart, since the port holds rank-local tensors.  :func:`place_params`
 (either profile) and :func:`place_opt_state` cut whole trees into a
 rank's pieces (a :class:`Placed` tree recording its mesh, specs and
@@ -269,17 +269,29 @@ def local_rows(t, spec, mesh):
     names is cut into the entry's axes' total extent of equal parts, and
     the part at this rank's index over those axes is kept (a view; ``t``
     itself where no entry cuts).  A dim the parts do not divide raises."""
-    for dim, entry in enumerate(spec):
+    for dim, part in enumerate(local_slices(t.shape, spec, mesh)):
+        if part.stop - part.start != t.shape[dim]:
+            t = t.narrow(dim, part.start, part.stop - part.start)
+    return t
+
+
+def local_slices(shape, spec, mesh) -> tuple:
+    """The part of a tensor of ``shape`` that :func:`local_rows` keeps
+    under ``spec``: one slice a dim (the whole dim where no entry cuts
+    it)."""
+    out = []
+    for dim, d in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
         n = extent(entry, mesh)
         if n == 1:
+            out.append(slice(0, d))
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        if t.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
-                             f"{n} ways over {axes}")
-        size = t.shape[dim] // n
-        t = t.narrow(dim, mesh.index(axes) * size, size)
-    return t
+        if d % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"{n} ways over {_axes(entry)}")
+        start = mesh.index(_axes(entry)) * (d // n)
+        out.append(slice(start, start + d // n))
+    return tuple(out)
 
 
 def local_shape(shape, spec, mesh) -> tuple:
@@ -323,19 +335,6 @@ class Placed(dict):
         return t
 
 
-def check_leaf_spec(path: str, spec, mesh) -> None:
-    """Refuse a placement the port does not run: a MoE expert stack [E,
-    ...] cut over `data` (expert parallelism over `data`, the serve
-    profile's; the train profile's experts over `model` run)."""
-    if spec and re.search(r"ffn/(w_gate|w_up|w_down)$", path) and \
-            len(spec) == 3 and extent(spec[0], mesh) > 1 and \
-            "data" in _axes(spec[0]):
-        raise NotImplementedError(
-            f"{path}: the serve spec {spec} puts the experts over "
-            f"{spec[0]} on {mesh.shape}; expert parallelism is not yet "
-            "ported (ROADMAP A10b.3)")
-
-
 def _axes(entry) -> tuple:
     if entry is None:
         return ()
@@ -346,7 +345,6 @@ def place_leaf(path: str, t, mesh, *, profile: str = "serve"):
     """(this rank's piece of the leaf ``t`` at ``path`` under its
     ``profile`` spec on ``mesh``, as a contiguous copy, the spec)."""
     spec = leaf_spec(path, t, mesh, profile=profile)
-    check_leaf_spec(path, spec, mesh)
     return _cut(t, spec, mesh), spec
 
 
@@ -363,8 +361,10 @@ def place_params(params, mesh, *, profile: str = "serve") -> Placed:
     contiguous copy; a leaf the spec leaves whole is kept as it is), with
     the mesh's shape, the specs and the profile recorded on the result.
     ``profile="train"`` keeps the `data` entries (FSDP): a layer gathers
-    them over `data` where it uses them (``models.layers.unshard``).  A
-    MoE expert stack over `data` raises (:func:`check_leaf_spec`)."""
+    them over `data` where it uses them (``models.layers.unshard``).  The
+    serve profile cuts a MoE layer's expert stacks [E, D, F] / [E, F, D]
+    over `data` (E, expert parallelism) and `model` (F); the train
+    profile cuts E over `model`."""
     if profile not in ("serve", "train"):
         raise ValueError(f"profile {profile!r}")
     specs = param_specs(params, mesh, profile=profile)

@@ -8,8 +8,9 @@ piece of the operands and the serve loops (whole prefill, ``shard_cache``,
 ``make_serve_step`` greedy over the weights placed for the mesh,
 ``gather_rows``), then writes what it got to ``rank<r>.pt``.  A MoE model
 runs all-dense on a mesh with `data` > 1 (:func:`moe_dense`), where the
-serve placement puts its experts over `data`: expert parallelism, which
-the port refuses.  The test compares those with the JAX package's results.
+serve placement puts its experts over `data` (expert parallelism, held to
+the JAX package in ``tests/test_torch_expert_parallel.py``).  The test
+compares those with the JAX package's results.
 Imports no JAX: the ranks run the port only.
 """
 import pathlib
@@ -21,7 +22,8 @@ MIN_S = 64                        # SEQ_SHARD_MIN_S at test scale
 def moe_dense(shape) -> bool:
     """Whether a MoE model runs as its all-dense variant (every MoE layer
     a dense MLP) on a mesh of ``shape`` (data, model): where `data` > 1
-    the serve placement puts the experts over `data` (ROADMAP A10b.3)."""
+    the serve placement puts the experts over `data`, which this test
+    leaves to ``tests/test_torch_expert_parallel.py``."""
     return shape[0] > 1
 
 

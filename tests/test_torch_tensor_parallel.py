@@ -23,9 +23,10 @@ reduced Qwen3-8B (8 heads, 4 kv heads) on (1, 4) and (2, 2):
   faked) reaches K5 and K9 once a call with the rank's H/n heads on a
   one-rank stand-in for a rank of (1, 4); and the refusals (a tree placed
   for another mesh or a whole tree where the mesh cuts, a rule that cuts
-  a head, experts over `data`, a Mamba / RG-LRU cache under `model`),
-  beside what the sharded train step lifted (the train profile, loss_fn
-  under a mesh, Mamba / RG-LRU weights under `model`).
+  a head, a Mamba / RG-LRU cache under `model`), beside what the sharded
+  train step lifted (the train profile, loss_fn under a mesh, Mamba /
+  RG-LRU weights under `model`) and expert parallelism lifted (experts
+  over `data` placed, drawn and run).
 """
 import dataclasses
 import functools
@@ -355,14 +356,17 @@ def test_cuda_branch_at_local_heads(fake_card, one_rank, arch):
 
 def test_refusals(monkeypatch, one_rank):
     """Not yet ported, each raising NotImplementedError naming its ROADMAP
-    item, with no fallback to whole weights: experts over `data` > 1
-    (A10b.3), in place_params, the placed init and moe_ffn; a rule that
-    cuts a head (A10b.1); a Mamba / RG-LRU serving cache under `model`
-    (A10b.5).  A tree placed for another mesh, and a whole tree where the
-    mesh cuts a leaf, raise ValueError.  What the sharded train step
-    (A10b.2) lifted runs: place_params by the train profile, loss_fn under
-    a mesh (the one-rank stand-in's collectives), and Mamba / RG-LRU
-    weights placed under `model` (the placed init)."""
+    item, with no fallback to whole weights: a rule that cuts a head
+    (A10b.1); a Mamba / RG-LRU serving cache under `model` (A10b.5).  A
+    tree placed for another mesh, and a whole tree where the mesh cuts a
+    leaf, raise ValueError.  What the sharded train step (A10b.2) lifted
+    runs: place_params by the train profile, loss_fn under a mesh (the
+    one-rank stand-in's collectives), and Mamba / RG-LRU weights placed
+    under `model` (the placed init).  What expert parallelism (A10b.3)
+    lifted runs: experts over `data` in place_params on (2, 2), in the
+    placed init, and in moe_ffn on two of four experts under a (2, 1)
+    stand-in (its `data` all-reduce the identity), equal to the whole
+    moe_ffn's where the rank's experts take every route."""
     mesh14 = M.Mesh(("data", "model"), (1, 4))
     mesh22 = M.Mesh(("data", "model"), (2, 2))
     for m in (mesh14, mesh22):
@@ -372,16 +376,30 @@ def test_refusals(monkeypatch, one_rank):
     train = rules.place_params(whole, mesh22, profile="train")
     assert train.profile == "train" and \
         train["layers"][0]["mix"]["w_uq"].shape == (16, 48)
-    with pytest.raises(NotImplementedError, match="A10b.3"):
-        rules.place_params(whole, mesh22)
-    with M.use_mesh(mesh22), pytest.raises(NotImplementedError,
-                                           match="A10b.3"):
-        model.init(ds, seed=0, device="cpu")
+    serve = rules.place_params(whole, mesh22)
+    assert serve["layers"][1]["ffn"]["w_gate"].shape == (2, 64, 64)
+    with M.use_mesh(mesh22):
+        placed = model.init(ds, seed=0, device="cpu")
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        rules._leaves_with_path(placed), rules._leaves_with_path(serve),
+        strict=True))
+    from repro_torch.models import moe
     ffn = dict(whole["layers"][1]["ffn"])
-    ffn["w_gate"] = ffn["w_gate"][:2]
-    with pytest.raises(NotImplementedError, match="A10b.3"):
-        from repro_torch.models import moe
-        moe.moe_ffn(ffn, ds, torch.zeros(1, 2, ds.d_model))
+    mesh21 = M.Mesh(("data", "model"), (2, 1))
+    mesh21.coord = lambda axis: 0
+    piece = rules.place_params({"ffn": ffn}, mesh21)["ffn"]
+    assert piece["w_gate"].shape[0] == 2
+    ffn["router"] = ffn["router"].clone()
+    ffn["router"][:, 2:] = -1e4          # every route to experts 0 and 1
+    piece["router"] = ffn["router"]
+    x = torch.randn(1, 2, ds.d_model, generator=torch.Generator(
+        ).manual_seed(0))
+    monkeypatch.setattr(M, "all_reduce", lambda t, op, mesh, axis: t)
+    with M.use_mesh(mesh21):
+        got, _ = moe.moe_ffn(piece, ds, x, dropless=True,
+                             expert_axis="data")
+    assert torch.allclose(got, moe.moe_ffn(ffn, ds, x, dropless=True)[0],
+                          atol=1e-6)
     # a head cut: 2 kv heads of width 16 in 8-column pieces
     qwen = reduced(get_config("qwen3_8b"), kv_heads=2)
     placed = rules.place_params(model.init(qwen, seed=0, device="cpu"),
@@ -409,7 +427,6 @@ def test_refusals(monkeypatch, one_rank):
         model.prefill(placed, ds, toks, 16)
     with M.use_mesh(mesh14), pytest.raises(ValueError, match="whole"):
         model.prefill(whole, ds, toks, 16)
-    monkeypatch.setattr(M, "all_reduce", lambda t, op, mesh, axis: t)
     with M.use_mesh(one_rank):
         loss, metrics = model.loss_fn(rules.place_params(
             whole, one_rank, profile="train"), ds, {"tokens": toks})
